@@ -1,0 +1,1 @@
+"""generate of the PyTorch port (see ssi_tpu_torch/__init__.py)."""

@@ -7,8 +7,9 @@ like. Every Pallas kernel on a ported path is a hand-written CUDA kernel under
 its plain PyTorch version, which CPU tensors take.
 
 The port imports torch and never jax, and nothing of ``ssi_tpu`` either
-(whose ``__init__`` may load jax): it keeps its own copy of the model configs
-in ``models/configs.py``.
+(whose ``__init__`` may load jax): it keeps its own copies of the model
+configs (``models/configs.py``), the constants (``constants.py``) and the
+helpers (``utils.py``) it needs.
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels (nvcc -> one shared library -> ctypes).
 
-All ``csrc/*.cu`` sources compile with one nvcc call into one shared library
-with a plain C interface, cached under ``_build/`` keyed by a hash of the
-sources and flags (edit a source and the next load rebuilds; the library is
-written under a temporary name and renamed into place, so a concurrent loader
-never opens a half-written file). The build happens at first use, inside the
-first call that launches a kernel, never at import: CPU-only machines import
-every module without a compiler.
+Each ``csrc/*.cu`` source compiles to an object with its own nvcc process, all
+started together, and one more nvcc call links the objects into one shared
+library with a plain C interface, cached under ``_build/`` keyed by a hash of
+the sources and flags (edit a source and the next load rebuilds; the library
+is written under a temporary name and renamed into place, so a concurrent
+loader never opens a half-written file). The build happens at first use,
+inside the first call that launches a kernel, never at import: CPU-only
+machines import every module without a compiler.
 
 There is no fallback. A missing nvcc, a failed build, or a launch whose C
 entry point returns a non-zero ``cudaError_t`` raises ``RuntimeError``.
@@ -33,7 +34,7 @@ _BUILD_DIR = Path(__file__).parent / "_build"
 _DEFAULT_CUDA_HOME = "/usr/local/cuda"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 # kernel name -> launches since the last reset (see module docstring)
@@ -57,6 +58,16 @@ _SIGNATURES = {
     # write_offs, out, n_slots, Hq, Hkv, page_size, max_pages, scale, stream
     "ssi_paged_attention_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _c.c_float, _P],
+    # dtype, q, k, v, o, do, lse, seg, delta (scratch), dq, dk, dv, B, S, Hq, Hkv, causal, scale, stream
+    "ssi_flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _c.c_float, _P],
+    # N, V -> vocab splits of the logsumexp grid (sizes its scratch)
+    "ssi_cross_entropy_lse_splits": [_I, _I],
+    # dtype, h, e, m_part (scratch), l_part (scratch), lse, N, V, D, n_split, stream
+    "ssi_cross_entropy_lse": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, rows_are_tokens, h, e, lse, labels, g, out, N, V, D, stream; an error
+    # when the [16, D] f32 gradient tile does not fit one block's shared memory
+    "ssi_cross_entropy_grad": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -103,19 +114,33 @@ def build_library() -> Path:
         return out
     nvcc = find_nvcc()
     _BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC_DIR), "-o", tmp, *map(str, _sources())]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        build_log = proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as work:
+        objs, procs = [], []
+        try:
+            for src in _sources():  # one nvcc per source, all running at once
+                obj = Path(work) / f"{src.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC_DIR), "-c", "-o", str(obj), str(src)]
+                procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+                objs.append(str(obj))
+            logs = []
+            for cmd, proc in procs:
+                text, _ = proc.communicate(timeout=900)
+                logs.append(text)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"CUDA kernel build failed ({' '.join(cmd)}):\n{text[-6000:]}")
+        finally:
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tmp = Path(work) / "lib.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        build_log = "".join(logs) + proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"CUDA kernel build failed ({' '.join(cmd)}):\n{build_log[-6000:]}")
+            raise RuntimeError(f"CUDA kernel link failed ({' '.join(cmd)}):\n{build_log[-6000:]}")
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     build_seconds = time.perf_counter() - t0
     (_BUILD_DIR / f"{out.stem}.log").write_text(build_log)
     return out

@@ -36,6 +36,7 @@ import torch
 from ssi_tpu_torch.models.configs import ConfigLlama3_2
 from ssi_tpu_torch.generate.engine import _NEG_INF, SamplingParams
 from ssi_tpu_torch.generate.paged import decode_step_tokens, init_pools, prefill_prompts
+from ssi_tpu_torch.utils import round_up
 
 LOGGER = logging.getLogger(__name__)
 
@@ -50,10 +51,6 @@ SAMPLING_FEATURES = frozenset({"sample", "topk", "topp", "pen"})
 #  repetition(f32), rng_seed] — f32 columns travel bitcast to int32
 _N_CTRL_COLS = 13
 _M32 = 0xFFFFFFFF
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def _not_ported(option: str, item: str) -> NotImplementedError:
@@ -288,7 +285,7 @@ class PagedDecodeEngine:
         self.n_slots = n_slots
         self.page_size = page_size
         self.admission_order = admission_order
-        self.max_context = _round_up(_round_up(max_context, page_size), prompt_bucket)
+        self.max_context = round_up(round_up(max_context, page_size), prompt_bucket)
         self.max_pages_per_seq = self.max_context // page_size
         self.prompt_bucket = prompt_bucket
         self.chunk = chunk
@@ -468,7 +465,7 @@ class PagedDecodeEngine:
                 f"Prompt ({len(prompt)} tokens) + max_tokens ({mt}) exceeds max_context ({self.max_context})"
             )
         # an admission/preemption cycle can never free more than the whole pool
-        need = self._pages_needed(max(_round_up(len(prompt), self.prompt_bucket), len(prompt) + mt))
+        need = self._pages_needed(max(round_up(len(prompt), self.prompt_bucket), len(prompt) + mt))
         if need > self.n_pages:
             raise RuntimeError(
                 f"KV page pool too small for this prompt: needs {need} pages "
@@ -560,7 +557,7 @@ class PagedDecodeEngine:
         override rides the next chunk's control array."""
         st = self._st
         p = len(req.prompt)
-        p_bucket = _round_up(p, self.prompt_bucket)
+        p_bucket = round_up(p, self.prompt_bucket)
         slot = self._slots[slot_id]
         esp = req.sampling if req.sampling is not None else st.sp
         st.slot_temp[slot_id] = esp.temperature
@@ -782,7 +779,7 @@ class PagedDecodeEngine:
             if s.req is None or s.done:
                 continue  # preempted while provisioning others
             mt = s.req.max_tokens if s.req.max_tokens is not None else sp.max_tokens
-            cap = max(_round_up(len(s.req.prompt), self.prompt_bucket), len(s.req.prompt) + mt)
+            cap = max(round_up(len(s.req.prompt), self.prompt_bucket), len(s.req.prompt) + mt)
             target = min(s.seq_len + self.chunk + 1, self.max_context, cap)
             while not self._ensure_capacity(slot_id, target):
                 victim = self._preempt_youngest(st.queue)

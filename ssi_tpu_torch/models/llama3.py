@@ -4,8 +4,9 @@ Port of ``ssi_tpu/models/llama3.py``. The parameter dictionary keeps the JAX
 package's keys and layouts — layer-stacked weights ``[L, in, out]`` used as
 ``x @ w``, ``embed [V, D]`` — so ``params_from_numpy`` carries a JAX tree
 across unchanged and the parity tests compare like with like. ``forward`` is
-the plain full-sequence pass (no rematerialization: the port has no training
-path yet); the paged serving passes live in ``generate/paged.py``.
+the full-sequence pass that training differentiates (flash attention on
+CUDA, optional per-layer rematerialization); the paged serving passes live in
+``generate/paged.py``.
 """
 
 from __future__ import annotations
@@ -15,12 +16,29 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ssi_tpu_torch.models.configs import ConfigLlama3_2
 from ssi_tpu_torch.models.rope import apply_rope, rope_cos_sin
-from ssi_tpu_torch.ops.attention import reference_attention
+from ssi_tpu_torch.ops.attention import dispatch_attention
 
 Params = dict[str, Any]
+
+# The JAX package's remat specs. "full" and "none" are ported; the selective
+# save_* policies (named residuals kept through the backward) are not yet.
+REMAT_POLICIES = ("full", "none", "save_qkv", "save_mlp", "save_qkv_mlp", "save_qkv_mlp_attn")
+
+
+def _remat_layers(remat: bool | str) -> bool:
+    """Whether ``forward`` checkpoints each layer (``ssi_tpu`` ``_remat_policy``)."""
+    if isinstance(remat, bool):
+        return remat
+    if remat in ("full", "none"):
+        return remat == "full"
+    if remat in REMAT_POLICIES:
+        raise NotImplementedError(f"remat policy {remat!r} is not ported yet (ROADMAP A7: the selective "
+                                  "save_* remat policies); use 'full' or 'none'")
+    raise ValueError(f"Unknown remat policy {remat!r}; expected one of {REMAT_POLICIES} or bool")
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -68,9 +86,18 @@ def forward(
     *,
     positions: torch.Tensor | None = None,
     segment_ids: torch.Tensor | None = None,
+    remat: bool | str = True,
 ) -> torch.Tensor:
-    """Run the decoder with plain attention; returns final-normed hidden
-    states ``[B, S, D]`` (the test oracle; serving runs ``generate/paged.py``)."""
+    """Run the decoder; returns final-normed hidden states ``[B, S, D]``.
+
+    ``remat``: True or "full" runs each layer under
+    ``torch.utils.checkpoint`` (non-reentrant: the backward recomputes the
+    layer from its input); False or "none" keeps every activation; the
+    selective ``save_*`` policies raise ``NotImplementedError``. The
+    attention is :func:`dispatch_attention`: the flash kernels on CUDA, the
+    plain attention on the CPU.
+    """
+    checkpointed = _remat_layers(remat)
     b, s = tokens.shape
     h = params["embed"][tokens]
     if positions is None:
@@ -78,10 +105,17 @@ def forward(
     cos, sin = rope_for_positions(positions, cfg)
 
     def attend(q, k, v):
-        return reference_attention(q, k, v, causal=True, segment_ids=segment_ids)
+        return dispatch_attention(q, k, v, causal=True, segment_ids=segment_ids)
 
-    for l in range(cfg.num_layers):
-        h = block(h, layer_params(params, l), cos, sin, cfg, attend)
+    # one unbind per stacked weight: its backward stacks the layers' grads in
+    # one pass, where per-layer indexing would sum L full-size zero-padded grads
+    names = list(params["layers"])
+    for weights in zip(*(params["layers"][n].unbind(0) for n in names)):
+        layer = dict(zip(names, weights))
+        if checkpointed:
+            h = checkpoint(block, h, layer, cos, sin, cfg, attend, use_reentrant=False)
+        else:
+            h = block(h, layer, cos, sin, cfg, attend)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 
@@ -162,8 +196,10 @@ def params_from_numpy(tree: Any, device: torch.device | str = "cpu", dtype: torc
 
 
 class Llama3(torch.nn.Module):
-    """Thin module over the functional model: holds the parameter dictionary
-    (layer-stacked, JAX layout) as frozen parameters; ``forward`` -> f32 logits."""
+    """Thin serving module over the functional model: holds the parameter
+    dictionary (layer-stacked, JAX layout) as frozen parameters; ``forward``
+    -> f32 logits. Training differentiates the functional :func:`forward`
+    over a plain dictionary instead (``train/step.py``)."""
 
     def __init__(self, params: Params, cfg: ConfigLlama3_2):
         super().__init__()
@@ -181,4 +217,4 @@ class Llama3(torch.nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         params = self.params
-        return logits(params, forward(params, tokens, self.cfg))
+        return logits(params, forward(params, tokens, self.cfg, remat=False))

@@ -1,11 +1,16 @@
-"""Plain causal GQA attention — port of ``ssi_tpu/ops/attention.py``
-``xla_attention`` (f32 softmax, output in q's dtype). The CPU test path, and
-the plain version the model forward uses; the CUDA flash kernel is in
-``ops/flash_attention.py``."""
+"""Causal GQA attention for the model: port of ``ssi_tpu/ops/attention.py``.
+
+:func:`reference_attention` is ``xla_attention`` (f32 softmax, output in q's
+dtype): the CPU path and the plain version. :func:`dispatch_attention` is the
+training attention: the flash-attention autograd Function over the CUDA
+kernels (``ops/flash_attention.py``) for a CUDA tensor, the plain attention
+under ordinary autograd for a CPU tensor."""
 
 from __future__ import annotations
 
 import torch
+
+from ssi_tpu_torch.ops.flash_attention import flash_attention
 
 _NEG_INF = -2.0e38
 
@@ -48,3 +53,18 @@ def reference_attention(
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
     return out.to(q.dtype)
+
+
+def dispatch_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    segment_ids: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The model's attention, chosen by device (never by failure): the flash
+    kernels on CUDA, :func:`reference_attention` on the CPU."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, causal=causal, segment_ids=segment_ids)
+    return reference_attention(q, k, v, causal=causal, segment_ids=segment_ids)

@@ -36,6 +36,15 @@ params = init_params(cfg, seed=0, dtype=torch.float32)
 eng = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=2, page_size=8, prompt_bucket=8, max_context=32, chunk=2)
 outs = eng.generate_batch([[1, 2, 3], [4, 5, 6, 7, 8, 9, 10, 11, 12]], SamplingParams(max_tokens=3))
 assert [len(o["token_ids"]) for o in outs] == [3, 3], outs
+from ssi_tpu_torch.train.lr_schedule import cosine_schedule_with_warmup
+from ssi_tpu_torch.train.optimizer import AdamWConfig, init_opt_state
+from ssi_tpu_torch.train.step import make_train_step
+opt = AdamWConfig(lr=1e-3)
+state = {"params": params, "opt_state": init_opt_state(params, opt), "step": 0}
+step = make_train_step(cfg, opt, cosine_schedule_with_warmup(1e-3, 1, 4), clip_grad_norm=1.0, chunk_size=16)
+tokens = torch.randint(1, cfg.vocab_size, (2, 2, 16), generator=torch.Generator().manual_seed(0), dtype=torch.int32)
+state, metrics = step(state, tokens, tokens.clone())
+assert state["step"] == 1 and bool(metrics["applied"]) and torch.isfinite(metrics["loss_sum"]), metrics
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ssi_tpu"))
 assert loaded == [], loaded
 print("JAX_FREE_OK")
@@ -44,7 +53,8 @@ print("JAX_FREE_OK")
 
 def test_port_runs_the_engine_without_jax():
     """With the environment as it is (no switch that keeps jax out), importing
-    the port and serving on the CPU loads neither jax nor ``ssi_tpu``."""
+    the port, serving and taking a train step on the CPU load neither jax nor
+    ``ssi_tpu``."""
     env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
     env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run([sys.executable, "-c", _JAX_FREE_RUN], cwd=REPO, env=env,

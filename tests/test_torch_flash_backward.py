@@ -1,0 +1,137 @@
+"""The port's flash-attention backward on the CPU — the autograd Function
+(``flash_attention``) and the plain backward ``flash_attention_bwd_reference``
+called directly — against ``jax.grad`` of the JAX Pallas kernel in interpret
+mode (grouped and ungrouped schedules), and at an odd S, which the Pallas
+kernel does not take, against ``jax.grad`` of ``xla_attention``. f32;
+rtol 5e-4, atol 5e-5, as tests/test_flash_attention.py."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from ssi_tpu.ops.attention import xla_attention
+from ssi_tpu.ops.flash_attention import flash_attention as jflash
+from ssi_tpu_torch.ops.attention import dispatch_attention, reference_attention
+from ssi_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
+    flash_attention_fwd,
+)
+
+TOL = dict(rtol=5e-4, atol=5e-5)
+
+
+def make_qkv(b=1, s=128, hq=4, hkv=2, d=64, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32) for shape in
+                 ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+
+
+def segments(b, s, cut):
+    return np.concatenate([np.ones((b, cut)), np.full((b, s - cut), 2)], axis=1).astype(np.int32)
+
+
+CASES = {
+    # name: (make_qkv kwargs, causal, segment cut or None, JAX group_heads)
+    "causal": (dict(), True, None, False),
+    "causal_grouped": (dict(), True, None, True),
+    "full": (dict(seed=1), False, None, False),
+    "full_grouped": (dict(seed=1), False, None, True),
+    "gqa_8_2": (dict(hq=8, hkv=2, seed=2), True, None, False),
+    "gqa_8_2_grouped": (dict(hq=8, hkv=2, seed=2), True, None, True),
+    "mha": (dict(hq=4, hkv=4, seed=4), True, None, False),
+    "segments": (dict(seed=3), True, 96, False),
+    "segments_grouped": (dict(seed=3), True, 96, True),
+}
+
+
+def jax_grads(fn, q, k, v):
+    def loss(q, k, v):
+        return jnp.sum(jnp.square(fn(q, k, v)))
+
+    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))]
+
+
+def port_grads(attn, q, k, v):
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    attn(tq, tk, tv).square().sum().backward()
+    return [x.grad.numpy() for x in (tq, tk, tv)]
+
+
+def reference_grads(q, k, v, causal, seg):
+    """flash_attention_bwd_reference called directly, do = d(sum o^2)/do = 2 o."""
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    o, lse = flash_attention_fwd(tq, tk, tv, causal=causal, segment_ids=seg)
+    return [x.numpy() for x in flash_attention_bwd_reference(tq, tk, tv, o, lse, 2 * o, causal=causal, segment_ids=seg)]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_flash_backward_matches_pallas_interpret(case):
+    kw, causal, cut, group_heads = CASES[case]
+    q, k, v = make_qkv(**kw)
+    seg = None if cut is None else segments(q.shape[0], q.shape[1], cut)
+    jseg = None if seg is None else jnp.asarray(seg)
+    tseg = None if seg is None else torch.from_numpy(seg)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_grads(lambda a, b, c: jflash(a, b, c, causal=causal, segment_ids=jseg, block_q=64,
+                                                group_heads=group_heads), q, k, v)
+    got_fn = port_grads(lambda a, b, c: flash_attention(a, b, c, causal=causal, segment_ids=tseg), q, k, v)
+    got_ref = reference_grads(q, k, v, causal, tseg)
+    for name, w, a, b in zip("qkv", want, got_fn, got_ref):
+        np.testing.assert_allclose(a, w, err_msg=f"Function d{name}", **TOL)
+        np.testing.assert_allclose(b, w, err_msg=f"reference d{name}", **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_odd_length_backward_matches_xla(causal):
+    q, k, v = make_qkv(b=2, s=77, hq=8, hkv=2, seed=5)
+    seg = segments(2, 77, 30)
+    want = jax_grads(lambda a, b, c: xla_attention(a, b, c, causal=causal, segment_ids=jnp.asarray(seg)), q, k, v)
+    tseg = torch.from_numpy(seg)
+    got_fn = port_grads(lambda a, b, c: flash_attention(a, b, c, causal=causal, segment_ids=tseg), q, k, v)
+    got_ref = reference_grads(q, k, v, causal, tseg)
+    # the training attention on the CPU is the plain attention under autograd
+    got_dispatch = port_grads(lambda a, b, c: dispatch_attention(a, b, c, causal=causal, segment_ids=tseg), q, k, v)
+    for name, w, a, b, c in zip("qkv", want, got_fn, got_ref, got_dispatch):
+        np.testing.assert_allclose(a, w, err_msg=f"Function d{name}", **TOL)
+        np.testing.assert_allclose(b, w, err_msg=f"reference d{name}", **TOL)
+        np.testing.assert_allclose(c, w, err_msg=f"dispatch d{name}", **TOL)
+
+
+def test_bwd_wrapper_takes_plain_version_on_cpu():
+    q, k, v = map(torch.from_numpy, make_qkv(b=1, s=40, hq=4, hkv=1, seed=6))
+    o, lse = flash_attention_fwd(q, k, v)
+    do = torch.ones_like(o)
+    for a, b in zip(flash_attention_bwd(q, k, v, o, lse, do), flash_attention_bwd_reference(q, k, v, o, lse, do)):
+        assert torch.equal(a, b)
+
+
+def test_dispatch_on_cpu_is_the_plain_attention():
+    q, k, v = map(torch.from_numpy, make_qkv(b=1, s=24, seed=7))
+    assert torch.equal(dispatch_attention(q, k, v), reference_attention(q, k, v))
+
+
+def test_bf16_backward_within_bound_of_f32():
+    q, k, v = make_qkv(b=1, s=64, hq=4, hkv=2, seed=8)
+    g32 = port_grads(lambda a, b, c: flash_attention(a, b, c), q, k, v)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16().requires_grad_() for x in (q, k, v))
+    flash_attention(tq, tk, tv).float().square().sum().backward()
+    for a, b in zip((tq, tk, tv), g32):
+        assert a.grad.dtype == torch.bfloat16
+        np.testing.assert_allclose(a.grad.float().numpy(), b, rtol=5e-2, atol=5e-2)
+
+
+def test_backward_takes_a_non_contiguous_output_gradient():
+    """``.sum()`` hands the backward an expanded (stride-0) do."""
+    q, k, v = make_qkv(b=1, s=20, hq=4, hkv=2, seed=9)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    flash_attention(tq, tk, tv).sum().backward()
+    want = jax.grad(lambda a, b, c: jnp.sum(xla_attention(a, b, c)), argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for name, a, w in zip("qkv", (tq, tk, tv), want):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(w), err_msg=f"d{name}", **TOL)

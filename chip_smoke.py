@@ -19,12 +19,30 @@ non-zero without printing the final line):
 3. fused paged-decode kernel vs its plain version at the 1B serving shape
    (32 slots, page 128, context 1280; ragged and inactive slots): attention
    within tolerance, pools bitwise equal except the trash row; times;
+a. the multi-token verify kernel (#9) vs its plain version at the same
+   shape, T 4 and 8, f32 and bf16: history 0, a mid-page start, spans that
+   cross a page, full context less T, an inactive slot and a slot whose
+   write cap cuts its span; attention within tolerance on tokens whose
+   writes land, beside a control (the plain output with the in-flight
+   causal mask dropped) that must miss; pools bitwise equal except the trash
+   row; times;
 4. engine in f32 at the full width of ``llama3_2_1b`` (random weights from
    ``--seed``): greedy tokens identical with the kernels and with the plain
    versions, and equal to a full-recompute greedy oracle for one prompt;
+b. speculation in f32 at the same width: prompts that share a 256-token
+   prefix and repeat content; ``speculate_k=3`` emits the ``speculate_k=0``
+   tokens, with the kernels and with the plain versions; the prefix cache
+   and the drafter both engage;
 5. the serving main path: the 1B bf16 engine serves 64 requests (32 slots,
-   128 tokens each); every request finishes, every page is freed, and both
-   serving kernels' launch counters are > 0 for that run;
+   128 tokens each); every request finishes, every page is free or parked in
+   the prefix cache, and both serving kernels' launch counters are > 0 for
+   that run;
+c. the serving path with speculation: phase 5's requests with
+   ``speculate_k=3``, the prefix cache and ``prefill_chunk=512``; every
+   request finishes, pages balance, the flash and verify kernels' launch
+   counters are > 0; tok/s, tokens per verify step and the token agreement
+   with phase 5 (bf16: the T-token verify GEMMs round unlike the 1-token
+   step, so agreement is reported, not required);
 6. flash-attention backward kernel vs its plain version (dq, dk, dv; f32 and
    bf16; causal, full, segment ids) at B 4, S 768 and the training shape
    B 2, S 2048, with the plain gradients at lse + 0.05 as the control; times
@@ -47,10 +65,10 @@ non-zero without printing the final line):
    one repeated window; every loss finite, step 3, the third loss below the
    first, and every training kernel's launch counter > 0 for the timed run.
 
-Tolerances: phases 2 and 3 hold each output elementwise to ``TOL`` (absolute
-and relative). Every kernel output is also held in relative norm,
+Tolerances: phases 2, 3 and a hold each output elementwise to ``TOL``
+(absolute and relative). Every kernel output is also held in relative norm,
 ||kernel - plain|| / ||plain|| <= ``REL`` (1e-4 f32, 1e-2 bf16), and in
-phases 6 and 7 each such check comes with a control, a deliberately wrong
+phases a, 6 and 7 each such check comes with a control, a deliberately wrong
 result that must miss the same limit. The cross-entropy lse is held to
 ``LSE_ATOL`` absolute and the loss to 1e-5 of its sum; phase 8 holds each
 gradient leaf to 1e-4 of its largest entry.
@@ -73,6 +91,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FLASH_REPLACES = "ssi_tpu/ops/flash_attention.py:76"  # _fwd_kernel (and _fwd_kernel_grouped, :174)
 FLASH_BWD_REPLACES = "ssi_tpu/ops/flash_attention.py:263"  # _bwd_kernel (and _bwd_kernel_grouped, :365)
 PAGED_REPLACES = "ssi_tpu/generate/paged_pallas.py:83"  # paged_attention_pallas -> _kernel
+PAGED_MULTI_REPLACES = "ssi_tpu/generate/paged_pallas.py:425"  # paged_attention_pallas_multi -> _kernel_multi
 CE_REPLACES = {
     "cross_entropy_lse": "ssi_tpu/ops/cross_entropy_pallas.py:53",  # _compute_lse -> _lse_kernel
     "cross_entropy_dh": "ssi_tpu/ops/cross_entropy_pallas.py:108",  # _bwd_rule -> _dh_kernel
@@ -304,6 +323,85 @@ def phase_paged(gen):
             "bound_by": bound_by, "library_ms": None}
 
 
+def phase_paged_multi(gen):
+    import torch
+
+    from ssi_tpu_torch.generate.paged import paged_attention
+    from ssi_tpu_torch.generate.paged_cuda import paged_attention_multi_fused, paged_attention_multi_fused_reference
+
+    slots, hq, hkv, hd, ps, max_ctx, n_layers = 32, 32, 8, 64, 128, 1280, 16
+    max_pages = max_ctx // ps
+    n_pages = slots * max_pages
+    rows = n_layers * n_pages + 1
+    trash = rows - 1
+    layer = 9
+    logical = torch.randperm(n_pages, generator=gen, device="cuda").view(slots, max_pages).to(torch.int32)
+    table = layer * n_pages + logical
+    worst, row = {}, None
+    for t_q in (4, 8):
+        # history 0, a mid-page start, a span crossing a page, full context less T,
+        # an inactive slot (6), a slot whose cap cuts its span (7), the rest ragged
+        fixed = [0, 5, ps - 2, 3 * ps + 60, max_ctx - t_q, 700, 400, 2 * ps - 1]
+        hist = fixed + torch.randint(1, max_ctx - t_q + 1, (slots - len(fixed),), generator=gen, device="cuda").tolist()
+        hist = torch.tensor(hist, dtype=torch.int32, device="cuda")
+        active = torch.ones(slots, dtype=torch.bool, device="cuda")
+        active[6] = False
+        cap = torch.full((slots,), max_ctx, dtype=torch.int32, device="cuda")
+        cap[7] = 2 * ps + 1  # positions 2*ps-1 and 2*ps persist, the rest go to the trash row
+        pos = hist[:, None] + torch.arange(t_q, device="cuda")[None, :]
+        ok = active[:, None] & (pos < cap[:, None])
+        write_rows = torch.where(ok, torch.gather(table, 1, (pos // ps).clamp(max=max_pages - 1).long()),
+                                 torch.full_like(pos, trash)).to(torch.int32)
+        landed = torch.cumprod(ok.int(), dim=1).bool()  # token t and every earlier one persisted
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[1]
+            tol = TOL[key]
+            kp = torch.randn((rows, ps, hkv * hd), generator=gen, device="cuda").to(dtype)
+            vp = torch.randn((rows, ps, hkv * hd), generator=gen, device="cuda").to(dtype)
+            q = torch.randn((slots, t_q, hq, hd), generator=gen, device="cuda").to(dtype)
+            kn = torch.randn((slots, t_q, hkv, hd), generator=gen, device="cuda").to(dtype)
+            vn = torch.randn((slots, t_q, hkv, hd), generator=gen, device="cuda").to(dtype)
+            kp_ref, vp_ref = kp.clone(), vp.clone()
+            kw = dict(k_new=kn, v_new=vn, write_rows=write_rows)
+            got = paged_attention_multi_fused(q, kp, vp, table, hist, **kw)
+            ref = paged_attention_multi_fused_reference(q, kp_ref, vp_ref, table, hist, **kw)
+            # control: every in-flight token sees all T (the causal mask dropped)
+            loose = torch.stack([paged_attention(q[:, t], kp_ref, vp_ref, table, hist + t_q) for t in range(t_q)], 1)
+            torch.cuda.synchronize()
+            a, w = got[landed].float(), ref[landed].float()
+            err = (a - w).abs().max().item()
+            check(torch.allclose(a, w, atol=tol, rtol=tol), f"paged multi T{t_q} {key}: max err {err} > tol {tol}")
+            _, rel, ctrl = hold(f"paged multi T{t_q}", got[landed], ref[landed], key,
+                                [("causal mask dropped", loose[landed])])
+            check(torch.equal(kp[:-1], kp_ref[:-1]) and torch.equal(vp[:-1], vp_ref[:-1]),
+                  f"paged multi T{t_q} {key}: pools not bitwise equal outside the trash row")
+            worst[key] = max(worst.get(key, 0.0), err)
+            log(f"  paged multi T{t_q} {key:8s}: max|attn err| {err:.3e} (tol {tol}) over {int(landed.sum())} landed "
+                f"tokens, rel {rel:.2e} (limit {REL[key]}; control {ctrl:.2e}); pools bitwise equal except trash")
+            if dtype == torch.bfloat16:
+                t_k, t_p = in_turns(lambda: paged_attention_multi_fused(q, kp, vp, table, hist, **kw),
+                                    lambda: paged_attention_multi_fused_reference(q, kp_ref, vp_ref, table, hist, **kw))
+                # bound: the history K and V rows of active slots, q read and out written,
+                # the new K/V read once and the persisted tokens written once
+                elt = kp.element_size()
+                n_hist = int(hist[active].sum().item())
+                n_bytes = (n_hist * hkv * hd * elt * 2 + 2 * slots * t_q * hq * hd * elt
+                           + 2 * slots * t_q * hkv * hd * elt + int(ok.sum().item()) * hkv * hd * elt * 2)
+                n_active = int(active.sum().item())
+                ops = 4 * hq * hd * (t_q * n_hist + n_active * t_q * (t_q + 1) // 2)
+                bound_ms, bound_by = bound(ops, n_bytes)
+                gbs = n_hist * hkv * hd * elt * 2 / (t_k * 1e-3) / 1e9
+                log(f"  paged multi time bf16 T{t_q}, 32 slots, one layer: kernel {t_k:.3f} ms ({gbs:.0f} GB/s of "
+                    f"history pages), plain {t_p:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch "
+                    "call computes it")
+                if t_q == 4:  # the main path's T (speculate_k=3)
+                    row = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            del kp, vp, kp_ref, vp_ref
+            torch.cuda.empty_cache()
+    log(f"phase a paged multi-token verify: ok (max err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e})")
+    return {"max_abs_err": worst["bfloat16"], **row}
+
+
 def model_config():
     from ssi_tpu_torch.models.configs import get_model_config
 
@@ -390,6 +488,45 @@ def phase_engine_f32(seed: int):
     torch.cuda.empty_cache()
 
 
+def phase_spec_f32(seed: int):
+    import numpy as np
+    import torch
+
+    from ssi_tpu_torch.generate.engine import SamplingParams
+    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+    from ssi_tpu_torch.models.llama3 import init_params
+
+    cfg = model_config()
+    params = init_params(cfg, seed=seed, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(seed + 4)
+    prefix = rng.integers(0, cfg.vocab_size, 256).tolist()
+    # a shared 256-token prefix (two cacheable pages), then content said twice
+    prompts = []
+    for n in (40, 64, 90, 120):
+        part = rng.integers(0, cfg.vocab_size, n).tolist()
+        prompts.append(prefix + part + part)
+    sp = SamplingParams(temperature=0.0, max_tokens=32)
+    outs, stats = {}, {}
+    for impl in ("kernel", "reference"):
+        for k in (0, 3):
+            eng = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=4, attn_impl=impl, speculate_k=k)
+            outs[impl, k] = [o["token_ids"] for o in eng.generate_batch(prompts, sp)]
+            stats[impl, k] = dict(eng.last_stats)
+            del eng
+    for impl in ("kernel", "reference"):
+        check(outs[impl, 3] == outs[impl, 0], f"f32 spec ({impl}): speculate_k=3 tokens differ from speculate_k=0")
+        st = stats[impl, 3]
+        check(st["cached_prompt_tokens"] > 0 and st["verify_steps"] > 0,
+              f"f32 spec ({impl}): cached_prompt_tokens {st['cached_prompt_tokens']}, verify_steps {st['verify_steps']}")
+    check(outs["kernel", 3] == outs["reference", 3], "f32 spec: kernel and plain tokens differ")
+    st = stats["kernel", 3]
+    log(f"phase b spec f32 (1B width): 4 prompts (256-token shared prefix, repeated content) x 32 greedy tokens "
+        f"identical for speculate_k 3 and 0, kernels and plain; cached prompt tokens {st['cached_prompt_tokens']}, "
+        f"verify steps {st['verify_steps']}, tokens per verify {st['tokens_per_verify']:.3f}")
+    del params
+    torch.cuda.empty_cache()
+
+
 def phase_engine_bf16(seed: int, smi: str):
     import torch
 
@@ -416,7 +553,8 @@ def phase_engine_bf16(seed: int, smi: str):
         check(o["finish_reason"] == "length" and len(o["token_ids"]) == 128,
               f"request {i}: {o['finish_reason']}, {len(o['token_ids'])} tokens")
         check(all(0 <= t < cfg.vocab_size for t in o["token_ids"]), f"request {i}: token out of vocab")
-    check(len(eng._free_pages) == eng.n_pages, f"pages leaked: {eng.n_pages - len(eng._free_pages)}")
+    parked = len(eng._free_pages) + len(eng._cache_lru)
+    check(parked == eng.n_pages, f"pages leaked: {eng.n_pages - parked}")
     for name in ("flash_attention_fwd", "paged_attention_fused"):
         check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the main path")
     n_tok = sum(len(o["token_ids"]) for o in outs)
@@ -425,6 +563,52 @@ def phase_engine_bf16(seed: int, smi: str):
         f"{n_tok / wall:.0f} generated tok/s on {smi} (wall clock incl. prefill, after a warm-up batch; "
         f"{s['chunk_dispatches']} chunks, "
         f"{s['prefill_dispatches']} prefill dispatches, occupancy {s['slot_occupancy']:.3f}); launches {launches}")
+    return launches, [o["token_ids"] for o in outs], n_tok / wall
+
+
+def phase_spec_serving(seed: int, smi: str, base_tokens, base_rate: float):
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.generate.engine import SamplingParams
+    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+    from ssi_tpu_torch.models.llama3 import init_params
+
+    cfg = model_config()
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    prompts = prompts_from_seed(seed + 1, 64, cfg.vocab_size)
+    eng = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=32, page_size=128, prompt_bucket=128, chunk=16,
+                            speculate_k=3, prefill_chunk=512)
+    check(eng.attn_impl == "kernel" and eng.prefix_caching, "spec engine: not the kernels with the prefix cache")
+    eng.generate_batch(prompts_from_seed(seed + 5, 8, cfg.vocab_size), SamplingParams(max_tokens=16))  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    outs = eng.generate_batch(prompts, SamplingParams(temperature=0.0, max_tokens=128))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    for i, o in enumerate(outs):
+        check(o["finish_reason"] == "length" and len(o["token_ids"]) == 128,
+              f"spec request {i}: {o['finish_reason']}, {len(o['token_ids'])} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in o["token_ids"]), f"spec request {i}: token out of vocab")
+    parked = len(eng._free_pages) + len(eng._cache_lru)
+    check(parked == eng.n_pages, f"spec serving: pages leaked: {eng.n_pages - parked}")
+    for name in ("flash_attention_fwd", "paged_attention_multi"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the speculative serving path")
+    s = eng.last_stats
+    same = sum(o["token_ids"] == b for o, b in zip(outs, base_tokens))
+    agree = [next((i for i, (x, y) in enumerate(zip(o["token_ids"], b)) if x != y), len(b))
+             for o, b in zip(outs, base_tokens)]
+    n_tok = sum(len(o["token_ids"]) for o in outs)
+    log(f"phase c spec serving bf16 (speculate_k 3, prefix cache, prefill_chunk 512): 64 requests x 128 tokens, "
+        f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.0f} generated tok/s (phase 5, k=0: {base_rate:.0f}) on "
+        f"{smi}; tokens per verify {s['tokens_per_verify']:.3f}, {s['verify_steps']} verify steps, "
+        f"{s['chunk_dispatches']} chunks, {s['prefill_dispatches']} prefill dispatches ({s['prefill_pieces']} "
+        f"chunked pieces), cached prompt tokens {s['cached_prompt_tokens']}; {same}/64 requests equal to phase 5's "
+        f"tokens, mean agreeing prefix {sum(agree) / len(agree):.1f} of 128; launches {launches}")
+    del eng, params
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -744,9 +928,12 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
-    rows = {"flash_attention_fwd": phase_flash(gen), "paged_attention_fused": phase_paged(gen)}
+    rows = {"flash_attention_fwd": phase_flash(gen), "paged_attention_fused": phase_paged(gen),
+            "paged_attention_multi": phase_paged_multi(gen)}
     phase_engine_f32(args.seed)
-    serve_launches = phase_engine_bf16(args.seed, smi)
+    phase_spec_f32(args.seed)
+    serve_launches, base_tokens, base_rate = phase_engine_bf16(args.seed, smi)
+    spec_launches = phase_spec_serving(args.seed, smi, base_tokens, base_rate)
     rows["flash_attention_bwd"] = phase_flash_bwd(gen)
     rows.update(phase_cross_entropy(gen, model_config().vocab_size))
     phase_train_parity(args.seed)
@@ -754,13 +941,15 @@ def main() -> int:
 
     sources = {"flash_attention_fwd": ("flash_attention_fwd.cu", FLASH_REPLACES),
                "paged_attention_fused": ("paged_attention.cu", PAGED_REPLACES),
+               "paged_attention_multi": ("paged_attention_multi.cu", PAGED_MULTI_REPLACES),
                "flash_attention_bwd": ("flash_attention_bwd.cu", FLASH_BWD_REPLACES),
                **{name: ("cross_entropy.cu", where) for name, where in CE_REPLACES.items()}}
     kernels = []
     for name, (source, replaces) in sources.items():
-        by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0)}
+        by_path = {"serve": serve_launches.get(name, 0), "spec_serve": spec_launches.get(name, 0),
+                   "train": train_launches.get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",
-                        "replaces": replaces, "launches": by_path["serve"] + by_path["train"],
+                        "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,10 @@ _SIGNATURES = {
     # write_offs, out, n_slots, Hq, Hkv, page_size, max_pages, scale, stream
     "ssi_paged_attention_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _c.c_float, _P],
+    # dtype, q, k_pool, v_pool, page_table, hist_lens, k_new, v_new, write_rows,
+    # out, n_slots, T, Hq, Hkv, page_size, max_pages, trash row, scale, stream
+    "ssi_paged_attention_multi": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
     # dtype, q, k, v, o, do, lse, seg, delta (scratch), dq, dk, dv, B, S, Hq, Hkv, causal, scale, stream
     "ssi_flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _c.c_float, _P],

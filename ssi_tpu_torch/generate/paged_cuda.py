@@ -1,14 +1,22 @@
-"""Fused paged decode (token write + single-token GQA): the CUDA kernel
-``csrc/paged_attention.cu`` and its plain PyTorch version.
+"""Fused paged attention over the flat KV pool: the CUDA kernels and their
+plain PyTorch versions.
 
-Port of ``ssi_tpu/generate/paged_pallas.py`` ``paged_attention_pallas`` (same
-arguments and semantics). The pools are updated IN PLACE — torch tensors are
-mutable, so the TPU kernel's input->output aliasing has no counterpart — and
-only the attention output is returned.
+- :func:`paged_attention_fused` (``csrc/paged_attention.cu``): token write +
+  single-token GQA, port of ``ssi_tpu/generate/paged_pallas.py``
+  ``paged_attention_pallas``;
+- :func:`paged_attention_multi_fused` (``csrc/paged_attention_multi.cu``):
+  the T-token write + verify GQA of speculative decoding, port of
+  ``paged_attention_pallas_multi``. The TPU kernel persists the T tokens
+  through two aligned 8-row read-modify-write windows (a TPU DMA alignment
+  rule); this one takes one physical write row per token instead (the trash
+  row = skip), as the JAX gather path resolves them.
 
-Dispatch is by device, never by failure: a CPU tensor takes
-:func:`paged_attention_fused_reference`; a CUDA tensor launches the kernel or
-raises.
+The pools are updated IN PLACE — torch tensors are mutable, so the TPU
+kernels' input->output aliasing has no counterpart — and only the attention
+output is returned.
+
+Dispatch is by device, never by failure: a CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -16,9 +24,10 @@ from __future__ import annotations
 import torch
 
 from ssi_tpu_torch import _build
-from ssi_tpu_torch.generate.paged import paged_attention
+from ssi_tpu_torch.generate.paged import paged_attention, paged_attention_multi
 
 KERNEL = "paged_attention_fused"
+KERNEL_MULTI = "paged_attention_multi"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024  # bytes of shared memory one H100 block may use
 
@@ -43,14 +52,13 @@ def _check_int(name: str, x: torch.Tensor, shape: tuple, device) -> torch.Tensor
     return x.to(torch.int32).contiguous()
 
 
-def _paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new, write_rows):
-    n_slots, hq, hd = q.shape
-    n_rows, ps, kvd = k_pool.shape
+def _check_common(q, k_pool, v_pool, k_new, v_new, hq: int, hd: int, new_shape: tuple) -> int:
+    """Argument checks both paged kernels share; returns Hkv."""
+    kvd = k_pool.shape[2]
     hkv = kvd // hd
-    max_pages = page_table.shape[1]
     dev = q.device
     if hd != 64:
-        raise ValueError(f"the CUDA paged kernel is built for head_dim 64, got {hd}")
+        raise ValueError(f"the CUDA paged kernels are built for head_dim 64, got {hd}")
     if hkv * hd != kvd or hq % hkv != 0 or hq // hkv not in (1, 2, 4, 8):
         raise ValueError(f"unsupported heads: Hq={hq}, pool width {kvd} (Hkv*64), n_rep must be 1, 2, 4 or 8")
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (k_pool, v_pool, k_new, v_new)):
@@ -60,9 +68,19 @@ def _paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new,
     for name, pool in (("k_pool", k_pool), ("v_pool", v_pool)):
         if pool.device != dev or not pool.is_contiguous() or pool.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor on {dev} (updated in place)")
+    shape = (*new_shape, hkv, hd)
     for name, x in (("k_new", k_new), ("v_new", v_new)):
-        if tuple(x.shape) != (n_slots, hkv, hd) or x.device != dev:
-            raise ValueError(f"{name} must be [{n_slots}, {hkv}, {hd}] on {dev}")
+        if tuple(x.shape) != shape or x.device != dev:
+            raise ValueError(f"{name} must be {list(shape)} on {dev}")
+    return hkv
+
+
+def _paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new, write_rows):
+    n_slots, hq, hd = q.shape
+    ps = k_pool.shape[1]
+    max_pages = page_table.shape[1]
+    dev = q.device
+    hkv = _check_common(q, k_pool, v_pool, k_new, v_new, hq, hd, (n_slots,))
     smem = 4 * ((hq // hkv) * max_pages * ps + 16 * (hq // hkv) * hd)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"max_context {max_pages * ps} needs {smem} B of shared memory > {_SMEM_LIMIT}")
@@ -100,4 +118,68 @@ def paged_attention_fused(q, k_pool, v_pool, page_table, seq_lens, *, k_new, v_n
         return _paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new, write_rows)
     return paged_attention_fused_reference(
         q, k_pool, v_pool, page_table, seq_lens, k_new=k_new, v_new=v_new, write_rows=write_rows
+    )
+
+
+def paged_attention_multi_fused_reference(q, k_pool, v_pool, page_table, hist_lens, *, k_new, v_new, write_rows):
+    """Plain version: write token t's K/V at (``write_rows[:, t]``,
+    ``(hist_lens + t) % ps``) in place, trash row included, then attend with
+    ``paged_attention_multi`` over ``hist_lens + 1`` entries (the JAX XLA
+    path of ``decode_step_tokens_spec``)."""
+    n_slots, t_q = q.shape[:2]
+    ps = k_pool.shape[1]
+    t_idx = torch.arange(t_q, dtype=hist_lens.dtype, device=hist_lens.device)
+    offs = torch.remainder(hist_lens[:, None] + t_idx[None, :], ps).long()
+    rows = write_rows.long()
+    for t in range(t_q):
+        k_pool[rows[:, t], offs[:, t]] = k_new[:, t].to(k_pool.dtype).reshape(n_slots, -1)
+        v_pool[rows[:, t], offs[:, t]] = v_new[:, t].to(v_pool.dtype).reshape(n_slots, -1)
+    return paged_attention_multi(q, k_pool, v_pool, page_table, hist_lens + 1)
+
+
+def _paged_attention_multi_cuda(q, k_pool, v_pool, page_table, hist_lens, k_new, v_new, write_rows):
+    n_slots, t_q, hq, hd = q.shape
+    ps = k_pool.shape[1]
+    max_pages = page_table.shape[1]
+    dev = q.device
+    if not 2 <= t_q <= 8:
+        raise ValueError(f"T ({t_q}) must be in [2, 8] (use paged_attention_fused for T == 1)")
+    if ps % 8 != 0:
+        raise ValueError(f"page_size ({ps}) must be a multiple of 8")
+    hkv = _check_common(q, k_pool, v_pool, k_new, v_new, hq, hd, (n_slots, t_q))
+    page_table = _check_int("page_table", page_table, (n_slots, max_pages), dev)
+    hist_lens = _check_int("hist_lens", hist_lens, (n_slots,), dev)
+    write_rows = _check_int("write_rows", write_rows, (n_slots, t_q), dev)
+    q = q.contiguous()
+    k_new = k_new.contiguous()
+    v_new = v_new.contiguous()
+    out = torch.empty_like(q)
+    lib = _build.load_library()
+    err = lib.ssi_paged_attention_multi(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        page_table.data_ptr(), hist_lens.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        write_rows.data_ptr(), out.data_ptr(),
+        n_slots, t_q, hq, hkv, ps, max_pages, k_pool.shape[0] - 1, hd**-0.5,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check_launch(KERNEL_MULTI, err)
+    return out
+
+
+def paged_attention_multi_fused(q, k_pool, v_pool, page_table, hist_lens, *, k_new, v_new, write_rows):
+    """Fused T-token write + verify GQA over the flat paged pool.
+
+    q ``[slots, T, Hq, hd]`` (post-RoPE, unscaled), token t at position
+    ``hist_lens + t``; k_pool/v_pool ``[rows, ps, Hkv*hd]`` (all layers, trash
+    row last), written in place; page_table ``[slots, max_pages]`` int32
+    PHYSICAL rows; hist_lens ``[slots]`` tokens resident in the pages BEFORE
+    the step; k_new/v_new ``[slots, T, Hkv, hd]``; write_rows ``[slots, T]``
+    the physical row receiving token t at offset ``(hist_lens + t) % ps`` (the
+    trash row: the kernel skips the write). Token t attends the history and
+    in-flight tokens 0..t. Returns attn ``[slots, T, Hq, hd]``.
+    """
+    if q.is_cuda:
+        return _paged_attention_multi_cuda(q, k_pool, v_pool, page_table, hist_lens, k_new, v_new, write_rows)
+    return paged_attention_multi_fused_reference(
+        q, k_pool, v_pool, page_table, hist_lens, k_new=k_new, v_new=v_new, write_rows=write_rows
     )

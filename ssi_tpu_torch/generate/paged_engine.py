@@ -12,21 +12,33 @@ Admissions prefill batched in groups of ``PREFILL_GROUPS``; decode runs
 host reads the chunk's packed results once (harvested synchronously: the
 JAX engine's ``pipeline_depth=1`` behaviour).
 
+Prefix caching (on by default, as in the JAX engine): full prompt pages are
+keyed by a chained hash of their token blocks; an admission whose prompt
+extends a cached chain references those pages and prefills only the tail
+(``prefill_suffix``); unreferenced cached pages park in an LRU that
+allocation drains before it reports the pool dry. Chunked prefill
+(``prefill_chunk``) splits a long prompt's prefill into pieces, one per
+scheduler step, while the other slots keep decoding. Speculative decoding
+(``speculate_k``) drafts k tokens per slot from the most recent bigram match
+in the slot's own token history and verifies all k+1 in one forward
+(``decode_step_tokens_spec``, the CUDA kernel #9 on the card); greedy only,
+and lossless: the emitted tokens equal the non-speculative stream's.
+
 Sampling draws Gumbel noise from a counter-based hash of (stream seed,
 request seed, position, vocab index), so a preempted and recomputed request
 redraws identical tokens, independent of batch composition. It cannot equal
 ``jax.random``'s bits: greedy decoding is the cross-framework parity bar.
 
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP item:
-``prefix_caching``, ``prefill_chunk``, ``speculate_k > 0``, ``quantize``,
-``mesh``, and ``n > 1`` sampling.
+``quantize``, ``mesh``, and ``n > 1`` sampling.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -35,7 +47,13 @@ import torch
 
 from ssi_tpu_torch.models.configs import ConfigLlama3_2
 from ssi_tpu_torch.generate.engine import _NEG_INF, SamplingParams
-from ssi_tpu_torch.generate.paged import decode_step_tokens, init_pools, prefill_prompts
+from ssi_tpu_torch.generate.paged import (
+    decode_step_tokens,
+    decode_step_tokens_spec,
+    init_pools,
+    prefill_prompts,
+    prefill_suffix,
+)
 from ssi_tpu_torch.utils import round_up
 
 LOGGER = logging.getLogger(__name__)
@@ -147,7 +165,7 @@ class _Request:
     idx: int                      # request id (position in generate_batch's prompt list)
     prompt: list[int]
     out: list[int] = field(default_factory=list)
-    lps: list[float] = field(default_factory=list)  # per-token logprobs
+    lps: list[float] = field(default_factory=list)  # per-token logprobs (empty in spec mode)
     clp: float = 0.0
     max_tokens: int | None = None  # per-request budget (<= stream sp.max_tokens)
     sampling: SamplingParams | None = None  # per-request override (None = stream sp)
@@ -163,6 +181,10 @@ class _Slot:
     seq_len: int = 0              # valid cache tokens (prompt + consumed outputs)
     n_out: int = 0                # tokens emitted so far
     done: bool = False            # hit a stop token / budget; awaiting collection
+    cached_len: int = 0           # prompt tokens satisfied by the prefix cache
+    prefilling: bool = False      # chunked prefill in progress (decode gated)
+    prefilled: int = 0            # prompt positions with K/V written so far
+    hashes: list = field(default_factory=list)  # chain hashes, registered piece by piece
 
 
 @dataclass
@@ -201,6 +223,7 @@ class _Stream:
     slot_freq: Any = None
     slot_rep: Any = None
     slot_seed: Any = None
+    hist: Any = None              # [n_slots+1, W+1] n-gram token history (speculate_k > 0)
     stats: dict = field(default_factory=dict)
     t_start: float = 0.0
 
@@ -221,15 +244,21 @@ class PagedDecodeEngine:
             prompt buckets).
         prompt_bucket: prompts pad up to a multiple of this for prefill.
         chunk: decode steps per dispatch (one host read of results each).
-        attn_impl: "kernel" (the CUDA flash-prefill and fused paged-decode
-            kernels; CUDA devices only), "reference" (plain PyTorch), or
-            "auto" ("kernel" on a CUDA device, "reference" on the CPU).
+        attn_impl: "kernel" (the CUDA flash-prefill, fused paged-decode and
+            multi-token verify kernels; CUDA devices only), "reference"
+            (plain PyTorch), or "auto" ("kernel" on a CUDA device,
+            "reference" on the CPU).
         admission_order: "fifo", "sjf" (shortest prompt+budget first) or
             "ljf" (longest first) for NEW requests; preempted work always
             re-queues at the front.
-        prefix_caching, prefill_chunk, speculate_k, quantize, mesh: options of
-            the JAX engine not ported yet; any non-default value raises
-            ``NotImplementedError``.
+        prefix_caching: reuse prompt pages across requests (see the module
+            docstring); exact, since cached K/V is what a fresh prefill writes.
+        prefill_chunk: cap in tokens (a multiple of ``prompt_bucket``) on the
+            prompt span one prefill dispatch covers; None = whole prompts.
+        speculate_k: draft length of n-gram speculative decoding, 0-7 (0 =
+            off); greedy streams only.
+        quantize, mesh: options of the JAX engine not ported yet; any
+            non-default value raises ``NotImplementedError``.
     """
 
     # Admissions prefill in groups: G prompts cost one weights read instead of G.
@@ -249,26 +278,27 @@ class PagedDecodeEngine:
         chunk: int = 16,
         attn_impl: str = "auto",
         admission_order: str = "fifo",
-        prefix_caching: bool = False,
+        prefix_caching: bool = True,
         prefill_chunk: int | None = None,
         speculate_k: int = 0,
         quantize: str | None = None,
         mesh: Any = None,
     ):
-        if prefix_caching:
-            raise _not_ported("prefix_caching", "2 (prefix caching + chunked prefill)")
-        if prefill_chunk is not None:
-            raise _not_ported("prefill_chunk", "2 (prefix caching + chunked prefill)")
         if quantize is not None:
             raise _not_ported(f"quantize={quantize!r}", "5 (int8 weights)")
-        if speculate_k:
-            raise _not_ported("speculate_k > 0", "8 (speculative decoding + kernel #9)")
         if mesh is not None:
             raise _not_ported("mesh (tensor-parallel serving)", "9 (parallel)")
-        if page_size <= 0:
-            raise ValueError(f"page_size ({page_size}) must be positive")
+        if page_size <= 0 or page_size % 8 != 0:
+            # kept from the JAX engine, whose fused verify kernel writes through 8-row windows
+            raise ValueError(f"page_size ({page_size}) must be a positive multiple of 8")
         if prompt_bucket % page_size != 0:
             raise ValueError(f"prompt_bucket ({prompt_bucket}) must be a multiple of page_size ({page_size})")
+        if prefill_chunk is not None and (prefill_chunk <= 0 or prefill_chunk % prompt_bucket != 0):
+            # pieces must start page-aligned (the suffix pass writes whole pages)
+            raise ValueError(f"prefill_chunk ({prefill_chunk}) must be a positive multiple of "
+                             f"prompt_bucket ({prompt_bucket})")
+        if not 0 <= speculate_k <= 7:
+            raise ValueError(f"speculate_k ({speculate_k}) must be in [0, 7]")
         if admission_order not in ("fifo", "sjf", "ljf"):
             raise ValueError(f"Unknown admission_order {admission_order!r}; expected 'fifo', 'sjf', or 'ljf'")
         self.device = params["embed"].device
@@ -285,6 +315,9 @@ class PagedDecodeEngine:
         self.n_slots = n_slots
         self.page_size = page_size
         self.admission_order = admission_order
+        self.prefix_caching = bool(prefix_caching)
+        self.prefill_chunk = prefill_chunk
+        self.speculate_k = int(speculate_k)
         self.max_context = round_up(round_up(max_context, page_size), prompt_bucket)
         self.max_pages_per_seq = self.max_context // page_size
         self.prompt_bucket = prompt_bucket
@@ -293,6 +326,11 @@ class PagedDecodeEngine:
         self.pools = init_pools(cfg, self.n_pages, page_size, dtype=params["embed"].dtype, device=self.device)
         self._free_pages: list[int] = list(range(self.n_pages))
         self._page_refs = np.zeros(self.n_pages, np.int32)
+        # prefix cache: chain hash <-> logical page (1:1); a cached page whose
+        # last reference drops parks in the LRU, which _alloc_pages drains
+        self._prefix_map: dict[bytes, int] = {}
+        self._page_hash: dict[int, bytes] = {}
+        self._cache_lru: OrderedDict[int, None] = OrderedDict()
         self._slots = [_Slot() for _ in range(n_slots)]
         self._page_table = np.zeros((n_slots, self.max_pages_per_seq), np.int32)
         self._st: _Stream | None = None
@@ -302,6 +340,11 @@ class PagedDecodeEngine:
     # --- host-side page scheduling -----------------------------------------------
 
     def _alloc_pages(self, n: int) -> list[int] | None:
+        # unreferenced cached pages are reclaimable capacity, oldest first
+        while len(self._free_pages) < n and self._cache_lru:
+            pg, _ = self._cache_lru.popitem(last=False)
+            self._prefix_map.pop(self._page_hash.pop(pg), None)
+            self._free_pages.append(pg)
         if len(self._free_pages) < n:
             return None
         pages = [self._free_pages.pop() for _ in range(n)]
@@ -313,7 +356,11 @@ class PagedDecodeEngine:
         for p in pages:
             self._page_refs[p] -= 1
             if self._page_refs[p] == 0:
-                self._free_pages.append(p)
+                if p in self._page_hash:  # keep cached content around, evictable
+                    self._cache_lru[p] = None
+                    self._cache_lru.move_to_end(p)
+                else:
+                    self._free_pages.append(p)
 
     def _free_slot(self, slot: _Slot) -> None:
         self._release_pages(slot.pages)
@@ -322,9 +369,44 @@ class PagedDecodeEngine:
         slot.seq_len = 0
         slot.n_out = 0
         slot.done = False
+        slot.cached_len = 0
+        slot.prefilling = False
+        slot.prefilled = 0
+        slot.hashes = []
 
     def _pages_needed(self, length: int) -> int:
         return -(-length // self.page_size)
+
+    def _match_prefix(self, prompt: list[int]) -> tuple[list[int], list[bytes]]:
+        """Longest cached page chain ``prompt`` extends: (matched logical
+        pages, chain hashes of ALL its cacheable pages). Only pages holding
+        positions <= len(prompt)-2 are cacheable: the first decode step
+        rewrites the page holding position p-1."""
+        ps = self.page_size
+        shared_n = (len(prompt) - 1) // ps
+        hashes: list[bytes] = []
+        h = b""
+        arr = np.asarray(prompt[: shared_n * ps], np.int32)
+        for i in range(shared_n):
+            h = hashlib.sha1(h + arr[i * ps : (i + 1) * ps].tobytes()).digest()
+            hashes.append(h)
+        matched: list[int] = []
+        for h in hashes:
+            pg = self._prefix_map.get(h)
+            if pg is None:
+                break
+            matched.append(pg)
+        return matched, hashes
+
+    def _clear_prefix_cache(self) -> None:
+        """Invalidate the whole prefix cache (teardown after an error: a slot
+        admitted this step may have registered pages its prefill never
+        wrote). Unreferenced cached pages rejoin the free list; referenced
+        ones follow when their holder releases them."""
+        self._prefix_map.clear()
+        self._page_hash.clear()
+        self._free_pages.extend(self._cache_lru)
+        self._cache_lru.clear()
 
     def _ensure_capacity(self, slot_id: int, target_len: int) -> bool:
         """Lazily extend a slot's page list to cover ``target_len`` tokens."""
@@ -382,6 +464,14 @@ class PagedDecodeEngine:
         if unknown:
             raise ValueError(f"Unknown sampling features {sorted(unknown)}; valid: {sorted(SAMPLING_FEATURES)}")
         feats |= _derive_features(sp)
+        if self.speculate_k > 0:
+            # lossless speculation is defined by argmax equality: greedy only
+            if sp.temperature != 0.0:
+                raise ValueError("speculate_k > 0 requires greedy decoding (temperature=0)")
+            if sp.uses_penalties:
+                raise ValueError("speculate_k > 0 does not compose with repetition/presence/frequency penalties")
+            if feats:
+                raise ValueError("speculate_k > 0 streams are greedy-only; no sampling features")
         dev = self.device
         n, v = self.n_slots, self.cfg.vocab_size
         st = _Stream(
@@ -414,15 +504,21 @@ class PagedDecodeEngine:
         st.slot_freq = np.zeros(n, np.float32)
         st.slot_rep = np.ones(n, np.float32)
         st.slot_seed = np.zeros(n, np.int32)
+        if self.speculate_k > 0:
+            # row n_slots = trash (pad prefill rows), column max_context = trash (masked emits)
+            st.hist = torch.zeros((n + 1, self.max_context + 1), dtype=torch.int32, device=dev)
         st.stats = self.last_stats = {
             "chunk_dispatches": 0,
             "slot_chunks": 0,          # sum over dispatches of runnable slots
             "prefill_dispatches": 0,
             "prefill_rows": 0,
+            "prefill_pieces": 0,       # chunked-prefill piece rows dispatched
             "prefill_token_area": 0,   # sum of group * bucket (padded work)
             "prompt_tokens": 0,
+            "cached_prompt_tokens": 0,  # prompt tokens served from the prefix cache
             "tokens_out": 0,
             "preemptions": 0,
+            "verify_steps": 0,         # spec mode: advancing verify forwards, summed over slots
             "wall_s": 0.0,
         }
         st.t_start = time.perf_counter()
@@ -453,6 +549,8 @@ class PagedDecodeEngine:
                 )
             if sampling.n != 1:
                 raise _not_ported("sampling.n > 1", "3 (n>1 sampling, pipelined harvest)")
+            if self.speculate_k > 0 and (sampling.temperature != 0.0 or sampling.uses_penalties):
+                raise ValueError("speculate_k > 0 streams are greedy-only; per-request sampling unavailable")
             if max_tokens is None and sampling.max_tokens != sp.max_tokens:
                 max_tokens = sampling.max_tokens
         if max_tokens is not None and not 1 <= max_tokens <= sp.max_tokens:
@@ -537,8 +635,12 @@ class PagedDecodeEngine:
         if st is None:
             return
         st.stats["wall_s"] = time.perf_counter() - st.t_start
-        cap = st.stats["chunk_dispatches"] * self.n_slots * self.chunk
+        cap = st.stats["chunk_dispatches"] * self.n_slots * self.chunk * (self.speculate_k + 1)
         st.stats["slot_occupancy"] = st.stats["tokens_out"] / cap if cap else 0.0
+        if self.speculate_k > 0:
+            # mean tokens emitted per verify forward (1.0 = nothing accepted; at most k+1)
+            vs = st.stats["verify_steps"]
+            st.stats["tokens_per_verify"] = st.stats["tokens_out"] / vs if vs else 0.0
         for slot in self._slots:
             if slot.req is not None:
                 self._free_slot(slot)
@@ -554,7 +656,8 @@ class PagedDecodeEngine:
     def _admit_slot(self, slot_id: int, req: _Request) -> tuple[int, int] | None:
         """Claim prompt pages + host slot state; returns (slot_id, bucket) for
         the batched prefill, or None when the pool is tight. The admission
-        override rides the next chunk's control array."""
+        override rides the next chunk's control array; a chunk-prefilled
+        slot gets it when its last piece is written (``_advance_prefills``)."""
         st = self._st
         p = len(req.prompt)
         p_bucket = round_up(p, self.prompt_bucket)
@@ -567,13 +670,55 @@ class PagedDecodeEngine:
         st.slot_freq[slot_id] = esp.frequency_penalty
         st.slot_rep[slot_id] = esp.repetition_penalty
         st.slot_seed[slot_id] = req.rng_seed
-        if not self._ensure_capacity(slot_id, p_bucket):
-            self._free_slot(slot)  # release the partial allocation
+        hashes: list[bytes] = []
+        if self.prefix_caching:
+            # reference the longest cached page chain the prompt extends
+            matched, hashes = self._match_prefix(req.prompt)
+            for pg in matched:
+                self._page_refs[pg] += 1
+                if self._page_refs[pg] == 1:
+                    self._cache_lru.pop(pg, None)  # back in active use
+            slot.pages = list(matched)
+            self._page_table[slot_id, : len(matched)] = matched
+            slot.cached_len = len(matched) * self.page_size
+            st.stats["cached_prompt_tokens"] += slot.cached_len
+        target = p_bucket
+        if 0 < slot.cached_len < p - 1:
+            # the suffix pass spans [cached_len, cached_len + suffix bucket),
+            # which may overhang p_bucket by less than one bucket
+            s_bucket = round_up(p - slot.cached_len, self.prompt_bucket)
+            target = min(max(p_bucket, slot.cached_len + s_bucket), self.max_context)
+        if not self._ensure_capacity(slot_id, target):
+            self._free_slot(slot)  # release the partial allocation (and the matched references)
             return None
+        chunked = self.prefill_chunk is not None and (p - 1) - slot.cached_len > self.prefill_chunk
+        if hashes and not chunked:
+            # register the prompt's remaining full pages: their content is
+            # written by this round's prefill, which _prefill_admitted orders
+            # before any same-round reader
+            for i in range(slot.cached_len // self.page_size, len(hashes)):
+                self._prefix_map[hashes[i]] = slot.pages[i]
+                self._page_hash[slot.pages[i]] = hashes[i]
         slot.req = req
         slot.seq_len = p - 1
         slot.n_out = 0
         slot.done = False
+        if chunked:
+            # decode waits until every position < p-1 has K/V; pages register
+            # into the cache as the pieces that fill them dispatch
+            slot.prefilling = True
+            slot.prefilled = slot.cached_len
+            slot.hashes = hashes
+            return slot_id, p_bucket
+        self._open_decode(slot_id)
+        return slot_id, p_bucket
+
+    def _open_decode(self, slot_id: int) -> None:
+        """Set the admission override that seeds the slot's decode at
+        ``p - 1`` with ``prompt[-1]`` (rides the next chunk's control array)."""
+        st = self._st
+        req = self._slots[slot_id].req
+        p = len(req.prompt)
         if st.use_pen:
             st.prompt_counts[slot_id] = np.bincount(req.prompt, minlength=self.cfg.vocab_size).astype(np.float32)
         st.active[slot_id] = True
@@ -582,32 +727,168 @@ class PagedDecodeEngine:
         st.admit_tok[slot_id] = req.prompt[-1]
         st.admit_budget[slot_id] = req.max_tokens if req.max_tokens is not None else st.sp.max_tokens
         st.prompt_lens[slot_id] = p
-        return slot_id, p_bucket
 
     def _prefill_admitted(self, admitted: list[tuple[int, int]]) -> None:
         """Batched prefills: one pass per (group bucket, group size); pad rows
-        and pages beyond a row's own bucket point at the trash page id."""
+        and pages beyond a row's own bucket point at the trash page id.
+
+        Rows whose prefix the cache served run the suffix pass instead, or
+        nothing on a full hit (speculation still records their prompt into
+        the n-gram history). Full prefills go first and suffix rows keep
+        admission order, because a row may read prefix pages that an earlier
+        row of the same round writes (the device runs work in the order it is queued)."""
         st = self._st
-        todo = sorted(admitted, key=lambda t: t[1])  # by bucket
+        full = [t for t in admitted if self._slots[t[0]].cached_len == 0]
+        suffix: list[tuple[int, int, int]] = []
+        hist_only: list[int] = []
+        for slot_id, _ in admitted:
+            s = self._slots[slot_id]
+            if s.cached_len == 0:
+                continue
+            if s.cached_len >= len(s.req.prompt) - 1:
+                hist_only.append(slot_id)  # decode's first step does the rest
+            else:
+                suffix.append((slot_id, s.cached_len, len(s.req.prompt)))
+        todo = sorted(full, key=lambda t: t[1])  # by bucket
         trash = self.n_pages  # logical sentinel -> trash row in prefill_prompts
+        spec = self.speculate_k > 0
         while todo:
             g = next(s for s in self.PREFILL_GROUPS if s <= len(todo))
             batch, todo = todo[:g], todo[g:]
             bucket = max(b for _, b in batch)
             tokens = np.full((g, bucket), self.pad_id, np.int32)
             page_ids = np.full((g, bucket // self.page_size), trash, np.int32)
+            slot_ids = np.full(g, self.n_slots, np.int32)  # pad rows -> trash history row
             for r, (slot_id, own_bucket) in enumerate(batch):
                 prompt = self._slots[slot_id].req.prompt
                 tokens[r, : len(prompt)] = prompt
                 own_n = own_bucket // self.page_size
                 page_ids[r, :own_n] = self._page_table[slot_id, :own_n]
+                slot_ids[r] = slot_id
             prefill_prompts(
                 self.params, torch.from_numpy(tokens).to(self.device), self.cfg, self.pools,
                 torch.from_numpy(page_ids).to(self.device), n_pages=self.n_pages, attn_impl=self.attn_impl,
+                hist=st.hist if spec else None, slot_ids=torch.from_numpy(slot_ids).to(self.device) if spec else None,
             )
             st.stats["prefill_dispatches"] += 1
             st.stats["prefill_rows"] += len(batch)
             st.stats["prefill_token_area"] += g * bucket
+
+        # suffix passes: merge contiguous runs of one suffix bucket only, so
+        # the dispatch order keeps admission order (writer before reader)
+        idx = 0
+        while idx < len(suffix):
+            sb = self._suffix_span(suffix[idx])
+            j = idx + 1
+            while j < len(suffix) and j - idx < self.PREFILL_GROUPS[0] and self._suffix_span(suffix[j]) == sb:
+                j += 1
+            g = next(s for s in self.PREFILL_GROUPS if s <= j - idx)
+            self._dispatch_suffix(suffix[idx : idx + g], sb, with_hist=True)
+            idx += g
+        if hist_only and spec:
+            self._fill_hist(hist_only)
+
+    def _full_prompts(self, slot_ids: list[int]) -> tuple[np.ndarray, np.ndarray]:
+        """The slots' whole prompts right-padded to the group's prompt bucket,
+        and their history rows: what speculation records for each admission."""
+        f_bucket = max(round_up(len(self._slots[sid].req.prompt), self.prompt_bucket) for sid in slot_ids)
+        tokens = np.full((len(slot_ids), f_bucket), self.pad_id, np.int32)
+        for r, sid in enumerate(slot_ids):
+            prompt = self._slots[sid].req.prompt
+            tokens[r, : len(prompt)] = prompt
+        return tokens, np.asarray(slot_ids, np.int32)
+
+    def _fill_hist(self, slot_ids: list[int]) -> None:
+        """Seed the n-gram history rows of slots whose prompt K/V needs no
+        (further) prefill. Grouped as prefill groups them, so the pad written
+        past each prompt is the JAX engine's: drafts may read past a slot's
+        length, and equal drafts keep the verify steps equal to JAX's."""
+        st = self._st
+        todo = slot_ids
+        while todo:
+            g = next(s for s in self.PREFILL_GROUPS if s <= len(todo))
+            batch, todo = todo[:g], todo[g:]
+            tokens, rows = self._full_prompts(batch)
+            st.hist[torch.from_numpy(rows).to(self.device).long(), : tokens.shape[1]] = (
+                torch.from_numpy(tokens).to(self.device))
+
+    def _suffix_span(self, row: tuple[int, int, int]) -> int:
+        """Padded token span of a suffix or piece row ``(slot_id, start, end)``."""
+        _, start, end = row
+        return round_up(end - start, self.prompt_bucket)
+
+    def _dispatch_suffix(self, batch: list[tuple[int, int, int]], s_bucket: int, *, with_hist: bool) -> None:
+        """One suffix-prefill pass over rows ``(slot_id, start, end)`` sharing
+        a suffix bucket; pages beyond each row's own go to the trash id.
+        ``with_hist`` records the FULL prompt into the n-gram history
+        (speculation; chunked pieces leave that to ``_fill_hist`` when the
+        last piece is written)."""
+        st = self._st
+        trash = self.n_pages
+        g = len(batch)
+        n_new = s_bucket // self.page_size
+        tokens = np.full((g, s_bucket), self.pad_id, np.int32)
+        start = np.zeros(g, np.int32)
+        table = np.full((g, self.max_pages_per_seq), trash, np.int32)
+        new_ids = np.full((g, n_new), trash, np.int32)
+        for r, (slot_id, c, end) in enumerate(batch):
+            s = self._slots[slot_id]
+            suf = s.req.prompt[c:end]
+            tokens[r, : len(suf)] = suf
+            start[r] = c
+            n_owned = len(s.pages)
+            table[r, :n_owned] = self._page_table[slot_id, :n_owned]
+            cn = c // self.page_size
+            upto = min(n_new, n_owned - cn)
+            new_ids[r, :upto] = self._page_table[slot_id, cn : cn + upto]
+        dev = self.device
+        hist_kw = {}
+        if self.speculate_k > 0 and with_hist:
+            full_tokens, slot_ids = self._full_prompts([sid for sid, _, _ in batch])
+            hist_kw = dict(hist=st.hist, full_tokens=torch.from_numpy(full_tokens).to(dev),
+                           slot_ids=torch.from_numpy(slot_ids).to(dev))
+        prefill_suffix(
+            self.params, torch.from_numpy(tokens).to(dev), torch.from_numpy(start).to(dev), self.cfg, self.pools,
+            torch.from_numpy(table).to(dev), torch.from_numpy(new_ids).to(dev), n_pages=self.n_pages, **hist_kw,
+        )
+        st.stats["prefill_dispatches"] += 1
+        st.stats["prefill_rows"] += g
+        st.stats["prefill_token_area"] += g * s_bucket
+
+    def _advance_prefills(self) -> None:
+        """Dispatch ONE piece per chunk-prefilling slot (batched by piece
+        bucket), register the pages each piece fills into the prefix cache,
+        and open decode for slots whose prompt K/V is now complete."""
+        st = self._st
+        pieces = [
+            (sid, s.prefilled, min(s.prefilled + self.prefill_chunk, len(s.req.prompt)))
+            for sid, s in enumerate(self._slots) if s.req is not None and s.prefilling
+        ]
+        by_bucket: dict[int, list[tuple[int, int, int]]] = {}
+        for row in pieces:
+            by_bucket.setdefault(self._suffix_span(row), []).append(row)
+        for sb, rows in sorted(by_bucket.items()):
+            while rows:
+                g = next(x for x in self.PREFILL_GROUPS if x <= len(rows))
+                batch, rows = rows[:g], rows[g:]
+                self._dispatch_suffix(batch, sb, with_hist=False)
+                st.stats["prefill_pieces"] += g
+        completed: list[int] = []
+        for sid, c, end in pieces:
+            s = self._slots[sid]
+            # register the pages this piece filled (their content is now written)
+            for i in range(max(c, s.cached_len) // self.page_size, min(end // self.page_size, len(s.hashes))):
+                h = s.hashes[i]
+                if h not in self._prefix_map:
+                    self._prefix_map[h] = s.pages[i]
+                    self._page_hash[s.pages[i]] = h
+            s.prefilled = end
+            if end >= len(s.req.prompt) - 1:
+                s.prefilling = False
+                completed.append(sid)
+                self._open_decode(sid)
+        if completed and self.speculate_k > 0:
+            self._fill_hist(completed)
 
     def _collect(self, slot_id: int, *, keep_tokens: int | None = None, finish_reason: str | None = None) -> None:
         st = self._st
@@ -621,8 +902,10 @@ class PagedDecodeEngine:
             "token_ids": token_ids,
             "finish_reason": finish_reason if finish_reason is not None else ("stop" if stopped else "length"),
             "stop_reason": token_ids[-1] if stopped else None,
-            "cumulative_logprob": req.clp if keep_tokens is None else float(sum(req.lps[: len(token_ids)])),
-            "logprobs": req.lps[: len(token_ids)],
+            "cumulative_logprob": req.clp if keep_tokens is None or not req.lps
+            else float(sum(req.lps[: len(token_ids)])),
+            # per-token logprobs of the emitted tokens; None in spec mode (as in JAX)
+            "logprobs": req.lps[: len(token_ids)] if self.speculate_k == 0 else None,
         }
         self._free_slot(slot)
         st.active[slot_id] = False
@@ -708,11 +991,106 @@ class PagedDecodeEngine:
         )
         return packed.cpu().numpy()
 
+    def _run_chunk_spec(self, st: _Stream, control_np: np.ndarray) -> np.ndarray:
+        """``chunk`` speculative steps for every slot on the device: each
+        drafts k tokens per slot from its history (most recent bigram match),
+        verifies all k+1 in one forward, and emits the longest argmax-matching
+        prefix plus one token, cut at a stop token or the budget. Returns the
+        packed host view ``[slots, chunk*(k+1) + 4]`` int32: [emitted tokens,
+        compacted at each slot's cursor | done | seq_len | clp (f32 bits) |
+        verify steps]."""
+        dev, pad = self.device, self.pad_id
+        control = torch.from_numpy(control_np).to(dev)
+        active = control[:, 0] != 0
+        admit = control[:, 1] != 0
+        seq_lens = torch.where(admit, control[:, 2], st.seq_lens)
+        tok = torch.where(admit, control[:, 3], st.tok)
+        budget = torch.where(admit, control[:, 4], st.budget)
+        prompt_lens = control[:, 5]
+        done = st.done & ~admit
+        page_table = control[:, _N_CTRL_COLS:]  # greedy only: sampling columns unused
+        t_q, w, bucket = self.speculate_k + 1, self.max_context, self.prompt_bucket
+        # Per-slot write cap, the host's provisioning cap max(round_up(p,
+        # bucket), p + the REQUEST's budget): seq_lens + budget + 1 equals
+        # p + max_tokens at every step. A stream-level cap would let drafts
+        # write through stale page-table entries into other requests' pages.
+        cap = torch.clamp(torch.maximum((prompt_lens + bucket - 1) // bucket * bucket, seq_lens + budget + 1), max=w)
+        n = self.n_slots
+        rows = torch.arange(n, device=dev)
+        iota_t = torch.arange(t_q, dtype=torch.int32, device=dev)
+        posj = torch.arange(w - 1, dtype=torch.int32, device=dev)
+        buf_w = self.chunk * t_q + 1  # +1 trash column for masked emits
+        out_buf = torch.full((n, buf_w), pad, dtype=torch.int32, device=dev)
+        cursor = torch.zeros(n, dtype=torch.int32, device=dev)
+        clp = torch.zeros(n, dtype=torch.float32, device=dev)
+        nstep = torch.zeros(n, dtype=torch.int32, device=dev)
+        hist = st.hist  # updated in place
+        histw = hist[:n, :w]  # without the trash row and column
+        stop_ids = st.stop_ids
+        for _ in range(self.chunk):
+            advance = active & ~done
+            nstep += advance.to(torch.int32)
+            length = seq_lens  # position of the input token
+            # ---- draft: the continuation of the most recent (prev, tok) bigram in the history
+            b0 = histw[rows, torch.clamp(length - 1, 0, w - 1).long()]
+            can = ((histw[:, :-1] == b0[:, None]) & (histw[:, 1:] == tok[:, None])
+                   & ((posj + 1)[None, :] < length[:, None]) & (length[:, None] >= 2))
+            jbest = torch.where(can, posj[None, :], torch.full_like(posj, -1)[None, :]).amax(dim=1)
+            found = jbest >= 0
+            gidx = torch.clamp(jbest[:, None] + 1 + iota_t[None, :], 0, w - 1)
+            cont = torch.gather(histw, 1, gidx.long())
+            draft = torch.cat([tok[:, None], torch.where(found[:, None], cont[:, 1:], pad)], dim=1)
+            # ---- verify all T candidates in one forward
+            logits = decode_step_tokens_spec(
+                self.params, draft, self.cfg, self.pools, page_table, seq_lens, advance, cap,
+                n_pages=self.n_pages, attn_impl=self.attn_impl,
+            )
+            out = torch.argmax(logits, dim=-1).to(torch.int32)  # [slots, T]
+            lp = torch.gather(logits, 2, out[..., None].long())[..., 0] - torch.logsumexp(logits, dim=-1)
+            # ---- accept the longest matching prefix and the token after it
+            match = draft[:, 1:] == out[:, :-1]
+            accepted = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1, dtype=torch.int32)
+            n_full = torch.minimum(1 + accepted, budget)
+            is_stop = torch.isin(out, stop_ids) if stop_ids.numel() else torch.zeros_like(out, dtype=torch.bool)
+            cand = is_stop & (iota_t[None, :] < n_full[:, None])
+            stop_j = torch.where(cand, iota_t[None, :], t_q).amin(dim=1)
+            stopped = stop_j < t_q
+            n_emit = torch.where(stopped, stop_j + 1, n_full)
+            n_emit = torch.where(advance, n_emit, 0).to(torch.int32)
+            newly_done = advance & (stopped | (budget - n_emit <= 0))
+            emit = iota_t[None, :] < n_emit[:, None]
+            # compact the emitted tokens at each slot's cursor; emitted token j
+            # becomes history position length + 1 + j
+            bidx = torch.where(emit, cursor[:, None] + iota_t[None, :], buf_w - 1)
+            out_buf[rows[:, None], bidx.long()] = torch.where(emit, out, pad)
+            hidx = torch.where(emit, torch.clamp(length[:, None] + 1 + iota_t[None, :], 0, w), w)
+            hist[rows[:, None], hidx.long()] = torch.where(emit, out, 0)
+            cursor = cursor + n_emit
+            clp = clp + torch.where(emit & advance[:, None], lp, 0.0).sum(dim=1)
+            seq_lens = seq_lens + n_emit
+            budget = budget - n_emit
+            last = torch.clamp(n_emit - 1, 0, t_q - 1)
+            tok = torch.where(advance & (n_emit > 0), torch.gather(out, 1, last[:, None].long())[:, 0], tok)
+            done = done | newly_done
+        st.seq_lens, st.tok, st.done, st.budget = seq_lens, tok, done, budget
+        packed = torch.cat(
+            [out_buf[:, : self.chunk * t_q], done.to(torch.int32)[:, None], seq_lens[:, None],
+             clp.view(torch.int32)[:, None], nstep[:, None]],
+            dim=1,
+        )
+        return packed.cpu().numpy()
+
     def _harvest(self, packed: np.ndarray, runnable: list[int]) -> None:
         st = self._st
-        chunk = (packed.shape[1] - 3) // 2
-        lps_h = packed[:, chunk : 2 * chunk].view(np.float32)
-        tail = packed[:, 2 * chunk :]
+        if self.speculate_k > 0:  # [tokens | done | seq_len | clp | verify steps]
+            chunk = packed.shape[1] - 4
+            lps_h = None
+            tail = packed[:, chunk:]
+            st.stats["verify_steps"] += int(tail[:, 3].sum())
+        else:  # [tokens | per-token logprobs (f32 bits) | done | seq_len | clp]
+            chunk = (packed.shape[1] - 3) // 2
+            lps_h = packed[:, chunk : 2 * chunk].view(np.float32)
+            tail = packed[:, 2 * chunk :]
         clp_h = tail[:, 2].view(np.float32)
         for slot_id in runnable:
             s = self._slots[slot_id]
@@ -720,7 +1098,8 @@ class PagedDecodeEngine:
             s.seq_len = int(tail[slot_id, 1])
             if n_new > 0:
                 s.req.out.extend(int(t) for t in packed[slot_id, :n_new])
-                s.req.lps.extend(float(x) for x in lps_h[slot_id, :n_new])
+                if lps_h is not None:
+                    s.req.lps.extend(float(x) for x in lps_h[slot_id, :n_new])
                 s.req.clp += float(clp_h[slot_id])
                 s.n_out += n_new
                 st.stats["tokens_out"] += n_new
@@ -740,6 +1119,9 @@ class PagedDecodeEngine:
         try:
             self._step_inner(st)
         except BaseException:
+            # a slot admitted this step may have registered prefix-cache pages
+            # its prefill never wrote: drop the cache before releasing pages
+            self._clear_prefix_cache()
             self.end_stream()
             raise
         out = []
@@ -758,13 +1140,20 @@ class PagedDecodeEngine:
             if claim is None:
                 break  # pool tight: let running slots finish
             st.queue.pop(0)
-            admitted.append(claim)
+            if not self._slots[claim[0]].prefilling:
+                admitted.append(claim)  # chunk-prefilling slots piece through _advance_prefills
             free_ids = free_ids[1:]
         if admitted:
             self._prefill_admitted(admitted)
+        if self.prefill_chunk is not None:
+            self._advance_prefills()
 
-        runnable = [i for i, s in enumerate(self._slots) if s.req is not None and not s.done]
+        # a chunk-prefilling slot is not runnable: it is inactive in the control
+        # array and its device done flag still holds the previous occupant's
+        runnable = self._runnable()
         if not runnable:
+            if any(s.req is not None and s.prefilling for s in self._slots):
+                return  # the pieces progress; decode has nothing to run yet
             if st.suspend_admission:
                 st.suspend_admission = False  # nothing else can progress; retry admission
                 return
@@ -773,14 +1162,18 @@ class PagedDecodeEngine:
                 raise RuntimeError("KV page pool too small to admit any prompt; raise n_pages")
             return
 
-        # 2) pages for the next chunk of every running slot
+        # 2) pages for the next chunk of every running slot; a speculative step
+        # advances up to k+1 tokens and writes k draft positions past its last
+        # advance, so provision for both
+        t_mult = self.speculate_k + 1
+        lookahead = self.chunk * t_mult + t_mult - 1
         for slot_id in runnable:
             s = self._slots[slot_id]
             if s.req is None or s.done:
                 continue  # preempted while provisioning others
             mt = s.req.max_tokens if s.req.max_tokens is not None else sp.max_tokens
             cap = max(round_up(len(s.req.prompt), self.prompt_bucket), len(s.req.prompt) + mt)
-            target = min(s.seq_len + self.chunk + 1, self.max_context, cap)
+            target = min(s.seq_len + lookahead + 1, self.max_context, cap)
             while not self._ensure_capacity(slot_id, target):
                 victim = self._preempt_youngest(st.queue)
                 if victim is None:
@@ -794,16 +1187,22 @@ class PagedDecodeEngine:
                     return
 
         # 3) one decode chunk for every running slot, harvested at once
-        runnable = [i for i, s in enumerate(self._slots) if s.req is not None and not s.done]
+        runnable = self._runnable()
         if not runnable:
             return
-        any_samp = bool(np.any(st.slot_temp[runnable] > 0.0))
-        packed = self._run_chunk(st, self._control(st), any_samp)
+        if self.speculate_k > 0:
+            packed = self._run_chunk_spec(st, self._control(st))
+        else:
+            any_samp = bool(np.any(st.slot_temp[runnable] > 0.0))
+            packed = self._run_chunk(st, self._control(st), any_samp)
         st.admit[:] = 0  # consumed by this dispatch
         st.stats["chunk_dispatches"] += 1
         st.stats["slot_chunks"] += len(runnable)
         st.suspend_admission = False  # a chunk ran: progress is real
         self._harvest(packed, runnable)
+
+    def _runnable(self) -> list[int]:
+        return [i for i, s in enumerate(self._slots) if s.req is not None and not s.done and not s.prefilling]
 
     # --- batch driver ------------------------------------------------------------
 

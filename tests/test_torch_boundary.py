@@ -36,6 +36,15 @@ params = init_params(cfg, seed=0, dtype=torch.float32)
 eng = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=2, page_size=8, prompt_bucket=8, max_context=32, chunk=2)
 outs = eng.generate_batch([[1, 2, 3], [4, 5, 6, 7, 8, 9, 10, 11, 12]], SamplingParams(max_tokens=3))
 assert [len(o["token_ids"]) for o in outs] == [3, 3], outs
+# the verify step, the suffix prefill and chunked pieces (prefix cache on by default)
+eng = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=2, page_size=8, prompt_bucket=8, max_context=48, chunk=2,
+                        speculate_k=2, prefill_chunk=8)
+prompts = [list(range(1, 26)), list(range(1, 19)) + [7, 7, 7]]
+outs = eng.generate_batch(prompts, SamplingParams(max_tokens=4))
+assert [len(o["token_ids"]) for o in outs] == [4, 4], outs
+assert eng.last_stats["verify_steps"] > 0 and eng.last_stats["prefill_pieces"] > 0, eng.last_stats
+assert eng.generate_batch(prompts[:1], SamplingParams(max_tokens=4))[0]["token_ids"] == outs[0]["token_ids"]
+assert eng.last_stats["cached_prompt_tokens"] > 0, eng.last_stats
 from ssi_tpu_torch.train.lr_schedule import cosine_schedule_with_warmup
 from ssi_tpu_torch.train.optimizer import AdamWConfig, init_opt_state
 from ssi_tpu_torch.train.step import make_train_step
@@ -53,7 +62,8 @@ print("JAX_FREE_OK")
 
 def test_port_runs_the_engine_without_jax():
     """With the environment as it is (no switch that keeps jax out), importing
-    the port, serving and taking a train step on the CPU load neither jax nor
+    the port, serving (with and without speculation, the prefix cache and
+    chunked prefill) and taking a train step on the CPU load neither jax nor
     ``ssi_tpu``."""
     env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
     env["PYTHONPATH"] = str(REPO)
@@ -94,3 +104,18 @@ def test_launch_errors_raise_and_only_launches_count():
     _build.check_launch("paged_attention_fused", 0)
     assert _build.launch_counts["paged_attention_fused"] == 1
     _build.launch_counts.clear()
+
+
+def test_every_kernel_source_is_built_and_declared():
+    """Each ``csrc/*.cu`` source is in the build, includes no PyTorch header
+    (the sources have a plain C interface), and its C entry points are
+    exactly the ones ``_build`` declares to ctypes."""
+    sources = _build._sources()
+    assert "paged_attention_multi.cu" in [p.name for p in sources]
+    entry = re.compile(r'extern "C" int (\w+)\(')
+    found = set()
+    for path in sources:
+        text = path.read_text()
+        assert not re.search(r'#include\s*[<"](torch|ATen|c10)/', text), path.name
+        found |= set(entry.findall(text))
+    assert found == set(_build._SIGNATURES)

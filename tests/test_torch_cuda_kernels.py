@@ -9,7 +9,13 @@ import pytest
 import torch
 
 from ssi_tpu_torch import _build
-from ssi_tpu_torch.generate.paged_cuda import paged_attention_fused, paged_attention_fused_reference
+from ssi_tpu_torch.generate.paged import paged_attention
+from ssi_tpu_torch.generate.paged_cuda import (
+    paged_attention_fused,
+    paged_attention_fused_reference,
+    paged_attention_multi_fused,
+    paged_attention_multi_fused_reference,
+)
 from ssi_tpu_torch.ops.cross_entropy import cross_entropy_de, cross_entropy_dh, cross_entropy_lse, fused_cross_entropy
 from ssi_tpu_torch.ops.cross_entropy_cuda import (
     cross_entropy_de_kernel,
@@ -87,6 +93,45 @@ def test_paged_kernel_matches_plain(gen, dtype, n_rep):
     assert torch.equal(kp[:-1], kp_ref[:-1]) and torch.equal(vp[:-1], vp_ref[:-1])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_rep,t_q", [(1, 2), (2, 2), (4, 2), (4, 3), (2, 8), (4, 4), (8, 4), (8, 8)])
+def test_paged_multi_kernel_matches_plain(gen, dtype, n_rep, t_q):
+    """Kernel #9 against its plain version: ragged history (0, mid-page,
+    page-crossing spans, more than one 64-key tile, full context less T), an
+    inactive slot, and a slot whose write cap cuts the span. Attention is
+    compared on tokens whose own and earlier writes land; pools bitwise
+    except the trash row."""
+    slots, hkv, ps, max_pages, n_pages = 7, 2, 16, 10, 80
+    rows = 2 * n_pages + 1
+    trash = rows - 1
+    kp = torch.randn((rows, ps, hkv * 64), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((rows, ps, hkv * 64), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((slots, t_q, hkv * n_rep, 64), generator=gen, device="cuda").to(dtype)
+    kn = torch.randn((slots, t_q, hkv, 64), generator=gen, device="cuda").to(dtype)
+    vn = torch.randn((slots, t_q, hkv, 64), generator=gen, device="cuda").to(dtype)
+    table = (n_pages + torch.randperm(n_pages, generator=gen, device="cuda")[: slots * max_pages]).view(slots, max_pages)
+    hist = torch.tensor([0, 5, ps - 1, 3 * ps + 7, max_pages * ps - t_q, 9, 70], dtype=torch.int32, device="cuda")
+    active = torch.tensor([True] * 5 + [False, True], device="cuda")
+    cap = torch.full((slots,), max_pages * ps, dtype=torch.int32, device="cuda")
+    cap[6] = 71  # the last slot's cap cuts its span after one token
+    pos = hist[:, None] + torch.arange(t_q, device="cuda")[None, :]
+    ok = active[:, None] & (pos < cap[:, None])
+    logical = torch.gather(table, 1, (pos // ps).clamp(max=max_pages - 1).long())
+    write_rows = torch.where(ok, logical, torch.full_like(logical, trash)).to(torch.int32)
+    table = table.to(torch.int32)
+    kp_ref, vp_ref = kp.clone(), vp.clone()
+    got = paged_attention_multi_fused(q, kp, vp, table, hist, k_new=kn, v_new=vn, write_rows=write_rows)
+    ref = paged_attention_multi_fused_reference(q, kp_ref, vp_ref, table, hist, k_new=kn, v_new=vn,
+                                                write_rows=write_rows)
+    torch.cuda.synchronize()
+    landed = torch.cumprod(ok.int(), dim=1).bool()  # token t and every earlier token persisted
+    torch.testing.assert_close(got[landed].float(), ref[landed].float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(kp[:-1], kp_ref[:-1]) and torch.equal(vp[:-1], vp_ref[:-1])
+    # control: the plain output with the in-flight causal mask dropped (every token sees all T) must miss
+    loose = torch.stack([paged_attention(q[:, t], kp_ref, vp_ref, table, hist + t_q) for t in range(t_q)], dim=1)
+    assert not torch.allclose(got[landed].float(), loose[landed].float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
 def test_kernel_wrappers_refuse_unsupported_shapes(gen):
     q = torch.randn((1, 16, 4, 32), generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head_dim 64"):
@@ -99,6 +144,17 @@ def test_kernel_wrappers_refuse_unsupported_shapes(gen):
             k_new=torch.zeros((1, 3, 64), device="cuda"), v_new=torch.zeros((1, 3, 64), device="cuda"),
             write_rows=torch.zeros(1, dtype=torch.int32, device="cuda"),
         )
+    z = torch.zeros((1, 9, 8, 64), device="cuda")
+    kv9 = torch.zeros((1, 9, 2, 64), device="cuda")
+    pool = torch.zeros((3, 8, 2 * 64), device="cuda")
+    args = (torch.zeros((1, 1), dtype=torch.int32, device="cuda"), torch.ones(1, dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match=r"T \(9\)"):
+        paged_attention_multi_fused(z, pool, pool.clone(), *args, k_new=kv9, v_new=kv9,
+                                    write_rows=torch.zeros((1, 9), dtype=torch.int32, device="cuda"))
+    pool12 = torch.zeros((3, 12, 2 * 64), device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        paged_attention_multi_fused(z[:, :4], pool12, pool12.clone(), *args, k_new=kv9[:, :4], v_new=kv9[:, :4],
+                                    write_rows=torch.zeros((1, 4), dtype=torch.int32, device="cuda"))
 
 
 def qkv_segs(gen, dtype, b, s, hq, hkv, segs):

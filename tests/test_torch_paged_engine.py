@@ -2,7 +2,7 @@
 paged engine and the naive full-recompute greedy oracle, plus the scheduler
 contract of tests/test_paged_decode.py: refill, stop tokens and budgets,
 preemption, pool and context errors, sampling, cancel, and the options not
-ported yet."""
+ported yet. The prefix cache is on (the default) throughout."""
 
 import numpy as np
 import pytest
@@ -36,7 +36,14 @@ def make_engine(params, cfg, **kw):
 
 
 def no_leaks(engine) -> bool:
-    return len(engine._free_pages) == engine.n_pages and all(s.req is None for s in engine._slots)
+    """Idle-engine page accounting: every page is free or parked in the prefix
+    cache's LRU (unreferenced), the hash maps are 1:1, and no slot is held."""
+    return (
+        len(engine._free_pages) + len(engine._cache_lru) == engine.n_pages
+        and set(engine._page_hash) == set(engine._prefix_map.values())
+        and all(engine._page_refs[pg] == 0 for pg in engine._cache_lru)
+        and all(s.req is None for s in engine._slots)
+    )
 
 
 def run_stream(engine, sp, reqs, seed=0, features=None):
@@ -236,9 +243,8 @@ def test_cancel_request_mid_run(setup):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(prefix_caching=True), dict(prefill_chunk=16), dict(speculate_k=2), dict(quantize="int8"),
-     dict(mesh=object())],
-    ids=["prefix_caching", "prefill_chunk", "speculate_k", "quantize", "mesh"],
+    [dict(quantize="int8"), dict(mesh=object())],
+    ids=["quantize", "mesh"],
 )
 def test_unported_engine_options_raise(setup, kw):
     cfg, _, tparams = setup

@@ -48,12 +48,14 @@ c. the serving path with speculation: phase 5's requests with
    B 2, S 2048, with the plain gradients at lse + 0.05 as the control; times
    beside the backward of PyTorch's ``scaled_dot_product_attention`` (timed
    only, as a yardstick);
-7. the three cross-entropy kernels (lse, dh, dE) and the loss vs their plain
-   versions at N 4,096 and 3,072 tokens, D 2048, V 133,258 (f32 and bf16,
-   every 7th label ignored), at the init logit spread and a trained-like one
-   (std 4); dE's labelled and unlabelled vocab rows held apart; controls: a
-   constant lse, lse + 0.05, dh without its softmax term; times beside
-   ``F.cross_entropy(h @ E.T, y)`` and its backward;
+7. the cross-entropy kernels (lse, the backward's dlogits pass, the dh and
+   dE GEMMs) and the loss vs their plain versions at N 4,096 and 3,072
+   tokens, D 2048, V 133,258 (f32 and bf16, every 7th label ignored), at the
+   init logit spread and a trained-like one (std 4); dE's labelled and
+   unlabelled vocab rows held apart; controls: a constant lse, lse + 0.05,
+   dh without its softmax term; dh and dE bitwise equal over two launches;
+   times of each pass and of the whole backward beside one ``torch.mm`` per
+   GEMM and ``F.cross_entropy(h @ E.T, y)`` with its backward;
 8. f32 train-step parity at the full width of ``llama3_2_1b``: one
    micro-batch of B 1, S 512 through ``make_loss_fn`` (the kernels) and
    through the plain attention and cross-entropy on the card: loss and every
@@ -83,6 +85,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -94,11 +97,13 @@ PAGED_REPLACES = "ssi_tpu/generate/paged_pallas.py:83"  # paged_attention_pallas
 PAGED_MULTI_REPLACES = "ssi_tpu/generate/paged_pallas.py:425"  # paged_attention_pallas_multi -> _kernel_multi
 CE_REPLACES = {
     "cross_entropy_lse": "ssi_tpu/ops/cross_entropy_pallas.py:53",  # _compute_lse -> _lse_kernel
+    # the logits and dlogits that _dh_kernel (:118-126) and _de_kernel (:148-156) each form
+    "cross_entropy_dlogits": "ssi_tpu/ops/cross_entropy_pallas.py:108",
     "cross_entropy_dh": "ssi_tpu/ops/cross_entropy_pallas.py:108",  # _bwd_rule -> _dh_kernel
     "cross_entropy_de": "ssi_tpu/ops/cross_entropy_pallas.py:137",  # _bwd_rule -> _de_kernel
 }
-TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "cross_entropy_lse", "cross_entropy_dh",
-                 "cross_entropy_de")
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "cross_entropy_lse", "cross_entropy_dlogits",
+                 "cross_entropy_dh", "cross_entropy_de")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # limit on ||kernel - plain|| / ||plain|| over one output tensor (or one set of its rows)
 REL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -187,13 +192,29 @@ def phase_device():
     return smi
 
 
+def _kernel_name(mangled: str) -> str:
+    """A mangled kernel symbol -> its name (``<length><name>`` ending in
+    ``_kernel``) and up to 40 characters of its mangled template arguments."""
+    for m in re.finditer(r"\d+", mangled):
+        for start in range(m.start(), m.end()):  # the length may follow other digits (a hash)
+            n = int(mangled[start:m.end()])
+            name = mangled[m.end():m.end() + n]
+            if len(name) == n and name.endswith("_kernel"):
+                rest = mangled[m.end() + n:]
+                return name + (rest[:40] if rest.startswith("I") else "")
+    return mangled
+
+
 def phase_build():
     from ssi_tpu_torch import _build
 
     _build.load_library()
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines() if "registers" in ln or "spill" in ln]
-    for ln in ptxas:
-        log(f"  ptxas: {ln}")
+    kernel = ""  # the kernel the ptxas lines below belong to: its name and mangled template arguments
+    for ln in _build.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            kernel = _kernel_name(ln.split("'")[1])
+        elif "registers" in ln or "spill" in ln:
+            log(f"  ptxas {kernel}: {ln.strip()}")
     log(f"phase 1 build: {_build.build_seconds:.1f} s (0.0 = cached library reused)")
 
 
@@ -230,29 +251,28 @@ def phase_flash(gen):
                 worst[key] = max(worst.get(key, 0.0), err_o, err_l)
                 log(f"  flash {name:8s} B{b} S{s} {key:8s}: max|o err| {err_o:.3e}, max|lse err| {err_l:.3e} "
                     f"(tol {tol}); o rel {rel_o:.2e} (limit {REL[key]})")
-    # times at the checked shapes; the kernels line reports B8 S768
-    times = {}
+    # times at the checked shapes, beside one PyTorch call; the kernels line reports B8 S768
+    times, library = {}, {}
     for b, s in ((8, 768), (2, 768), (2, 2048)):
         q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
         v = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
         times[(b, s)] = in_turns(lambda: flash_attention_fwd(q, k, v, causal=True),
                                  lambda: flash_attention_reference(q, k, v, causal=True))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library[(b, s)] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
         # useful causal work: QK^T and PV over the S(S+1)/2 allowed pairs, 2 FLOP per MAC
         tflops = 4 * b * hq * d * s * (s + 1) / 2 / (times[(b, s)][0] * 1e-3) / 1e12
         log(f"  flash time bf16 causal B{b} S{s}: kernel {times[(b, s)][0]:.3f} ms ({tflops:.1f} TFLOP/s = "
-            f"{tflops / 989:.1%} of the bf16 tensor-core peak), plain {times[(b, s)][1]:.3f} ms")
-    # the kernels line reports B8 S768: bound from its shapes, and one PyTorch call as the yardstick
+            f"{tflops / 989:.1%} of the bf16 tensor-core peak), plain {times[(b, s)][1]:.3f} ms, "
+            f"scaled_dot_product_attention {library[(b, s)]:.3f} ms")
     b, s = 8, 768
-    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16) for h in (hq, hkv, hkv))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
     n_bytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d) + 4 * b * hq * s  # q, o; k, v; lse
     bound_ms, bound_by = bound(4 * b * hq * d * s * (s + 1) / 2, n_bytes)
-    log(f"  flash B8 S768: bound {bound_ms:.4f} ms ({bound_by}); scaled_dot_product_attention {library:.3f} ms")
+    log(f"  flash B8 S768: bound {bound_ms:.4f} ms ({bound_by})")
     log(f"phase 2 flash forward: ok (max err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e})")
     return {"max_abs_err": worst["bfloat16"], "ms": times[(8, 768)][0], "plain_ms": times[(8, 768)][1],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library[(8, 768)]}
 
 
 def phase_paged(gen):
@@ -687,13 +707,19 @@ def phase_cross_entropy(gen, vocab: int):
 
     from ssi_tpu_torch.ops.cross_entropy import (
         cross_entropy_de,
+        cross_entropy_de_gemm,
         cross_entropy_dh,
+        cross_entropy_dh_gemm,
+        cross_entropy_dlogits,
         cross_entropy_lse,
         fused_cross_entropy,
     )
     from ssi_tpu_torch.ops.cross_entropy_cuda import (
+        cross_entropy_de_gemm_kernel,
         cross_entropy_de_kernel,
+        cross_entropy_dh_gemm_kernel,
         cross_entropy_dh_kernel,
+        cross_entropy_dlogits_kernel,
         cross_entropy_lse_kernel,
         fused_cross_entropy_kernel,
     )
@@ -726,8 +752,15 @@ def phase_cross_entropy(gen, vocab: int):
                 lse = cross_entropy_lse_kernel(h, e)
                 lse_p = cross_entropy_lse(h, e)
                 loss, loss_p = fused_cross_entropy_kernel(h, e, y), fused_cross_entropy(h, e, y)
+                dl = cross_entropy_dlogits_kernel(h, e, y, lse, g)
+                err_dl, rel_dl, _ = hold(f"{what} dlogits", dl, cross_entropy_dlogits(h, e, y, g), key)
+                note("cross_entropy_dlogits", key, err_dl, rel_dl)
+                del dl
                 dh, dh_p = cross_entropy_dh_kernel(h, e, y, lse, g), cross_entropy_dh(h, e, y, g)
                 de, de_p = cross_entropy_de_kernel(h, e, y, lse, g), cross_entropy_de(h, e, y, g)
+                # no atomics: a second launch of each gradient gives the same bits
+                check(torch.equal(cross_entropy_dh_kernel(h, e, y, lse, g), dh), f"{what} dh: two launches differ")
+                check(torch.equal(cross_entropy_de_kernel(h, e, y, lse, g), de), f"{what} dE: two launches differ")
                 # control for dE: the kernel itself fed every probability 5% low (lse + 0.05)
                 de_c = cross_entropy_de_kernel(h, e, y, lse + 0.05, g)
                 torch.cuda.synchronize()
@@ -761,43 +794,62 @@ def phase_cross_entropy(gen, vocab: int):
                 note("cross_entropy_de", key, max(err_l, err_u), max(rel_l, rel_u))
                 c_dh = f"{c_dh:.2e}" if tell else "not applied"
                 log(f"  {what}: lse max err {err_lse:.2e} (limit {LSE_ATOL}; constant lse {spread_lse:.2e}); "
-                    f"loss rel {rel_loss:.2e} (limit 1e-5); rel dh {rel_dh:.2e} (control {c_dh}), dE labelled "
-                    f"{rel_l:.2e}, dE unlabelled {rel_u:.2e} (control {c_de:.2e}) (limit {REL[key]}); "
-                    f"max|err| dh {err_dh:.2e}, dE {max(err_l, err_u):.2e}")
+                    f"loss rel {rel_loss:.2e} (limit 1e-5); rel dlogits {rel_dl:.2e}, dh {rel_dh:.2e} (control "
+                    f"{c_dh}), dE labelled {rel_l:.2e}, dE unlabelled {rel_u:.2e} (control {c_de:.2e}) (limit "
+                    f"{REL[key]}); max|err| dh {err_dh:.2e}, dE {max(err_l, err_u):.2e}; dh and dE bitwise equal "
+                    "over two launches")
                 del h, e, y, lse, lse_p, dh, dh_p, de, de_p, de_c, onehot, labelled
                 torch.cuda.empty_cache()
 
     n = 4096
     h, e, y = inputs(n, torch.bfloat16)
     lse = cross_entropy_lse_kernel(h, e)
+    dl = cross_entropy_dlogits_kernel(h, e, y, lse, g)
+
+    def backward():  # the kernels' whole backward, as _CrossEntropyKernel.backward runs it
+        dlogits = cross_entropy_dlogits_kernel(h, e, y, lse, g)
+        return cross_entropy_dh_gemm_kernel(dlogits, e), cross_entropy_de_gemm_kernel(dlogits, h)
+
     t = {"cross_entropy_lse": in_turns(lambda: cross_entropy_lse_kernel(h, e), lambda: cross_entropy_lse(h, e), 5),
-         "cross_entropy_dh": in_turns(lambda: cross_entropy_dh_kernel(h, e, y, lse, g),
-                                      lambda: cross_entropy_dh(h, e, y, g), 3),
-         "cross_entropy_de": in_turns(lambda: cross_entropy_de_kernel(h, e, y, lse, g),
-                                      lambda: cross_entropy_de(h, e, y, g), 3)}
-    # yardstick: two PyTorch calls (the logits product and cross_entropy) and their backward, timed only
+         "cross_entropy_dlogits": in_turns(lambda: cross_entropy_dlogits_kernel(h, e, y, lse, g),
+                                           lambda: cross_entropy_dlogits(h, e, y, g), 3),
+         "cross_entropy_dh": in_turns(lambda: cross_entropy_dh_gemm_kernel(dl, e),
+                                      lambda: cross_entropy_dh_gemm(dl, e), 3),
+         "cross_entropy_de": in_turns(lambda: cross_entropy_de_gemm_kernel(dl, h),
+                                      lambda: cross_entropy_de_gemm(dl, h), 3)}
+    t_bwd, t_bwd_p = in_turns(backward, lambda: (cross_entropy_dh(h, e, y, g), cross_entropy_de(h, e, y, g)), 3)
+    # yardsticks, timed only: one PyTorch call for each GEMM; the logits product and
+    # cross_entropy (two calls) and their backward
+    lib_dh = time_ms(lambda: torch.mm(dl, e, out_dtype=torch.float32), iters=3)
+    lib_de = time_ms(lambda: torch.mm(dl.t(), h, out_dtype=torch.float32), iters=3)
     hl, el = h.detach().requires_grad_(), e.detach().requires_grad_()
     yl = y.long()
     lib_fwd = time_ms(lambda: F.cross_entropy(hl @ el.T, yl, reduction="sum"), iters=5)
     loss = F.cross_entropy(hl @ el.T, yl, reduction="sum")
     lib_bwd = time_ms(lambda: torch.autograd.grad(loss, (hl, el), retain_graph=True), iters=3)
-    ops = 2 * n * vocab * d  # one logits pass; dh and dE each also form dlogits . operand
-    hb, eb = 2 * n * d, 2 * vocab * d
+    ops = 2 * n * vocab * d  # one [N, D] x [D, V] product
+    hb, eb, dlb = 2 * n * d, 2 * vocab * d, 2 * n * vocab
     rows = {}
-    for name, (n_ops, n_bytes, library) in {
-        "cross_entropy_lse": (ops, hb + eb + 4 * n, lib_fwd),
-        "cross_entropy_dh": (2 * ops, hb + eb + 8 * n + hb, lib_bwd),
-        "cross_entropy_de": (2 * ops, hb + eb + 8 * n + eb, lib_bwd),
+    for name, (n_bytes, library) in {
+        "cross_entropy_lse": (hb + eb + 4 * n, lib_fwd),
+        "cross_entropy_dlogits": (hb + eb + 8 * n + dlb, None),  # h, E, lse, labels read; dlogits written
+        "cross_entropy_dh": (dlb + eb + hb, lib_dh),
+        "cross_entropy_de": (dlb + hb + eb, lib_de),
     }.items():
-        bound_ms, bound_by = bound(n_ops, n_bytes)
+        bound_ms, bound_by = bound(ops, n_bytes)
         t_k, t_p = t[name]
-        log(f"  {name} time bf16 N{n}: kernel {t_k:.3f} ms ({n_ops / (t_k * 1e-3) / 1e12:.1f} TFLOP/s), "
-            f"plain {t_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+        log(f"  {name} time bf16 N{n}: kernel {t_k:.3f} ms ({ops / (t_k * 1e-3) / 1e12:.1f} TFLOP/s), "
+            f"plain {t_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
+            + (f", one PyTorch call {library:.3f} ms" if library is not None else ""))
         rows[name] = {"max_abs_err": worst[name, "bfloat16"], "rel_err": worst_rel[name, "bfloat16"], "ms": t_k,
                       "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library}
+    bound_bwd, by_bwd = bound(3 * ops, hb + eb + 8 * n + hb + eb)  # h, E, lse, labels read; dh, dE written
+    log(f"  cross-entropy backward bf16 N{n} (dlogits + dh + dE): kernels {t_bwd:.3f} ms "
+        f"({3 * ops / (t_bwd * 1e-3) / 1e12:.1f} TFLOP/s), plain {t_bwd_p:.3f} ms, bound {bound_bwd:.3f} ms "
+        f"({by_bwd}); library backward of h @ E.T + F.cross_entropy {lib_bwd:.3f} ms")
     log(f"  library yardstick N{n}: F.cross_entropy(h @ E.T) forward {lib_fwd:.3f} ms (two calls), "
         f"its backward {lib_bwd:.3f} ms (dh and dE together)")
-    del h, e, y, lse, hl, el, loss
+    del h, e, y, lse, dl, hl, el, loss
     torch.cuda.empty_cache()
     log("phase 7 cross entropy: ok (worst rel err f32 / bf16: " + ", ".join(
         f"{name.split('_')[-1]} {worst_rel[name, 'float32']:.2e} / {worst_rel[name, 'bfloat16']:.2e}"

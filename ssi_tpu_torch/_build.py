@@ -69,9 +69,12 @@ _SIGNATURES = {
     "ssi_cross_entropy_lse_splits": [_I, _I],
     # dtype, h, e, m_part (scratch), l_part (scratch), lse, N, V, D, n_split, stream
     "ssi_cross_entropy_lse": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # dtype, rows_are_tokens, h, e, lse, labels, g, out, N, V, D, stream; an error
-    # when the [16, D] f32 gradient tile does not fit one block's shared memory
-    "ssi_cross_entropy_grad": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, h, e, lse, labels, g, dlogits (out, row stride ldv), N, V, D, ldv, stream
+    "ssi_cross_entropy_dlogits": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, dlogits, e, dh (out), N, V, D, ldv, stream
+    "ssi_cross_entropy_dh": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, dlogits, h, de (out), N, V, D, ldv, stream
+    "ssi_cross_entropy_de": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

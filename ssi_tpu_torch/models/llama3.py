@@ -143,12 +143,13 @@ def init_params(
     cfg: ConfigLlama3_2,
     seed: int = 0,
     dtype: torch.dtype = torch.bfloat16,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Params:
     """Random small-normal initialization from ``seed``, drawn with a
-    ``torch.Generator`` on ``device`` (a 1B tree initializes on the card in
-    well under a second). Not bitwise equal to the JAX ``init_params``: tests
-    carry JAX parameters across with :func:`params_from_numpy` instead."""
+    ``torch.Generator`` on ``device`` (the card unless the caller names the
+    CPU; a 1B tree initializes on the card in well under a second). Not
+    bitwise equal to the JAX ``init_params``: tests carry JAX parameters
+    across with :func:`params_from_numpy` instead."""
     d, f, hd = cfg.embed_dim, cfg.intermediate_dim, cfg.head_dim
     hq, hkv, nl, v = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers, cfg.vocab_size
     gen = torch.Generator(device=device)
@@ -181,10 +182,11 @@ def init_params(
     return params
 
 
-def params_from_numpy(tree: Any, device: torch.device | str = "cpu", dtype: torch.dtype | None = None) -> Any:
+def params_from_numpy(tree: Any, device: torch.device | str = "cuda", dtype: torch.dtype | None = None) -> Any:
     """A JAX parameter tree as numpy arrays (``jax.tree.map(np.asarray,
-    params)``) -> the port's tensors, same keys and layouts. ml_dtypes bf16
-    arrays cross through a uint16 view; ``dtype`` optionally casts."""
+    params)``) -> the port's tensors on ``device`` (the card unless the caller
+    names the CPU), same keys and layouts. ml_dtypes bf16 arrays cross
+    through a uint16 view; ``dtype`` optionally casts."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
     arr = np.asarray(tree)

@@ -9,9 +9,12 @@ count).
 
 This module is the CPU path and the plain version of the CUDA kernels in
 ``ops/cross_entropy_cuda.py`` (TPU kernels #5-#7): :func:`cross_entropy_lse`
-for the streaming logsumexp, :func:`cross_entropy_dh` and
-:func:`cross_entropy_de` for the two gradients. Products take f32
-accumulation for bf16 operands, as ``preferred_element_type=float32`` does.
+for the streaming logsumexp, :func:`cross_entropy_dlogits` for the
+backward's dlogits pass, :func:`cross_entropy_dh_gemm` and
+:func:`cross_entropy_de_gemm` for its two GEMMs, and :func:`cross_entropy_dh`
+and :func:`cross_entropy_de` for the two gradients from h and E. Products
+take f32 accumulation for bf16 operands, as ``preferred_element_type=float32``
+does.
 """
 
 from __future__ import annotations
@@ -47,6 +50,22 @@ def cross_entropy_lse(hidden: torch.Tensor, embed: torch.Tensor, chunk_size: int
     """Row logsumexp of ``hidden @ embed.T``, ``[N]`` f32 (plain version of #5)."""
     return torch.cat([torch.logsumexp(_mm_f32(hidden[a:b], embed.t()), dim=-1)
                       for a, b in _chunks(hidden.shape[0], chunk_size)])
+
+
+def cross_entropy_dlogits(hidden, embed, labels, g, chunk_size: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """dlogits = (softmax - onehot) * valid * g, ``[N, V]`` in E's dtype
+    (plain version of the kernels' dlogits pass)."""
+    return torch.cat([_dlogits(hidden[a:b], embed, labels[a:b], g) for a, b in _chunks(hidden.shape[0], chunk_size)])
+
+
+def cross_entropy_dh_gemm(dlogits: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """dh = dlogits @ E, ``[N, D]`` in E's dtype (plain version of the dh GEMM)."""
+    return _mm_f32(dlogits, embed).to(embed.dtype)
+
+
+def cross_entropy_de_gemm(dlogits: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
+    """dE = dlogits^T @ h, ``[V, D]`` in h's dtype (plain version of the dE GEMM)."""
+    return _mm_f32(dlogits.t(), hidden).to(hidden.dtype)
 
 
 def cross_entropy_dh(hidden, embed, labels, g, chunk_size: int = DEFAULT_CHUNK) -> torch.Tensor:

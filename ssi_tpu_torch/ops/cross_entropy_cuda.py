@@ -4,11 +4,12 @@ autograd wrapper the training loss calls.
 Port of ``ssi_tpu/ops/cross_entropy_pallas.py`` (TPU kernels ``_lse_kernel``,
 ``_dh_kernel``, ``_de_kernel``). The forward launches the logsumexp kernel and
 takes the picked-label logit outside it, by an f32 row gather, as the TPU
-``_forward`` does; the backward launches the dh and dE kernels, which
-recompute the logits tile by tile so the ``[N, V]`` dlogits never reach
-device memory. The outputs are lse ``[N]`` f32, dh ``[N, D]`` in h's dtype
-and dE ``[V, D]`` in E's dtype (exactly V rows: padded vocab columns are
-masked inside the kernels, not padded in memory).
+``_forward`` does. The backward launches the dlogits pass once, which forms
+the logits and writes ``dlogits = (softmax - onehot) * valid * g`` in the
+operand dtype to a scratch ``[N, ldv]`` (``ldv`` = V rounded up to 8), then
+the dh GEMM (``dlogits @ E``) and the dE GEMM (``dlogits^T @ h``) over it;
+the scratch is freed with the backward. The outputs are lse ``[N]`` f32, dh
+``[N, D]`` in h's dtype and dE ``[V, D]`` in E's dtype.
 
 Dispatch is by device, never by failure: CPU tensors take the plain version
 (``ops/cross_entropy.py``); CUDA tensors launch the kernels or raise.
@@ -23,7 +24,10 @@ from ssi_tpu_torch.constants import CROSS_ENTROPY_IGNORE_IDX
 from ssi_tpu_torch.ops.cross_entropy import (
     DEFAULT_CHUNK,
     cross_entropy_de,
+    cross_entropy_de_gemm,
     cross_entropy_dh,
+    cross_entropy_dh_gemm,
+    cross_entropy_dlogits,
     cross_entropy_lse,
     fused_cross_entropy,
 )
@@ -77,37 +81,83 @@ def cross_entropy_lse_kernel(hidden: torch.Tensor, embed: torch.Tensor,
     return lse
 
 
-def _grad_kernel(name: str, rows_are_tokens: bool, hidden, embed, labels, lse, g) -> torch.Tensor:
+def cross_entropy_dlogits_kernel(hidden, embed, labels, lse, g, chunk_size: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """dlogits = (exp(h @ E.T - lse) - onehot) * valid * g, ``[N, V]`` in the
+    operand dtype, from the forward's ``lse``. On CUDA a view of the kernel's
+    padded ``[N, ldv]`` scratch (unit column stride, 16-byte aligned rows),
+    which is what :func:`cross_entropy_dh_gemm_kernel` and
+    :func:`cross_entropy_de_gemm_kernel` take. The plain version (CPU)
+    recomputes the softmax and takes no lse."""
+    _check(hidden, embed, labels)
+    if not hidden.is_cuda:
+        return cross_entropy_dlogits(hidden, embed, labels, g, chunk_size)
     n, d = hidden.shape
     v = embed.shape[0]
     code, h, e, stream = _launch_args(hidden, embed)
     lab = labels.to(device=h.device, dtype=torch.int32).contiguous()
     lse = lse.to(device=h.device, dtype=torch.float32).contiguous()
     g = torch.as_tensor(g, dtype=torch.float32, device=h.device).reshape(1).contiguous()
-    out = torch.empty((n if rows_are_tokens else v, d), dtype=h.dtype, device=h.device)
-    err = _build.load_library().ssi_cross_entropy_grad(
-        code, int(rows_are_tokens), h.data_ptr(), e.data_ptr(), lse.data_ptr(), lab.data_ptr(), g.data_ptr(),
-        out.data_ptr(), n, v, d, stream)
+    ldv = (v + 7) // 8 * 8
+    dl = torch.empty((n, ldv), dtype=h.dtype, device=h.device)
+    err = _build.load_library().ssi_cross_entropy_dlogits(
+        code, h.data_ptr(), e.data_ptr(), lse.data_ptr(), lab.data_ptr(), g.data_ptr(), dl.data_ptr(), n, v, d, ldv,
+        stream)
+    _build.check_launch("cross_entropy_dlogits", err)
+    return dl[:, :v]
+
+
+def _gemm(name: str, dlogits, other) -> torch.Tensor:
+    """dh (``other`` = E) or dE (``other`` = h) from the dlogits pass's view."""
+    n, v = dlogits.shape
+    code, x, _, stream = _launch_args(other, other)
+    if dlogits.dtype != x.dtype or dlogits.device != x.device:
+        raise TypeError(f"dlogits ({dlogits.dtype}, {dlogits.device}) must match the operand ({x.dtype}, {x.device})")
+    if dlogits.stride(1) != 1 or dlogits.stride(0) % 8 != 0 or dlogits.data_ptr() % 16 != 0:
+        raise ValueError("dlogits must have unit column stride and 16-byte aligned rows (a view of the dlogits "
+                         "pass's scratch)")
+    d = x.shape[1]
+    out = torch.empty((n if name == "cross_entropy_dh" else v, d), dtype=x.dtype, device=x.device)
+    fn = getattr(_build.load_library(), f"ssi_{name}")
+    err = fn(code, dlogits.data_ptr(), x.data_ptr(), out.data_ptr(), n, v, d, dlogits.stride(0), stream)
     _build.check_launch(name, err)
     return out
 
 
+def cross_entropy_dh_gemm_kernel(dlogits: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """dh = dlogits @ E, ``[N, D]`` in E's dtype (f32 accumulation)."""
+    if dlogits.shape[1] != embed.shape[0]:
+        raise ValueError(f"dlogits {tuple(dlogits.shape)} and embed {tuple(embed.shape)} do not chain")
+    if not dlogits.is_cuda:
+        return cross_entropy_dh_gemm(dlogits, embed)
+    return _gemm("cross_entropy_dh", dlogits, embed)
+
+
+def cross_entropy_de_gemm_kernel(dlogits: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
+    """dE = dlogits^T @ h, ``[V, D]`` in h's dtype (f32 accumulation)."""
+    if dlogits.shape[0] != hidden.shape[0]:
+        raise ValueError(f"dlogits {tuple(dlogits.shape)} and hidden {tuple(hidden.shape)} do not chain")
+    if not dlogits.is_cuda:
+        return cross_entropy_de_gemm(dlogits, hidden)
+    return _gemm("cross_entropy_de", dlogits, hidden)
+
+
 def cross_entropy_dh_kernel(hidden, embed, labels, lse, g, chunk_size: int = DEFAULT_CHUNK) -> torch.Tensor:
     """dh = ((softmax - onehot) * valid * g) @ E, ``[N, D]`` in h's dtype,
-    from the forward's ``lse``. The plain version (CPU) recomputes the softmax
-    itself and takes no lse."""
+    from the forward's ``lse``: the dlogits pass, then the dh GEMM. The plain
+    version (CPU) recomputes the softmax itself and takes no lse."""
     _check(hidden, embed, labels)
     if not hidden.is_cuda:
         return cross_entropy_dh(hidden, embed, labels, g, chunk_size)
-    return _grad_kernel("cross_entropy_dh", True, hidden, embed, labels, lse, g)
+    return cross_entropy_dh_gemm_kernel(cross_entropy_dlogits_kernel(hidden, embed, labels, lse, g), embed)
 
 
 def cross_entropy_de_kernel(hidden, embed, labels, lse, g, chunk_size: int = DEFAULT_CHUNK) -> torch.Tensor:
-    """dE = ((softmax - onehot) * valid * g)^T @ h, ``[V, D]`` in E's dtype."""
+    """dE = ((softmax - onehot) * valid * g)^T @ h, ``[V, D]`` in E's dtype:
+    the dlogits pass, then the dE GEMM."""
     _check(hidden, embed, labels)
     if not hidden.is_cuda:
         return cross_entropy_de(hidden, embed, labels, g, chunk_size)
-    return _grad_kernel("cross_entropy_de", False, hidden, embed, labels, lse, g)
+    return cross_entropy_de_gemm_kernel(cross_entropy_dlogits_kernel(hidden, embed, labels, lse, g), hidden)
 
 
 class _CrossEntropyKernel(torch.autograd.Function):
@@ -124,8 +174,10 @@ class _CrossEntropyKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         hidden, embed, labels, lse = ctx.saved_tensors
-        dh = cross_entropy_dh_kernel(hidden, embed, labels, lse, g) if ctx.needs_input_grad[0] else None
-        de = cross_entropy_de_kernel(hidden, embed, labels, lse, g) if ctx.needs_input_grad[1] else None
+        # one dlogits pass feeds both GEMMs; its [N, ldv] scratch is freed on return
+        dl = cross_entropy_dlogits_kernel(hidden, embed, labels, lse, g)
+        dh = cross_entropy_dh_gemm_kernel(dl, embed) if ctx.needs_input_grad[0] else None
+        de = cross_entropy_de_gemm_kernel(dl, hidden) if ctx.needs_input_grad[1] else None
         return dh, de, None
 
 

@@ -139,6 +139,10 @@ def _flash_fwd_cuda(q, k, v, causal: bool, segment_ids) -> tuple[torch.Tensor, t
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along head_dim")
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies rows in 16-byte pieces
+        q, k, v = (x if x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
+                   else x.clone(memory_format=torch.contiguous_format)
+                   for x in (q, k, v))
     seg = None
     if segment_ids is not None:
         seg = segment_ids.to(device=q.device, dtype=torch.int32).contiguous()

@@ -32,7 +32,7 @@ from ssi_tpu_torch.models.configs import get_model_config
 from ssi_tpu_torch.models.llama3 import init_params
 import torch
 cfg = get_model_config("tiny_test")
-params = init_params(cfg, seed=0, dtype=torch.float32)
+params = init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
 eng = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=2, page_size=8, prompt_bucket=8, max_context=32, chunk=2)
 outs = eng.generate_batch([[1, 2, 3], [4, 5, 6, 7, 8, 9, 10, 11, 12]], SamplingParams(max_tokens=3))
 assert [len(o["token_ids"]) for o in outs] == [3, 3], outs

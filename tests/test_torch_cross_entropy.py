@@ -18,14 +18,20 @@ from ssi_tpu.ops.cross_entropy_pallas import fused_cross_entropy_pallas
 from ssi_tpu_torch.constants import CROSS_ENTROPY_IGNORE_IDX
 from ssi_tpu_torch.ops.cross_entropy import (
     cross_entropy_de,
+    cross_entropy_de_gemm,
     cross_entropy_dh,
+    cross_entropy_dh_gemm,
+    cross_entropy_dlogits,
     cross_entropy_lse,
     cross_entropy_sum_and_count,
     fused_cross_entropy,
 )
 from ssi_tpu_torch.ops.cross_entropy_cuda import (
+    cross_entropy_de_gemm_kernel,
     cross_entropy_de_kernel,
+    cross_entropy_dh_gemm_kernel,
     cross_entropy_dh_kernel,
+    cross_entropy_dlogits_kernel,
     cross_entropy_lse_kernel,
     fused_cross_entropy_kernel,
 )
@@ -95,6 +101,29 @@ def test_cross_entropy_matches_jax(case, port):
         np.testing.assert_array_equal(de, 0.0)
 
 
+@pytest.mark.parametrize("case", sorted(c for c in CASES if CASES[c][-1] is not None))
+def test_dlogits_products_match_jax_pallas_grads(case):
+    """The backward as the port computes it, one dlogits pass then two
+    products: ``dlogits @ E`` and ``dlogits^T @ h`` against the gradients of
+    the JAX ``fused_cross_entropy_pallas`` in interpret mode (g = 1), for the
+    plain versions (``cross_entropy_dlogits``, ``cross_entropy_dh_gemm``,
+    ``cross_entropy_de_gemm``) and for the kernel wrappers' CPU path.
+    f32: rtol 1e-4, atol 1e-5."""
+    n, v, d, seed, every, all_ignored, chunk, _, blocks = CASES[case]
+    h, e, y = make_inputs(n, v, d, seed, every, all_ignored)
+    with pltpu.force_tpu_interpret_mode():
+        _, w_dh, w_de = jax_loss_and_grads(lambda a, b, c: fused_cross_entropy_pallas(a, b, c, *blocks), h, e, y)
+    th, te, ty = map(torch.from_numpy, (h, e, y))
+    g = torch.tensor(1.0)
+    dl = cross_entropy_dlogits(th, te, ty, g, chunk)
+    assert dl.shape == (n, v) and dl.dtype == te.dtype
+    np.testing.assert_allclose(cross_entropy_dh_gemm(dl, te).numpy(), w_dh, **GRAD_TOL)
+    np.testing.assert_allclose(cross_entropy_de_gemm(dl, th).numpy(), w_de, **GRAD_TOL)
+    dl_k = cross_entropy_dlogits_kernel(th, te, ty, cross_entropy_lse(th, te, chunk), g, chunk)
+    np.testing.assert_allclose(cross_entropy_dh_gemm_kernel(dl_k, te).numpy(), w_dh, **GRAD_TOL)
+    np.testing.assert_allclose(cross_entropy_de_gemm_kernel(dl_k, th).numpy(), w_de, **GRAD_TOL)
+
+
 def test_sum_and_count():
     h, e, y = make_inputs(64, 50, 8, 0, 5, False)
     loss, count = cross_entropy_sum_and_count(torch.from_numpy(h), torch.from_numpy(e), torch.from_numpy(y), 16)
@@ -103,8 +132,8 @@ def test_sum_and_count():
 
 
 def test_kernel_plain_versions_match_numpy():
-    """The three plain versions the kernels are held against on the card:
-    lse, dh and dE against a float64 numpy computation, with g = 0.7."""
+    """The plain versions the kernels are held against on the card: lse,
+    dlogits, dh and dE against a float64 numpy computation, with g = 0.7."""
     h, e, y = make_inputs(40, 257, 16, 3, 7, False)
     logits = h.astype(np.float64) @ e.astype(np.float64).T
     lse = np.log(np.exp(logits - logits.max(1, keepdims=True)).sum(1)) + logits.max(1)
@@ -114,6 +143,7 @@ def test_kernel_plain_versions_match_numpy():
     dl = np.where(valid[:, None], dl, 0.0) * 0.7
     th, te, ty = map(torch.from_numpy, (h, e, y))
     g = torch.tensor(0.7)
+    np.testing.assert_allclose(cross_entropy_dlogits(th, te, ty, g, 16).numpy(), dl, **GRAD_TOL)
     for lse_fn, dh_fn, de_fn in ((cross_entropy_lse, cross_entropy_dh, cross_entropy_de),
                                  (cross_entropy_lse_kernel, None, None)):
         np.testing.assert_allclose(lse_fn(th, te, 16).numpy(), lse, rtol=1e-5)

@@ -16,10 +16,19 @@ from ssi_tpu_torch.generate.paged_cuda import (
     paged_attention_multi_fused,
     paged_attention_multi_fused_reference,
 )
-from ssi_tpu_torch.ops.cross_entropy import cross_entropy_de, cross_entropy_dh, cross_entropy_lse, fused_cross_entropy
+from ssi_tpu_torch.ops.cross_entropy import (
+    cross_entropy_de,
+    cross_entropy_dh,
+    cross_entropy_dlogits,
+    cross_entropy_lse,
+    fused_cross_entropy,
+)
 from ssi_tpu_torch.ops.cross_entropy_cuda import (
+    cross_entropy_de_gemm_kernel,
     cross_entropy_de_kernel,
+    cross_entropy_dh_gemm_kernel,
     cross_entropy_dh_kernel,
+    cross_entropy_dlogits_kernel,
     cross_entropy_lse_kernel,
     fused_cross_entropy_kernel,
 )
@@ -48,8 +57,9 @@ def gen():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 4), (8, 2), (32, 8)])
-@pytest.mark.parametrize("s,causal,segs", [(77, True, False), (200, False, False), (130, True, True)])
+@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 4), (8, 2), (8, 1), (32, 8)])  # n_rep 1, 2, 4, 8, 4
+@pytest.mark.parametrize("s,causal,segs", [(77, True, False), (200, False, False), (130, True, True),
+                                           (200, False, True), (77, True, True)])
 def test_flash_kernel_matches_plain(gen, dtype, hq, hkv, s, causal, segs):
     q = torch.randn((2, s, hq, 64), generator=gen, device="cuda").to(dtype)
     k = torch.randn((2, s, hkv, 64), generator=gen, device="cuda").to(dtype)
@@ -201,6 +211,7 @@ def test_flash_autograd_on_cuda_runs_both_kernels(gen):
 
 
 def ce_inputs(gen, dtype, n, v, d, every=7):
+    """h, E and labels with every ``every``-th label ignored (1: all of them)."""
     h = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
     e = (torch.randn((v, d), generator=gen, device="cuda") * 0.5).to(dtype)
     y = torch.randint(0, v, (n,), generator=gen, device="cuda", dtype=torch.int32)
@@ -210,18 +221,31 @@ def ce_inputs(gen, dtype, n, v, d, every=7):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,v,d", [(100, 257, 128), (64, 1000, 256), (130, 4099, 128), (16, 63, 128)])
-def test_cross_entropy_kernels_match_plain(gen, dtype, n, v, d):
-    h, e, y = ce_inputs(gen, dtype, n, v, d)
+@pytest.mark.parametrize("n,v,d,every", [(100, 257, 128, 7), (64, 1000, 256, 7), (130, 4099, 128, 7),
+                                         (16, 63, 128, 7), (200, 1001, 256, 7), (100, 1001, 128, 1)])
+def test_cross_entropy_kernels_match_plain(gen, dtype, n, v, d, every):
+    """lse, the dlogits pass and the dh / dE GEMMs against their plain
+    versions: V not a multiple of 8 (the ldv pad) or of 128, N not a multiple
+    of 128, every 7th label ignored or all of them (every=1). No atomics: a
+    second launch of dh and of dE gives the same bits."""
+    h, e, y = ce_inputs(gen, dtype, n, v, d, every)
     g = torch.tensor(0.37, device="cuda")
     lse = cross_entropy_lse_kernel(h, e)
     torch.testing.assert_close(lse, cross_entropy_lse(h, e), atol=TOL[dtype], rtol=TOL[dtype])
+    dl = cross_entropy_dlogits_kernel(h, e, y, lse, g)
     dh = cross_entropy_dh_kernel(h, e, y, lse, g)
     de = cross_entropy_de_kernel(h, e, y, lse, g)
     torch.cuda.synchronize()
-    assert dh.dtype == de.dtype == dtype and de.shape == e.shape
+    assert dh.dtype == de.dtype == dl.dtype == dtype and de.shape == e.shape and dl.shape == (n, v)
+    torch.testing.assert_close(dl.float(), cross_entropy_dlogits(h, e, y, g).float(), atol=TOL[dtype], rtol=TOL[dtype])
+    scratch = dl.as_strided((n, dl.stride(0)), (dl.stride(0), 1))
+    assert not scratch[:, v:].any()  # the pad columns of the [N, ldv] scratch are 0
     torch.testing.assert_close(dh.float(), cross_entropy_dh(h, e, y, g).float(), atol=TOL[dtype], rtol=TOL[dtype])
     torch.testing.assert_close(de.float(), cross_entropy_de(h, e, y, g).float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(cross_entropy_dh_kernel(h, e, y, lse, g), dh)
+    assert torch.equal(cross_entropy_de_kernel(h, e, y, lse, g), de)
+    if every == 1:
+        assert not dl.any() and not dh.any() and not de.any()
 
 
 def test_cross_entropy_autograd_all_ignored_and_counts(gen):
@@ -233,8 +257,8 @@ def test_cross_entropy_autograd_all_ignored_and_counts(gen):
         loss = fused_cross_entropy_kernel(h1, e1, labels)
         loss.backward()
         torch.cuda.synchronize()
-        assert all(_build.launch_counts[name] == 1 for name in ("cross_entropy_lse", "cross_entropy_dh",
-                                                                 "cross_entropy_de"))
+        assert all(_build.launch_counts[name] == 1 for name in ("cross_entropy_lse", "cross_entropy_dlogits",
+                                                                 "cross_entropy_dh", "cross_entropy_de"))
         ref = fused_cross_entropy(h2, e2, labels)
         ref.backward()
         torch.testing.assert_close(loss, ref, atol=1e-4, rtol=1e-5)
@@ -248,10 +272,13 @@ def test_cross_entropy_kernels_refuse_unsupported_shapes(gen):
     h, e, y = ce_inputs(gen, torch.float32, 8, 10, 64)
     with pytest.raises(ValueError, match="multiple of 128"):
         cross_entropy_lse_kernel(h, e)
-    # D 4096: the [16, D] f32 gradient tile does not fit one block's shared memory
-    h, e, y = ce_inputs(gen, torch.float32, 8, 10, 4096)
-    with pytest.raises(RuntimeError, match="cross_entropy_dh failed to launch"):
-        cross_entropy_dh_kernel(h, e, y, torch.zeros(8, device="cuda"), 1.0)
+    # the GEMMs take dlogits rows that are 16-byte aligned (the dlogits pass's scratch), not any view
+    h, e, y = ce_inputs(gen, torch.float32, 8, 10, 128)
+    dl = torch.zeros((8, 12), device="cuda")[:, :10]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        cross_entropy_dh_gemm_kernel(dl, e)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        cross_entropy_de_gemm_kernel(dl, h)
 
 
 def test_small_model_loss_and_grads_kernels_match_plain(gen):

@@ -25,7 +25,7 @@ from tests.test_torch_paged_engine import make_engine, no_leaks, run_stream
 def setup():
     cfg = helpers.tiny_config()
     jparams = init_params(cfg, jax.random.key(7), dtype=jnp.float32)
-    return cfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams))
+    return cfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 _naive_cache: dict = {}

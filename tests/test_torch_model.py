@@ -2,6 +2,7 @@
 carry-over) against the JAX reference on the tiny config, f32 on the CPU."""
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -23,7 +24,7 @@ from tests import helpers
 def setup():
     cfg = helpers.tiny_config()
     jparams = jllama.init_params(cfg, jax.random.key(7), dtype=jnp.float32)
-    tparams = tllama.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tparams = tllama.params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     return cfg, jparams, tparams
 
 
@@ -99,7 +100,7 @@ def test_params_from_numpy_bf16_untied_bitwise():
     cfg.tied_embeddings = False
     jparams = jllama.init_params(cfg, jax.random.key(3), dtype=jnp.bfloat16)
     tree = jax.tree.map(np.asarray, jparams)
-    tparams = tllama.params_from_numpy(tree)
+    tparams = tllama.params_from_numpy(tree, device="cpu")
     assert "lm_head" in tparams and tparams["lm_head"].dtype == torch.bfloat16
     for key in ("embed", "lm_head", "final_norm"):
         np.testing.assert_array_equal(tparams[key].view(torch.int16).numpy(), tree[key].view(np.int16))
@@ -112,13 +113,19 @@ def test_params_from_numpy_bf16_untied_bitwise():
     np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2)
 
 
+@pytest.mark.parametrize("fn", [tllama.init_params, tllama.params_from_numpy])
+def test_constructors_default_to_the_card(fn):
+    """The port runs on the card unless the caller asks for the CPU."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_init_params_layout_matches_jax():
     cfg = helpers.tiny_config()
     jtree = jllama.init_params(cfg, jax.random.key(0), dtype=jnp.float32)
-    tparams = tllama.init_params(cfg, seed=0, dtype=torch.float32)
+    tparams = tllama.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     assert set(tparams) == set(jtree) and set(tparams["layers"]) == set(jtree["layers"])
     for name, leaf in jtree["layers"].items():
         assert tuple(tparams["layers"][name].shape) == leaf.shape, name
         assert tparams["layers"][name].dtype == torch.float32
-    again = tllama.init_params(cfg, seed=0, dtype=torch.float32)
+    again = tllama.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     assert torch.equal(again["layers"]["wq"], tparams["layers"]["wq"])  # seeded

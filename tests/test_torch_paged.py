@@ -32,7 +32,7 @@ TOL = 2e-5
 def setup():
     cfg = helpers.tiny_config()
     jparams = init_params(cfg, jax.random.key(7), dtype=jnp.float32)
-    return cfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams))
+    return cfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def _fused_inputs(cfg, seed=3):

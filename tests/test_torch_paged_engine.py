@@ -23,7 +23,7 @@ from tests import helpers
 def setup():
     cfg = helpers.tiny_config()
     jparams = init_params(cfg, jax.random.key(7), dtype=jnp.float32)
-    return cfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams))
+    return cfg, jparams, params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def make_engine(params, cfg, **kw):

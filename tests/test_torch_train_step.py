@@ -88,7 +88,7 @@ def jax_run(jcfg, jparams, windows, clip=1.0, schedule=("cosine", 1e-3, 2, 10)):
 
 
 def port_state(tcfg, jparams):
-    params = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     opt = AdamWConfig(lr=LR, mu_dtype=torch.float32, nu_dtype=torch.float32)
     return {"params": params, "opt_state": init_opt_state(params, opt), "step": 0}, opt
 
@@ -125,7 +125,7 @@ def window_grads_jax(jcfg, jparams, w):
 
 
 def window_grads_port(tcfg, jparams, w, remat=True):
-    params = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
     loss_fn = tstep.make_loss_fn(tcfg, remat=remat, chunk_size=CHUNK)
     ntok = 0
@@ -206,7 +206,7 @@ def test_untied_lm_head_receives_its_gradient(untied):
     state, (got,) = port_run(tcfg, jparams, [w], clip=None, schedule=("constant", 1e-3))
     assert np.isnan(float(got["grad_norm"])) and np.isnan(float(want["grad_norm"]))
     np.testing.assert_allclose(float(got["loss_sum"]), float(want["loss_sum"]), rtol=1e-5)
-    p0 = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    p0 = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     new = state["params"]
     assert not torch.equal(new["lm_head"], p0["lm_head"])
     assert not torch.equal(new["embed"], p0["embed"])
@@ -230,7 +230,7 @@ def test_token_counts_eval_and_dataset_loss_match_jax(tied):
     want = jstep.count_token_types_device(jnp.asarray(w["tokens"]), ranges, pad_id=0)
     assert {k: int(v) for k, v in got.items()} == {k: int(v) for k, v in want.items()}
 
-    params = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
     batches = [{"tokens": make_window(s, jcfg.vocab_size, a=1)["tokens"][0],
                 "labels": make_window(s, jcfg.vocab_size, a=1)["labels"][0]} for s in (12, 13)]
     got_loss = tstep.compute_dataset_loss(tstep.make_eval_step(tcfg, chunk_size=CHUNK), params, batches)

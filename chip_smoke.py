@@ -45,15 +45,17 @@ c. the serving path with speculation: phase 5's requests with
    step, so agreement is reported, not required);
 6. flash-attention backward kernel vs its plain version (dq, dk, dv; f32 and
    bf16; causal, full, segment ids) at B 4, S 768 and the training shape
-   B 2, S 2048, with the plain gradients at lse + 0.05 as the control; times
-   beside the backward of PyTorch's ``scaled_dot_product_attention`` (timed
-   only, as a yardstick);
+   B 2, S 2048, with the plain gradients at lse + 0.05 as the control; dq,
+   dk and dv bitwise equal over two launches; times and TFLOP/s (counted on
+   the 5 products and on the 7 the kernels issue) beside the backward of
+   PyTorch's ``scaled_dot_product_attention`` (timed only, as a yardstick);
 7. the cross-entropy kernels (lse, the backward's dlogits pass, the dh and
    dE GEMMs) and the loss vs their plain versions at N 4,096 and 3,072
    tokens, D 2048, V 133,258 (f32 and bf16, every 7th label ignored), at the
    init logit spread and a trained-like one (std 4); dE's labelled and
    unlabelled vocab rows held apart; controls: a constant lse, lse + 0.05,
-   dh without its softmax term; dh and dE bitwise equal over two launches;
+   dh without its softmax term; lse, dh and dE bitwise equal over two
+   launches;
    times of each pass and of the whole backward beside one ``torch.mm`` per
    GEMM and ``F.cross_entropy(h @ E.T, y)`` with its backward;
 8. f32 train-step parity at the full width of ``llama3_2_1b``: one
@@ -655,13 +657,16 @@ def phase_flash_bwd(gen):
             for name, causal, segs in (("causal", True, None), ("full", False, None), ("segments", True, seg)):
                 o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=segs)
                 got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=segs)
+                # no atomics: a second launch gives the same bits
+                again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=segs)
                 want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal, segment_ids=segs)
                 # control: the plain gradients with every probability 5% low (lse + 0.05)
                 ctrl = flash_attention_bwd_reference(q, k, v, o, lse + 0.05, do, causal=causal, segment_ids=segs)
                 torch.cuda.synchronize()
                 errs, rels, least = [], [], math.inf
-                for gname, a, w, c in zip(("dq", "dk", "dv"), got, want, ctrl):
+                for gname, a, w, c, a2 in zip(("dq", "dk", "dv"), got, want, ctrl, again):
                     check(a.dtype == dtype, f"flash bwd {gname} dtype {a.dtype} != {dtype}")
+                    check(torch.equal(a, a2), f"flash bwd {name} B{b} S{s} {key} {gname}: two launches differ")
                     err, rel, rc = hold(f"flash bwd {name} B{b} S{s} {gname}", a, w, key, [("p x 0.95", c)])
                     errs.append(err)
                     rels.append(rel)
@@ -670,8 +675,8 @@ def phase_flash_bwd(gen):
                 worst_rel[key] = max(worst_rel.get(key, 0.0), *rels)
                 log(f"  flash bwd {name:8s} B{b} S{s} {key:8s}: rel dq {rels[0]:.2e}, dk {rels[1]:.2e}, "
                     f"dv {rels[2]:.2e} (limit {REL[key]}; control p x 0.95 >= {least:.2e}); max|err| dq {errs[0]:.3e}, "
-                    f"dk {errs[1]:.3e}, dv {errs[2]:.3e}")
-                del o, lse, got, want, ctrl
+                    f"dk {errs[1]:.3e}, dv {errs[2]:.3e}; bitwise equal over two launches")
+                del o, lse, got, again, want, ctrl
             del q, k, v, do
             torch.cuda.empty_cache()
     rows = {}
@@ -688,10 +693,12 @@ def phase_flash_bwd(gen):
         library = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
         pairs = b * hq * s * (s + 1) / 2  # allowed causal (query, key) pairs over all q heads
         ops = 5 * 2 * pairs * d  # S, dP, dV, dK, dQ products, 2 FLOP per MAC
+        issued = 7 * 2 * pairs * d  # the kernels form S and dP twice (dk/dv and dq): no atomics
         n_bytes = 2 * (4 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s  # q o do dq; k v dk dv; lse
         bound_ms, bound_by = bound(ops, n_bytes)
         log(f"  flash bwd time bf16 causal B{b} S{s}: kernel {t_k:.3f} ms ({ops / (t_k * 1e-3) / 1e12:.1f} "
-            f"TFLOP/s), plain {t_p:.3f} ms, SDPA backward {library:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"TFLOP/s counted on the 5 products, {issued / (t_k * 1e-3) / 1e12:.1f} issued on 7), plain {t_p:.3f} "
+            f"ms, SDPA backward {library:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         rows[(b, s)] = {"max_abs_err": worst["bfloat16"], "rel_err": worst_rel["bfloat16"], "ms": t_k,
                         "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library}
         del q, k, v, do, o, lse, qt, kt, vt, out, dot
@@ -750,6 +757,7 @@ def phase_cross_entropy(gen, vocab: int):
                 h, e, y = inputs(n, dtype, spread)
                 what = f"cross entropy N{n} {key} spread {spread:g}"
                 lse = cross_entropy_lse_kernel(h, e)
+                check(torch.equal(cross_entropy_lse_kernel(h, e), lse), f"{what} lse: two launches differ")
                 lse_p = cross_entropy_lse(h, e)
                 loss, loss_p = fused_cross_entropy_kernel(h, e, y), fused_cross_entropy(h, e, y)
                 dl = cross_entropy_dlogits_kernel(h, e, y, lse, g)
@@ -796,8 +804,8 @@ def phase_cross_entropy(gen, vocab: int):
                 log(f"  {what}: lse max err {err_lse:.2e} (limit {LSE_ATOL}; constant lse {spread_lse:.2e}); "
                     f"loss rel {rel_loss:.2e} (limit 1e-5); rel dlogits {rel_dl:.2e}, dh {rel_dh:.2e} (control "
                     f"{c_dh}), dE labelled {rel_l:.2e}, dE unlabelled {rel_u:.2e} (control {c_de:.2e}) (limit "
-                    f"{REL[key]}); max|err| dh {err_dh:.2e}, dE {max(err_l, err_u):.2e}; dh and dE bitwise equal "
-                    "over two launches")
+                    f"{REL[key]}); max|err| dh {err_dh:.2e}, dE {max(err_l, err_u):.2e}; lse, dh and dE bitwise "
+                    "equal over two launches")
                 del h, e, y, lse, lse_p, dh, dh_p, de, de_p, de_c, onehot, labelled
                 torch.cuda.empty_cache()
 
@@ -840,7 +848,8 @@ def phase_cross_entropy(gen, vocab: int):
         t_k, t_p = t[name]
         log(f"  {name} time bf16 N{n}: kernel {t_k:.3f} ms ({ops / (t_k * 1e-3) / 1e12:.1f} TFLOP/s), "
             f"plain {t_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
-            + (f", one PyTorch call {library:.3f} ms" if library is not None else ""))
+            + (f", one PyTorch call {library:.3f} ms" if name != "cross_entropy_lse" and library is not None else "")
+            + (f", F.cross_entropy(h @ E.T) {library:.3f} ms (two calls)" if name == "cross_entropy_lse" else ""))
         rows[name] = {"max_abs_err": worst[name, "bfloat16"], "rel_err": worst_rel[name, "bfloat16"], "ms": t_k,
                       "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library}
     bound_bwd, by_bwd = bound(3 * ops, hb + eb + 8 * n + hb + eb)  # h, E, lse, labels read; dh, dE written

@@ -65,8 +65,8 @@ _SIGNATURES = {
     # dtype, q, k, v, o, do, lse, seg, delta (scratch), dq, dk, dv, B, S, Hq, Hkv, causal, scale, stream
     "ssi_flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _c.c_float, _P],
-    # N, V -> vocab splits of the logsumexp grid (sizes its scratch)
-    "ssi_cross_entropy_lse_splits": [_I, _I],
+    # dtype, N, V -> rows of the logsumexp's (max, sum) scratch
+    "ssi_cross_entropy_lse_splits": [_I, _I, _I],
     # dtype, h, e, m_part (scratch), l_part (scratch), lse, N, V, D, n_split, stream
     "ssi_cross_entropy_lse": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, h, e, lse, labels, g, dlogits (out, row stride ldv), N, V, D, ldv, stream

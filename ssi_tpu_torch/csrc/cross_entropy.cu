@@ -15,13 +15,24 @@
 // D 2048, V 133,258 (2.24 TFLOP each: the logits once for lse, and the
 // dlogits, dh and dE products in the backward). The TPU kernels held
 // [512, 2048] and [2048, 2048] f32 accumulators in VMEM; a Hopper block has
-// 227 KB of shared memory, so:
-// - lse: one block per (64-token tile, vocab split); it streams 64-row vocab
-//   tiles of its split through shared memory in 128-wide D chunks and keeps
-//   a running max and sum per token. A token-tile grid alone gives only N/64
-//   blocks, so the vocab is split across blocks and a second small kernel
-//   merges the per-split (max, sum) pairs in a fixed order (deterministic,
-//   no atomics). Products are wmma fragments from shared memory (tile_mma.cuh).
+// 227 KB of shared memory, so all four passes (lse, dlogits, dh, dE) run on
+// one GEMM kernel template: 128 x 128 output tiles, 8 warps of 64 x 32,
+// mma.sync m16n8k16 (mma.cuh) fed by ldmatrix (.trans for an operand whose
+// rows run along M or N rather than K) from a 3-stage cp.async ring of
+// 64-deep K slabs, accumulators in registers, and an epilogue applied to the
+// accumulator tile from registers. Each output tile belongs to one block,
+// which sums the whole K in a fixed order: no atomics, so two launches give
+// the same bits.
+// - lse: the logits product h . E^T with a row-reduction epilogue: per token
+//   row and 128-column vocab tile one (max, sum of exp) pair, into a
+//   [n_vtiles, N] f32 scratch (34 MB at N 4,096, V 133,258) that a second
+//   small kernel merges in a fixed order. The logits never leave registers.
+//   The alternative, blocks that walk a range of vocab tiles with a running
+//   (max, sum), was not built: it would restart the GEMM's ring per tile,
+//   and the scratch costs ~70 MB of traffic (computed from the shapes)
+//   against the 2.24 TFLOP product; on the H100 the whole lse measures
+//   faster than the dlogits pass, which runs the same product and writes
+//   1.09 GB besides (PERF.md).
 // - backward: the TPU kernels formed dlogits tile by tile twice, once inside
 //   dh and once inside dE. Here one GEMM pass forms the logits once and
 //   writes dlogits in the operand dtype to a scratch [N, ldv] (ldv = V
@@ -29,14 +40,11 @@
 //   two GEMMs read it: dh = dlogits . E (K = V) and dE = dlogits^T . h
 //   (K = N). At N 4096 the scratch is 1.09 GB in bf16, written once and read
 //   twice, against the 6.7 TFLOP of the three products.
-// The three backward passes are one kernel template: 128 x 128 output tiles,
-// 8 warps of 64 x 32, mma.sync m16n8k16 (mma.cuh) fed by ldmatrix (.trans
-// for an operand whose rows run along M or N rather than K) from a 3-stage
-// cp.async ring of 64-deep K slabs, accumulators in registers, and the
-// epilogue (dlogits formula, or the cast and store) applied from registers.
-// Each output tile belongs to one block, which sums the whole K in a fixed
-// order: no atomics, so two launches give the same bits. The f32 parity path
-// runs the same tiling with scalar FMAs (TF32 would not meet the f32 limits).
+// The f32 parity paths keep exact f32 arithmetic (TF32 would not meet the
+// f32 limits): the backward runs the same tiling with scalar FMAs; the lse
+// runs one block per (64-token tile, vocab split), streaming 64-row vocab
+// tiles through shared memory with a running max and sum, and the same
+// merge kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,26 +64,30 @@ constexpr int LDK = KC + 8;    // leading dimension of staged operand chunks
 constexpr int IGNORE = -100;   // CROSS_ENTROPY_IGNORE_IDX
 constexpr float NEG_INF = -1.0e30f;
 
-// ---- forward: logsumexp ----------------------------------------------------
+// ---- forward, f32: logsumexp by scalar FMAs (parity path) ------------------
 
 constexpr int LT = 64;         // tokens per lse block
 constexpr int LV = 64;         // vocab rows per streamed tile
 constexpr int LDL = LV + 4;    // leading dimension of the f32 logits tile
 constexpr int LSE_BLOCKS = 1056;  // lse blocks to aim for: 8 per SM of an H100's 132
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <typename T>
-constexpr int lse_smem() {
-    return 2 * ssi::smem_round(LT * LDK * (int)sizeof(T)) + ssi::smem_round(LT * LDL * 4);
+constexpr int lse_f32_smem() {
+    return 2 * ssi::smem_round(LT * LDK * 4) + ssi::smem_round(LT * LDL * 4);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) lse_partial_kernel(const T* __restrict__ h, const T* __restrict__ e,
-                                                              float* __restrict__ m_part, float* __restrict__ l_part,
-                                                              int N, int V, int D, int v_per_split) {
+// One block per (64-token tile, vocab split): 64-row vocab tiles of the split
+// stream through shared memory in 128-wide D chunks; a running max and sum
+// per token; the (max, sum) of each split goes to m_part / l_part [n_split, N].
+__global__ void __launch_bounds__(THREADS) lse_partial_f32_kernel(const float* __restrict__ h,
+                                                                  const float* __restrict__ e,
+                                                                  float* __restrict__ m_part,
+                                                                  float* __restrict__ l_part, int N, int V, int D,
+                                                                  int v_per_split) {
     extern __shared__ __align__(128) unsigned char smem[];
-    constexpr int TILE = ssi::smem_round(LT * LDK * (int)sizeof(T));
-    T* h_t = reinterpret_cast<T*>(smem);
-    T* e_t = reinterpret_cast<T*>(smem + TILE);
+    constexpr int TILE = ssi::smem_round(LT * LDK * 4);
+    float* h_t = reinterpret_cast<float*>(smem);
+    float* e_t = reinterpret_cast<float*>(smem + TILE);
     float* logit = reinterpret_cast<float*>(smem + 2 * TILE);
 
     const int t0 = blockIdx.x * LT;
@@ -88,10 +100,10 @@ __global__ void __launch_bounds__(THREADS) lse_partial_kernel(const T* __restric
         for (int i = threadIdx.x; i < LT * LDL; i += blockDim.x) logit[i] = 0.f;
         for (int k0 = 0; k0 < D; k0 += KC) {
             __syncthreads();
-            ssi::load_rows<T, LT, KC, THREADS>(h_t, LDK, h + (long long)t0 * D + k0, D, N - t0);
-            ssi::load_rows<T, LV, KC, THREADS>(e_t, LDK, e + (long long)v0 * D + k0, D, v_end - v0);
+            ssi::load_rows<float, LT, KC, THREADS>(h_t, LDK, h + (long long)t0 * D + k0, D, N - t0);
+            ssi::load_rows<float, LV, KC, THREADS>(e_t, LDK, e + (long long)v0 * D + k0, D, v_end - v0);
             __syncthreads();
-            ssi::tile_mma<T, LT, LV, KC, false, true>(logit, LDL, h_t, LDK, e_t, LDK);  // h . E^T
+            ssi::tile_mma<LT, LV, KC, false, true>(logit, LDL, h_t, LDK, e_t, LDK);  // h . E^T
         }
         __syncthreads();
         if (threadIdx.x < LT) {
@@ -112,30 +124,70 @@ __global__ void __launch_bounds__(THREADS) lse_partial_kernel(const T* __restric
     }
 }
 
-__global__ void lse_merge_kernel(const float* __restrict__ m_part, const float* __restrict__ l_part,
-                                 float* __restrict__ lse, int N, int n_split) {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= N) return;
-    float m = NEG_INF;
-    for (int s = 0; s < n_split; ++s) m = fmaxf(m, m_part[(long long)s * N + t]);
-    float l = 0.f;
-    for (int s = 0; s < n_split; ++s) l += l_part[(long long)s * N + t] * expf(m_part[(long long)s * N + t] - m);
-    lse[t] = m + logf(fmaxf(l, 1e-30f));
+// Vocab splits of the f32 grid: about LSE_BLOCKS blocks in all, and no split
+// left empty by the rounding of a split to whole LV tiles.
+int lse_f32_splits(int N, int V) {
+    const int token_tiles = (N + LT - 1) / LT;
+    const int n_split = std::max(1, std::min((LSE_BLOCKS + token_tiles - 1) / token_tiles, (V + LV - 1) / LV));
+    const int v_per_split = ((V + n_split - 1) / n_split + LV - 1) / LV * LV;
+    return (V + v_per_split - 1) / v_per_split;
 }
 
-template <typename T>
-cudaError_t launch_lse(const void* h, const void* e, float* m_part, float* l_part, float* lse, int N, int V, int D,
-                       int n_split, cudaStream_t stream) {
+// lse [N] from the per-split (max, sum) pairs [n_split, N], merged in a fixed
+// order: a block of 8 warps takes 32 tokens (one per lane); warp w merges
+// splits w, w + 8, ... and the 8 partial pairs are merged in warp order.
+constexpr int MERGE_TOKENS = 32;
+constexpr int MERGE_WARPS = 8;
+
+__global__ void __launch_bounds__(MERGE_TOKENS * MERGE_WARPS) lse_merge_kernel(const float* __restrict__ m_part,
+                                                                               const float* __restrict__ l_part,
+                                                                               float* __restrict__ lse, int N,
+                                                                               int n_split) {
+    __shared__ float m_sm[MERGE_WARPS][MERGE_TOKENS];
+    __shared__ float l_sm[MERGE_WARPS][MERGE_TOKENS];
+    const int lane = threadIdx.x % MERGE_TOKENS;
+    const int w = threadIdx.x / MERGE_TOKENS;
+    const int t = blockIdx.x * MERGE_TOKENS + lane;
+    float m = NEG_INF;
+    float l = 0.f;
+    if (t < N) {
+        for (int s = w; s < n_split; s += MERGE_WARPS) {
+            const float ms = m_part[(long long)s * N + t];
+            const float mn = fmaxf(m, ms);
+            l = l * expf(m - mn) + l_part[(long long)s * N + t] * expf(ms - mn);
+            m = mn;
+        }
+    }
+    m_sm[w][lane] = m;
+    l_sm[w][lane] = l;
+    __syncthreads();
+    if (w == 0 && t < N) {
+        float mm = NEG_INF;
+        for (int i = 0; i < MERGE_WARPS; ++i) mm = fmaxf(mm, m_sm[i][lane]);
+        float ll = 0.f;
+        for (int i = 0; i < MERGE_WARPS; ++i) ll += l_sm[i][lane] * expf(m_sm[i][lane] - mm);
+        lse[t] = mm + logf(fmaxf(ll, 1e-30f));
+    }
+}
+
+cudaError_t launch_merge(const float* m_part, const float* l_part, float* lse, int N, int n_split,
+                         cudaStream_t stream) {
+    lse_merge_kernel<<<(N + MERGE_TOKENS - 1) / MERGE_TOKENS, MERGE_TOKENS * MERGE_WARPS, 0, stream>>>(
+        m_part, l_part, lse, N, n_split);
+    return cudaGetLastError();
+}
+
+cudaError_t launch_lse_f32(const float* h, const float* e, float* m_part, float* l_part, float* lse, int N, int V,
+                           int D, int n_split, cudaStream_t stream) {
     const int v_per_split = ((V + n_split - 1) / n_split + LV - 1) / LV * LV;
-    constexpr int smem = lse_smem<T>();
-    cudaError_t err = cudaFuncSetAttribute(lse_partial_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    constexpr int smem = lse_f32_smem();
+    cudaError_t err = cudaFuncSetAttribute(lse_partial_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    lse_partial_kernel<T><<<dim3((N + LT - 1) / LT, n_split), THREADS, smem, stream>>>(
-        static_cast<const T*>(h), static_cast<const T*>(e), m_part, l_part, N, V, D, v_per_split);
+    lse_partial_f32_kernel<<<dim3((N + LT - 1) / LT, n_split), THREADS, smem, stream>>>(h, e, m_part, l_part, N, V,
+                                                                                         D, v_per_split);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    lse_merge_kernel<<<(N + 255) / 256, 256, 0, stream>>>(m_part, l_part, lse, N, n_split);
-    return cudaGetLastError();
+    return launch_merge(m_part, l_part, lse, N, n_split, stream);
 }
 
 // ---- backward: the dlogits pass and the dh / dE GEMMs ----------------------
@@ -207,6 +259,28 @@ __device__ __forceinline__ void store2<bf16>(bf16* p, float x0, float x1) {
     *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
 }
 
+// Epilogues. The bf16 kernel hands each warp's accumulator tile to
+// `epi.tile(acc, m0, n0, wm, wn, smem)`: acc[mi][nj] is the C fragment of rows
+// m0 + wm + mi * 16 + (g, g + 8) and columns n0 + wn + nj * 8 + 2 * t4 (+ 1),
+// and smem is the operand ring, free once the block has synchronised. The
+// per-element epilogues walk it pair by pair (`each_pair`); the f32 kernel
+// calls `epi(row, col, x0, x1)` directly.
+template <class Epi>
+__device__ __forceinline__ void each_pair(const Epi& epi, const float (&acc)[4][4][4], int r0, int c0) {
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t4 = lane % 4;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+            const int row = r0 + mi * 16 + g;
+            const int col = c0 + nj * 8 + 2 * t4;
+            epi(row, col, acc[mi][nj][0], acc[mi][nj][1]);
+            epi(row + 8, col, acc[mi][nj][2], acc[mi][nj][3]);
+        }
+}
+
 // Epilogue of the dlogits pass, on the logits of (token row, vocab columns
 // col, col + 1): (exp(logit - lse) - onehot) * valid * g in T, into dl
 // [N, ldv]; columns in [V, ldv) are written 0.
@@ -229,6 +303,10 @@ struct DlogitsEpi {
         }
         store2(dl + (long long)row * ldv + col, d0, d1);
     }
+    __device__ __forceinline__ void tile(const float (&acc)[4][4][4], int m0, int n0, int wm, int wn,
+                                         unsigned char*) const {
+        each_pair(*this, acc, m0 + wm, n0 + wn);
+    }
 };
 
 // Epilogue of dh and dE: the f32 sums cast to T, into C [M, N] (N even).
@@ -238,6 +316,71 @@ struct StoreEpi {
     int M, N;
     __device__ __forceinline__ void operator()(int row, int col, float x0, float x1) const {
         if (row < M && col < N) store2(c + (long long)row * N + col, x0, x1);
+    }
+    __device__ __forceinline__ void tile(const float (&acc)[4][4][4], int m0, int n0, int wm, int wn,
+                                         unsigned char*) const {
+        each_pair(*this, acc, m0 + wm, n0 + wn);
+    }
+};
+
+// Epilogue of the logsumexp (bf16): for each token row of the 128 x 128
+// logits tile, the max m over its vocab columns below V (columns at or past V
+// count as -1e30) and l = sum of exp(logit - m), written to m_part / l_part
+// [n_vtiles, N] at the tile's vocab index n0 / 128. A thread reduces its 8
+// columns of each of its rows, quad shuffles give the warp's 32, and the 4
+// warps along N are merged in a fixed order through shared memory.
+struct LseEpi {
+    float* m_part;
+    float* l_part;
+    int N, V;
+    __device__ __forceinline__ void tile(const float (&acc)[4][4][4], int m0, int n0, int wm, int wn,
+                                         unsigned char* smem) const {
+        const int lane = threadIdx.x % 32;
+        const int g = lane / 4;
+        const int t4 = lane % 4;
+        float* red_m = reinterpret_cast<float*>(smem);  // [4 warps along N][GT rows]
+        float* red_l = red_m + 4 * GT;
+        __syncthreads();  // every warp is done with the operand ring, which holds red_m / red_l from here
+#pragma unroll
+        for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi) {
+                float x[8];
+                bool ok[8];
+                float m = NEG_INF;
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    ok[i] = n0 + wn + (i / 2) * 8 + 2 * t4 + i % 2 < V;
+                    x[i] = ok[i] ? acc[mi][i / 2][2 * hi + i % 2] : NEG_INF;
+                    m = fmaxf(m, x[i]);
+                }
+                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+                float l = 0.f;
+#pragma unroll
+                for (int i = 0; i < 8; ++i) l += ok[i] ? exp2f((x[i] - m) * LOG2E) : 0.f;
+                l += __shfl_xor_sync(0xffffffffu, l, 1);
+                l += __shfl_xor_sync(0xffffffffu, l, 2);
+                if (t4 == 0) {
+                    const int r = wm + mi * 16 + hi * 8 + g;
+                    red_m[(wn / 32) * GT + r] = m;
+                    red_l[(wn / 32) * GT + r] = l;
+                }
+            }
+        }
+        __syncthreads();
+        const int r = threadIdx.x;
+        if (r < GT && m0 + r < N) {
+            float m = NEG_INF;
+#pragma unroll
+            for (int w = 0; w < 4; ++w) m = fmaxf(m, red_m[w * GT + r]);
+            float l = 0.f;
+#pragma unroll
+            for (int w = 0; w < 4; ++w) l += red_l[w * GT + r] * exp2f((red_m[w * GT + r] - m) * LOG2E);
+            const long long idx = (long long)(n0 / GT) * N + m0 + r;
+            m_part[idx] = m;
+            l_part[idx] = l;
+        }
     }
 };
 
@@ -317,17 +460,7 @@ __global__ void __launch_bounds__(GTHREADS, 2) gemm_bf16_kernel(const bf16* __re
         }
     }
 
-    const int g = lane / 4;
-    const int t4 = lane % 4;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-            const int row = m0 + wm + mi * 16 + g;
-            const int col = n0 + wn + nj * 8 + 2 * t4;
-            epi(row, col, acc[mi][nj][0], acc[mi][nj][1]);
-            epi(row + 8, col, acc[mi][nj][2], acc[mi][nj][3]);
-        }
+    epi.tile(acc, m0, n0, wm, wn, smem);
 }
 
 // The same tiling in f32 with scalar FMAs: thread (ty, tx) of a 16 x 16 grid
@@ -419,31 +552,34 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// Vocab splits of the logsumexp grid for N tokens and V vocab rows: about
-// LSE_BLOCKS blocks in all, and no split left empty by the rounding of a
-// split to whole LV tiles. The caller sizes the [n_split, N] scratch by it.
-extern "C" int ssi_cross_entropy_lse_splits(int N, int V) {
+// Splits of the logsumexp for N tokens and V vocab rows: the rows of its
+// (max, sum) scratch [n_split, N], which the caller allocates. bf16: one per
+// 128-column vocab tile of the GEMM; f32: the vocab splits of its grid.
+extern "C" int ssi_cross_entropy_lse_splits(int dtype, int N, int V) {
     if (N <= 0 || V <= 0) return 0;
-    const int token_tiles = (N + LT - 1) / LT;
-    const int n_split = std::max(1, std::min((LSE_BLOCKS + token_tiles - 1) / token_tiles, (V + LV - 1) / LV));
-    const int v_per_split = ((V + n_split - 1) / n_split + LV - 1) / LV * LV;
-    return (V + v_per_split - 1) / v_per_split;
+    if (dtype == ssi::kBFloat16) return (V + GT - 1) / GT;
+    if (dtype == ssi::kFloat32) return lse_f32_splits(N, V);
+    return 0;
 }
 
+// lse [N] of h [N, D] . E [V, D]^T; m_part / l_part are [n_split, N] scratch
 extern "C" int ssi_cross_entropy_lse(int dtype, const void* h, const void* e, void* m_part, void* l_part, void* lse,
                                      int N, int V, int D, int n_split, void* stream) {
-    if (N <= 0 || V <= 0 || D % KC != 0 || n_split <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    if (N <= 0 || V <= 0 || D % KC != 0 || n_split != ssi_cross_entropy_lse_splits(dtype, N, V))
+        return static_cast<int>(cudaErrorInvalidValue);
     float* mp = static_cast<float*>(m_part);
     float* lp = static_cast<float*>(l_part);
     float* out = static_cast<float*>(lse);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (dtype == ssi::kFloat32) {
-        err = launch_lse<float>(h, e, mp, lp, out, N, V, D, n_split, st);
-    } else if (dtype == ssi::kBFloat16) {
-        err = launch_lse<__nv_bfloat16>(h, e, mp, lp, out, N, V, D, n_split, st);
+        err = launch_lse_f32(static_cast<const float*>(h), static_cast<const float*>(e), mp, lp, out, N, V, D, n_split,
+                             st);
     } else {
-        err = cudaErrorInvalidValue;
+        if (!aligned16(h) || !aligned16(e)) return static_cast<int>(cudaErrorInvalidValue);
+        // the logits product h . E^T on the GEMM core (as the dlogits pass), reduced per row and vocab tile
+        err = launch_gemm<bf16, true, true, true>(h, D, e, D, N, V, D, LseEpi{mp, lp, N, V}, st);
+        if (err == cudaSuccess) err = launch_merge(mp, lp, out, N, n_split, st);
     }
     return static_cast<int>(err);
 }

@@ -62,22 +62,9 @@ constexpr int TC_WARPS = 4;
 constexpr int TC_THREADS = TC_WARPS * 32;
 constexpr int TC_BQ = 16 * TC_WARPS;  // query rows per block
 constexpr int TC_BK = 64;             // keys per K/V tile
-constexpr int LDS = HD + 8;           // shared row stride in elements (144 bytes)
+constexpr int LDS = ssi::LDS64;       // shared row stride in elements (144 bytes)
 
 using bf16 = __nv_bfloat16;
-
-// rows [r0, r0 + 64) of a [rows, 64] bf16 operand (row stride ss) into
-// shared memory; rows at or past n_valid are zero-filled
-__device__ __forceinline__ void load_tile_async(bf16 (*dst)[LDS], const bf16* src, long long ss, int r0, int n_valid) {
-#pragma unroll
-    for (int i = 0; i < 64 * 8 / TC_THREADS; ++i) {
-        const int idx = threadIdx.x + i * TC_THREADS;
-        const int r = idx / 8;
-        const int c = (idx % 8) * 8;
-        const bool in = r0 + r < n_valid;
-        ssi::cp_async16(&dst[r][c], in ? src + (long long)(r0 + r) * ss + c : src, in ? 16 : 0);
-    }
-}
 
 __global__ void __launch_bounds__(TC_THREADS, 3) flash_fwd_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -106,9 +93,9 @@ __global__ void __launch_bounds__(TC_THREADS, 3) flash_fwd_bf16_kernel(
     const int kv_end = causal ? min(S, q0 + TC_BQ) : S;
     const int n_tiles = (kv_end + TC_BK - 1) / TC_BK;
 
-    load_tile_async(q_sm, qb, q_ss, q0, S);
-    load_tile_async(k_sm[0], kb, k_ss, 0, kv_end);
-    load_tile_async(v_sm[0], vb, v_ss, 0, kv_end);
+    ssi::load_tile64_async<TC_THREADS>(q_sm, qb, q_ss, q0, S);
+    ssi::load_tile64_async<TC_THREADS>(k_sm[0], kb, k_ss, 0, kv_end);
+    ssi::load_tile64_async<TC_THREADS>(v_sm[0], vb, v_ss, 0, kv_end);
     ssi::cp_async_commit();
 
     // this thread's two query rows: lo (g) and hi (g + 8) of the warp's 16
@@ -129,8 +116,8 @@ __global__ void __launch_bounds__(TC_THREADS, 3) flash_fwd_bf16_kernel(
     for (int it = 0; it < n_tiles; ++it) {
         const int st = it & 1;
         if (it + 1 < n_tiles) {  // the next tile loads while this one is multiplied
-            load_tile_async(k_sm[st ^ 1], kb, k_ss, (it + 1) * TC_BK, kv_end);
-            load_tile_async(v_sm[st ^ 1], vb, v_ss, (it + 1) * TC_BK, kv_end);
+            ssi::load_tile64_async<TC_THREADS>(k_sm[st ^ 1], kb, k_ss, (it + 1) * TC_BK, kv_end);
+            ssi::load_tile64_async<TC_THREADS>(v_sm[st ^ 1], vb, v_ss, (it + 1) * TC_BK, kv_end);
         }
         ssi::cp_async_commit();
         ssi::cp_async_wait<1>();  // Q and this tile have landed

@@ -1,7 +1,8 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a) kernels written
 // with mma.sync: asynchronous global -> shared copies (cp.async), ldmatrix
 // fragment loads, the m16n8k16 bf16 product with f32 accumulators, and bf16
-// packing. Used by flash_attention_fwd.cu and cross_entropy.cu.
+// packing. Used by flash_attention_fwd.cu, flash_attention_bwd.cu and
+// cross_entropy.cu.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A [16 x 16], 4 regs of 2 bf16: a0 (row g, cols 2t, 2t+1), a1 (row g+8,
@@ -30,7 +31,32 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
 
+// 4-byte copy global -> shared (src_bytes 0 or 4; 0 zero-fills); 4-byte aligned
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Shared row stride (elements) of a staged [rows, 64] bf16 tile: 144 bytes,
+// so the 8 row addresses of an ldmatrix fall in distinct banks.
+constexpr int LDS64 = 64 + 8;
+
+// Rows [r0, r0 + 64) of a [rows, 64] bf16 operand (row stride ss elements,
+// 16-byte aligned rows) into shared memory by a block of THREADS threads;
+// rows at or past n_valid are zero-filled by the copy.
+template <int THREADS>
+__device__ __forceinline__ void load_tile64_async(__nv_bfloat16 (*dst)[LDS64], const __nv_bfloat16* src, long long ss,
+                                                  int r0, int n_valid) {
+#pragma unroll
+    for (int i = 0; i < 64 * 8 / THREADS; ++i) {
+        const int idx = threadIdx.x + i * THREADS;
+        const int r = idx / 8;
+        const int c = (idx % 8) * 8;
+        const bool in = r0 + r < n_valid;
+        cp_async16(&dst[r][c], in ? src + (long long)(r0 + r) * ss + c : src, in ? 16 : 0);
+    }
+}
 
 // wait until at most N of this thread's committed copy groups are in flight
 template <int N>

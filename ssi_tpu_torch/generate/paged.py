@@ -29,7 +29,7 @@ NEG_INF = -1.0e30
 
 def init_pools(
     cfg: ConfigLlama3_2, n_pages: int, page_size: int, dtype: torch.dtype = torch.bfloat16,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> dict[str, torch.Tensor]:
     """Flat paged K/V pools ``[L*n_pages + 1, ps, Hkv*hd]`` (+1 = trash page)."""
     shape = (cfg.num_layers * n_pages + 1, page_size, cfg.num_kv_heads * cfg.head_dim)

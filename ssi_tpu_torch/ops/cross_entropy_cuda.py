@@ -2,8 +2,9 @@
 autograd wrapper the training loss calls.
 
 Port of ``ssi_tpu/ops/cross_entropy_pallas.py`` (TPU kernels ``_lse_kernel``,
-``_dh_kernel``, ``_de_kernel``). The forward launches the logsumexp kernel and
-takes the picked-label logit outside it, by an f32 row gather, as the TPU
+``_dh_kernel``, ``_de_kernel``). The forward launches the logsumexp kernel
+(for bf16 the logits GEMM with a row-reduction epilogue, then a merge pass)
+and takes the picked-label logit outside it, by an f32 row gather, as the TPU
 ``_forward`` does. The backward launches the dlogits pass once, which forms
 the logits and writes ``dlogits = (softmax - onehot) * valid * g`` in the
 operand dtype to a scratch ``[N, ldv]`` (``ldv`` = V rounded up to 8), then
@@ -68,9 +69,9 @@ def cross_entropy_lse_kernel(hidden: torch.Tensor, embed: torch.Tensor,
     n, d = hidden.shape
     v = embed.shape[0]
     code, h, e, stream = _launch_args(hidden, embed)
-    # the vocab is split across blocks; the merge pass combines the splits in a fixed order
+    # a (max, sum) pair per token and vocab split, merged by a second pass in a fixed order
     lib = _build.load_library()
-    n_split = lib.ssi_cross_entropy_lse_splits(n, v)
+    n_split = lib.ssi_cross_entropy_lse_splits(code, n, v)
     m_part = torch.empty((n_split, n), dtype=torch.float32, device=h.device)
     l_part = torch.empty_like(m_part)
     lse = torch.empty((n,), dtype=torch.float32, device=h.device)

@@ -181,7 +181,9 @@ def flash_attention_fwd(
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, segment_ids):
     b, s, hq, d = q.shape
     hkv = k.shape[2]
+    # the kernels read rows in 16-byte pieces: contiguous, 16-byte aligned operands
     q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
+    q, k, v, o, do = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, o, do))
     _check_kernel_operands(q, k, v, o, do)
     lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
     if tuple(lse.shape) != (b, hq, s):

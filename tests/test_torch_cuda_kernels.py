@@ -181,8 +181,12 @@ def qkv_segs(gen, dtype, b, s, hq, hkv, segs):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 4), (8, 2), (8, 1), (32, 8)])
-@pytest.mark.parametrize("s,causal,segs", [(77, True, False), (200, False, False), (130, True, True), (64, False, True)])
+@pytest.mark.parametrize("s,causal,segs", [(77, True, False), (200, False, False), (130, True, True), (64, False, True),
+                                           (1, True, False), (65, True, False), (65, False, True)])
 def test_flash_backward_kernel_matches_plain(gen, dtype, hq, hkv, s, causal, segs):
+    """dq, dk, dv against the plain backward: one row, a row past a tile (65),
+    ragged tiles, every GQA ratio. No atomics: a second launch gives the same
+    bits."""
     q, k, v, seg = qkv_segs(gen, dtype, 2, s, hq, hkv, segs)
     o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
     do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
@@ -194,6 +198,9 @@ def test_flash_backward_kernel_matches_plain(gen, dtype, hq, hkv, s, causal, seg
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == b.dtype == dtype, name
         torch.testing.assert_close(a.float(), b.float(), atol=TOL[dtype], rtol=TOL[dtype], msg=name)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=seg)
+    for name, a, b in zip(("dq", "dk", "dv"), again, got):
+        assert torch.equal(a, b), name
 
 
 def test_flash_autograd_on_cuda_runs_both_kernels(gen):
@@ -221,17 +228,21 @@ def ce_inputs(gen, dtype, n, v, d, every=7):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spread", [1.0, 4.0])
 @pytest.mark.parametrize("n,v,d,every", [(100, 257, 128, 7), (64, 1000, 256, 7), (130, 4099, 128, 7),
                                          (16, 63, 128, 7), (200, 1001, 256, 7), (100, 1001, 128, 1)])
-def test_cross_entropy_kernels_match_plain(gen, dtype, n, v, d, every):
+def test_cross_entropy_kernels_match_plain(gen, dtype, spread, n, v, d, every):
     """lse, the dlogits pass and the dh / dE GEMMs against their plain
     versions: V not a multiple of 8 (the ldv pad) or of 128, N not a multiple
-    of 128, every 7th label ignored or all of them (every=1). No atomics: a
-    second launch of dh and of dE gives the same bits."""
+    of 128, every 7th label ignored or all of them (every=1), h scaled by
+    ``spread`` (4: a peaked softmax). No atomics: a second launch of lse, dh
+    and dE gives the same bits."""
     h, e, y = ce_inputs(gen, dtype, n, v, d, every)
+    h = h * spread
     g = torch.tensor(0.37, device="cuda")
     lse = cross_entropy_lse_kernel(h, e)
     torch.testing.assert_close(lse, cross_entropy_lse(h, e), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(cross_entropy_lse_kernel(h, e), lse)
     dl = cross_entropy_dlogits_kernel(h, e, y, lse, g)
     dh = cross_entropy_dh_kernel(h, e, y, lse, g)
     de = cross_entropy_de_kernel(h, e, y, lse, g)

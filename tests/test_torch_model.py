@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from ssi_tpu.models import configs as jconfigs
 from ssi_tpu.models import llama3 as jllama
 from ssi_tpu.models import rope as jrope
+from ssi_tpu_torch.generate import paged as tpaged
 from ssi_tpu_torch.models import configs as tconfigs
 from ssi_tpu_torch.models import llama3 as tllama
 from ssi_tpu_torch.models import rope as trope
@@ -113,7 +114,7 @@ def test_params_from_numpy_bf16_untied_bitwise():
     np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2)
 
 
-@pytest.mark.parametrize("fn", [tllama.init_params, tllama.params_from_numpy])
+@pytest.mark.parametrize("fn", [tllama.init_params, tllama.params_from_numpy, tpaged.init_pools])
 def test_constructors_default_to_the_card(fn):
     """The port runs on the card unless the caller asks for the CPU."""
     assert inspect.signature(fn).parameters["device"].default == "cuda"

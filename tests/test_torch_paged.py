@@ -119,7 +119,7 @@ def test_prefill_then_decode_step_match_jax(setup, attn_impl):
     jpools = jpaged.prefill_prompts(jparams, jnp.asarray(tokens), cfg,
                                     jpaged.init_pools(cfg, n_pages, ps, dtype=jnp.float32),
                                     jnp.asarray(page_ids), n_pages=n_pages, attn_impl="gather")
-    tpools = tpaged.init_pools(cfg, n_pages, ps, dtype=torch.float32)
+    tpools = tpaged.init_pools(cfg, n_pages, ps, dtype=torch.float32, device="cpu")
     tpaged.prefill_prompts(tparams, torch.from_numpy(tokens), cfg, tpools, torch.from_numpy(page_ids),
                            n_pages=n_pages, attn_impl=attn_impl)
     for name in ("k", "v"):
@@ -148,7 +148,7 @@ def test_decode_step_clamps_full_context_page_index(setup):
     page table; JAX clamps that gather, the port clamps it explicitly."""
     cfg, _, tparams = setup
     ps, n_pages, max_pages = 8, 8, 2
-    pools = tpaged.init_pools(cfg, n_pages, ps, dtype=torch.float32)
+    pools = tpaged.init_pools(cfg, n_pages, ps, dtype=torch.float32, device="cpu")
     table = torch.tensor([[0, 1]], dtype=torch.int32)
     out = tpaged.decode_step_tokens(
         tparams, torch.tensor([5], dtype=torch.int32), cfg, pools, table,
@@ -258,7 +258,7 @@ def test_decode_step_spec_matches_jax(setup, attn_impl):
     jpools = jpaged.prefill_prompts(jparams, jnp.asarray(tokens), cfg,
                                     jpaged.init_pools(cfg, n_pages, ps, dtype=jnp.float32),
                                     jnp.asarray(page_ids), n_pages=n_pages, attn_impl="gather")
-    tpools = tpaged.init_pools(cfg, n_pages, ps, dtype=torch.float32)
+    tpools = tpaged.init_pools(cfg, n_pages, ps, dtype=torch.float32, device="cpu")
     tpaged.prefill_prompts(tparams, torch.from_numpy(tokens), cfg, tpools, torch.from_numpy(page_ids),
                            n_pages=n_pages, attn_impl=attn_impl)
     table = np.asarray([[0, 1, 6, 7], [2, 3, 8, 9], [4, 5, 10, 11]], np.int32)
@@ -295,7 +295,7 @@ def test_prefill_suffix_and_history_match_jax(setup):
         jnp.asarray([[0, 1]], np.int32), n_pages=n_pages, attn_impl="gather", hist=jhist,
         slot_ids=jnp.asarray([0], np.int32),
     )
-    tpools = tpaged.init_pools(cfg, n_pages, ps, dtype=torch.float32)
+    tpools = tpaged.init_pools(cfg, n_pages, ps, dtype=torch.float32, device="cpu")
     tpaged.prefill_prompts(tparams, torch.from_numpy(prompt[None]), cfg, tpools, torch.tensor([[0, 1]], dtype=torch.int32),
                            n_pages=n_pages, hist=thist, slot_ids=torch.tensor([0], dtype=torch.int32))
     # two rows extend the cached first page; row 1 also reads row 0's fresh second page

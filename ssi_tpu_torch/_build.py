@@ -55,13 +55,15 @@ _SIGNATURES = {
     "ssi_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _c.c_float, _P],
     # dtype, q, k_pool, v_pool, page_table, seq_lens, k_new, v_new, write_rows,
-    # write_offs, out, n_slots, Hq, Hkv, page_size, max_pages, scale, stream
+    # out, part (scratch), n_slots, Hq, Hkv, page_size, max_pages, pages per split,
+    # n_splits, scale, stream
     "ssi_paged_attention_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _c.c_float, _P],
-    # dtype, q, k_pool, v_pool, page_table, hist_lens, k_new, v_new, write_rows,
-    # out, n_slots, T, Hq, Hkv, page_size, max_pages, trash row, scale, stream
-    "ssi_paged_attention_multi": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
+    # dtype, q, k_pool, v_pool, page_table, hist_lens, k_new, v_new, write_rows,
+    # out, part (scratch), n_slots, T, Hq, Hkv, page_size, max_pages, trash row,
+    # pages per split, n_splits, scale, stream
+    "ssi_paged_attention_multi": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
     # dtype, q, k, v, o, do, lse, seg, delta (scratch), dq, dk, dv, B, S, Hq, Hkv, causal, scale, stream
     "ssi_flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _c.c_float, _P],

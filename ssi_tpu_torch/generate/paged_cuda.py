@@ -1,15 +1,20 @@
 """Fused paged attention over the flat KV pool: the CUDA kernels and their
-plain PyTorch versions.
+plain PyTorch versions. Both wrappers launch one split-context core
+(``csrc/paged_attention.cu``):
 
-- :func:`paged_attention_fused` (``csrc/paged_attention.cu``): token write +
-  single-token GQA, port of ``ssi_tpu/generate/paged_pallas.py``
-  ``paged_attention_pallas``;
-- :func:`paged_attention_multi_fused` (``csrc/paged_attention_multi.cu``):
-  the T-token write + verify GQA of speculative decoding, port of
-  ``paged_attention_pallas_multi``. The TPU kernel persists the T tokens
-  through two aligned 8-row read-modify-write windows (a TPU DMA alignment
-  rule); this one takes one physical write row per token instead (the trash
-  row = skip), as the JAX gather path resolves them.
+- :func:`paged_attention_fused`: token write + single-token GQA, port of
+  ``ssi_tpu/generate/paged_pallas.py`` ``paged_attention_pallas`` (#8);
+- :func:`paged_attention_multi_fused`: the T-token write + verify GQA of
+  speculative decoding, port of ``paged_attention_pallas_multi`` (#9). The
+  TPU kernel persists the T tokens through two aligned 8-row
+  read-modify-write windows (a TPU DMA alignment rule); this one takes one
+  physical write row per token instead (the trash row = skip), as the JAX
+  gather path resolves them.
+
+The core splits each slot's context over blocks of :func:`split_plan`'s
+pages and merges them in a second kernel, launched by the same C call; the
+wrapper allocates the merge's scratch. No context length is refused: a
+longer context gives each split more pages.
 
 The pools are updated IN PLACE — torch tensors are mutable, so the TPU
 kernels' input->output aliasing has no counterpart — and only the attention
@@ -29,7 +34,23 @@ from ssi_tpu_torch.generate.paged import paged_attention, paged_attention_multi
 KERNEL = "paged_attention_fused"
 KERNEL_MULTI = "paged_attention_multi"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 227 * 1024  # bytes of shared memory one H100 block may use
+SPLIT_KEYS = 256  # keys a split walks at least: two 128-token pages
+MAX_SPLITS = 16   # splits per (slot, kv head) at most, which bounds the scratch
+
+
+def split_plan(max_pages: int, page_size: int) -> tuple[int, int]:
+    """(pages per split, splits per (slot, kv head)) for a page table of
+    ``max_pages`` pages: splits of at least ``SPLIT_KEYS`` keys, at most
+    ``MAX_SPLITS`` of them (a longer context gives each more pages)."""
+    per_split = max(-(-SPLIT_KEYS // page_size), -(-max_pages // MAX_SPLITS))
+    return per_split, -(-max_pages // per_split)
+
+
+def _scratch(n_slots: int, hkv: int, n_rows: int, n_splits: int, device) -> torch.Tensor:
+    """The merge's scratch: per (slot, kv head, split, query row) 64 floats of
+    unnormalised output, then (max, sum) for each; empty with one split."""
+    n = n_slots * hkv * n_splits * n_rows * (64 + 2) if n_splits > 1 else 0
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def paged_attention_fused_reference(q, k_pool, v_pool, page_table, seq_lens, *, k_new, v_new, write_rows):
@@ -81,24 +102,24 @@ def _paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new,
     max_pages = page_table.shape[1]
     dev = q.device
     hkv = _check_common(q, k_pool, v_pool, k_new, v_new, hq, hd, (n_slots,))
-    smem = 4 * ((hq // hkv) * max_pages * ps + 16 * (hq // hkv) * hd)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"max_context {max_pages * ps} needs {smem} B of shared memory > {_SMEM_LIMIT}")
     page_table = _check_int("page_table", page_table, (n_slots, max_pages), dev)
     seq_lens = _check_int("seq_lens", seq_lens, (n_slots,), dev)
     write_rows = _check_int("write_rows", write_rows, (n_slots,), dev)
-    # floor modulo: an inactive slot (seq_len 0) writes offset ps-1 of the trash row
-    write_offs = torch.remainder(seq_lens - 1, ps).to(torch.int32)
+    per_split, n_splits = split_plan(max_pages, ps)
+    part = _scratch(n_slots, hkv, hq // hkv, n_splits, dev)
     q = q.contiguous()
     k_new = k_new.contiguous()
     v_new = v_new.contiguous()
     out = torch.empty_like(q)
     lib = _build.load_library()
+    # the kernel writes at offset (seq_lens - 1) mod ps, floor modulo: an
+    # inactive slot (seq_len 0) writes offset ps-1 of the trash row
     err = lib.ssi_paged_attention_fused(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        write_rows.data_ptr(), write_offs.data_ptr(), out.data_ptr(),
-        n_slots, hq, hkv, ps, max_pages, hd**-0.5, torch.cuda.current_stream(dev).cuda_stream,
+        write_rows.data_ptr(), out.data_ptr(), part.data_ptr(),
+        n_slots, hq, hkv, ps, max_pages, per_split, n_splits, hd**-0.5,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch(KERNEL, err)
     return out
@@ -150,6 +171,8 @@ def _paged_attention_multi_cuda(q, k_pool, v_pool, page_table, hist_lens, k_new,
     page_table = _check_int("page_table", page_table, (n_slots, max_pages), dev)
     hist_lens = _check_int("hist_lens", hist_lens, (n_slots,), dev)
     write_rows = _check_int("write_rows", write_rows, (n_slots, t_q), dev)
+    per_split, n_splits = split_plan(max_pages, ps)
+    part = _scratch(n_slots, hkv, t_q * (hq // hkv), n_splits, dev)
     q = q.contiguous()
     k_new = k_new.contiguous()
     v_new = v_new.contiguous()
@@ -158,8 +181,8 @@ def _paged_attention_multi_cuda(q, k_pool, v_pool, page_table, hist_lens, k_new,
     err = lib.ssi_paged_attention_multi(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), hist_lens.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        write_rows.data_ptr(), out.data_ptr(),
-        n_slots, t_q, hq, hkv, ps, max_pages, k_pool.shape[0] - 1, hd**-0.5,
+        write_rows.data_ptr(), out.data_ptr(), part.data_ptr(),
+        n_slots, t_q, hq, hkv, ps, max_pages, k_pool.shape[0] - 1, per_split, n_splits, hd**-0.5,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch(KERNEL_MULTI, err)

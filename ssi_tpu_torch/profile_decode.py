@@ -50,7 +50,7 @@ N_SLOTS, PAGE, CHUNK = 32, 128, 16
 CHUNKS, ROUNDS = 4, 3  # engine chunks per timed window; untraced rounds before the traced one
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _CLASSES = (  # (class, substrings of the kernel name), first match wins
-    ("paged kernel #8", ("paged_decode_kernel",)),
+    ("paged kernel #8", ("paged_split_", "paged_merge_")),  # the split kernel and its merge
     ("flash kernel #1", ("flash_fwd_kernel",)),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("reduction", ("reduce", "softmax", "argmax", "norm")),

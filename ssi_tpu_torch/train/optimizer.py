@@ -87,24 +87,36 @@ def init_opt_state(params: Params, cfg: AdamWConfig) -> dict[str, Any]:
     }
 
 
+def window_grad(g: torch.Tensor, denom: float = 1.0, clip: float = 1.0) -> torch.Tensor:
+    """One leaf of a window's gradient as the norm and AdamW read it:
+    ``g / denom``, then times ``clip``, in f32 whatever ``g``'s dtype. The JAX
+    step divides by an f32 ``denom``, which promotes a bf16 leaf to f32, and
+    clips those f32 values; a new tensor, ``g`` is left as it is."""
+    g32 = g.float() / denom
+    return g32 if clip == 1.0 else g32 * clip
+
+
 @torch.no_grad()
-def adamw_update(grads: Params, opt_state: dict[str, Any], params: Params, lr: float, cfg: AdamWConfig) -> None:
+def adamw_update(grads: Params, opt_state: dict[str, Any], params: Params, lr: float, cfg: AdamWConfig, *,
+                 denom: float = 1.0, clip: float = 1.0) -> None:
     """One AdamW step, in place on ``params`` and ``opt_state`` (``count``
-    advances by one). ``grads`` must already be scaled and clipped. Math in
-    f32; the moments are stored in the configured dtypes, the parameters in
-    their own."""
+    advances by one). Each gradient leaf is read as ``window_grad(g, denom,
+    clip)``: the train step passes the window's token count and clip factor,
+    so the f32 gradient exists one leaf at a time, never as a copy of the
+    tree. Math in f32; the moments are stored in the configured dtypes, the
+    parameters in their own."""
     count = opt_state["count"] + 1
     c = torch.tensor(float(count), dtype=torch.float32)
     bias_c1 = float(1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** c)  # f32, as the JAX update computes it
     bias_c2 = float(1.0 - torch.tensor(cfg.b2, dtype=torch.float32) ** c)
     leaves = zip(tree_leaves(params), tree_leaves(grads), tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"]))
     for i, (p, g, mu, nu) in enumerate(leaves):
-        g32 = g.float()
+        g32 = window_grad(g, denom, clip)
         mu32 = cfg.b1 * mu.float() + (1.0 - cfg.b1) * g32
         nu32 = cfg.b2 * nu.float() + (1.0 - cfg.b2) * (g32 * g32)
-        denom = torch.sqrt(nu32 / bias_c2) + cfg.eps
+        rms = torch.sqrt(nu32 / bias_c2) + cfg.eps
         p32 = p.float()
-        p.copy_(p32 - lr * (mu32 / bias_c1 / denom + cfg.weight_decay * p32))
+        p.copy_(p32 - lr * (mu32 / bias_c1 / rms + cfg.weight_decay * p32))
         for m, (buf, x32, dtype) in enumerate(((mu, mu32, cfg.mu_dtype), (nu, nu32, cfg.nu_dtype))):
             if cfg.stochastic_rounding and dtype == torch.bfloat16:
                 buf.copy_(_stochastic_round_bf16(x32, _round_generator(p.device, count, i, m)))
@@ -113,19 +125,24 @@ def adamw_update(grads: Params, opt_state: dict[str, Any], params: Params, lr: f
     opt_state["count"] = count
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+def global_norm(tree: Params, denom: float = 1.0) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf divided by ``denom``
+    (``window_grad``), f32, one leaf at a time."""
+    return torch.sqrt(sum(torch.sum(torch.square(window_grad(x, denom))) for x in tree_leaves(tree)))
+
+
+def clip_factor(norm: torch.Tensor, max_norm: float) -> float:
+    """``min(1, max_norm / (norm + 1e-6))`` in f32, as a Python number: a 0-d
+    f32 tensor would be rounded to a bf16 leaf's dtype before a multiply."""
+    return torch.clamp(max_norm / (norm + 1e-6), max=1.0).item()
 
 
 @torch.no_grad()
 def clip_by_global_norm(tree: Params, max_norm: float) -> torch.Tensor:
     """torch.nn.utils.clip_grad_norm_ semantics, in place: every leaf times
-    ``min(1, max_norm / (norm + 1e-6))``. Returns the norm before clipping."""
+    ``clip_factor``, in its own dtype. Returns the norm before clipping."""
     norm = global_norm(tree)
-    # the f32 scale as a Python number: a 0-d f32 tensor would be rounded to a
-    # bf16 leaf's dtype before the multiply
-    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0).item()
+    scale = clip_factor(norm, max_norm)
     for x in tree_leaves(tree):
         x.mul_(scale)
     return norm

@@ -10,7 +10,9 @@ Semantics kept from the JAX step:
 
 - per-micro-batch loss = sum of NLL over non-ignored (shifted) labels;
 - one micro-batch keeps its gradients in the parameter dtype; a longer window
-  accumulates them in ``grad_accum_dtype`` (f32 by default);
+  accumulates them in ``grad_accum_dtype`` (f32 by default); the scaling by
+  1/num_tokens, the global norm, the clip and AdamW then run in f32 whatever
+  that dtype;
 - a window with zero non-ignored tokens applies no update and does not advance
   ``step`` (checked on the host here; the JAX step uses ``lax.cond``);
 - token-type accounting over vocab ranges runs on the device.
@@ -34,7 +36,8 @@ from ssi_tpu_torch.ops.cross_entropy_cuda import fused_cross_entropy_kernel
 from ssi_tpu_torch.train.optimizer import (
     AdamWConfig,
     adamw_update,
-    clip_by_global_norm,
+    clip_factor,
+    global_norm,
     tree_leaves,
     tree_unflatten,
 )
@@ -153,19 +156,21 @@ def make_train_step(
 
         with torch.no_grad():
             n_tokens = int(num_tokens)  # host sync: the update below depends on it
-            # a Python divisor: a 0-d device tensor would be rounded to a bf16 grad's dtype first
+            # The JAX step's f32 arithmetic after accumulation: g / denom promotes a
+            # bf16 leaf to f32, and the norm, the clip and AdamW read those f32 values.
+            # Each reads them leaf by leaf (window_grad); the sums stay as accumulated.
             denom = float(max(n_tokens, 1))
-            for g in grads:
-                g.div_(denom)
             grads = tree_unflatten(params, grads)
             if clip_grad_norm is not None:
-                grad_norm = clip_by_global_norm(grads, float(clip_grad_norm))
+                grad_norm = global_norm(grads, denom)
+                clip = clip_factor(grad_norm, float(clip_grad_norm))
             else:
                 grad_norm = torch.tensor(float("nan"), dtype=torch.float32, device=tokens.device)
+                clip = 1.0
             lr = lr_schedule(state["step"])
             applied = n_tokens > 0  # zero-token window: no update, no step advance
             if applied:
-                adamw_update(grads, state["opt_state"], params, lr, opt_cfg)
+                adamw_update(grads, state["opt_state"], params, lr, opt_cfg, denom=denom, clip=clip)
                 state["step"] += 1
 
         metrics = {

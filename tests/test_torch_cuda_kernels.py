@@ -15,6 +15,7 @@ from ssi_tpu_torch.generate.paged_cuda import (
     paged_attention_fused_reference,
     paged_attention_multi_fused,
     paged_attention_multi_fused_reference,
+    split_plan,
 )
 from ssi_tpu_torch.ops.cross_entropy import (
     cross_entropy_de,
@@ -140,6 +141,73 @@ def test_paged_multi_kernel_matches_plain(gen, dtype, n_rep, t_q):
     # control: the plain output with the in-flight causal mask dropped (every token sees all T) must miss
     loose = torch.stack([paged_attention(q[:, t], kp_ref, vp_ref, table, hist + t_q) for t in range(t_q)], dim=1)
     assert not torch.allclose(got[landed].float(), loose[landed].float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=2):
+    """One of the paged kernels, #8 (``t_q`` 1: seq_lens = hist + 1, 0 when
+    inactive) or #9, against its plain version on slots of history ``hist``
+    (positions < hist_len; inactive slots write to the trash row): attention
+    of active slots within tolerance, two launches bitwise equal (the second
+    rewrites the same cells, which no launch reads), pools bitwise equal
+    except the trash row."""
+    slots = len(hist)
+    n_pages = slots * max_pages
+    rows = 2 * n_pages + 1  # layer 1's pages, the trash row last
+    kp = torch.randn((rows, ps, hkv * 64), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((rows, ps, hkv * 64), generator=gen, device="cuda").to(dtype)
+    table = (n_pages + torch.randperm(n_pages, generator=gen, device="cuda")).view(slots, max_pages).to(torch.int32)
+    hist = torch.tensor(hist, dtype=torch.int32, device="cuda")
+    active = torch.tensor(active, device="cuda")
+    shape = (slots,) if t_q == 1 else (slots, t_q)
+    q = torch.randn((*shape, hkv * n_rep, 64), generator=gen, device="cuda").to(dtype)
+    kn = torch.randn((*shape, hkv, 64), generator=gen, device="cuda").to(dtype)
+    vn = torch.randn((*shape, hkv, 64), generator=gen, device="cuda").to(dtype)
+    pos = hist[:, None] + torch.arange(t_q, device="cuda")[None, :]
+    write_rows = torch.where(active[:, None], torch.gather(table, 1, (pos // ps).long()), rows - 1).to(torch.int32)
+    kw = dict(k_new=kn, v_new=vn, write_rows=write_rows[:, 0] if t_q == 1 else write_rows)
+    if t_q == 1:
+        lens = torch.where(active, hist + 1, 0).to(torch.int32)
+        kernel, plain = paged_attention_fused, paged_attention_fused_reference
+    else:
+        lens = hist
+        kernel, plain = paged_attention_multi_fused, paged_attention_multi_fused_reference
+    kp_ref, vp_ref = kp.clone(), vp.clone()
+    got = kernel(q, kp, vp, table, lens, **kw)
+    again = kernel(q, kp, vp, table, lens, **kw)
+    ref = plain(q, kp_ref, vp_ref, table, lens, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got[active].float(), ref[active].float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(kp[:-1], kp_ref[:-1]) and torch.equal(vp[:-1], vp_ref[:-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_q,n_rep", [(1, 4), (1, 8), (4, 4), (8, 4), (8, 8)])  # #8 and #9; 8 x 8 = two row groups
+@pytest.mark.parametrize("ps,max_pages", [(16, 48), (128, 10)])  # 3 and 5 splits of 256 keys
+def test_paged_kernels_split_boundaries(gen, dtype, t_q, n_rep, ps, max_pages):
+    """The split-context kernels where splits start and end: histories that
+    end exactly on a split boundary and one key past it, one that fits in one
+    split (finished by that split alone), history 0 (the only live split
+    holds no history key), an inactive slot, and the full context less T."""
+    per_split, n_splits = split_plan(max_pages, ps)
+    sk, cap = per_split * ps, max_pages * ps
+    assert n_splits > 1
+    hist = [0, 100, sk - 1, sk, sk + 1, 2 * sk, 2 * sk + 1, cap - t_q, 0, 37]
+    active = [True] * 8 + [False, True]
+    check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t_q", [1, 4])
+def test_paged_kernels_past_the_old_context_cap(gen, dtype, t_q):
+    """32 slots at context 16,384, n_rep 4: the old #8 kept every score in
+    shared memory and its wrapper refused this shape; the split plan caps
+    the splits at 16 of 1,024 keys each."""
+    ps, max_pages = 128, 128
+    cap = ps * max_pages
+    assert split_plan(max_pages, ps) == (8, 16)
+    hist = [cap - t_q, 0, 1, 1024, 1025] + torch.randint(1, cap - t_q + 1, (27,), generator=gen, device="cuda").tolist()
+    check_paged_kernel(gen, dtype, t_q, 4, ps, max_pages, hist, [True] * 32)
 
 
 def test_kernel_wrappers_refuse_unsupported_shapes(gen):

@@ -16,11 +16,13 @@ from ssi_tpu.generate import paged as jpaged
 from ssi_tpu.generate.paged_pallas import WRITE_WIN, paged_attention_pallas, paged_attention_pallas_multi
 from ssi_tpu.models.llama3 import init_params
 from ssi_tpu_torch.generate import paged as tpaged
+from ssi_tpu_torch.generate import paged_cuda
 from ssi_tpu_torch.generate.paged_cuda import (
     paged_attention_fused,
     paged_attention_fused_reference,
     paged_attention_multi_fused,
     paged_attention_multi_fused_reference,
+    split_plan,
 )
 from ssi_tpu_torch.models.llama3 import params_from_numpy
 from tests import helpers
@@ -324,3 +326,18 @@ def test_prefill_suffix_and_history_match_jax(setup):
     for name in ("k", "v"):
         np.testing.assert_allclose(tpools[name].numpy()[:-1], np.asarray(jpools[name])[:-1], rtol=TOL, atol=TOL)
     np.testing.assert_array_equal(thist.numpy(), np.asarray(jhist))
+
+
+@pytest.mark.parametrize("ps", [8, 16, 48, 128])
+def test_split_plan_covers_the_table_with_bounded_splits(ps):
+    """The CUDA core's split plan (the kernels themselves run only on the
+    card): the splits cover the page table exactly, each walks whole pages of
+    at least SPLIT_KEYS keys, and there are never more than MAX_SPLITS, so the
+    merge's scratch stays bounded however long the context."""
+    for max_pages in range(1, 600):
+        per_split, n_splits = split_plan(max_pages, ps)
+        assert 1 <= n_splits <= paged_cuda.MAX_SPLITS
+        assert (n_splits - 1) * per_split < max_pages <= n_splits * per_split
+        assert per_split * ps >= paged_cuda.SPLIT_KEYS
+    assert split_plan(10, 128) == (2, 5)  # the 1B serving shape: 5 splits of 256 keys
+    assert split_plan(128, 128) == (8, 16)  # context 16,384: 16 splits of 1,024 keys

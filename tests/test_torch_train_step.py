@@ -8,6 +8,9 @@ loss stream over three steps. Parameters after AdamW are not compared
 elementwise: AdamW's first step moves each weight by about +-lr whatever the
 size of its gradient, so float noise in a near-zero gradient can flip its
 sign.
+
+The bf16 tests (``test_bf16_window_arithmetic_matches_jax``) hold what a
+window does after accumulation with bf16 parameters: see their docstring.
 """
 
 import numpy as np
@@ -24,8 +27,9 @@ from ssi_tpu.train import step as jstep
 from ssi_tpu_torch.models import configs as tconfigs
 from ssi_tpu_torch.models.llama3 import params_from_numpy
 from ssi_tpu_torch.train import lr_schedule as tsched
+from ssi_tpu_torch.train import optimizer as topt
 from ssi_tpu_torch.train import step as tstep
-from ssi_tpu_torch.train.optimizer import AdamWConfig, init_opt_state, tree_leaves
+from ssi_tpu_torch.train.optimizer import AdamWConfig, init_opt_state, tree_leaves, tree_unflatten
 from tests import helpers
 
 A, B, S = 2, 2, 32
@@ -236,3 +240,141 @@ def test_token_counts_eval_and_dataset_loss_match_jax(tied):
     got_loss = tstep.compute_dataset_loss(tstep.make_eval_step(tcfg, chunk_size=CHUNK), params, batches)
     want_loss = jstep.compute_dataset_loss(jstep.make_eval_step(jcfg, chunk_size=CHUNK), jparams, batches)
     np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+
+
+# ---- bf16 windows: the arithmetic after accumulation ----------------------
+
+BF16_LR = 1e-3
+# f32 tolerances, elementwise relative: a few ulp. The old bf16 arithmetic
+# misses both by far more (its gradients round at 2**-9; its norm is off by
+# 1-2e-5 at these shapes).
+GRAD_RTOL = 4e-6
+NORM_RTOL = 2e-6
+
+
+def gradient_tables(jparams, a, seed):
+    """Per leaf, a [a, *shape] f32 table of bf16-exact values: micro-batch
+    i's gradient of that leaf (a different one per micro-batch)."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((a, *x.shape)).astype(jnp.bfloat16).astype(np.float32)
+            for x in jax.tree.leaves(jparams)]
+
+
+def injected_loss_jax(tables):
+    tabs = [jnp.asarray(t) for t in tables]
+
+    def loss_fn(params, tokens, labels, segment_ids=None, positions=None):
+        i = tokens[0, 0]  # the micro-batch's index, planted by the test
+        loss = sum(jnp.sum(p.astype(jnp.float32) * t[i]) for p, t in zip(jax.tree.leaves(params), tabs))
+        return loss, jnp.sum(jstep.shift_labels(labels) != -100).astype(jnp.int32)
+
+    return loss_fn
+
+
+def injected_loss_port(tables):
+    tabs = [torch.from_numpy(t) for t in tables]
+
+    def loss_fn(params, tokens, labels, segment_ids=None, positions=None):
+        i = int(tokens[0, 0])
+        loss = sum(torch.sum(p.float() * t[i]) for p, t in zip(tree_leaves(params), tabs))
+        return loss, (tstep.shift_labels(labels) != -100).sum().to(torch.int32)
+
+    return loss_fn
+
+
+def bf16_np(x):
+    """A bf16 array or tensor -> f32 numpy (exact)."""
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+def misses(got, want, rtol):
+    return not all(np.allclose(bf16_np(a), bf16_np(b), rtol=rtol, atol=0.0) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("a,accum_dtype", [(1, None), (2, "bf16")])
+def test_bf16_window_arithmetic_matches_jax(a, accum_dtype, monkeypatch):
+    """bf16 parameters, one window of A micro-batches (A 1: the gradients stay
+    bf16; A 2: accumulated in bf16, ``grad_accum_dtype=bf16``, the repo's
+    default): the port's step against JAX ``make_train_step(donate=False)``.
+
+    The two frameworks' bf16 backward passes round at other places, so their
+    raw gradients differ at bf16 noise, which would hide a rounding of the
+    scaled gradients. Both steps therefore run one injected loss,
+    sum(p.float() * W_i) over the leaves: its gradient is W_i rounded to bf16
+    in both, and W_i is bf16-exact, so both accumulate the same bits and only
+    the arithmetic after accumulation is compared. Held, with clip 1.0 active
+    (norm above 1) and f32 moments: the gradients AdamW reads are f32 and each
+    within ``GRAD_RTOL`` of the JAX step's ``g / denom`` clipped (the two
+    norms sum in other orders, so the clip factors differ by a few f32 ulp);
+    ``grad_norm`` within ``NORM_RTOL``; the moments after one AdamW step
+    within ``GRAD_RTOL``; the bf16 parameters after it bitwise equal. Control: the old bf16 arithmetic
+    (``g.div_(denom)`` and the clip in the gradient's dtype) on the same
+    accumulated gradients misses the gradients' dtype and values, the norm
+    and the moments. (The bf16 parameters cannot tell the two apart: AdamW's
+    first step moves each weight by about +-lr whatever its gradient's size.)
+    """
+    jcfg = helpers.tiny_config()
+    tcfg = port_config(jcfg)
+    jparams = jllama.init_params(jcfg, jax.random.key(5), dtype=jnp.bfloat16)
+    tables = gradient_tables(jparams, a, seed=20 + a)
+    w = make_window(30 + a, jcfg.vocab_size, a=a)
+    for i in range(a):
+        w["tokens"][i, 0, 0] = i
+
+    # JAX: the step itself, and its arithmetic spelled out on the same sums
+    monkeypatch.setattr(jstep, "make_loss_fn", lambda *args, **kw: injected_loss_jax(tables))
+    jopt_cfg = jopt.AdamWConfig(lr=BF16_LR, mu_dtype=jnp.float32, nu_dtype=jnp.float32)
+    jtrain = jstep.make_train_step(jcfg, jopt_cfg, jsched.constant_schedule(BF16_LR), clip_grad_norm=1.0,
+                                   donate=False, grad_accum_dtype=jnp.bfloat16)
+    jstate = {"params": jparams, "opt_state": jopt.init_opt_state(jparams, jopt_cfg), "step": jnp.zeros((), jnp.int32)}
+    jstate, jm = jtrain(jstate, jnp.asarray(w["tokens"]), jnp.asarray(w["labels"]))
+    sums = [jnp.asarray(t[0]).astype(jnp.bfloat16) for t in tables]
+    for i in range(1, a):
+        sums = [s + jnp.asarray(t[i]).astype(jnp.bfloat16) for s, t in zip(sums, tables)]
+    n_tokens = int(jm["num_tokens"])
+    want_grads, want_norm = jopt.clip_by_global_norm([g / jnp.float32(n_tokens) for g in sums], 1.0)
+    np.testing.assert_allclose(float(want_norm), float(jm["grad_norm"]), rtol=1e-6)
+    assert float(want_norm) > 1.0  # the clip is active
+
+    # the port: the step, with AdamW's gradient leaves read as it reads them
+    monkeypatch.setattr(tstep, "make_loss_fn", lambda *args, **kw: injected_loss_port(tables))
+    seen = {}
+    update = tstep.adamw_update
+
+    def spy(grads, opt_state, params, lr, cfg, *, denom=1.0, clip=1.0):
+        seen["sums"] = [g.clone() for g in tree_leaves(grads)]
+        seen["read"] = [topt.window_grad(g, denom, clip) for g in tree_leaves(grads)]
+        return update(grads, opt_state, params, lr, cfg, denom=denom, clip=clip)
+
+    monkeypatch.setattr(tstep, "adamw_update", spy)
+    state, opt = port_state(tcfg, jparams)
+    params0 = [p.clone() for p in tree_leaves(state["params"])]
+    ttrain = tstep.make_train_step(tcfg, opt, tsched.constant_schedule(BF16_LR), clip_grad_norm=1.0,
+                                   grad_accum_dtype=torch.bfloat16 if accum_dtype == "bf16" else torch.float32)
+    state, m = ttrain(state, torch.from_numpy(w["tokens"]), torch.from_numpy(w["labels"]))
+    assert int(m["num_tokens"]) == n_tokens and bool(m["applied"])
+    assert all(torch.equal(s.float(), torch.from_numpy(bf16_np(g))) for s, g in zip(seen["sums"], sums))
+
+    assert all(g.dtype == torch.float32 for g in seen["read"])
+    assert not misses(seen["read"], want_grads, GRAD_RTOL)
+    np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=NORM_RTOL)
+    for name in ("mu", "nu"):
+        assert not misses(tree_leaves(state["opt_state"][name]), jax.tree.leaves(jstate["opt_state"][name]), GRAD_RTOL)
+    for got, want in zip(tree_leaves(state["params"]), jax.tree.leaves(jstate["params"])):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(bf16_np(got), bf16_np(want))
+
+    # control: the old arithmetic in the gradients' dtype, on the same sums
+    old = [g.clone().div_(float(n_tokens)) for g in seen["sums"]]
+    params = tree_unflatten(state["params"], [p.clone() for p in params0])
+    old_tree = tree_unflatten(params, old)
+    old_norm = topt.clip_by_global_norm(old_tree, 1.0)
+    old_opt = init_opt_state(params, opt)
+    topt.adamw_update(old_tree, old_opt, params, BF16_LR, opt)
+    assert all(g.dtype == torch.bfloat16 for g in old)
+    assert misses(old, want_grads, GRAD_RTOL)
+    assert not np.isclose(float(old_norm), float(jm["grad_norm"]), rtol=NORM_RTOL, atol=0.0)
+    for name in ("mu", "nu"):
+        assert misses(tree_leaves(old_opt[name]), jax.tree.leaves(jstate["opt_state"][name]), GRAD_RTOL)

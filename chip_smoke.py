@@ -10,7 +10,8 @@ non-zero without printing the final line):
 
 0. device: a CUDA card must be present (no CPU fallback); prints the card's
    name and power limit (nvidia-smi), torch / CUDA / nvcc versions;
-1. build: every CUDA kernel from ``ssi_tpu_torch/csrc`` (one nvcc per source,
+1. build: the tokenizer's native BPE core (``ssi_tpu_torch/native``, g++)
+   and every CUDA kernel from ``ssi_tpu_torch/csrc`` (one nvcc per source,
    in parallel, then one link);
 2. flash-attention forward kernel vs its plain version (f32 and bf16;
    causal, full, segment ids) at the serving path's largest prefill dispatch
@@ -51,6 +52,18 @@ c. the serving path with speculation: phase 5's requests with
    counters are > 0; tok/s, tokens per verify step and the token agreement
    with phase 5 (bf16: the T-token verify GEMMs round unlike the 1-token
    step, so agreement is reported, not required);
+d. the generation entry point: a ``step_0/`` under
+   ``<tmp>/experiments/run/checkpoints/`` (a 128,000-entry base tokenizer
+   extended with 5,000 DSUs and 2 modality tokens, random bf16 1B weights
+   written through ``internal_to_hf`` and the port's safetensors writer, the
+   HF model files) and a 64-row JSON-lines test split; the CLI's ``main``
+   (``python -m ssi_tpu_torch.cli.generate``) with the WER drive's overrides
+   writes 64 finished records with in-vocab tokens; the config snapshot
+   reads back to the resolved config; the loaded parameters equal the
+   written ones bitwise; the flash and paged kernels' launch counters are
+   > 0 for the run; every record's tokens equal a direct engine call on the
+   same prompts and loaded parameters; prints the load GB/s, tokenization,
+   warm-up and generate times and the records' tok/s;
 6. flash-attention backward kernel vs its plain version (dq, dk, dv; f32 and
    bf16; causal, full, segment ids) at B 4, S 768 and the training shape
    B 2, S 2048, with the plain gradients at lse + 0.05 as the control; dq,
@@ -93,6 +106,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import math
 import os
 import re
@@ -216,8 +230,11 @@ def _kernel_name(mangled: str) -> str:
 
 
 def phase_build():
-    from ssi_tpu_torch import _build
+    from ssi_tpu_torch import _build, native
 
+    t0 = time.perf_counter()
+    native.load_native()  # the tokenizer's C++ BPE core (g++), beside the kernels
+    log(f"  native BPE core (g++): {time.perf_counter() - t0:.1f} s")
     _build.load_library()
     kernel = ""  # the kernel the ptxas lines below belong to: its name and mangled template arguments
     for ln in _build.build_log.splitlines():
@@ -787,6 +804,255 @@ def phase_spec_serving(seed: int, smi: str, base_tokens, base_rate: float):
     return launches
 
 
+# --- phase d: the generation entry point ------------------------------------------------------
+
+BASE_VOCAB = 128_000
+# Task vocabulary of the WER drive (tools/wer_drive.py WORDS, copied; the
+# test split's transcripts are drawn from it).
+WORDS = """
+the of and to in is was he for it with as his on be at by had not are but from
+or have an they which one you were all her she there would their we him been
+has when who will no more if out so up said what its about than into them can
+only other time new some could these two may first then do any like my now
+over such our man me even most made after also did many off before must well
+back through years much where your way down should because each just those
+people too how little good world make very year still see own work men day get
+here old life both between under never same another know while last might us
+great old year came right used take three states himself few house use during
+without again place american around however home small found mrs thought went
+say part once general high upon school every don't does got united left number
+course war until always away something fact though water less public put think
+almost hand enough far took head yet government system better set told nothing
+night end why called didn't eyes find going look asked later knew point next
+city business case give group toward young let days true face others since
+room mother social present friend power rather large family often kind four
+among children however against state become interest big open possible
+certain order early moved money ago second door white remember program
+believe whole question began least word hours feel among side voice along
+thing area want members mind country service best father door keep problem
+music light education study turned want national care form given history
+several change until help line fire name nature deal physical sense moment
+free road colour theatre organise favourite centre behaviour honour analyse
+programme labour neighbour travelled marvellous
+""".split()
+WORDS = list(dict.fromkeys(WORDS))  # first occurrences, in order
+
+
+def build_base_tokenizer(path, words: list[str]) -> None:
+    """Write a valid 128,000-entry tiktoken BPE file — a copy of
+    ``tools/wer_drive.py`` ``build_base_tokenizer`` (byte-equal output,
+    ``tests/test_torch_tokenizer.py``): 256 byte tokens; the two-byte UTF-8
+    intermediates of the PUA lead bytes 0xEE/0xEF (so the DSU extension's
+    3-byte tokens are reachable by byte-pair merges); prefix-chain merges of
+    every word, with and without a leading space; filler byte strings up to
+    exactly 128,000."""
+    import base64
+
+    tokens: list[bytes] = [bytes([i]) for i in range(256)]
+    seen = set(tokens)
+
+    def add(tok: bytes) -> None:
+        if tok not in seen:
+            seen.add(tok)
+            tokens.append(tok)
+
+    for lead in (0xEE, 0xEF):
+        for b2 in range(0x80, 0xC0):
+            add(bytes([lead, b2]))
+    merges: set[bytes] = set()
+    for w in words:
+        for variant in (w, " " + w):
+            enc = variant.encode()
+            for k in range(2, len(enc) + 1):
+                merges.add(enc[:k])
+    for tok in sorted(merges, key=lambda t: (len(t), t)):
+        add(tok)
+    for a in range(0x80, 0x100):
+        for b in range(0x100):
+            if len(tokens) >= BASE_VOCAB:
+                break
+            add(bytes([a, b]))
+    for lead in range(0xF8, 0xFE):
+        for a in range(0x100):
+            for b in range(0x100):
+                if len(tokens) >= BASE_VOCAB:
+                    break
+                add(bytes([lead, a, b]))
+    if len(tokens) < BASE_VOCAB:
+        raise RuntimeError(f"only {len(tokens)} tokens constructed")
+    tokens = tokens[:BASE_VOCAB]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        for rank, tok in enumerate(tokens):
+            f.write(base64.b64encode(tok).decode() + f" {rank}\n")
+
+
+def write_model_files(step, cfg) -> None:
+    """``config.json``, ``generation_config.json`` and ``original/params.json``,
+    as ``tests/helpers.py`` ``make_tiny_hf_checkpoint`` writes them."""
+    first_special = cfg.base_vocab_size_txt + cfg.n_dsus + 2 * cfg.modality_tokens
+    config = {
+        "architectures": ["LlamaForCausalLM"],
+        "model_type": "llama",
+        "hidden_size": cfg.embed_dim,
+        "intermediate_size": cfg.intermediate_dim,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads,
+        "vocab_size": cfg.vocab_size,
+        "bos_token_id": first_special,
+        "eos_token_id": first_special + 1,
+        "tie_word_embeddings": True,
+        "rope_theta": float(cfg.rope_base),
+        "max_position_embeddings": cfg.max_seq_len,
+    }
+    (step / "config.json").write_text(json.dumps(config, indent=2))
+    (step / "generation_config.json").write_text(
+        json.dumps({"bos_token_id": config["bos_token_id"], "eos_token_id": config["eos_token_id"]}, indent=2))
+    (step / "original" / "params.json").write_text(json.dumps({"vocab_size": cfg.vocab_size}, indent=2))
+
+
+def split_rows(seed: int, n: int, n_dsus: int) -> list[dict]:
+    """``n`` rows of speech tokens (no two neighbours equal, so deduplication
+    keeps every one) and a transcript of task words. The conf system prompt
+    takes about 95 tokens of the synthesized vocabulary, so speech spans of
+    10-640 tokens make prompts of about 105-740 tokens (phase 5's: 32-700)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        m = int(rng.integers(10, 641))
+        steps = rng.integers(1, n_dsus, m)  # a nonzero step mod n_dsus: never a repeat
+        tokens = (int(rng.integers(0, n_dsus)) + np.cumsum(steps)) % n_dsus
+        words = [WORDS[j] for j in rng.integers(0, len(WORDS), 10)]
+        rows.append({"speech_tokens": tokens.tolist(), "transcript": " ".join(words), "ID": f"utt_{i}"})
+    return rows
+
+
+def phase_generate_cli(seed: int, smi: str, base_rate: float):
+    """Phase d: ``python -m ssi_tpu_torch.cli.generate``'s ``main``, run in this
+    process on a synthesized ``step_0/`` (128,000-entry base tokenizer + 5,000
+    DSUs + 2 modality tokens, random bf16 1B weights written through
+    ``internal_to_hf`` and the port's safetensors writer) and a 64-row
+    JSON-lines test split, with the WER drive's overrides."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.checkpoint import Checkpointer
+    from ssi_tpu_torch.checkpoint.convert import internal_to_hf
+    from ssi_tpu_torch.checkpoint.safetensors_io import save_file
+    from ssi_tpu_torch.cli.generate import CONF_DIR, main as generate_main
+    from ssi_tpu_torch.config import compose, load_yaml, to_container
+    from ssi_tpu_torch.extend import extend_tiktoken
+    from ssi_tpu_torch.generate import last_run_stats, resolve_gen_output_dir
+    from ssi_tpu_torch.generate.engine import SamplingParams
+    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+    from ssi_tpu_torch.models.llama3 import init_params
+    from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
+
+    cfg = model_config()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_generate_"))
+    try:
+        step = root / "experiments" / "run" / "checkpoints" / "step_0"
+        tok_path = step / "original" / "tokenizer.model"
+        t0 = time.perf_counter()
+        build_base_tokenizer(tok_path, WORDS)
+        extend_tiktoken(cfg.n_dsus, cfg.modality_tokens, tok_path, tok_path)
+        written = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+        save_file(internal_to_hf(written, cfg), step / "model.safetensors", metadata={"format": "pt"})
+        write_model_files(step, cfg)
+        split = root / "test.jsonl"
+        split.write_text("".join(json.dumps(r) + "\n" for r in split_rows(seed + 7, 64, cfg.n_dsus)))
+        t_synth = time.perf_counter() - t0
+
+        argv = [
+            f"model={step}", f"experiments_root_dir={root / 'experiments'}",
+            f"tokenizer.path={tok_path}", f"speech.n_dsus={cfg.n_dsus}",
+            "data=sft/mls-hubert_large_ll60k-layer_22",
+            "data.test.dataset.source=json", f"+data.test.dataset.data_files={split}", "data.test.dataset.split=train",
+            "gen.split=test", "batch_size=32", "sampling_params.max_tokens=128", "dtype=bf16", "observability=true",
+        ]
+        root_logger = logging.getLogger()
+        saved_logging = root_logger.level, list(root_logger.handlers)
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        try:
+            generate_main(argv)
+            torch.cuda.synchronize()
+        finally:  # the run's job logging (console + a file in its output dir) ends with it
+            for handler in root_logger.handlers:
+                if handler not in saved_logging[1]:
+                    handler.close()
+            root_logger.handlers = saved_logging[1]
+            root_logger.setLevel(saved_logging[0])
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        stats = dict(last_run_stats)
+
+        out_dir = step.parents[1] / "generations" / "step_0" / "json" / "test"
+        records = [json.loads(line) for line in (out_dir / "generations.jsonl").read_text().splitlines()]
+        check(len(records) == 64, f"generate: {len(records)} records, expected 64")
+        for r in records:
+            outs = r["outputs"]
+            check(r["finished"] is True and len(outs) == 1, f"record {r['request_id']}: not one finished output")
+            o = outs[0]
+            check(o["finish_reason"] in ("stop", "length") and 0 < len(o["token_ids"]) <= 128,
+                  f"record {r['request_id']}: {o['finish_reason']}, {len(o['token_ids'])} tokens")
+            check(all(0 <= t < cfg.vocab_size for t in o["token_ids"]), f"record {r['request_id']}: token out of vocab")
+        for name in ("flash_attention_fwd", "paged_attention_fused"):
+            check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the generation entry point")
+
+        # the snapshot reads back (the port's YAML reader) to the config that ran
+        ran = compose(CONF_DIR, "generate", overrides=argv)
+        ran.gen.output_dir = resolve_gen_output_dir(ran)
+        check(load_yaml(out_dir / "generation_config.yaml") == to_container(ran, resolve=True),
+              "generation_config.yaml does not read back to the resolved config")
+
+        # the loaded parameters are the written ones, bit for bit
+        loaded = Checkpointer(step, output_dir=root / "scratch",
+                              model_expectations=cfg.checkpoint_expectations).load_params(cfg, torch.bfloat16, "cuda")
+        flat = lambda p: {**{k: v for k, v in p.items() if k != "layers"}, **p["layers"]}  # noqa: E731
+        for name, w in flat(written).items():
+            check(torch.equal(flat(loaded)[name], w), f"loaded {name} differs from the written weights")
+        del written
+
+        # the run's tokens == a direct engine call on the same prompts and loaded
+        # parameters (same settings, same two-prompt warm-up first: the kernels
+        # are bitwise repeatable and the warm-up leaves the same prefix cache)
+        tokenizer, _ = setup_llama3_tokenizer(tok_path, verbose=False)
+        prompts = [r["prompt_token_ids"] for r in records]
+        sp = SamplingParams(max_tokens=128, stop_token_ids=tuple(tokenizer.stop_tokens))
+        eng = PagedDecodeEngine(loaded, cfg, pad_id=tokenizer.pad_id, n_slots=32,
+                                max_context=max(map(len, prompts)) + 128)
+        check(eng.attn_impl == "kernel", f"direct engine resolved attn_impl {eng.attn_impl!r}")
+        eng.generate_batch(prompts[:2], sp)
+        direct = eng.generate_batch(prompts, sp)
+        same = sum(d["token_ids"] == r["outputs"][0]["token_ids"] for d, r in zip(direct, records))
+        check(same == 64, f"generate: {64 - same} of 64 records differ from a direct engine call")
+
+        rate = records[0]["metrics"]["batch_tokens_per_second"]
+        n_tok = records[0]["metrics"]["batch_generated_tokens"]
+        lens = [len(r["prompt_token_ids"]) for r in records]
+        stops = sum(r["outputs"][0]["finish_reason"] == "stop" for r in records)
+        log(f"phase d generate CLI (1B bf16, 64 records, prompts {min(lens)}-{max(lens)} tokens): synthesis "
+            f"{t_synth:.2f} s; checkpoint load {stats['load_s']:.2f} s = "
+            f"{stats['load_bytes'] / 1e9 / stats['load_s']:.2f} GB/s ({stats['load_bytes'] / 1e9:.3f} GB); "
+            f"tokenization {stats['tokenize_s']:.3f} s; warm-up {stats['warmup_s']:.2f} s; generate "
+            f"{stats['generate_s']:.2f} s, {n_tok} tokens = {rate:.0f} generated tok/s (phase 5: {base_rate:.0f}); "
+            f"CLI wall {wall:.2f} s; {stops} stopped early; tokens equal to a direct engine call; on {smi}; "
+            f"launches {launches}")
+        del eng, loaded
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_flash_bwd(gen):
     import torch
     import torch.nn.functional as F
@@ -1148,6 +1414,7 @@ def main() -> int:
     phase_spec_f32(args.seed)
     serve_launches, base_tokens, base_rate = phase_engine_bf16(args.seed, smi)
     spec_launches = phase_spec_serving(args.seed, smi, base_tokens, base_rate)
+    gen_launches = phase_generate_cli(args.seed, smi, base_rate)
     rows["flash_attention_bwd"] = phase_flash_bwd(gen)
     rows.update(phase_cross_entropy(gen, model_config().vocab_size))
     phase_train_parity(args.seed)
@@ -1161,7 +1428,7 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in sources.items():
         by_path = {"serve": serve_launches.get(name, 0), "spec_serve": spec_launches.get(name, 0),
-                   "train": train_launches.get(name, 0)}
+                   "generate": gen_launches.get(name, 0), "train": train_launches.get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **rows[name]})

@@ -7,9 +7,11 @@ like. Every Pallas kernel on a ported path is a hand-written CUDA kernel under
 its plain PyTorch version, which CPU tensors take.
 
 The port imports torch and never jax, and nothing of ``ssi_tpu`` either
-(whose ``__init__`` may load jax): it keeps its own copies of the model
-configs (``models/configs.py``), the constants (``constants.py``) and the
-helpers (``utils.py``) it needs.
+(whose ``__init__`` may load jax): it keeps its own copies of the host
+modules it needs (model configs, constants, helpers, the config system,
+the tokenizer and its C++ BPE core, the SFT dataset, checkpoint reading),
+and none of them imports pyyaml, tiktoken, safetensors, msgpack,
+``datasets`` or ml_dtypes. ``cli/generate.py`` is the generation entry point.
 """
 
 __version__ = "0.1.0"

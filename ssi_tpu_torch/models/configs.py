@@ -2,15 +2,26 @@
 ``ssi_tpu/models/configs.py``, so that importing the port never imports the
 JAX package (whose ``__init__`` may load jax).
 
-Same fields, same vocab arithmetic and the same registry names and values;
-``tests/test_torch_model.py`` holds every entry equal to its JAX counterpart.
-Checkpoint expectations and the speech-config update arrive with the
-checkpoint and CLI port.
+Same fields, same vocab arithmetic, the same checkpoint expectations and
+speech-config update, and the same registry names and values;
+``tests/test_torch_model.py`` and ``tests/test_torch_checkpoint.py`` hold
+them equal to their JAX counterparts.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Any, NamedTuple
+
+
+class ModelCheckpointExpectations(NamedTuple):
+    """Expected checkpoint structure for a model architecture (used in validation)."""
+
+    model_name: str
+    n_shards: int
+    num_layers: int
+    hidden_size: int
+    vocab_size: int
 
 
 @dataclass
@@ -49,9 +60,32 @@ class ConfigLlama3_2:
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
 
+    def update_from_speech_cfg(self, cfg_speech: Any) -> None:
+        """In-place update of speech-specific hyperparameters from a config node."""
+        n_dsus = cfg_speech.n_dsus
+        use_modality_tokens = cfg_speech.use_modality_tokens
+        if not isinstance(n_dsus, int) or n_dsus < 0:
+            raise ValueError("n_dsus must be a non-negative integer")
+        if not isinstance(use_modality_tokens, bool):
+            raise ValueError("use_modality_tokens must be boolean")
+        self.n_dsus = n_dsus
+        self.modality_tokens = use_modality_tokens
+
     @property
     def vocab_size(self) -> int:
         return self.base_vocab_size_txt + self.n_special_txt + self.n_dsus + (2 * self.modality_tokens)
+
+    @property
+    def checkpoint_expectations(self) -> ModelCheckpointExpectations:
+        size_label = {2048: "1B", 3072: "3B", 4096: "8B"}.get(self.embed_dim, f"{self.embed_dim}d")
+        family = "3.1" if self.embed_dim == 4096 else "3.2"
+        return ModelCheckpointExpectations(
+            model_name=f"Llama {family} {size_label}",
+            n_shards=self.n_checkpoint_shards,
+            num_layers=self.num_layers,
+            hidden_size=self.embed_dim,
+            vocab_size=self.vocab_size,
+        )
 
     def copy(self) -> "ConfigLlama3_2":
         return replace(self)

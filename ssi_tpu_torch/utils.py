@@ -1,7 +1,35 @@
 """Helpers copied from ``ssi_tpu/utils/__init__.py`` (held equal to the
-originals by ``tests/test_torch_optimizer.py``)."""
+originals by ``tests/test_torch_optimizer.py`` and ``tests/test_torch_config.py``)."""
+
+from __future__ import annotations
+
+from hashlib import sha256
+import json
+from pathlib import Path
+from typing import Any
+
+
+def extract_texts_from_generations_jsonl(generations_jsonl: Path) -> list[str]:
+    """One generated text per prompt (ref: ssi/utils.py:29-39)."""
+    texts = []
+    with open(generations_jsonl) as f:
+        for line in f:
+            data = json.loads(line)
+            is_single_generation = len(data["outputs"]) == 1
+            if is_single_generation:
+                texts.append(data.pop("outputs").pop(0).pop("text"))
+            else:
+                raise NotImplementedError("Multiple generations per prompt are not supported by this script.")
+    return texts
 
 
 def round_up(n: int, multiple: int) -> int:
     """Smallest multiple of ``multiple`` >= n (shape/bucket alignment helper)."""
     return ((n + multiple - 1) // multiple) * multiple
+
+
+def hash_cfg(cfg: Any, length: int = 7) -> str:
+    """Truncated SHA-256 of the resolved, key-sorted config (ref: ssi/utils.py:80-82)."""
+    from ssi_tpu_torch.config import to_yaml
+
+    return sha256(to_yaml(cfg, resolve=True, sort_keys=True).encode()).hexdigest()[:length]

@@ -73,6 +73,67 @@ def test_port_runs_the_engine_without_jax():
     assert "JAX_FREE_OK" in proc.stdout
 
 
+# host libraries the card's machine lacks (jax, tiktoken, yaml, safetensors,
+# msgpack) or may lack (datasets, ml_dtypes, jinja2, regex, transformers)
+_NOT_ON_THE_CARD = ("jax", "jaxlib", "ssi_tpu", "yaml", "tiktoken", "safetensors", "msgpack", "datasets", "ml_dtypes",
+                    "jinja2", "regex", "transformers")
+
+
+def test_port_sources_import_no_library_missing_on_the_card():
+    names = "|".join(_NOT_ON_THE_CARD)
+    pattern = re.compile(rf"^\s*(import|from)\s+({names})(\.|\s|$)", re.MULTILINE)
+    sources = [p for p in (REPO / "ssi_tpu_torch").rglob("*.py") if "_build" not in p.parts] + [REPO / "chip_smoke.py"]
+    assert [str(p) for p in sources if pattern.search(p.read_text())] == []
+
+
+_CLI_RUN = """
+import runpy, sys
+sys.argv = ["ssi_tpu_torch.cli.generate", *sys.argv[1:]]
+runpy.run_module("ssi_tpu_torch.cli.generate", run_name="__main__")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in NAMES)
+assert loaded == [], loaded
+print("CLI_OK")
+"""
+
+
+def _cli_overrides(model_dir: Path, split: Path, out: Path) -> list[str]:
+    return [f"model={model_dir}", f"experiments_root_dir={model_dir.parent}",
+            f"tokenizer.path={model_dir / 'original' / 'tokenizer.model'}", "model_config=tiny_test",
+            "speech.n_dsus=16", "data=sft/mls-hubert_large_ll60k-layer_22", "data.test.dataset.source=json",
+            f"+data.test.dataset.data_files={split}", "data.test.dataset.split=train", "gen.split=test",
+            "batch_size=2", "sampling_params.max_tokens=4", "dtype=fp32", f"gen.output_dir={out}"]
+
+
+def test_generation_cli_runs_without_the_card_libraries(tmp_path):
+    """``python -m ssi_tpu_torch.cli.generate ... +device=cpu`` on the tiny
+    checkpoint loads none of the libraries the card's machine lacks; without
+    ``+device=cpu`` and with no CUDA device it refuses (no CPU fallback)."""
+    import json
+
+    import torch
+
+    from tests import helpers
+
+    model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "step_0")
+    split = tmp_path / "test.jsonl"
+    split.write_text("".join(json.dumps(r) + "\n" for r in helpers.synthetic_sft_rows(3)))
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env["PYTHONPATH"] = str(REPO)
+    code = _CLI_RUN.replace("NAMES", repr(_NOT_ON_THE_CARD))
+    args = _cli_overrides(model_dir, split, tmp_path / "gens")
+    proc = subprocess.run([sys.executable, "-c", code, *args, "+device=cpu"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLI_OK" in proc.stdout
+    assert len((tmp_path / "gens" / "json" / "test" / "generations.jsonl").read_text().splitlines()) == 3
+    if torch.cuda.is_available():
+        return
+    proc = subprocess.run([sys.executable, "-m", "ssi_tpu_torch.cli.generate", *_cli_overrides(
+        model_dir, split, tmp_path / "refused")], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "+device=cpu" in proc.stderr
+    assert not (tmp_path / "refused").exists()
+
+
 def test_chip_smoke_refuses_without_gpu(tmp_path):
     import torch
 

@@ -84,11 +84,42 @@ d. the generation entry point: a ``step_0/`` under
    through the plain attention and cross-entropy on the card: loss and every
    leaf's gradient agree;
 9. the training main path: ``make_train_step`` on the 1B bf16 model with
-   the SFT window (accum 4 x micro-batch 2 x seq 2048), full remat, f32
-   gradient accumulation, clip 1.0, AdamW defaults: a zero-token warm-up
-   window (no update, step not advanced), then 3 timed optimizer steps on
-   one repeated window; every loss finite, step 3, the third loss below the
-   first, and every training kernel's launch counter > 0 for the timed run.
+   the SFT window (accum 4 x micro-batch 2 x seq 2048), f32 gradient
+   accumulation, clip 1.0, AdamW defaults: first one micro-batch from the
+   one state under every remat policy, whose loss and every gradient must
+   equal remat "none"'s bitwise (``save_qkv_mlp_attn`` launching the flash
+   forward once per layer, the other checkpointed policies twice); then a
+   zero-token warm-up window per
+   remat policy (no update, step not advanced), then 3 timed optimizer
+   steps on one repeated window with full remat, 3 with ``save_qkv_mlp``
+   (the conf's selective policy) and 3 with full remat again, untraced;
+   every loss finite, step 9, the third loss below the first, and every
+   training kernel's launch counter > 0 for each policy's run; step ms,
+   peak memory and launches per optimizer step of each;
+e. the training entry points at the full width of ``llama3_2_1b``: a
+   synthesized base (the drive's 128,000-entry tokenizer, random bf16
+   weights) extended by ``python -m ssi_tpu_torch.cli.extend_llama3_2``'s
+   ``main`` with the WER drive's arguments (vocab 133,258, base rows
+   bitwise unchanged, new rows finite, a DSU span encodes to its ids); the
+   SFT CLI's ``main`` with the drive's overrides (JSON-lines splits of 64
+   and 16 rows, window 4 x 2 x 2048, the conf's ``save_qkv_mlp`` and bf16,
+   4 steps, a save and a dev loss every 2): losses finite, every training
+   kernel launched, ``step_4/`` reloaded equal to the trainer's parameters
+   bitwise, the training state read back by the port's decoder; the CPT
+   CLI for 2 steps with the conf's window (micro-batch 4 x accum 16 x seq
+   768, interleaved): losses finite, the final checkpoint written; an
+   A/B of ``overlap_io`` (6 SFT steps each way, untraced: every logged
+   value but the timings equal, wall per step and duration_step of steps
+   2-5 printed); then a fresh SFT run from ``step_2/`` and the step-2
+   training state whose
+   step 3-4 losses and step-4 weights equal the uninterrupted run's
+   bitwise, its step 3 traced through the Trainer's ``profiler`` key
+   (device busy share and device time by kernel class). Prints the
+   extension's seconds, each run's JSONL step times and label tok/s, save
+   seconds and GB/s for the model and the state, reload and state-read
+   seconds, peak memory, launches, and the free disk at the start (the
+   phase holds about 20 GB at its peak and deletes each directory once
+   read).
 
 Tolerances: phases 2, 3 and a hold each output elementwise to ``TOL``
 (absolute and relative). Every kernel output is also held in relative norm,
@@ -930,6 +961,30 @@ def split_rows(seed: int, n: int, n_dsus: int) -> list[dict]:
     return rows
 
 
+def run_cli(main, argv):
+    """A CLI ``main`` run in this process; its job logging (a console and a
+    file handler on the root logger) ends with it. Returns (result, wall s)."""
+    import torch
+
+    root_logger = logging.getLogger()
+    saved = root_logger.level, list(root_logger.handlers)
+    t0 = time.perf_counter()
+    try:
+        out = main(argv)
+        torch.cuda.synchronize()
+    finally:
+        for handler in root_logger.handlers:
+            if handler not in saved[1]:
+                handler.close()
+        root_logger.handlers = saved[1]
+        root_logger.setLevel(saved[0])
+    return out, time.perf_counter() - t0
+
+
+def flat_params(p) -> dict:
+    return {**{k: v for k, v in p.items() if k != "layers"}, **p["layers"]}
+
+
 def phase_generate_cli(seed: int, smi: str, base_rate: float):
     """Phase d: ``python -m ssi_tpu_torch.cli.generate``'s ``main``, run in this
     process on a synthesized ``step_0/`` (128,000-entry base tokenizer + 5,000
@@ -977,20 +1032,8 @@ def phase_generate_cli(seed: int, smi: str, base_rate: float):
             "data.test.dataset.source=json", f"+data.test.dataset.data_files={split}", "data.test.dataset.split=train",
             "gen.split=test", "batch_size=32", "sampling_params.max_tokens=128", "dtype=bf16", "observability=true",
         ]
-        root_logger = logging.getLogger()
-        saved_logging = root_logger.level, list(root_logger.handlers)
         _build.launch_counts.clear()
-        t0 = time.perf_counter()
-        try:
-            generate_main(argv)
-            torch.cuda.synchronize()
-        finally:  # the run's job logging (console + a file in its output dir) ends with it
-            for handler in root_logger.handlers:
-                if handler not in saved_logging[1]:
-                    handler.close()
-            root_logger.handlers = saved_logging[1]
-            root_logger.setLevel(saved_logging[0])
-        wall = time.perf_counter() - t0
+        _, wall = run_cli(generate_main, argv)
         launches = dict(_build.launch_counts)
         stats = dict(last_run_stats)
 
@@ -1016,9 +1059,8 @@ def phase_generate_cli(seed: int, smi: str, base_rate: float):
         # the loaded parameters are the written ones, bit for bit
         loaded = Checkpointer(step, output_dir=root / "scratch",
                               model_expectations=cfg.checkpoint_expectations).load_params(cfg, torch.bfloat16, "cuda")
-        flat = lambda p: {**{k: v for k, v in p.items() if k != "layers"}, **p["layers"]}  # noqa: E731
-        for name, w in flat(written).items():
-            check(torch.equal(flat(loaded)[name], w), f"loaded {name} differs from the written weights")
+        for name, w in flat_params(written).items():
+            check(torch.equal(flat_params(loaded)[name], w), f"loaded {name} differs from the written weights")
         del written
 
         # the run's tokens == a direct engine call on the same prompts and loaded
@@ -1340,6 +1382,47 @@ def sft_window(seed: int, vocab: int, accum: int = 4, batch: int = 2, seq: int =
     return torch.from_numpy(tokens).cuda(), torch.from_numpy(labels).cuda()
 
 
+def remat_parity(cfg, params, tokens, labels) -> None:
+    """Every remat policy on one micro-batch from one state, on the card: the
+    loss and every gradient equal remat "none"'s bit for bit, and
+    ``save_qkv_mlp_attn``'s backward reuses the flash forward's o and lse (one
+    forward launch per layer, as "none"; the other policies recompute it)."""
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.models.llama3 import REMAT_POLICIES
+    from ssi_tpu_torch.train.optimizer import tree_leaves, tree_unflatten
+    from ssi_tpu_torch.train.step import make_loss_fn
+
+    ref, fwd = None, {}
+    for remat in sorted(REMAT_POLICIES, key=lambda r: r != "none"):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        _build.launch_counts.clear()
+        loss = make_loss_fn(cfg, remat=remat)(tree_unflatten(params, leaves), tokens, labels)[0]
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        fwd[remat] = _build.launch_counts.get("flash_attention_fwd", 0)
+        once = remat in ("none", "save_qkv_mlp_attn")
+        check(fwd[remat] == cfg.num_layers * (1 if once else 2),
+              f"remat {remat}: {fwd[remat]} flash forward launches for {cfg.num_layers} layers")
+        del leaves
+        if ref is None:
+            ref = (loss.detach(), grads)
+            continue
+        check(torch.equal(loss.detach(), ref[0]), f"remat {remat}: loss {loss.item()} != remat none's {ref[0].item()}")
+        for i, (a, w) in enumerate(zip(grads, ref[1])):
+            check(torch.equal(a, w), f"remat {remat}: gradient leaf {i} differs from remat none's by up to "
+                                     f"{(a.float() - w.float()).abs().max().item():.3e}")
+        del grads, loss
+    n_leaves = len(ref[1])
+    del ref
+    _build.launch_counts.clear()
+    torch.cuda.empty_cache()
+    log(f"phase 9 remat parity (1B bf16, B{tokens.shape[0]} S{tokens.shape[1]}, one micro-batch): the loss and all "
+        f"{n_leaves} gradient leaves of {', '.join(r for r in REMAT_POLICIES if r != 'none')} equal remat none's "
+        f"bitwise; flash forward launches {fwd}")
+
+
 def phase_train(seed: int, smi: str):
     import torch
 
@@ -1353,41 +1436,341 @@ def phase_train(seed: int, smi: str):
     params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
     opt = AdamWConfig()
     state = {"params": params, "opt_state": init_opt_state(params, opt), "step": 0}
-    step = make_train_step(cfg, opt, constant_schedule(opt.lr), clip_grad_norm=1.0, remat="full",
-                           grad_accum_dtype=torch.float32)
+    steps = {remat: make_train_step(cfg, opt, constant_schedule(opt.lr), clip_grad_norm=1.0, remat=remat,
+                                     grad_accum_dtype=torch.float32) for remat in ("full", "save_qkv_mlp")}
     tokens, labels = sft_window(seed + 3, cfg.vocab_size)
+    remat_parity(cfg, params, tokens[0], labels[0])
     # warm-up on the same window with every label ignored: first-use costs, and the
     # zero-token rule at full width (no update, step not advanced)
     probe = params["layers"]["wq"].clone()
-    state, m = step(state, tokens, torch.full_like(labels, -100))
-    torch.cuda.synchronize()
-    check(not bool(m["applied"]) and state["step"] == 0 and torch.equal(params["layers"]["wq"], probe),
-          "zero-token warm-up window changed the state")
-    del probe
-    _build.launch_counts.clear()
-    losses, times, n_tok = [], [], 0
-    for _ in range(3):
-        t0 = time.perf_counter()
-        state, m = step(state, tokens, labels)
-        losses.append(float(m["loss_sum"]) / max(int(m["num_tokens"]), 1))
+    for step in steps.values():
+        state, m = step(state, tokens, torch.full_like(labels, -100))
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        n_tok = int(m["num_tokens"])
-    launches = dict(_build.launch_counts)
-    check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
-    check(state["step"] == 3, f"step {state['step']} after 3 optimizer steps")
+        check(not bool(m["applied"]) and state["step"] == 0 and torch.equal(params["layers"]["wq"], probe),
+              "zero-token warm-up window changed the state")
+    del probe
+
+    def timed(remat: str) -> tuple[list[float], list[float], int, dict, float]:
+        """3 optimizer steps on the repeated window: losses, step seconds,
+        label tokens per step, launches, peak memory (GiB)."""
+        nonlocal state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        losses, times, n_tok = [], [], 0
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, m = steps[remat](state, tokens, labels)
+            losses.append(float(m["loss_sum"]) / max(int(m["num_tokens"]), 1))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            n_tok = int(m["num_tokens"])
+        return losses, times, n_tok, dict(_build.launch_counts), torch.cuda.max_memory_allocated() / 2**30
+
+    # full remat, the selective policy of conf/sft.yaml, full again (untraced, in turns)
+    runs = [("full", *timed("full")), ("save_qkv_mlp", *timed("save_qkv_mlp")), ("full", *timed("full"))]
+    losses, times, n_tok, launches, peak = runs[0][1:]
+    check(all(math.isfinite(x) for _, ls, *_ in runs for x in ls), f"non-finite training loss: {runs}")
+    check(state["step"] == 9, f"step {state['step']} after 9 optimizer steps")
     check(losses[2] < losses[0], f"loss did not fall on a repeated window: {losses}")
     for name in TRAIN_KERNELS:
         check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the training main path")
-    mean_s = sum(times) / len(times)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"phase 9 train bf16 main path (1B, window 4 x 2 x 2048, full remat): loss per token "
-        f"{', '.join(f'{x:.4f}' for x in losses)}; step ms {', '.join(f'{t * 1e3:.1f}' for t in times)} "
-        f"(mean {mean_s * 1e3:.1f}); {n_tok} label tokens per step = {n_tok / mean_s:.0f} label tok/s on {smi}; "
-        f"peak memory {peak:.1f} GiB; launches {launches}")
-    del state, params
+        check(runs[1][4].get(name, 0) > 0, f"kernel {name} was not launched with remat save_qkv_mlp")
+    for remat, ls, ts, nt, counts, pk in runs:
+        mean_s = sum(ts) / len(ts)
+        log(f"phase 9 train bf16 (1B, window 4 x 2 x 2048, remat {remat}): loss per token "
+            f"{', '.join(f'{x:.4f}' for x in ls)}; step ms {', '.join(f'{t * 1e3:.1f}' for t in ts)} "
+            f"(mean {mean_s * 1e3:.1f}); {nt} label tokens per step = {nt / mean_s:.0f} label tok/s on {smi}; "
+            f"peak memory {pk:.1f} GiB; launches per optimizer step "
+            f"{ {k: v // 3 for k, v in sorted(counts.items())} }")
+    del state, params, steps
     torch.cuda.empty_cache()
     return launches
+
+
+# --- phase e: the training entry points -----------------------------------------------------
+
+
+def cpt_rows(seed: int, n: int, n_dsus: int) -> list[dict]:
+    """``n`` aligned rows as the CPT loader reads them: 20-40 task words with
+    word-aligned times (0.2-0.6 s a word) and HuBERT-rate speech tokens
+    (50 per second, 16 kHz / 320) over the utterance, no two neighbours equal."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        n_words = int(rng.integers(20, 41))
+        ends = np.cumsum(rng.uniform(0.2, 0.6, n_words))
+        starts = np.concatenate([[0.0], ends[:-1]])
+        m = int(ends[-1] * 50) + 1
+        steps = rng.integers(1, n_dsus, m)
+        speech = (int(rng.integers(0, n_dsus)) + np.cumsum(steps)) % n_dsus
+        rows.append({"tokenized": [WORDS[j] for j in rng.integers(0, len(WORDS), n_words)],
+                     "align_t_starts": starts.tolist(), "align_t_ends": ends.tolist(),
+                     "speech_tokens": speech.tolist()})
+    return rows
+
+
+def write_jsonl(path, rows) -> None:
+    path.write_text("".join(json.dumps(r) + "\n" for r in rows))
+
+
+class kept_training_states:
+    """Keep each training state the Checkpointer writes at one of ``steps``
+    (a hard link, ``training_state_step<N>.msgpack`` beside it: the next save
+    replaces the file, and the link keeps the old one), so a run that
+    overwrites its state at every save leaves the step-N state for a resume
+    check."""
+
+    def __init__(self, steps: set[int]):
+        self.steps = steps
+
+    def __enter__(self):
+        from ssi_tpu_torch.checkpoint import Checkpointer
+
+        self.original = original = Checkpointer.save_training_state
+        steps = self.steps
+
+        def save_and_keep(ckpt, **kwargs):
+            path = original(ckpt, **kwargs)
+            if kwargs["global_step"] in steps:
+                os.link(path, path.with_name(f"training_state_step{kwargs['global_step']}.msgpack"))
+            return path
+
+        Checkpointer.save_training_state = save_and_keep
+        return self
+
+    def __exit__(self, *exc):
+        from ssi_tpu_torch.checkpoint import Checkpointer
+
+        Checkpointer.save_training_state = self.original
+
+
+def read_metrics(out_dir) -> list[dict]:
+    return [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+
+
+def step_readings(metrics: list[dict]) -> str:
+    steps = [m for m in metrics if "loss" in m]
+    return ", ".join(f"{m['duration_step'] * 1e3:.1f} ms ({m['tokens_per_second_per_gpu']:.0f} label tok/s)"
+                     for m in steps)
+
+
+def phase_training_cli(seed: int, smi: str):
+    """Phase e: the training entry points at the full width of ``llama3_2_1b``:
+    the extension CLI on a synthesized base, the SFT CLI with the WER drive's
+    overrides (and its bitwise resume from step 2), the CPT CLI, and one
+    traced optimizer step through the Trainer's ``profiler`` key."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.checkpoint import Checkpointer, msgpack_io
+    from ssi_tpu_torch.checkpoint.convert import internal_to_hf
+    from ssi_tpu_torch.checkpoint.safetensors_io import safe_open, save_file
+    from ssi_tpu_torch.cli.extend_llama3_2 import main as extend_main, parse_args as extend_args
+    from ssi_tpu_torch.cli.train_cpt import main as cpt_main
+    from ssi_tpu_torch.cli.train_sft import main as sft_main
+    from ssi_tpu_torch.models.configs import get_model_config
+    from ssi_tpu_torch.models.llama3 import init_params
+    from ssi_tpu_torch.profile_decode import _device_summary
+    from ssi_tpu_torch.speech import dsu2pua
+    from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
+
+    cfg = model_config()
+    base_cfg = get_model_config("llama3_2_1b")  # n_dsus 0: the 128,256-row base
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        log(f"  phase e: {free_gb:.1f} GB free at {root}")
+        check(free_gb > 24, f"phase e needs about 20 GB of disk; {free_gb:.1f} GB free")
+
+        # 1. extend: a synthesized base (the drive's 128,000-entry tokenizer, random bf16
+        # weights), then the extension CLI with the drive's arguments
+        base, ext = root / "base", root / "extended"
+        build_base_tokenizer(base / "original" / "tokenizer.model", WORDS)
+        written = init_params(base_cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+        save_file(internal_to_hf(written, base_cfg), base / "model.safetensors", metadata={"format": "pt"})
+        write_model_files(base, base_cfg)
+        base_embed = written["embed"].float().cpu()
+        del written
+        torch.cuda.reset_peak_memory_stats()
+        _, t_extend = run_cli(lambda a: extend_main(extend_args(a)), [
+            "--n_new_dsus", str(cfg.n_dsus), "--sigma-scaling", "1.0", "--model-config", "llama3_2_1b",
+            "--input_dir", str(base), "--output_dir", str(ext)])
+        mem_extend = torch.cuda.max_memory_allocated() / 2**30
+        shutil.rmtree(base)
+        hf = json.loads((ext / "config.json").read_text())
+        with safe_open(next(ext.glob("*.safetensors"))) as f:
+            embed = f.get_tensor("model.embed_tokens.weight")
+        n_base = base_cfg.base_vocab_size_txt
+        check(hf["vocab_size"] == cfg.vocab_size == embed.shape[0] == 133_258,
+              f"extended vocab {hf['vocab_size']} / {embed.shape[0]}, expected 133,258")
+        check(torch.equal(embed[:n_base], base_embed[:n_base]) and torch.equal(embed[-256:], base_embed[-256:]),
+              "extension changed the base embedding rows")
+        check(bool(torch.isfinite(embed[n_base:-256]).all()), "non-finite new embedding rows")
+        tok, _ = setup_llama3_tokenizer(ext / "original" / "tokenizer.model", verbose=False)
+        dsus = [0, 1, 4999, 17, 17]
+        ids = tok.encode("".join(dsu2pua(d) for d in dsus), add_bos=False, add_eos=False)
+        check(ids == [n_base + d for d in dsus], f"DSU span encodes to {ids}")
+        del embed, base_embed
+        ext_bytes = sum(p.stat().st_size for p in ext.glob("*.safetensors"))
+        log(f"phase e extend CLI (1B, --n_new_dsus 5000 --sigma-scaling 1.0): {t_extend:.2f} s, "
+            f"{ext_bytes / 1e9:.2f} GB of fp32 safetensors written; vocab 133,258, base rows unchanged, "
+            f"DSU span encodes to its ids; peak memory {mem_extend:.1f} GiB")
+
+        # 2. SFT with the drive's overrides (tools/wer_drive.py:449-473; log_interval 1 for
+        # per-step readings), 4 steps, a save and a dev loss every 2
+        train, dev = root / "sft_train.jsonl", root / "sft_dev.jsonl"
+        write_jsonl(train, split_rows(seed + 11, 64, cfg.n_dsus))
+        write_jsonl(dev, split_rows(seed + 12, 16, cfg.n_dsus))
+
+        def sft_argv(out, *extra):
+            return ["data=sft/mls-hubert_large_ll60k-layer_22",
+                    *[a for split, path in (("train", train), ("dev", dev)) for a in (
+                        f"data.{split}.dataset.source=json", f"+data.{split}.dataset.data_files={path}",
+                        f"data.{split}.dataset.split=train")],
+                    "data.train.dataloader.batch_size=2", "data.dev.dataloader.batch_size=2",
+                    "gradient_accumulation_steps=4", "tokenizer.max_seq_len=2048", "optimizer.lr=2e-3",
+                    "lr_scheduler.num_warmup_steps=200", "max_steps=4", "eval_steps=2", "save_steps=2",
+                    "log_interval=1", "clip_grad_norm=1.0", "wandb.enabled=false", "loss_chunk_size=3072",
+                    f"checkpointer.checkpoint_dir={ext}", f"tokenizer.path={ext / 'original' / 'tokenizer.model'}",
+                    f"checkpointer.output_dir={out}", *extra]
+
+        out = root / "sft"
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        with kept_training_states({2}):
+            trainer, t_sft = run_cli(sft_main, sft_argv(out))
+        launches = dict(_build.launch_counts)
+        mem_sft = torch.cuda.max_memory_allocated() / 2**30
+        check(trainer.cfg.remat == "save_qkv_mlp" and trainer.cfg.dtype == "bf16",
+              f"SFT ran remat {trainer.cfg.remat}, dtype {trainer.cfg.dtype}")
+        metrics = read_metrics(out)
+        losses = [m["loss"] for m in metrics if "loss" in m]
+        dev_losses = [m["dev_loss"] for m in metrics if "dev_loss" in m]
+        check(trainer.global_step == 4 and len(losses) == 4 and len(dev_losses) == 2,
+              f"SFT: step {trainer.global_step}, {len(losses)} losses, {len(dev_losses)} dev losses")
+        check(all(math.isfinite(x) for x in losses + dev_losses), f"SFT losses {losses}, dev {dev_losses}")
+        for name in TRAIN_KERNELS:
+            check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the SFT entry point")
+        save = dict(trainer.last_save_stats)
+        t0 = time.perf_counter()
+        reloaded = Checkpointer(out / "step_4", output_dir=root / "scratch",
+                                model_expectations=cfg.checkpoint_expectations).load_params(cfg, torch.bfloat16, "cuda")
+        t_reload = time.perf_counter() - t0
+        final = {k: v.clone() for k, v in flat_params(trainer.state["params"]).items()}
+        for name, w in flat_params(reloaded).items():
+            check(torch.equal(final[name], w), f"step_4/ {name} differs from the trainer's parameters")
+        del reloaded
+        t0 = time.perf_counter()
+        state = msgpack_io.load(out / "training_state.msgpack")
+        t_state_load = time.perf_counter() - t0
+        opt = state["optimizer"]
+        check(state["global_step"] == 4 and int(opt["count"]) == 4 and list(opt) == ["count", "mu", "nu"]
+              and torch.equal(opt["mu"]["embed"].cuda(), trainer.state["opt_state"]["mu"]["embed"]),
+              "training_state.msgpack does not read back to the trainer's state")
+        del state, opt, trainer
+        shutil.rmtree(out / "step_4")
+        (out / "training_state.msgpack").unlink()
+        torch.cuda.empty_cache()
+        log(f"phase e SFT CLI (1B bf16, remat save_qkv_mlp, window 4 x 2 x 2048, 64 rows): loss "
+            f"{', '.join(f'{x:.4f}' for x in losses)}, dev loss {', '.join(f'{x:.4f}' for x in dev_losses)}; "
+            f"JSONL duration_step {step_readings(metrics)}; CLI wall {t_sft:.2f} s; save at step 4: model "
+            f"{save['model_s']:.2f} s = {save['model_bytes'] / 1e9 / save['model_s']:.2f} GB/s "
+            f"({save['model_bytes'] / 1e9:.2f} GB), state {save['state_s']:.2f} s = "
+            f"{save['state_bytes'] / 1e9 / save['state_s']:.2f} GB/s ({save['state_bytes'] / 1e9:.2f} GB); "
+            f"step_4/ reload {t_reload:.2f} s, equal to the trainer's parameters bitwise; state read "
+            f"{t_state_load:.2f} s; peak memory {mem_sft:.1f} GiB; on {smi}; launches {launches}")
+
+        # 3. CPT (micro-batch 4 x accum 16 x seq 768, interleaved), 2 steps: the final checkpoint
+        train_c, dev_c = root / "cpt_train.jsonl", root / "cpt_dev.jsonl"
+        write_jsonl(train_c, cpt_rows(seed + 21, 128, cfg.n_dsus))
+        write_jsonl(dev_c, cpt_rows(seed + 22, 16, cfg.n_dsus))
+        out_c = root / "cpt"
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        trainer, t_cpt = run_cli(cpt_main, [
+            "data=cpt/mls-hubert_large_ll60k-layer_22",
+            *[a for split, path in (("train", train_c), ("dev", dev_c)) for a in (
+                f"data.{split}.dataset.source=json", f"+data.{split}.dataset.data_files={path}",
+                f"data.{split}.dataset.split=train")],
+            "max_steps=2", "log_interval=1", "clip_grad_norm=1.0", "wandb.enabled=false",
+            f"checkpointer.checkpoint_dir={ext}", f"tokenizer.path={ext / 'original' / 'tokenizer.model'}",
+            f"checkpointer.output_dir={out_c}"])
+        cpt_launches = dict(_build.launch_counts)
+        mem_cpt = torch.cuda.max_memory_allocated() / 2**30
+        metrics_c = read_metrics(out_c)
+        losses_c = [m["loss"] for m in metrics_c if "loss" in m]
+        check(trainer.cfg.gradient_accumulation_steps == 16 and trainer.geometry.batch_size == 4
+              and trainer.cfg.tokenizer.max_seq_len == 768, "CPT did not run the conf's 4 x 16 x 768 window")
+        check(len(losses_c) == 2 and all(math.isfinite(x) for x in losses_c), f"CPT losses {losses_c}")
+        check((out_c / "step_2" / "model.safetensors.index.json").is_file()
+              and (out_c / "training_state.msgpack").is_file(), "CPT wrote no final checkpoint at max_steps")
+        save_c = dict(trainer.last_save_stats)
+        del trainer
+        shutil.rmtree(out_c)
+        torch.cuda.empty_cache()
+        log(f"phase e CPT CLI (1B bf16, remat save_qkv_mlp, window 16 x 4 x 768, interleaved): loss "
+            f"{', '.join(f'{x:.4f}' for x in losses_c)}; steps {step_readings(metrics_c)}; CLI wall {t_cpt:.2f} s; "
+            f"final checkpoint at step 2: model {save_c['model_s']:.2f} s, state {save_c['state_s']:.2f} s; "
+            f"peak memory {mem_cpt:.1f} GiB; launches {cpt_launches}")
+
+        # 4. overlap_io on and off, untraced: 6 SFT steps each from the extended base, the
+        # dev loss and the save only at step 6; every logged value but the timings agrees
+        ab = {}
+        for overlap in (True, False):
+            out_ab = root / f"sft_overlap_{overlap}"
+            trainer, _ = run_cli(sft_main, sft_argv(out_ab, "max_steps=6", "eval_steps=6", "save_steps=6",
+                                                    f"overlap_io={str(overlap).lower()}"))
+            del trainer
+            ab[overlap] = {m["step"]: m for m in read_metrics(out_ab) if "loss" in m}
+            shutil.rmtree(out_ab)
+            torch.cuda.empty_cache()
+        timing = ("duration_step", "tokens_per_second_per_gpu", "train_clock_time")
+        check([{k: v for k, v in m.items() if k not in timing} for m in ab[True].values()]
+              == [{k: v for k, v in m.items() if k not in timing} for m in ab[False].values()],
+              "overlap_io on and off logged different values")
+        # steps 2-5: the wall per step from train_clock_time (hours), and the mean duration_step
+        ab_ms = {o: ((m[5]["train_clock_time"] - m[1]["train_clock_time"]) * 3600e3 / 4,
+                     sum(m[k]["duration_step"] for k in range(2, 6)) * 1e3 / 4) for o, m in ab.items()}
+        log(f"phase e overlap_io A/B (SFT CLI, 6 steps, dev loss and save only at step 6; steps 2-5): "
+            f"wall per step {ab_ms[True][0]:.1f} ms on, {ab_ms[False][0]:.1f} ms off; mean duration_step "
+            f"{ab_ms[True][1]:.1f} ms on, {ab_ms[False][1]:.1f} ms off; JSONL duration_step on "
+            f"{step_readings(list(ab[True].values()))}; off {step_readings(list(ab[False].values()))}; "
+            f"losses and every other logged value equal; on {smi}")
+
+        # 5. resume: a fresh Trainer from step_2/ and the step-2 state runs steps 3-4 equal
+        # to the uninterrupted run, bitwise; step 3 is traced (after every untraced reading)
+        out_r = root / "sft_resumed"
+        trainer, t_resume = run_cli(sft_main, sft_argv(
+            out_r, f"checkpointer.checkpoint_dir={out / 'step_2'}",
+            f"checkpointer.training_state_checkpoint={out / 'training_state_step2.msgpack'}",
+            f"profiler={{start_step: 2, num_steps: 1, dir: {root / 'profile'}}}"))
+        metrics_r = read_metrics(out_r)
+        losses_r = [m["loss"] for m in metrics_r if "loss" in m]
+        check(losses_r == losses[2:], f"resumed losses {losses_r} != the uninterrupted run's {losses[2:]}")
+        for name, w in flat_params(trainer.state["params"]).items():
+            check(torch.equal(final[name], w), f"resumed step 4 {name} differs from the uninterrupted run's")
+        check(trainer.profile_trace is not None and trainer.profile_trace.is_file(), "the profiler wrote no trace")
+        dev_summary = _device_summary(str(trainer.profile_trace))
+        traced = trainer.profile_wall_s * 1e3
+        del trainer, final
+        torch.cuda.empty_cache()
+        shares = ", ".join(f"{k} {v * dev_summary['busy_ms']:.1f} ms" for k, v in
+                           dev_summary["share_of_device_time"].items())
+        log(f"phase e resume from step_2/ + its state: steps 3-4 losses and step_4 weights equal the "
+            f"uninterrupted run's bitwise; CLI wall {t_resume:.2f} s (setup, resume load and 2 steps)")
+        log(f"phase e traced step 3 (Trainer profiler key, one optimizer step, save_qkv_mlp): traced step "
+            f"{traced:.1f} ms, device busy {dev_summary['busy_ms']:.1f} ms ({dev_summary['busy_ms'] / traced:.0%} "
+            f"of the traced step), {dev_summary['kernels']} kernels; device time by class: {shares}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1419,6 +1802,7 @@ def main() -> int:
     rows.update(phase_cross_entropy(gen, model_config().vocab_size))
     phase_train_parity(args.seed)
     train_launches = phase_train(args.seed, smi)
+    train_cli_launches = phase_training_cli(args.seed, smi)
 
     sources = {"flash_attention_fwd": ("flash_attention_fwd.cu", FLASH_REPLACES),
                "paged_attention_fused": ("paged_attention.cu", PAGED_REPLACES),
@@ -1428,7 +1812,8 @@ def main() -> int:
     kernels = []
     for name, (source, replaces) in sources.items():
         by_path = {"serve": serve_launches.get(name, 0), "spec_serve": spec_launches.get(name, 0),
-                   "generate": gen_launches.get(name, 0), "train": train_launches.get(name, 0)}
+                   "generate": gen_launches.get(name, 0), "train": train_launches.get(name, 0),
+                   "train_cli": train_cli_launches.get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **rows[name]})

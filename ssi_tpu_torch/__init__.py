@@ -9,9 +9,11 @@ its plain PyTorch version, which CPU tensors take.
 The port imports torch and never jax, and nothing of ``ssi_tpu`` either
 (whose ``__init__`` may load jax): it keeps its own copies of the host
 modules it needs (model configs, constants, helpers, the config system,
-the tokenizer and its C++ BPE core, the SFT dataset, checkpoint reading),
+the tokenizer and its C++ BPE core, the SFT and CPT data pipeline,
+checkpoint reading and writing, the training utilities, the extension),
 and none of them imports pyyaml, tiktoken, safetensors, msgpack,
-``datasets`` or ml_dtypes. ``cli/generate.py`` is the generation entry point.
+``datasets`` or ml_dtypes. ``cli/`` holds the entry points: ``generate``,
+``extend_llama3_2``, ``train_sft`` and ``train_cpt``.
 """
 
 __version__ = "0.1.0"

@@ -1,32 +1,67 @@
-"""HF-format checkpoint reading — the read half of
-``ssi_tpu/checkpoint/__init__.py``, copied with the same checks and error
-texts: ``discover_safetensor_files``, ``validate_checkpoint_dir``,
-``check_outdir_not_in_ckptdir`` and ``Checkpointer``'s construction,
-``load_hf_state_dict`` and ``load_params``. Shards are read by
-``safetensors_io`` (zero-copy torch views of the mapped files).
+"""HF-format checkpoint read and write plus the versioned training state — the
+port's copy of ``ssi_tpu/checkpoint/__init__.py``, with the same checks,
+error texts and file layout:
 
-Saving (``step_N/`` dirs, the schema-v1 training state) is not ported yet
-(ROADMAP.md queue A, item A7); a ``training_state_checkpoint`` raises
-``NotImplementedError``.
+- ``discover_safetensor_files`` / ``validate_checkpoint_dir`` /
+  ``check_outdir_not_in_ckptdir``;
+- ``Checkpointer`` — loads HF safetensors shards into the stacked parameter
+  tree (``safetensors_io``: zero-copy torch views of the mapped files) and
+  writes self-contained ``step_N/`` HF model dirs (shards + index + copied
+  config/tokenizer files);
+- ``save_training_state`` / ``load_training_state`` — the schema-v1 resume
+  state (version, global_step, seed, optimizer, lr_scheduler, RNG states,
+  hparams, consumed_samples, cumulative_metrics, timestamp, package
+  version) in the JAX package's msgpack bytes, written and read by the
+  first-party ``msgpack_io`` (streamed leaf by leaf to a ``.tmp`` file, then
+  an atomic ``os.replace``).
+
+The RNG state is Python's and numpy's global generators only, as in the JAX
+package: no torch generator draws on the training path (the optimizer's
+stochastic rounding seeds its generator from the step count).
 """
 
 from __future__ import annotations
 
+from datetime import datetime, timezone
 import json
 import logging
+import os
 from pathlib import Path
+import random
+import shutil
 from typing import Any
 
+import numpy as np
 import torch
 
-from ssi_tpu_torch.checkpoint.convert import hf_to_internal
-from ssi_tpu_torch.checkpoint.safetensors_io import safe_open
-from ssi_tpu_torch.constants import LLAMA_3_2_CONFIG_RELPATH
+from ssi_tpu_torch import __version__
+from ssi_tpu_torch.checkpoint import msgpack_io
+from ssi_tpu_torch.checkpoint.convert import hf_to_internal, internal_to_hf
+from ssi_tpu_torch.checkpoint.safetensors_io import safe_open, save_file
+from ssi_tpu_torch.constants import (
+    CHECKPOINT_VERSION,
+    CHECKPOINT_VERSION_KEY,
+    CONSUMED_SAMPLES_KEY,
+    CUMULATIVE_METRICS_KEY,
+    GLOBAL_STEP_KEY,
+    LLAMA_3_2_CONFIG_RELPATH,
+    LR_SCHEDULER_KEY,
+    OPTIMIZER_KEY,
+    RNG_KEY,
+    SEED_KEY,
+    TRAINING_HPARAMS_KEY,
+)
 from ssi_tpu_torch.models.configs import ConfigLlama3_2, ModelCheckpointExpectations
 
 LOGGER = logging.getLogger(__name__)
 
 SAFETENSOR_INDEX_FNAME = "model.safetensors.index.json"
+SHARD_FNAME = "ft-model-{cpt_idx}-of-{num_shards}"
+TRAINING_STATE_FNAME = "training_state.msgpack"
+# file suffixes never copied into step_N dirs (weights and derived artifacts;
+# .pth covers original/consolidated.00.pth in stock Meta downloads — 2.4 GB
+# that would otherwise be duplicated into EVERY step dir)
+SUFFIXES_TO_NOT_COPY = (".safetensors", ".bin", ".pt", ".pth", ".msgpack", ".index.json", ".lock", ".tmp")
 
 
 # ---------------------------------------------------------------------------
@@ -116,20 +151,70 @@ def check_outdir_not_in_ckptdir(ckpt_dir: Path, out_dir: Path) -> None:
     raise ValueError(f"output_dir ({out_dir}) must not be inside checkpoint_dir ({ckpt_dir})")
 
 
+def copy_files(src_dir: Path, dst_dir: Path, ignore_suffixes: tuple[str, ...] | list[str]) -> None:
+    """Copy non-weight files (config, tokenizer, etc.) so step dirs are self-contained.
+
+    The suffix filter applies recursively: e.g. ``original/consolidated.00.pth``
+    (2.4 GB of Meta-format base weights) must not ride along into extended/step dirs.
+    """
+
+    def ignored(_dir: str, names: list[str]) -> list[str]:
+        return [n for n in names if n.startswith(".") or any(n.endswith(s) for s in ignore_suffixes)]
+
+    dst_dir.mkdir(parents=True, exist_ok=True)
+    for item in src_dir.iterdir():
+        if item.name.startswith("."):
+            continue
+        if any(item.name.endswith(suffix) for suffix in ignore_suffixes):
+            continue
+        if item.is_dir():
+            if item.name.startswith("step_"):
+                continue
+            shutil.copytree(item, dst_dir / item.name, dirs_exist_ok=True, ignore=ignored)
+        else:
+            shutil.copy2(item, dst_dir / item.name)
+
+
+# ---------------------------------------------------------------------------
+# RNG state capture (ref: ssi/checkpoint.py:188-206, minus torch)
+# ---------------------------------------------------------------------------
+
+
+def save_rng_states() -> dict[str, Any]:
+    """Capture python + NumPy global RNG states (data-order randomness is host-side)."""
+    np_state = np.random.get_state()
+    return {
+        "python": random.getstate(),
+        "numpy_global": (np_state[0], np.asarray(np_state[1]), int(np_state[2]), int(np_state[3]), float(np_state[4])),
+    }
+
+
+def restore_rng_states(rng_state: dict[str, Any]) -> None:
+    random.setstate(_to_python_random_state(rng_state["python"]))
+    name, keys, pos, has_gauss, cached = rng_state["numpy_global"]
+    np.random.set_state((name, np.asarray(keys, dtype=np.uint32), int(pos), int(has_gauss), float(cached)))
+
+
+def _to_python_random_state(state: Any) -> tuple:
+    """Rebuild the nested-tuple structure ``random.setstate`` requires after msgpack."""
+    version, internal, gauss = state
+    return (int(version), tuple(int(x) for x in internal), gauss if gauss is None else float(gauss))
+
+
 # ---------------------------------------------------------------------------
 # Checkpointer
 # ---------------------------------------------------------------------------
 
 
 class Checkpointer:
-    """Reads HF-format checkpoints into the port's stacked Llama 3.2 parameters.
+    """Reads/writes HF-format checkpoints for the port's stacked Llama 3.2 parameters.
 
     Args:
         checkpoint_dir: Directory with the source HF checkpoint.
         checkpoint_files: Shard file names, or ``None`` to auto-discover.
         config_json: Path to ``config.json`` (defaults to ``checkpoint_dir/config.json``).
-        output_dir: Root directory for saved checkpoints (created; saving is A7).
-        training_state_checkpoint: resume state; not ported yet (A7).
+        output_dir: Root directory for saved checkpoints and training state.
+        training_state_checkpoint: Path to a training-state file for resume, or None.
         safe_serialization: Only safetensors is supported.
         model_expectations: Optional structural expectations for validation.
     """
@@ -147,14 +232,14 @@ class Checkpointer:
     ) -> None:
         if not safe_serialization:
             raise ValueError("Only safetensors serialization is supported (safe_serialization=True).")
-        if training_state_checkpoint is not None:
-            raise NotImplementedError(
-                "training_state_checkpoint (resume) is not ported to ssi_tpu_torch yet "
-                "(ROADMAP.md queue A, item A7: Checkpointer save and resume)"
-            )
         self.checkpoint_dir = Path(checkpoint_dir)
         self.output_dir = Path(output_dir)
+        self.training_state_checkpoint = (
+            Path(training_state_checkpoint) if training_state_checkpoint is not None else None
+        )
         check_outdir_not_in_ckptdir(ckpt_dir=self.checkpoint_dir, out_dir=self.output_dir)
+        if self.training_state_checkpoint is not None and not self.training_state_checkpoint.is_file():
+            raise FileNotFoundError(f"Training state checkpoint {self.training_state_checkpoint} not found.")
         self.output_dir.mkdir(parents=True, exist_ok=True)
 
         if config_json is None:
@@ -179,7 +264,10 @@ class Checkpointer:
         self._weight_map: dict[str, str] | None = None
 
         LOGGER.info(f"Loading from checkpoint(s): {[str(p) for p in self._checkpoint_paths]}")
-        LOGGER.info("No training state checkpoint passed. Will initialize optimizer state from scratch.")
+        if self.training_state_checkpoint is not None:
+            LOGGER.info(f"Resuming optimizer and training state from: {self.training_state_checkpoint}")
+        else:
+            LOGGER.info("No training state checkpoint passed. Will initialize optimizer state from scratch.")
 
     @property
     def hf_config(self) -> dict[str, Any]:
@@ -232,3 +320,114 @@ class Checkpointer:
                 f"Was the model extended with different n_dsus / modality settings?"
             )
         return params
+
+    def load_training_state(self) -> dict[str, Any] | None:
+        if self.training_state_checkpoint is None:
+            return None
+        return msgpack_io.load(self.training_state_checkpoint)
+
+    # -- save ------------------------------------------------------------------
+
+    def save_full_model(self, params: dict[str, Any], cfg: ConfigLlama3_2, output_dir: Path) -> None:
+        """Write sharded HF-format safetensors + index (ref: ssi/checkpoint.py:339-410).
+
+        ``params`` may live on the card or the host: each HF tensor is made
+        contiguous where it lives (the transposes run on the card) and copied
+        to the host once, as the writer reaches it.
+        """
+        if self._weight_map is None:
+            raise ValueError("Weight map is not initialized. Please load a checkpoint before saving.")
+        hf_state = internal_to_hf(params, cfg)
+
+        split: dict[str, dict[str, Any]] = {}
+        total_size = 0
+        for key, weight in hf_state.items():
+            cpt_idx = self._weight_map[key]
+            split.setdefault(cpt_idx, {})[key] = weight
+            total_size += weight.numel() * weight.element_size()
+
+        num_shards = len(split)
+        name_map: dict[str, str] = {}
+        output_dir.mkdir(parents=True, exist_ok=True)
+        for cpt_idx, shard in split.items():
+            shard_name = SHARD_FNAME.format(cpt_idx=str(cpt_idx).zfill(5), num_shards=str(num_shards).zfill(5))
+            name_map[cpt_idx] = shard_name
+            output_path = output_dir / (shard_name + ".safetensors")
+            save_file(shard, output_path, metadata={"format": "pt"})
+            LOGGER.info(
+                f"Model checkpoint of size {os.path.getsize(output_path) / 1024**3:.2f} GiB saved to {output_path}"
+            )
+
+        weight_map = {k: name_map[idx] + ".safetensors" for k, idx in self._weight_map.items()}
+        index_path = output_dir / SAFETENSOR_INDEX_FNAME
+        index_path.write_text(json.dumps({"metadata": {"total_size": total_size}, "weight_map": weight_map}, indent=2))
+        LOGGER.info(f"The full model checkpoint has been saved to {output_dir}")
+
+    def save_model_checkpoint(
+        self,
+        params: dict[str, Any],
+        cfg: ConfigLlama3_2,
+        global_step: int,
+        *,
+        output_dir: Path | None = None,
+        ignore_suffixes: list[str] | None = None,
+    ) -> Path:
+        """Save weights to a self-contained ``step_N/`` dir usable by HF tooling."""
+        if output_dir is None:
+            output_dir = self.output_dir / f"step_{global_step}"
+        if ignore_suffixes is None:
+            ignore_suffixes = [*SUFFIXES_TO_NOT_COPY, "torchtune_config.yaml", "train_config.yaml"]
+        self.save_full_model(params, cfg, output_dir)
+        copy_files(self.checkpoint_dir, output_dir, ignore_suffixes=ignore_suffixes)
+        return output_dir
+
+    def save_training_state(
+        self,
+        *,
+        optimizer_state: Any,
+        lr_scheduler_state: dict[str, Any] | None,
+        global_step: int,
+        seed: int,
+        training_hparams: dict[str, Any],
+        consumed_samples: int,
+        cumulative_metrics: dict[str, Any],
+        rng_state: dict[str, Any] | None = None,
+    ) -> Path:
+        """Save schema-v1 resume state; always overwrites (ref: ssi/checkpoint.py:435-468).
+
+        ``rng_state``: pre-captured host RNG states (pass when serialization happens
+        on a background thread so the capture reflects the training thread).
+        Array leaves stream to the file one at a time (device tensors are
+        copied to the host as they are reached).
+        """
+        state_dict = {
+            CHECKPOINT_VERSION_KEY: CHECKPOINT_VERSION,
+            GLOBAL_STEP_KEY: global_step,
+            SEED_KEY: seed,
+            OPTIMIZER_KEY: optimizer_state,
+            LR_SCHEDULER_KEY: lr_scheduler_state,
+            RNG_KEY: rng_state if rng_state is not None else save_rng_states(),
+            TRAINING_HPARAMS_KEY: training_hparams,
+            CONSUMED_SAMPLES_KEY: consumed_samples,
+            CUMULATIVE_METRICS_KEY: cumulative_metrics,
+            "timestamp": datetime.now(timezone.utc).isoformat(),
+            "ssi_version": __version__,
+        }
+        output_path = self.output_dir / TRAINING_STATE_FNAME
+        # Atomic replace: this file is the ONLY resume state and is overwritten in
+        # place every save — a crash mid-write must not destroy the previous one.
+        tmp_path = output_path.with_suffix(".msgpack.tmp")
+        with open(tmp_path, "wb") as f:
+            msgpack_io.pack_to_file(state_dict, f)
+        os.replace(tmp_path, output_path)
+        LOGGER.info(f"Training state ({os.path.getsize(output_path) / 1024**3:.2f} GiB) saved to {output_path}")
+        return output_path
+
+
+def resolve_checkpointer_output_dir(cfg: Any, logger: Any) -> Path:
+    """Build ``{cfg.output_dir}/{run_name}-id_{run_id}/checkpoints`` (ref: ssi/checkpoint.py:471)."""
+    run_name = getattr(logger, "run_name", None)
+    run_id = getattr(logger, "run_id", None)
+    if run_name is None or run_id is None:
+        raise RuntimeError("Metric logger run not initialized")
+    return Path(cfg.output_dir, f"{run_name}-id_{run_id}", "checkpoints")

@@ -105,4 +105,4 @@ def save_file(tensors: Mapping[str, torch.Tensor], path: str | Path, metadata: M
         f.write(raw)
         for _, t in items:
             if t.numel():
-                f.write(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy())
+                f.write(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())

@@ -17,7 +17,8 @@ import sys
 
 from ssi_tpu_torch.config import compose, load_yaml
 from ssi_tpu_torch.constants import SUPPORTED_DATASETS, TRAIN_CONFIG_FILENAME
-from ssi_tpu_torch.generate import resolve_device, run_generation
+from ssi_tpu_torch.generate import run_generation
+from ssi_tpu_torch.utils import resolve_device
 
 LOGGER = logging.getLogger(__name__)
 

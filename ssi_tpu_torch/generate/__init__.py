@@ -30,7 +30,7 @@ from ssi_tpu_torch.generate.engine import SamplingParams
 
 LOGGER = logging.getLogger(__name__)
 
-__all__ = ["SamplingParams", "run_generation", "resolve_device", "resolve_gen_output_dir", "validate_generate_config"]
+__all__ = ["SamplingParams", "run_generation", "resolve_gen_output_dir", "validate_generate_config"]
 
 # the last run's stage timings (seconds) and checkpoint bytes, for callers that report them
 last_run_stats: dict[str, float] = {}
@@ -40,20 +40,6 @@ _DTYPES = {"bf16": "bfloat16", "fp32": "float32"}
 
 def _not_ported(option: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{option} is not ported to ssi_tpu_torch yet (ROADMAP.md queue A, item {item})")
-
-
-def resolve_device(cfg: Any):
-    """The ``device`` config key (default ``cuda``) as a torch device; the
-    default raises when no CUDA device is visible (no CPU fallback)."""
-    import torch
-
-    device = torch.device(str(cfg.get("device", "cuda")))
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device=cuda (the default) but no CUDA device is visible; the port does not fall back to "
-            "the CPU: pass +device=cpu to generate on the CPU"
-        )
-    return device
 
 
 def resolve_gen_output_dir(cfg: Any) -> str:
@@ -118,7 +104,7 @@ def run_generation(cfg: Any) -> Path:
     from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
     from ssi_tpu_torch.models.configs import get_model_config
     from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
-    from ssi_tpu_torch.utils import hash_cfg
+    from ssi_tpu_torch.utils import hash_cfg, resolve_device
 
     validate_generate_config(cfg)
     device = resolve_device(cfg)

@@ -11,34 +11,128 @@ CUDA, optional per-layer rematerialization); the paged serving passes live in
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ssi_tpu_torch.models.configs import ConfigLlama3_2
 from ssi_tpu_torch.models.rope import apply_rope, rope_cos_sin
 from ssi_tpu_torch.ops.attention import dispatch_attention
+from ssi_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_given
 
 Params = dict[str, Any]
 
-# The JAX package's remat specs. "full" and "none" are ported; the selective
-# save_* policies (named residuals kept through the backward) are not yet.
+# The JAX package's remat specs (``ssi_tpu`` ``_remat_policy``). "full"
+# recomputes each layer from its input in the backward; the save_* policies
+# keep named products resident so the backward skips recomputing them:
+# "qkv" the q/k/v projections, "mlp" the pre-activation gate and up products,
+# "attn" the flash forward's o and lse (CUDA only; the CPU's plain attention
+# has no such residuals, as the JAX package's XLA attention has none).
 REMAT_POLICIES = ("full", "none", "save_qkv", "save_mlp", "save_qkv_mlp", "save_qkv_mlp_attn")
+_QKV = ("wq", "wk", "wv")
+_MLP = ("w_gate", "w_up")
+_KEPT = {
+    "full": ((), False),
+    "save_qkv": (_QKV, False),
+    "save_mlp": (_MLP, False),
+    "save_qkv_mlp": (_QKV + _MLP, False),
+    "save_qkv_mlp_attn": (_QKV + _MLP, True),
+}
 
 
-def _remat_layers(remat: bool | str) -> bool:
-    """Whether ``forward`` checkpoints each layer (``ssi_tpu`` ``_remat_policy``)."""
+def _remat_policy(remat: bool | str) -> tuple[tuple[str, ...], bool] | None:
+    """(weights whose products a rematerialized layer keeps, keep the flash
+    forward's o and lse), or None for no remat; bool is legacy full/none."""
     if isinstance(remat, bool):
-        return remat
-    if remat in ("full", "none"):
-        return remat == "full"
-    if remat in REMAT_POLICIES:
-        raise NotImplementedError(f"remat policy {remat!r} is not ported yet (ROADMAP A7: the selective "
-                                  "save_* remat policies); use 'full' or 'none'")
-    raise ValueError(f"Unknown remat policy {remat!r}; expected one of {REMAT_POLICIES} or bool")
+        remat = "full" if remat else "none"
+    if remat == "none":
+        return None
+    if remat not in _KEPT:
+        raise ValueError(f"Unknown remat policy {remat!r}; expected one of {REMAT_POLICIES} or bool")
+    return _KEPT[remat]
+
+
+class _KeptProduct(torch.autograd.Function):
+    """``x @ w`` in a rematerialized layer's recompute, with its output handed
+    in (``kept``: the product kept from the layer's forward, or any tensor of
+    its shape where the backward needs no value of it). The backward gives dx
+    and dW by the two ``mm`` calls of ``x @ w``'s own backward, so a kept
+    product changes no gradient bit."""
+
+    @staticmethod
+    def forward(ctx, x, w, kept):
+        ctx.save_for_backward(x, w)
+        return kept.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        return g2.mm(w.t()).view(x.shape), x.reshape(-1, x.shape[-1]).t().mm(g2), None
+
+
+def _on_flash(q: torch.Tensor) -> bool:
+    """Whether the model's attention is the flash Function here (CUDA), so a
+    rematerialized layer can keep its o and lse."""
+    return q.is_cuda
+
+
+class _RematLayer(torch.autograd.Function):
+    """One decoder layer whose backward recomputes it from its input: the
+    forward (no autograd) keeps the input and the products the policy names
+    (and, with its ``attn`` flag on the flash path, the attention's o and
+    lse); the backward runs the layer again under autograd, each kept product
+    and ``w_down`` (whose output no gradient reads) as a ``_KeptProduct``, the
+    kept attention through ``flash_attention_given``, and differentiates it."""
+
+    @staticmethod
+    def forward(ctx, h, names, policy, cos, sin, cfg, segment_ids, *weights):
+        keep, keep_attn = policy
+        kept: dict[str, Any] = {}
+
+        def prod(name, x, w):
+            out = x @ w
+            if name in keep:
+                kept[name] = out
+            return out
+
+        def attend(q, k, v):
+            if keep_attn and _on_flash(q):
+                kept["attn"] = flash_attention_fwd(q, k, v, causal=True, segment_ids=segment_ids)
+                return kept["attn"][0]
+            return dispatch_attention(q, k, v, causal=True, segment_ids=segment_ids)
+
+        out = block(h, dict(zip(names, weights)), cos, sin, cfg, attend, prod)
+        ctx.save_for_backward(h, cos, sin, segment_ids, *weights)
+        ctx.names, ctx.kept, ctx.cfg = names, kept, cfg
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, cos, sin, segment_ids, *weights = ctx.saved_tensors
+        h = h.detach().requires_grad_()
+        weights = [w.detach().requires_grad_() for w in weights]
+        kept = ctx.kept
+        unread = g.new_zeros(()).expand(g.shape)
+
+        def prod(name, x, w):
+            if name in kept:
+                return _KeptProduct.apply(x, w, kept[name])
+            if name == "w_down":
+                return _KeptProduct.apply(x, w, unread)
+            return x @ w
+
+        def attend(q, k, v):
+            if "attn" in kept:
+                return flash_attention_given(q, k, v, *kept["attn"], causal=True, segment_ids=segment_ids)
+            return dispatch_attention(q, k, v, causal=True, segment_ids=segment_ids)
+
+        with torch.enable_grad():
+            out = block(h, dict(zip(ctx.names, weights)), cos, sin, ctx.cfg, attend, prod)
+        grads = torch.autograd.grad(out, [h, *weights], g)
+        return (grads[0], None, None, None, None, None, None, *grads[1:])
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -59,19 +153,25 @@ def rope_for_positions(positions: torch.Tensor, cfg: ConfigLlama3_2) -> tuple[to
     )
 
 
-def block(h, layer, cos, sin, cfg: ConfigLlama3_2, attend) -> torch.Tensor:
+def _product(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x @ w
+
+
+def block(h, layer, cos, sin, cfg: ConfigLlama3_2, attend, prod: Callable = _product) -> torch.Tensor:
     """One decoder layer over ``h [B, T, D]``; ``attend(q, k, v)`` returns
-    ``[B, T, Hq, hd]`` (and may write K/V elsewhere as a side effect)."""
+    ``[B, T, Hq, hd]`` (and may write K/V elsewhere as a side effect);
+    ``prod(name, x, w)`` forms each product ``x @ layer[name]``."""
     b, t, _ = h.shape
     hd = cfg.head_dim
     x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
-    q = apply_rope((x @ layer["wq"]).view(b, t, cfg.num_heads, hd), cos, sin)
-    k = apply_rope((x @ layer["wk"]).view(b, t, cfg.num_kv_heads, hd), cos, sin)
-    v = (x @ layer["wv"]).view(b, t, cfg.num_kv_heads, hd)
+    q = apply_rope(prod("wq", x, layer["wq"]).view(b, t, cfg.num_heads, hd), cos, sin)
+    k = apply_rope(prod("wk", x, layer["wk"]).view(b, t, cfg.num_kv_heads, hd), cos, sin)
+    v = prod("wv", x, layer["wv"]).view(b, t, cfg.num_kv_heads, hd)
     attn = attend(q, k, v)
-    h = h + attn.reshape(b, t, cfg.num_heads * hd).to(h.dtype) @ layer["wo"]
+    h = h + prod("wo", attn.reshape(b, t, cfg.num_heads * hd).to(h.dtype), layer["wo"])
     x = rms_norm(h, layer["mlp_norm"], cfg.norm_eps)
-    return h + (F.silu(x @ layer["w_gate"]) * (x @ layer["w_up"])) @ layer["w_down"]
+    return h + prod("w_down", F.silu(prod("w_gate", x, layer["w_gate"])) * prod("w_up", x, layer["w_up"]),
+                    layer["w_down"])
 
 
 def layer_params(params: Params, l: int) -> Params:
@@ -90,14 +190,17 @@ def forward(
 ) -> torch.Tensor:
     """Run the decoder; returns final-normed hidden states ``[B, S, D]``.
 
-    ``remat``: True or "full" runs each layer under
-    ``torch.utils.checkpoint`` (non-reentrant: the backward recomputes the
-    layer from its input); False or "none" keeps every activation; the
-    selective ``save_*`` policies raise ``NotImplementedError``. The
-    attention is :func:`dispatch_attention`: the flash kernels on CUDA, the
-    plain attention on the CPU.
+    ``remat`` (a ``REMAT_POLICIES`` name, or bool for full/none): "none"
+    keeps every activation; "full" keeps only each layer's input, and the
+    backward recomputes the layer from it; a ``save_*`` policy also keeps
+    the layer's named products (and, with ``_attn``, the flash forward's o
+    and lse), so the backward recomputes only the rest. Every policy gives
+    the same loss and gradients, bit for bit: a kept tensor is the one a
+    recompute would give, and a kept product's backward makes the same
+    calls. The attention is :func:`dispatch_attention`: the flash kernels on
+    CUDA, the plain attention on the CPU.
     """
-    checkpointed = _remat_layers(remat)
+    policy = _remat_policy(remat)
     b, s = tokens.shape
     h = params["embed"][tokens]
     if positions is None:
@@ -111,11 +214,10 @@ def forward(
     # one pass, where per-layer indexing would sum L full-size zero-padded grads
     names = list(params["layers"])
     for weights in zip(*(params["layers"][n].unbind(0) for n in names)):
-        layer = dict(zip(names, weights))
-        if checkpointed:
-            h = checkpoint(block, h, layer, cos, sin, cfg, attend, use_reentrant=False)
+        if policy is None or not torch.is_grad_enabled():
+            h = block(h, dict(zip(names, weights)), cos, sin, cfg, attend)
         else:
-            h = block(h, layer, cos, sin, cfg, attend)
+            h = _RematLayer.apply(h, names, policy, cos, sin, cfg, segment_ids, *weights)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 

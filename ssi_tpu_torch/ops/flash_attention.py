@@ -224,11 +224,16 @@ def flash_attention_bwd(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward and backward through the wrappers above; saves o and lse."""
+    """Forward and backward through the wrappers above; saves o and lse.
+    Given ``o`` and ``lse`` (see :func:`flash_attention_given`), the forward
+    kernel does not run."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, segment_ids):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=segment_ids)
+    def forward(ctx, q, k, v, causal, segment_ids, o=None, lse=None):
+        if o is None:
+            o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=segment_ids)
+        else:
+            o = o.detach()
         ctx.save_for_backward(q, k, v, o, lse, segment_ids)
         ctx.causal = causal
         return o
@@ -237,7 +242,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse, segment_ids = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=ctx.causal, segment_ids=segment_ids)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -253,3 +258,21 @@ def flash_attention(
     k and v."""
     _check_operands(q, k, v, segment_ids)
     return _FlashAttention.apply(q, k, v, causal, segment_ids)
+
+
+def flash_attention_given(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    *,
+    causal: bool = True,
+    segment_ids: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`flash_attention` with its forward given: ``o`` and ``lse`` as
+    :func:`flash_attention_fwd` returned them for these q, k and v (a
+    rematerialized layer keeps them from its forward). Returns ``o`` with the
+    flash backward in q, k and v; the forward kernel does not run again."""
+    _check_operands(q, k, v, segment_ids)
+    return _FlashAttention.apply(q, k, v, causal, segment_ids, o, lse)

@@ -4,16 +4,18 @@
 The update producing global step N+1 uses ``schedule(N)``, fresh start or
 resume alike. The arithmetic runs in float32 torch scalars, as the JAX
 schedules run in float32 inside the jitted step, and each schedule returns a
-Python float. ``setup_lr_schedule`` (from the training config) waits for the
-config port.
+Python float. ``setup_lr_schedule`` builds one from the training config.
 """
 
 from __future__ import annotations
 
+import logging
 import math
-from typing import Callable
+from typing import Any, Callable
 
 import torch
+
+LOGGER = logging.getLogger(__name__)
 
 Schedule = Callable[[int], float]
 
@@ -67,3 +69,32 @@ def wsd_schedule(
         return float(base_lr * torch.where(step < num_warmup_steps, warmup_factor, decay_factor))
 
     return schedule
+
+
+def setup_lr_schedule(cfg: Any, num_training_steps: int) -> Schedule:
+    """Build the schedule from config (ref: ssi/lr_schedule.py:12-33 semantics).
+
+    ``cfg.lr_scheduler is None`` -> constant lr (the reference's "no scheduler").
+    ``lr_scheduler.type``: ``cosine`` (default) | ``wsd``.
+    """
+    base_lr = float(cfg.optimizer.lr)
+    if cfg.get("lr_scheduler") is None:
+        LOGGER.info("No learning rate scheduler configured. Using constant learning rate.")
+        return constant_schedule(base_lr)
+    kind = cfg.lr_scheduler.get("type", "cosine")
+    if kind == "wsd":
+        return wsd_schedule(
+            base_lr,
+            num_warmup_steps=int(cfg.lr_scheduler.num_warmup_steps),
+            num_training_steps=int(num_training_steps),
+            decay_fraction=float(cfg.lr_scheduler.get("decay_fraction", 0.1)),
+            min_lr_ratio=float(cfg.lr_scheduler.get("min_lr_ratio", 0.0)),
+        )
+    if kind != "cosine":
+        raise ValueError(f"Unknown lr_scheduler.type: {kind!r} (expected cosine | wsd)")
+    return cosine_schedule_with_warmup(
+        base_lr,
+        num_warmup_steps=int(cfg.lr_scheduler.num_warmup_steps),
+        num_training_steps=int(num_training_steps),
+        num_cycles=float(cfg.lr_scheduler.get("num_cycles", 0.5)),
+    )

@@ -1,20 +1,139 @@
-"""Job logging for the port's entry points — ``configure_job_logging``,
+"""Metric logging and job logging for the port's entry points — the port's
+copy of ``ssi_tpu/train/metric_logging.py``: ``JsonlLogger``,
+``WandBLogger`` and ``setup_metric_logger`` (W&B when the ``wandb`` package
+imports and is enabled, else JSONL on disk), ``configure_job_logging``,
 ``configure_hydra_logging``, ``_dict_config_from_yaml`` and
-``attach_run_file_logging`` of ``ssi_tpu/train/metric_logging.py``
-(141-239), copied; the logging YAML is read by the port's own YAML reader
-(``ssi_tpu_torch.config.yaml_subset``) instead of pyyaml. The metric loggers
-(JSONL, W&B) are not ported yet (ROADMAP.md queue A, item A7).
+``attach_run_file_logging``. The logging YAML is read by the port's own
+YAML reader (``ssi_tpu_torch.config.yaml_subset``) instead of pyyaml, and
+the config snapshot written by the port's config writer.
+
+Run identity (``run_name`` / ``run_id``) is generated locally when W&B is absent so
+``resolve_checkpointer_output_dir`` works identically (ref: ssi/checkpoint.py:471).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 from pathlib import Path
+import time
 from typing import Any
+import uuid
 
 from ssi_tpu_torch.config import yaml_subset
+from ssi_tpu_torch.constants import TRAIN_CONFIG_FILENAME
 
 LOGGER = logging.getLogger(__name__)
+
+
+def _generate_run_name() -> str:
+    return time.strftime("run-%Y%m%d-%H%M%S")
+
+
+def _generate_run_id() -> str:
+    return uuid.uuid4().hex[:8]
+
+
+class JsonlLogger:
+    """Local JSONL metric sink with W&B-compatible surface."""
+
+    def __init__(self, log_dir: Path | str | None = None, **_: Any) -> None:
+        self.run_name = _generate_run_name()
+        self.run_id = _generate_run_id()
+        self._log_dir = Path(log_dir) if log_dir is not None else None
+        self._fh = None
+        self.history: list[dict[str, Any]] = []
+
+    def _ensure_open(self):
+        if self._fh is None and self._log_dir is not None:
+            self._log_dir.mkdir(parents=True, exist_ok=True)
+            self._fh = open(self._log_dir / "metrics.jsonl", "a")
+        return self._fh
+
+    def set_log_dir(self, log_dir: Path | str) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+        self._log_dir = Path(log_dir)
+
+    def log_config(self, cfg: Any, checkpoint_dir: Path | str | None = None) -> None:
+        """Snapshot the resolved config to the checkpoint dir (ref: ssi/metric_logging.py:33-37)."""
+        from ssi_tpu_torch.config import save as save_cfg
+
+        if checkpoint_dir is not None:
+            path = Path(checkpoint_dir) / TRAIN_CONFIG_FILENAME
+            save_cfg(cfg, path, resolve=True)
+            LOGGER.info(f"Resolved config snapshot saved to {path}")
+
+    def log_dict(self, metrics: dict[str, Any], step: int) -> None:
+        record = {"step": step, **{k: _jsonable(v) for k, v in metrics.items()}}
+        self.history.append(record)
+        fh = self._ensure_open()
+        if fh is not None:
+            fh.write(json.dumps(record) + "\n")
+            fh.flush()
+
+    def log(self, name: str, data: Any, step: int) -> None:
+        self.log_dict({name: data}, step=step)
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+
+class WandBLogger(JsonlLogger):
+    """W&B logger with JSONL mirroring; requires the wandb package."""
+
+    def __init__(
+        self,
+        project: str,
+        entity: str | None = None,
+        group: str | None = None,
+        log_dir: Path | str | None = None,
+        tags: list[str] | None = None,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(log_dir=log_dir)
+        import wandb  # raises ImportError if unavailable
+
+        self._wandb = wandb
+        self._run = wandb.init(project=project, entity=entity, group=group, tags=tags, **kwargs)
+        self.run_name = self._run.name or self.run_name
+        self.run_id = self._run.id or self.run_id
+
+    def log_config(self, cfg: Any, checkpoint_dir: Path | str | None = None) -> None:
+        from ssi_tpu_torch.config import to_container
+
+        super().log_config(cfg, checkpoint_dir)
+        resolved = to_container(cfg, resolve=True)
+        self._wandb.config.update(resolved, allow_val_change=True)
+        if checkpoint_dir is not None:
+            try:
+                self._wandb.save(str(Path(checkpoint_dir) / TRAIN_CONFIG_FILENAME), policy="now")
+            except Exception as e:  # non-fatal (ref: torchtune WandBLogger behavior)
+                LOGGER.warning(f"Failed to upload config snapshot to W&B: {e}")
+
+    def log_dict(self, metrics: dict[str, Any], step: int) -> None:
+        super().log_dict(metrics, step)
+        self._wandb.log({k: _jsonable(v) for k, v in metrics.items()}, step=step)
+
+    def close(self) -> None:
+        super().close()
+        if getattr(self, "_run", None) is not None:
+            self._run.finish()
+
+
+def setup_metric_logger(cfg_wandb: Any, tags: list[str] | None = None, log_dir: Path | str | None = None):
+    """W&B if importable and enabled, else JSONL (always works offline)."""
+    kwargs = {k: v for k, v in cfg_wandb.items()} if cfg_wandb is not None else {}
+    enabled = kwargs.pop("enabled", True)
+    if enabled:
+        try:
+            return WandBLogger(log_dir=log_dir, tags=tags, **kwargs)
+        except Exception as e:
+            LOGGER.warning(f"W&B unavailable ({type(e).__name__}: {e}); falling back to JSONL metric logging.")
+    return JsonlLogger(log_dir=log_dir)
 
 
 def configure_job_logging(cfg: Any, run_dir: Path | str, job_name: str = "train") -> None:
@@ -114,3 +233,14 @@ def attach_run_file_logging(run_dir: Path | str, job_name: str = "train") -> Non
     handler.setFormatter(logging.Formatter("[%(asctime)s][%(name)s][%(levelname)s] - %(message)s"))
     root.addHandler(handler)
     LOGGER.info(f"Run log file: {path}")
+
+
+def _jsonable(v: Any) -> Any:
+    try:
+        json.dumps(v)
+        return v
+    except (TypeError, ValueError):
+        try:
+            return float(v)
+        except (TypeError, ValueError):
+            return str(v)

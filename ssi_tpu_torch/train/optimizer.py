@@ -39,6 +39,22 @@ class AdamWConfig:
     # Deterministic given the step counter (resume-safe).
     stochastic_rounding: bool = False
 
+    @classmethod
+    def from_cfg(cls, cfg_optimizer: Any) -> "AdamWConfig":
+        """From the ``optimizer`` config node (``conf/training.yaml``)."""
+        betas = cfg_optimizer.get("betas", [0.9, 0.999])
+        dtype_map = {"bf16": torch.bfloat16, "fp32": torch.float32}
+        return cls(
+            lr=float(cfg_optimizer.lr),
+            b1=float(betas[0]),
+            b2=float(betas[1]),
+            eps=float(cfg_optimizer.get("eps", 1e-8)),
+            weight_decay=float(cfg_optimizer.get("weight_decay", 0.01)),
+            mu_dtype=dtype_map[cfg_optimizer.get("mu_dtype", "bf16")],
+            nu_dtype=dtype_map[cfg_optimizer.get("nu_dtype", "fp32")],
+            stochastic_rounding=bool(cfg_optimizer.get("stochastic_rounding", False)),
+        )
+
 
 def tree_leaves(tree: Params) -> list[torch.Tensor]:
     """Leaves of a nested dict in sorted-key order (``jax.tree.flatten``'s)."""
@@ -55,14 +71,16 @@ def tree_map(fn: Callable, tree: Params) -> Params:
 
 def tree_unflatten(like: Params, leaves: list) -> Params:
     """A tree shaped like ``like`` holding ``leaves`` (in sorted-key order)."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {key: build(node[key]) for key in sorted(node)}
-        return next(it)
 
-    return build(like)
+def _build(node: Params, it) -> Params:
+    # a module function, not a recursive closure: a closure that calls itself
+    # is a reference cycle, and it kept the leaves (a step's gradients) alive
+    # until the garbage collector ran
+    if isinstance(node, dict):
+        return {key: _build(node[key], it) for key in sorted(node)}
+    return next(it)
 
 
 def _stochastic_round_bf16(x32: torch.Tensor, gen: torch.Generator) -> torch.Tensor:

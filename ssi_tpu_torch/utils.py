@@ -1,5 +1,6 @@
 """Helpers copied from ``ssi_tpu/utils/__init__.py`` (held equal to the
-originals by ``tests/test_torch_optimizer.py`` and ``tests/test_torch_config.py``)."""
+originals by ``tests/test_torch_optimizer.py`` and ``tests/test_torch_config.py``),
+and the port's own ``resolve_device``."""
 
 from __future__ import annotations
 
@@ -33,3 +34,17 @@ def hash_cfg(cfg: Any, length: int = 7) -> str:
     from ssi_tpu_torch.config import to_yaml
 
     return sha256(to_yaml(cfg, resolve=True, sort_keys=True).encode()).hexdigest()[:length]
+
+
+def resolve_device(cfg: Any, override: str = "+device=cpu"):
+    """An entry point's ``device`` setting (``cfg["device"]``, default
+    ``cuda``) as a torch device. A CUDA device raises when none is visible:
+    the port does not fall back to the CPU; ``override`` names the switch
+    that asks for the CPU."""
+    import torch
+
+    device = torch.device(str(cfg.get("device", "cuda")))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device.type} (the default) but no CUDA device is visible; the port does not "
+                           f"fall back to the CPU: pass {override} to run on the CPU")
+    return device

@@ -1,5 +1,6 @@
 """The port's boundary: it never imports jax, runs on the CPU without it,
-and its GPU entry points refuse to run without a GPU or a CUDA toolkit."""
+and its GPU entry points (serving, generation, extension and training) refuse
+to run without a GPU or a CUDA toolkit."""
 
 import os
 import re
@@ -130,6 +131,85 @@ def test_generation_cli_runs_without_the_card_libraries(tmp_path):
         return
     proc = subprocess.run([sys.executable, "-m", "ssi_tpu_torch.cli.generate", *_cli_overrides(
         model_dir, split, tmp_path / "refused")], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "+device=cpu" in proc.stderr
+    assert not (tmp_path / "refused").exists()
+
+
+_TRAIN_CLIS_RUN = """
+import sys
+from ssi_tpu_torch.cli import extend_llama3_2, train_cpt, train_sft
+base, ext, out, sft, cpt = sys.argv[1:6]
+device = sys.argv[6:]
+extend_llama3_2.main(extend_llama3_2.parse_args(["--n_new_dsus", "16", "--input_dir", base, "--output_dir", ext,
+                                                 "--model-config", "tiny_test", *(["--device", "cpu"] if device else [])]))
+common = ["model_config=tiny_test", "speech.n_dsus=16", f"checkpointer.checkpoint_dir={ext}",
+          f"tokenizer.path={ext}/original/tokenizer.model", "max_steps=1", "save_steps=1", "eval_steps=1",
+          "wandb.enabled=false", "hydra/job_logging=none", *device]
+for split in ("train", "dev"):
+    common += [f"data.{split}.dataset.source=json", f"data.{split}.dataset.split=train",
+               f"data.{split}.dataloader.batch_size=2"]
+train_sft.main(["data=sft/mls-hubert_large_ll60k-layer_22", *common, f"checkpointer.output_dir={out}/sft",
+                f"+data.train.dataset.data_files={sft}", f"+data.dev.dataset.data_files={sft}",
+                "tokenizer.max_seq_len=384"])
+train_cpt.main(["data=cpt/mls-hubert_large_ll60k-layer_22", *common, f"checkpointer.output_dir={out}/cpt",
+                f"+data.train.dataset.data_files={cpt}", f"+data.dev.dataset.data_files={cpt}",
+                "gradient_accumulation_steps=2", "tokenizer.max_seq_len=256"])
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in NAMES)
+assert loaded == [], loaded
+print("TRAIN_CLIS_OK")
+"""
+
+
+def test_training_clis_run_without_the_card_libraries(tmp_path):
+    """The extension, SFT and CPT CLIs (``conf/sft.yaml`` and ``conf/cpt.yaml``
+    as they stand, with ``remat: save_qkv_mlp``) each run once on the CPU with
+    ``+device=cpu`` on a tiny base checkpoint, one optimizer step each, and load
+    none of the libraries the card's machine may lack; without ``+device=cpu``
+    and with no CUDA device the first of them refuses before writing anything."""
+    import json
+
+    import torch
+
+    from ssi_tpu_torch.checkpoint.convert import internal_to_hf
+    from ssi_tpu_torch.checkpoint.safetensors_io import save_file
+    from ssi_tpu_torch.models.configs import get_model_config
+    from ssi_tpu_torch.models.llama3 import init_params
+    from tests import helpers
+
+    cfg = get_model_config("tiny_test")  # no DSUs: the base
+    base = tmp_path / "base"
+    (base / "original").mkdir(parents=True)
+    save_file(internal_to_hf(init_params(cfg, seed=3, dtype=torch.float32, device="cpu"), cfg),
+              base / "model.safetensors", metadata={"format": "pt"})
+    (base / "config.json").write_text(json.dumps({"vocab_size": cfg.vocab_size, "bos_token_id": 128_000,
+                                                  "eos_token_id": 128_001}))
+    (base / "generation_config.json").write_text(json.dumps({"bos_token_id": 128_000, "eos_token_id": 128_001}))
+    (base / "original" / "params.json").write_text(json.dumps({"vocab_size": cfg.vocab_size}))
+    helpers.write_tiny_tokenizer(base / "original" / "tokenizer.model")
+    sft, cpt = tmp_path / "sft.jsonl", tmp_path / "cpt.jsonl"
+    sft.write_text("".join(json.dumps(r) + "\n" for r in helpers.synthetic_sft_rows(8)))
+    cpt.write_text("".join(json.dumps(r) + "\n" for r in helpers.synthetic_cpt_rows(4)))
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    code = _TRAIN_CLIS_RUN.replace("NAMES", repr(_NOT_ON_THE_CARD))
+    paths = [str(p) for p in (base, tmp_path / "ext", tmp_path / "out", sft, cpt)]
+    proc = subprocess.run([sys.executable, "-c", code, *paths, "+device=cpu"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "TRAIN_CLIS_OK" in proc.stdout
+    for kind in ("sft", "cpt"):
+        assert (tmp_path / "out" / kind / "step_1" / "model.safetensors.index.json").is_file()
+        assert (tmp_path / "out" / kind / "training_state.msgpack").is_file()
+    if torch.cuda.is_available():
+        return
+    paths[1] = str(tmp_path / "refused")
+    proc = subprocess.run([sys.executable, "-c", code, *paths], cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0 and "--device cpu" in proc.stderr
+    assert not (tmp_path / "refused").exists()
+    proc = subprocess.run([sys.executable, "-m", "ssi_tpu_torch.cli.train_sft", "data=sft/mls-hubert_large_ll60k-layer_22",
+                           f"checkpointer.output_dir={tmp_path / 'refused'}"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0 and "+device=cpu" in proc.stderr
     assert not (tmp_path / "refused").exists()
 

@@ -156,6 +156,15 @@ def test_validation_errors_match_jax(tmp_path):
 
 
 def test_resume_state_not_ported(tmp_path):
+    """Resume is ported (it once raised naming A7): a missing training-state
+    file raises as the JAX package's does, and a present one is read back."""
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "model")
-    with pytest.raises(NotImplementedError, match="A7"):
-        pckpt.Checkpointer(model_dir, output_dir=tmp_path / "o", training_state_checkpoint=tmp_path / "state")
+    p = _errors(lambda: pckpt.Checkpointer(model_dir, output_dir=tmp_path / "o",
+                                           training_state_checkpoint=tmp_path / "state"))
+    j = _errors(lambda: jckpt.Checkpointer(model_dir, output_dir=tmp_path / "o",
+                                           training_state_checkpoint=tmp_path / "state"))
+    assert p == j and "not found" in p
+    (tmp_path / "state").write_bytes(jckpt.pack_state({"global_step": 3, "count": np.zeros((), np.int32)}))
+    state = pckpt.Checkpointer(model_dir, output_dir=tmp_path / "o",
+                               training_state_checkpoint=tmp_path / "state").load_training_state()
+    assert state["global_step"] == 3 and state["count"].dtype == np.int32

@@ -119,7 +119,33 @@ e. the training entry points at the full width of ``llama3_2_1b``: a
    seconds and GB/s for the model and the state, reload and state-read
    seconds, peak memory, launches, and the free disk at the start (the
    phase holds about 20 GB at its peak and deletes each directory once
-   read).
+   read);
+f. weight-only int8 and the port's WER drive:
+   f1. ``quantize_layer_weights_int8`` on phase 5's random bf16 1B weights
+   on the card: ``q`` and ``scale`` bitwise equal to the same f32
+   arithmetic on the CPU, ``|w - q * scale| <= amax / 127`` for every
+   weight, the int8 leaves ``torch.int8`` on the card; then phase 5's 64
+   requests through the int8 engine (``quantize="int8"``): every request
+   finishes, pages balance, the flash and paged kernels' launch counters are
+   > 0; tok/s beside phase 5's, the layer stack's bytes int8 beside bf16,
+   the token agreement with phase 5 (int8 is not bitwise: reported, not
+   required);
+   f2. the kernels at the 100m WER drive's shapes against their plain
+   versions (``hold``, ``REL``): flash forward and backward at B 32, S 160,
+   8 q / 4 kv heads; the CE lse, dlogits, dh and dE at N 5,120, D 512,
+   V 133,258 (spread 1 and 4; dE's unlabelled rows beside the lse + 0.05
+   control); #8 at 48 slots, 4 kv heads, n_rep 2, page 128, 3 pages; bf16
+   times beside the plain versions;
+   f3. ``python -m ssi_tpu_torch.wer_drive --smoke`` (``llama3_2_100m``, 8
+   SFT steps, 256 training rows), run as a subprocess as a user runs it,
+   every stage a subprocess of the port's CLI on the card: both WERs
+   computed and finite (not gated at this size; the full drive's summary is
+   committed under ``artifacts/wer_drive_torch/``), the summary's
+   ``hardware`` this card, every training kernel launched by the SFT stage
+   and the flash and paged kernels by each generate stage (each stage's
+   process reports its counts through ``SSI_TPU_TORCH_LAUNCH_COUNTS``);
+   prints the stage seconds, the final dev loss, the generate tok/s of both
+   precisions and the drive's wall.
 
 Tolerances: phases 2, 3 and a hold each output elementwise to ``TOL``
 (absolute and relative). Every kernel output is also held in relative norm,
@@ -129,7 +155,8 @@ result that must miss the same limit. The cross-entropy lse is held to
 ``LSE_ATOL`` absolute and the loss to 1e-5 of its sum; phase 8 holds each
 gradient leaf to 1e-4 of its largest entry.
 It then prints one JSON line with per-kernel results (errors, times, the
-bound computed from this run's shapes, the library yardstick) and, last,
+bound computed from this run's shapes, the library yardstick, launches by
+path, ``wer_drive`` the sum over the drive's stage processes) and, last,
 the device line ``{"ok": true, "device": {...}}``.
 """
 
@@ -837,86 +864,6 @@ def phase_spec_serving(seed: int, smi: str, base_tokens, base_rate: float):
 
 # --- phase d: the generation entry point ------------------------------------------------------
 
-BASE_VOCAB = 128_000
-# Task vocabulary of the WER drive (tools/wer_drive.py WORDS, copied; the
-# test split's transcripts are drawn from it).
-WORDS = """
-the of and to in is was he for it with as his on be at by had not are but from
-or have an they which one you were all her she there would their we him been
-has when who will no more if out so up said what its about than into them can
-only other time new some could these two may first then do any like my now
-over such our man me even most made after also did many off before must well
-back through years much where your way down should because each just those
-people too how little good world make very year still see own work men day get
-here old life both between under never same another know while last might us
-great old year came right used take three states himself few house use during
-without again place american around however home small found mrs thought went
-say part once general high upon school every don't does got united left number
-course war until always away something fact though water less public put think
-almost hand enough far took head yet government system better set told nothing
-night end why called didn't eyes find going look asked later knew point next
-city business case give group toward young let days true face others since
-room mother social present friend power rather large family often kind four
-among children however against state become interest big open possible
-certain order early moved money ago second door white remember program
-believe whole question began least word hours feel among side voice along
-thing area want members mind country service best father door keep problem
-music light education study turned want national care form given history
-several change until help line fire name nature deal physical sense moment
-free road colour theatre organise favourite centre behaviour honour analyse
-programme labour neighbour travelled marvellous
-""".split()
-WORDS = list(dict.fromkeys(WORDS))  # first occurrences, in order
-
-
-def build_base_tokenizer(path, words: list[str]) -> None:
-    """Write a valid 128,000-entry tiktoken BPE file — a copy of
-    ``tools/wer_drive.py`` ``build_base_tokenizer`` (byte-equal output,
-    ``tests/test_torch_tokenizer.py``): 256 byte tokens; the two-byte UTF-8
-    intermediates of the PUA lead bytes 0xEE/0xEF (so the DSU extension's
-    3-byte tokens are reachable by byte-pair merges); prefix-chain merges of
-    every word, with and without a leading space; filler byte strings up to
-    exactly 128,000."""
-    import base64
-
-    tokens: list[bytes] = [bytes([i]) for i in range(256)]
-    seen = set(tokens)
-
-    def add(tok: bytes) -> None:
-        if tok not in seen:
-            seen.add(tok)
-            tokens.append(tok)
-
-    for lead in (0xEE, 0xEF):
-        for b2 in range(0x80, 0xC0):
-            add(bytes([lead, b2]))
-    merges: set[bytes] = set()
-    for w in words:
-        for variant in (w, " " + w):
-            enc = variant.encode()
-            for k in range(2, len(enc) + 1):
-                merges.add(enc[:k])
-    for tok in sorted(merges, key=lambda t: (len(t), t)):
-        add(tok)
-    for a in range(0x80, 0x100):
-        for b in range(0x100):
-            if len(tokens) >= BASE_VOCAB:
-                break
-            add(bytes([a, b]))
-    for lead in range(0xF8, 0xFE):
-        for a in range(0x100):
-            for b in range(0x100):
-                if len(tokens) >= BASE_VOCAB:
-                    break
-                add(bytes([lead, a, b]))
-    if len(tokens) < BASE_VOCAB:
-        raise RuntimeError(f"only {len(tokens)} tokens constructed")
-    tokens = tokens[:BASE_VOCAB]
-    path.parent.mkdir(parents=True, exist_ok=True)
-    with open(path, "w") as f:
-        for rank, tok in enumerate(tokens):
-            f.write(base64.b64encode(tok).decode() + f" {rank}\n")
-
 
 def write_model_files(step, cfg) -> None:
     """``config.json``, ``generation_config.json`` and ``original/params.json``,
@@ -949,6 +896,8 @@ def split_rows(seed: int, n: int, n_dsus: int) -> list[dict]:
     takes about 95 tokens of the synthesized vocabulary, so speech spans of
     10-640 tokens make prompts of about 105-740 tokens (phase 5's: 32-700)."""
     import numpy as np
+
+    from ssi_tpu_torch.wer_drive import WORDS
 
     rng = np.random.default_rng(seed)
     rows = []
@@ -1009,6 +958,7 @@ def phase_generate_cli(seed: int, smi: str, base_rate: float):
     from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
     from ssi_tpu_torch.models.llama3 import init_params
     from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
+    from ssi_tpu_torch.wer_drive import WORDS, build_base_tokenizer
 
     cfg = model_config()
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_generate_"))
@@ -1497,6 +1447,8 @@ def cpt_rows(seed: int, n: int, n_dsus: int) -> list[dict]:
     (50 per second, 16 kHz / 320) over the utterance, no two neighbours equal."""
     import numpy as np
 
+    from ssi_tpu_torch.wer_drive import WORDS
+
     rng = np.random.default_rng(seed)
     rows = []
     for _ in range(n):
@@ -1580,6 +1532,7 @@ def phase_training_cli(seed: int, smi: str):
     from ssi_tpu_torch.profile_decode import _device_summary
     from ssi_tpu_torch.speech import dsu2pua
     from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
+    from ssi_tpu_torch.wer_drive import WORDS, build_base_tokenizer
 
     cfg = model_config()
     base_cfg = get_model_config("llama3_2_1b")  # n_dsus 0: the 128,256-row base
@@ -1773,6 +1726,310 @@ def phase_training_cli(seed: int, smi: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- phase f: weight-only int8 and the port's WER drive ---------------------------------------
+
+
+def phase_int8_serving(seed: int, smi: str, base_tokens, base_rate: float):
+    """Phase f1: ``quantize_layer_weights_int8`` at 1B width on the card, held
+    bitwise to the same f32 arithmetic on the CPU and to the per-element bound
+    ``|w - q * scale| <= amax / 127``; then phase 5's 64 requests through the
+    int8 engine (``quantize="int8"``)."""
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.generate.engine import SamplingParams
+    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+    from ssi_tpu_torch.generate.quant import _LAYER_MATMULS, _quantize, quantize_layer_weights_int8
+    from ssi_tpu_torch.models.llama3 import init_params
+
+    cfg = model_config()
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = quantize_layer_weights_int8(params)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    bytes_bf16 = sum(params["layers"][n].numel() * params["layers"][n].element_size() for n in _LAYER_MATMULS)
+    bytes_q = sum(qparams["layers"][n]["q"].numel() for n in _LAYER_MATMULS)
+    bytes_scale = sum(qparams["layers"][n]["scale"].numel() * 2 for n in _LAYER_MATMULS)
+    worst = 0.0  # the largest |w - q * scale| / (amax / 127) over every weight
+    for name in _LAYER_MATMULS:
+        w, leaf = params["layers"][name], qparams["layers"][name]
+        check(leaf["q"].dtype == torch.int8 and leaf["q"].is_cuda and leaf["scale"].dtype == torch.bfloat16
+              and leaf["scale"].shape == (w.shape[0], 1, w.shape[2]), f"int8 {name}: not an int8 leaf on the card")
+        ref = _quantize(w.cpu())  # the same f32 arithmetic on the CPU
+        check(torch.equal(leaf["q"].cpu(), ref["q"]) and torch.equal(leaf["scale"].cpu(), ref["scale"]),
+              f"int8 {name}: q or scale differs from the CPU's f32 arithmetic")
+        for l in range(w.shape[0]):
+            w32 = w[l].float()
+            err = (w32 - leaf["q"][l].float() * leaf["scale"][l].float()).abs()
+            limit = w32.abs().amax(dim=0, keepdim=True) / 127
+            check(bool((err <= limit).all()), f"int8 {name} layer {l}: |w - q * scale| > amax / 127")
+            worst = max(worst, (err / limit.clamp_min(1e-30)).max().item())
+    del qparams, ref
+    log(f"  int8 quantization (1B, 7 products x 16 layers) on the card: {t_quant * 1e3:.1f} ms; q and scale "
+        f"bitwise equal to the CPU's f32 arithmetic; |w - q * scale| <= {worst:.3f} x amax / 127 (limit 1); "
+        f"layer stack {bytes_bf16 / 1e9:.3f} GB bf16 -> {bytes_q / 1e9:.3f} GB int8 + {bytes_scale / 1e6:.3f} MB "
+        f"bf16 scales")
+
+    prompts = prompts_from_seed(seed + 1, 64, cfg.vocab_size)
+    eng = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=32, page_size=128, prompt_bucket=128, chunk=16,
+                            quantize="int8")
+    del params
+    check(eng.attn_impl == "kernel" and eng.params["layers"]["wq"]["q"].dtype == torch.int8,
+          "int8 engine: not the kernels over int8 weights")
+    eng.generate_batch(prompts[:8], SamplingParams(max_tokens=16))  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    outs = eng.generate_batch(prompts, SamplingParams(temperature=0.0, max_tokens=128))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    for i, o in enumerate(outs):
+        check(o["finish_reason"] == "length" and len(o["token_ids"]) == 128,
+              f"int8 request {i}: {o['finish_reason']}, {len(o['token_ids'])} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in o["token_ids"]), f"int8 request {i}: token out of vocab")
+    parked = len(eng._free_pages) + len(eng._cache_lru)
+    check(parked == eng.n_pages, f"int8 serving: pages leaked: {eng.n_pages - parked}")
+    for name in ("flash_attention_fwd", "paged_attention_fused"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the int8 serving path")
+    n_tok = sum(len(o["token_ids"]) for o in outs)
+    same = sum(o["token_ids"] == b for o, b in zip(outs, base_tokens))
+    agree = [next((i for i, (x, y) in enumerate(zip(o["token_ids"], b)) if x != y), len(b))
+             for o, b in zip(outs, base_tokens)]
+    log(f"phase f1 int8 serving (1B, weight-only int8 layer stack, 32 slots): 64 requests x 128 tokens, {n_tok} "
+        f"tokens in {wall:.2f} s = {n_tok / wall:.0f} generated tok/s (phase 5, bf16 weights: {base_rate:.0f}) on "
+        f"{smi}; {same}/64 requests equal to phase 5's tokens, mean agreeing prefix {sum(agree) / len(agree):.1f} of "
+        f"128 (int8 is not bitwise; reported, not required); launches {launches}")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_drive_kernels(gen):
+    """Phase f2: the kernels at the 100m WER drive's shapes against their plain
+    versions: flash forward (#1) and backward (#3) at the SFT micro-batch (B 32,
+    S 160, 8 q / 4 kv heads, causal); the CE passes (#5-#7) at N 5,120, D 512,
+    V 133,258; #8 at the decode shape (48 slots, 4 kv heads, n_rep 2, page 128,
+    3 pages a slot, 8 layers). Times in bf16 beside the plain versions."""
+    import torch
+
+    from ssi_tpu_torch.ops.cross_entropy import (
+        cross_entropy_de,
+        cross_entropy_dh,
+        cross_entropy_dlogits,
+        cross_entropy_lse,
+        fused_cross_entropy,
+    )
+    from ssi_tpu_torch.ops.cross_entropy_cuda import (
+        cross_entropy_de_gemm_kernel,
+        cross_entropy_de_kernel,
+        cross_entropy_dh_gemm_kernel,
+        cross_entropy_dh_kernel,
+        cross_entropy_dlogits_kernel,
+        cross_entropy_lse_kernel,
+        fused_cross_entropy_kernel,
+    )
+    from ssi_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_fwd,
+        flash_attention_reference,
+    )
+
+    b, s, hq, hkv, d = 32, 160, 8, 4, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[1]
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype) for h in (hq, hkv, hkv, hq))
+        o, lse = flash_attention_fwd(q, k, v, causal=True)
+        o_ref, lse_ref = flash_attention_reference(q, k, v, causal=True)
+        _, rel_o, _ = hold("drive flash fwd o", o, o_ref, key)
+        err_l = (lse - lse_ref).abs().max().item()
+        check(err_l <= TOL[key], f"drive flash fwd {key}: lse err {err_l} > {TOL[key]}")
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
+        ctrl = flash_attention_bwd_reference(q, k, v, o, lse + 0.05, do, causal=True)
+        rels = [hold(f"drive flash bwd {g}", a, w, key, [("p x 0.95", c)])[1]
+                for g, a, w, c in zip(("dq", "dk", "dv"), got, want, ctrl)]
+        msg = (f"  f2 flash B{b} S{s} Hq{hq} Hkv{hkv} causal {key}: fwd o rel {rel_o:.2e}, lse max err {err_l:.2e}; "
+               f"bwd rel dq {rels[0]:.2e}, dk {rels[1]:.2e}, dv {rels[2]:.2e} (limit {REL[key]})")
+        if dtype == torch.bfloat16:
+            t_f = in_turns(lambda: flash_attention_fwd(q, k, v, causal=True),
+                           lambda: flash_attention_reference(q, k, v, causal=True))
+            t_b = in_turns(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+                           lambda: flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True))
+            msg += (f"; times fwd {t_f[0]:.4f} ms (plain {t_f[1]:.3f}), bwd {t_b[0]:.4f} ms (plain "
+                    f"{t_b[1]:.3f})")
+        log(msg)
+        del q, k, v, do, o, lse, o_ref, lse_ref, got, want, ctrl
+    torch.cuda.empty_cache()
+
+    n, vocab, dm = 5120, 133_258, 512
+    g = torch.tensor(1.0, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        for spread in (1.0, 4.0):
+            key = str(dtype).split(".")[1]
+            h = (torch.randn((n, dm), generator=gen, device="cuda") * spread).to(dtype)
+            e = (torch.randn((vocab, dm), generator=gen, device="cuda") * dm**-0.5).to(dtype)
+            y = torch.randint(0, vocab, (n,), generator=gen, device="cuda", dtype=torch.int32)
+            y[::7] = -100
+            what = f"f2 cross entropy N{n} D{dm} {key} spread {spread:g}"
+            lse = cross_entropy_lse_kernel(h, e)
+            lse_p = cross_entropy_lse(h, e)
+            err_lse = (lse - lse_p).abs().max().item()
+            check(err_lse <= LSE_ATOL, f"{what} lse: max err {err_lse:.3e} > {LSE_ATOL}")
+            loss, loss_p = fused_cross_entropy_kernel(h, e, y), fused_cross_entropy(h, e, y)
+            rel_loss = abs(loss.item() - loss_p.item()) / abs(loss_p.item())
+            check(rel_loss <= 1e-5, f"{what} loss: {loss.item()} vs plain {loss_p.item()}")
+            _, rel_dl, _ = hold(f"{what} dlogits", cross_entropy_dlogits_kernel(h, e, y, lse, g),
+                                cross_entropy_dlogits(h, e, y, g), key)
+            _, rel_dh, _ = hold(f"{what} dh", cross_entropy_dh_kernel(h, e, y, lse, g),
+                                cross_entropy_dh(h, e, y, g), key)
+            de, de_p = cross_entropy_de_kernel(h, e, y, lse, g), cross_entropy_de(h, e, y, g)
+            unl = torch.ones(vocab, dtype=torch.bool, device="cuda")
+            unl[y[y != -100].long()] = False
+            _, rel_l, _ = hold(f"{what} dE labelled rows", de[~unl], de_p[~unl], key)
+            _, rel_u, c_de = hold(f"{what} dE unlabelled rows", de[unl], de_p[unl], key,
+                                  [("kernel with lse + 0.05", cross_entropy_de_kernel(h, e, y, lse + 0.05, g)[unl])])
+            msg = (f"  {what}: lse max err {err_lse:.2e}, loss rel {rel_loss:.2e}, rel dlogits {rel_dl:.2e}, dh "
+                   f"{rel_dh:.2e}, dE labelled {rel_l:.2e}, unlabelled {rel_u:.2e} (control {c_de:.2e}; limit "
+                   f"{REL[key]})")
+            if dtype == torch.bfloat16 and spread == 1.0:
+                ops = 2 * n * vocab * dm
+                t_lse = in_turns(lambda: cross_entropy_lse_kernel(h, e), lambda: cross_entropy_lse(h, e), 5)
+
+                def backward():  # as _CrossEntropyKernel.backward runs it: one dlogits pass, two GEMMs
+                    dlogits = cross_entropy_dlogits_kernel(h, e, y, lse, g)
+                    return cross_entropy_dh_gemm_kernel(dlogits, e), cross_entropy_de_gemm_kernel(dlogits, h)
+
+                t_bwd = in_turns(backward, lambda: (cross_entropy_dh(h, e, y, g), cross_entropy_de(h, e, y, g)), 3)
+                msg += (f"; times lse {t_lse[0]:.3f} ms ({ops / (t_lse[0] * 1e-3) / 1e12:.0f} TFLOP/s; plain "
+                        f"{t_lse[1]:.3f}), backward (dlogits + dh + dE) {t_bwd[0]:.3f} ms (plain {t_bwd[1]:.3f}); "
+                        f"bound of one {n} x {vocab} x {dm} product {bound(ops, 2 * (n + vocab) * dm)[0]:.3f} ms")
+            log(msg)
+            del h, e, y, lse, lse_p, de, de_p, unl
+            torch.cuda.empty_cache()
+
+    slots, hkv, n_rep, ps, max_pages, n_layers = 48, 4, 2, 128, 3, 8
+    kernel, plain, lens_of = paged_call(1)
+    hist = torch.randint(0, max_pages * ps, (slots,), generator=gen, device="cuda").to(torch.int32)
+    hist[:4] = torch.tensor([0, ps - 1, ps, max_pages * ps - 1], dtype=torch.int32, device="cuda")
+    active = torch.arange(slots, device="cuda") % 11 != 5
+    seq_lens = lens_of(hist, active)
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[1]
+        kp, vp, q, kn, vn, per_layer = paged_inputs(gen, dtype, 1, slots, hkv, n_rep, ps, max_pages, n_layers,
+                                                    hist, active)
+        table, write_rows = per_layer[3]
+        kw = dict(k_new=kn, v_new=vn)
+        kp_ref, vp_ref = kp.clone(), vp.clone()
+        got = kernel(q, kp, vp, table, seq_lens, write_rows=write_rows, **kw)
+        again = kernel(q, kp, vp, table, seq_lens, write_rows=write_rows, **kw)
+        ref = plain(q, kp_ref, vp_ref, table, seq_lens, write_rows=write_rows, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"f2 paged {key}: two launches differ")
+        _, rel, _ = hold("f2 paged attention", got[active], ref[active], key)
+        check(torch.equal(kp[:-1], kp_ref[:-1]) and torch.equal(vp[:-1], vp_ref[:-1]),
+              f"f2 paged pools {key}: not bitwise equal outside the trash row")
+        msg = f"  f2 paged #8, 48 slots, 4 kv heads, n_rep 2, 3 pages {key}: rel {rel:.2e} (limit {REL[key]})"
+        if dtype == torch.bfloat16:
+            n_bytes = int(hist[active].sum().item()) * hkv * 64 * 2 * 2
+            t_k, t_p, _, _, gbs = paged_times(
+                lambda t, w: kernel(q, kp, vp, t, seq_lens, write_rows=w, **kw),
+                lambda t, w: plain(q, kp_ref, vp_ref, t, seq_lens, write_rows=w, **kw), per_layer, 3, n_bytes)
+            msg += (f"; device time of a graph of the 8 layers in turn {t_k:.4f} ms ({gbs:.0f} GB/s of pages), "
+                    f"plain {t_p:.3f} ms")
+        log(msg)
+        del kp, vp, kp_ref, vp_ref
+    torch.cuda.empty_cache()
+    log("phase f2 the kernels at the WER drive's shapes: ok")
+
+
+def phase_wer_drive(smi: str):
+    """Phase f3: ``python -m ssi_tpu_torch.wer_drive --smoke`` at its default
+    ``llama3_2_100m``, run as a user runs it (a subprocess; each stage a
+    subprocess of the port's CLI): extend, SFT, generate in bf16 and int8, and
+    score, on the card. Each stage's process appends its kernel launch counts
+    to the file that ``SSI_TPU_TORCH_LAUNCH_COUNTS`` names (the drive sets one
+    per stage, ``_build.write_launch_counts``); their sum is the kernels
+    line's ``launches_by_path["wer_drive"]``. The smoke recipe (8 steps, 256
+    rows) checks the wiring: both WERs are computed and finite, not gated; the
+    full drive's summary is committed under ``artifacts/wer_drive_torch/``."""
+    import shutil
+    import tempfile
+    from collections import Counter
+    from pathlib import Path
+
+    from ssi_tpu_torch.cli.train_sft import main as sft_main
+    from ssi_tpu_torch.profile_decode import _device_summary
+    from ssi_tpu_torch.wer_drive import extended_dir, parse_args as drive_args, sft_overrides
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_wer_drive_"))
+    try:
+        art = root / "art"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ssi_tpu_torch.wer_drive", "--smoke", "--workdir",
+                               str(root / "wd"), "--artifacts-dir", str(art)], cwd=REPO, capture_output=True,
+                              text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, "the WER drive failed:\n" + "\n".join(
+            (root / "wd" / "drive.log").read_text().splitlines()[-30:] if (root / "wd" / "drive.log").exists()
+            else proc.stderr.splitlines()[-30:]))
+        summary = json.loads((art / "summary.json").read_text())
+        check(summary["hardware"] == smi, f"drive hardware {summary['hardware']!r}, expected {smi!r}")
+        for tag in ("bf16", "int8"):
+            check(math.isfinite(summary[f"wer_{tag}"]) and summary[f"wer_{tag}"] >= 0,
+                  f"drive WER {tag}: {summary[f'wer_{tag}']}")
+        counts = summary["launch_counts"]
+        for name in TRAIN_KERNELS:
+            check(counts["train"].get(name, 0) > 0, f"kernel {name} was not launched by the drive's SFT stage")
+        for tag in ("bf16", "int8"):
+            for name in ("flash_attention_fwd", "paged_attention_fused"):
+                check(counts[f"generate_{tag}"].get(name, 0) > 0,
+                      f"kernel {name} was not launched by the drive's {tag} generate stage")
+        launches = sum((Counter(c) for c in counts.values()), Counter())
+        sec, tr = summary["stage_seconds"], summary["train"]
+
+        # the SFT stage again, in this process, on the drive's extended model and data with
+        # its overrides but log_interval 1 and the Trainer's profiler key at step 6: per-step
+        # readings and one traced step at the drive's shape (not counted in the drive's launches)
+        args = drive_args(["--smoke"])
+        ext = extended_dir(root / "wd", args)
+        trainer, t_sft = run_cli(sft_main, [
+            *sft_overrides(args, root / "wd" / "data"), "log_interval=1", f"checkpointer.checkpoint_dir={ext}",
+            f"tokenizer.path={ext / 'original' / 'tokenizer.model'}", f"checkpointer.output_dir={root / 'sft'}",
+            f"profiler={{start_step: 5, num_steps: 1, dir: {root / 'trace'}}}"])
+        steps = [m for m in read_metrics(root / "sft") if "loss" in m]
+        check(len(steps) == 8 and all(math.isfinite(m["loss"]) for m in steps), f"drive SFT: {len(steps)} steps")
+        untraced = [m for m in steps if m["step"] in (2, 3, 4, 5)]
+        step_ms = sum(m["duration_step"] for m in untraced) * 1e3 / len(untraced)
+        label_tok_s = sum(m["tokens_per_second_per_gpu"] for m in untraced) / len(untraced)
+        dev_summary = _device_summary(str(trainer.profile_trace))
+        traced = trainer.profile_wall_s * 1e3
+        shares = ", ".join(f"{k} {v * dev_summary['busy_ms']:.1f} ms" for k, v in
+                           dev_summary["share_of_device_time"].items())
+        losses = ", ".join(f"{m['loss']:.4f}" for m in steps)
+        del trainer
+        log(f"phase f3 WER drive (python -m ssi_tpu_torch.wer_drive --smoke: llama3_2_100m, {tr['max_steps']} SFT "
+            f"steps, 256 rows; every stage a CLI subprocess on the card): WER bf16 {summary['wer_bf16']:.4f}, int8 "
+            f"{summary['wer_int8']:.4f} (not gated at this size); assets {sec['assets']:.2f} s, extend "
+            f"{sec['extend']:.2f} s, SFT stage {sec['train']:.2f} s (train loss not logged: log_interval 20 > "
+            f"{tr['max_steps']} steps; final dev loss {tr['final_dev_loss']:.4f}), generate bf16 "
+            f"{sec['generate_bf16']:.2f} s ({summary['decode_tok_s']['bf16']:.0f} tok/s), int8 "
+            f"{sec['generate_int8']:.2f} s ({summary['decode_tok_s']['int8']:.0f} tok/s), score "
+            f"{sec['score_bf16'] + sec['score_int8']:.2f} s; drive wall {wall:.2f} s; on {smi}; launches "
+            f"{dict(launches)}")
+        log(f"phase f3 the drive's SFT stage in this process (its overrides, log_interval 1, window 2 x 32 x <= 160): "
+            f"JSONL duration_step {step_readings(steps)}; losses {losses}; "
+            f"mean of steps 2-5 {step_ms:.1f} ms, {label_tok_s:.0f} label tok/s; traced step 6 {traced:.1f} ms, device "
+            f"busy {dev_summary['busy_ms']:.1f} ms ({dev_summary['busy_ms'] / traced:.0%}), {dev_summary['kernels']} "
+            f"kernels; device time by class: {shares}; CLI wall {t_sft:.2f} s")
+        return dict(launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1803,6 +2060,9 @@ def main() -> int:
     phase_train_parity(args.seed)
     train_launches = phase_train(args.seed, smi)
     train_cli_launches = phase_training_cli(args.seed, smi)
+    int8_launches = phase_int8_serving(args.seed, smi, base_tokens, base_rate)
+    phase_drive_kernels(gen)
+    drive_launches = phase_wer_drive(smi)
 
     sources = {"flash_attention_fwd": ("flash_attention_fwd.cu", FLASH_REPLACES),
                "paged_attention_fused": ("paged_attention.cu", PAGED_REPLACES),
@@ -1813,7 +2073,8 @@ def main() -> int:
     for name, (source, replaces) in sources.items():
         by_path = {"serve": serve_launches.get(name, 0), "spec_serve": spec_launches.get(name, 0),
                    "generate": gen_launches.get(name, 0), "train": train_launches.get(name, 0),
-                   "train_cli": train_cli_launches.get(name, 0)}
+                   "train_cli": train_cli_launches.get(name, 0), "int8_serve": int8_launches.get(name, 0),
+                   "wer_drive": drive_launches.get(name, 0)}
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **rows[name]})

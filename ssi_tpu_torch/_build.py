@@ -14,13 +14,16 @@ entry point returns a non-zero ``cudaError_t`` raises ``RuntimeError``.
 
 ``launch_counts`` holds one plain integer per kernel, incremented by the
 kernel's wrapper right after a successful launch and nowhere else, so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels. A CLI run as a
+subprocess reports its counts through ``write_launch_counts`` (one JSON line
+appended to the file that ``SSI_TPU_TORCH_LAUNCH_COUNTS`` names, when set).
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -39,6 +42,7 @@ NVCC_FLAGS = [
 
 # kernel name -> launches since the last reset (see module docstring)
 launch_counts: Counter = Counter()
+LAUNCH_COUNTS_ENV = "SSI_TPU_TORCH_LAUNCH_COUNTS"
 
 _lib: ctypes.CDLL | None = None
 # seconds the last build took (0.0 when the cached library was reused) and
@@ -174,3 +178,15 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {err}")
     launch_counts[name] += 1
+
+
+def write_launch_counts(entry_point: str) -> None:
+    """Append ``{"entry_point": ..., "launch_counts": {...}}`` as one JSON line
+    to the file that ``$SSI_TPU_TORCH_LAUNCH_COUNTS`` names; nothing when it is
+    unset. The CLIs call it as their run ends, so a parent process that runs
+    them as subprocesses (the port's WER drive) can see which kernels each
+    launched."""
+    path = os.environ.get(LAUNCH_COUNTS_ENV)
+    if path:
+        with open(path, "a") as f:
+            f.write(json.dumps({"entry_point": entry_point, "launch_counts": dict(launch_counts)}) + "\n")

@@ -15,6 +15,7 @@ import logging
 from pathlib import Path
 import sys
 
+from ssi_tpu_torch._build import write_launch_counts
 from ssi_tpu_torch.config import compose, load_yaml
 from ssi_tpu_torch.constants import SUPPORTED_DATASETS, TRAIN_CONFIG_FILENAME
 from ssi_tpu_torch.generate import run_generation
@@ -87,3 +88,4 @@ def main(argv: list[str]) -> None:
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    write_launch_counts("generate")

@@ -14,9 +14,11 @@ refuses unless ``+device=cpu`` is given.
 from functools import partial
 import sys
 
+from ssi_tpu_torch._build import write_launch_counts
 from ssi_tpu_torch.train.trainer import run_training
 
 main = partial(run_training, "sft")
 
 if __name__ == "__main__":
     main(sys.argv[1:])
+    write_launch_counts("train_sft")

@@ -13,9 +13,10 @@ What the port adds: a ``device`` config key (default ``cuda``; ``+device=cpu``
 runs on the CPU, and without a CUDA device the default raises — there is no
 fallback) and a seed per batch drawn from ``cfg.seed`` for the engine (greedy
 output does not depend on it; sampled output cannot match ``jax.random``).
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP item:
-``engine=dense`` (A6), ``quantize_weights`` (A5), ``tensor_parallel > 1``
-(A9) and ``sampling_params.n > 1`` (A3).
+``quantize_weights: int8`` passes to the engine, as in the JAX package. Not
+ported yet, each raising ``NotImplementedError`` naming its ROADMAP item:
+``engine=dense`` (A6), ``tensor_parallel > 1`` (A9) and
+``sampling_params.n > 1`` (A3).
 """
 
 from __future__ import annotations
@@ -83,8 +84,6 @@ def validate_generate_config(cfg: Any) -> None:
         raise _not_ported("engine=dense", "A6 (the dense DecodeEngine)")
     if engine_kind != "paged":
         raise ValueError(f"Unknown engine {engine_kind!r}; expected 'paged' or 'dense'")
-    if cfg.get("quantize_weights") is not None:
-        raise _not_ported(f"quantize_weights={cfg.get('quantize_weights')!r}", "A5 (weight-only int8)")
     if int(cfg.get("tensor_parallel", 1) or 1) > 1:
         raise _not_ported("tensor_parallel > 1", "A9 (parallel and sharded state)")
     if n > 1:
@@ -178,6 +177,7 @@ def run_generation(cfg: Any) -> Path:
         params, model_cfg, pad_id=tokenizer.pad_id,
         n_slots=batch_size,
         max_context=max_prompt + sp.max_tokens,
+        quantize=cfg.get("quantize_weights"),
         speculate_k=int(cfg.get("speculate_k", 0) or 0),
         prefix_caching=bool(cfg.get("prefix_caching", True)),
         prefill_chunk=cfg.get("prefill_chunk"),

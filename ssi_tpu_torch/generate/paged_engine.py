@@ -23,6 +23,10 @@ scheduler step, while the other slots keep decoding. Speculative decoding
 in the slot's own token history and verifies all k+1 in one forward
 (``decode_step_tokens_spec``, the CUDA kernel #9 on the card); greedy only,
 and lossless: the emitted tokens equal the non-speculative stream's.
+``quantize="int8"`` serves the layer stack from weight-only int8
+(``generate/quant.py``); every paged pass (prefill, decode, suffix prefill,
+verify) forms its products through ``quant.matmul``, so it composes with
+speculation, the prefix cache and chunked prefill.
 
 Sampling draws Gumbel noise from a counter-based hash of (stream seed,
 request seed, position, vocab index), so a preempted and recomputed request
@@ -30,7 +34,7 @@ redraws identical tokens, independent of batch composition. It cannot equal
 ``jax.random``'s bits: greedy decoding is the cross-framework parity bar.
 
 Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP item:
-``quantize``, ``mesh``, and ``n > 1`` sampling.
+``mesh`` and ``n > 1`` sampling.
 """
 
 from __future__ import annotations
@@ -257,8 +261,12 @@ class PagedDecodeEngine:
             prompt span one prefill dispatch covers; None = whole prompts.
         speculate_k: draft length of n-gram speculative decoding, 0-7 (0 =
             off); greedy streams only.
-        quantize, mesh: options of the JAX engine not ported yet; any
-            non-default value raises ``NotImplementedError``.
+        quantize: None (weights as given) or "int8" (weight-only
+            per-channel int8 for the layer stack, quantized on the weights'
+            device; not bitwise vs bf16). Any other value raises
+            ``ValueError``.
+        mesh: an option of the JAX engine not ported yet; any value but
+            None raises ``NotImplementedError``.
     """
 
     # Admissions prefill in groups: G prompts cost one weights read instead of G.
@@ -284,10 +292,16 @@ class PagedDecodeEngine:
         quantize: str | None = None,
         mesh: Any = None,
     ):
-        if quantize is not None:
-            raise _not_ported(f"quantize={quantize!r}", "5 (int8 weights)")
         if mesh is not None:
             raise _not_ported("mesh (tensor-parallel serving)", "9 (parallel)")
+        if quantize == "int8":
+            # weight-only int8 for the layer stack; greedy outputs are NOT
+            # bitwise vs bf16 (see generate/quant.py)
+            from ssi_tpu_torch.generate.quant import quantize_layer_weights_int8
+
+            params = quantize_layer_weights_int8(params)
+        elif quantize is not None:
+            raise ValueError(f"Unknown quantize mode {quantize!r}; expected 'int8' or None")
         if page_size <= 0 or page_size % 8 != 0:
             # kept from the JAX engine, whose fused verify kernel writes through 8-row windows
             raise ValueError(f"page_size ({page_size}) must be a positive multiple of 8")

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ssi_tpu_torch.generate.quant import matmul as _mm
 from ssi_tpu_torch.models.configs import ConfigLlama3_2
 from ssi_tpu_torch.models.rope import apply_rope, rope_cos_sin
 from ssi_tpu_torch.ops.attention import dispatch_attention
@@ -153,8 +154,9 @@ def rope_for_positions(positions: torch.Tensor, cfg: ConfigLlama3_2) -> tuple[to
     )
 
 
-def _product(name: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return x @ w
+def _product(name: str, x: torch.Tensor, w: Any) -> torch.Tensor:
+    """``x @ w`` for a plain weight or an int8 ``{"q", "scale"}`` leaf (``generate/quant.py``)."""
+    return _mm(x, w)
 
 
 def block(h, layer, cos, sin, cfg: ConfigLlama3_2, attend, prod: Callable = _product) -> torch.Tensor:
@@ -175,8 +177,10 @@ def block(h, layer, cos, sin, cfg: ConfigLlama3_2, attend, prod: Callable = _pro
 
 
 def layer_params(params: Params, l: int) -> Params:
-    """Layer ``l``'s weights: views into the stacked ``[L, ...]`` tensors."""
-    return {name: w[l] for name, w in params["layers"].items()}
+    """Layer ``l``'s weights: views into the stacked ``[L, ...]`` tensors (an
+    int8 leaf ``{"q", "scale"}`` gives ``{"q": q[l], "scale": scale[l]}``)."""
+    return {name: {k: t[l] for k, t in w.items()} if isinstance(w, dict) else w[l]
+            for name, w in params["layers"].items()}
 
 
 def forward(

@@ -24,6 +24,17 @@ def extract_texts_from_generations_jsonl(generations_jsonl: Path) -> list[str]:
     return texts
 
 
+def ref_from_hf_dataset(dataset: str, split: str, gt_transcript_colname: str = "transcript") -> list[str]:
+    """Ground-truth transcripts from the HF hub (ref: ssi/utils.py:42-47): not
+    ported. The JAX package reads them through ``datasets`` from the hub; the
+    port reads no hub source yet, so this raises before any work (score against
+    local transcripts with ``--refs-jsonl`` instead)."""
+    raise NotImplementedError(
+        f"Reading reference transcripts of {dataset!r} ({split}, column {gt_transcript_colname!r}) from the HF hub "
+        "is not ported to ssi_tpu_torch yet (ROADMAP.md queue A, item A12: hub and other file-type sources)"
+    )
+
+
 def round_up(n: int, multiple: int) -> int:
     """Smallest multiple of ``multiple`` >= n (shape/bucket alignment helper)."""
     return ((n + multiple - 1) // multiple) * multiple

@@ -214,6 +214,65 @@ def test_training_clis_run_without_the_card_libraries(tmp_path):
     assert not (tmp_path / "refused").exists()
 
 
+# imported by Python at start-up (``sitecustomize``) in every process of the run
+# below, the drive's stage subprocesses included: an import of a blocked
+# library fails as it would on a machine without it
+_BLOCKER = """
+import sys
+
+BLOCKED = {names}
+
+
+class _Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"No module named {{name!r}} (blocked for this test)", name=name)
+        return None
+
+
+sys.meta_path.insert(0, _Blocked())
+"""
+_WER_BLOCKED = ("jax", "jaxlib", "ssi_tpu", "transformers", "regex", "safetensors", "yaml", "tiktoken", "msgpack")
+
+
+def test_wer_clis_and_drive_run_with_the_host_libraries_blocked(tmp_path):
+    """The evaluation layer (``eval/``), ``python -m ssi_tpu_torch.cli.wer_parity``,
+    ``python -m ssi_tpu_torch.cli.wer`` and the port's WER drive (``--smoke
+    --device cpu`` at ``tiny_test`` width: every stage's CLI) run with jax,
+    ``ssi_tpu``, transformers, regex, safetensors, pyyaml, tiktoken and msgpack
+    blocked from import in every process."""
+    import json
+
+    block = tmp_path / "block"
+    block.mkdir()
+    (block / "sitecustomize.py").write_text(_BLOCKER.format(names=repr(set(_WER_BLOCKED))))
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env.update(PYTHONPATH=f"{block}{os.pathsep}{REPO}", OMP_NUM_THREADS="2")
+
+    def run(*args, ok=True):
+        proc = subprocess.run([sys.executable, *map(str, args)], cwd=tmp_path, env=env, capture_output=True,
+                              text=True, timeout=600)
+        assert (proc.returncode == 0) == ok, proc.stdout[-3000:] + proc.stderr[-3000:]
+        return proc
+
+    assert "blocked for this test" in run("-c", "import yaml", ok=False).stderr  # the blocker is in place
+    gen_dir = tmp_path / "gens" / "mls-x" / "test"
+    gen_dir.mkdir(parents=True)
+    (gen_dir / "generations.jsonl").write_text("".join(
+        json.dumps({"outputs": [{"text": t}]}) + "\n" for t in ("the colour of one", "twenty dollars")))
+    refs = tmp_path / "refs.jsonl"
+    refs.write_text("".join(json.dumps({"transcript": t}) + "\n" for t in ("the color of 1", "$20")))
+    run("-m", "ssi_tpu_torch.cli.wer_parity", "--skip-generate", gen_dir, "--refs-jsonl", refs)
+    assert json.loads((gen_dir / "wer_parity.json").read_text())["wer"] == 0.0
+    assert "A12" in run("-m", "ssi_tpu_torch.cli.wer", gen_dir / "generations.jsonl", ok=False).stderr
+    art = tmp_path / "art"
+    run("-m", "ssi_tpu_torch.wer_drive", "--workdir", tmp_path / "wd", "--artifacts-dir", art, "--smoke",
+        "--device", "cpu", "--model-config", "tiny_test", "--max-seq-len", "512", "--batch-size", "4",
+        "--grad-accum", "1", "--decode-slots", "8")
+    summary = json.loads((art / "summary.json").read_text())
+    assert {"wer_bf16", "wer_int8", "spelling_map_sha256"} <= set(summary)
+
+
 def test_chip_smoke_refuses_without_gpu(tmp_path):
     import torch
 

@@ -198,6 +198,18 @@ def test_paged_kernels_split_boundaries(gen, dtype, t_q, n_rep, ps, max_pages):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_at_the_drives_decode_shape(gen, dtype):
+    """#8 at the 100m WER drive's decode shape: 48 slots, 4 kv heads, n_rep 2
+    (8 q heads), page 128, 3 pages per slot (the drive's ~120-token prompts
+    plus 256 new tokens), ragged histories and inactive slots."""
+    slots, max_pages, ps = 48, 3, 128
+    hist = torch.randint(0, max_pages * ps, (slots,), generator=gen, device="cuda").tolist()
+    hist[:4] = [0, ps - 1, ps, max_pages * ps - 1]
+    active = [i % 11 != 5 for i in range(slots)]
+    check_paged_kernel(gen, dtype, 1, 2, ps, max_pages, hist, active, hkv=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t_q", [1, 4])
 def test_paged_kernels_past_the_old_context_cap(gen, dtype, t_q):
     """32 slots at context 16,384, n_rep 4: the old #8 kept every score in
@@ -325,6 +337,38 @@ def test_cross_entropy_kernels_match_plain(gen, dtype, spread, n, v, d, every):
     assert torch.equal(cross_entropy_de_kernel(h, e, y, lse, g), de)
     if every == 1:
         assert not dl.any() and not dh.any() and not de.any()
+
+
+REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # ||kernel - plain|| / ||plain||, as chip_smoke.py holds them
+
+
+def rel_err(a, w) -> float:
+    a, w = a.double(), w.double()
+    return ((a - w).norm() / w.norm().clamp_min(1e-300)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spread", [1.0, 4.0])
+def test_cross_entropy_kernels_at_the_drives_shape(gen, dtype, spread):
+    """The CE kernels at the 100m WER drive's training shape: one micro-batch
+    of 32 x 160 tokens (N 5,120), D 512, the extended vocabulary (V 133,258),
+    every 7th label ignored, E at the init scale (logits of std ``spread``):
+    lse within 1e-3, dlogits, dh and dE within ``REL`` in relative norm."""
+    n, v, d = 5120, 133_258, 512
+    h = (torch.randn((n, d), generator=gen, device="cuda") * spread).to(dtype)
+    e = (torch.randn((v, d), generator=gen, device="cuda") * d**-0.5).to(dtype)
+    y = torch.randint(0, v, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    y[::7] = -100
+    g = torch.tensor(1.0, device="cuda")
+    lse = cross_entropy_lse_kernel(h, e)
+    assert (lse - cross_entropy_lse(h, e)).abs().max().item() <= 1e-3
+    dl = cross_entropy_dlogits_kernel(h, e, y, lse, g)
+    assert rel_err(dl, cross_entropy_dlogits(h, e, y, g)) <= REL[dtype]
+    del dl
+    assert rel_err(cross_entropy_dh_kernel(h, e, y, lse, g), cross_entropy_dh(h, e, y, g)) <= REL[dtype]
+    assert rel_err(cross_entropy_de_kernel(h, e, y, lse, g), cross_entropy_de(h, e, y, g)) <= REL[dtype]
+    loss, loss_p = fused_cross_entropy_kernel(h, e, y), fused_cross_entropy(h, e, y)
+    assert abs(loss.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item())
 
 
 def test_cross_entropy_autograd_all_ignored_and_counts(gen):

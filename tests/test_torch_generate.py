@@ -191,7 +191,6 @@ def test_null_output_dir_resolves_under_generations(assets, tmp_path):
     "extra, item",
     [
         (["engine=dense"], "A6"),
-        (["quantize_weights=int8"], "A5"),
         (["tensor_parallel=2"], "A9"),
         (["sampling_params.n=3"], "A3"),
     ],

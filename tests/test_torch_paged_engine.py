@@ -242,13 +242,15 @@ def test_cancel_request_mid_run(setup):
 
 
 @pytest.mark.parametrize(
-    "kw",
-    [dict(quantize="int8"), dict(mesh=object())],
+    "kw, error, match",
+    [(dict(quantize="fp8"), ValueError, "quantize"), (dict(mesh=object()), NotImplementedError, "ROADMAP")],
     ids=["quantize", "mesh"],
 )
-def test_unported_engine_options_raise(setup, kw):
+def test_unported_engine_options_raise(setup, kw, error, match):
+    """``mesh`` is not ported (it names its ROADMAP item); ``quantize`` is, and
+    refuses a mode other than int8 as the JAX engine does."""
     cfg, _, tparams = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         make_engine(tparams, cfg, **kw)
 
 

@@ -44,11 +44,6 @@ def wer_drive():
 
 
 @pytest.fixture(scope="module")
-def chip_smoke():
-    return _load_module("chip_smoke_for_tests", REPO / "chip_smoke.py")
-
-
-@pytest.fixture(scope="module")
 def vocabularies(tmp_path_factory, wer_drive):
     """{name: extended tokenizer.model}: the tiny byte vocabulary + 16 DSUs, and
     the drive's 128,000-entry base + 5,000 DSUs (both with modality tokens)."""
@@ -132,13 +127,16 @@ def test_tokenize_messages_equal_jax(tokenizers):
         port.max_seq_len = jax.max_seq_len = None
 
 
-def test_synthesized_vocabularies_byte_equal(tmp_path, wer_drive, chip_smoke):
-    """chip_smoke.py's copy of the drive's base tokenizer and the port's
-    ``extend_tiktoken`` write the bytes the originals write."""
-    assert chip_smoke.WORDS == wer_drive.WORDS and chip_smoke.BASE_VOCAB == wer_drive.BASE_VOCAB
+def test_synthesized_vocabularies_byte_equal(tmp_path, wer_drive):
+    """The port's copy of the drive's base tokenizer (``ssi_tpu_torch/wer_drive.py``,
+    which chip_smoke.py uses too) and the port's ``extend_tiktoken`` write the
+    bytes the originals write."""
+    from ssi_tpu_torch import wer_drive as port_drive
+
+    assert port_drive.WORDS == wer_drive.WORDS and port_drive.BASE_VOCAB == wer_drive.BASE_VOCAB
     a, b = tmp_path / "a" / "tokenizer.model", tmp_path / "b" / "tokenizer.model"
     wer_drive.build_base_tokenizer(a, wer_drive.WORDS)
-    chip_smoke.build_base_tokenizer(b, chip_smoke.WORDS)
+    port_drive.build_base_tokenizer(b, port_drive.WORDS)
     assert a.read_bytes() == b.read_bytes()
     for modality in (True, False):
         ja, pa = tmp_path / f"j{modality}.model", tmp_path / f"p{modality}.model"

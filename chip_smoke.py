@@ -145,7 +145,37 @@ f. weight-only int8 and the port's WER drive:
    and the flash and paged kernels by each generate stage (each stage's
    process reports its counts through ``SSI_TPU_TORCH_LAUNCH_COUNTS``);
    prints the stage seconds, the final dev loss, the generate tok/s of both
-   precisions and the drive's wall.
+   precisions and the drive's wall;
+2g-ah. the head_dim-128 instances (Llama 3.2 3B's and 3.1 8B's heads) vs
+   their plain versions, each beside a control that must miss, in f32 and
+   bf16, with bf16 times beside SDPA or ``torch.mm`` and the bound: the
+   flash forward and backward at 3B's training shape (B 2, S 2048, 24 q /
+   8 kv heads: n_rep 3) and 8B's largest prefill dispatch (B 8, S 768,
+   32 / 8); the CE kernels at 3B's D 3,072 (N 4,096); #8 and #9 (T 4 and 8)
+   at 3B's and 8B's serving shapes (32 slots, page 128, context 1280; a
+   graph of 16 layers' launches in turn) and at context 16,384;
+g. Llama 3.2 3B through the entry points at full width (28 layers, D 3,072,
+   random bf16 weights from ``--seed``): first, at 3B width with the depth
+   cut to 2 layers, f32 greedy tokens kernels == plain (and == a
+   full-recompute oracle), ``speculate_k=3`` == 0, and one micro-batch's
+   loss and gradients within phase 8's limits; then an extended 3B dir in
+   two safetensors shards with an index (as Llama-3.2-3B ships: the
+   Checkpointer wants 2), the SFT CLI for 4 steps (window 4 x 2 x 2048 over
+   an 8-row split, lr 5e-4 after a 1-step warm-up; losses finite and
+   falling, every training kernel launched, ``step_4/`` in two shards), and
+   the generation CLI from ``step_4/`` on 64 rows in bf16 and with
+   ``quantize_weights=int8`` (every record finished; flash and #8
+   launched); about 33 GB of disk at its peak, deleted as it goes;
+h. Llama 3.1 8B serving at full width (32 layers, D 4,096, FFN 14,336, an
+   untied ``lm_head``, rope ``scale_factor`` 8; random bf16 weights, 16 GB,
+   initialised on the card): phase 5's 64 requests x 128 greedy tokens at
+   32 slots, then with ``speculate_k=3``, the prefix cache and
+   ``prefill_chunk=512`` (every request finishes, pages balance, #1, #8 and
+   #9 launched); then f32 greedy at 8B width with the depth cut to 2
+   layers, tokens kernels == plain and == the oracle.
+
+``--only 1b,hd128,g,h`` runs the named groups alone while developing and
+prints no result line.
 
 Tolerances: phases 2, 3 and a hold each output elementwise to ``TOL``
 (absolute and relative). Every kernel output is also held in relative norm,
@@ -156,8 +186,10 @@ result that must miss the same limit. The cross-entropy lse is held to
 gradient leaf to 1e-4 of its largest entry.
 It then prints one JSON line with per-kernel results (errors, times, the
 bound computed from this run's shapes, the library yardstick, launches by
-path, ``wer_drive`` the sum over the drive's stage processes) and, last,
-the device line ``{"ok": true, "device": {...}}``.
+path, ``wer_drive`` the sum over the drive's stage processes; the
+head_dim-128 instances as rows of their own, ``<name>_hd128``, with the 3B
+and 8B paths' launches) and, last, the device line ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -303,16 +335,21 @@ def phase_build():
     log(f"phase 1 build: {_build.build_seconds:.1f} s (0.0 = cached library reused)")
 
 
-def phase_flash(gen):
+def phase_flash(gen, hq=32, hkv=8, d=64, shapes=((8, 768), (2, 768), (2, 2048)), row=(8, 768),
+                tag="phase 2 flash forward"):
+    """The flash forward kernel vs its plain version at ``shapes`` (B, S) of
+    ``hq`` / ``hkv`` heads of ``d``: o and lse elementwise within ``TOL``, o
+    within ``REL`` beside a control (the plain output with each q head
+    routed to the next kv head) that must miss; bf16 causal times beside
+    SDPA. Returns the kernels-line numbers at ``row``."""
     import torch
     import torch.nn.functional as F
 
     from ssi_tpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_reference
 
-    hq, hkv, d = 32, 8, 64
-    worst = {}
-    # B8 S768 is the main path's largest prefill dispatch (8 prompts, bucket 768), also timed below
-    for b, s in ((8, 768), (2, 768), (2, 2048)):
+    worst, least = {}, math.inf
+    # 1B: B8 S768 is the main path's largest prefill dispatch (8 prompts, bucket 768), also timed below
+    for b, s in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
             k = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
@@ -332,13 +369,19 @@ def phase_flash(gen):
                 ok_l = torch.allclose(lse, lse_ref, atol=tol, rtol=tol)
                 check(ok_o and ok_l, f"flash {name} B{b} S{s} {dtype}: o err {err_o}, lse err {err_l}, tol {tol}")
                 key = str(dtype).split(".")[1]
-                _, rel_o, _ = hold(f"flash {name} B{b} S{s} o", o, o_ref, key)
+                # control: each q head reads the next kv head's keys and values
+                o_ctrl, _ = flash_attention_reference(q, k.roll(1, 2), v.roll(1, 2), causal=causal, segment_ids=segs)
+                _, rel_o, ctrl = hold(f"flash {name} B{b} S{s} o", o, o_ref, key, [("kv heads shifted", o_ctrl)])
+                least = min(least, ctrl)
                 worst[key] = max(worst.get(key, 0.0), err_o, err_l)
-                log(f"  flash {name:8s} B{b} S{s} {key:8s}: max|o err| {err_o:.3e}, max|lse err| {err_l:.3e} "
-                    f"(tol {tol}); o rel {rel_o:.2e} (limit {REL[key]})")
-    # times at the checked shapes, beside one PyTorch call; the kernels line reports B8 S768
+                log(f"  flash {name:8s} B{b} S{s} Hq{hq} Hkv{hkv} d{d} {key:8s}: max|o err| {err_o:.3e}, max|lse err| "
+                    f"{err_l:.3e} (tol {tol}); o rel {rel_o:.2e} (limit {REL[key]}; control {ctrl:.2e})")
+                del o, lse, o_ref, lse_ref, o_ctrl
+            del q, k, v
+            torch.cuda.empty_cache()
+    # times at the checked shapes, beside one PyTorch call; the kernels line reports ``row``
     times, library = {}, {}
-    for b, s in ((8, 768), (2, 768), (2, 2048)):
+    for b, s in shapes:
         q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(torch.bfloat16)
         k = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
         v = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -348,22 +391,24 @@ def phase_flash(gen):
         library[(b, s)] = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True))
         # useful causal work: QK^T and PV over the S(S+1)/2 allowed pairs, 2 FLOP per MAC
         tflops = 4 * b * hq * d * s * (s + 1) / 2 / (times[(b, s)][0] * 1e-3) / 1e12
-        log(f"  flash time bf16 causal B{b} S{s}: kernel {times[(b, s)][0]:.3f} ms ({tflops:.1f} TFLOP/s = "
-            f"{tflops / 989:.1%} of the bf16 tensor-core peak), plain {times[(b, s)][1]:.3f} ms, "
+        log(f"  flash time bf16 causal B{b} S{s} Hq{hq} Hkv{hkv} d{d}: kernel {times[(b, s)][0]:.3f} ms ({tflops:.1f} "
+            f"TFLOP/s = {tflops / 989:.1%} of the bf16 tensor-core peak), plain {times[(b, s)][1]:.3f} ms, "
             f"scaled_dot_product_attention {library[(b, s)]:.3f} ms")
-    b, s = 8, 768
+        del q, k, v, qt, kt, vt
+    b, s = row
     n_bytes = 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d) + 4 * b * hq * s  # q, o; k, v; lse
     bound_ms, bound_by = bound(4 * b * hq * d * s * (s + 1) / 2, n_bytes)
-    log(f"  flash B8 S768: bound {bound_ms:.4f} ms ({bound_by})")
-    log(f"phase 2 flash forward: ok (max err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e})")
-    return {"max_abs_err": worst["bfloat16"], "ms": times[(8, 768)][0], "plain_ms": times[(8, 768)][1],
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library[(8, 768)]}
+    log(f"  flash B{b} S{s} Hq{hq} Hkv{hkv} d{d}: bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"{tag}: ok (max err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e}; controls >= {least:.2e})")
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst["bfloat16"], "ms": times[row][0], "plain_ms": times[row][1],
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library[row]}
 
 
 HBM_GBS = PEAK_BYTES / 1e9
 
 
-def paged_inputs(gen, dtype, t_q, slots, hkv, n_rep, ps, max_pages, n_layers, hist, active):
+def paged_inputs(gen, dtype, t_q, slots, hkv, n_rep, ps, max_pages, n_layers, hist, active, hd=64):
     """Pools of ``n_layers`` layers (trash row last), a random logical page
     map, q and the new K/V of #8 (``t_q`` 1) or #9, and per layer its page
     table and write rows (inactive slots write to the trash row)."""
@@ -371,7 +416,6 @@ def paged_inputs(gen, dtype, t_q, slots, hkv, n_rep, ps, max_pages, n_layers, hi
 
     n_pages = slots * max_pages
     rows = n_layers * n_pages + 1
-    hd = 64
     kp = torch.randn((rows, ps, hkv * hd), generator=gen, device="cuda").to(dtype)
     vp = torch.randn((rows, ps, hkv * hd), generator=gen, device="cuda").to(dtype)
     shape = (slots,) if t_q == 1 else (slots, t_q)
@@ -407,17 +451,17 @@ def paged_call(t_q: int):
     return paged_attention_multi_fused, paged_attention_multi_fused_reference, lambda hist, active: hist
 
 
-def paged_long_context(gen, t_q: int, key_dtypes=("float32", "bfloat16")) -> str:
-    """#8 (``t_q`` 1) or #9 at 32 slots, context 16,384, 8 kv heads, n_rep 4,
-    page 128, past the old #8's shared-memory cap: kernel vs plain (``hold``),
-    two launches bitwise equal, pools bitwise equal except the trash row; the
-    bf16 launch's time and GB/s (1 GB of pages: no L2 reuse). Returns a
-    summary for the phase line."""
+def paged_long_context(gen, t_q: int, key_dtypes=("float32", "bfloat16"), hd: int = 64, n_rep: int = 4) -> str:
+    """#8 (``t_q`` 1) or #9 at 32 slots, context 16,384, 8 kv heads of
+    ``hd``, page 128, past the old #8's shared-memory cap: kernel vs plain
+    (``hold``), two launches bitwise equal, pools bitwise equal except the
+    trash row; the bf16 launch's time and GB/s (1 GB of pages at head_dim
+    64: no L2 reuse). Returns a summary for the phase line."""
     import torch
 
     from ssi_tpu_torch.generate.paged_cuda import split_plan
 
-    slots, hkv, n_rep, ps, max_pages = 32, 8, 4, 128, 128
+    slots, hkv, ps, max_pages = 32, 8, 128, 128
     cap = ps * max_pages
     kernel, plain, lens_of = paged_call(t_q)
     hist = [cap - t_q, 0, 1, 1024, 1025, 6000]
@@ -430,7 +474,7 @@ def paged_long_context(gen, t_q: int, key_dtypes=("float32", "bfloat16")) -> str
     for key in key_dtypes:
         dtype = getattr(torch, key)
         kp, vp, q, kn, vn, ((table, write),) = paged_inputs(gen, dtype, t_q, slots, hkv, n_rep, ps, max_pages, 1,
-                                                            hist, active)
+                                                            hist, active, hd)
         kw = dict(k_new=kn, v_new=vn, write_rows=write)
         kp_ref, vp_ref = kp.clone(), vp.clone()
         got = kernel(q, kp, vp, table, lens, **kw)
@@ -446,13 +490,14 @@ def paged_long_context(gen, t_q: int, key_dtypes=("float32", "bfloat16")) -> str
         part = f"{key} rel {rel:.2e}"
         if key == "bfloat16":
             t = graph_ms([lambda: kernel(q, kp, vp, table, lens, **kw)] * 4)
-            n_bytes = int(hist[active].sum().item()) * hkv * 64 * kp.element_size() * 2
+            n_bytes = int(hist[active].sum().item()) * hkv * hd * kp.element_size() * 2
             part += f", {t:.3f} ms ({n_bytes / 1e9:.2f} GB of pages, {n_bytes / (t * 1e-3) / 1e9:.0f} GB/s)"
         parts.append(part)
         del kp, vp, kp_ref, vp_ref, got, again, ref
         torch.cuda.empty_cache()
     per_split, n_splits = split_plan(max_pages, ps)
-    return (f"context {cap} ({n_splits} splits of {per_split} pages; the old #8 refused it): "
+    return (f"context {cap}, n_rep {n_rep}, head_dim {hd} ({n_splits} splits of {per_split} pages; the old #8 "
+            "refused it): "
             + "; ".join(parts) + "; two launches bitwise equal, pools bitwise equal except trash")
 
 
@@ -509,10 +554,17 @@ def paged_times(kernel, plain, per_layer, layer, n_bytes):
     return t_k, t_p, t_same, t_eager, gbs
 
 
-def phase_paged(gen):
+def phase_paged(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase 3 paged decode"):
+    """#8 vs its plain version at the serving shape (32 slots, ``hkv`` kv
+    heads of ``hd``, ``hq`` q heads, page 128, context 1280; ragged and
+    inactive slots) beside a control (each q head routed to the next kv
+    head), then at context 16,384; times of a graph of the ``n_layers``
+    layers in turn."""
     import torch
 
-    slots, hq, hkv, hd, ps, max_ctx, n_layers = 32, 32, 8, 64, 128, 1280, 16
+    from ssi_tpu_torch.generate.paged import paged_attention
+
+    slots, ps, max_ctx = 32, 128, 1280
     n_rep = hq // hkv
     kernel, plain, lens_of = paged_call(1)
     layer = 5
@@ -526,24 +578,27 @@ def phase_paged(gen):
         key = str(dtype).split(".")[1]
         tol = TOL[key]
         kp, vp, q, kn, vn, per_layer = paged_inputs(gen, dtype, 1, slots, hkv, n_rep, ps, max_ctx // ps, n_layers,
-                                                    hist, active)
+                                                    hist, active, hd)
         table, write_rows = per_layer[layer]
         kw = dict(k_new=kn, v_new=vn)
         kp_ref, vp_ref = kp.clone(), vp.clone()
         got = kernel(q, kp, vp, table, seq_lens, write_rows=write_rows, **kw)
         again = kernel(q, kp, vp, table, seq_lens, write_rows=write_rows, **kw)
         ref = plain(q, kp_ref, vp_ref, table, seq_lens, write_rows=write_rows, **kw)
+        # control: each q head reads the next kv head's history (the token written as the kernel writes it)
+        ctrl_out = paged_attention(q.roll(n_rep, 1), kp_ref, vp_ref, table, seq_lens)
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"paged attention {key}: two launches differ")
         err = (got[active].float() - ref[active].float()).abs().max().item()
         check(torch.allclose(got[active].float(), ref[active].float(), atol=tol, rtol=tol),
               f"paged attention {key}: max err {err} > tol {tol}")
-        _, rel, _ = hold("paged attention", got[active], ref[active], key)
+        _, rel, ctrl = hold("paged attention", got[active], ref[active], key,
+                            [("kv heads shifted", ctrl_out[active])])
         check(torch.equal(kp[:-1], kp_ref[:-1]) and torch.equal(vp[:-1], vp_ref[:-1]),
               f"paged pools {key}: not bitwise equal outside the trash row")
         worst[key] = err
-        log(f"  paged {key:8s}: max|attn err| {err:.3e} (tol {tol}), rel {rel:.2e} (limit {REL[key]}); "
-            "two launches bitwise equal; pools bitwise equal except trash")
+        log(f"  paged Hq{hq} Hkv{hkv} hd{hd} {key:8s}: max|attn err| {err:.3e} (tol {tol}), rel {rel:.2e} (limit "
+            f"{REL[key]}; control {ctrl:.2e}); two launches bitwise equal; pools bitwise equal except trash")
         if dtype == torch.bfloat16:
             # bytes the algorithm must read: every history K and V row of every active slot
             n_tokens = int(hist[active].sum().item())
@@ -555,27 +610,28 @@ def phase_paged(gen):
             # bound: those pages, q read and out written, the new K/V read and written once
             bound_ms, bound_by = bound(4 * n_tokens * hq * hd,
                                        n_bytes + 2 * 2 * slots * hq * hd + 4 * 2 * slots * hkv * hd)
-            log(f"  paged time bf16, 32 slots, one layer, device time of a graph of the 16 layers in turn: kernel "
+            log(f"  paged time bf16, 32 slots, Hq{hq} Hkv{hkv} hd{hd}, one layer, device time of a graph of the "
+                f"{n_layers} layers in turn: kernel "
                 f"{t_k:.4f} ms ({n_bytes / 1e6:.1f} MB of pages, {gbs:.0f} GB/s = {gbs / HBM_GBS:.1%} of 3.35 TB/s), "
                 f"plain {t_p:.3f} ms; the same layer again and again (pages partly in L2): {t_same:.4f} ms graphed, "
                 f"{t_eager:.4f} ms eager (the earlier design's timing); bound {bound_ms:.4f} ms ({bound_by}); "
                 "no single PyTorch call computes it")
         del kp, vp, kp_ref, vp_ref
         torch.cuda.empty_cache()
-    log(f"  paged {paged_long_context(gen, 1)}")
-    log(f"phase 3 paged decode: ok (max err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e})")
+    log(f"  paged {paged_long_context(gen, 1, hd=hd, n_rep=n_rep)}")
+    log(f"{tag}: ok (max err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e})")
     t_k, t_p, t_same, t_eager, gbs = timing
     return {"max_abs_err": worst["bfloat16"], "ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "ms_same_layer": t_same, "ms_same_layer_eager": t_eager,
             "gb_per_s": gbs}
 
 
-def phase_paged_multi(gen):
+def phase_paged_multi(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase a paged multi-token verify"):
     import torch
 
     from ssi_tpu_torch.generate.paged import paged_attention
 
-    slots, hq, hkv, hd, ps, max_ctx, n_layers = 32, 32, 8, 64, 128, 1280, 16
+    slots, ps, max_ctx = 32, 128, 1280
     n_rep = hq // hkv
     max_pages = max_ctx // ps
     kernel, plain, _ = paged_call(4)
@@ -598,7 +654,7 @@ def phase_paged_multi(gen):
             key = str(dtype).split(".")[1]
             tol = TOL[key]
             kp, vp, q, kn, vn, per_layer = paged_inputs(gen, dtype, t_q, slots, hkv, n_rep, ps, max_pages, n_layers,
-                                                        hist, active)
+                                                        hist, active, hd)
             trash = kp.shape[0] - 1
             per_layer = [(t, torch.where(ok, w, trash).to(torch.int32)) for t, w in per_layer]
             table, write_rows = per_layer[layer]
@@ -619,7 +675,8 @@ def phase_paged_multi(gen):
             check(torch.equal(kp[:-1], kp_ref[:-1]) and torch.equal(vp[:-1], vp_ref[:-1]),
                   f"paged multi T{t_q} {key}: pools not bitwise equal outside the trash row")
             worst[key] = max(worst.get(key, 0.0), err)
-            log(f"  paged multi T{t_q} {key:8s}: max|attn err| {err:.3e} (tol {tol}) over {int(landed.sum())} landed "
+            log(f"  paged multi T{t_q} Hq{hq} Hkv{hkv} hd{hd} {key:8s}: max|attn err| {err:.3e} (tol {tol}) over "
+                f"{int(landed.sum())} landed "
                 f"tokens, rel {rel:.2e} (limit {REL[key]}; control {ctrl:.2e}); two launches bitwise equal; pools "
                 "bitwise equal except trash")
             if dtype == torch.bfloat16:
@@ -637,8 +694,8 @@ def phase_paged_multi(gen):
                 n_active = int(active.sum().item())
                 ops = 4 * hq * hd * (t_q * n_hist + n_active * t_q * (t_q + 1) // 2)
                 bound_ms, bound_by = bound(ops, n_bytes)
-                log(f"  paged multi time bf16 T{t_q}, 32 slots, one layer, device time of a graph of the 16 layers "
-                    f"in turn: kernel {t_k:.4f} ms ({gbs:.0f} GB/s of history pages = {gbs / HBM_GBS:.1%} of 3.35 "
+                log(f"  paged multi time bf16 T{t_q}, 32 slots, Hq{hq} Hkv{hkv} hd{hd}, one layer, device time of a "
+                    f"graph of the {n_layers} layers in turn: kernel {t_k:.4f} ms ({gbs:.0f} GB/s of history pages = {gbs / HBM_GBS:.1%} of 3.35 "
                     f"TB/s), plain {t_p:.3f} ms; the same layer again and again: {t_same:.4f} ms graphed, "
                     f"{t_eager:.4f} ms eager (the earlier design's timing); bound {bound_ms:.4f} ms "
                     f"({bound_by}); no single PyTorch call computes it")
@@ -647,17 +704,21 @@ def phase_paged_multi(gen):
                            "ms_same_layer": t_same, "ms_same_layer_eager": t_eager, "gb_per_s": gbs}
             del kp, vp, kp_ref, vp_ref
             torch.cuda.empty_cache()
-    log(f"  paged multi T4 {paged_long_context(gen, 4)}")
-    log(f"phase a paged multi-token verify: ok (max err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e})")
+    log(f"  paged multi T4 {paged_long_context(gen, 4, hd=hd, n_rep=n_rep)}")
+    log(f"{tag}: ok (max err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e})")
     return {"max_abs_err": worst["bfloat16"], **row}
 
 
-def model_config():
+def model_config(name: str = "llama3_2_1b", num_layers: int | None = None):
+    """The registry's ``name`` extended with 5,000 DSUs and 2 modality tokens
+    (vocab 133,258), its depth cut to ``num_layers`` when given."""
     from ssi_tpu_torch.models.configs import get_model_config
 
-    cfg = get_model_config("llama3_2_1b")
+    cfg = get_model_config(name)
     cfg.n_dsus = 5000
     cfg.modality_tokens = True
+    if num_layers is not None:
+        cfg.num_layers = num_layers
     return cfg
 
 
@@ -710,14 +771,14 @@ def naive_greedy(params, cfg, prompt, n_tokens):
     return toks[len(prompt):]
 
 
-def phase_engine_f32(seed: int):
+def phase_engine_f32(seed: int, cfg=None, tag: str = "phase 4 engine f32 (1B width"):
     import torch
 
     from ssi_tpu_torch.generate.engine import SamplingParams
     from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
     from ssi_tpu_torch.models.llama3 import init_params
 
-    cfg = model_config()
+    cfg = cfg or model_config()
     params = init_params(cfg, seed=seed, dtype=torch.float32, device="cuda")
     prompts = prompts_from_seed(seed, 4, cfg.vocab_size)
     sp = SamplingParams(temperature=0.0, max_tokens=16)
@@ -732,13 +793,13 @@ def phase_engine_f32(seed: int):
     dlp = max(abs(a["cumulative_logprob"] - b["cumulative_logprob"]) for a, b in zip(outs["kernel"], outs["reference"]))
     oracle = naive_greedy(params, cfg, prompts[0], 16)
     check(outs["kernel"][0]["token_ids"] == oracle, f"f32 engine prompt 0 != full-recompute greedy {oracle}")
-    log(f"phase 4 engine f32 (1B width, vocab {cfg.vocab_size}): 4 prompts x 16 greedy tokens identical "
+    log(f"{tag}, vocab {cfg.vocab_size}): 4 prompts x 16 greedy tokens identical "
         f"kernel vs plain and vs full recompute; max |cum logprob diff| {dlp:.2e}")
     del params
     torch.cuda.empty_cache()
 
 
-def phase_spec_f32(seed: int):
+def phase_spec_f32(seed: int, cfg=None, tag: str = "phase b spec f32 (1B width)"):
     import numpy as np
     import torch
 
@@ -746,7 +807,7 @@ def phase_spec_f32(seed: int):
     from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
     from ssi_tpu_torch.models.llama3 import init_params
 
-    cfg = model_config()
+    cfg = cfg or model_config()
     params = init_params(cfg, seed=seed, dtype=torch.float32, device="cuda")
     rng = np.random.default_rng(seed + 4)
     prefix = rng.integers(0, cfg.vocab_size, 256).tolist()
@@ -770,7 +831,7 @@ def phase_spec_f32(seed: int):
               f"f32 spec ({impl}): cached_prompt_tokens {st['cached_prompt_tokens']}, verify_steps {st['verify_steps']}")
     check(outs["kernel", 3] == outs["reference", 3], "f32 spec: kernel and plain tokens differ")
     st = stats["kernel", 3]
-    log(f"phase b spec f32 (1B width): 4 prompts (256-token shared prefix, repeated content) x 32 greedy tokens "
+    log(f"{tag}: 4 prompts (256-token shared prefix, repeated content) x 32 greedy tokens "
         f"identical for speculate_k 3 and 0, kernels and plain; cached prompt tokens {st['cached_prompt_tokens']}, "
         f"verify steps {st['verify_steps']}, tokens per verify {st['tokens_per_verify']:.3f}")
     del params
@@ -867,7 +928,8 @@ def phase_spec_serving(seed: int, smi: str, base_tokens, base_rate: float):
 
 def write_model_files(step, cfg) -> None:
     """``config.json``, ``generation_config.json`` and ``original/params.json``,
-    as ``tests/helpers.py`` ``make_tiny_hf_checkpoint`` writes them."""
+    as ``tests/helpers.py`` ``make_tiny_hf_checkpoint`` writes them (``(step /
+    "original")`` must exist)."""
     first_special = cfg.base_vocab_size_txt + cfg.n_dsus + 2 * cfg.modality_tokens
     config = {
         "architectures": ["LlamaForCausalLM"],
@@ -880,7 +942,7 @@ def write_model_files(step, cfg) -> None:
         "vocab_size": cfg.vocab_size,
         "bos_token_id": first_special,
         "eos_token_id": first_special + 1,
-        "tie_word_embeddings": True,
+        "tie_word_embeddings": cfg.tied_embeddings,
         "rope_theta": float(cfg.rope_base),
         "max_position_embeddings": cfg.max_seq_len,
     }
@@ -1045,7 +1107,8 @@ def phase_generate_cli(seed: int, smi: str, base_rate: float):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def phase_flash_bwd(gen):
+def phase_flash_bwd(gen, hq=32, hkv=8, d=64, shapes=((4, 768), (2, 2048)), row=(2, 2048),
+                    tag="phase 6 flash backward"):
     import torch
     import torch.nn.functional as F
 
@@ -1055,9 +1118,8 @@ def phase_flash_bwd(gen):
         flash_attention_fwd,
     )
 
-    hq, hkv, d = 32, 8, 64
     worst, worst_rel = {}, {}
-    for b, s in ((4, 768), (2, 2048)):  # B2 S2048 is the training path's shape
+    for b, s in shapes:  # 1B: B2 S2048 is the training path's shape
         for dtype in (torch.float32, torch.bfloat16):
             key = str(dtype).split(".")[1]
             q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
@@ -1084,14 +1146,14 @@ def phase_flash_bwd(gen):
                     least = min(least, rc)
                 worst[key] = max(worst.get(key, 0.0), *errs)
                 worst_rel[key] = max(worst_rel.get(key, 0.0), *rels)
-                log(f"  flash bwd {name:8s} B{b} S{s} {key:8s}: rel dq {rels[0]:.2e}, dk {rels[1]:.2e}, "
+                log(f"  flash bwd {name:8s} B{b} S{s} Hq{hq} Hkv{hkv} d{d} {key:8s}: rel dq {rels[0]:.2e}, dk {rels[1]:.2e}, "
                     f"dv {rels[2]:.2e} (limit {REL[key]}; control p x 0.95 >= {least:.2e}); max|err| dq {errs[0]:.3e}, "
                     f"dk {errs[1]:.3e}, dv {errs[2]:.3e}; bitwise equal over two launches")
                 del o, lse, got, again, want, ctrl
             del q, k, v, do
             torch.cuda.empty_cache()
     rows = {}
-    for b, s in ((4, 768), (2, 2048)):
+    for b, s in shapes:
         q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
                        for h in (hq, hkv, hkv, hq))
         o, lse = flash_attention_fwd(q, k, v, causal=True)
@@ -1107,19 +1169,19 @@ def phase_flash_bwd(gen):
         issued = 7 * 2 * pairs * d  # the kernels form S and dP twice (dk/dv and dq): no atomics
         n_bytes = 2 * (4 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s  # q o do dq; k v dk dv; lse
         bound_ms, bound_by = bound(ops, n_bytes)
-        log(f"  flash bwd time bf16 causal B{b} S{s}: kernel {t_k:.3f} ms ({ops / (t_k * 1e-3) / 1e12:.1f} "
+        log(f"  flash bwd time bf16 causal B{b} S{s} Hq{hq} Hkv{hkv} d{d}: kernel {t_k:.3f} ms ({ops / (t_k * 1e-3) / 1e12:.1f} "
             f"TFLOP/s counted on the 5 products, {issued / (t_k * 1e-3) / 1e12:.1f} issued on 7), plain {t_p:.3f} "
             f"ms, SDPA backward {library:.3f} ms, bound {bound_ms:.4f} ms ({bound_by})")
         rows[(b, s)] = {"max_abs_err": worst["bfloat16"], "rel_err": worst_rel["bfloat16"], "ms": t_k,
                         "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library}
         del q, k, v, do, o, lse, qt, kt, vt, out, dot
         torch.cuda.empty_cache()
-    log(f"phase 6 flash backward: ok (rel err f32 {worst_rel['float32']:.2e}, bf16 {worst_rel['bfloat16']:.2e}; "
+    log(f"{tag}: ok (rel err f32 {worst_rel['float32']:.2e}, bf16 {worst_rel['bfloat16']:.2e}; "
         f"max err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e})")
-    return rows[(2, 2048)]
+    return rows[row]
 
 
-def phase_cross_entropy(gen, vocab: int):
+def phase_cross_entropy(gen, vocab: int, d: int = 2048, ns=(4096, 3072), tag: str = "phase 7 cross entropy"):
     import torch
     import torch.nn.functional as F
 
@@ -1142,7 +1204,6 @@ def phase_cross_entropy(gen, vocab: int):
         fused_cross_entropy_kernel,
     )
 
-    d = 2048
     # (kernel, dtype) -> worst max |err| and worst relative error over the cases
     worst, worst_rel = {}, {}
 
@@ -1161,12 +1222,12 @@ def phase_cross_entropy(gen, vocab: int):
     g = torch.tensor(1.0, device="cuda")
     # spread 1 is the model at init (softmax near uniform, ~1/V); spread 4 is a
     # trained-like spread, where the softmax puts real mass on a few rows
-    for n in (4096, 3072):  # one SFT micro-batch (2 x 2048), and a ragged count
+    for n in ns:  # one SFT micro-batch (2 x 2048), and a ragged count
         for dtype in (torch.float32, torch.bfloat16):
             for spread in (1.0, 4.0):
                 key = str(dtype).split(".")[1]
                 h, e, y = inputs(n, dtype, spread)
-                what = f"cross entropy N{n} {key} spread {spread:g}"
+                what = f"cross entropy N{n} D{d} {key} spread {spread:g}"
                 lse = cross_entropy_lse_kernel(h, e)
                 check(torch.equal(cross_entropy_lse_kernel(h, e), lse), f"{what} lse: two launches differ")
                 lse_p = cross_entropy_lse(h, e)
@@ -1257,27 +1318,27 @@ def phase_cross_entropy(gen, vocab: int):
     }.items():
         bound_ms, bound_by = bound(ops, n_bytes)
         t_k, t_p = t[name]
-        log(f"  {name} time bf16 N{n}: kernel {t_k:.3f} ms ({ops / (t_k * 1e-3) / 1e12:.1f} TFLOP/s), "
+        log(f"  {name} time bf16 N{n} D{d}: kernel {t_k:.3f} ms ({ops / (t_k * 1e-3) / 1e12:.1f} TFLOP/s), "
             f"plain {t_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
             + (f", one PyTorch call {library:.3f} ms" if name != "cross_entropy_lse" and library is not None else "")
             + (f", F.cross_entropy(h @ E.T) {library:.3f} ms (two calls)" if name == "cross_entropy_lse" else ""))
         rows[name] = {"max_abs_err": worst[name, "bfloat16"], "rel_err": worst_rel[name, "bfloat16"], "ms": t_k,
                       "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library}
     bound_bwd, by_bwd = bound(3 * ops, hb + eb + 8 * n + hb + eb)  # h, E, lse, labels read; dh, dE written
-    log(f"  cross-entropy backward bf16 N{n} (dlogits + dh + dE): kernels {t_bwd:.3f} ms "
+    log(f"  cross-entropy backward bf16 N{n} D{d} (dlogits + dh + dE): kernels {t_bwd:.3f} ms "
         f"({3 * ops / (t_bwd * 1e-3) / 1e12:.1f} TFLOP/s), plain {t_bwd_p:.3f} ms, bound {bound_bwd:.3f} ms "
         f"({by_bwd}); library backward of h @ E.T + F.cross_entropy {lib_bwd:.3f} ms")
     log(f"  library yardstick N{n}: F.cross_entropy(h @ E.T) forward {lib_fwd:.3f} ms (two calls), "
         f"its backward {lib_bwd:.3f} ms (dh and dE together)")
     del h, e, y, lse, dl, hl, el, loss
     torch.cuda.empty_cache()
-    log("phase 7 cross entropy: ok (worst rel err f32 / bf16: " + ", ".join(
+    log(f"{tag}: ok (worst rel err f32 / bf16: " + ", ".join(
         f"{name.split('_')[-1]} {worst_rel[name, 'float32']:.2e} / {worst_rel[name, 'bfloat16']:.2e}"
         for name in CE_REPLACES) + ")")
     return rows
 
 
-def phase_train_parity(seed: int):
+def phase_train_parity(seed: int, cfg=None, tag: str = "phase 8 f32 train parity (1B width"):
     import numpy as np
     import torch
 
@@ -1285,7 +1346,7 @@ def phase_train_parity(seed: int):
     from ssi_tpu_torch.train.optimizer import tree_leaves, tree_unflatten
     from ssi_tpu_torch.train.step import make_loss_fn
 
-    cfg = model_config()
+    cfg = cfg or model_config()
     params = init_params(cfg, seed=seed, dtype=torch.float32, device="cuda")
     rng = np.random.default_rng(seed + 2)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 512)).astype(np.int32)).cuda()
@@ -1308,7 +1369,7 @@ def phase_train_parity(seed: int):
         err = (a - w).abs().max().item() / max(scale, 1e-30)
         worst = max(worst, err)
         check(err <= 1e-4, f"f32 train parity: gradient leaf {i} differs by {err:.2e} of its largest entry")
-    log(f"phase 8 f32 train parity (1B width, B1 S512): loss {l_k.item():.6f} vs plain {l_p.item():.6f} "
+    log(f"{tag}, B1 S512): loss {l_k.item():.6f} vs plain {l_p.item():.6f} "
         f"(rel {rel_loss:.2e}); {len(g_k)} gradient leaves, worst max|diff| / max|grad| {worst:.2e}")
     del params, out, g_k, g_p
     torch.cuda.empty_cache()
@@ -2030,9 +2091,265 @@ def phase_wer_drive(smi: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --- head_dim 128: the kernels at the 3B and 8B shapes, phases g and h -------------------------
+
+
+def phase_kernels_hd128(gen, vocab: int) -> dict:
+    """The head_dim-128 instances against their plain versions, each beside a
+    control that must miss, and timed beside SDPA or ``torch.mm``: the flash
+    forward (#1/#2) and backward (#3/#4) at 3B's training shape (B 2, S 2048,
+    24 q / 8 kv heads: n_rep 3) and 8B's largest prefill dispatch (B 8,
+    S 768, 32 / 8); the CE kernels (#5-#7, one instance for every D) at 3B's
+    D 3,072; #8 and #9 at 3B's and 8B's serving shapes and context 16,384.
+    Returns the kernels-line rows of the head_dim-128 instances at 3B's
+    shapes."""
+    rows = {
+        "flash_attention_fwd": phase_flash(gen, 24, 8, 128, shapes=((2, 2048),), row=(2, 2048),
+                                           tag="phase 2g flash forward, 3B training shape"),
+    }
+    phase_flash(gen, 32, 8, 128, shapes=((8, 768),), row=(8, 768), tag="phase 2h flash forward, 8B prefill shape")
+    rows["flash_attention_bwd"] = phase_flash_bwd(gen, 24, 8, 128, shapes=((2, 2048),), row=(2, 2048),
+                                                  tag="phase 6g flash backward, 3B training shape")
+    phase_flash_bwd(gen, 32, 8, 128, shapes=((8, 768),), row=(8, 768), tag="phase 6h flash backward, 8B prefill shape")
+    phase_cross_entropy(gen, vocab, d=3072, ns=(4096,), tag="phase 7g cross entropy, 3B's D 3072")
+    rows["paged_attention_fused"] = phase_paged(gen, 24, 8, 128, tag="phase 3g paged decode, 3B serving shape")
+    phase_paged(gen, 32, 8, 128, tag="phase 3h paged decode, 8B serving shape")
+    rows["paged_attention_multi"] = phase_paged_multi(gen, 24, 8, 128, tag="phase ag paged verify, 3B serving shape")
+    phase_paged_multi(gen, 32, 8, 128, tag="phase ah paged verify, 8B serving shape")
+    return rows
+
+
+def write_sharded_model(step, cfg, seed: int, n_shards: int) -> dict:
+    """An extended model dir as Llama 3.2 3B ships: random bf16 weights from
+    ``seed`` in ``n_shards`` safetensors shards (the layers split between
+    them) with ``model.safetensors.index.json``, the drive's 128,000-entry
+    base tokenizer extended with the DSUs, and the HF model files. Returns
+    the written HF tensors' sizes."""
+    import torch
+
+    from ssi_tpu_torch.checkpoint.convert import internal_to_hf
+    from ssi_tpu_torch.checkpoint.safetensors_io import save_file
+    from ssi_tpu_torch.extend import extend_tiktoken
+    from ssi_tpu_torch.models.llama3 import init_params
+    from ssi_tpu_torch.wer_drive import WORDS, build_base_tokenizer
+
+    tok_path = step / "original" / "tokenizer.model"
+    build_base_tokenizer(tok_path, WORDS)
+    extend_tiktoken(cfg.n_dsus, cfg.modality_tokens, tok_path, tok_path)
+    hf = internal_to_hf(init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda"), cfg)
+    names = sorted(hf)
+    weight_map = {}
+    for i in range(n_shards):
+        shard = f"model-{i + 1:05d}-of-{n_shards:05d}.safetensors"
+        part = names[i::n_shards]
+        save_file({k: hf[k] for k in part}, step / shard, metadata={"format": "pt"})
+        weight_map.update({k: shard for k in part})
+    total = sum(t.numel() * t.element_size() for t in hf.values())
+    (step / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}, indent=2))
+    write_model_files(step, cfg)
+    del hf
+    torch.cuda.empty_cache()
+    return {"bytes": total}
+
+
+def phase_3b(seed: int, smi: str) -> dict:
+    """Phase g: Llama 3.2 3B (28 layers, D 3,072, 24 q / 8 kv heads of 128:
+    n_rep 3) through the entry points at full width, random bf16 weights
+    from ``seed``: an extended 3B dir in two shards; the SFT CLI with the
+    drive's overrides (window 4 x 2 x 2048, 4 steps, one save; losses finite
+    and falling, every training kernel launched); the generation CLI from the
+    saved ``step_4/`` in bf16 and with ``quantize_weights=int8`` (64 finished
+    records each, flash and paged launched); then f32 at 3B width with the
+    depth cut to 2 layers: greedy tokens kernels == plain, ``speculate_k=3``
+    == 0, loss and gradients within phase 8's limits. Returns launches by
+    path."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.cli.generate import main as generate_main
+    from ssi_tpu_torch.cli.train_sft import main as sft_main
+    from ssi_tpu_torch.generate import last_run_stats
+
+    cut = model_config("llama3_2_3b", num_layers=2)
+    phase_engine_f32(seed, cut, tag="phase g engine f32 (3B width, 2 of 28 layers, n_rep 3, head_dim 128")
+    phase_spec_f32(seed, cut, tag="phase g spec f32 (3B width, 2 of 28 layers)")
+    phase_train_parity(seed, cut, tag="phase g f32 train parity (3B width, 2 of 28 layers")
+
+    cfg = model_config("llama3_2_3b")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_3b_"))
+    launches = {}
+    try:
+        free_gb = shutil.disk_usage(root).free / 1e9
+        check(free_gb > 40, f"phase g needs about 33 GB of disk; {free_gb:.1f} GB free")
+        ext = root / "extended"
+        t0 = time.perf_counter()
+        written = write_sharded_model(ext, cfg, seed, cfg.n_checkpoint_shards)
+        t_synth = time.perf_counter() - t0
+        shards = sorted(p.name for p in ext.glob("*.safetensors"))
+        check(len(shards) == 2, f"3B dir holds {shards}")
+        log(f"  phase g: {free_gb:.1f} GB free; extended 3B dir in {len(shards)} shards + index "
+            f"({written['bytes'] / 1e9:.2f} GB bf16) written in {t_synth:.1f} s")
+
+        # SFT with the drive's overrides and model_config=llama3_2_3b, but for three, so that 4 steps show
+        # the loss fall: an 8-row train split, one window's rows, so every step sees the same rows; lr 5e-4
+        # after a 1-step warm-up (lr 0 at step 1). The drive's 200 warm-up steps move a random 3B too little
+        # in 4 steps, and its 2e-3 without them diverges at step 4
+        train, dev = root / "sft_train.jsonl", root / "sft_dev.jsonl"
+        write_jsonl(train, split_rows(seed + 31, 8, cfg.n_dsus))
+        write_jsonl(dev, split_rows(seed + 32, 16, cfg.n_dsus))
+        out = root / "sft"
+        argv = ["data=sft/mls-hubert_large_ll60k-layer_22", "model_config=llama3_2_3b",
+                *[a for split, path in (("train", train), ("dev", dev)) for a in (
+                    f"data.{split}.dataset.source=json", f"+data.{split}.dataset.data_files={path}",
+                    f"data.{split}.dataset.split=train")],
+                "data.train.dataloader.batch_size=2", "data.dev.dataloader.batch_size=2",
+                "gradient_accumulation_steps=4", "tokenizer.max_seq_len=2048", "optimizer.lr=5e-4",
+                "lr_scheduler.num_warmup_steps=1", "max_steps=4", "eval_steps=4", "save_steps=4",
+                "log_interval=1", "clip_grad_norm=1.0", "wandb.enabled=false", "loss_chunk_size=3072",
+                f"checkpointer.checkpoint_dir={ext}", f"tokenizer.path={ext / 'original' / 'tokenizer.model'}",
+                f"checkpointer.output_dir={out}"]
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        trainer, t_sft = run_cli(sft_main, argv)
+        launches["train_3b"] = dict(_build.launch_counts)
+        mem = torch.cuda.max_memory_allocated() / 2**30
+        check(trainer.cfg.remat == "save_qkv_mlp" and trainer.cfg.dtype == "bf16" and trainer.global_step == 4,
+              f"3B SFT ran remat {trainer.cfg.remat}, dtype {trainer.cfg.dtype}, {trainer.global_step} steps")
+        save = dict(trainer.last_save_stats)
+        del trainer
+        torch.cuda.empty_cache()
+        metrics = read_metrics(out)
+        losses = [m["loss"] for m in metrics if "loss" in m]
+        dev_losses = [m["dev_loss"] for m in metrics if "dev_loss" in m]
+        check(len(losses) == 4 and all(math.isfinite(x) for x in losses + dev_losses), f"3B SFT losses {losses}")
+        check(losses[-1] < losses[0], f"3B SFT loss did not fall: {losses}")
+        for name in TRAIN_KERNELS:
+            check(launches["train_3b"].get(name, 0) > 0, f"kernel {name} was not launched by the 3B SFT entry point")
+        step = out / "step_4"
+        check(len(list(step.glob("*.safetensors"))) == 2, "3B step_4/ is not two shards")
+        shutil.rmtree(ext)
+        (out / "training_state.msgpack").unlink()
+        log(f"phase g SFT CLI (3B bf16, model_config=llama3_2_3b, remat save_qkv_mlp, window 4 x 2 x 2048 over 8 rows, "
+            f"lr 5e-4 after 1 warm-up step): "
+            f"loss {', '.join(f'{x:.4f}' for x in losses)}, dev loss {', '.join(f'{x:.4f}' for x in dev_losses)}; "
+            f"JSONL duration_step {step_readings(metrics)}; CLI wall {t_sft:.2f} s; save at step 4: model "
+            f"{save['model_s']:.2f} s ({save['model_bytes'] / 1e9:.2f} GB, 2 shards), state {save['state_s']:.2f} s "
+            f"({save['state_bytes'] / 1e9:.2f} GB); peak memory {mem:.1f} GiB; on {smi}; launches "
+            f"{launches['train_3b']}")
+
+        # the generation CLI from step_4/: 64 records in bf16, then with weight-only int8
+        split = root / "test.jsonl"
+        write_jsonl(split, split_rows(seed + 7, 64, cfg.n_dsus))
+        for path, extra in (("generate_3b", []), ("generate_3b_int8", ["quantize_weights=int8"])):
+            out_g = root / path
+            gen_argv = [
+                f"model={step}", f"experiments_root_dir={root / 'experiments'}", "model_config=llama3_2_3b",
+                f"tokenizer.path={step / 'original' / 'tokenizer.model'}",
+                f"speech.n_dsus={cfg.n_dsus}", "data=sft/mls-hubert_large_ll60k-layer_22",
+                "data.test.dataset.source=json", f"+data.test.dataset.data_files={split}",
+                "data.test.dataset.split=train", "gen.split=test", f"gen.output_dir={out_g}", "batch_size=32",
+                "sampling_params.max_tokens=128", "dtype=bf16", "observability=true", *extra]
+            _build.launch_counts.clear()
+            _, wall = run_cli(generate_main, gen_argv)
+            launches[path] = dict(_build.launch_counts)
+            stats = dict(last_run_stats)
+            records = [json.loads(x) for x in (out_g / "json" / "test" / "generations.jsonl").read_text().splitlines()]
+            check(len(records) == 64, f"{path}: {len(records)} records, expected 64")
+            for r in records:
+                o = r["outputs"][0]
+                check(r["finished"] is True and o["finish_reason"] in ("stop", "length")
+                      and 0 < len(o["token_ids"]) <= 128 and all(0 <= t < cfg.vocab_size for t in o["token_ids"]),
+                      f"{path} record {r['request_id']}: {o['finish_reason']}, {len(o['token_ids'])} tokens")
+            for name in ("flash_attention_fwd", "paged_attention_fused"):
+                check(launches[path].get(name, 0) > 0, f"kernel {name} was not launched by {path}")
+            rate = records[0]["metrics"]["batch_tokens_per_second"]
+            n_tok = records[0]["metrics"]["batch_generated_tokens"]
+            log(f"phase g generate CLI (3B {'int8' if extra else 'bf16'} from step_4/, 64 records): checkpoint load "
+                f"{stats['load_s']:.2f} s = {stats['load_bytes'] / 1e9 / stats['load_s']:.2f} GB/s "
+                f"({stats['load_bytes'] / 1e9:.2f} GB); warm-up {stats['warmup_s']:.2f} s; generate "
+                f"{stats['generate_s']:.2f} s, {n_tok} tokens = {rate:.0f} generated tok/s; CLI wall {wall:.2f} s; "
+                f"on {smi}; launches {launches[path]}")
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_8b(seed: int, smi: str) -> dict:
+    """Phase h: Llama 3.1 8B (32 layers, D 4,096, 32 q / 8 kv heads of 128,
+    FFN 14,336, an untied ``lm_head``, rope ``scale_factor`` 8) serving at
+    full width, random bf16 weights initialised on the card: phase 5's 64
+    requests x 128 greedy tokens at 32 slots, then with ``speculate_k=3``,
+    the prefix cache and ``prefill_chunk=512``; every request finishes, pages
+    balance, #1, #8 and #9 launched. Then f32 greedy at 8B width with the
+    depth cut to 2 layers: tokens kernels == plain. Returns launches by
+    path."""
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.generate.engine import SamplingParams
+    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+    from ssi_tpu_torch.models.llama3 import init_params
+
+    cfg = model_config("llama3_1_8b")
+    check(not cfg.tied_embeddings and cfg.scale_factor == 8 and cfg.head_dim == 128, "not the 8B architecture")
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    n_bytes = sum(t.numel() * t.element_size() for t in [*params["layers"].values(), params["embed"],
+                                                          params["lm_head"]])
+    prompts = prompts_from_seed(seed + 1, 64, cfg.vocab_size)
+    launches, rates, tokens = {}, {}, {}
+    for path, kw in (("serve_8b", {}), ("spec_serve_8b", dict(speculate_k=3, prefill_chunk=512))):
+        eng = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=32, page_size=128, prompt_bucket=128, chunk=16, **kw)
+        check(eng.attn_impl == "kernel" and eng.prefix_caching, f"{path}: not the kernels with the prefix cache")
+        eng.generate_batch(prompts_from_seed(seed + 5, 8, cfg.vocab_size), SamplingParams(max_tokens=16))  # warm-up
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        outs = eng.generate_batch(prompts, SamplingParams(temperature=0.0, max_tokens=128))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = dict(_build.launch_counts)
+        for i, o in enumerate(outs):
+            check(o["finish_reason"] == "length" and len(o["token_ids"]) == 128
+                  and all(0 <= t < cfg.vocab_size for t in o["token_ids"]),
+                  f"{path} request {i}: {o['finish_reason']}, {len(o['token_ids'])} tokens")
+        parked = len(eng._free_pages) + len(eng._cache_lru)
+        check(parked == eng.n_pages, f"{path}: pages leaked: {eng.n_pages - parked}")
+        need = ("flash_attention_fwd", "paged_attention_multi" if kw else "paged_attention_fused")
+        for name in need:
+            check(launches[path].get(name, 0) > 0, f"kernel {name} was not launched on the 8B path {path}")
+        n_tok = sum(len(o["token_ids"]) for o in outs)
+        rates[path] = n_tok / wall
+        tokens[path] = [o["token_ids"] for o in outs]
+        st = eng.last_stats
+        extra = (f"tokens per verify {st['tokens_per_verify']:.3f}, {st['verify_steps']} verify steps, "
+                 f"{st['prefill_pieces']} chunked prefill pieces, cached prompt tokens {st['cached_prompt_tokens']}; "
+                 if kw else "")
+        log(f"phase h serving 8B bf16 ({'speculate_k 3, prefix cache, prefill_chunk 512' if kw else 'speculate_k 0'}; "
+            f"{n_bytes / 1e9:.2f} GB of weights, untied lm_head, 32 slots): 64 requests x 128 tokens, {n_tok} tokens "
+            f"in {wall:.2f} s = {rates[path]:.0f} generated tok/s on {smi}; {extra}{st['chunk_dispatches']} chunks, "
+            f"{st['prefill_dispatches']} prefill dispatches; launches {launches[path]}")
+        del eng
+        torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(tokens["serve_8b"], tokens["spec_serve_8b"]))
+    log(f"  phase h: {same}/64 speculative requests equal to the k=0 tokens (bf16: reported, not required)")
+    del params
+    torch.cuda.empty_cache()
+    phase_engine_f32(seed, model_config("llama3_1_8b", num_layers=2),
+                     tag="phase h engine f32 (8B width, 2 of 32 layers, n_rep 4, head_dim 128, untied lm_head")
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--only", default="", help="comma-separated phase groups to run alone while developing "
+                        "(1b: phases 2-f; hd128: the head_dim-128 kernel phases; g; h); prints no result line")
     args = parser.parse_args()
 
     import torch
@@ -2045,24 +2362,36 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
+    groups = set(filter(None, args.only.split(","))) or {"1b", "hd128", "g", "h"}
 
     smi = phase_device()
     phase_build()
-    rows = {"flash_attention_fwd": phase_flash(gen), "paged_attention_fused": phase_paged(gen),
-            "paged_attention_multi": phase_paged_multi(gen)}
-    phase_engine_f32(args.seed)
-    phase_spec_f32(args.seed)
-    serve_launches, base_tokens, base_rate = phase_engine_bf16(args.seed, smi)
-    spec_launches = phase_spec_serving(args.seed, smi, base_tokens, base_rate)
-    gen_launches = phase_generate_cli(args.seed, smi, base_rate)
-    rows["flash_attention_bwd"] = phase_flash_bwd(gen)
-    rows.update(phase_cross_entropy(gen, model_config().vocab_size))
-    phase_train_parity(args.seed)
-    train_launches = phase_train(args.seed, smi)
-    train_cli_launches = phase_training_cli(args.seed, smi)
-    int8_launches = phase_int8_serving(args.seed, smi, base_tokens, base_rate)
-    phase_drive_kernels(gen)
-    drive_launches = phase_wer_drive(smi)
+    if "1b" in groups:
+        rows = {"flash_attention_fwd": phase_flash(gen), "paged_attention_fused": phase_paged(gen),
+                "paged_attention_multi": phase_paged_multi(gen)}
+        phase_engine_f32(args.seed)
+        phase_spec_f32(args.seed)
+        serve_launches, base_tokens, base_rate = phase_engine_bf16(args.seed, smi)
+        spec_launches = phase_spec_serving(args.seed, smi, base_tokens, base_rate)
+        gen_launches = phase_generate_cli(args.seed, smi, base_rate)
+        rows["flash_attention_bwd"] = phase_flash_bwd(gen)
+        rows.update(phase_cross_entropy(gen, model_config().vocab_size))
+        phase_train_parity(args.seed)
+        train_launches = phase_train(args.seed, smi)
+        train_cli_launches = phase_training_cli(args.seed, smi)
+        int8_launches = phase_int8_serving(args.seed, smi, base_tokens, base_rate)
+        phase_drive_kernels(gen)
+        drive_launches = phase_wer_drive(smi)
+    if "hd128" in groups:
+        rows128 = phase_kernels_hd128(gen, model_config().vocab_size)
+    launches_big = {}  # the 3B and 8B paths' launches, by path
+    if "g" in groups:
+        launches_big.update(phase_3b(args.seed, smi))
+    if "h" in groups:
+        launches_big.update(phase_8b(args.seed, smi))
+    if args.only:
+        log(f"partial run (--only {args.only}): no result line")
+        return 0
 
     sources = {"flash_attention_fwd": ("flash_attention_fwd.cu", FLASH_REPLACES),
                "paged_attention_fused": ("paged_attention.cu", PAGED_REPLACES),
@@ -2075,9 +2404,18 @@ def main() -> int:
                    "generate": gen_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "train_cli": train_cli_launches.get(name, 0), "int8_serve": int8_launches.get(name, 0),
                    "wer_drive": drive_launches.get(name, 0)}
+        if name.startswith("cross_entropy"):  # one instance for every D: 3B's training launches it too
+            by_path["train_3b"] = launches_big["train_3b"].get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **rows[name]})
+    # the head_dim-128 instances of the attention kernels, launched by the 3B and 8B paths
+    for name, row in rows128.items():
+        source, replaces = sources[name]
+        by_path = {path: counts.get(name, 0) for path, counts in launches_big.items()}
+        check(sum(by_path.values()) > 0, f"the head_dim-128 {name} was launched on no 3B or 8B path")
+        kernels.append({"name": f"{name}_hd128", "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path, **row})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

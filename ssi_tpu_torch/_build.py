@@ -55,22 +55,23 @@ _P = _c.c_void_p
 _I = _c.c_int
 _L = _c.c_longlong
 _SIGNATURES = {
-    # dtype, q, k, v, seg, o, lse, B, S, Hq, Hkv, q/k/v strides (b, s, h), causal, scale, stream
-    "ssi_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+    # dtype, q, k, v, seg, o, lse, B, S, Hq, Hkv, head_dim, q/k/v strides (b, s, h), causal, scale, stream
+    "ssi_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _c.c_float, _P],
     # dtype, q, k_pool, v_pool, page_table, seq_lens, k_new, v_new, write_rows,
-    # out, part (scratch), n_slots, Hq, Hkv, page_size, max_pages, pages per split,
+    # out, part (scratch), n_slots, Hq, Hkv, head_dim, page_size, max_pages, pages per split,
     # n_splits, scale, stream
     "ssi_paged_attention_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
     # dtype, q, k_pool, v_pool, page_table, hist_lens, k_new, v_new, write_rows,
-    # out, part (scratch), n_slots, T, Hq, Hkv, page_size, max_pages, trash row,
+    # out, part (scratch), n_slots, T, Hq, Hkv, head_dim, page_size, max_pages, trash row,
     # pages per split, n_splits, scale, stream
     "ssi_paged_attention_multi": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
-    # dtype, q, k, v, o, do, lse, seg, delta (scratch), dq, dk, dv, B, S, Hq, Hkv, causal, scale, stream
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
+    # dtype, q, k, v, o, do, lse, seg, delta (scratch), dq, dk, dv, B, S, Hq, Hkv, head_dim, causal,
+    # scale, stream
     "ssi_flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _c.c_float, _P],
+                                _I, _I, _I, _I, _I, _I, _c.c_float, _P],
     # dtype, N, V -> rows of the logsumexp's (max, sum) scratch
     "ssi_cross_entropy_lse_splits": [_I, _I, _I],
     # dtype, h, e, m_part (scratch), l_part (scratch), lse, N, V, D, n_split, stream

@@ -1,4 +1,5 @@
-// Shared helpers for the port's CUDA kernels: dtype conversion and vector loads.
+// Shared helpers for the port's CUDA kernels: dtype conversion, vector loads
+// and the dynamic shared-memory attribute.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +38,18 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&o)[8]) {
         o[2 * i] = f.x;
         o[2 * i + 1] = f.y;
     }
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory (past the 48 KB a
+// launch gets by default). `set` is the caller's static record of the bytes
+// already allowed, so the attribute call is made once per kernel and not on
+// later launches (a CUDA graph capture among them).
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, int bytes, int& set) {
+    if (bytes <= set) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) set = bytes;
+    return err;
 }
 
 }  // namespace ssi

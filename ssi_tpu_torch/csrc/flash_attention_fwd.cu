@@ -1,6 +1,7 @@
 // Flash-attention forward (causal or full GQA, optional packed segment ids)
-// for head_dim 64: bf16 on the tensor cores with f32 accumulation, or f32
-// with scalar FMAs (the parity path).
+// for head_dim 64 (the 100m and 1B models) and 128 (3B and 8B): bf16 on the
+// tensor cores with f32 accumulation, or f32 with scalar FMAs (the parity
+// path).
 //
 // Replaces the TPU kernels ssi_tpu/ops/flash_attention.py `_fwd_kernel` and
 // `_fwd_kernel_grouped` (one GQA schedule ports both). Semantics kept exactly:
@@ -17,13 +18,16 @@
 // block has 227 KB of shared memory, so K/V stream through it in 64-key
 // tiles with an online softmax.
 //
-// Design of the bf16 kernel:
+// Design of the bf16 kernel (one template, instantiated for head_dim 64 and
+// 128):
 // - one block of 4 warps per (q head, batch, 64-query tile); each warp owns
 //   16 query rows. One q head per block: the n_rep q heads of a kv head are
 //   neighbouring blocks and share each K/V tile through L2, which keeps the
-//   block at 46 KB of shared memory. Registers (about 165 a thread) hold it
-//   to 3 blocks per SM; forcing 4 (128 registers) spills and measured no
-//   faster;
+//   block at 46 KB of shared memory at head_dim 64. Registers (about 165 a
+//   thread) hold it to 3 blocks per SM; forcing 4 (128 registers) spills and
+//   measured no faster. At head_dim 128 the Q tile and the K/V ring take
+//   87 KB, past the 48 KB static limit, so they live in dynamic shared
+//   memory, and 2 blocks fit an SM;
 // - Q.K^T and P.V are mma.sync m16n8k16 products fed by ldmatrix from
 //   shared rows padded to 144 bytes (conflict-free); the scores, the running
 //   max and sum (quad shuffles) and the output accumulator stay in registers,
@@ -38,7 +42,9 @@
 // - the output is normalised once at the end, as the TPU kernel does.
 //
 // The f32 kernel (one thread per query row, 32-key tiles of scalar FMAs)
-// keeps exact f32 arithmetic for the parity checks; TF32 would not.
+// keeps exact f32 arithmetic for the parity checks; TF32 would not. It holds
+// its row of q and of the output in registers, 2 * head_dim of them: at
+// head_dim 128 they spill to local memory, which a parity path can afford.
 //
 // Strides are passed in elements so the [B, S, H, D] layout needs no
 // transpose copy; the output is contiguous [B, S, Hq, D], lse is [B, Hq, S].
@@ -51,7 +57,6 @@
 
 namespace {
 
-constexpr int HD = 64;
 constexpr float NEG_INF = -1.0e30f;
 constexpr float M_CLAMP = -0.5e30f;  // m_safe = max(m, M_CLAMP)
 constexpr float LOG2E = 1.4426950408889634f;
@@ -62,11 +67,18 @@ constexpr int TC_WARPS = 4;
 constexpr int TC_THREADS = TC_WARPS * 32;
 constexpr int TC_BQ = 16 * TC_WARPS;  // query rows per block
 constexpr int TC_BK = 64;             // keys per K/V tile
-constexpr int LDS = ssi::LDS64;       // shared row stride in elements (144 bytes)
 
 using bf16 = __nv_bfloat16;
 
-__global__ void __launch_bounds__(TC_THREADS, 3) flash_fwd_bf16_kernel(
+template <int HD>
+struct FwdTiles {
+    bf16 q[TC_BQ][ssi::lds<HD>];  // rows padded to 144 (HD 64) or 272 (HD 128) bytes
+    bf16 k[2][TC_BK][ssi::lds<HD>];
+    bf16 v[2][TC_BK][ssi::lds<HD>];
+};
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS, HD == 64 ? 3 : 2) flash_fwd_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const int* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ lse,
     int S, int Hq, int n_rep,
@@ -74,9 +86,10 @@ __global__ void __launch_bounds__(TC_THREADS, 3) flash_fwd_bf16_kernel(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     int causal, float scale) {
-    __shared__ __align__(128) bf16 q_sm[TC_BQ][LDS];
-    __shared__ __align__(128) bf16 k_sm[2][TC_BK][LDS];
-    __shared__ __align__(128) bf16 v_sm[2][TC_BK][LDS];
+    FwdTiles<HD>& sm = ssi::block_tiles<FwdTiles<HD>, HD == 64>();  // 46 KB static; 87 KB dynamic
+    auto q_sm = sm.q;
+    auto k_sm = sm.k;
+    auto v_sm = sm.v;
 
     const int h = blockIdx.x;
     const int b = blockIdx.y;
@@ -93,9 +106,9 @@ __global__ void __launch_bounds__(TC_THREADS, 3) flash_fwd_bf16_kernel(
     const int kv_end = causal ? min(S, q0 + TC_BQ) : S;
     const int n_tiles = (kv_end + TC_BK - 1) / TC_BK;
 
-    ssi::load_tile64_async<TC_THREADS>(q_sm, qb, q_ss, q0, S);
-    ssi::load_tile64_async<TC_THREADS>(k_sm[0], kb, k_ss, 0, kv_end);
-    ssi::load_tile64_async<TC_THREADS>(v_sm[0], vb, v_ss, 0, kv_end);
+    ssi::load_tile_async<TC_THREADS, HD>(q_sm, qb, q_ss, q0, S);
+    ssi::load_tile_async<TC_THREADS, HD>(k_sm[0], kb, k_ss, 0, kv_end);
+    ssi::load_tile_async<TC_THREADS, HD>(v_sm[0], vb, v_ss, 0, kv_end);
     ssi::cp_async_commit();
 
     // this thread's two query rows: lo (g) and hi (g + 8) of the warp's 16
@@ -106,7 +119,7 @@ __global__ void __launch_bounds__(TC_THREADS, 3) flash_fwd_bf16_kernel(
     const int qseg_hi = (segb != nullptr && row_hi < S) ? segb[row_hi] : 0;
 
     uint32_t qf[HD / 16][4];  // Q's A fragments, one per k16 step over head_dim
-    float acc[HD / 8][4];     // O [16 x 64]: one C fragment per n8 block of head_dim
+    float acc[HD / 8][4];     // O [16 x HD]: one C fragment per n8 block of head_dim
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     float m_lo = NEG_INF, m_hi = NEG_INF;    // running max of the scaled, masked scores
@@ -116,8 +129,8 @@ __global__ void __launch_bounds__(TC_THREADS, 3) flash_fwd_bf16_kernel(
     for (int it = 0; it < n_tiles; ++it) {
         const int st = it & 1;
         if (it + 1 < n_tiles) {  // the next tile loads while this one is multiplied
-            ssi::load_tile64_async<TC_THREADS>(k_sm[st ^ 1], kb, k_ss, (it + 1) * TC_BK, kv_end);
-            ssi::load_tile64_async<TC_THREADS>(v_sm[st ^ 1], vb, v_ss, (it + 1) * TC_BK, kv_end);
+            ssi::load_tile_async<TC_THREADS, HD>(k_sm[st ^ 1], kb, k_ss, (it + 1) * TC_BK, kv_end);
+            ssi::load_tile_async<TC_THREADS, HD>(v_sm[st ^ 1], vb, v_ss, (it + 1) * TC_BK, kv_end);
         }
         ssi::cp_async_commit();
         ssi::cp_async_wait<1>();  // Q and this tile have landed
@@ -249,6 +262,7 @@ constexpr int BK = 32;
 // query row: q head `kvh*n_rep + t / bq`, position `tile*bq + t % bq`, where
 // bq = 128 / n_rep, so the n_rep heads sharing a kv head read each K/V tile
 // from shared memory once per block
+template <int HD>
 __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ seg, float* __restrict__ o, float* __restrict__ lse,
@@ -341,11 +355,51 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(
     lse[((long long)b * Hq + h) * S + qpos] = ms + logf(l_safe);
 }
 
+template <int HD>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const int* segp, void* o, float* lsep,
+                   int B, int S, int Hq, int n_rep,
+                   long long q_sb, long long q_ss, long long q_sh,
+                   long long k_sb, long long k_ss, long long k_sh,
+                   long long v_sb, long long v_ss, long long v_sh,
+                   int causal, float scale, cudaStream_t st) {
+    if (dtype == ssi::kBFloat16) {
+        // cp.async moves 16-byte pieces: every row start must be 16-byte aligned
+        const long long strides[] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+        for (long long s : strides)
+            if (s % 8 != 0) return cudaErrorInvalidValue;
+        if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
+            return cudaErrorInvalidValue;
+        int smem = 0;
+        if constexpr (HD != 64) {
+            static int allowed = 0;
+            smem = sizeof(FwdTiles<HD>);
+            const cudaError_t err = ssi::allow_dynamic_smem(flash_fwd_bf16_kernel<HD>, smem, allowed);
+            if (err != cudaSuccess) return err;
+        }
+        const dim3 grid(Hq, B, (S + TC_BQ - 1) / TC_BQ);
+        flash_fwd_bf16_kernel<HD><<<grid, TC_THREADS, smem, st>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), segp,
+            static_cast<bf16*>(o), lsep, S, Hq, n_rep,
+            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale);
+    } else if (dtype == ssi::kFloat32) {
+        const int bq = THREADS / n_rep;
+        const dim3 grid((S + bq - 1) / bq, Hq / n_rep, B);
+        flash_fwd_f32_kernel<HD><<<grid, THREADS, 0, st>>>(
+            static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), segp,
+            static_cast<float*>(o), lsep, S, Hq, n_rep, bq,
+            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale);
+    } else {
+        return cudaErrorInvalidValue;
+    }
+    return cudaGetLastError();
+}
+
 }  // namespace
 
+// hd: head_dim, 64 or 128
 extern "C" int ssi_flash_attention_fwd(
     int dtype, const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
-    int B, int S, int Hq, int Hkv,
+    int B, int S, int Hq, int Hkv, int hd,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -356,27 +410,14 @@ extern "C" int ssi_flash_attention_fwd(
     const int* segp = static_cast<const int*>(seg);
     float* lsep = static_cast<float*>(lse);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == ssi::kBFloat16) {
-        // cp.async moves 16-byte pieces: every row start must be 16-byte aligned
-        const long long strides[] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
-        for (long long s : strides)
-            if (s % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-        if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
-            return static_cast<int>(cudaErrorInvalidValue);
-        const dim3 grid(Hq, B, (S + TC_BQ - 1) / TC_BQ);
-        flash_fwd_bf16_kernel<<<grid, TC_THREADS, 0, st>>>(
-            static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), segp,
-            static_cast<bf16*>(o), lsep, S, Hq, n_rep,
-            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale);
-    } else if (dtype == ssi::kFloat32) {
-        const int bq = THREADS / n_rep;
-        const dim3 grid((S + bq - 1) / bq, Hkv, B);
-        flash_fwd_f32_kernel<<<grid, THREADS, 0, st>>>(
-            static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), segp,
-            static_cast<float*>(o), lsep, S, Hq, n_rep, bq,
-            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale);
-    } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return static_cast<int>(cudaGetLastError());
+    cudaError_t err;
+    if (hd == 64)
+        err = launch<64>(dtype, q, k, v, segp, o, lsep, B, S, Hq, n_rep, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                         v_ss, v_sh, causal, scale, st);
+    else if (hd == 128)
+        err = launch<128>(dtype, q, k, v, segp, o, lsep, B, S, Hq, n_rep, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                          v_ss, v_sh, causal, scale, st);
+    else
+        err = cudaErrorInvalidValue;
+    return static_cast<int>(err);
 }

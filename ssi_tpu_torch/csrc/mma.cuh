@@ -1,8 +1,8 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a) kernels written
 // with mma.sync: asynchronous global -> shared copies (cp.async), ldmatrix
 // fragment loads, the m16n8k16 bf16 product with f32 accumulators, and bf16
-// packing. Used by flash_attention_fwd.cu, flash_attention_bwd.cu and
-// cross_entropy.cu.
+// packing. Used by flash_attention_fwd.cu, flash_attention_bwd.cu,
+// paged_attention.cu and cross_entropy.cu.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A [16 x 16], 4 regs of 2 bf16: a0 (row g, cols 2t, 2t+1), a1 (row g+8,
@@ -38,23 +38,40 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_by
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
-// Shared row stride (elements) of a staged [rows, 64] bf16 tile: 144 bytes,
-// so the 8 row addresses of an ldmatrix fall in distinct banks.
-constexpr int LDS64 = 64 + 8;
+// Shared row stride (elements) of a staged [rows, COLS] bf16 tile: COLS + 8,
+// an odd number of 16-byte units (144 bytes at 64 columns, 272 at 128), so
+// the 8 row addresses of an ldmatrix fall in distinct banks.
+template <int COLS>
+constexpr int lds = COLS + 8;
 
-// Rows [r0, r0 + 64) of a [rows, 64] bf16 operand (row stride ss elements,
+// Rows [r0, r0 + 64) of a [rows, COLS] bf16 operand (row stride ss elements,
 // 16-byte aligned rows) into shared memory by a block of THREADS threads;
 // rows at or past n_valid are zero-filled by the copy.
-template <int THREADS>
-__device__ __forceinline__ void load_tile64_async(__nv_bfloat16 (*dst)[LDS64], const __nv_bfloat16* src, long long ss,
-                                                  int r0, int n_valid) {
+template <int THREADS, int COLS>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16 (*dst)[lds<COLS>], const __nv_bfloat16* src,
+                                                long long ss, int r0, int n_valid) {
+    constexpr int PIECES = COLS / 8;  // 16-byte pieces a row
 #pragma unroll
-    for (int i = 0; i < 64 * 8 / THREADS; ++i) {
+    for (int i = 0; i < 64 * PIECES / THREADS; ++i) {
         const int idx = threadIdx.x + i * THREADS;
-        const int r = idx / 8;
-        const int c = (idx % 8) * 8;
+        const int r = idx / PIECES;
+        const int c = (idx % PIECES) * 8;
         const bool in = r0 + r < n_valid;
         cp_async16(&dst[r][c], in ? src + (long long)(r0 + r) * ss + c : src, in ? 16 : 0);
+    }
+}
+
+// A block's tiles in shared memory: a static __shared__ object when it fits
+// the 48 KB static limit (STATIC), else the dynamic buffer, which the
+// launcher sizes to sizeof(Tiles) after allow_dynamic_smem (common.cuh).
+template <typename Tiles, bool STATIC>
+__device__ __forceinline__ Tiles& block_tiles() {
+    if constexpr (STATIC) {
+        __shared__ __align__(128) Tiles tiles;
+        return tiles;
+    } else {
+        extern __shared__ __align__(128) unsigned char dynamic_smem[];
+        return *reinterpret_cast<Tiles*>(dynamic_smem);
     }
 }
 

@@ -1,15 +1,16 @@
 // Paged attention over the flat KV pool, split across the context: the fused
 // single-token decode (kernel #8) and the T-token write + verify of
-// speculative decoding (kernel #9) on one core. head_dim 64, f32 or bf16
-// storage.
+// speculative decoding (kernel #9) on one core. head_dim 64 (the 100m and
+// 1B models) or 128 (3B and 8B), any GQA ratio n_rep with T * n_rep <= 64,
+// f32 or bf16 storage.
 //
 // Replaces the TPU kernels ssi_tpu/generate/paged_pallas.py
 // `paged_attention_pallas` -> `_kernel` and `paged_attention_pallas_multi`
 // -> `_kernel_multi`. Semantics kept: the pools are [L*n_pages + 1,
-// page_size, Hkv*64] (head-flattened rows, trash row last), updated in place
+// page_size, Hkv*HD] (head-flattened rows, trash row last), updated in place
 // (torch tensors are mutable, so the TPU kernels' input_output_aliases has no
 // counterpart); `page_table` [slots, max_pages] holds PHYSICAL rows; q
-// [slots, T, Hq, 64] is unscaled and scaled here by `scale`; the history is
+// [slots, T, Hq, HD] is unscaled and scaled here by `scale`; the history is
 // the hist_len tokens resident in the pages before the step, and in-flight
 // token t attends the history plus in-flight tokens 0..t (causal), taken
 // from k_new / v_new, never re-read from the cells just written.
@@ -37,13 +38,21 @@
 //   history exit at once;
 // - each block streams its keys in 64-key tiles (16 KB of K and V in bf16)
 //   through a cp.async ring of STAGES stages: the next tiles load while
-//   tile i is used. A page of the pool is one contiguous [ps, Hkv*64] slab
-//   and this kv head's stripe of it is ps rows of 128 bytes (bf16), so
-//   eight threads move one key's K row and eight its V row, 16 bytes each;
+//   tile i is used. A page of the pool is one contiguous [ps, Hkv*HD] slab
+//   and this kv head's stripe of it is ps rows of 2 * HD bytes (bf16), so
+//   HD / 8 threads move one key's K row and as many its V row, 16 bytes
+//   each;
 // - bf16: S = Q.K^T and P.V run on mma.sync m16n8k16 (csrc/mma.cuh) with f32
 //   accumulators. The R = T * n_rep query rows of the kv head are one or two
 //   m16 tiles (R 4 at #8's n_rep 4, padded with zero rows; 16 at T 4; 32 at
 //   T 8); R above 32 takes two row groups of blocks, each reading the pages.
+//   Row r is in-flight token r / n_rep of q head r % n_rep, whatever n_rep
+//   divides (3B's n_rep 3 gives R 3 at T 1 and 12 at T 4, one m16 tile
+//   with padding rows that are computed and never stored).
+//   At head_dim 128 a block holds one m16 tile (BLOCK_ROWS 16: R above 16
+//   takes more row groups), so Q's fragments and the [16 x 128] f32 sum stay
+//   within the registers a thread has, and the Q tile and the 2-stage K/V
+//   ring (72 KB, past the 48 KB static limit) live in dynamic shared memory;
 //   Each of the 4 warps takes 16 keys of every tile and runs its own online
 //   softmax over them, so the tile loop needs no exchange between warps; the
 //   four partial states are combined once, at the end, in warp order. As in
@@ -59,7 +68,7 @@
 // which writes the normalised output itself. Otherwise each split writes its
 // unnormalised state to the scratch `part` (allocated by the wrapper; the
 // kernels allocate nothing):
-//   o  [slots, Hkv, n_splits, R, 64] f32: sum over the split's keys of
+//   o  [slots, Hkv, n_splits, R, HD] f32: sum over the split's keys of
 //      exp(s - m) * v;
 //   ml [slots, Hkv, n_splits, R, 2]  f32: (m, sum of exp(s - m)),
 // the ml block following the o block. Its size is bounded by the wrapper's
@@ -85,13 +94,14 @@
 
 namespace {
 
-constexpr int HD = 64;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int TK = 64;          // keys per tile
 constexpr int MAX_T = 8;        // in-flight tokens per slot
 constexpr int MAX_ROWS = 64;    // T * n_rep
-constexpr int BLOCK_ROWS = 32;  // query rows one bf16 block holds (two m16 tiles)
+// query rows one bf16 block holds: two m16 tiles at head_dim 64, one at 128
+template <int HD>
+constexpr int BLOCK_ROWS = HD == 64 ? 32 : 16;
 constexpr float NEG_INF = -1.0e30f;
 constexpr float M_CLAMP = -0.5e30f;  // m_safe = max(m, M_CLAMP)
 constexpr float LOG2E = 1.4426950408889634f;
@@ -99,15 +109,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 using bf16 = __nv_bfloat16;
 
 struct Args {
-    const void* q;           // [slots, T, Hq, 64]
-    void* k_pool;            // [rows, ps, Hkv*64], written in place
+    const void* q;           // [slots, T, Hq, HD]
+    void* k_pool;            // [rows, ps, Hkv*HD], written in place
     void* v_pool;
     const int* page_table;   // [slots, max_pages] physical rows
     const int* lens;         // [slots]: hist_len = lens + lens_shift
-    const void* k_new;       // [slots, T, Hkv, 64]
+    const void* k_new;       // [slots, T, Hkv, HD]
     const void* v_new;
     const int* write_rows;   // [slots, T]
-    void* out;               // [slots, T, Hq, 64]
+    void* out;               // [slots, T, Hq, HD]
     float* part;             // the split scratch (see the top of the file)
     int lens_shift;          // -1 (#8: seq_lens counts the incoming token) or 0 (#9)
     int trash;               // a write row equal to it is skipped; -1: none is (#8)
@@ -146,15 +156,18 @@ __device__ __forceinline__ Span span_of(const Args& a, int slot, int split) {
     return s;
 }
 
+template <int HD>
 __device__ __forceinline__ long long q_index(const Args& a, int slot, int r) {
     const int Hq = a.Hkv * a.n_rep;
     return (((long long)slot * a.t_q + r / a.n_rep) * Hq + (long long)blockIdx.y * a.n_rep + r % a.n_rep) * HD;
 }
 
+template <int HD>
 __device__ __forceinline__ float* part_o(const Args& a, int slot, int split, int r) {
     return a.part + ((((long long)slot * a.Hkv + blockIdx.y) * a.n_splits + split) * a.rows + r) * HD;
 }
 
+template <int HD>
 __device__ __forceinline__ float* part_ml(const Args& a, int slot, int split, int r) {
     const long long o_size = (long long)a.n_slots * a.Hkv * a.n_splits * a.rows * HD;
     return a.part + o_size + ((((long long)slot * a.Hkv + blockIdx.y) * a.n_splits + split) * a.rows + r) * 2;
@@ -174,7 +187,7 @@ __device__ __forceinline__ void store4<bf16>(bf16* dst, float x, float y, float 
 
 // The in-flight tokens' K/V into their cells: this kv head's stripe of each
 // token's row (positions >= hist_len, which no split reads).
-template <typename T>
+template <typename T, int HD>
 __device__ void write_tokens(const Args& a, int slot, int hist_raw) {
     const int kvh = blockIdx.y;
     const long long kvd = (long long)a.Hkv * HD;
@@ -194,40 +207,43 @@ __device__ void write_tokens(const Args& a, int slot, int hist_raw) {
 // ---- bf16: tensor cores ------------------------------------------------------
 
 constexpr int STAGES = 2;  // a third stage bought a few percent at T 1 and nothing at T 8 on an H100
-constexpr int LDS = ssi::LDS64;  // shared row stride in elements (144 bytes)
-constexpr int OPAD = HD + 4;     // f32 row stride of the combine buffer
 
-template <int MT>
+template <int HD, int MT>
 struct Bf16Tiles {
-    bf16 q[16 * MT][LDS];
-    bf16 k[STAGES][TK][LDS];
-    bf16 v[STAGES][TK][LDS];
+    bf16 q[16 * MT][ssi::lds<HD>];  // rows padded to 144 (HD 64) or 272 (HD 128) bytes
+    bf16 k[STAGES][TK][ssi::lds<HD>];
+    bf16 v[STAGES][TK][ssi::lds<HD>];
 };
 
 // after the key loop the same bytes hold each warp's partial state
-template <int MT>
+template <int HD, int MT>
 struct Bf16Combine {
-    float o[WARPS][16 * MT][OPAD];
+    float o[WARPS][16 * MT][HD + 4];  // f32 rows padded by 4
     float m[WARPS][16 * MT];
     float l[WARPS][16 * MT];
 };
 
-template <int MT>
-constexpr size_t kBf16Smem =
-    sizeof(Bf16Tiles<MT>) > sizeof(Bf16Combine<MT>) ? sizeof(Bf16Tiles<MT>) : sizeof(Bf16Combine<MT>);
+template <int HD, int MT>
+struct Bf16Smem {
+    union {
+        Bf16Tiles<HD, MT> tiles;
+        Bf16Combine<HD, MT> combine;
+    };
+};
 
 // MT: m16 tiles of query rows per block (rows r0 .. r0 + 16*MT of R; the
 // grid's z is slot * row_groups + row group)
-template <int MT>
+template <int HD, int MT>
 __global__ void __launch_bounds__(THREADS) paged_split_bf16_kernel(Args a, int row_groups) {
-    __shared__ __align__(128) unsigned char smem_raw[kBf16Smem<MT>];  // under 48 KB: static
-    auto& sm = *reinterpret_cast<Bf16Tiles<MT>*>(smem_raw);
-    auto& cb = *reinterpret_cast<Bf16Combine<MT>*>(smem_raw);
+    // under 48 KB at head_dim 64: static; 72 KB at 128: dynamic
+    Bf16Smem<HD, MT>& smem = ssi::block_tiles<Bf16Smem<HD, MT>, HD == 64>();
+    auto& sm = smem.tiles;
+    auto& cb = smem.combine;
 
     const int split = blockIdx.x;
     const int kvh = blockIdx.y;
     const int slot = blockIdx.z / row_groups;
-    const int r0 = (blockIdx.z % row_groups) * BLOCK_ROWS;
+    const int r0 = (blockIdx.z % row_groups) * BLOCK_ROWS<HD>;
     const Span sp = span_of(a, slot, split);
     if (split >= sp.n_live) return;
     const int nr = min(16 * MT, a.rows - r0);  // real query rows of this block
@@ -248,11 +264,12 @@ __global__ void __launch_bounds__(THREADS) paged_split_bf16_kernel(Args a, int r
     const bf16* vn = static_cast<const bf16*>(a.v_new) + new_base;
 
     // Q rows (zero past the block's real rows), with tile 0 in one copy group
-    for (int idx = tid; idx < 16 * MT * 8; idx += THREADS) {
-        const int i = idx / 8;
-        const int c = (idx % 8) * 8;
+    constexpr int PIECES = HD / 8;  // 16-byte pieces of a row
+    for (int idx = tid; idx < 16 * MT * PIECES; idx += THREADS) {
+        const int i = idx / PIECES;
+        const int c = (idx % PIECES) * 8;
         const bool in = i < nr;
-        ssi::cp_async16(&sm.q[i][c], in ? qb + q_index(a, slot, r0 + i) + c : qb, in ? 16 : 0);
+        ssi::cp_async16(&sm.q[i][c], in ? qb + q_index<HD>(a, slot, r0 + i) + c : qb, in ? 16 : 0);
     }
     // tile `tile` of this split into ring stage `st`: history keys from the
     // pages, or the in-flight tokens; keys that do not exist are zero-filled
@@ -261,10 +278,10 @@ __global__ void __launch_bounds__(THREADS) paged_split_bf16_kernel(Args a, int r
         const bool inflight = tile == sp.n_hist_tiles;
         const int key0 = sp.k0 + tile * TK;
 #pragma unroll
-        for (int i = 0; i < TK * 8 / THREADS; ++i) {
+        for (int i = 0; i < TK * PIECES / THREADS; ++i) {
             const int idx = tid + i * THREADS;
-            const int j = idx / 8;
-            const int c = (idx % 8) * 8;
+            const int j = idx / PIECES;
+            const int c = (idx % PIECES) * 8;
             long long off = 0;
             bool in;
             const bf16 *ks = kp, *vs = vp;
@@ -292,7 +309,7 @@ __global__ void __launch_bounds__(THREADS) paged_split_bf16_kernel(Args a, int r
     }
 
     uint32_t qf[MT][HD / 16][4];  // Q's A fragments
-    float acc[MT][HD / 8][4];     // this warp's O over its keys: [16 x 64] per m tile
+    float acc[MT][HD / 8][4];     // this warp's O over its keys: [16 x HD] per m tile
     float m_lo[MT], m_hi[MT], ms_lo[MT], ms_hi[MT], l_lo[MT], l_hi[MT];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -457,20 +474,20 @@ __global__ void __launch_bounds__(THREADS) paged_split_bf16_kernel(Args a, int r
         const int r = r0 + i;
         if (sp.n_live == 1) {
             const float ls = fmaxf(l, 1e-30f);
-            store4(static_cast<bf16*>(a.out) + q_index(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
+            store4(static_cast<bf16*>(a.out) + q_index<HD>(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
         } else {
-            store4(part_o(a, slot, split, r) + d, o0, o1, o2, o3);
-            if (d == 0) *reinterpret_cast<float2*>(part_ml(a, slot, split, r)) = make_float2(m, l);
+            store4(part_o<HD>(a, slot, split, r) + d, o0, o1, o2, o3);
+            if (d == 0) *reinterpret_cast<float2*>(part_ml<HD>(a, slot, split, r)) = make_float2(m, l);
         }
     }
-    if (sp.last && r0 == 0) write_tokens<bf16>(a, slot, sp.hist_raw);
+    if (sp.last && r0 == 0) write_tokens<bf16, HD>(a, slot, sp.hist_raw);
 }
 
 // ---- f32: scalar FMAs (parity path) -----------------------------------------
 
-constexpr int KPAD = HD + 1;  // padded K row (conflict-free column reads)
-
+template <int HD>
 size_t f32_smem(int rows) {
+    constexpr int KPAD = HD + 1;  // padded K row (conflict-free column reads)
     return sizeof(float) * ((size_t)rows * HD + (size_t)TK * KPAD + (size_t)TK * HD + (size_t)rows * TK + 3 * rows);
 }
 
@@ -478,9 +495,11 @@ size_t f32_smem(int rows) {
 // RPT: rows per thread (two row groups of 64 threads), at least ceil(R / 2).
 // Per 64-key tile: K and V staged as f32; thread (row group, key) forms its
 // rows' scores; one warp per row updates the online softmax; thread (row
-// group, dim) rescales and accumulates P.V.
-template <int RPT>
+// group, dim) rescales and accumulates P.V, for dims col, col + 64, ...
+template <int HD, int RPT>
 __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
+    constexpr int KPAD = HD + 1;
+    constexpr int DPT = HD / 64;  // dims per thread in P.V
     extern __shared__ float smem[];
     const int R = a.rows;
     float* q_sm = smem;              // [R][HD], pre-scaled
@@ -511,15 +530,17 @@ __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
     const float* kn = static_cast<const float*>(a.k_new);
     const float* vn = static_cast<const float*>(a.v_new);
 
-    for (int idx = tid; idx < R * HD; idx += THREADS) q_sm[idx] = qb[q_index(a, slot, idx / HD) + idx % HD] * a.scale;
+    for (int idx = tid; idx < R * HD; idx += THREADS) q_sm[idx] = qb[q_index<HD>(a, slot, idx / HD) + idx % HD] * a.scale;
     for (int r = tid; r < R; r += THREADS) {
         m_sm[r] = -INFINITY;
         l_sm[r] = 0.f;
     }
 
-    float acc[RPT];
+    float acc[RPT][DPT];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) acc[i] = 0.f;
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int dd = 0; dd < DPT; ++dd) acc[i][dd] = 0.f;
 
     for (int tile = 0; tile < n_tiles; ++tile) {
         const bool inflight = tile == sp.n_hist_tiles;
@@ -528,9 +549,9 @@ __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
         __syncthreads();  // the previous tile's P.V is done with k_sm, v_sm, s_sm
 
         // 1) stage K and V of the tile (absent keys as zeros; they are masked)
-        for (int c = tid; c < TK * 8; c += THREADS) {
-            const int j = c >> 3;
-            const int e8 = (c & 7) * 8;
+        for (int c = tid; c < TK * (HD / 8); c += THREADS) {
+            const int j = c / (HD / 8);
+            const int e8 = (c % (HD / 8)) * 8;
             float kr[8], vr[8];
             if (j < n_keys) {
                 if (inflight) {
@@ -613,23 +634,30 @@ __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
         }
         __syncthreads();
 
-        // 4) rescale and accumulate P.V for dim `col`, four keys at a time
-        //    (probabilities and V rows past n_keys are 0 up to the tile's end)
+        // 4) rescale and accumulate P.V for dims col, col + 64, ..., four keys
+        //    at a time (probabilities and V rows past n_keys are 0 up to the
+        //    tile's end)
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
             const int r = rg + 2 * i;
-            if (r < R) acc[i] *= a_sm[r];
+            if (r < R) {
+#pragma unroll
+                for (int dd = 0; dd < DPT; ++dd) acc[i][dd] *= a_sm[r];
+            }
         }
         for (int j = 0; j < n_keys; j += 4) {
-            float vj[4];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) vj[e] = v_sm[(j + e) * HD + col];
+            for (int dd = 0; dd < DPT; ++dd) {
+                float vj[4];
 #pragma unroll
-            for (int i = 0; i < RPT; ++i) {
-                const int r = rg + 2 * i;
-                if (r < R) {
-                    const float4 p = *reinterpret_cast<const float4*>(s_sm + r * TK + j);
-                    acc[i] = fmaf(p.x, vj[0], fmaf(p.y, vj[1], fmaf(p.z, vj[2], fmaf(p.w, vj[3], acc[i]))));
+                for (int e = 0; e < 4; ++e) vj[e] = v_sm[(j + e) * HD + col + 64 * dd];
+#pragma unroll
+                for (int i = 0; i < RPT; ++i) {
+                    const int r = rg + 2 * i;
+                    if (r < R) {
+                        const float4 p = *reinterpret_cast<const float4*>(s_sm + r * TK + j);
+                        acc[i][dd] = fmaf(p.x, vj[0], fmaf(p.y, vj[1], fmaf(p.z, vj[2], fmaf(p.w, vj[3], acc[i][dd]))));
+                    }
                 }
             }
         }
@@ -640,22 +668,27 @@ __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
     for (int i = 0; i < RPT; ++i) {
         const int r = rg + 2 * i;
         if (r < R) {
-            if (sp.n_live == 1) {
-                static_cast<float*>(a.out)[q_index(a, slot, r) + col] = acc[i] / fmaxf(l_sm[r], 1e-30f);
-            } else {
-                part_o(a, slot, split, r)[col] = acc[i];
-                if (col == 0) *reinterpret_cast<float2*>(part_ml(a, slot, split, r)) = make_float2(m_sm[r], l_sm[r]);
+#pragma unroll
+            for (int dd = 0; dd < DPT; ++dd) {
+                const int d = col + 64 * dd;
+                if (sp.n_live == 1) {
+                    static_cast<float*>(a.out)[q_index<HD>(a, slot, r) + d] = acc[i][dd] / fmaxf(l_sm[r], 1e-30f);
+                } else {
+                    part_o<HD>(a, slot, split, r)[d] = acc[i][dd];
+                }
             }
+            if (sp.n_live > 1 && col == 0)
+                *reinterpret_cast<float2*>(part_ml<HD>(a, slot, split, r)) = make_float2(m_sm[r], l_sm[r]);
         }
     }
-    if (sp.last) write_tokens<float>(a, slot, sp.hist_raw);
+    if (sp.last) write_tokens<float, HD>(a, slot, sp.hist_raw);
 }
 
 // ---- the merge ----------------------------------------------------------------
 
 // One block per (kv head, slot): each output row combines the slot's live
 // splits in split order.
-template <typename T>
+template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS) paged_merge_kernel(Args a) {
     const int slot = blockIdx.z;
     const int n_live = live_splits(a, clamp_hist(a, a.lens[slot] + a.lens_shift));
@@ -664,12 +697,12 @@ __global__ void __launch_bounds__(THREADS) paged_merge_kernel(Args a) {
         const int r = idx / (HD / 4);
         const int d = (idx % (HD / 4)) * 4;
         float m = NEG_INF;
-        for (int s = 0; s < n_live; ++s) m = fmaxf(m, part_ml(a, slot, s, r)[0]);
+        for (int s = 0; s < n_live; ++s) m = fmaxf(m, part_ml<HD>(a, slot, s, r)[0]);
         float l = 0.f, o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
         for (int s = 0; s < n_live; ++s) {
-            const float2 ml = *reinterpret_cast<const float2*>(part_ml(a, slot, s, r));
+            const float2 ml = *reinterpret_cast<const float2*>(part_ml<HD>(a, slot, s, r));
             const float wt = exp2f((ml.x - m) * LOG2E);
-            const float4 o = *reinterpret_cast<const float4*>(part_o(a, slot, s, r) + d);
+            const float4 o = *reinterpret_cast<const float4*>(part_o<HD>(a, slot, s, r) + d);
             l = fmaf(ml.y, wt, l);
             o0 = fmaf(o.x, wt, o0);
             o1 = fmaf(o.y, wt, o1);
@@ -677,35 +710,39 @@ __global__ void __launch_bounds__(THREADS) paged_merge_kernel(Args a) {
             o3 = fmaf(o.w, wt, o3);
         }
         const float ls = fmaxf(l, 1e-30f);
-        store4(static_cast<T*>(a.out) + q_index(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
+        store4(static_cast<T*>(a.out) + q_index<HD>(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
     }
 }
 
-template <int MT>
+template <int HD, int MT>
 cudaError_t launch_bf16(const Args& a, cudaStream_t st) {
-    const int row_groups = (a.rows + BLOCK_ROWS - 1) / BLOCK_ROWS;
-    paged_split_bf16_kernel<MT><<<dim3(a.n_splits, a.Hkv, a.n_slots * row_groups), THREADS, 0, st>>>(a, row_groups);
-    return cudaGetLastError();
-}
-
-template <int RPT>
-cudaError_t launch_f32(const Args& a, cudaStream_t st) {
-    const size_t smem = f32_smem(a.rows);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(paged_split_f32_kernel<RPT>,
-                                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const int row_groups = (a.rows + BLOCK_ROWS<HD> - 1) / BLOCK_ROWS<HD>;
+    int smem = 0;
+    if constexpr (HD != 64) {
+        static int allowed = 0;
+        smem = sizeof(Bf16Smem<HD, MT>);
+        const cudaError_t err = ssi::allow_dynamic_smem(paged_split_bf16_kernel<HD, MT>, smem, allowed);
         if (err != cudaSuccess) return err;
     }
-    paged_split_f32_kernel<RPT><<<dim3(a.n_splits, a.Hkv, a.n_slots), THREADS, smem, st>>>(a);
+    paged_split_bf16_kernel<HD, MT><<<dim3(a.n_splits, a.Hkv, a.n_slots * row_groups), THREADS, smem, st>>>(
+        a, row_groups);
     return cudaGetLastError();
 }
 
+template <int HD, int RPT>
+cudaError_t launch_f32(const Args& a, cudaStream_t st) {
+    static int allowed = 0;
+    const size_t smem = f32_smem<HD>(a.rows);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = ssi::allow_dynamic_smem(paged_split_f32_kernel<HD, RPT>, (int)smem, allowed);
+        if (err != cudaSuccess) return err;
+    }
+    paged_split_f32_kernel<HD, RPT><<<dim3(a.n_splits, a.Hkv, a.n_slots), THREADS, smem, st>>>(a);
+    return cudaGetLastError();
+}
+
+template <int HD>
 cudaError_t launch(int dtype, const Args& a, cudaStream_t st) {
-    if (a.Hkv <= 0 || a.n_rep <= 0 || a.t_q < 1 || a.t_q > MAX_T || a.rows > MAX_ROWS || a.ps <= 0 ||
-        a.max_pages <= 0 || a.n_slots <= 0 || a.split_keys <= 0 || a.split_keys % a.ps != 0 || a.n_splits <= 0 ||
-        (long long)(a.n_splits - 1) * a.split_keys >= (long long)a.max_pages * a.ps ||
-        (long long)a.n_splits * a.split_keys < (long long)a.max_pages * a.ps)
-        return cudaErrorInvalidValue;
     cudaError_t err;
     if (dtype == ssi::kBFloat16) {
         // cp.async moves 16-byte pieces: every row start must be 16-byte aligned
@@ -713,24 +750,38 @@ cudaError_t launch(int dtype, const Args& a, cudaStream_t st) {
                                reinterpret_cast<uintptr_t>(a.v_pool) | reinterpret_cast<uintptr_t>(a.k_new) |
                                reinterpret_cast<uintptr_t>(a.v_new) | reinterpret_cast<uintptr_t>(a.part);
         if (ptrs % 16 != 0) return cudaErrorInvalidValue;
-        err = a.rows <= 16 ? launch_bf16<1>(a, st) : launch_bf16<2>(a, st);
+        if constexpr (HD == 64)
+            err = a.rows <= 16 ? launch_bf16<HD, 1>(a, st) : launch_bf16<HD, 2>(a, st);
+        else
+            err = launch_bf16<HD, 1>(a, st);
     } else if (dtype == ssi::kFloat32) {
         const int need = (a.rows + 1) / 2;
-        err = need <= 1    ? launch_f32<1>(a, st)
-              : need <= 2  ? launch_f32<2>(a, st)
-              : need <= 4  ? launch_f32<4>(a, st)
-              : need <= 8  ? launch_f32<8>(a, st)
-              : need <= 16 ? launch_f32<16>(a, st)
-                           : launch_f32<32>(a, st);
+        err = need <= 1    ? launch_f32<HD, 1>(a, st)
+              : need <= 2  ? launch_f32<HD, 2>(a, st)
+              : need <= 4  ? launch_f32<HD, 4>(a, st)
+              : need <= 8  ? launch_f32<HD, 8>(a, st)
+              : need <= 16 ? launch_f32<HD, 16>(a, st)
+                           : launch_f32<HD, 32>(a, st);
     } else {
         return cudaErrorInvalidValue;
     }
     if (err != cudaSuccess || a.n_splits == 1) return err;
     if (dtype == ssi::kBFloat16)
-        paged_merge_kernel<bf16><<<dim3(1, a.Hkv, a.n_slots), THREADS, 0, st>>>(a);
+        paged_merge_kernel<bf16, HD><<<dim3(1, a.Hkv, a.n_slots), THREADS, 0, st>>>(a);
     else
-        paged_merge_kernel<float><<<dim3(1, a.Hkv, a.n_slots), THREADS, 0, st>>>(a);
+        paged_merge_kernel<float, HD><<<dim3(1, a.Hkv, a.n_slots), THREADS, 0, st>>>(a);
     return cudaGetLastError();
+}
+
+cudaError_t launch(int dtype, int hd, const Args& a, cudaStream_t st) {
+    if (a.Hkv <= 0 || a.n_rep <= 0 || a.t_q < 1 || a.t_q > MAX_T || a.rows > MAX_ROWS || a.ps <= 0 ||
+        a.max_pages <= 0 || a.n_slots <= 0 || a.split_keys <= 0 || a.split_keys % a.ps != 0 || a.n_splits <= 0 ||
+        (long long)(a.n_splits - 1) * a.split_keys >= (long long)a.max_pages * a.ps ||
+        (long long)a.n_splits * a.split_keys < (long long)a.max_pages * a.ps)
+        return cudaErrorInvalidValue;
+    if (hd == 64) return launch<64>(dtype, a, st);
+    if (hd == 128) return launch<128>(dtype, a, st);
+    return cudaErrorInvalidValue;
 }
 
 Args make_args(const void* q, void* k_pool, void* v_pool, const void* page_table, const void* lens,
@@ -765,30 +816,32 @@ Args make_args(const void* q, void* k_pool, void* v_pool, const void* page_table
 
 }  // namespace
 
-// #8: one token per slot; seq_lens counts it. `part`: the split scratch,
-// n_slots * Hkv * n_splits * n_rep * 66 floats (unused when n_splits is 1).
+// #8: one token per slot; seq_lens counts it. hd: head_dim, 64 or 128.
+// `part`: the split scratch, n_slots * Hkv * n_splits * n_rep * (hd + 2)
+// floats (unused when n_splits is 1).
 extern "C" int ssi_paged_attention_fused(
     int dtype, const void* q, void* k_pool, void* v_pool, const void* page_table, const void* seq_lens,
     const void* k_new, const void* v_new, const void* write_rows, void* out, void* part,
-    int n_slots, int Hq, int Hkv, int ps, int max_pages, int pages_per_split, int n_splits, float scale,
+    int n_slots, int Hq, int Hkv, int hd, int ps, int max_pages, int pages_per_split, int n_splits, float scale,
     void* stream) {
     if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
     Args a = make_args(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new, write_rows, out, part, n_slots, 1,
                        Hq, Hkv, ps, max_pages, pages_per_split, n_splits, scale);
     a.lens_shift = -1;
-    return static_cast<int>(launch(dtype, a, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(launch(dtype, hd, a, static_cast<cudaStream_t>(stream)));
 }
 
 // #9: T tokens per slot after hist_lens resident ones; a write row equal to
-// `trash` is skipped. `part`: n_slots * Hkv * n_splits * T * n_rep * 66 floats.
+// `trash` is skipped. `part`: n_slots * Hkv * n_splits * T * n_rep * (hd + 2)
+// floats.
 extern "C" int ssi_paged_attention_multi(
     int dtype, const void* q, void* k_pool, void* v_pool, const void* page_table, const void* hist_lens,
     const void* k_new, const void* v_new, const void* write_rows, void* out, void* part,
-    int n_slots, int t_q, int Hq, int Hkv, int ps, int max_pages, int trash, int pages_per_split, int n_splits,
-    float scale, void* stream) {
+    int n_slots, int t_q, int Hq, int Hkv, int hd, int ps, int max_pages, int trash, int pages_per_split,
+    int n_splits, float scale, void* stream) {
     if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
     Args a = make_args(q, k_pool, v_pool, page_table, hist_lens, k_new, v_new, write_rows, out, part, n_slots, t_q,
                        Hq, Hkv, ps, max_pages, pages_per_split, n_splits, scale);
     a.trash = trash;
-    return static_cast<int>(launch(dtype, a, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(launch(dtype, hd, a, static_cast<cudaStream_t>(stream)));
 }

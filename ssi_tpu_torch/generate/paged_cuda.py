@@ -11,6 +11,9 @@ plain PyTorch versions. Both wrappers launch one split-context core
   physical write row per token instead (the trash row = skip), as the JAX
   gather path resolves them.
 
+The core is built for head_dim 64 and 128 and takes any GQA ratio n_rep
+with ``T * n_rep <= MAX_ROWS`` (64) query rows per (slot, kv head).
+
 The core splits each slot's context over blocks of :func:`split_plan`'s
 pages and merges them in a second kernel, launched by the same C call; the
 wrapper allocates the merge's scratch. No context length is refused: a
@@ -36,6 +39,8 @@ KERNEL_MULTI = "paged_attention_multi"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_KEYS = 256  # keys a split walks at least: two 128-token pages
 MAX_SPLITS = 16   # splits per (slot, kv head) at most, which bounds the scratch
+HEAD_DIMS = (64, 128)  # the head_dims the kernels are built for
+MAX_ROWS = 64     # T * n_rep query rows per (slot, kv head) at most
 
 
 def split_plan(max_pages: int, page_size: int) -> tuple[int, int]:
@@ -46,10 +51,11 @@ def split_plan(max_pages: int, page_size: int) -> tuple[int, int]:
     return per_split, -(-max_pages // per_split)
 
 
-def _scratch(n_slots: int, hkv: int, n_rows: int, n_splits: int, device) -> torch.Tensor:
-    """The merge's scratch: per (slot, kv head, split, query row) 64 floats of
-    unnormalised output, then (max, sum) for each; empty with one split."""
-    n = n_slots * hkv * n_splits * n_rows * (64 + 2) if n_splits > 1 else 0
+def _scratch(n_slots: int, hkv: int, n_rows: int, n_splits: int, hd: int, device) -> torch.Tensor:
+    """The merge's scratch: per (slot, kv head, split, query row) ``hd``
+    floats of unnormalised output, then (max, sum) for each; empty with one
+    split."""
+    n = n_slots * hkv * n_splits * n_rows * (hd + 2) if n_splits > 1 else 0
     return torch.empty(n, dtype=torch.float32, device=device)
 
 
@@ -78,10 +84,14 @@ def _check_common(q, k_pool, v_pool, k_new, v_new, hq: int, hd: int, new_shape: 
     kvd = k_pool.shape[2]
     hkv = kvd // hd
     dev = q.device
-    if hd != 64:
-        raise ValueError(f"the CUDA paged kernels are built for head_dim 64, got {hd}")
-    if hkv * hd != kvd or hq % hkv != 0 or hq // hkv not in (1, 2, 4, 8):
-        raise ValueError(f"unsupported heads: Hq={hq}, pool width {kvd} (Hkv*64), n_rep must be 1, 2, 4 or 8")
+    t_q = new_shape[1] if len(new_shape) > 1 else 1
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the CUDA paged kernels are built for head_dim in {HEAD_DIMS}, got {hd}")
+    if hkv == 0 or hkv * hd != kvd or hq % hkv != 0:
+        raise ValueError(f"unsupported heads: Hq={hq}, pool width {kvd} (Hkv*{hd}); Hq must be a multiple of Hkv")
+    if t_q * (hq // hkv) > MAX_ROWS:
+        raise ValueError(f"T * n_rep = {t_q} * {hq // hkv} query rows per kv head; the kernels take at most "
+                         f"{MAX_ROWS}")
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (k_pool, v_pool, k_new, v_new)):
         raise TypeError("q, pools and new K/V must share one dtype, f32 or bf16")
     if v_pool.shape != k_pool.shape:
@@ -106,7 +116,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new,
     seq_lens = _check_int("seq_lens", seq_lens, (n_slots,), dev)
     write_rows = _check_int("write_rows", write_rows, (n_slots,), dev)
     per_split, n_splits = split_plan(max_pages, ps)
-    part = _scratch(n_slots, hkv, hq // hkv, n_splits, dev)
+    part = _scratch(n_slots, hkv, hq // hkv, n_splits, hd, dev)
     q = q.contiguous()
     k_new = k_new.contiguous()
     v_new = v_new.contiguous()
@@ -118,7 +128,7 @@ def _paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new,
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         write_rows.data_ptr(), out.data_ptr(), part.data_ptr(),
-        n_slots, hq, hkv, ps, max_pages, per_split, n_splits, hd**-0.5,
+        n_slots, hq, hkv, hd, ps, max_pages, per_split, n_splits, hd**-0.5,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch(KERNEL, err)
@@ -172,7 +182,7 @@ def _paged_attention_multi_cuda(q, k_pool, v_pool, page_table, hist_lens, k_new,
     hist_lens = _check_int("hist_lens", hist_lens, (n_slots,), dev)
     write_rows = _check_int("write_rows", write_rows, (n_slots, t_q), dev)
     per_split, n_splits = split_plan(max_pages, ps)
-    part = _scratch(n_slots, hkv, t_q * (hq // hkv), n_splits, dev)
+    part = _scratch(n_slots, hkv, t_q * (hq // hkv), n_splits, hd, dev)
     q = q.contiguous()
     k_new = k_new.contiguous()
     v_new = v_new.contiguous()
@@ -182,7 +192,7 @@ def _paged_attention_multi_cuda(q, k_pool, v_pool, page_table, hist_lens, k_new,
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), hist_lens.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         write_rows.data_ptr(), out.data_ptr(), part.data_ptr(),
-        n_slots, t_q, hq, hkv, ps, max_pages, k_pool.shape[0] - 1, per_split, n_splits, hd**-0.5,
+        n_slots, t_q, hq, hkv, hd, ps, max_pages, k_pool.shape[0] - 1, per_split, n_splits, hd**-0.5,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch(KERNEL_MULTI, err)

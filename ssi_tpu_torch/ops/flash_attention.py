@@ -11,8 +11,13 @@ the forward for the paged prefill; training differentiates
 :func:`flash_attention`, whose backward recomputes the scores from q, k, v,
 o and lse.
 
-The kernels take unscaled q and apply ``1/sqrt(d)`` inside (the JAX wrapper
-folds the scale into q before its kernels); the math is the same.
+The kernels are built for head_dim 64 (the 100m and 1B models) and 128 (3B
+and 8B); another head_dim raises. They take unscaled q and apply
+``1/sqrt(d)`` to the f32 scores inside. The JAX wrapper folds the scale into
+q before its kernels, rounding ``q/sqrt(d)`` to q's dtype: exact in bf16 at
+head_dim 64 (1/8), a rounding at 128. The port keeps the scale in f32 (one
+rounding fewer, no extra pass over q); its bf16 results stay within the bf16
+tolerance of the JAX kernel's (``tests/test_torch_flash_attention.py``).
 
 Dispatch is by device, never by failure: a CPU tensor takes
 :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`; a
@@ -29,6 +34,7 @@ KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
 _NEG_INF = -1.0e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)  # the head_dims the kernels are built for
 
 
 def flash_attention_reference(
@@ -123,8 +129,8 @@ def _check_operands(q, k, v, segment_ids) -> None:
 
 def _check_kernel_operands(*tensors: torch.Tensor) -> None:
     q = tensors[0]
-    if q.shape[3] != 64:
-        raise ValueError(f"the CUDA flash kernel is built for head_dim 64, got {q.shape[3]}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"the CUDA flash kernels are built for head_dim in {HEAD_DIMS}, got {q.shape[3]}")
     if q.dtype not in _DTYPE_CODES or any(x.dtype != q.dtype for x in tensors):
         raise TypeError(f"flash_attention kernel takes f32 or bf16 operands of one dtype, got "
                         f"{[x.dtype for x in tensors]}")
@@ -152,7 +158,7 @@ def _flash_fwd_cuda(q, k, v, causal: bool, segment_ids) -> tuple[torch.Tensor, t
     err = lib.ssi_flash_attention_fwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         seg.data_ptr() if seg is not None else None, o.data_ptr(), lse.data_ptr(),
-        b, s, hq, hkv,
+        b, s, hq, hkv, d,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -196,7 +202,7 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, segment_ids):
     err = _build.load_library().ssi_flash_attention_bwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), seg.data_ptr() if seg is not None else None, delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, int(causal), 1.0 / d**0.5,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, d, int(causal), 1.0 / d**0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check_launch(BWD_KERNEL, err)

@@ -319,3 +319,25 @@ def test_every_kernel_source_is_built_and_declared():
         assert not re.search(r'#include\s*[<"](torch|ATen|c10)/', text), path.name
         found |= set(entry.findall(text))
     assert found == set(_build._SIGNATURES)
+
+
+def test_signatures_match_the_c_entry_points_argument_for_argument():
+    """Each ``extern "C"`` entry point's parameters, in order, against the
+    ctypes argtypes ``_build`` declares for it: a pointer for each pointer,
+    ``c_int`` for ``int``, ``c_longlong`` for ``long long``, ``c_float`` for
+    ``float``. A missing or misplaced argument (a head_dim added to one side
+    only) would pass every later argument in the wrong register."""
+    import ctypes
+
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
+    entry = re.compile(r'extern "C" int (\w+)\(([^)]*)\)')
+    seen = set()
+    for path in _build._sources():
+        for name, params in entry.findall(path.read_text()):
+            want = []
+            for param in (p.strip() for p in params.split(",") if p.strip()):
+                decl = param.rsplit(" ", 1)[0].replace("const ", "").strip()
+                want.append(ctypes.c_void_p if "*" in param else kinds[decl])
+            assert _build._SIGNATURES[name] == want, name
+            seen.add(name)
+    assert seen == set(_build._SIGNATURES)

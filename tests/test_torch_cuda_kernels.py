@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on a CUDA card, at
 small and odd shapes the chip smoke does not cover (ragged last q or key
-tile, every GQA ratio, odd vocab, ignored rows, f32 and bf16), and a small
-train step with the kernels against the same step with the plain versions.
+tile, every GQA ratio, head_dim 64 and 128, odd vocab, ignored rows, f32
+and bf16), and a small train step with the kernels against the same step
+with the plain versions.
 These need the card: they skip on a CPU-only machine and run on the GPU with
 ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``."""
 
@@ -57,14 +58,18 @@ def gen():
     return g
 
 
+HEADS = [(8, 8), (8, 4), (8, 2), (8, 1), (32, 8), (6, 2), (24, 8)]  # n_rep 1, 2, 4, 8, 4, 3, 3
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 4), (8, 2), (8, 1), (32, 8)])  # n_rep 1, 2, 4, 8, 4
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", HEADS)
 @pytest.mark.parametrize("s,causal,segs", [(77, True, False), (200, False, False), (130, True, True),
                                            (200, False, True), (77, True, True)])
-def test_flash_kernel_matches_plain(gen, dtype, hq, hkv, s, causal, segs):
-    q = torch.randn((2, s, hq, 64), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((2, s, hkv, 64), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((2, s, hkv, 64), generator=gen, device="cuda").to(dtype)
+def test_flash_kernel_matches_plain(gen, dtype, d, hq, hkv, s, causal, segs):
+    q = torch.randn((2, s, hq, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((2, s, hkv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((2, s, hkv, d), generator=gen, device="cuda").to(dtype)
     seg = None
     if segs:
         seg = torch.zeros((2, s), dtype=torch.int32, device="cuda")
@@ -80,15 +85,16 @@ def test_flash_kernel_matches_plain(gen, dtype, hq, hkv, s, causal, segs):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_rep", [1, 2, 4, 8])
-def test_paged_kernel_matches_plain(gen, dtype, n_rep):
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 3, 4, 8])
+def test_paged_kernel_matches_plain(gen, dtype, hd, n_rep):
     slots, hkv, ps, max_pages, n_pages = 6, 2, 16, 5, 40
     rows = 2 * n_pages + 1
-    kp = torch.randn((rows, ps, hkv * 64), generator=gen, device="cuda").to(dtype)
-    vp = torch.randn((rows, ps, hkv * 64), generator=gen, device="cuda").to(dtype)
-    q = torch.randn((slots, hkv * n_rep, 64), generator=gen, device="cuda").to(dtype)
-    kn = torch.randn((slots, hkv, 64), generator=gen, device="cuda").to(dtype)
-    vn = torch.randn((slots, hkv, 64), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((rows, ps, hkv * hd), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((rows, ps, hkv * hd), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((slots, hkv * n_rep, hd), generator=gen, device="cuda").to(dtype)
+    kn = torch.randn((slots, hkv, hd), generator=gen, device="cuda").to(dtype)
+    vn = torch.randn((slots, hkv, hd), generator=gen, device="cuda").to(dtype)
     table = (n_pages + torch.randperm(n_pages, generator=gen, device="cuda")[: slots * max_pages]).view(slots, max_pages)
     seq_lens = torch.tensor([1, ps, ps + 1, 3 * ps - 5, max_pages * ps, 0], dtype=torch.int32, device="cuda")
     active = seq_lens > 0
@@ -105,8 +111,10 @@ def test_paged_kernel_matches_plain(gen, dtype, n_rep):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_rep,t_q", [(1, 2), (2, 2), (4, 2), (4, 3), (2, 8), (4, 4), (8, 4), (8, 8)])
-def test_paged_multi_kernel_matches_plain(gen, dtype, n_rep, t_q):
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("n_rep,t_q", [(1, 2), (2, 2), (4, 2), (4, 3), (2, 8), (4, 4), (8, 4), (8, 8),
+                                       (3, 4), (3, 8), (3, 2)])
+def test_paged_multi_kernel_matches_plain(gen, dtype, hd, n_rep, t_q):
     """Kernel #9 against its plain version: ragged history (0, mid-page,
     page-crossing spans, more than one 64-key tile, full context less T), an
     inactive slot, and a slot whose write cap cuts the span. Attention is
@@ -115,11 +123,11 @@ def test_paged_multi_kernel_matches_plain(gen, dtype, n_rep, t_q):
     slots, hkv, ps, max_pages, n_pages = 7, 2, 16, 10, 80
     rows = 2 * n_pages + 1
     trash = rows - 1
-    kp = torch.randn((rows, ps, hkv * 64), generator=gen, device="cuda").to(dtype)
-    vp = torch.randn((rows, ps, hkv * 64), generator=gen, device="cuda").to(dtype)
-    q = torch.randn((slots, t_q, hkv * n_rep, 64), generator=gen, device="cuda").to(dtype)
-    kn = torch.randn((slots, t_q, hkv, 64), generator=gen, device="cuda").to(dtype)
-    vn = torch.randn((slots, t_q, hkv, 64), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((rows, ps, hkv * hd), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((rows, ps, hkv * hd), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((slots, t_q, hkv * n_rep, hd), generator=gen, device="cuda").to(dtype)
+    kn = torch.randn((slots, t_q, hkv, hd), generator=gen, device="cuda").to(dtype)
+    vn = torch.randn((slots, t_q, hkv, hd), generator=gen, device="cuda").to(dtype)
     table = (n_pages + torch.randperm(n_pages, generator=gen, device="cuda")[: slots * max_pages]).view(slots, max_pages)
     hist = torch.tensor([0, 5, ps - 1, 3 * ps + 7, max_pages * ps - t_q, 9, 70], dtype=torch.int32, device="cuda")
     active = torch.tensor([True] * 5 + [False, True], device="cuda")
@@ -143,7 +151,7 @@ def test_paged_multi_kernel_matches_plain(gen, dtype, n_rep, t_q):
     assert not torch.allclose(got[landed].float(), loose[landed].float(), atol=TOL[dtype], rtol=TOL[dtype])
 
 
-def check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=2):
+def check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=2, hd=64):
     """One of the paged kernels, #8 (``t_q`` 1: seq_lens = hist + 1, 0 when
     inactive) or #9, against its plain version on slots of history ``hist``
     (positions < hist_len; inactive slots write to the trash row): attention
@@ -153,15 +161,15 @@ def check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=
     slots = len(hist)
     n_pages = slots * max_pages
     rows = 2 * n_pages + 1  # layer 1's pages, the trash row last
-    kp = torch.randn((rows, ps, hkv * 64), generator=gen, device="cuda").to(dtype)
-    vp = torch.randn((rows, ps, hkv * 64), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((rows, ps, hkv * hd), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((rows, ps, hkv * hd), generator=gen, device="cuda").to(dtype)
     table = (n_pages + torch.randperm(n_pages, generator=gen, device="cuda")).view(slots, max_pages).to(torch.int32)
     hist = torch.tensor(hist, dtype=torch.int32, device="cuda")
     active = torch.tensor(active, device="cuda")
     shape = (slots,) if t_q == 1 else (slots, t_q)
-    q = torch.randn((*shape, hkv * n_rep, 64), generator=gen, device="cuda").to(dtype)
-    kn = torch.randn((*shape, hkv, 64), generator=gen, device="cuda").to(dtype)
-    vn = torch.randn((*shape, hkv, 64), generator=gen, device="cuda").to(dtype)
+    q = torch.randn((*shape, hkv * n_rep, hd), generator=gen, device="cuda").to(dtype)
+    kn = torch.randn((*shape, hkv, hd), generator=gen, device="cuda").to(dtype)
+    vn = torch.randn((*shape, hkv, hd), generator=gen, device="cuda").to(dtype)
     pos = hist[:, None] + torch.arange(t_q, device="cuda")[None, :]
     write_rows = torch.where(active[:, None], torch.gather(table, 1, (pos // ps).long()), rows - 1).to(torch.int32)
     kw = dict(k_new=kn, v_new=vn, write_rows=write_rows[:, 0] if t_q == 1 else write_rows)
@@ -182,9 +190,13 @@ def check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t_q,n_rep", [(1, 4), (1, 8), (4, 4), (8, 4), (8, 8)])  # #8 and #9; 8 x 8 = two row groups
+# #8 and #9 at head_dim 64 (8 x 8: two row groups) and 128 (one m16 tile a block: 8 x 3 and 8 x 4 take two
+# row groups, 8 x 8 four)
+@pytest.mark.parametrize("hd,t_q,n_rep", [(64, 1, 4), (64, 1, 8), (64, 4, 4), (64, 8, 4), (64, 8, 8),
+                                          (128, 1, 3), (128, 1, 4), (128, 4, 3), (128, 4, 4), (128, 8, 3),
+                                          (128, 8, 8)])
 @pytest.mark.parametrize("ps,max_pages", [(16, 48), (128, 10)])  # 3 and 5 splits of 256 keys
-def test_paged_kernels_split_boundaries(gen, dtype, t_q, n_rep, ps, max_pages):
+def test_paged_kernels_split_boundaries(gen, dtype, hd, t_q, n_rep, ps, max_pages):
     """The split-context kernels where splits start and end: histories that
     end exactly on a split boundary and one key past it, one that fits in one
     split (finished by that split alone), history 0 (the only live split
@@ -194,7 +206,7 @@ def test_paged_kernels_split_boundaries(gen, dtype, t_q, n_rep, ps, max_pages):
     assert n_splits > 1
     hist = [0, 100, sk - 1, sk, sk + 1, 2 * sk, 2 * sk + 1, cap - t_q, 0, 37]
     active = [True] * 8 + [False, True]
-    check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active)
+    check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hd=hd)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -211,27 +223,36 @@ def test_paged_kernel_at_the_drives_decode_shape(gen, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t_q", [1, 4])
-def test_paged_kernels_past_the_old_context_cap(gen, dtype, t_q):
-    """32 slots at context 16,384, n_rep 4: the old #8 kept every score in
-    shared memory and its wrapper refused this shape; the split plan caps
-    the splits at 16 of 1,024 keys each."""
+@pytest.mark.parametrize("hd,n_rep", [(64, 4), (128, 3), (128, 4)])  # 1B; 3B; 8B
+def test_paged_kernels_past_the_old_context_cap(gen, dtype, t_q, hd, n_rep):
+    """32 slots at context 16,384: the old #8 kept every score in shared
+    memory and its wrapper refused this shape; the split plan caps the
+    splits at 16 of 1,024 keys each."""
     ps, max_pages = 128, 128
     cap = ps * max_pages
     assert split_plan(max_pages, ps) == (8, 16)
     hist = [cap - t_q, 0, 1, 1024, 1025] + torch.randint(1, cap - t_q + 1, (27,), generator=gen, device="cuda").tolist()
-    check_paged_kernel(gen, dtype, t_q, 4, ps, max_pages, hist, [True] * 32)
+    check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, [True] * 32, hd=hd)
 
 
 def test_kernel_wrappers_refuse_unsupported_shapes(gen):
     q = torch.randn((1, 16, 4, 32), generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="head_dim 64"):
+    with pytest.raises(ValueError, match=r"head_dim in \(64, 128\), got 32"):
         flash_attention_fwd(q, q, q)
-    kp = torch.zeros((3, 8, 3 * 64), device="cuda")
-    with pytest.raises(ValueError, match="n_rep"):
+    kp = torch.zeros((3, 8, 1 * 64), device="cuda")
+    with pytest.raises(ValueError, match=r"T \* n_rep = 1 \* 65"):  # n_rep 65: 65 query rows, past the 64
         paged_attention_fused(
-            torch.zeros((1, 9, 64), device="cuda"), kp, kp.clone(),
+            torch.zeros((1, 65, 64), device="cuda"), kp, kp.clone(),
             torch.zeros((1, 1), dtype=torch.int32, device="cuda"), torch.ones(1, dtype=torch.int32, device="cuda"),
-            k_new=torch.zeros((1, 3, 64), device="cuda"), v_new=torch.zeros((1, 3, 64), device="cuda"),
+            k_new=torch.zeros((1, 1, 64), device="cuda"), v_new=torch.zeros((1, 1, 64), device="cuda"),
+            write_rows=torch.zeros(1, dtype=torch.int32, device="cuda"),
+        )
+    pool32 = torch.zeros((3, 8, 2 * 32), device="cuda")
+    with pytest.raises(ValueError, match=r"head_dim in \(64, 128\), got 32"):
+        paged_attention_fused(
+            torch.zeros((1, 4, 32), device="cuda"), pool32, pool32.clone(),
+            torch.zeros((1, 1), dtype=torch.int32, device="cuda"), torch.ones(1, dtype=torch.int32, device="cuda"),
+            k_new=torch.zeros((1, 2, 32), device="cuda"), v_new=torch.zeros((1, 2, 32), device="cuda"),
             write_rows=torch.zeros(1, dtype=torch.int32, device="cuda"),
         )
     z = torch.zeros((1, 9, 8, 64), device="cuda")
@@ -245,12 +266,18 @@ def test_kernel_wrappers_refuse_unsupported_shapes(gen):
     with pytest.raises(ValueError, match="multiple of 8"):
         paged_attention_multi_fused(z[:, :4], pool12, pool12.clone(), *args, k_new=kv9[:, :4], v_new=kv9[:, :4],
                                     write_rows=torch.zeros((1, 4), dtype=torch.int32, device="cuda"))
+    # T 8 x n_rep 9 = 72 query rows per kv head, past the 64 the kernels take
+    z72 = torch.zeros((1, 8, 18, 64), device="cuda")
+    kv8 = torch.zeros((1, 8, 2, 64), device="cuda")
+    with pytest.raises(ValueError, match=r"T \* n_rep = 8 \* 9"):
+        paged_attention_multi_fused(z72, pool, pool.clone(), *args, k_new=kv8, v_new=kv8,
+                                    write_rows=torch.zeros((1, 8), dtype=torch.int32, device="cuda"))
 
 
-def qkv_segs(gen, dtype, b, s, hq, hkv, segs):
-    q = torch.randn((b, s, hq, 64), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((b, s, hkv, 64), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((b, s, hkv, 64), generator=gen, device="cuda").to(dtype)
+def qkv_segs(gen, dtype, b, s, hq, hkv, segs, d=64):
+    q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
     seg = None
     if segs:
         seg = torch.zeros((b, s), dtype=torch.int32, device="cuda")
@@ -260,14 +287,16 @@ def qkv_segs(gen, dtype, b, s, hq, hkv, segs):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq,hkv", [(8, 8), (8, 4), (8, 2), (8, 1), (32, 8)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("hq,hkv", HEADS)
 @pytest.mark.parametrize("s,causal,segs", [(77, True, False), (200, False, False), (130, True, True), (64, False, True),
                                            (1, True, False), (65, True, False), (65, False, True)])
-def test_flash_backward_kernel_matches_plain(gen, dtype, hq, hkv, s, causal, segs):
-    """dq, dk, dv against the plain backward: one row, a row past a tile (65),
-    ragged tiles, every GQA ratio. No atomics: a second launch gives the same
-    bits."""
-    q, k, v, seg = qkv_segs(gen, dtype, 2, s, hq, hkv, segs)
+def test_flash_backward_kernel_matches_plain(gen, dtype, d, hq, hkv, s, causal, segs):
+    """dq, dk, dv against the plain backward: one row, a row past a tile (65;
+    at head_dim 128 the f32 kernels' 32-row tiles also meet 33 and 97),
+    ragged tiles, every GQA ratio. No atomics: a second launch gives the
+    same bits."""
+    q, k, v, seg = qkv_segs(gen, dtype, 2, s, hq, hkv, segs, d)
     o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
     do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
     before = _build.launch_counts["flash_attention_bwd"]
@@ -404,7 +433,9 @@ def test_cross_entropy_kernels_refuse_unsupported_shapes(gen):
         cross_entropy_de_gemm_kernel(dl, h)
 
 
-def test_small_model_loss_and_grads_kernels_match_plain(gen):
+# (D, q heads, kv heads): head_dim 64 with D a multiple of 128; head_dim 128 with n_rep 3, as 3B
+@pytest.mark.parametrize("d,hq,hkv", [(128, 2, 1), (384, 3, 1)])
+def test_small_model_loss_and_grads_kernels_match_plain(gen, d, hq, hkv):
     """One f32 micro-batch through make_loss_fn on the card (the kernels) and
     on the CPU (the plain versions, chosen by device): same loss, same
     gradients (1e-4 of each leaf's largest entry)."""
@@ -414,7 +445,7 @@ def test_small_model_loss_and_grads_kernels_match_plain(gen):
     from ssi_tpu_torch.train.step import make_loss_fn
 
     cfg = get_model_config("tiny_test")
-    cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads = 128, 2, 1  # head_dim 64, D a multiple of 128
+    cfg.embed_dim, cfg.num_heads, cfg.num_kv_heads = d, hq, hkv
     params = init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     tokens = torch.randint(1, cfg.vocab_size, (2, 80), generator=gen, device="cuda", dtype=torch.int32)
     labels = tokens.clone()

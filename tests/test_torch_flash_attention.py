@@ -1,6 +1,7 @@
 """The port's flash_attention (the plain version the CPU takes) against the
 JAX Pallas kernel in interpret mode and against ``xla_attention``, with the
-cases of tests/test_flash_attention.py; f32, 2e-5. The lse it returns is
+cases of tests/test_flash_attention.py and head_dim-128 cases at the GQA
+ratios of Llama 3.2 3B (3) and 3.1 8B (4); f32, 2e-5. The lse it returns is
 checked against a numpy logsumexp."""
 
 import numpy as np
@@ -48,6 +49,12 @@ CASES = {
     "gqa": (dict(hq=8, hkv=2), True, None, 128, None),
     "mha": (dict(hq=4, hkv=4, seed=1), True, None, 128, None),
     "segments": (dict(b=1, s=128), True, "halves", 64, None),
+    # head_dim 128: Llama 3.2 3B's 3 q heads per kv head, Llama 3.1 8B's 4
+    "hd128_nrep3": (dict(hq=6, hkv=2, d=128), True, None, 128, None),
+    "hd128_nrep3_grouped": (dict(hq=6, hkv=2, d=128, seed=2), True, None, 128, True),
+    "hd128_nrep4": (dict(hq=8, hkv=2, d=128, seed=3), True, None, 128, None),
+    "hd128_nrep4_full": (dict(hq=8, hkv=2, d=128, seed=4), False, None, 128, None),
+    "hd128_nrep3_segments": (dict(b=1, s=128, hq=6, hkv=2, d=128, seed=5), True, "halves", 64, None),
 }
 
 
@@ -85,6 +92,25 @@ def test_flash_rejects_bad_shapes():
     q, k, v = map(torch.from_numpy, make_qkv(b=1, s=16))
     with pytest.raises(ValueError, match="segment_ids"):
         flash_attention(q, k, v, segment_ids=torch.zeros((1, 8), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_matches_the_jax_bf16_kernel(d):
+    """bf16 operands at head_dim 64 and 128 (3B's n_rep 3) against the JAX
+    bf16 Pallas kernel in interpret mode: within 1e-2 in relative norm (the
+    bf16 limit of chip_smoke.py). The JAX wrapper rounds q/sqrt(d) to bf16
+    before its kernel, exact at head_dim 64 (1/8), a rounding at 128; the
+    port scales the f32 scores instead, and both stay within the bound of
+    the f32 result."""
+    q, k, v = make_qkv(b=1, s=128, hq=6, hkv=2, d=d, seed=11)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jflash(*(jnp.asarray(x, dtype=jnp.bfloat16) for x in (q, k, v)), block_q=64)).astype(
+            np.float32)
+    got = flash_attention(*(torch.from_numpy(x).bfloat16() for x in (q, k, v))).float().numpy()
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-2
+    o32 = flash_attention(*map(torch.from_numpy, (q, k, v))).numpy()
+    np.testing.assert_allclose(got, o32, rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(want, o32, rtol=2e-2, atol=2e-2)
 
 
 def test_flash_bf16_within_jax_bf16_bound():

@@ -64,6 +64,24 @@ d. the generation entry point: a ``step_0/`` under
    > 0 for the run; every record's tokens equal a direct engine call on the
    same prompts and loaded parameters; prints the load GB/s, tokenization,
    warm-up and generate times and the records' tok/s;
+i. the serving entry point over HTTP, on phase d's ``step_0/`` before it is
+   deleted: ``python -m ssi_tpu_torch.cli.serve model=<step_0>
+   server.port=<free>`` as a subprocess with ``conf/serve.yaml`` as it
+   stands (32 slots, ``max_cache_len`` 4096, the prefix cache,
+   ``prefill_chunk`` 512, features sample,topk,topp; ``speech.n_dsus`` from a
+   training-config snapshot beside the checkpoint); two warm-up requests;
+   four of phase 5's prompts one at a time; then phase 5's 64 prompts
+   streamed from 32 client threads at once (every response 200 and ending
+   in ``[DONE]``; pages balance at idle); a string prompt, a chat request, a
+   streamed chat equal to it, a stop string, ``temperature 1, seed 5`` twice
+   equal, ``n: 2`` refused naming A3; SIGINT, exit 0, and the server's
+   launch counts show #1 and #8; the four sequential requests equal, token
+   for token, a direct engine built as ``run_server`` builds it on the same
+   weights and fed the same requests in the same order. Prints tok/s over
+   HTTP beside phases 5 and d, TTFT p50/p90/max, start-to-``/health``
+   seconds, how the 64 prompts' prefill split between #1 and the plain
+   suffix pass, ``/metrics``, and the device memory in use (which must not
+   grow by 1 GiB after the 64 requests);
 6. flash-attention backward kernel vs its plain version (dq, dk, dv; f32 and
    bf16; causal, full, segment ids) at B 4, S 768 and the training shape
    B 2, S 2048, with the plain gradients at lse + 0.05 as the control; dq,
@@ -174,8 +192,8 @@ h. Llama 3.1 8B serving at full width (32 layers, D 4,096, FFN 14,336, an
    #9 launched); then f32 greedy at 8B width with the depth cut to 2
    layers, tokens kernels == plain and == the oracle.
 
-``--only 1b,hd128,g,h`` runs the named groups alone while developing and
-prints no result line.
+``--only 1b,hd128,g,h`` runs the named groups alone while developing (1b:
+phases 2-f, phase i with them) and prints no result line.
 
 Tolerances: phases 2, 3 and a hold each output elementwise to ``TOL``
 (absolute and relative). Every kernel output is also held in relative norm,
@@ -186,7 +204,8 @@ result that must miss the same limit. The cross-entropy lse is held to
 gradient leaf to 1e-4 of its largest entry.
 It then prints one JSON line with per-kernel results (errors, times, the
 bound computed from this run's shapes, the library yardstick, launches by
-path, ``wer_drive`` the sum over the drive's stage processes; the
+path, ``wer_drive`` the sum over the drive's stage processes and
+``serve_http`` the HTTP server process's; the
 head_dim-128 instances as rows of their own, ``<name>_hd128``, with the 3B
 and 8B paths' launches) and, last, the device line ``{"ok": true,
 "device": {...}}``.
@@ -996,7 +1015,7 @@ def flat_params(p) -> dict:
     return {**{k: v for k, v in p.items() if k != "layers"}, **p["layers"]}
 
 
-def phase_generate_cli(seed: int, smi: str, base_rate: float):
+def phase_generate_cli(seed: int, smi: str, base_tokens, base_rate: float):
     """Phase d: ``python -m ssi_tpu_torch.cli.generate``'s ``main``, run in this
     process on a synthesized ``step_0/`` (128,000-entry base tokenizer + 5,000
     DSUs + 2 modality tokens, random bf16 1B weights written through
@@ -1100,11 +1119,286 @@ def phase_generate_cli(seed: int, smi: str, base_rate: float):
             f"{stats['generate_s']:.2f} s, {n_tok} tokens = {rate:.0f} generated tok/s (phase 5: {base_rate:.0f}); "
             f"CLI wall {wall:.2f} s; {stops} stopped early; tokens equal to a direct engine call; on {smi}; "
             f"launches {launches}")
-        del eng, loaded
+        del eng
         torch.cuda.empty_cache()
-        return launches
+        # phase i serves this step_0/ over HTTP before it is deleted (no second checkpoint)
+        http_launches = phase_serve_http(seed, smi, step, tok_path, loaded, base_tokens, base_rate, rate)
+        del loaded
+        torch.cuda.empty_cache()
+        return launches, http_launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --- phase i: the serving entry point over HTTP ------------------------------------------------
+
+
+def http_opener():
+    """urllib without proxies: every request goes to this machine's own port."""
+    import urllib.request
+
+    return urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
+def http_json(opener, url: str, body: dict | None = None, timeout: float = 300) -> tuple[int, dict]:
+    """GET (``body`` None) or POST JSON; returns (status, decoded body), 4xx included."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with opener.open(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_stream(opener, url: str, body: dict, timeout: float = 300) -> dict:
+    """POST with ``stream: true`` and read the SSE events to ``[DONE]``: status,
+    the events, the tokens and seconds from the POST to the first event that
+    carries a token, and the request's wall seconds."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    out = {"events": [], "tokens": [], "ttft": None, "done": False}
+    with opener.open(req, timeout=timeout) as r:
+        out["status"] = r.status
+        for raw in r:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            payload = line[len("data: "):]
+            if payload == "[DONE]":
+                out["done"] = True
+                break
+            event = json.loads(payload)
+            check("choices" in event, f"stream error event: {event}")
+            ids = event["choices"][0].get("token_ids") or []
+            if ids and out["ttft"] is None:
+                out["ttft"] = time.perf_counter() - t0
+            out["tokens"] += ids
+            out["events"].append(event)
+    out["wall"] = time.perf_counter() - t0
+    return out
+
+
+def percentile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
+
+
+def phase_serve_http(seed: int, smi: str, step, tok_path, loaded, base_tokens, base_rate: float, gen_rate: float):
+    """Phase i: ``python -m ssi_tpu_torch.cli.serve model=<step_0>`` as a
+    subprocess (``conf/serve.yaml`` as it stands: 32 slots, ``max_cache_len``
+    4096, the prefix cache, ``prefill_chunk`` 512; ``speech.n_dsus`` from a
+    training-config snapshot beside the checkpoint), driven over HTTP."""
+    import concurrent.futures
+    import signal
+    import socket
+
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.cli.serve import CONF_DIR
+    from ssi_tpu_torch.config import compose
+    from ssi_tpu_torch.constants import TRAIN_CONFIG_FILENAME
+    from ssi_tpu_torch.generate.engine import SamplingParams
+    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+    from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
+
+    cfg = model_config()
+    root = step.parents[1]
+    (step.parent / TRAIN_CONFIG_FILENAME).write_text(f"speech:\n  n_dsus: {cfg.n_dsus}\n")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    argv = [f"model={step}", f"server.port={port}", f"tokenizer.path={tok_path}"]
+    scfg = compose(str(CONF_DIR), "serve", overrides=argv + [f"speech.n_dsus={cfg.n_dsus}"])  # what the server runs
+    counts_file, log_file = root / "serve_launches.jsonl", root / "serve.log"
+    env = {**os.environ, "SSI_TPU_TORCH_LAUNCH_COUNTS": str(counts_file), "PYTHONPATH": REPO}
+    opener = http_opener()
+    prompts = prompts_from_seed(seed + 1, 64, cfg.vocab_size)  # phase 5's 64 requests
+    warm = prompts_from_seed(seed + 9, 2, cfg.vocab_size)
+    gate = prompts[:4]
+
+    def device_used_gib() -> float:
+        free, total = torch.cuda.mem_get_info()
+        return (total - free) / 2**30
+
+    used = {"before": device_used_gib()}
+    t_phase = time.perf_counter()
+    with open(log_file, "w") as log_f:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "ssi_tpu_torch.cli.serve", *argv], cwd=REPO, env=env,
+                                stdout=log_f, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            check(proc.poll() is None, f"the server exited with {proc.returncode}:\n{log_file.read_text()[-3000:]}")
+            check(time.perf_counter() - t0 < 300, "the server did not answer /health within 300 s")
+            try:
+                if http_json(opener, url + "/health", timeout=5) == (200, {"status": "ok"}):
+                    break
+            except OSError:
+                time.sleep(0.2)
+        t_health = time.perf_counter() - t0
+
+        def post(body, path="/v1/completions"):
+            return http_json(opener, url + path, body)
+
+        for p in warm:  # not timed: the server process's CUDA and cuBLAS first-use costs
+            code, body = post({"prompt": p, "max_tokens": 16, "temperature": 0})
+            check(code == 200, f"warm-up: {code} {body}")
+        used["warm"] = device_used_gib()
+        # the hard gate's four requests, one at a time, first: with no concurrent
+        # traffic their prefill and decode are reproducible by a direct engine
+        gated = []
+        for p in gate:
+            code, body = post({"prompt": p, "max_tokens": 128, "temperature": 0})
+            check(code == 200, f"gate request: {code} {body}")
+            gated.append(body["choices"][0]["token_ids"])
+        _, before = http_json(opener, url + "/metrics")
+
+        # phase 5's 64 requests, streamed, from 32 client threads at once
+        t_all = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(32) as pool:
+            runs = list(pool.map(lambda p: http_stream(opener, url + "/v1/completions",
+                                                       {"prompt": p, "max_tokens": 128, "temperature": 0}), prompts))
+        wall = time.perf_counter() - t_all
+        used["after_64"] = device_used_gib()
+        for i, r in enumerate(runs):
+            check(r["status"] == 200 and r["done"], f"stream {i}: status {r['status']}, [DONE] {r['done']}")
+            final = r["events"][-1]
+            check(final["choices"][0]["finish_reason"] in ("stop", "length"), f"stream {i}: final {final}")
+            check(final["usage"]["completion_tokens"] == len(r["tokens"]) and 0 < len(r["tokens"]) <= 128,
+                  f"stream {i}: {len(r['tokens'])} tokens, usage {final['usage']}")
+            check(all(0 <= t < cfg.vocab_size for t in r["tokens"]), f"stream {i}: token out of vocab")
+        for _ in range(50):  # the last records free their slots before they are sent
+            _, after = http_json(opener, url + "/metrics")
+            if after["free_pages"] + after["cached_pages"] == after["n_pages"]:
+                break
+            time.sleep(0.1)
+        check(after["free_pages"] + after["cached_pages"] == after["n_pages"],
+              f"pages leaked at idle: {after['n_pages'] - after['free_pages'] - after['cached_pages']}")
+        n_tok = sum(len(r["tokens"]) for r in runs)
+        ttft = [r["ttft"] for r in runs]
+        same = sum(r["tokens"] == b[: len(r["tokens"])] for r, b in zip(runs, base_tokens))
+        delta = {k: after[k] - before[k] for k in ("prefill_rows", "prefill_pieces", "prefill_dispatches",
+                                                   "cached_prompt_tokens", "prompt_tokens", "prefill_token_area",
+                                                   "chunk_dispatches", "slot_chunks", "tokens_out", "dispatch_block_s",
+                                                   "prefill_block_s", "harvest_block_s")}
+        # decode slots filled: tokens out over the chunks' slot-steps (phase 5's slot_occupancy)
+        slot_steps = delta["chunk_dispatches"] * int(scfg.batch_size) * PagedDecodeEngine.__init__.__kwdefaults__["chunk"]
+        occupancy = delta["tokens_out"] / max(slot_steps, 1)
+        # which pass prefilled each prompt: a gate prompt's cached pages leave a
+        # suffix pass; more than prefill_chunk + 1 tokens go in chunked pieces;
+        # the rest through the flash kernel (#1)
+        ps, chunk = 128, 512
+        cached = [(len(p) - 1) // ps * ps if i < len(gate) else 0 for i, p in enumerate(prompts)]
+        via = ["suffix" if c else ("pieces" if len(p) - 1 > chunk else "flash") for p, c in zip(prompts, cached)]
+        tok_by = {k: sum(len(p) for p, v in zip(prompts, via) if v == k) for k in ("flash", "pieces", "suffix")}
+        check(delta["cached_prompt_tokens"] == sum(cached), f"cached prompt tokens {delta['cached_prompt_tokens']} "
+              f"!= the gate prompts' full pages {sum(cached)}")
+
+        # the text paths
+        code, plain_txt = post({"prompt": "the transcript of one two three", "max_tokens": 16})
+        check(code == 200 and isinstance(plain_txt["choices"][0]["text"], str)
+              and plain_txt["usage"]["prompt_tokens"] > 0, f"string prompt: {code} {plain_txt}")
+        text = plain_txt["choices"][0]["text"]
+        msgs = [{"role": "system", "content": "Transcribe the speech."}, {"role": "user", "content": "one two three"}]
+        code, chat = post({"messages": msgs, "max_tokens": 16}, "/v1/chat/completions")
+        check(code == 200 and chat["object"] == "chat.completion"
+              and isinstance(chat["choices"][0]["message"]["content"], str), f"chat: {code} {chat}")
+        chat_stream = http_stream(opener, url + "/v1/chat/completions", {"messages": msgs, "max_tokens": 16})
+        ev = chat_stream["events"]
+        check(chat_stream["status"] == 200 and chat_stream["done"] and ev[0]["choices"][0]["delta"] == {"role": "assistant"}
+              and ev[-1]["usage"]["completion_tokens"] == len(chat_stream["tokens"]), f"streamed chat: {ev[:1]} {ev[-1:]}")
+        check(chat_stream["tokens"] == chat["choices"][0]["token_ids"]
+              and "".join(e["choices"][0]["delta"].get("content") or "" for e in ev[1:-1])
+              == chat["choices"][0]["message"]["content"], "streamed chat differs from the same chat request")
+        stop_note = "no stop (text shorter than 4 characters)"
+        if len(text) >= 4:
+            stop = text[len(text) // 2 : len(text) // 2 + 2]
+            code, cut = post({"prompt": "the transcript of one two three", "max_tokens": 16, "stop": stop})
+            check(code == 200 and cut["choices"][0]["finish_reason"] == "stop"
+                  and cut["choices"][0]["text"] == text[: text.index(stop)], f"stop {stop!r}: {code} {cut}")
+            stop_note = f"stop {stop!r} cut {len(text)} characters to {len(cut['choices'][0]['text'])}"
+        sampled = [post({"prompt": gate[0][:64], "max_tokens": 16, "temperature": 1.0, "seed": 5}) for _ in range(2)]
+        check(all(c == 200 for c, _ in sampled)
+              and sampled[0][1]["choices"][0]["token_ids"] == sampled[1][1]["choices"][0]["token_ids"],
+              "temperature 1, seed 5 twice gave different tokens")
+        code, refused = post({"prompt": gate[0][:64], "max_tokens": 16, "n": 2, "temperature": 1.0})
+        check(code == 400 and "A3" in refused["error"]["message"], f"n: 2 gave {code} {refused}")
+        used["end"] = device_used_gib()
+        check(used["end"] - used["after_64"] < 1.0, f"device memory grew {used['end'] - used['after_64']:.2f} GiB "
+              "after the 64 requests")
+        _, final_metrics = http_json(opener, url + "/metrics")
+
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            raise RuntimeError("chip smoke check failed: the server did not exit within 60 s of SIGINT")
+        check(rc == 0, f"the server exited with {rc} on SIGINT:\n{log_file.read_text()[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = [json.loads(line) for line in counts_file.read_text().splitlines()]
+    check(len(lines) == 1 and lines[0]["entry_point"] == "serve", f"the server's launch-count lines: {lines}")
+    launches = lines[0]["launch_counts"]
+    for name in ("flash_attention_fwd", "paged_attention_fused"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the HTTP server")
+
+    # the hard gate: a direct engine built as run_server builds it, on the same
+    # weights, fed the warm-ups and then the four gate prompts one at a time
+    # through one stream (the same prefix-cache state as the server's)
+    tokenizer, _ = setup_llama3_tokenizer(tok_path, verbose=False)
+    eng = PagedDecodeEngine(
+        loaded, cfg, pad_id=tokenizer.pad_id, n_slots=int(scfg.batch_size), max_context=int(scfg.max_cache_len),
+        quantize=scfg.quantize_weights, speculate_k=int(scfg.speculate_k or 0),
+        prefix_caching=bool(scfg.prefix_caching), prefill_chunk=scfg.prefill_chunk,
+        admission_order=str(scfg.admission_order))
+    check(eng.attn_impl == "kernel" and eng.n_pages == after["n_pages"], "direct engine differs from the server's")
+    features = frozenset(f.strip() for f in str(scfg.server.sampling_features).split(",") if f.strip())
+    eng.begin_stream(SamplingParams.from_cfg(scfg.sampling_params, list(tokenizer.stop_tokens)), features=features)
+    direct = []
+    try:
+        for p, mt in [(p, 16) for p in warm] + [(p, 128) for p in gate]:
+            rid = eng.add_request(p, max_tokens=mt)
+            done = None
+            while done is None:
+                done = next((r["outputs"][0] for r in eng.step() if r["request_id"] == rid), None)
+            direct.append(done["token_ids"])
+    finally:
+        eng.end_stream()
+    for i, (a, b) in enumerate(zip(gated, direct[len(warm):])):
+        check(a == b, f"gate request {i}: the server's {len(a)} tokens differ from the direct engine's "
+              f"({next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))} agree)")
+    del eng
+    torch.cuda.empty_cache()
+    _build.launch_counts.clear()
+
+    s = final_metrics
+    log(f"phase i HTTP server (python -m ssi_tpu_torch.cli.serve, conf/serve.yaml: 32 slots, max_cache_len 4096, "
+        f"prefix cache, prefill_chunk 512; 1B bf16 step_0/): start to /health {t_health:.2f} s; 64 streamed "
+        f"requests x <= 128 greedy tokens from 32 client threads: {n_tok} tokens in {wall:.2f} s = "
+        f"{n_tok / wall:.0f} generated tok/s over HTTP (phase 5: {base_rate:.0f}, phase d: {gen_rate:.0f}); "
+        f"TTFT p50 {percentile(ttft, 0.5):.3f} s, p90 {percentile(ttft, 0.9):.3f} s, max {max(ttft):.3f} s; "
+        f"decode slot occupancy {occupancy:.3f}; host time blocked in the 64's chunk dispatches "
+        f"{delta['dispatch_block_s']:.2f} s, prefill dispatches {delta['prefill_block_s']:.2f} s, harvest reads "
+        f"{delta['harvest_block_s']:.3f} s; phase wall {time.perf_counter() - t_phase:.1f} s; on {smi}")
+    log(f"  phase i prefill of the 64: prompts by pass {dict((k, via.count(k)) for k in tok_by)}, prompt tokens by "
+        f"pass {tok_by} ({tok_by['flash'] / sum(tok_by.values()):.3f} through #1); counters: {delta}")
+    log(f"  phase i /metrics at the end: {s}")
+    log(f"  phase i 4 gate requests one at a time == a direct engine run, token for token; {same}/64 streams equal "
+        f"to phase 5's tokens (bf16, timing-dependent batches: reported, not required); string prompt, chat, "
+        f"streamed chat == chat, {stop_note}, seed 5 twice equal, n 2 refused naming A3; device memory in use "
+        f"{', '.join(f'{k} {v:.2f} GiB' for k, v in used.items())}; server launches {launches}")
+    return launches
 
 
 def phase_flash_bwd(gen, hq=32, hkv=8, d=64, shapes=((4, 768), (2, 2048)), row=(2, 2048),
@@ -2373,7 +2667,7 @@ def main() -> int:
         phase_spec_f32(args.seed)
         serve_launches, base_tokens, base_rate = phase_engine_bf16(args.seed, smi)
         spec_launches = phase_spec_serving(args.seed, smi, base_tokens, base_rate)
-        gen_launches = phase_generate_cli(args.seed, smi, base_rate)
+        gen_launches, http_launches = phase_generate_cli(args.seed, smi, base_tokens, base_rate)
         rows["flash_attention_bwd"] = phase_flash_bwd(gen)
         rows.update(phase_cross_entropy(gen, model_config().vocab_size))
         phase_train_parity(args.seed)
@@ -2403,7 +2697,7 @@ def main() -> int:
         by_path = {"serve": serve_launches.get(name, 0), "spec_serve": spec_launches.get(name, 0),
                    "generate": gen_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "train_cli": train_cli_launches.get(name, 0), "int8_serve": int8_launches.get(name, 0),
-                   "wer_drive": drive_launches.get(name, 0)}
+                   "wer_drive": drive_launches.get(name, 0), "serve_http": http_launches.get(name, 0)}
         if name.startswith("cross_entropy"):  # one instance for every D: 3B's training launches it too
             by_path["train_3b"] = launches_big["train_3b"].get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",

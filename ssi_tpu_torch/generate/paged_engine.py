@@ -81,6 +81,13 @@ def _not_ported(option: str, item: str) -> NotImplementedError:
     )
 
 
+def _tree_bytes(tree: Any) -> int:
+    """Bytes of every tensor in a nested dict of tensors."""
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
 def _derive_features(sp: SamplingParams) -> frozenset:
     """Minimum feature set a SamplingParams needs (top-k/top-p are irrelevant
     under greedy decoding: argmax is truncation-invariant)."""
@@ -293,7 +300,7 @@ class PagedDecodeEngine:
         mesh: Any = None,
     ):
         if mesh is not None:
-            raise _not_ported("mesh (tensor-parallel serving)", "9 (parallel)")
+            raise _not_ported("mesh (tensor-parallel serving)", "A9 (parallel and sharded state)")
         if quantize == "int8":
             # weight-only int8 for the layer stack; greedy outputs are NOT
             # bitwise vs bf16 (see generate/quant.py)
@@ -338,6 +345,9 @@ class PagedDecodeEngine:
         self.chunk = chunk
         self.n_pages = n_pages if n_pages is not None else n_slots * self.max_pages_per_seq
         self.pools = init_pools(cfg, self.n_pages, page_size, dtype=params["embed"].dtype, device=self.device)
+        # roofline accounting: the bytes one read of the weights costs (int8
+        # layers count their int8 data and scales: whatever the tree holds)
+        self._weight_bytes = _tree_bytes(params)
         self._free_pages: list[int] = list(range(self.n_pages))
         self._page_refs = np.zeros(self.n_pages, np.int32)
         # prefix cache: chain hash <-> logical page (1:1); a cached page whose
@@ -472,7 +482,7 @@ class PagedDecodeEngine:
         if sp.max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
         if sp.n != 1:
-            raise _not_ported("sampling_params.n > 1", "3 (n>1 sampling, pipelined harvest)")
+            raise _not_ported("sampling_params.n > 1", "A3 (n>1 sampling, pipelined harvest)")
         feats = frozenset(features) if features is not None else frozenset()
         unknown = feats - SAMPLING_FEATURES
         if unknown:
@@ -521,6 +531,7 @@ class PagedDecodeEngine:
         if self.speculate_k > 0:
             # row n_slots = trash (pad prefill rows), column max_context = trash (masked emits)
             st.hist = torch.zeros((n + 1, self.max_context + 1), dtype=torch.int32, device=dev)
+        # the JAX engine's keys, in its order (the server's /metrics returns them)
         st.stats = self.last_stats = {
             "chunk_dispatches": 0,
             "slot_chunks": 0,          # sum over dispatches of runnable slots
@@ -529,10 +540,16 @@ class PagedDecodeEngine:
             "prefill_pieces": 0,       # chunked-prefill piece rows dispatched
             "prefill_token_area": 0,   # sum of group * bucket (padded work)
             "prompt_tokens": 0,
-            "cached_prompt_tokens": 0,  # prompt tokens served from the prefix cache
             "tokens_out": 0,
             "preemptions": 0,
+            "pages_shared": 0,         # prefix pages referenced instead of copied (n>1: 0 until A3)
+            "cached_prompt_tokens": 0,  # prompt tokens served from the prefix cache
+            "dispatch_block_s": 0.0,   # host time to build and enqueue decode chunks
+            "prefill_block_s": 0.0,    # host time to enqueue prefill passes
+            "harvest_block_s": 0.0,    # blocked in the chunk results' device-to-host read
             "verify_steps": 0,         # spec mode: advancing verify forwards, summed over slots
+            "kv_bytes": 0.0,           # roofline: KV page bytes decode chunks read
+            "weight_bytes": 0.0,       # roofline: weight bytes streamed (decode + prefill)
             "wall_s": 0.0,
         }
         st.t_start = time.perf_counter()
@@ -557,18 +574,24 @@ class PagedDecodeEngine:
         if sampling is not None:
             missing = _derive_features(sampling) - st.features
             if missing:
+                # the texts of these two refusals are the JAX engine's, word for
+                # word: the HTTP server returns them to the client as 400s
                 raise ValueError(
-                    f"Per-request sampling needs features {sorted(missing)} not opened on this "
-                    f"stream (features={sorted(st.features)}); pass them to begin_stream(features=...)"
+                    f"Per-request sampling needs features {sorted(missing)} not compiled "
+                    f"into this stream (features={sorted(st.features)}); pass them to "
+                    f"begin_stream(features=...) up front"
                 )
             if sampling.n != 1:
-                raise _not_ported("sampling.n > 1", "3 (n>1 sampling, pipelined harvest)")
+                raise _not_ported("sampling.n > 1", "A3 (n>1 sampling, pipelined harvest)")
             if self.speculate_k > 0 and (sampling.temperature != 0.0 or sampling.uses_penalties):
                 raise ValueError("speculate_k > 0 streams are greedy-only; per-request sampling unavailable")
             if max_tokens is None and sampling.max_tokens != sp.max_tokens:
                 max_tokens = sampling.max_tokens
         if max_tokens is not None and not 1 <= max_tokens <= sp.max_tokens:
-            raise ValueError(f"Per-request max_tokens ({max_tokens}) must be in [1, stream max_tokens = {sp.max_tokens}]")
+            raise ValueError(
+                f"Per-request max_tokens ({max_tokens}) must be in [1, stream "
+                f"max_tokens = {sp.max_tokens}] (one compiled program per stream)"
+            )
         mt = max_tokens if max_tokens is not None else sp.max_tokens
         if len(prompt) == 0:
             raise ValueError("Prompt is empty")
@@ -779,14 +802,17 @@ class PagedDecodeEngine:
                 own_n = own_bucket // self.page_size
                 page_ids[r, :own_n] = self._page_table[slot_id, :own_n]
                 slot_ids[r] = slot_id
+            t0 = time.perf_counter()
             prefill_prompts(
                 self.params, torch.from_numpy(tokens).to(self.device), self.cfg, self.pools,
                 torch.from_numpy(page_ids).to(self.device), n_pages=self.n_pages, attn_impl=self.attn_impl,
                 hist=st.hist if spec else None, slot_ids=torch.from_numpy(slot_ids).to(self.device) if spec else None,
             )
+            st.stats["prefill_block_s"] += time.perf_counter() - t0
             st.stats["prefill_dispatches"] += 1
             st.stats["prefill_rows"] += len(batch)
             st.stats["prefill_token_area"] += g * bucket
+            st.stats["weight_bytes"] += self._weight_bytes
 
         # suffix passes: merge contiguous runs of one suffix bucket only, so
         # the dispatch order keeps admission order (writer before reader)
@@ -856,6 +882,7 @@ class PagedDecodeEngine:
             upto = min(n_new, n_owned - cn)
             new_ids[r, :upto] = self._page_table[slot_id, cn : cn + upto]
         dev = self.device
+        t0 = time.perf_counter()
         hist_kw = {}
         if self.speculate_k > 0 and with_hist:
             full_tokens, slot_ids = self._full_prompts([sid for sid, _, _ in batch])
@@ -865,9 +892,11 @@ class PagedDecodeEngine:
             self.params, torch.from_numpy(tokens).to(dev), torch.from_numpy(start).to(dev), self.cfg, self.pools,
             torch.from_numpy(table).to(dev), torch.from_numpy(new_ids).to(dev), n_pages=self.n_pages, **hist_kw,
         )
+        st.stats["prefill_block_s"] += time.perf_counter() - t0
         st.stats["prefill_dispatches"] += 1
         st.stats["prefill_rows"] += g
         st.stats["prefill_token_area"] += g * s_bucket
+        st.stats["weight_bytes"] += self._weight_bytes
 
     def _advance_prefills(self) -> None:
         """Dispatch ONE piece per chunk-prefilling slot (batched by piece
@@ -936,9 +965,9 @@ class PagedDecodeEngine:
         )
         return np.concatenate([cols, self._page_table], axis=1)
 
-    def _run_chunk(self, st: _Stream, control_np: np.ndarray, any_samp: bool) -> np.ndarray:
+    def _run_chunk(self, st: _Stream, control_np: np.ndarray, any_samp: bool) -> torch.Tensor:
         """``chunk`` decode steps for every slot on the device; returns the
-        packed host view ``[slots, 2*chunk + 3]`` int32: [emitted tokens |
+        packed device tensor ``[slots, 2*chunk + 3]`` int32: [emitted tokens |
         per-token logprobs (f32 bits) | done | seq_len | clp (f32 bits)]."""
         cfg, feats = self.cfg, st.features
         control = torch.from_numpy(control_np).to(self.device)
@@ -1003,14 +1032,14 @@ class PagedDecodeEngine:
             ],
             dim=1,
         )
-        return packed.cpu().numpy()
+        return packed
 
-    def _run_chunk_spec(self, st: _Stream, control_np: np.ndarray) -> np.ndarray:
+    def _run_chunk_spec(self, st: _Stream, control_np: np.ndarray) -> torch.Tensor:
         """``chunk`` speculative steps for every slot on the device: each
         drafts k tokens per slot from its history (most recent bigram match),
         verifies all k+1 in one forward, and emits the longest argmax-matching
         prefix plus one token, cut at a stop token or the budget. Returns the
-        packed host view ``[slots, chunk*(k+1) + 4]`` int32: [emitted tokens,
+        packed device tensor ``[slots, chunk*(k+1) + 4]`` int32: [emitted tokens,
         compacted at each slot's cursor | done | seq_len | clp (f32 bits) |
         verify steps]."""
         dev, pad = self.device, self.pad_id
@@ -1092,7 +1121,7 @@ class PagedDecodeEngine:
              clp.view(torch.int32)[:, None], nstep[:, None]],
             dim=1,
         )
-        return packed.cpu().numpy()
+        return packed
 
     def _harvest(self, packed: np.ndarray, runnable: list[int]) -> None:
         st = self._st
@@ -1204,15 +1233,30 @@ class PagedDecodeEngine:
         runnable = self._runnable()
         if not runnable:
             return
+        t0 = time.perf_counter()
         if self.speculate_k > 0:
             packed = self._run_chunk_spec(st, self._control(st))
         else:
             any_samp = bool(np.any(st.slot_temp[runnable] > 0.0))
             packed = self._run_chunk(st, self._control(st), any_samp)
         st.admit[:] = 0  # consumed by this dispatch
+        st.stats["dispatch_block_s"] += time.perf_counter() - t0
         st.stats["chunk_dispatches"] += 1
         st.stats["slot_chunks"] += len(runnable)
+        if self.speculate_k == 0:
+            # roofline accounting, as the JAX engine counts it (not in spec
+            # mode, whose window reads vary with acceptance): each step reads
+            # the weights once and each runnable slot's page-rounded history
+            hl = np.array([self._slots[i].seq_len for i in runnable], np.int64)
+            pages = -(-(hl[:, None] + np.arange(self.chunk, dtype=np.int64)[None, :]) // self.page_size)
+            kvd = self.cfg.num_kv_heads * self.cfg.head_dim
+            st.stats["kv_bytes"] += (float(pages.sum()) * self.page_size * kvd
+                                     * self.pools["k"].element_size() * 2 * self.cfg.num_layers)
+            st.stats["weight_bytes"] += self.chunk * self._weight_bytes
         st.suspend_admission = False  # a chunk ran: progress is real
+        t0 = time.perf_counter()
+        packed = packed.cpu().numpy()  # the one synchronous read of the chunk's results
+        st.stats["harvest_block_s"] += time.perf_counter() - t0
         self._harvest(packed, runnable)
 
     def _runnable(self) -> list[int]:

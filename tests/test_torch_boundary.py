@@ -1,6 +1,6 @@
 """The port's boundary: it never imports jax, runs on the CPU without it,
-and its GPU entry points (serving, generation, extension and training) refuse
-to run without a GPU or a CUDA toolkit."""
+and its GPU entry points (the engine, the HTTP server, generation, extension
+and training) refuse to run without a GPU or a CUDA toolkit."""
 
 import os
 import re
@@ -271,6 +271,110 @@ def test_wer_clis_and_drive_run_with_the_host_libraries_blocked(tmp_path):
         "--grad-accum", "1", "--decode-slots", "8")
     summary = json.loads((art / "summary.json").read_text())
     assert {"wer_bf16", "wer_int8", "spelling_map_sha256"} <= set(summary)
+
+
+_SERVE_RUN = """
+import runpy, sys
+sys.argv = ["ssi_tpu_torch.cli.serve", *sys.argv[1:]]
+runpy.run_module("ssi_tpu_torch.cli.serve", run_name="__main__")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in NAMES)
+assert loaded == [], loaded
+print("SERVE_OK", flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _serve_args(model_dir: Path, port: int) -> list[str]:
+    return [f"model={model_dir}", "model_config=tiny_test", "speech.n_dsus=16",
+            f"tokenizer.path={model_dir / 'original' / 'tokenizer.model'}", "dtype=fp32", "batch_size=2",
+            "max_cache_len=256", f"server.port={port}"]
+
+
+def test_serving_cli_runs_with_the_card_libraries_blocked(tmp_path):
+    """``python -m ssi_tpu_torch.cli.serve model=<tiny step dir> +device=cpu
+    server.port=<free>`` starts with every library of ``_NOT_ON_THE_CARD``
+    blocked from import, answers ``/health`` and a greedy completion equal to
+    the naive oracle, exits 0 on SIGINT after writing its launch-count line,
+    and loaded neither jax nor ``ssi_tpu``."""
+    import json
+    import signal
+    import time
+    import urllib.request
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from ssi_tpu.models.llama3 import init_params
+    from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
+    from tests import helpers
+
+    model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "step_0")
+    block = tmp_path / "block"
+    block.mkdir()
+    (block / "sitecustomize.py").write_text(_BLOCKER.format(names=repr(set(_NOT_ON_THE_CARD))))
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    counts = tmp_path / "launches.jsonl"
+    env.update(PYTHONPATH=f"{block}{os.pathsep}{REPO}", OMP_NUM_THREADS="2", SSI_TPU_TORCH_LAUNCH_COUNTS=str(counts))
+    port = _free_port()
+    args = _serve_args(model_dir, port)
+    code = _SERVE_RUN.replace("NAMES", repr(_NOT_ON_THE_CARD))
+    proc = subprocess.Popen([sys.executable, "-c", code, *args, "+device=cpu"], cwd=tmp_path, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        for _ in range(600):
+            assert proc.poll() is None, proc.communicate()[1][-3000:]
+            try:
+                with urllib.request.urlopen(url + "/health", timeout=5) as r:
+                    assert json.loads(r.read()) == {"status": "ok"}
+                break
+            except OSError:
+                time.sleep(0.1)
+        prompt = [5, 17, 42, 99, 3, 250, 7]
+        req = urllib.request.Request(url + "/v1/completions", headers={"Content-Type": "application/json"},
+                                     data=json.dumps({"prompt": prompt, "max_tokens": 6}).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = json.loads(r.read())
+    finally:
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=120)
+    assert proc.returncode == 0, err[-3000:]
+    assert "SERVE_OK" in out and f"serving on http://127.0.0.1:{port}" in out
+    cfg = helpers.tiny_config()
+    want = helpers.naive_greedy(init_params(cfg, jax.random.key(0), dtype=jnp.float32), cfg, prompt, 6)
+    got = body["choices"][0]["token_ids"]
+    stops = set(setup_llama3_tokenizer(model_dir / "original" / "tokenizer.model", verbose=False)[0].stop_tokens)
+    k = next((i for i, t in enumerate(want) if t in stops), None)
+    assert got == (want if k is None else want[: k + 1]), (got, want)
+    assert np.asarray(got).max() < cfg.vocab_size
+    assert json.loads(counts.read_text().splitlines()[-1])["entry_point"] == "serve"
+
+
+def test_serving_cli_refuses_without_a_card(tmp_path):
+    """Without ``+device=cpu`` and with no CUDA device, the serving CLI
+    refuses before it loads the tokenizer or the checkpoint (no CPU fallback)."""
+    import torch
+
+    from tests import helpers
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible; this checks the no-GPU refusal")
+    model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "step_0")
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-m", "ssi_tpu_torch.cli.serve", *_serve_args(model_dir, _free_port())],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "+device=cpu" in proc.stderr
+    assert "Loaded Llama 3 tokenizer" not in proc.stdout and "Loading from checkpoint" not in proc.stdout
+    assert "serving on" not in proc.stdout
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):

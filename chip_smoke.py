@@ -52,6 +52,28 @@ c. the serving path with speculation: phase 5's requests with
    counters are > 0; tok/s, tokens per verify step and the token agreement
    with phase 5 (bf16: the T-token verify GEMMs round unlike the 1-token
    step, so agreement is reported, not required);
+j. ``n > 1`` parallel sampling and the pipeline depth (the engine's
+   default, 2, runs every serving phase):
+   j2. #8 vs its plain version on a page table in which each gang of 4
+   slots shares its prompt's read-only pages and owns the boundary page
+   (copied from the leader's by ``copy_pages``, checked equal in all 16
+   layers) and the pages after it; 32 slots, 32 q / 8 kv heads, hd 64,
+   f32 and bf16: attention within phase 3's tolerances beside a control,
+   the written pools equal the plain version's, no shared page changed;
+   j4. f32 at 1B width with the depth cut to 2 layers, the kernels: depth 2
+   tokens == depth 1's, n=3 greedy == the n=1 stream, a seeded n=3 sampled
+   stream (temperature 0.8) reproduces itself with its siblings apart,
+   top-k 1 == greedy;
+   j1. 16 of phase 5's prompts as n=4 greedy gangs on phase 5's random
+   bf16 1B weights (32 slots, 128 tokens): every gang's siblings equal token
+   for token, ``pages_shared`` == sum 3 x floor((p-1)/128) (the pool holds
+   8 gangs at once: none splits), pages balance, #1 and #8 launched (the
+   kernels line's ``launches_by_path["serve_n"]``); tok/s;
+   j3. phase 5's 64 requests at pipeline depth 1 and 2, in turns (1, 2, 2,
+   1), each on a fresh engine after phase 5's warm-up: tok/s, harvest wait,
+   dispatch and prefill enqueue seconds, slot occupancy, chunk dispatches
+   and the requests equal to phase 5's tokens, per run (no gate: bf16
+   batches depend on timing at depth 2);
 d. the generation entry point: a ``step_0/`` under
    ``<tmp>/experiments/run/checkpoints/`` (a 128,000-entry base tokenizer
    extended with 5,000 DSUs and 2 modality tokens, random bf16 1B weights
@@ -62,8 +84,10 @@ d. the generation entry point: a ``step_0/`` under
    reads back to the resolved config; the loaded parameters equal the
    written ones bitwise; the flash and paged kernels' launch counters are
    > 0 for the run; every record's tokens equal a direct engine call on the
-   same prompts and loaded parameters; prints the load GB/s, tokenization,
-   warm-up and generate times and the records' tok/s;
+   same prompts and loaded parameters when both prefilled in the same
+   admission rounds (recorded around ``_prefill_admitted``; otherwise every
+   record of a matching round, and the rounds print); prints the load GB/s,
+   tokenization, warm-up and generate times and the records' tok/s;
 i. the serving entry point over HTTP, on phase d's ``step_0/`` before it is
    deleted: ``python -m ssi_tpu_torch.cli.serve model=<step_0>
    server.port=<free>`` as a subprocess with ``conf/serve.yaml`` as it
@@ -74,7 +98,8 @@ i. the serving entry point over HTTP, on phase d's ``step_0/`` before it is
    streamed from 32 client threads at once (every response 200 and ending
    in ``[DONE]``; pages balance at idle); a string prompt, a chat request, a
    streamed chat equal to it, a stop string, ``temperature 1, seed 5`` twice
-   equal, ``n: 2`` refused naming A3; SIGINT, exit 0, and the server's
+   equal, and (after the gate requests) an ``n: 4`` greedy request answered
+   with 4 equal choices; SIGINT, exit 0, and the server's
    launch counts show #1 and #8; the four sequential requests equal, token
    for token, a direct engine built as ``run_server`` builds it on the same
    weights and fed the same requests in the same order. Prints tok/s over
@@ -184,16 +209,16 @@ g. Llama 3.2 3B through the entry points at full width (28 layers, D 3,072,
    the generation CLI from ``step_4/`` on 64 rows in bf16 and with
    ``quantize_weights=int8`` (every record finished; flash and #8
    launched); about 33 GB of disk at its peak, deleted as it goes;
-h. Llama 3.1 8B serving at full width (32 layers, D 4,096, FFN 14,336, an
-   untied ``lm_head``, rope ``scale_factor`` 8; random bf16 weights, 16 GB,
-   initialised on the card): phase 5's 64 requests x 128 greedy tokens at
-   32 slots, then with ``speculate_k=3``, the prefix cache and
+h. Llama 3.1 8B serving at full width (D 4,096, FFN 14,336, an untied
+   ``lm_head``, rope ``scale_factor`` 8), the depth cut to 16 of 32 layers
+   (random bf16 weights, about 9.2 GB, initialised on the card): phase 5's
+   64 requests x 128 greedy tokens at 32 slots, then with ``speculate_k=3``, the prefix cache and
    ``prefill_chunk=512`` (every request finishes, pages balance, #1, #8 and
    #9 launched); then f32 greedy at 8B width with the depth cut to 2
    layers, tokens kernels == plain and == the oracle.
 
 ``--only 1b,hd128,g,h`` runs the named groups alone while developing (1b:
-phases 2-f, phase i with them) and prints no result line.
+phases 2-f, phases i and j with them) and prints no result line.
 
 Tolerances: phases 2, 3 and a hold each output elementwise to ``TOL``
 (absolute and relative). Every kernel output is also held in relative norm,
@@ -204,8 +229,8 @@ result that must miss the same limit. The cross-entropy lse is held to
 gradient leaf to 1e-4 of its largest entry.
 It then prints one JSON line with per-kernel results (errors, times, the
 bound computed from this run's shapes, the library yardstick, launches by
-path, ``wer_drive`` the sum over the drive's stage processes and
-``serve_http`` the HTTP server process's; the
+path, ``wer_drive`` the sum over the drive's stage processes,
+``serve_http`` the HTTP server process's and ``serve_n`` phase j1's; the
 head_dim-128 instances as rows of their own, ``<name>_hd128``, with the 3B
 and 8B paths' launches) and, last, the device line ``{"ok": true,
 "device": {...}}``.
@@ -351,7 +376,8 @@ def phase_build():
             kernel = _kernel_name(ln.split("'")[1])
         elif "registers" in ln or "spill" in ln:
             log(f"  ptxas {kernel}: {ln.strip()}")
-    log(f"phase 1 build: {_build.build_seconds:.1f} s (0.0 = cached library reused)")
+    log(f"phase 1 build: {_build.build_seconds:.1f} s (0.0 = cached library reused); each source's nvcc done "
+        f"after {', '.join(f'{k} {v:.1f} s' for k, v in _build.source_seconds.items())}")
 
 
 def phase_flash(gen, hq=32, hkv=8, d=64, shapes=((8, 768), (2, 768), (2, 2048)), row=(8, 768),
@@ -942,6 +968,211 @@ def phase_spec_serving(seed: int, smi: str, base_tokens, base_rate: float):
     return launches
 
 
+# --- phase j: n > 1 parallel sampling and the pipeline depth -----------------------------------
+
+
+def phase_gangs_and_depth(seed: int, smi: str, base_tokens, base_rate: float):
+    """Phases j1 and j3 on phase 5's random bf16 1B weights: 16 of phase 5's
+    prompts as n=4 greedy gangs, then phase 5's 64 requests at pipeline
+    depth 1 and 2, in turns. Returns the gang run's launches."""
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.generate.engine import SamplingParams
+    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+    from ssi_tpu_torch.models.llama3 import init_params
+
+    cfg = model_config()
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    prompts = prompts_from_seed(seed + 1, 64, cfg.vocab_size)
+    kw = dict(n_slots=32, page_size=128, prompt_bucket=128, chunk=16)
+
+    # j1: 16 prompts x n=4 greedy; the default pool (32 slots x 10 pages) holds
+    # 8 gangs of 4 at once, so no gang splits and no admission rolls back
+    gang = prompts[:16]
+    eng = PagedDecodeEngine(params, cfg, pad_id=0, **kw)
+    eng.generate_batch(prompts_from_seed(seed + 5, 4, cfg.vocab_size), SamplingParams(n=2, max_tokens=16))  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    outs = eng.generate_batch(gang, SamplingParams(n=4, temperature=0.0, max_tokens=128))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    check(len(outs) == 64, f"gangs: {len(outs)} outputs for 16 prompts x n 4")
+    for i in range(16):
+        seqs = [o["token_ids"] for o in outs[4 * i : 4 * i + 4]]
+        check(all(o["finish_reason"] == "length" for o in outs[4 * i : 4 * i + 4]) and len(seqs[0]) == 128,
+              f"gang {i}: not 4 x 128 tokens")
+        check(all(s == seqs[0] for s in seqs), f"gang {i}: the 4 greedy siblings differ")
+    s = dict(eng.last_stats)
+    want_shared = sum(3 * ((len(p) - 1) // 128) for p in gang)
+    check(s["pages_shared"] == want_shared, f"gangs: pages_shared {s['pages_shared']} != {want_shared}")
+    parked = len(eng._free_pages) + len(eng._cache_lru)
+    check(parked == eng.n_pages and not eng._page_refs.any(), f"gangs: pages leaked: {eng.n_pages - parked}")
+    for name in ("flash_attention_fwd", "paged_attention_fused"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the n > 1 path")
+    same5 = sum(outs[4 * i]["token_ids"] == base_tokens[i] for i in range(16))
+    n_tok = sum(len(o["token_ids"]) for o in outs)
+    log(f"phase j1 gangs bf16 (1B, 32 slots, 16 prompts of {min(map(len, gang))}-{max(map(len, gang))} tokens x "
+        f"n 4 x 128 greedy tokens): {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.0f} generated tok/s on {smi}; "
+        f"every gang's 4 siblings equal token for token; pages_shared {s['pages_shared']} == sum 3 x floor((p-1)/128); "
+        f"pages balance; {s['prefill_rows']} prefill rows for 64 sequences, {s['chunk_dispatches']} chunks, occupancy "
+        f"{s['slot_occupancy']:.3f}; {same5}/16 leaders equal to phase 5's tokens (bf16, other batches: reported); "
+        f"launches {launches}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # j3: phase 5's run at depth 1 and 2, in turns (each engine fresh, with
+    # phase 5's warm-up: its 8 prompts leave the same prefix-cache hits)
+    readings = {1: [], 2: []}
+    for depth in (1, 2, 2, 1):
+        eng = PagedDecodeEngine(params, cfg, pad_id=0, pipeline_depth=depth, **kw)
+        eng.generate_batch(prompts[:8], SamplingParams(max_tokens=16))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.generate_batch(prompts, SamplingParams(temperature=0.0, max_tokens=128))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(all(o["finish_reason"] == "length" and len(o["token_ids"]) == 128 for o in outs),
+              f"depth {depth}: a request did not finish with 128 tokens")
+        parked = len(eng._free_pages) + len(eng._cache_lru)
+        check(parked == eng.n_pages, f"depth {depth}: pages leaked: {eng.n_pages - parked}")
+        s = eng.last_stats
+        readings[depth].append({
+            "tok_s": sum(len(o["token_ids"]) for o in outs) / wall, "wall_s": wall,
+            "harvest_block_s": s["harvest_block_s"], "dispatch_block_s": s["dispatch_block_s"],
+            "prefill_block_s": s["prefill_block_s"], "slot_occupancy": s["slot_occupancy"],
+            "chunk_dispatches": s["chunk_dispatches"],
+            "equal_to_phase_5": sum(o["token_ids"] == b for o, b in zip(outs, base_tokens))})
+        del eng
+    for depth, runs in readings.items():
+        log(f"phase j3 depth {depth} (phase 5's 64 requests x 128 greedy tokens, 32 slots, chunk 16; runs in turns "
+            f"1, 2, 2, 1) on {smi}: " + "; ".join(
+                f"{r['tok_s']:.0f} tok/s ({r['wall_s']:.2f} s), harvest wait {r['harvest_block_s']:.3f} s, dispatch "
+                f"{r['dispatch_block_s']:.3f} s, prefill enqueue {r['prefill_block_s']:.3f} s, occupancy "
+                f"{r['slot_occupancy']:.3f}, {r['chunk_dispatches']} chunks, {r['equal_to_phase_5']}/64 equal to "
+                f"phase 5's tokens" for r in runs))
+    ratio = (sum(r["tok_s"] for r in readings[2]) / sum(r["tok_s"] for r in readings[1]))
+    log(f"phase j3: depth 2 / depth 1 tok/s {ratio:.3f} (mean of two runs each; phase 5: {base_rate:.0f} tok/s; "
+        "bf16 batches depend on timing at depth 2, so token agreement is reported, not required)")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_paged_shared(gen, hq=32, hkv=8, hd=64, n_layers=16, n=4):
+    """Phase j2: #8 vs its plain version on a page table in which each gang
+    of ``n`` slots shares its prompt's read-only pages and each slot owns its
+    boundary page (copied from the leader's by ``copy_pages``) and the pages
+    after it; 32 slots, page 128, prompts 32-700 tokens, 0-127 tokens decoded."""
+    import torch
+
+    from ssi_tpu_torch.generate.paged import copy_pages, paged_attention
+
+    kernel, plain, _ = paged_call(1)
+    slots, ps, max_pages, layer = 32, 128, 10, min(5, n_layers - 1)
+    n_rep = hq // hkv
+    n_pages = slots * max_pages
+    rows = n_layers * n_pages + 1
+    plens = torch.randint(32, 701, (slots // n,), generator=gen, device="cuda").tolist()
+    decoded = torch.randint(0, 128, (slots,), generator=gen, device="cuda").tolist()
+    perm = torch.randperm(n_pages, generator=gen, device="cuda").tolist()
+    logical = torch.zeros((slots, max_pages), dtype=torch.int32)
+    shared, copies = set(), []
+    for g, p in enumerate(plens):
+        shared_n = (p - 1) // ps
+        prefix = [perm.pop() for _ in range(shared_n)]
+        shared.update(prefix)
+        for j in range(n):
+            own = [perm.pop() for _ in range(max_pages - shared_n)]
+            logical[g * n + j] = torch.tensor(prefix + own, dtype=torch.int32)
+            if j:
+                copies.append((int(logical[g * n, shared_n]), own[0]))
+    logical = logical.cuda()
+    hist = torch.tensor([plens[i // n] - 1 + decoded[i] for i in range(slots)], dtype=torch.int32, device="cuda")
+    seq_lens = hist + 1
+    shared_rows = torch.tensor([layer_ * n_pages + pg for layer_ in range(n_layers) for pg in sorted(shared)],
+                               dtype=torch.long, device="cuda")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[1]
+        tol = TOL[key]
+        pools = {name: torch.randn((rows, ps, hkv * hd), generator=gen, device="cuda").to(dtype) for name in "kv"}
+        src, dst = (torch.tensor(c, dtype=torch.int32, device="cuda") for c in zip(*copies))
+        copy_pages(pools, src, dst, n_pages=n_pages)
+        for s_pg, d_pg in copies:
+            check(all(torch.equal(pools[nm][l_ * n_pages + d_pg], pools[nm][l_ * n_pages + s_pg])
+                      for nm in "kv" for l_ in range(n_layers)), "copy_pages: a boundary page differs from its source")
+        kp, vp = pools["k"], pools["v"]
+        q = torch.randn((slots, hq, hd), generator=gen, device="cuda").to(dtype)
+        kn = torch.randn((slots, hkv, hd), generator=gen, device="cuda").to(dtype)
+        vn = torch.randn((slots, hkv, hd), generator=gen, device="cuda").to(dtype)
+        table = (layer * n_pages + logical).to(torch.int32)
+        write_rows = torch.gather(table, 1, (hist // ps).long()[:, None])[:, 0].to(torch.int32)
+        kp_ref, vp_ref = kp.clone(), vp.clone()
+        before_k, before_v = kp[shared_rows].clone(), vp[shared_rows].clone()
+        got = kernel(q, kp, vp, table, seq_lens, write_rows=write_rows, k_new=kn, v_new=vn)
+        ref = plain(q, kp_ref, vp_ref, table, seq_lens, write_rows=write_rows, k_new=kn, v_new=vn)
+        ctrl_out = paged_attention(q.roll(n_rep, 1), kp_ref, vp_ref, table, seq_lens)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        check(torch.allclose(got.float(), ref.float(), atol=tol, rtol=tol),
+              f"paged attention on a shared table {key}: max err {err} > tol {tol}")
+        _, rel, ctrl = hold("paged attention on a shared table", got, ref, key, [("kv heads shifted", ctrl_out)])
+        check(torch.equal(kp[:-1], kp_ref[:-1]) and torch.equal(vp[:-1], vp_ref[:-1]),
+              f"shared-table pools {key}: the kernel's writes differ from the plain version's")
+        check(torch.equal(kp[shared_rows], before_k) and torch.equal(vp[shared_rows], before_v),
+              f"shared-table pools {key}: a shared page changed")
+        worst[key] = err
+        log(f"  paged shared table {key:8s}: max|attn err| {err:.3e} (tol {tol}), rel {rel:.2e} (limit {REL[key]}; "
+            f"control {ctrl:.2e}); written pools equal the plain version's; {len(shared)} shared pages unchanged")
+        del pools, kp, vp, kp_ref, vp_ref
+        torch.cuda.empty_cache()
+    log(f"phase j2 paged decode (#8) on a shared page table ({slots // n} gangs of {n} slots, Hq{hq} Hkv{hkv} "
+        f"hd{hd}, {n_layers} layers, {len(copies)} boundary pages copied): ok (max err f32 {worst['float32']:.3e}, "
+        f"bf16 {worst['bfloat16']:.3e})")
+
+
+def phase_parallel_f32(seed: int, cfg=None, tag: str = "phase j4 f32 (1B width, 2 of 16 layers)"):
+    """Phase j4, the kernels in f32: depth 2 == depth 1, n=3 greedy == the
+    n=1 stream, a seeded n=3 sampled stream reproduces itself at depth 2 and
+    its siblings differ, top-k 1 == greedy. Six prompts on 32 slots: every
+    gang is admitted in the first round, so both runs of a pair batch alike."""
+    import torch
+
+    from ssi_tpu_torch.generate.engine import SamplingParams
+    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+    from ssi_tpu_torch.models.llama3 import init_params
+
+    cfg = cfg or model_config(num_layers=2)
+    params = init_params(cfg, seed=seed, dtype=torch.float32, device="cuda")
+    prompts = prompts_from_seed(seed + 11, 6, cfg.vocab_size)
+
+    def run(sp, depth=2, run_seed=0):
+        eng = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=32, attn_impl="kernel", pipeline_depth=depth)
+        out = [o["token_ids"] for o in eng.generate_batch(prompts, sp, seed=run_seed)]
+        check(len(eng._free_pages) + len(eng._cache_lru) == eng.n_pages, "f32 parallel sampling: pages leaked")
+        return out
+
+    greedy = run(SamplingParams(max_tokens=32), depth=1)
+    check(run(SamplingParams(max_tokens=32)) == greedy, "f32: depth 2 tokens differ from depth 1's")
+    n3 = run(SamplingParams(n=3, max_tokens=32))
+    check(n3 == [g for g in greedy for _ in range(3)], "f32: n=3 greedy siblings differ from the n=1 stream")
+    samp = SamplingParams(n=3, temperature=0.8, max_tokens=32)
+    a, b = run(samp, run_seed=7), run(samp, run_seed=7)
+    check(a == b, "f32: a seeded n=3 sampled stream does not reproduce itself at depth 2")
+    differ = sum(len({tuple(s) for s in a[3 * i : 3 * i + 3]}) > 1 for i in range(len(prompts)))
+    check(differ == len(prompts), f"f32: the sampled siblings of {len(prompts) - differ} prompts are all equal")
+    top1 = run(SamplingParams(n=3, temperature=0.8, top_k=1, max_tokens=32), run_seed=7)
+    check(top1 == n3, "f32: top-k 1 sampling differs from greedy")
+    log(f"{tag}: 6 prompts x 32 tokens, kernels: depth 2 == depth 1, n=3 greedy == the n=1 stream, a seeded "
+        f"n=3 sampled stream (temperature 0.8) reproduces itself with siblings apart in {differ}/6 prompts, "
+        "top-k 1 == greedy")
+    del params
+    torch.cuda.empty_cache()
+
+
 # --- phase d: the generation entry point ------------------------------------------------------
 
 
@@ -1011,6 +1242,36 @@ def run_cli(main, argv):
     return out, time.perf_counter() - t0
 
 
+class PrefillRounds:
+    """Records each admission round of every engine built while it is
+    active (a wrapper around ``PagedDecodeEngine._prefill_admitted``): the
+    round's prompts and their prefix-cache hits, which fix its prefill
+    passes. At pipeline depth 2 which prompts share a round depends on when
+    each chunk's results reach the host, and bf16 prefill products of other
+    batches round otherwise; a prompt's decode steps do not depend on the
+    other slots."""
+
+    def __enter__(self):
+        from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+
+        self.cls, self.orig, self.rounds = PagedDecodeEngine, PagedDecodeEngine._prefill_admitted, []
+        orig, rounds = self.orig, self.rounds
+
+        def recorded(eng, admitted):
+            rounds.append(tuple((tuple(eng._slots[sid].req.prompt), eng._slots[sid].cached_len) for sid, _ in admitted))
+            return orig(eng, admitted)
+
+        PagedDecodeEngine._prefill_admitted = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._prefill_admitted = self.orig
+
+    def by_prompt(self) -> dict:
+        """Each prompt's last round (a later run of a prompt replaces a warm-up's)."""
+        return {prompt: r for r in self.rounds for prompt, _ in r}
+
+
 def flat_params(p) -> dict:
     return {**{k: v for k, v in p.items() if k != "layers"}, **p["layers"]}
 
@@ -1064,7 +1325,8 @@ def phase_generate_cli(seed: int, smi: str, base_tokens, base_rate: float):
             "gen.split=test", "batch_size=32", "sampling_params.max_tokens=128", "dtype=bf16", "observability=true",
         ]
         _build.launch_counts.clear()
-        _, wall = run_cli(generate_main, argv)
+        with PrefillRounds() as cli_rounds:
+            _, wall = run_cli(generate_main, argv)
         launches = dict(_build.launch_counts)
         stats = dict(last_run_stats)
 
@@ -1095,18 +1357,35 @@ def phase_generate_cli(seed: int, smi: str, base_tokens, base_rate: float):
         del written
 
         # the run's tokens == a direct engine call on the same prompts and loaded
-        # parameters (same settings, same two-prompt warm-up first: the kernels
-        # are bitwise repeatable and the warm-up leaves the same prefix cache)
+        # parameters (same settings and pipeline depth, the CLI's default; same
+        # two-prompt warm-up first: the kernels are bitwise repeatable and the
+        # warm-up leaves the same prefix cache). Every record must match when
+        # both runs prefilled in the same rounds; otherwise every record whose
+        # prompt was prefilled in a matching round, and the schedules print
         tokenizer, _ = setup_llama3_tokenizer(tok_path, verbose=False)
         prompts = [r["prompt_token_ids"] for r in records]
         sp = SamplingParams(max_tokens=128, stop_token_ids=tuple(tokenizer.stop_tokens))
         eng = PagedDecodeEngine(loaded, cfg, pad_id=tokenizer.pad_id, n_slots=32,
                                 max_context=max(map(len, prompts)) + 128)
         check(eng.attn_impl == "kernel", f"direct engine resolved attn_impl {eng.attn_impl!r}")
-        eng.generate_batch(prompts[:2], sp)
-        direct = eng.generate_batch(prompts, sp)
-        same = sum(d["token_ids"] == r["outputs"][0]["token_ids"] for d, r in zip(direct, records))
-        check(same == 64, f"generate: {64 - same} of 64 records differ from a direct engine call")
+        with PrefillRounds() as direct_rounds:
+            eng.generate_batch(prompts[:2], sp)
+            direct = eng.generate_batch(prompts, sp)
+        equal = [d["token_ids"] == r["outputs"][0]["token_ids"] for d, r in zip(direct, records)]
+        cli_sig, direct_sig = cli_rounds.by_prompt(), direct_rounds.by_prompt()
+        matched = [cli_sig.get(tuple(p)) == direct_sig.get(tuple(p)) for p in prompts]
+        same = sum(equal)
+        if all(matched):
+            check(same == 64, f"generate: {64 - same} of 64 records differ from a direct engine call "
+                  "that prefilled in the same rounds")
+            schedule_note = "both runs prefilled in the same rounds; all 64 records equal a direct engine call"
+        else:
+            log(f"  phase d prefill rounds differ (sizes): CLI {[len(r) for r in cli_rounds.rounds]}, direct "
+                f"{[len(r) for r in direct_rounds.rounds]}")
+            bad = sum(m and not e for e, m in zip(equal, matched))
+            check(bad == 0, f"generate: {bad} records prefilled in matching rounds differ from a direct engine call")
+            schedule_note = (f"prefill rounds differ: the {sum(matched)} records of matching rounds equal a direct "
+                             f"engine call ({same}/64 in all)")
 
         rate = records[0]["metrics"]["batch_tokens_per_second"]
         n_tok = records[0]["metrics"]["batch_generated_tokens"]
@@ -1117,7 +1396,7 @@ def phase_generate_cli(seed: int, smi: str, base_tokens, base_rate: float):
             f"{stats['load_bytes'] / 1e9 / stats['load_s']:.2f} GB/s ({stats['load_bytes'] / 1e9:.3f} GB); "
             f"tokenization {stats['tokenize_s']:.3f} s; warm-up {stats['warmup_s']:.2f} s; generate "
             f"{stats['generate_s']:.2f} s, {n_tok} tokens = {rate:.0f} generated tok/s (phase 5: {base_rate:.0f}); "
-            f"CLI wall {wall:.2f} s; {stops} stopped early; tokens equal to a direct engine call; on {smi}; "
+            f"CLI wall {wall:.2f} s; {stops} stopped early; {schedule_note}; on {smi}; "
             f"launches {launches}")
         del eng
         torch.cuda.empty_cache()
@@ -1260,6 +1539,13 @@ def phase_serve_http(seed: int, smi: str, step, tok_path, loaded, base_tokens, b
             code, body = post({"prompt": p, "max_tokens": 128, "temperature": 0})
             check(code == 200, f"gate request: {code} {body}")
             gated.append(body["choices"][0]["token_ids"])
+        # n > 1 over HTTP: one greedy gang of 4 (a warm-up prompt, so the 64's
+        # prefix-cache hits below stay the gate prompts' alone)
+        code, gang = post({"prompt": warm[1], "max_tokens": 64, "temperature": 0, "n": 4})
+        check(code == 200 and [c["index"] for c in gang["choices"]] == [0, 1, 2, 3]
+              and all(c["token_ids"] == gang["choices"][0]["token_ids"] for c in gang["choices"])
+              and gang["usage"]["completion_tokens"] == 4 * len(gang["choices"][0]["token_ids"]),
+              f"n: 4 greedy: not 4 equal choices: {code} {gang}")
         _, before = http_json(opener, url + "/metrics")
 
         # phase 5's 64 requests, streamed, from 32 client threads at once
@@ -1330,8 +1616,6 @@ def phase_serve_http(seed: int, smi: str, step, tok_path, loaded, base_tokens, b
         check(all(c == 200 for c, _ in sampled)
               and sampled[0][1]["choices"][0]["token_ids"] == sampled[1][1]["choices"][0]["token_ids"],
               "temperature 1, seed 5 twice gave different tokens")
-        code, refused = post({"prompt": gate[0][:64], "max_tokens": 16, "n": 2, "temperature": 1.0})
-        check(code == 400 and "A3" in refused["error"]["message"], f"n: 2 gave {code} {refused}")
         used["end"] = device_used_gib()
         check(used["end"] - used["after_64"] < 1.0, f"device memory grew {used['end'] - used['after_64']:.2f} GiB "
               "after the 64 requests")
@@ -1396,7 +1680,8 @@ def phase_serve_http(seed: int, smi: str, step, tok_path, loaded, base_tokens, b
     log(f"  phase i /metrics at the end: {s}")
     log(f"  phase i 4 gate requests one at a time == a direct engine run, token for token; {same}/64 streams equal "
         f"to phase 5's tokens (bf16, timing-dependent batches: reported, not required); string prompt, chat, "
-        f"streamed chat == chat, {stop_note}, seed 5 twice equal, n 2 refused naming A3; device memory in use "
+        f"streamed chat == chat, {stop_note}, seed 5 twice equal, n 4 greedy: 4 equal choices of "
+        f"{len(gang['choices'][0]['token_ids'])} tokens; device memory in use "
         f"{', '.join(f'{k} {v:.2f} GiB' for k, v in used.items())}; server launches {launches}")
     return launches
 
@@ -2575,9 +2860,10 @@ def phase_3b(seed: int, smi: str) -> dict:
 
 
 def phase_8b(seed: int, smi: str) -> dict:
-    """Phase h: Llama 3.1 8B (32 layers, D 4,096, 32 q / 8 kv heads of 128,
-    FFN 14,336, an untied ``lm_head``, rope ``scale_factor`` 8) serving at
-    full width, random bf16 weights initialised on the card: phase 5's 64
+    """Phase h: Llama 3.1 8B (D 4,096, 32 q / 8 kv heads of 128, FFN
+    14,336, an untied ``lm_head``, rope ``scale_factor`` 8) serving at full
+    width with the depth cut to 16 of its 32 layers (to keep the run inside
+    half its time limit), random bf16 weights initialised on the card: phase 5's 64
     requests x 128 greedy tokens at 32 slots, then with ``speculate_k=3``,
     the prefix cache and ``prefill_chunk=512``; every request finishes, pages
     balance, #1, #8 and #9 launched. Then f32 greedy at 8B width with the
@@ -2590,7 +2876,7 @@ def phase_8b(seed: int, smi: str) -> dict:
     from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
     from ssi_tpu_torch.models.llama3 import init_params
 
-    cfg = model_config("llama3_1_8b")
+    cfg = model_config("llama3_1_8b", num_layers=16)
     check(not cfg.tied_embeddings and cfg.scale_factor == 8 and cfg.head_dim == 128, "not the 8B architecture")
     params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
     n_bytes = sum(t.numel() * t.element_size() for t in [*params["layers"].values(), params["embed"],
@@ -2625,7 +2911,8 @@ def phase_8b(seed: int, smi: str) -> dict:
                  f"{st['prefill_pieces']} chunked prefill pieces, cached prompt tokens {st['cached_prompt_tokens']}; "
                  if kw else "")
         log(f"phase h serving 8B bf16 ({'speculate_k 3, prefix cache, prefill_chunk 512' if kw else 'speculate_k 0'}; "
-            f"{n_bytes / 1e9:.2f} GB of weights, untied lm_head, 32 slots): 64 requests x 128 tokens, {n_tok} tokens "
+            f"16 of 32 layers, {n_bytes / 1e9:.2f} GB of weights, untied lm_head, 32 slots): 64 requests x 128 tokens, "
+            f"{n_tok} tokens "
             f"in {wall:.2f} s = {rates[path]:.0f} generated tok/s on {smi}; {extra}{st['chunk_dispatches']} chunks, "
             f"{st['prefill_dispatches']} prefill dispatches; launches {launches[path]}")
         del eng
@@ -2643,7 +2930,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", default="", help="comma-separated phase groups to run alone while developing "
-                        "(1b: phases 2-f; hd128: the head_dim-128 kernel phases; g; h); prints no result line")
+                        "(1b: phases 2-f, i and j; hd128: the head_dim-128 kernel phases; g; h); prints no result line")
     args = parser.parse_args()
 
     import torch
@@ -2658,31 +2945,54 @@ def main() -> int:
     gen.manual_seed(args.seed)
     groups = set(filter(None, args.only.split(","))) or {"1b", "hd128", "g", "h"}
 
+    t_start = t_last = time.perf_counter()
+
+    def mark(what: str) -> None:
+        """The seconds a phase took, and since the start (the run's time limit is the card's)."""
+        nonlocal t_last
+        now = time.perf_counter()
+        log(f"  [{what}: {now - t_last:.1f} s; {now - t_start:.1f} s since the start]")
+        t_last = now
+
     smi = phase_device()
     phase_build()
+    mark("phases 0-1")
     if "1b" in groups:
         rows = {"flash_attention_fwd": phase_flash(gen), "paged_attention_fused": phase_paged(gen),
                 "paged_attention_multi": phase_paged_multi(gen)}
+        mark("phases 2, 3, a")
         phase_engine_f32(args.seed)
         phase_spec_f32(args.seed)
         serve_launches, base_tokens, base_rate = phase_engine_bf16(args.seed, smi)
         spec_launches = phase_spec_serving(args.seed, smi, base_tokens, base_rate)
+        mark("phases 4, b, 5, c")
+        phase_paged_shared(gen)
+        phase_parallel_f32(args.seed)
+        serve_n_launches = phase_gangs_and_depth(args.seed, smi, base_tokens, base_rate)
+        mark("phase j")
         gen_launches, http_launches = phase_generate_cli(args.seed, smi, base_tokens, base_rate)
+        mark("phases d, i")
         rows["flash_attention_bwd"] = phase_flash_bwd(gen)
         rows.update(phase_cross_entropy(gen, model_config().vocab_size))
         phase_train_parity(args.seed)
         train_launches = phase_train(args.seed, smi)
+        mark("phases 6-9")
         train_cli_launches = phase_training_cli(args.seed, smi)
+        mark("phase e")
         int8_launches = phase_int8_serving(args.seed, smi, base_tokens, base_rate)
         phase_drive_kernels(gen)
         drive_launches = phase_wer_drive(smi)
+        mark("phase f")
     if "hd128" in groups:
         rows128 = phase_kernels_hd128(gen, model_config().vocab_size)
+        mark("phases 2g-ah")
     launches_big = {}  # the 3B and 8B paths' launches, by path
     if "g" in groups:
         launches_big.update(phase_3b(args.seed, smi))
+        mark("phase g")
     if "h" in groups:
         launches_big.update(phase_8b(args.seed, smi))
+        mark("phase h")
     if args.only:
         log(f"partial run (--only {args.only}): no result line")
         return 0
@@ -2697,7 +3007,8 @@ def main() -> int:
         by_path = {"serve": serve_launches.get(name, 0), "spec_serve": spec_launches.get(name, 0),
                    "generate": gen_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "train_cli": train_cli_launches.get(name, 0), "int8_serve": int8_launches.get(name, 0),
-                   "wer_drive": drive_launches.get(name, 0), "serve_http": http_launches.get(name, 0)}
+                   "wer_drive": drive_launches.get(name, 0), "serve_http": http_launches.get(name, 0),
+                   "serve_n": serve_n_launches.get(name, 0)}
         if name.startswith("cross_entropy"):  # one instance for every D: 3B's training launches it too
             by_path["train_3b"] = launches_big["train_3b"].get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",

@@ -30,6 +30,7 @@ import subprocess
 import tempfile
 import time
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _CSRC_DIR = Path(__file__).parent / "csrc"
@@ -49,6 +50,8 @@ _lib: ctypes.CDLL | None = None
 # nvcc's diagnostics of that build (ptxas register/spill report)
 build_seconds: float = 0.0
 build_log: str = ""
+# seconds from the build's start until each source's nvcc finished (they run at once)
+source_seconds: dict[str, float] = {}
 
 _c = ctypes
 _P = _c.c_void_p
@@ -121,7 +124,7 @@ def _source_hash() -> str:
 
 def build_library() -> Path:
     """Compile ``csrc/*.cu`` into the cached shared library; returns its path."""
-    global build_seconds, build_log
+    global build_seconds, build_log, source_seconds
     out = _BUILD_DIR / f"libssi_kernels_{_source_hash()}.so"
     if out.exists():
         build_seconds = 0.0
@@ -137,10 +140,16 @@ def build_library() -> Path:
                 cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC_DIR), "-c", "-o", str(obj), str(src)]
                 procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
                 objs.append(str(obj))
-            logs = []
-            for cmd, proc in procs:
-                text, _ = proc.communicate(timeout=900)
-                logs.append(text)
+
+            def finish(item):
+                text, _ = item[1].communicate(timeout=900)
+                return text, time.perf_counter() - t0
+
+            with ThreadPoolExecutor(len(procs)) as pool:  # a thread per nvcc, to time each
+                done = list(pool.map(finish, procs))
+            logs = [text for text, _ in done]
+            source_seconds = {Path(o).stem: sec for o, (_, sec) in zip(objs, done)}
+            for (cmd, proc), text in zip(procs, logs):
                 if proc.returncode != 0:
                     raise RuntimeError(f"CUDA kernel build failed ({' '.join(cmd)}):\n{text[-6000:]}")
         finally:

@@ -13,10 +13,11 @@ What the port adds: a ``device`` config key (default ``cuda``; ``+device=cpu``
 runs on the CPU, and without a CUDA device the default raises — there is no
 fallback) and a seed per batch drawn from ``cfg.seed`` for the engine (greedy
 output does not depend on it; sampled output cannot match ``jax.random``).
-``quantize_weights: int8`` passes to the engine, as in the JAX package. Not
-ported yet, each raising ``NotImplementedError`` naming its ROADMAP item:
-``engine=dense`` (A6), ``tensor_parallel > 1`` (A9) and
-``sampling_params.n > 1`` (A3).
+``quantize_weights: int8`` passes to the engine, as in the JAX package, and
+``sampling_params.n > 1`` writes one record per prompt with n entries in
+``outputs``. The engine runs at its default pipeline depth, 2, as the JAX
+one does. Not ported yet, each raising ``NotImplementedError`` naming its
+ROADMAP item: ``engine=dense`` (A6) and ``tensor_parallel > 1`` (A9).
 """
 
 from __future__ import annotations
@@ -86,8 +87,6 @@ def validate_generate_config(cfg: Any) -> None:
         raise ValueError(f"Unknown engine {engine_kind!r}; expected 'paged' or 'dense'")
     if int(cfg.get("tensor_parallel", 1) or 1) > 1:
         raise _not_ported("tensor_parallel > 1", "A9 (parallel and sharded state)")
-    if n > 1:
-        raise _not_ported("sampling_params.n > 1", "A3 (n>1 sampling, pipelined harvest)")
     if str(cfg.get("dtype", "bf16")) not in _DTYPES:
         raise ValueError(f"Unknown dtype {cfg.get('dtype')!r}; expected one of {sorted(_DTYPES)}")
 

@@ -36,6 +36,24 @@ def init_pools(
     return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def copy_pages(pools: dict[str, torch.Tensor], src: torch.Tensor, dst: torch.Tensor, *, n_pages: int) -> None:
+    """Copy logical pages ``src[i]`` to ``dst[i]`` in every layer of both
+    pools, in place: the n>1 boundary-page copy (port of the JAX engine's
+    ``_copy_pages_fn``, an XLA gather and scatter). Ids >= ``n_pages`` are pad
+    rows: both ends point at the trash row."""
+    n_layers = (pools["k"].shape[0] - 1) // n_pages
+    trash = n_layers * n_pages
+    offs = torch.arange(n_layers, dtype=torch.int64, device=src.device)[:, None] * n_pages
+
+    def rows(ids: torch.Tensor) -> torch.Tensor:
+        ids = ids.to(torch.int64)[None, :]
+        return torch.where(ids >= n_pages, torch.full_like(offs + ids, trash), offs + ids).reshape(-1)
+
+    s, d = rows(src), rows(dst)
+    for pool in pools.values():
+        pool[d] = pool[s]
+
+
 def write_token_kv(pool: torch.Tensor, kv: torch.Tensor, phys_ids: torch.Tensor,
                    offsets: torch.Tensor, active: torch.Tensor) -> None:
     """Write one new token's K or V per slot into its page, in place.

@@ -9,8 +9,18 @@ chunks (FIFO, shortest- or longest-job-first); when the pool runs dry the
 youngest running request is preempted and re-queued for a fresh prefill.
 Admissions prefill batched in groups of ``PREFILL_GROUPS``; decode runs
 ``chunk`` steps per dispatch with all slot state on the device, and the
-host reads the chunk's packed results once (harvested synchronously: the
-JAX engine's ``pipeline_depth=1`` behaviour).
+host reads each chunk's packed results once. Up to ``pipeline_depth`` chunks
+(default 2, as in JAX) are in flight: the results' device-to-host copy is
+queued behind the chunk and the host schedules the next one while the card
+computes; a chunk whose copy has landed is harvested at the start of the
+next step, the oldest is waited for once the pipeline is full.
+
+``n > 1`` parallel sampling (vLLM's): a prompt's n sequences are queued as
+one gang and admitted together; the leader prefills (never in chunked
+pieces), each sibling references the leader's full read-only prompt pages
+and gets a copy of the page holding position p-1 (``copy_pages``), which its
+first decode step writes. A gang that does not fit an idle engine splits
+into solo requests; a preempted sibling re-prefills solo.
 
 Prefix caching (on by default, as in the JAX engine): full prompt pages are
 keyed by a chained hash of their token blocks; an admission whose prompt
@@ -22,19 +32,20 @@ scheduler step, while the other slots keep decoding. Speculative decoding
 (``speculate_k``) drafts k tokens per slot from the most recent bigram match
 in the slot's own token history and verifies all k+1 in one forward
 (``decode_step_tokens_spec``, the CUDA kernel #9 on the card); greedy only,
-and lossless: the emitted tokens equal the non-speculative stream's.
-``quantize="int8"`` serves the layer stack from weight-only int8
+``n == 1``, and lossless: the emitted tokens equal the non-speculative
+stream's. ``quantize="int8"`` serves the layer stack from weight-only int8
 (``generate/quant.py``); every paged pass (prefill, decode, suffix prefill,
 verify) forms its products through ``quant.matmul``, so it composes with
 speculation, the prefix cache and chunked prefill.
 
 Sampling draws Gumbel noise from a counter-based hash of (stream seed,
-request seed, position, vocab index), so a preempted and recomputed request
-redraws identical tokens, independent of batch composition. It cannot equal
-``jax.random``'s bits: greedy decoding is the cross-framework parity bar.
+sequence seed, position, vocab index), so a preempted and recomputed
+request redraws identical tokens, independent of batch composition. It
+cannot equal ``jax.random``'s bits: greedy decoding is the cross-framework
+parity bar; the per-sequence seeds are the JAX engine's.
 
-Not ported yet; each raises ``NotImplementedError`` naming its ROADMAP item:
-``mesh`` and ``n > 1`` sampling.
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
+``mesh``.
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ import torch
 from ssi_tpu_torch.models.configs import ConfigLlama3_2
 from ssi_tpu_torch.generate.engine import _NEG_INF, SamplingParams
 from ssi_tpu_torch.generate.paged import (
+    copy_pages,
     decode_step_tokens,
     decode_step_tokens_spec,
     init_pools,
@@ -121,7 +133,10 @@ def _gumbel_noise(stream_seed: int, row_seeds: torch.Tensor, positions: torch.Te
     key = _mix32(key ^ (positions.to(torch.int64) & _M32))
     idx = torch.arange(vocab, dtype=torch.int64, device=row_seeds.device)
     bits = _mix32(_mix32(key[:, None] ^ idx[None, :]))
-    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))  # in (0, 1)
+    # 23 bits: (k + 0.5) / 2**23 is exact in f32 and at most 1 - 2**-24, so
+    # u < 1 and the noise is finite (24 bits would round the top value to 1.0:
+    # +inf noise, which lifts a token that top-k/top-p masked out)
+    u = ((bits >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
     return -torch.log(-torch.log(u))
 
 
@@ -175,14 +190,15 @@ def _sample_rows(logits, feats, any_samp, temp, top_p, top_k, pres, freq, rep, n
 class _Request:
     idx: int                      # request id (position in generate_batch's prompt list)
     prompt: list[int]
+    seq: int = 0                  # sequence index within the request (n > 1 sampling)
     out: list[int] = field(default_factory=list)
     lps: list[float] = field(default_factory=list)  # per-token logprobs (empty in spec mode)
     clp: float = 0.0
     max_tokens: int | None = None  # per-request budget (<= stream sp.max_tokens)
     sampling: SamplingParams | None = None  # per-request override (None = stream sp)
-    rng_seed: int = 0             # per-request sampling seed (rides the control array)
-    requeued: bool = False        # preempted work parked at the queue front; sorted
-    # admission orders (sjf/ljf) never insert ahead of it
+    rng_seed: int = 0             # per-sequence sampling seed (rides the control array)
+    requeued: bool = False        # preempted / gang-split work parked at the queue front;
+    # sorted admission orders (sjf/ljf) never insert ahead of it
 
 
 @dataclass
@@ -193,6 +209,8 @@ class _Slot:
     n_out: int = 0                # tokens emitted so far
     done: bool = False            # hit a stop token / budget; awaiting collection
     cached_len: int = 0           # prompt tokens satisfied by the prefix cache
+    fresh: list[int] = field(default_factory=list)  # cache pages registered at this
+    # admission, valid only once its prefill dispatches (unregistered on a gang rollback)
     prefilling: bool = False      # chunked prefill in progress (decode gated)
     prefilled: int = 0            # prompt positions with K/V written so far
     hashes: list = field(default_factory=list)  # chain hashes, registered piece by piece
@@ -208,10 +226,15 @@ class _Stream:
     stop_set: set
     stop_ids: torch.Tensor
     features: frozenset
-    queue: list[_Request] = field(default_factory=list)
-    results: dict[int, dict] = field(default_factory=dict)
+    queue: list[list[_Request]] = field(default_factory=list)  # admission groups (gangs)
+    results: dict[tuple[int, int], dict] = field(default_factory=dict)  # (idx, seq) -> record
+    expected: dict[int, int] = field(default_factory=dict)    # idx -> n sequences
+    collected: dict[int, int] = field(default_factory=dict)   # idx -> sequences finished
     completed: deque = field(default_factory=deque)  # ids ready to return
     next_idx: int = 0
+    # in-flight chunks, oldest first: {"packed": host buffer, "ready": CUDA event
+    # or None, "in_chunk": [(slot id, request)]}
+    pending: deque = field(default_factory=deque)
     suspend_admission: bool = False  # set on self-preemption
     # device-resident slot state
     seq_lens: Any = None
@@ -255,6 +278,13 @@ class PagedDecodeEngine:
             prompt buckets).
         prompt_bucket: prompts pad up to a multiple of this for prefill.
         chunk: decode steps per dispatch (one host read of results each).
+        pipeline_depth: chunks kept in flight before the oldest is waited
+            for and harvested (1 = harvest each chunk right after its
+            dispatch; values below 1 count as 1). Chunks whose results have
+            already reached the host are also harvested at the start of
+            every step, so a deeper pipeline does not idle finished slots.
+            Default 2, the JAX engine's: the host schedules and enqueues one
+            chunk while the card computes the one before it.
         attn_impl: "kernel" (the CUDA flash-prefill, fused paged-decode and
             multi-token verify kernels; CUDA devices only), "reference"
             (plain PyTorch), or "auto" ("kernel" on a CUDA device,
@@ -292,6 +322,7 @@ class PagedDecodeEngine:
         prompt_bucket: int = 128,
         chunk: int = 16,
         attn_impl: str = "auto",
+        pipeline_depth: int = 2,
         admission_order: str = "fifo",
         prefix_caching: bool = True,
         prefill_chunk: int | None = None,
@@ -343,12 +374,15 @@ class PagedDecodeEngine:
         self.max_pages_per_seq = self.max_context // page_size
         self.prompt_bucket = prompt_bucket
         self.chunk = chunk
+        self.pipeline_depth = max(1, int(pipeline_depth))
         self.n_pages = n_pages if n_pages is not None else n_slots * self.max_pages_per_seq
         self.pools = init_pools(cfg, self.n_pages, page_size, dtype=params["embed"].dtype, device=self.device)
         # roofline accounting: the bytes one read of the weights costs (int8
         # layers count their int8 data and scales: whatever the tree holds)
         self._weight_bytes = _tree_bytes(params)
         self._free_pages: list[int] = list(range(self.n_pages))
+        # reference counts: a gang's siblings and the prefix cache share pages;
+        # a page returns to the free list when its last reference drops
         self._page_refs = np.zeros(self.n_pages, np.int32)
         # prefix cache: chain hash <-> logical page (1:1); a cached page whose
         # last reference drops parks in the LRU, which _alloc_pages drains
@@ -376,6 +410,10 @@ class PagedDecodeEngine:
             self._page_refs[p] = 1
         return pages
 
+    def _share_pages(self, pages: list[int]) -> None:
+        for p in pages:
+            self._page_refs[p] += 1
+
     def _release_pages(self, pages: list[int]) -> None:
         for p in pages:
             self._page_refs[p] -= 1
@@ -386,6 +424,16 @@ class PagedDecodeEngine:
                 else:
                     self._free_pages.append(p)
 
+    def _unregister_pages(self, pages: list[int]) -> None:
+        """Drop pages from the prefix cache (a gang's rollback before its
+        prefill: their content was never written). Reference counts stay;
+        ``_free_slot`` then returns them to the free list."""
+        for p in pages:
+            h = self._page_hash.pop(p, None)
+            if h is not None:
+                self._prefix_map.pop(h, None)
+            self._cache_lru.pop(p, None)
+
     def _free_slot(self, slot: _Slot) -> None:
         self._release_pages(slot.pages)
         slot.pages = []
@@ -394,6 +442,7 @@ class PagedDecodeEngine:
         slot.n_out = 0
         slot.done = False
         slot.cached_len = 0
+        slot.fresh = []
         slot.prefilling = False
         slot.prefilled = 0
         slot.hashes = []
@@ -446,10 +495,11 @@ class PagedDecodeEngine:
             self._page_table[slot_id, len(slot.pages) - 1] = got[0]
         return True
 
-    def _preempt_youngest(self, queue: list[_Request]) -> int | None:
+    def _preempt_youngest(self, queue: list[list[_Request]]) -> int | None:
         """Free the running slot with the fewest outputs, re-queueing its
-        request at the front (recompute-style). Returns the victim slot id
-        (the caller clears its ``active`` flag), or None if nothing runs."""
+        request at the front as a group of one (recompute-style: a preempted
+        gang sibling re-prefills solo). Returns the victim slot id (the
+        caller clears its ``active`` flag), or None if nothing runs."""
         candidates = [(s.n_out, i) for i, s in enumerate(self._slots) if s.req is not None and not s.done]
         if not candidates:
             return None
@@ -463,7 +513,7 @@ class PagedDecodeEngine:
         slot.req.lps = []
         slot.req.clp = 0.0
         slot.req.requeued = True
-        queue.insert(0, slot.req)
+        queue.insert(0, [slot.req])
         self._free_slot(slot)
         return victim
 
@@ -481,8 +531,10 @@ class PagedDecodeEngine:
             raise RuntimeError("Engine slots are not free; a previous stream did not clean up")
         if sp.max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
-        if sp.n != 1:
-            raise _not_ported("sampling_params.n > 1", "A3 (n>1 sampling, pipelined harvest)")
+        if sp.n < 1:
+            raise ValueError("sampling_params.n must be >= 1")
+        if sp.n > self.n_slots:
+            raise ValueError(f"sampling_params.n ({sp.n}) cannot exceed n_slots ({self.n_slots})")
         feats = frozenset(features) if features is not None else frozenset()
         unknown = feats - SAMPLING_FEATURES
         if unknown:
@@ -494,6 +546,8 @@ class PagedDecodeEngine:
                 raise ValueError("speculate_k > 0 requires greedy decoding (temperature=0)")
             if sp.uses_penalties:
                 raise ValueError("speculate_k > 0 does not compose with repetition/presence/frequency penalties")
+            if sp.n != 1:
+                raise ValueError("speculate_k > 0 requires sampling_params.n == 1")
             if feats:
                 raise ValueError("speculate_k > 0 streams are greedy-only; no sampling features")
         dev = self.device
@@ -542,7 +596,7 @@ class PagedDecodeEngine:
             "prompt_tokens": 0,
             "tokens_out": 0,
             "preemptions": 0,
-            "pages_shared": 0,         # prefix pages referenced instead of copied (n>1: 0 until A3)
+            "pages_shared": 0,         # gang siblings' prompt pages referenced instead of copied
             "cached_prompt_tokens": 0,  # prompt tokens served from the prefix cache
             "dispatch_block_s": 0.0,   # host time to build and enqueue decode chunks
             "prefill_block_s": 0.0,    # host time to enqueue prefill passes
@@ -563,14 +617,16 @@ class PagedDecodeEngine:
         seed: int | None = None,
     ) -> int:
         """Enqueue one prompt on the active stream; returns its request id.
+        Its n sequences (``sampling.n``, else the stream's) queue as one gang.
 
         ``max_tokens`` caps this request below the stream's; ``sampling``
         overrides the stream's params for this request (its features must
         be open on the stream; its stop ids are ignored — stop tokens are
         stream-level); ``seed`` makes its sampling reproducible: outputs are
-        a pure function of (stream seed, seed, position)."""
+        a pure function of (stream seed, seed, sequence index, position)."""
         st = self._require_stream()
         sp = st.sp
+        esp = sampling if sampling is not None else sp
         if sampling is not None:
             missing = _derive_features(sampling) - st.features
             if missing:
@@ -581,9 +637,9 @@ class PagedDecodeEngine:
                     f"into this stream (features={sorted(st.features)}); pass them to "
                     f"begin_stream(features=...) up front"
                 )
-            if sampling.n != 1:
-                raise _not_ported("sampling.n > 1", "A3 (n>1 sampling, pipelined harvest)")
-            if self.speculate_k > 0 and (sampling.temperature != 0.0 or sampling.uses_penalties):
+            if not 1 <= sampling.n <= self.n_slots:
+                raise ValueError(f"sampling.n ({sampling.n}) must be in [1, n_slots = {self.n_slots}]")
+            if self.speculate_k > 0 and (sampling.temperature != 0.0 or sampling.uses_penalties or sampling.n != 1):
                 raise ValueError("speculate_k > 0 streams are greedy-only; per-request sampling unavailable")
             if max_tokens is None and sampling.max_tokens != sp.max_tokens:
                 max_tokens = sampling.max_tokens
@@ -608,48 +664,62 @@ class PagedDecodeEngine:
             )
         idx = st.next_idx
         st.next_idx += 1
+        # per-sequence seed, the JAX engine's host formula: siblings draw apart
         base_seed = seed if seed is not None else (42831 + idx)
-        req = _Request(
-            idx=idx, prompt=list(prompt), max_tokens=max_tokens, sampling=sampling,
-            rng_seed=(base_seed * 1000003) & 0x7FFFFFFF,
-        )
-        self._queue_insert(st, req)
+        self._queue_insert(st, [
+            _Request(idx=idx, prompt=list(prompt), seq=j, max_tokens=max_tokens, sampling=sampling,
+                     rng_seed=(base_seed * 1000003 + j * 7919) & 0x7FFFFFFF)
+            for j in range(esp.n)
+        ])
+        st.expected[idx] = esp.n
         st.stats["prompt_tokens"] += len(prompt)
         return idx
 
     def _job_estimate(self, req: _Request, sp: SamplingParams) -> int:
         return len(req.prompt) + (req.max_tokens if req.max_tokens is not None else sp.max_tokens)
 
-    def _queue_insert(self, st: _Stream, req: _Request) -> None:
+    def _queue_insert(self, st: _Stream, group: list[_Request]) -> None:
         """fifo appends; sjf/ljf insert sorted by job size (stable), never
-        ahead of requeued (preempted) work at the front."""
+        ahead of requeued (preempted or gang-split) work at the front."""
         if self.admission_order == "fifo":
-            st.queue.append(req)
+            st.queue.append(group)
             return
         sign = 1 if self.admission_order == "sjf" else -1
-        key = sign * self._job_estimate(req, st.sp)
+        key = sign * self._job_estimate(group[0], st.sp)
         i = 0
         while i < len(st.queue) and (
-            st.queue[i].requeued or sign * self._job_estimate(st.queue[i], st.sp) <= key
+            st.queue[i][0].requeued or sign * self._job_estimate(st.queue[i][0], st.sp) <= key
         ):
             i += 1
-        st.queue.insert(i, req)
+        st.queue.insert(i, group)
 
     def cancel_request(self, request_id: int, *, keep_tokens: int | None = None, finish_reason: str = "abort") -> bool:
-        """Finalize ``request_id`` (queued or running) now with
-        ``finish_reason``, its output cut to ``keep_tokens``, its slot and
-        pages freed; the record surfaces from the next ``step()``. Returns
-        False if no live request matched."""
+        """Finalize every sequence of ``request_id`` (queued or running) now
+        with ``finish_reason``, each output cut to ``keep_tokens``, its slots
+        and pages freed; the record surfaces from the next ``step()``.
+        Returns False if no live sequence matched.
+
+        In-flight chunks need no drain: the card runs them in the order they
+        were queued, so a stale chunk's write to a freed page lands before
+        the page's next occupant writes it, and their harvests skip the
+        slot (``s.done`` / the request identity check)."""
         st = self._require_stream()
         found = False
-        for req in [r for r in st.queue if r.idx == request_id]:
-            found = True
-            st.queue.remove(req)
-            st.results[req.idx] = {
-                "token_ids": [], "finish_reason": finish_reason,
-                "stop_reason": None, "cumulative_logprob": 0.0, "logprobs": None,
-            }
-            st.completed.append(req.idx)
+        kept: list[list[_Request]] = []
+        for group in st.queue:
+            for r in group:
+                if r.idx != request_id:
+                    continue
+                found = True
+                st.results[r.idx, r.seq] = {
+                    "token_ids": [], "finish_reason": finish_reason,
+                    "stop_reason": None, "cumulative_logprob": 0.0, "logprobs": None,
+                }
+                self._count_collected(r.idx)
+            group = [r for r in group if r.idx != request_id]
+            if group:
+                kept.append(group)
+        st.queue[:] = kept
         for sid, s in enumerate(self._slots):
             if s.req is not None and s.req.idx == request_id and not s.done:
                 found = True
@@ -681,6 +751,7 @@ class PagedDecodeEngine:
         for slot in self._slots:
             if slot.req is not None:
                 self._free_slot(slot)
+        st.pending.clear()  # in-flight chunks run on against their own state; their results are dropped
         self._st = None
 
     def _require_stream(self) -> _Stream:
@@ -690,11 +761,17 @@ class PagedDecodeEngine:
 
     # --- per-stream scheduler mechanics --------------------------------------------
 
-    def _admit_slot(self, slot_id: int, req: _Request) -> tuple[int, int] | None:
+    def _admit_slot(
+        self, slot_id: int, req: _Request, shared_prefix: list[int] | None = None, solo: bool = True,
+    ) -> tuple[int, int] | None:
         """Claim prompt pages + host slot state; returns (slot_id, bucket) for
         the batched prefill, or None when the pool is tight. The admission
         override rides the next chunk's control array; a chunk-prefilled
-        slot gets it when its last piece is written (``_advance_prefills``)."""
+        slot gets it when its last piece is written (``_advance_prefills``).
+        ``shared_prefix``: a gang sibling's references to its leader's
+        read-only prompt pages. ``solo`` is False for a gang leader, whose
+        prefill must not chunk: the siblings' boundary-page copies need the
+        whole prompt's K/V at admission."""
         st = self._st
         p = len(req.prompt)
         p_bucket = round_up(p, self.prompt_bucket)
@@ -708,7 +785,12 @@ class PagedDecodeEngine:
         st.slot_rep[slot_id] = esp.repetition_penalty
         st.slot_seed[slot_id] = req.rng_seed
         hashes: list[bytes] = []
-        if self.prefix_caching:
+        if shared_prefix:
+            self._share_pages(shared_prefix)
+            slot.pages = list(shared_prefix)
+            self._page_table[slot_id, : len(shared_prefix)] = shared_prefix
+            st.stats["pages_shared"] += len(shared_prefix)
+        elif self.prefix_caching:
             # reference the longest cached page chain the prompt extends
             matched, hashes = self._match_prefix(req.prompt)
             for pg in matched:
@@ -728,14 +810,20 @@ class PagedDecodeEngine:
         if not self._ensure_capacity(slot_id, target):
             self._free_slot(slot)  # release the partial allocation (and the matched references)
             return None
-        chunked = self.prefill_chunk is not None and (p - 1) - slot.cached_len > self.prefill_chunk
+        chunked = (self.prefill_chunk is not None and shared_prefix is None and solo
+                   and (p - 1) - slot.cached_len > self.prefill_chunk)
         if hashes and not chunked:
             # register the prompt's remaining full pages: their content is
             # written by this round's prefill, which _prefill_admitted orders
-            # before any same-round reader
+            # before any same-round reader; a gang rollback unregisters them.
+            # A later page of the chain may still be cached after the LRU
+            # evicted an earlier one: it keeps its entry (as _advance_prefills
+            # does), so the two maps stay one to one
             for i in range(slot.cached_len // self.page_size, len(hashes)):
-                self._prefix_map[hashes[i]] = slot.pages[i]
-                self._page_hash[slot.pages[i]] = hashes[i]
+                if hashes[i] not in self._prefix_map:
+                    self._prefix_map[hashes[i]] = slot.pages[i]
+                    self._page_hash[slot.pages[i]] = hashes[i]
+                    slot.fresh.append(slot.pages[i])
         slot.req = req
         slot.seq_len = p - 1
         slot.n_out = 0
@@ -764,6 +852,41 @@ class PagedDecodeEngine:
         st.admit_tok[slot_id] = req.prompt[-1]
         st.admit_budget[slot_id] = req.max_tokens if req.max_tokens is not None else st.sp.max_tokens
         st.prompt_lens[slot_id] = p
+
+    def _admit_group(self, group: list[_Request], slot_ids: list[int]):
+        """Admit a prompt's sequences together: the leader prefills; each
+        sibling references the leader's full read-only pages and gets a copy
+        of the boundary page. Returns (the leader's prefill claim, the
+        boundary copies) or None when the pool is tight (all rolled back)."""
+        st = self._st
+        leader, siblings = group[0], group[1:]
+        claim = self._admit_slot(slot_ids[0], leader, solo=len(group) == 1)
+        if claim is None:
+            return None
+        admitted_ids = [slot_ids[0]]
+        copies: list[tuple[int, int]] = []
+        shared_n = (len(leader.prompt) - 1) // self.page_size  # pages holding only positions <= p-2
+        lead_pages = self._slots[slot_ids[0]].pages
+        for sid, req in zip(slot_ids[1:], siblings):
+            if self._admit_slot(sid, req, shared_prefix=lead_pages[:shared_n]) is None:
+                for aid in admitted_ids:  # roll the whole group back
+                    self._unregister_pages(self._slots[aid].fresh)  # their prefill never runs
+                    self._free_slot(self._slots[aid])
+                    st.active[aid] = False
+                    st.admit[aid] = 0
+                return None
+            admitted_ids.append(sid)
+            # the page holding position p-1 still carries prompt K/V before the
+            # sibling's first decode step writes it
+            copies.append((lead_pages[shared_n], self._slots[sid].pages[shared_n]))
+        st.queue.pop(0)
+        return claim, copies
+
+    def _dispatch_copies(self, copies: list[tuple[int, int]]) -> None:
+        """Copy every boundary page admitted this round, across all layers,
+        in one pass queued after the leaders' prefills."""
+        src, dst = (self._upload(np.asarray(col, np.int32)) for col in zip(*copies))
+        copy_pages(self.pools, src, dst, n_pages=self.n_pages)
 
     def _prefill_admitted(self, admitted: list[tuple[int, int]]) -> None:
         """Batched prefills: one pass per (group bucket, group size); pad rows
@@ -804,9 +927,9 @@ class PagedDecodeEngine:
                 slot_ids[r] = slot_id
             t0 = time.perf_counter()
             prefill_prompts(
-                self.params, torch.from_numpy(tokens).to(self.device), self.cfg, self.pools,
-                torch.from_numpy(page_ids).to(self.device), n_pages=self.n_pages, attn_impl=self.attn_impl,
-                hist=st.hist if spec else None, slot_ids=torch.from_numpy(slot_ids).to(self.device) if spec else None,
+                self.params, self._upload(tokens), self.cfg, self.pools,
+                self._upload(page_ids), n_pages=self.n_pages, attn_impl=self.attn_impl,
+                hist=st.hist if spec else None, slot_ids=self._upload(slot_ids) if spec else None,
             )
             st.stats["prefill_block_s"] += time.perf_counter() - t0
             st.stats["prefill_dispatches"] += 1
@@ -849,8 +972,8 @@ class PagedDecodeEngine:
             g = next(s for s in self.PREFILL_GROUPS if s <= len(todo))
             batch, todo = todo[:g], todo[g:]
             tokens, rows = self._full_prompts(batch)
-            st.hist[torch.from_numpy(rows).to(self.device).long(), : tokens.shape[1]] = (
-                torch.from_numpy(tokens).to(self.device))
+            st.hist[self._upload(rows).long(), : tokens.shape[1]] = (
+                self._upload(tokens))
 
     def _suffix_span(self, row: tuple[int, int, int]) -> int:
         """Padded token span of a suffix or piece row ``(slot_id, start, end)``."""
@@ -886,11 +1009,11 @@ class PagedDecodeEngine:
         hist_kw = {}
         if self.speculate_k > 0 and with_hist:
             full_tokens, slot_ids = self._full_prompts([sid for sid, _, _ in batch])
-            hist_kw = dict(hist=st.hist, full_tokens=torch.from_numpy(full_tokens).to(dev),
-                           slot_ids=torch.from_numpy(slot_ids).to(dev))
+            hist_kw = dict(hist=st.hist, full_tokens=self._upload(full_tokens),
+                           slot_ids=self._upload(slot_ids))
         prefill_suffix(
-            self.params, torch.from_numpy(tokens).to(dev), torch.from_numpy(start).to(dev), self.cfg, self.pools,
-            torch.from_numpy(table).to(dev), torch.from_numpy(new_ids).to(dev), n_pages=self.n_pages, **hist_kw,
+            self.params, self._upload(tokens), self._upload(start), self.cfg, self.pools,
+            self._upload(table), self._upload(new_ids), n_pages=self.n_pages, **hist_kw,
         )
         st.stats["prefill_block_s"] += time.perf_counter() - t0
         st.stats["prefill_dispatches"] += 1
@@ -941,7 +1064,7 @@ class PagedDecodeEngine:
         if keep_tokens is not None:  # cancel_request's stop-string cut
             token_ids = token_ids[:keep_tokens]
         stopped = bool(token_ids) and token_ids[-1] in st.stop_set and finish_reason is None
-        st.results[req.idx] = {
+        st.results[req.idx, req.seq] = {
             "token_ids": token_ids,
             "finish_reason": finish_reason if finish_reason is not None else ("stop" if stopped else "length"),
             "stop_reason": token_ids[-1] if stopped else None,
@@ -952,7 +1075,40 @@ class PagedDecodeEngine:
         }
         self._free_slot(slot)
         st.active[slot_id] = False
-        st.completed.append(req.idx)
+        self._count_collected(req.idx)
+
+    def _count_collected(self, idx: int) -> None:
+        """One more sequence of request ``idx`` finished; the request is
+        complete once all its sequences are."""
+        st = self._st
+        st.collected[idx] = st.collected.get(idx, 0) + 1
+        if st.collected[idx] == st.expected[idx]:
+            st.completed.append(idx)
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array as a tensor on the engine's device. On the card the
+        copy is queued from a fresh pinned buffer, so the host goes on without
+        waiting for the chunks in flight; the caching host allocator hands
+        that buffer out again only once the copy has read it."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t
+        pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        pinned.copy_(t)
+        return pinned.to(self.device, non_blocking=True)
+
+    def _to_host(self, packed: torch.Tensor) -> tuple[Any, Any]:
+        """Queue a chunk's packed results for the host: (host buffer, CUDA
+        event recorded after the copy, or None when the buffer is ready).
+        The buffer is fresh for every chunk, and is read only once its event
+        has completed."""
+        if packed.device.type != "cuda":
+            return packed.numpy(), None
+        buf = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        buf.copy_(packed, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return buf, ready
 
     def _control(self, st: _Stream) -> np.ndarray:
         """The packed int32 control array: host scalar columns + page table."""
@@ -970,7 +1126,7 @@ class PagedDecodeEngine:
         packed device tensor ``[slots, 2*chunk + 3]`` int32: [emitted tokens |
         per-token logprobs (f32 bits) | done | seq_len | clp (f32 bits)]."""
         cfg, feats = self.cfg, st.features
-        control = torch.from_numpy(control_np).to(self.device)
+        control = self._upload(control_np)
 
         def f32(col: int) -> torch.Tensor:  # an f32 column sent as its int32 bits
             return control[:, col].contiguous().view(torch.float32)
@@ -989,7 +1145,7 @@ class PagedDecodeEngine:
         out_counts = prompt_counts = None
         if st.use_pen:
             out_counts = torch.where(admit[:, None], torch.zeros_like(st.out_counts), st.out_counts)
-            prompt_counts = torch.from_numpy(st.prompt_counts).to(self.device)
+            prompt_counts = self._upload(st.prompt_counts)
         rows = torch.arange(self.n_slots, device=self.device)
         clp = torch.zeros(self.n_slots, dtype=torch.float32, device=self.device)
         emitted, lps = [], []
@@ -1043,7 +1199,7 @@ class PagedDecodeEngine:
         compacted at each slot's cursor | done | seq_len | clp (f32 bits) |
         verify steps]."""
         dev, pad = self.device, self.pad_id
-        control = torch.from_numpy(control_np).to(dev)
+        control = self._upload(control_np)
         active = control[:, 0] != 0
         admit = control[:, 1] != 0
         seq_lens = torch.where(admit, control[:, 2], st.seq_lens)
@@ -1123,8 +1279,19 @@ class PagedDecodeEngine:
         )
         return packed
 
-    def _harvest(self, packed: np.ndarray, runnable: list[int]) -> None:
+    def _harvest(self, entry: dict) -> None:
+        """Apply one in-flight chunk's results. A slot freed since the
+        dispatch (its request collected, cancelled or preempted, perhaps
+        re-admitted) is skipped: its old request stopped advancing when it
+        went done, or was thrown away."""
         st = self._st
+        if entry["ready"] is not None:
+            t0 = time.perf_counter()
+            entry["ready"].synchronize()  # the only wait for the card in the decode loop
+            st.stats["harvest_block_s"] += time.perf_counter() - t0
+            packed = entry["packed"].numpy()
+        else:
+            packed = entry["packed"]
         if self.speculate_k > 0:  # [tokens | done | seq_len | clp | verify steps]
             chunk = packed.shape[1] - 4
             lps_h = None
@@ -1135,8 +1302,10 @@ class PagedDecodeEngine:
             lps_h = packed[:, chunk : 2 * chunk].view(np.float32)
             tail = packed[:, 2 * chunk :]
         clp_h = tail[:, 2].view(np.float32)
-        for slot_id in runnable:
+        for slot_id, req in entry["in_chunk"]:
             s = self._slots[slot_id]
+            if s.req is not req or s.done:
+                continue
             n_new = int(tail[slot_id, 1]) - s.seq_len
             s.seq_len = int(tail[slot_id, 1])
             if n_new > 0:
@@ -1150,14 +1319,24 @@ class PagedDecodeEngine:
                 s.done = True
                 self._collect(slot_id)
 
+    def _harvest_oldest(self) -> None:
+        self._harvest(self._st.pending.popleft())
+
     def step(self) -> list[dict[str, Any]]:
-        """ONE scheduler iteration on the active stream: admit queued requests
-        into free slots (batched prefill), provision pages (preempting when
-        the pool runs dry), run one decode chunk and harvest it.
+        """ONE scheduler iteration on the active stream: harvest the chunks
+        whose results have reached the host, admit queued gangs into free
+        slots (batched prefill, then the siblings' boundary-page copies),
+        provision pages (preempting when the pool runs dry), dispatch one
+        decode chunk, and wait for the oldest chunk once ``pipeline_depth``
+        are in flight.
 
         Returns the requests that completed, each as ``{"request_id": int,
-        "outputs": [result dict]}``. On an exception the stream is ended
-        (every slot and page released) and the exception re-raised."""
+        "outputs": [one result dict per sequence]}``. With chunks in flight,
+        pages are provisioned (1 + chunks ahead) chunks ahead, and a request
+        that finishes on the card idles its slot until its chunk is
+        harvested (done latches, so it stops advancing). On an exception the
+        stream is ended (every slot and page released, in-flight chunks
+        dropped) and the exception re-raised."""
         st = self._require_stream()
         try:
             self._step_inner(st)
@@ -1170,24 +1349,37 @@ class PagedDecodeEngine:
         out = []
         while st.completed:
             idx = st.completed.popleft()
-            out.append({"request_id": idx, "outputs": [st.results.pop(idx)]})
+            n = st.expected.pop(idx)
+            st.collected.pop(idx, None)
+            out.append({"request_id": idx, "outputs": [st.results.pop((idx, j)) for j in range(n)]})
         return out
 
     def _step_inner(self, st: _Stream) -> None:
         sp = st.sp
-        # 1) admit queued requests into free slots, then prefill them batched
+        # 0) harvest every in-flight chunk whose results are already on the
+        # host: done slots refill now instead of pipeline_depth chunks later
+        while st.pending and (st.pending[0]["ready"] is None or st.pending[0]["ready"].query()):
+            self._harvest_oldest()
+
+        # 1) admit queued gangs into free slots (a gang's sequences go in
+        # together to share prompt pages), prefill the leaders batched, then
+        # copy the siblings' boundary pages
         admitted: list[tuple[int, int]] = []
+        copies: list[tuple[int, int]] = []
         free_ids = [i for i, s in enumerate(self._slots) if s.req is None]
-        while st.queue and not st.suspend_admission and free_ids:
-            claim = self._admit_slot(free_ids[0], st.queue[0])
-            if claim is None:
+        while st.queue and not st.suspend_admission and 0 < len(st.queue[0]) <= len(free_ids):
+            res = self._admit_group(st.queue[0], free_ids[: len(st.queue[0])])
+            if res is None:
                 break  # pool tight: let running slots finish
-            st.queue.pop(0)
+            claim, group_copies = res
             if not self._slots[claim[0]].prefilling:
                 admitted.append(claim)  # chunk-prefilling slots piece through _advance_prefills
-            free_ids = free_ids[1:]
+            copies.extend(group_copies)
+            free_ids = free_ids[len(group_copies) + 1 :]
         if admitted:
             self._prefill_admitted(admitted)
+        if copies:
+            self._dispatch_copies(copies)
         if self.prefill_chunk is not None:
             self._advance_prefills()
 
@@ -1195,29 +1387,55 @@ class PagedDecodeEngine:
         # array and its device done flag still holds the previous occupant's
         runnable = self._runnable()
         if not runnable:
+            if st.pending:
+                self._harvest_oldest()  # finished slots free up while nothing decodes
+                return
             if any(s.req is not None and s.prefilling for s in self._slots):
                 return  # the pieces progress; decode has nothing to run yet
             if st.suspend_admission:
                 st.suspend_admission = False  # nothing else can progress; retry admission
                 return
             if st.queue and not admitted:
+                if len(st.queue[0]) > 1:
+                    # the gang does not fit an idle engine together: its
+                    # sequences run solo (each fit was checked at add_request),
+                    # trading page sharing for progress
+                    for r in st.queue[0]:
+                        r.requeued = True  # hold the front across sorted admission orders
+                    st.queue[:1] = [[r] for r in st.queue[0]]
+                    return
                 # nothing runs, every page is free, and a prompt still does not fit
                 raise RuntimeError("KV page pool too small to admit any prompt; raise n_pages")
             return
 
-        # 2) pages for the next chunk of every running slot; a speculative step
-        # advances up to k+1 tokens and writes k draft positions past its last
-        # advance, so provision for both
+        # 2) pages for the next chunk of every running slot, counting the
+        # chunks already in flight for it; a speculative step advances up to
+        # k+1 tokens and writes k draft positions past its last advance
+        chunks_ahead: dict[int, int] = {}
+        for entry in st.pending:
+            for sid, req in entry["in_chunk"]:
+                # a freed and re-admitted slot's entries belong to the old request
+                if self._slots[sid].req is req:
+                    chunks_ahead[sid] = chunks_ahead.get(sid, 0) + 1
         t_mult = self.speculate_k + 1
-        lookahead = self.chunk * t_mult + t_mult - 1
         for slot_id in runnable:
             s = self._slots[slot_id]
             if s.req is None or s.done:
                 continue  # preempted while provisioning others
+            lookahead = self.chunk * t_mult * (1 + chunks_ahead.get(slot_id, 0)) + t_mult - 1
             mt = s.req.max_tokens if s.req.max_tokens is not None else sp.max_tokens
             cap = max(round_up(len(s.req.prompt), self.prompt_bucket), len(s.req.prompt) + mt)
             target = min(s.seq_len + lookahead + 1, self.max_context, cap)
             while not self._ensure_capacity(slot_id, target):
+                if st.pending:
+                    # free what the chunks in flight have finished before
+                    # preempting (and preempt nothing a chunk in flight runs)
+                    while st.pending:
+                        self._harvest_oldest()
+                    chunks_ahead = {}
+                    if self._slots[slot_id].req is None or self._slots[slot_id].done:
+                        break
+                    continue
                 victim = self._preempt_youngest(st.queue)
                 if victim is None:
                     raise RuntimeError("KV page pool exhausted and nothing to preempt")
@@ -1229,7 +1447,7 @@ class PagedDecodeEngine:
                     st.suspend_admission = True
                     return
 
-        # 3) one decode chunk for every running slot, harvested at once
+        # 3) one decode chunk for every running slot, its results queued for the host
         runnable = self._runnable()
         if not runnable:
             return
@@ -1240,24 +1458,28 @@ class PagedDecodeEngine:
             any_samp = bool(np.any(st.slot_temp[runnable] > 0.0))
             packed = self._run_chunk(st, self._control(st), any_samp)
         st.admit[:] = 0  # consumed by this dispatch
+        host, ready = self._to_host(packed)
         st.stats["dispatch_block_s"] += time.perf_counter() - t0
         st.stats["chunk_dispatches"] += 1
         st.stats["slot_chunks"] += len(runnable)
         if self.speculate_k == 0:
             # roofline accounting, as the JAX engine counts it (not in spec
             # mode, whose window reads vary with acceptance): each step reads
-            # the weights once and each runnable slot's page-rounded history
-            hl = np.array([self._slots[i].seq_len for i in runnable], np.int64)
+            # the weights once and each runnable slot's page-rounded history,
+            # which the chunks in flight have already grown
+            hl = np.array([self._slots[i].seq_len + self.chunk * chunks_ahead.get(i, 0) for i in runnable], np.int64)
             pages = -(-(hl[:, None] + np.arange(self.chunk, dtype=np.int64)[None, :]) // self.page_size)
             kvd = self.cfg.num_kv_heads * self.cfg.head_dim
             st.stats["kv_bytes"] += (float(pages.sum()) * self.page_size * kvd
                                      * self.pools["k"].element_size() * 2 * self.cfg.num_layers)
             st.stats["weight_bytes"] += self.chunk * self._weight_bytes
         st.suspend_admission = False  # a chunk ran: progress is real
-        t0 = time.perf_counter()
-        packed = packed.cpu().numpy()  # the one synchronous read of the chunk's results
-        st.stats["harvest_block_s"] += time.perf_counter() - t0
-        self._harvest(packed, runnable)
+        st.pending.append({"packed": host, "ready": ready, "in_chunk": [(i, self._slots[i].req) for i in runnable]})
+
+        # 4) once the pipeline is full, wait for the oldest chunk: the ones
+        # queued after it keep the card busy meanwhile
+        if len(st.pending) >= self.pipeline_depth:
+            self._harvest_oldest()
 
     def _runnable(self) -> list[int]:
         return [i for i, s in enumerate(self._slots) if s.req is not None and not s.done and not s.prefilling]
@@ -1266,15 +1488,17 @@ class PagedDecodeEngine:
 
     def generate_batch(self, prompts: list[list[int]], sp: SamplingParams, seed: int = 0) -> list[dict[str, Any]]:
         """Generate for ragged prompts with continuous batching; returns
-        vLLM-shaped dicts in prompt order. A thin driver over the streaming
-        API: begin_stream -> add_request xN -> step until idle -> end_stream."""
+        vLLM-shaped dicts in prompt order, prompt-major / sequence-minor when
+        ``sp.n > 1`` (``len == len(prompts) * sp.n``). A thin driver over the
+        streaming API: begin_stream -> add_request xN -> step until idle ->
+        end_stream."""
         self.begin_stream(sp, seed)
         try:
             ids = [self.add_request(t) for t in prompts]
-            by_id: dict[int, dict[str, Any]] = {}
+            by_id: dict[int, list[dict[str, Any]]] = {}
             while not self.stream_idle:
                 for rec in self.step():
-                    by_id[rec["request_id"]] = rec["outputs"][0]
+                    by_id[rec["request_id"]] = rec["outputs"]
         finally:
             self.end_stream()
-        return [by_id[i] for i in ids]
+        return [res for i in ids for res in by_id[i]]

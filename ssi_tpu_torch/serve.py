@@ -30,13 +30,15 @@ Which sampling branches the stream carries is fixed at startup
 (``features`` — default sample+topk+topp; add "pen" for the penalty params);
 a request needing an absent branch gets a clean 400.
 
-What differs from the JAX server is the engine below it: the port harvests
-each decode chunk synchronously (the JAX engine pipelines two), so streamed
-deltas may be cut at other token boundaries (their concatenation and every
-final record are the same), and ``n > 1`` is refused by the engine with a
-400 naming ROADMAP item A3. Grad mode and the current CUDA device are per
-thread in PyTorch: the scheduler thread runs the engine under ``no_grad`` on
-the engine's card.
+The engine below pipelines two decode chunks, as the JAX engine does, so a
+request's tokens reach the stream pushes one harvest after the card wrote
+them; when a chunk counts as finished is timing, so streamed deltas may be
+cut at other token boundaries than the JAX server's (their concatenation and
+every final record are the same). ``n > 1`` returns n choices (not with
+``stream`` or ``stop``: 400s, as in JAX); a client that goes away cancels
+every sequence of its request. Grad mode and the current CUDA device are
+per thread in PyTorch: the scheduler thread runs the engine under
+``no_grad`` on the engine's card.
 """
 
 from __future__ import annotations

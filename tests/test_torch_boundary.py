@@ -358,6 +358,64 @@ def test_serving_cli_runs_with_the_card_libraries_blocked(tmp_path):
     assert json.loads(counts.read_text().splitlines()[-1])["entry_point"] == "serve"
 
 
+def test_n_gt_1_generation_and_serving_load_no_card_library(tmp_path):
+    """``sampling_params.n=3`` through the generation CLI, then an ``n: 2``
+    request to the serving CLI, each a process with every library of
+    ``_NOT_ON_THE_CARD`` blocked from import: three outputs per record, two
+    equal greedy choices, and neither process loaded jax, ``ssi_tpu`` or an
+    optional package (the gangs, the page copy and the depth-2 pipeline
+    included)."""
+    import json
+    import signal
+    import time
+    import urllib.request
+
+    from tests import helpers
+
+    model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "step_0")
+    split = tmp_path / "test.jsonl"
+    split.write_text("".join(json.dumps(r) + "\n" for r in helpers.synthetic_sft_rows(2)))
+    block = tmp_path / "block"
+    block.mkdir()
+    (block / "sitecustomize.py").write_text(_BLOCKER.format(names=repr(set(_NOT_ON_THE_CARD))))
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env.update(PYTHONPATH=f"{block}{os.pathsep}{REPO}", OMP_NUM_THREADS="2")
+    code = _CLI_RUN.replace("NAMES", repr(_NOT_ON_THE_CARD))
+    args = _cli_overrides(model_dir, split, tmp_path / "gens")
+    proc = subprocess.run([sys.executable, "-c", code, *args, "batch_size=4", "sampling_params.n=3", "+device=cpu"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLI_OK" in proc.stdout
+    records = [json.loads(line) for line in
+               (tmp_path / "gens" / "json" / "test" / "generations.jsonl").read_text().splitlines()]
+    assert len(records) == 2 and all(len(r["outputs"]) == 3 for r in records)
+
+    port = _free_port()
+    proc = subprocess.Popen([sys.executable, "-c", _SERVE_RUN.replace("NAMES", repr(_NOT_ON_THE_CARD)),
+                             *_serve_args(model_dir, port), "+device=cpu"], cwd=tmp_path, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        for _ in range(600):
+            assert proc.poll() is None, proc.communicate()[1][-3000:]
+            try:
+                with urllib.request.urlopen(url + "/health", timeout=5):
+                    break
+            except OSError:
+                time.sleep(0.1)
+        req = urllib.request.Request(url + "/v1/completions", headers={"Content-Type": "application/json"},
+                                     data=json.dumps({"prompt": [5, 17, 42, 99, 3], "max_tokens": 4, "n": 2}).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = json.loads(r.read())
+    finally:
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=120)
+    assert proc.returncode == 0, err[-3000:]
+    assert "SERVE_OK" in out
+    choices = body["choices"]
+    assert len(choices) == 2 and choices[0]["token_ids"] == choices[1]["token_ids"]
+
+
 def test_serving_cli_refuses_without_a_card(tmp_path):
     """Without ``+device=cpu`` and with no CUDA device, the serving CLI
     refuses before it loads the tokenizer or the checkpoint (no CPU fallback)."""

@@ -19,6 +19,7 @@ from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
 from ssi_tpu_torch.models.llama3 import params_from_numpy
 from tests import helpers
 from tests.test_torch_paged_engine import make_engine, no_leaks, run_stream
+from tests.test_torch_pipeline import slow_jax, slow_port
 
 
 @pytest.fixture(scope="module")
@@ -48,16 +49,29 @@ def greedy(max_tokens, **kw):
 @pytest.mark.parametrize("k", [1, 3])
 def test_spec_matches_jax_engine_and_naive(setup, k):
     """speculate_k is lossless: tokens equal the JAX engine's (gather
-    attention, harvest depth 1 as the port's) and the naive stream, with the
+    attention, both at harvest depth 1) and the naive stream, with the
     same verify steps and tokens out, and real acceptance (tokens_per_verify
     > 1: tiny-model greedy streams cycle, feeding the bigram drafter)."""
+    spec_parity(setup, k, depth=1)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_spec_matches_jax_engine_at_depth_2(setup, k):
+    """The same at the default depth 2, both engines' chunks unfinished until
+    harvested (so both run one schedule: the drafter reads history past a
+    slot's length, and verify steps match only on the same schedule)."""
+    spec_parity(setup, k, depth=2)
+
+
+def spec_parity(setup, k, depth):
     cfg, jparams, tparams = setup
     rng = np.random.default_rng(11)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in [5, 11, 17, 3, 9, 14]]
-    engine = make_engine(tparams, cfg, speculate_k=k)
+    engine = slow_port(make_engine(tparams, cfg, speculate_k=k, pipeline_depth=depth))
     outs = engine.generate_batch(prompts, greedy(12))
-    jeng = JPagedDecodeEngine(jparams, cfg, pad_id=0, n_slots=4, page_size=8, prompt_bucket=8, max_context=64,
-                              chunk=4, attn_impl="gather", pipeline_depth=1, speculate_k=k)
+    jeng = slow_jax(JPagedDecodeEngine(jparams, cfg, pad_id=0, n_slots=4, page_size=8, prompt_bucket=8,
+                                       max_context=64, chunk=4, attn_impl="gather", pipeline_depth=depth,
+                                       speculate_k=k))
     jouts = jeng.generate_batch(prompts, JSamplingParams(temperature=0.0, max_tokens=12))
     for i, (prompt, out, jout) in enumerate(zip(prompts, outs, jouts)):
         assert out["token_ids"] == jout["token_ids"] == naive(jparams, cfg, prompt, 12), (k, i)
@@ -397,20 +411,30 @@ def test_all_options_match_jax_engine(setup, k):
     """Speculation, the prefix cache and chunked prefill together, over
     prompts that share stems, against the JAX engine with the same options:
     identical tokens, verify steps, tokens out and cached prompt tokens."""
+    all_options_parity(setup, k, depth=1)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_all_options_match_jax_engine_at_depth_2(setup, k):
+    """The same with both engines at depth 2, their chunks unfinished until harvested."""
+    all_options_parity(setup, k, depth=2)
+
+
+def all_options_parity(setup, k, depth):
     cfg, jparams, tparams = setup
     rng = np.random.default_rng(97)
     stem = rng.integers(0, cfg.vocab_size, 24).tolist()
     prompts = [stem + rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in [3, 17, 9]]
     prompts += [rng.integers(0, cfg.vocab_size, 30).tolist(), stem[:20]]
     kw = dict(n_slots=3, page_size=8, prompt_bucket=8, max_context=64, chunk=4, prefill_chunk=16, speculate_k=k)
-    engine = PagedDecodeEngine(tparams, cfg, pad_id=0, **kw)
+    engine = slow_port(PagedDecodeEngine(tparams, cfg, pad_id=0, pipeline_depth=depth, **kw))
     outs = engine.generate_batch(prompts, greedy(10))
-    jeng = JPagedDecodeEngine(jparams, cfg, pad_id=0, attn_impl="gather", pipeline_depth=1, **kw)
+    jeng = slow_jax(JPagedDecodeEngine(jparams, cfg, pad_id=0, attn_impl="gather", pipeline_depth=depth, **kw))
     jouts = jeng.generate_batch(prompts, JSamplingParams(temperature=0.0, max_tokens=10))
     for i, (prompt, out, jout) in enumerate(zip(prompts, outs, jouts)):
         assert out["token_ids"] == jout["token_ids"] == naive(jparams, cfg, prompt, 10), (k, i)
     st, jst = engine.last_stats, jeng.last_stats
-    for name in ("verify_steps", "tokens_out", "cached_prompt_tokens", "prefill_pieces"):
+    for name in ("verify_steps", "tokens_out", "cached_prompt_tokens", "prefill_pieces", "chunk_dispatches"):
         assert st[name] == jst[name], name
     assert st["cached_prompt_tokens"] > 0 and st["prefill_pieces"] > 0
     assert no_leaks(engine)

@@ -75,8 +75,7 @@ def read_records(out_dir: Path) -> list[dict]:
     return [json.loads(line) for line in (out_dir / "generations.jsonl").read_text().splitlines()]
 
 
-@pytest.fixture(scope="module")
-def jax_run(assets, tmp_path_factory):
+def jax_generate(assets, out_root: Path, *extra: str) -> Path:
     """The JAX package's run on the same split (its dataset loader reads the
     same rows; the JAX side needs no network or ``datasets`` cache)."""
     import datasets as hfd
@@ -85,16 +84,19 @@ def jax_run(assets, tmp_path_factory):
     from ssi_tpu.config import compose
     from ssi_tpu.generate import run_generation
 
-    root, model_dir, split, rows = assets
-    out_root = tmp_path_factory.mktemp("jax_out")
+    _, model_dir, split, rows = assets
     mp = pytest.MonkeyPatch()
     mp.setattr(data_mod, "load_hf_dataset", lambda source, **kw: hfd.Dataset.from_list(rows))
     try:
-        cfg = compose(REPO / "conf", "generate", overrides=overrides(model_dir, split, out_root))
-        out_dir = run_generation(cfg)
+        return run_generation(compose(REPO / "conf", "generate", overrides=overrides(model_dir, split, out_root, *extra)))
     finally:
         mp.undo()
-    return out_root, out_dir
+
+
+@pytest.fixture(scope="module")
+def jax_run(assets, tmp_path_factory):
+    out_root = tmp_path_factory.mktemp("jax_out")
+    return out_root, jax_generate(assets, out_root)
 
 
 @pytest.fixture(scope="module")
@@ -115,12 +117,20 @@ def assert_float_close(a, b, what: str) -> None:
 def test_generations_equal_jax_line_for_line(jax_run, port_run):
     (_, jax_dir), (_, port_dir) = jax_run, port_run
     assert port_dir.relative_to(port_run[0]) == jax_dir.relative_to(jax_run[0]) == Path("json") / "test"
+    assert_generations_equal(jax_dir, port_dir)
+
+
+def assert_generations_equal(jax_dir: Path, port_dir: Path, n: int = 1) -> None:
+    """Every record of the port's ``generations.jsonl`` equals the JAX
+    package's: key order, ``n`` outputs each, log-probabilities within 1e-5
+    relative, every other field byte-equal."""
     jax_lines = (jax_dir / "generations.jsonl").read_text().splitlines()
     port_lines = (port_dir / "generations.jsonl").read_text().splitlines()
     assert len(port_lines) == len(jax_lines) == N_ROWS
     for lj, lp in zip(jax_lines, port_lines):
         rj, rp = json.loads(lj), json.loads(lp)
         assert list(rp) == list(rj)  # key order
+        assert len(rp["outputs"]) == len(rj["outputs"]) == n
         for oj, op in zip(rj["outputs"], rp["outputs"]):
             assert list(op) == list(oj)
             # float log-probabilities summed in two frameworks: held to 1e-5 relative
@@ -187,12 +197,26 @@ def test_null_output_dir_resolves_under_generations(assets, tmp_path):
     assert {"load_s", "load_bytes", "tokenize_s", "warmup_s", "generate_s"} <= set(last_run_stats)
 
 
+def test_n_3_generations_equal_jax_line_for_line(assets, tmp_path):
+    """``sampling_params.n=3`` (greedy): one record per prompt with 3 outputs
+    (the engine's prompt-major order), equal to the JAX entry point's line for
+    line; the engine takes the default pipeline depth, 2, as the JAX one does."""
+    from ssi_tpu_torch.generate import run_generation
+
+    _, model_dir, split, _ = assets
+    jax_dir = jax_generate(assets, tmp_path / "jax", "sampling_params.n=3")
+    port_dir = run_generation(port_cfg(model_dir, split, tmp_path / "port", "sampling_params.n=3"))
+    assert_generations_equal(jax_dir, port_dir, n=3)
+    for record in read_records(port_dir):
+        assert len({tuple(o["token_ids"]) for o in record["outputs"]}) == 1  # greedy siblings agree
+        assert [o["index"] for o in record["outputs"]] == [0, 1, 2]
+
+
 @pytest.mark.parametrize(
     "extra, item",
     [
         (["engine=dense"], "A6"),
         (["tensor_parallel=2"], "A9"),
-        (["sampling_params.n=3"], "A3"),
     ],
 )
 def test_options_not_ported_raise_naming_their_item(assets, tmp_path, extra, item):

@@ -33,6 +33,7 @@ from tests import helpers
 from tests.test_torch_generate import assert_float_close
 from tests.test_torch_paged import _fused_inputs, _multi_inputs
 from tests.test_torch_paged_engine import make_engine, no_leaks
+from tests.test_torch_pipeline import slow_jax, slow_port
 from tests.test_torch_train_step import (
     assert_grads_close,
     check_metrics,
@@ -142,15 +143,27 @@ def test_multi_fused_matches_pallas_multi_interpret(shape):
 @pytest.mark.parametrize("k", [0, 2])
 def test_engine_greedy_tokens_equal_jax(models, shape, k):
     """Greedy tokens of the port's engine (plain attention on the CPU) equal
-    the JAX engine's (gather attention, harvest depth 1 as the port's), with
-    the same verify steps under speculation."""
+    the JAX engine's (gather attention, both at harvest depth 1), with the
+    same verify steps under speculation."""
+    engine_parity(models, shape, k, depth=1)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("k", [0, 2])
+def test_engine_greedy_tokens_equal_jax_at_depth_2(models, shape, k):
+    """The same at the default depth 2, both engines' chunks unfinished until harvested."""
+    engine_parity(models, shape, k, depth=2)
+
+
+def engine_parity(models, shape, k, depth):
     jcfg, jparams, tcfg, tparams = models[shape]
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, jcfg.vocab_size, int(n)).tolist() for n in (5, 11, 17, 3, 9, 14)]
-    engine = make_engine(tparams, tcfg, speculate_k=k)
+    engine = slow_port(make_engine(tparams, tcfg, speculate_k=k, pipeline_depth=depth))
     outs = engine.generate_batch(prompts, SamplingParams(temperature=0.0, max_tokens=10))
-    jeng = JPagedDecodeEngine(jparams, jcfg, pad_id=0, n_slots=4, page_size=8, prompt_bucket=8, max_context=64,
-                              chunk=4, attn_impl="gather", pipeline_depth=1, speculate_k=k)
+    jeng = slow_jax(JPagedDecodeEngine(jparams, jcfg, pad_id=0, n_slots=4, page_size=8, prompt_bucket=8,
+                                       max_context=64, chunk=4, attn_impl="gather", pipeline_depth=depth,
+                                       speculate_k=k))
     jouts = jeng.generate_batch(prompts, JSamplingParams(temperature=0.0, max_tokens=10))
     for i, (out, jout) in enumerate(zip(outs, jouts)):
         assert out["token_ids"] == jout["token_ids"], (shape, k, i)

@@ -1,11 +1,12 @@
 """The port's PagedDecodeEngine on the CPU (plain attention) against the JAX
 paged engine and the naive full-recompute greedy oracle, plus the scheduler
 contract of tests/test_paged_decode.py: refill, stop tokens and budgets,
-preemption, pool and context errors, sampling, cancel, and the options not
-ported yet. The prefix cache is on (the default) throughout."""
+preemption, pool and context errors, sampling, cancel, the refusals of n, and
+the option not ported yet. The prefix cache is on (the default) throughout."""
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -198,6 +199,24 @@ def test_sampled_contract(setup):
     assert no_leaks(engine)
 
 
+def test_gumbel_noise_is_finite_and_top_k_1_is_greedy():
+    """Stream seed 7, row seed 222, position 0 draws, at vocab index 15364 of
+    133,258 (the 1B vocabulary), the hash value whose uniform a 24-bit
+    mapping rounds to 1.0 in f32 (+inf noise). The noise stays finite, and a
+    top-k 1 draw over a masked row is the argmax however the noise falls."""
+    from ssi_tpu_torch.generate.paged_engine import _gumbel_noise, _sample_rows
+
+    vocab = 133_258
+    rows = torch.tensor([222, 229, 5], dtype=torch.int32)
+    noise = _gumbel_noise(7, rows, torch.zeros(3, dtype=torch.int32), vocab)
+    assert torch.isfinite(noise).all() and noise.max() < 17.0 and noise.min() > -3.0
+    logits = torch.randn((3, vocab), generator=torch.Generator().manual_seed(0))
+    temp, top_p = torch.full((3,), 0.8), torch.ones(3)
+    tok, _ = _sample_rows(logits, {"sample", "topk"}, True, temp, top_p, torch.ones(3, dtype=torch.int32),
+                          None, None, None, lambda: noise, None, None)
+    assert tok.tolist() == logits.argmax(dim=-1).tolist()
+
+
 def test_sampling_survives_preemption(setup):
     """Preemption + recompute redraws the identical sampled continuation (the
     noise is keyed by stream seed, request seed and position)."""
@@ -255,12 +274,33 @@ def test_unported_engine_options_raise(setup, kw, error, match):
 
 
 def test_unported_n_gt_1_raises(setup):
-    cfg, _, tparams = setup
-    engine = make_engine(tparams, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A3"):
-        engine.generate_batch([[1, 2, 3]], SamplingParams(n=2, temperature=1.0, max_tokens=2))
-    engine.begin_stream(SamplingParams(max_tokens=2), features={"sample"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A3"):
-        engine.add_request([1, 2, 3], sampling=SamplingParams(n=2, temperature=1.0, max_tokens=2))
-    engine.end_stream()
-    assert no_leaks(engine)
+    """n outside [1, n_slots], and n > 1 under speculation, are refused with
+    the JAX engine's ValueError texts word for word (the HTTP server returns
+    them as 400s); ``n > 1`` itself is served (tests/test_torch_parallel_sampling.py)."""
+    cfg, jparams, tparams = setup
+    kw = dict(n_slots=4, page_size=8, prompt_bucket=8, max_context=64, chunk=4)
+
+    def refusal(engine, call):
+        with pytest.raises(ValueError) as e:
+            call(engine)
+        if getattr(engine, "_st", None) is not None:
+            engine.end_stream()
+        return str(e.value)
+
+    for spec, sp_kw, stream_kw in [
+        (0, dict(n=0), None), (0, dict(n=5), None), (2, dict(n=2), None),
+        (0, None, dict(n=0)), (0, None, dict(n=5, temperature=1.0)), (2, None, dict(n=2)),
+    ]:
+        port = make_engine(tparams, cfg, speculate_k=spec)
+        jeng = JPagedDecodeEngine(jparams, cfg, pad_id=0, attn_impl="gather", speculate_k=spec, **kw)
+        if sp_kw is not None:  # the stream's own n
+            got = refusal(port, lambda e: e.begin_stream(SamplingParams(max_tokens=2, **sp_kw)))
+            want = refusal(jeng, lambda e: e.begin_stream(JSamplingParams(max_tokens=2, **sp_kw)))
+        else:  # a request's n
+            feats = None if spec else {"sample"}
+            got = refusal(port, lambda e: (e.begin_stream(SamplingParams(max_tokens=2), features=feats),
+                                           e.add_request([1, 2, 3], sampling=SamplingParams(max_tokens=2, **stream_kw))))
+            want = refusal(jeng, lambda e: (e.begin_stream(JSamplingParams(max_tokens=2), features=feats),
+                                            e.add_request([1, 2, 3], sampling=JSamplingParams(max_tokens=2, **stream_kw))))
+        assert got == want, (spec, sp_kw, stream_kw)
+        assert "n" in got and no_leaks(port)

@@ -33,6 +33,7 @@ from tests.test_torch_generate import (  # noqa: F401  (fixtures)
     restore_logging,
 )
 from tests.test_torch_paged_engine import make_engine, no_leaks
+from tests.test_torch_pipeline import slow_jax, slow_port
 
 
 @pytest.fixture(scope="module")
@@ -139,16 +140,27 @@ def test_int8_weight_only_decode(setup):
 @pytest.mark.parametrize("k, prefix", [(0, False), (2, True)], ids=["k0", "k2-prefix-cache"])
 def test_int8_engine_tokens_equal_jax_int8_engine(setup, k, prefix):
     """Greedy tokens of the port's int8 engine equal the JAX int8 engine's,
-    token for token (gather attention, harvest depth 1 as the port's); with
+    token for token (gather attention, both at harvest depth 1); with
     ``speculate_k=2`` the prompts share a prefix, so the cache engages."""
+    int8_parity(setup, k, prefix, depth=1)
+
+
+@pytest.mark.parametrize("k, prefix", [(0, False), (2, True)], ids=["k0", "k2-prefix-cache"])
+def test_int8_engine_tokens_equal_jax_int8_engine_at_depth_2(setup, k, prefix):
+    """The same at the default depth 2, both engines' chunks unfinished until harvested."""
+    int8_parity(setup, k, prefix, depth=2)
+
+
+def int8_parity(setup, k, prefix, depth):
     cfg, jparams, tparams = setup
     rng = np.random.default_rng(21)
     shared = rng.integers(0, cfg.vocab_size, 16).tolist() if prefix else []
     prompts = [shared + rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in [5, 11, 17, 3, 9, 14]]
-    engine = make_engine(tparams, cfg, quantize="int8", speculate_k=k)
+    engine = slow_port(make_engine(tparams, cfg, quantize="int8", speculate_k=k, pipeline_depth=depth))
     outs = engine.generate_batch(prompts, SamplingParams(temperature=0.0, max_tokens=12))
-    jeng = JPagedDecodeEngine(jparams, cfg, pad_id=0, n_slots=4, page_size=8, prompt_bucket=8, max_context=64,
-                              chunk=4, attn_impl="gather", pipeline_depth=1, quantize="int8", speculate_k=k)
+    jeng = slow_jax(JPagedDecodeEngine(jparams, cfg, pad_id=0, n_slots=4, page_size=8, prompt_bucket=8,
+                                       max_context=64, chunk=4, attn_impl="gather", pipeline_depth=depth,
+                                       quantize="int8", speculate_k=k))
     jouts = jeng.generate_batch(prompts, JSamplingParams(temperature=0.0, max_tokens=12))
     for i, (out, jout) in enumerate(zip(outs, jouts)):
         assert out["token_ids"] == jout["token_ids"], (k, i)

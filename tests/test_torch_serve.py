@@ -4,11 +4,11 @@ port's engine (plain attention), and parity with the JAX server on the same
 weights and requests, both served over HTTP in this process.
 
 The JAX server runs on its gather engine through ``tests/test_paged_decode.py``
-``make_engine`` (pipelined harvest, depth 2); the port harvests synchronously,
-so streamed deltas may be cut at other places, but their concatenation and
-every final record are equal. The one difference a client can see is
-``n > 1``: the port's engine refuses it, so the server answers 400 naming
-ROADMAP item A3.
+``make_engine``; both engines pipeline two chunks (depth 2), but when a chunk
+counts as finished is timing, so streamed deltas may be cut at other places;
+their concatenation and every final record are equal, ``n > 1`` choices
+included (greedy), and so are the 400s for ``n > 1`` with ``stream`` or
+``stop``.
 """
 
 import json
@@ -33,6 +33,7 @@ from ssi_tpu_torch.models.llama3 import params_from_numpy
 from ssi_tpu_torch.serve import Server, _chat_prompt_tokens, _IncrementalDecoder, run_http_server
 from tests import helpers
 from tests.test_paged_decode import make_engine as make_jax_engine
+from tests.test_torch_pipeline import slow_jax, slow_port
 
 torch.set_num_threads(2)
 
@@ -244,8 +245,8 @@ def test_server_survives_engine_error(setup, server):
 
 def test_per_request_sampling_http(setup, server):
     """OpenAI per-request sampling fields: top_k=1 sampling equals greedy,
-    seeded sampling is reproducible; n>1 is refused with a 400 naming A3
-    (the JAX server returns n choices)."""
+    seeded sampling is reproducible; greedy n: 2 answers two choices, each
+    the greedy stream (the JAX server's tokens: see the twins tests)."""
     cfg = setup[0]
     _srv, url = server
     rng = np.random.default_rng(113)
@@ -265,9 +266,10 @@ def test_per_request_sampling_http(setup, server):
     assert c[1]["choices"][0]["token_ids"] != a[1]["choices"][0]["token_ids"]
 
     code, body = _post(url, "/v1/completions", {"prompt": prompt, "n": 2})
-    assert code == 400
-    assert "A3" in body["error"]["message"] and "ROADMAP" in body["error"]["message"]
-    # the stream survives the refusal
+    assert code == 200
+    assert [c["index"] for c in body["choices"]] == [0, 1]
+    assert [c["token_ids"] for c in body["choices"]] == [want, want]
+    assert body["usage"]["completion_tokens"] == 2 * len(want)
     code, body = _post(url, "/v1/completions", {"prompt": prompt})
     assert code == 200 and body["choices"][0]["token_ids"] == want
 
@@ -713,6 +715,11 @@ _REQUESTS = {
     "bad-stop": ("/v1/completions", lambda v: {"prompt": _prompt(206, v), "stop": [1]}),
     "bad-penalty": ("/v1/completions", lambda v: {"prompt": _prompt(206, v), "repetition_penalty": 1.2}),
     "bad-chat": ("/v1/chat/completions", lambda v: {"messages": [{"role": "tool", "content": "x"}]}),
+    "n-2": ("/v1/completions", lambda v: {"prompt": _prompt(215, v, 19), "n": 2, "logprobs": 1}),
+    "n-3-chat": ("/v1/chat/completions", lambda v: {"messages": [{"role": "user", "content": "go"}], "n": 3}),
+    "n-2-stream": ("/v1/completions", lambda v: {"prompt": _prompt(216, v), "n": 2, "stream": True}),
+    "n-2-stop": ("/v1/completions", lambda v: {"prompt": _prompt(216, v), "n": 2, "stop": "gg"}),
+    "n-9": ("/v1/completions", lambda v: {"prompt": _prompt(216, v), "n": 9}),
 }
 
 
@@ -735,16 +742,24 @@ def test_responses_match_the_jax_server(setup, twins, name):
 
 
 def test_n_gt_1_is_the_one_difference(setup, twins):
-    """``n: 2``: the JAX server returns two choices; the port answers 400
-    naming ROADMAP item A3 and keeps serving."""
+    """``n: 2`` is no longer a difference: greedy, both servers answer the
+    same two choices; sampled (temperature 0.7, seeded), both answer two
+    choices of the budget's length, and the port's reproduce themselves
+    (sampled tokens cannot equal ``jax.random``'s bits)."""
     jurl, purl, _ = twins
-    body = {"prompt": _prompt(207, setup[0].vocab_size), "n": 2, "temperature": 0.7}
+    prompt = _prompt(207, setup[0].vocab_size)
+    jcode, jbody = _post(jurl, "/v1/completions", {"prompt": prompt, "n": 2})
+    pcode, pbody = _post(purl, "/v1/completions", {"prompt": prompt, "n": 2})
+    assert jcode == pcode == 200
+    _assert_choices_equal(jbody, pbody)
+    assert pbody["choices"][0]["token_ids"] == pbody["choices"][1]["token_ids"]
+    body = {"prompt": prompt, "n": 2, "temperature": 0.7, "seed": 3, "max_tokens": 6}
     code, jbody = _post(jurl, "/v1/completions", body)
     assert code == 200 and len(jbody["choices"]) == 2
-    code, pbody = _post(purl, "/v1/completions", body)
-    assert code == 400 and "A3" in pbody["error"]["message"]
-    code, _ = _post(purl, "/v1/completions", {"prompt": body["prompt"]})
-    assert code == 200
+    runs = [_post(purl, "/v1/completions", body) for _ in range(2)]
+    assert all(code == 200 for code, _ in runs) and runs[0][1]["choices"] == runs[1][1]["choices"]
+    assert [c["index"] for c in runs[0][1]["choices"]] == [0, 1]
+    assert all(len(c["token_ids"]) == 6 or c["finish_reason"] == "stop" for c in runs[0][1]["choices"])
 
 
 _STREAMS = {
@@ -757,9 +772,9 @@ _STREAMS = {
 
 @pytest.mark.parametrize("name", list(_STREAMS))
 def test_streams_match_the_jax_server(setup, twins, name):
-    """Streamed deltas may be cut at other places (the JAX engine harvests two
-    chunks deep, the port one), but the concatenated token ids and text, the
-    first chat chunk and the final chunk are equal."""
+    """Streamed deltas may be cut at other places (when a chunk counts as
+    finished is timing in both engines), but the concatenated token ids and
+    text, the first chat chunk and the final chunk are equal."""
     jurl, purl, _ = twins
     path, make = _STREAMS[name]
     body = make(setup[0].vocab_size)
@@ -815,13 +830,24 @@ def test_incremental_decoder_matches_the_jax_package(tokenizers):
 
 def test_metrics_keys_and_roofline_bytes_match_the_jax_server(setup):
     """``/metrics`` has the JAX server's key set, and after the same greedy
-    stream (sequential requests; the JAX engine pinned to synchronous harvest,
-    as the port harvests) the roofline byte counters are equal."""
+    stream (sequential requests; both engines at harvest depth 1) the
+    roofline byte counters are equal."""
+    metrics_parity(setup, depth=1)
+
+
+def test_metrics_match_the_jax_server_at_depth_2(setup):
+    """The same with both engines at depth 2, their chunks unfinished until
+    harvested (one schedule: the counters include the chunks in flight)."""
+    metrics_parity(setup, depth=2)
+
+
+def metrics_parity(setup, depth):
     cfg, jparams, tparams = setup
     sp = dict(temperature=0.0, max_tokens=8, stop_token_ids=())
-    jsrv = JServer(make_jax_engine(jparams, cfg, n_slots=3, max_context=64, pipeline_depth=1),
+    jsrv = JServer(slow_jax(make_jax_engine(jparams, cfg, n_slots=3, max_context=64, pipeline_depth=depth)),
                    JSamplingParams(**sp), model_id="t")
-    psrv = Server(make_engine(tparams, cfg, n_slots=3, max_context=64), SamplingParams(**sp), model_id="t")
+    psrv = Server(slow_port(make_engine(tparams, cfg, n_slots=3, max_context=64, pipeline_depth=depth)),
+                  SamplingParams(**sp), model_id="t")
     jurl, jstop = serve_http(jsrv)
     purl, pstop = serve_http(psrv)
     try:

@@ -107,6 +107,17 @@ i. the serving entry point over HTTP, on phase d's ``step_0/`` before it is
    seconds, how the 64 prompts' prefill split between #1 and the plain
    suffix pass, ``/metrics``, and the device memory in use (which must not
    grow by 1 GiB after the 64 requests);
+l. the dense engine, on phase d's ``step_0/`` and split before they are
+   deleted: f32 at 1B width (2 layers), the dense ``DecodeEngine``'s greedy
+   tokens equal the paged engine's (kernels) and a full-recompute oracle's
+   for phase 4's prompts, a seeded sampled run reproduces itself and top-k
+   1 is greedy; the generation CLI with ``engine=dense batch_size=8`` in
+   bf16 (64 records in 8 batches, every record finished; generated tok/s
+   beside phase d's paged rate, agreement with phase d's tokens reported,
+   not required); one ``python -m ssi_tpu_torch.cli.generate_sample``
+   process on ``repeat_this_modality_switch`` with speech tokens (a
+   finished record); phase l uses no kernel of the table (the JAX dense
+   engine's attention is XLA);
 6. flash-attention backward kernel vs its plain version (dq, dk, dv; f32 and
    bf16; causal, full, segment ids) at B 4, S 768 and the training shape
    B 2, S 2048, with the plain gradients at lse + 0.05 as the control; dq,
@@ -163,6 +174,23 @@ e. the training entry points at the full width of ``llama3_2_1b``: a
    seconds, peak memory, launches, and the free disk at the start (the
    phase holds about 20 GB at its peak and deletes each directory once
    read);
+k. packed training, inside phase e on its extended checkpoint: the SFT
+   CLI with ``data.train.packed=true data.dev.packed=true`` at phase e's
+   window (4 x 2 x 2048) over 112 rows (phase e's 64 and 48 more: 27 packs
+   of 2048, 3 optimizer steps an epoch), 4 steps, a save and a packed dev
+   loss every 2: losses finite and falling, every training kernel launched
+   (the kernels line's ``launches_by_path["train_packed"]``); a fresh run
+   from ``step_2/`` and its state whose steps 3-4 (across the epoch
+   boundary, after the re-pack) and step-4 weights equal the uninterrupted
+   run's bitwise; #1 and #3 at the run's first two packs (segments 1..k,
+   then a tail of segment 0) vs their plain versions in f32 and bf16, each
+   beside a segment-blind control that must miss, with bf16 times beside
+   SDPA given the same boolean mask (the backend that took it is named);
+   f32 at 1B width (2 layers): the two packs' loss equals the sum over
+   their samples run alone, with the kernels and with the plain versions,
+   within 1e-5 of the sum; then 2 steps with ``pack_window`` 8. Prints
+   label tok/s and ``duration_step`` beside phase e's unpacked run, the
+   non-pad share of packed and unpacked rows, and peak memory;
 f. weight-only int8 and the port's WER drive:
    f1. ``quantize_layer_weights_int8`` on phase 5's random bf16 1B weights
    on the card: ``q`` and ``scale`` bitwise equal to the same f32
@@ -218,7 +246,7 @@ h. Llama 3.1 8B serving at full width (D 4,096, FFN 14,336, an untied
    layers, tokens kernels == plain and == the oracle.
 
 ``--only 1b,hd128,g,h`` runs the named groups alone while developing (1b:
-phases 2-f, phases i and j with them) and prints no result line.
+phases 2-f, phases i, j, k and l with them) and prints no result line.
 
 Tolerances: phases 2, 3 and a hold each output elementwise to ``TOL``
 (absolute and relative). Every kernel output is also held in relative norm,
@@ -230,7 +258,8 @@ gradient leaf to 1e-4 of its largest entry.
 It then prints one JSON line with per-kernel results (errors, times, the
 bound computed from this run's shapes, the library yardstick, launches by
 path, ``wer_drive`` the sum over the drive's stage processes,
-``serve_http`` the HTTP server process's and ``serve_n`` phase j1's; the
+``serve_http`` the HTTP server process's, ``serve_n`` phase j1's and
+``train_packed`` phase k's packed SFT run; the
 head_dim-128 instances as rows of their own, ``<name>_hd128``, with the 3B
 and 8B paths' launches) and, last, the device line ``{"ok": true,
 "device": {...}}``.
@@ -1404,9 +1433,113 @@ def phase_generate_cli(seed: int, smi: str, base_tokens, base_rate: float):
         http_launches = phase_serve_http(seed, smi, step, tok_path, loaded, base_tokens, base_rate, rate)
         del loaded
         torch.cuda.empty_cache()
+        # phase l runs the dense engine on this step_0/ and split before they are deleted
+        t0 = time.perf_counter()
+        phase_dense(seed, smi, root, step, argv, records, rate)
+        log(f"  [phase l: {time.perf_counter() - t0:.1f} s]")
         return launches, http_launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --- phase l: the dense engine and generate_sample ---------------------------------------------
+
+
+def phase_dense_f32(seed: int) -> str:
+    """f32 at 1B width, the depth cut to 2 layers: the dense engine's greedy
+    tokens equal the paged engine's (with the kernels) and a full-recompute
+    greedy oracle's for phase 4's prompts; a seeded sampled run reproduces
+    itself and top-k 1 is greedy."""
+    import torch
+
+    from ssi_tpu_torch.generate.engine import DecodeEngine, SamplingParams
+    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+    from ssi_tpu_torch.models.llama3 import init_params
+
+    cfg = model_config(num_layers=2)
+    params = init_params(cfg, seed=seed, dtype=torch.float32, device="cuda")
+    prompts = prompts_from_seed(seed, 4, cfg.vocab_size)
+    sp = SamplingParams(temperature=0.0, max_tokens=16)
+    engine = DecodeEngine(params, cfg, pad_id=0)
+    dense = engine.generate_batch(prompts, sp)
+    paged = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=4).generate_batch(prompts, sp)
+    for i, (a, b) in enumerate(zip(dense, paged)):
+        check(a["token_ids"] == b["token_ids"] and len(a["token_ids"]) == 16,
+              f"f32 dense prompt {i}: {a['token_ids']} != the paged engine's {b['token_ids']}")
+        oracle = naive_greedy(params, cfg, prompts[i], 16)
+        check(a["token_ids"] == oracle, f"f32 dense prompt {i}: {a['token_ids']} != full-recompute greedy {oracle}")
+    dlp = max(abs(a["cumulative_logprob"] - b["cumulative_logprob"]) for a, b in zip(dense, paged))
+    sampled = SamplingParams(temperature=0.8, top_k=50, top_p=0.95, max_tokens=16)
+    check(engine.generate_batch(prompts, sampled, seed=5) == engine.generate_batch(prompts, sampled, seed=5),
+          "f32 dense: a seeded sampled run does not reproduce itself")
+    top1 = engine.generate_batch(prompts, SamplingParams(temperature=1.5, top_k=1, max_tokens=16), seed=6)
+    check([o["token_ids"] for o in top1] == [o["token_ids"] for o in dense], "f32 dense: top-k 1 differs from greedy")
+    del params, engine
+    torch.cuda.empty_cache()
+    return (f"f32 (1B width, 2 layers): 4 prompts x 16 greedy tokens equal the paged engine's (kernels) and "
+            f"full-recompute greedy; max |cum logprob diff| vs paged {dlp:.2e}; a seeded sampled run reproduces "
+            f"itself; top-k 1 == greedy")
+
+
+def phase_dense(seed: int, smi: str, root, step, argv: list[str], records: list[dict], paged_rate: float) -> None:
+    """Phase l, on phase d's ``step_0/`` and split: the f32 gate; the
+    generation CLI with ``engine=dense batch_size=8`` in bf16 (64 records,
+    8 batches, every record finished; tok/s beside phase d's paged rate,
+    agreement with phase d's tokens reported, not required); one ``python -m
+    ssi_tpu_torch.cli.generate_sample`` run on a shipped template (a finished
+    record)."""
+    import subprocess
+
+    import torch
+
+    from ssi_tpu_torch.cli.generate import main as generate_main
+    from ssi_tpu_torch.generate import last_run_stats
+
+    f32_line = phase_dense_f32(seed)
+    cfg = model_config()
+    out_root = root / "dense"
+    _, wall = run_cli(generate_main, [*argv, "engine=dense", "batch_size=8", f"gen.output_dir={out_root}"])
+    stats = dict(last_run_stats)
+    dense = [json.loads(line) for line in (out_root / "json" / "test" / "generations.jsonl").read_text().splitlines()]
+    check(len(dense) == len(records) == 64, f"dense generate: {len(dense)} records, expected 64")
+    for r in dense:
+        o = r["outputs"][0]
+        check(r["finished"] is True and len(r["outputs"]) == 1 and o["finish_reason"] in ("stop", "length")
+              and 0 < len(o["token_ids"]) <= 128 and all(0 <= t < cfg.vocab_size for t in o["token_ids"]),
+              f"dense record {r['request_id']}: {o['finish_reason']}, {len(o['token_ids'])} tokens")
+    batches = [dense[i]["metrics"] for i in range(0, 64, 8)]
+    n_tok = sum(m["batch_generated_tokens"] for m in batches)
+    rate = n_tok / sum(m["batch_duration_s"] for m in batches)
+    same = sum(a["outputs"][0]["token_ids"] == b["outputs"][0]["token_ids"] for a, b in zip(dense, records))
+    torch.cuda.empty_cache()
+
+    sample_out = root / "sample.jsonl"
+    speech = [17, 17, 23, 900, 4999, 0, 0, 12]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ssi_tpu_torch.cli.generate_sample", "--model", str(step),
+                           "--n_dsus", str(cfg.n_dsus), "--template", "repeat_this_modality_switch",
+                           "--speech_tokens", *map(str, speech), "--deduplicate", "--max_tokens", "64",
+                           "--jsonl_out", str(sample_out)], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    t_sample = time.perf_counter() - t0
+    check(proc.returncode == 0, f"generate_sample exited {proc.returncode}: {proc.stderr[-2000:]}")
+    record = json.loads(sample_out.read_text().splitlines()[-1])
+    o = record["outputs"][0]
+    check(record["finished"] is True and o["finish_reason"] in ("stop", "length") and 0 < len(o["token_ids"]) <= 64
+          and all(0 <= t < cfg.vocab_size for t in o["token_ids"]), f"generate_sample record {record}")
+    check(record["prompt_token_ids"][0] == cfg.base_vocab_size_txt + cfg.n_dsus + 2 * cfg.modality_tokens,
+          "generate_sample prompt does not start with BOS")
+    log(f"phase l dense engine {f32_line}")
+    log(f"phase l generate CLI engine=dense batch_size=8 (1B bf16, 64 records in 8 batches): {n_tok} tokens = "
+        f"{rate:.0f} generated tok/s over the batches (batch rates "
+        f"{', '.join(f'{m['batch_tokens_per_second']:.0f}' for m in batches)}; phase d's paged engine, 32 slots: "
+        f"{paged_rate:.0f}, {rate / paged_rate:.2f}x); generate {stats['generate_s']:.2f} s, load {stats['load_s']:.2f} s, "
+        f"CLI wall {wall:.2f} s; every record finished; {same}/64 records equal phase d's tokens (bf16, other batch "
+        f"shapes: reported, not required); on {smi}")
+    log(f"phase l python -m ssi_tpu_torch.cli.generate_sample --template repeat_this_modality_switch "
+        f"(1B bf16, {len(record['prompt_token_ids'])} prompt tokens): {o['finish_reason']}, {len(o['token_ids'])} tokens, "
+        f"wall {t_sample:.2f} s (process start, checkpoint load and decode)")
 
 
 # --- phase i: the serving entry point over HTTP ------------------------------------------------
@@ -2222,9 +2355,9 @@ def phase_training_cli(seed: int, smi: str):
         write_jsonl(train, split_rows(seed + 11, 64, cfg.n_dsus))
         write_jsonl(dev, split_rows(seed + 12, 16, cfg.n_dsus))
 
-        def sft_argv(out, *extra):
+        def sft_argv(out, *extra, train_split=train):
             return ["data=sft/mls-hubert_large_ll60k-layer_22",
-                    *[a for split, path in (("train", train), ("dev", dev)) for a in (
+                    *[a for split, path in (("train", train_split), ("dev", dev)) for a in (
                         f"data.{split}.dataset.source=json", f"+data.{split}.dataset.data_files={path}",
                         f"data.{split}.dataset.split=train")],
                     "data.train.dataloader.batch_size=2", "data.dev.dataloader.batch_size=2",
@@ -2361,9 +2494,294 @@ def phase_training_cli(seed: int, smi: str):
         log(f"phase e traced step 3 (Trainer profiler key, one optimizer step, save_qkv_mlp): traced step "
             f"{traced:.1f} ms, device busy {dev_summary['busy_ms']:.1f} ms ({dev_summary['busy_ms'] / traced:.0%} "
             f"of the traced step), {dev_summary['kernels']} kernels; device time by class: {shares}")
-        return launches
+        # phase k trains packed on this extended checkpoint before it is deleted (no second extension)
+        t0 = time.perf_counter()
+        packed_launches = phase_packed_training(seed, smi, root, sft_argv, metrics)
+        log(f"  [phase k: {time.perf_counter() - t0:.1f} s]")
+        return launches, packed_launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# --- phase k: packed training at 1B -------------------------------------------------------------
+
+
+def allowed_pairs(seg) -> int:
+    """The (query, key) pairs causal attention within segments allows, over a
+    batch of packed rows ``seg [B, S]``: L(L+1)/2 for each run of one segment
+    id (the padding tail, segment 0, is one run too)."""
+    total = 0
+    for row in seg.tolist():
+        run = 0
+        for i, x in enumerate(row):
+            run = run + 1 if i and x == row[i - 1] else 1
+            total += run
+    return total
+
+
+def sdpa_with_mask(q, k, v, mask, do):
+    """``scaled_dot_product_attention`` with a boolean mask (kv heads repeated
+    to the q heads), on the first backend that takes it: returns (a function
+    that runs its forward, one that runs the backward of one forward kept
+    for it, the backend's name)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    n_rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (x.repeat_interleave(n, dim=2).transpose(1, 2).detach().requires_grad_()
+                  for x, n in ((q, 1), (k, n_rep), (v, n_rep)))
+    dot = do.transpose(1, 2)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+                torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def forward(backend=backend):
+            with sdpa_kernel(backend), torch.no_grad():
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        return forward, lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), backend.name
+    raise RuntimeError("no scaled_dot_product_attention backend takes a boolean mask here")
+
+
+def phase_packed_kernels(gen, seg, hq=32, hkv=8, d=64) -> None:
+    """#1/#3 at a pack layout (``seg [B, S]``: segments 1..k, then a tail of
+    segment 0) vs their plain versions in f32 and bf16, each beside a
+    segment-blind control (the plain result that ignores the segments), which
+    must miss; bf16 times beside SDPA given the same boolean mask."""
+    import torch
+
+    from ssi_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_fwd,
+        flash_attention_reference,
+    )
+
+    b, s = seg.shape
+    least = math.inf
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[1]
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype) for h in (hq, hkv, hkv, hq))
+        o, lse = flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+        o_ref, lse_ref = flash_attention_reference(q, k, v, causal=True, segment_ids=seg)
+        blind, _ = flash_attention_reference(q, k, v, causal=True)
+        check(bool(torch.isfinite(o).all() and torch.isfinite(lse).all()), f"packed flash {key}: non-finite o or lse")
+        _, rel_o, ctrl = hold(f"packed flash fwd {key} o", o, o_ref, key, [("segment-blind", blind)])
+        err_l = (lse - lse_ref).abs().max().item()
+        check(err_l <= TOL[key], f"packed flash fwd {key}: max|lse err| {err_l:.3e} > {TOL[key]}")
+        least = min(least, ctrl)
+        grads = flash_attention_bwd(q, k, v, o, lse, do, causal=True, segment_ids=seg)
+        want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True, segment_ids=seg)
+        blind_g = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True)
+        rel_g = []
+        for name, a, w, c in zip(("dq", "dk", "dv"), grads, want, blind_g):
+            _, rel, rc = hold(f"packed flash bwd {key} {name}", a, w, key, [("segment-blind", c)])
+            rel_g.append(rel)
+            least = min(least, rc)
+        log(f"  packed flash B{b} S{s} Hq{hq} Hkv{hkv} d{d} {key:8s}: fwd o rel {rel_o:.2e}, max|lse err| {err_l:.2e}; "
+            f"bwd rel dq {rel_g[0]:.2e}, dk {rel_g[1]:.2e}, dv {rel_g[2]:.2e} (limit {REL[key]}; segment-blind "
+            f"controls >= {least:.2e})")
+        del q, k, v, do, o, lse, o_ref, lse_ref, blind, grads, want, blind_g
+        torch.cuda.empty_cache()
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    o, lse = flash_attention_fwd(q, k, v, causal=True, segment_ids=seg)
+    fwd = in_turns(lambda: flash_attention_fwd(q, k, v, causal=True, segment_ids=seg),
+                   lambda: flash_attention_reference(q, k, v, causal=True, segment_ids=seg))
+    bwd = in_turns(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=True, segment_ids=seg),
+                   lambda: flash_attention_bwd_reference(q, k, v, o, lse, do, causal=True, segment_ids=seg))
+    pos = torch.arange(s, device="cuda")
+    mask = ((pos[None, :] <= pos[:, None])[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]  # [B, 1, S, S]
+    run_f, run_b, backend = sdpa_with_mask(q, k, v, mask, do)
+    lib_f, lib_b = time_ms(run_f), time_ms(run_b)
+    pairs = allowed_pairs(seg) * hq
+    fwd_bound = bound(4 * pairs * d, 2 * (2 * b * s * hq * d + 2 * b * s * hkv * d) + 4 * b * hq * s + 4 * b * s)
+    bwd_bound = bound(10 * pairs * d, 2 * (4 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s + 4 * b * s)
+    segs = [int(seg[i].max()) for i in range(b)]
+    tails = [int((seg[i] == 0).sum()) for i in range(b)]
+    log(f"  packed flash time bf16 B{b} S{s} (segments {segs}, padding tails {tails}; {pairs / (b * hq * s * (s + 1) / 2):.1%} "
+        f"of the causal pairs allowed): fwd kernel {fwd[0]:.3f} ms, plain {fwd[1]:.3f} ms, SDPA {lib_f:.3f} ms "
+        f"({backend}: a boolean mask, kv heads repeated), bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}); bwd kernel "
+        f"{bwd[0]:.3f} ms, plain {bwd[1]:.3f} ms, SDPA backward {lib_b:.3f} ms, bound {bwd_bound[0]:.4f} ms "
+        f"({bwd_bound[1]})")
+    del q, k, v, do, o, lse, mask
+    torch.cuda.empty_cache()
+
+
+def plain_packed_loss(params, tokens, labels, seg, pos, cfg):
+    """``make_loss_fn``'s packed loss sum through the plain attention (within
+    segments) and the plain cross-entropy, on the card."""
+    from ssi_tpu_torch.models.llama3 import block, rms_norm, rope_for_positions, unembed
+    from ssi_tpu_torch.ops.attention import reference_attention
+    from ssi_tpu_torch.ops.cross_entropy import fused_cross_entropy
+    from ssi_tpu_torch.train.step import shift_labels_packed
+
+    cos, sin = rope_for_positions(pos, cfg)
+    h = params["embed"][tokens.long()]
+    names = list(params["layers"])
+    for weights in zip(*(params["layers"][n].unbind(0) for n in names)):
+        h = block(h, dict(zip(names, weights)), cos, sin, cfg,
+                  lambda q, k, v: reference_attention(q, k, v, causal=True, segment_ids=seg))
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return fused_cross_entropy(h.reshape(-1, h.shape[-1]), unembed(params), shift_labels_packed(labels, seg).reshape(-1))
+
+
+def phase_packed_loss_f32(seed: int, packs: list, samples: list) -> str:
+    """f32 at 1B width, the depth cut to 2 layers: the packed loss of two
+    packs equals the sum over their samples run alone (the boundary-masked
+    shift drops exactly the cross-sample labels), with the kernels and with
+    the plain versions, within 1e-5 of the sum; the token counts equal."""
+    import numpy as np
+    import torch
+
+    from ssi_tpu_torch.constants import CROSS_ENTROPY_IGNORE_IDX
+    from ssi_tpu_torch.models.llama3 import init_params
+    from ssi_tpu_torch.train.step import make_loss_fn, shift_labels
+
+    cfg = model_config(num_layers=2)
+    params = init_params(cfg, seed=seed, dtype=torch.float32, device="cuda")
+    loss_fn = make_loss_fn(cfg, remat=False)
+    batch = {k: torch.from_numpy(np.stack([p[k] for p in packs])).cuda()
+             for k in ("tokens", "labels", "segment_ids", "positions")}
+    with torch.no_grad():
+        k_loss, k_n = loss_fn(params, batch["tokens"], batch["labels"], batch["segment_ids"], batch["positions"])
+        p_loss = plain_packed_loss(params, batch["tokens"], batch["labels"], batch["segment_ids"], batch["positions"], cfg)
+        solo_k = solo_p = 0.0
+        solo_n = 0
+        for row in samples:
+            t = torch.tensor([row["tokens"]], dtype=torch.int32, device="cuda")
+            y = torch.tensor([row["labels"]], dtype=torch.int32, device="cuda")
+            ls, n = loss_fn(params, t, y)
+            solo_k += float(ls)
+            solo_n += int(n)
+            solo_p += float(plain_loss(params, t, y, cfg))
+            check(int((shift_labels(y) != CROSS_ENTROPY_IGNORE_IDX).sum()) == int(n), "solo token count")
+    check(int(k_n) == solo_n, f"packed token count {int(k_n)} != the samples' {solo_n}")
+    for name, got, want in (("kernels packed vs the kernels' per-sample sum", float(k_loss), solo_k),
+                            ("plain packed vs the plain per-sample sum", float(p_loss), solo_p),
+                            ("kernels packed vs plain packed", float(k_loss), float(p_loss))):
+        check(abs(got - want) <= 1e-5 * abs(want), f"packed loss f32: {name}: {got} vs {want}")
+    del params
+    torch.cuda.empty_cache()
+    return (f"packed loss f32 (1B width, 2 layers; 2 packs of {len(samples)} samples, {solo_n} label tokens): kernels "
+            f"{float(k_loss):.6f} vs their per-sample sum {solo_k:.6f} (rel {abs(float(k_loss) - solo_k) / abs(solo_k):.2e}); "
+            f"plain {float(p_loss):.6f} vs {solo_p:.6f} (rel {abs(float(p_loss) - solo_p) / abs(solo_p):.2e}); limit 1e-5")
+
+
+def phase_packed_training(seed: int, smi: str, root, sft_argv, unpacked: list[dict]) -> dict:
+    """Phase k: the SFT CLI with ``data.train.packed=true data.dev.packed=true``
+    on phase e's extended checkpoint at phase e's window (4 x 2 x 2048): 112
+    rows (phase e's 64 and 48 more: 27 packs, 3 optimizer steps an epoch), 4
+    steps, a save and a packed dev loss every 2; losses finite and falling,
+    every training kernel launched; a resume from ``step_2/`` equal to the
+    uninterrupted run bitwise across the epoch boundary; #1/#3 at the
+    run's pack layout vs plain beside a segment-blind control; the f32
+    packed-loss identity; then 2 steps with ``pack_window`` 8. Returns the
+    packed run's launch counts (the kernels line's ``train_packed``)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.cli.train_sft import main as sft_main
+
+    cfg = model_config()
+    train = root / "sft_train_packed.jsonl"
+    write_jsonl(train, split_rows(seed + 11, 112, cfg.n_dsus))  # its first 64 rows are phase e's
+    packed = ["data.train.packed=true", "data.dev.packed=true"]
+    out = root / "sft_packed"
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    with kept_training_states({2}):
+        trainer, t_run = run_cli(sft_main, sft_argv(out, *packed, train_split=train))
+    launches = dict(_build.launch_counts)
+    mem = torch.cuda.max_memory_allocated() / 2**30
+    ds = trainer.data_train.dataset
+    geo = trainer.geometry
+    check(type(ds).__name__ == "PackedDataset" and type(trainer.data_dev.dataset).__name__ == "PackedDataset",
+          "the packed SFT run did not pack its splits")
+    check(geo.steps_per_epoch < 4 and trainer.global_step == 4, f"packed SFT: {geo.steps_per_epoch} steps an epoch, "
+          f"step {trainer.global_step}: the run must cross an epoch boundary in its 4 steps")
+    metrics = read_metrics(out)
+    losses = [m["loss"] for m in metrics if "loss" in m]
+    dev_losses = [m["dev_loss"] for m in metrics if "dev_loss" in m]
+    check(len(losses) == 4 and len(dev_losses) == 2 and all(math.isfinite(x) for x in losses + dev_losses),
+          f"packed SFT losses {losses}, dev {dev_losses}")
+    check(losses[-1] < losses[0], f"packed SFT losses do not fall: {losses}")
+    for name in TRAIN_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the packed SFT entry point")
+    rows = [ds.dataset[i] for i in range(len(ds.dataset))]
+    seq = trainer.cfg.tokenizer.max_seq_len
+    share_packed = sum(int((ds[i]["segment_ids"] > 0).sum()) for i in range(len(ds))) / (len(ds) * seq)
+    share_rows = sum(len(r["tokens"]) for r in rows) / (len(rows) * seq)
+    share_e = sum(len(r["tokens"]) for r in rows[:64]) / (64 * seq)
+    labels_packed = sum(int((ds[i]["labels"] != -100).sum()) for i in range(len(ds))) / (len(ds) * seq)
+    final = {k: v.clone() for k, v in flat_params(trainer.state["params"]).items()}
+    n_first = [int(ds[i]["segment_ids"].max()) for i in range(2)]
+    packs = [ds[0], ds[1]]
+    samples = rows[: sum(n_first)]
+    seg = torch.from_numpy(np.stack([p["segment_ids"] for p in packs])).cuda()
+    del trainer
+    shutil.rmtree(out / "step_4")
+    torch.cuda.empty_cache()
+
+    # the step-2 resume: steps 3-4 (the epoch ends after step 3) equal the uninterrupted run's, bitwise
+    out_r = root / "sft_packed_resumed"
+    trainer, t_resume = run_cli(sft_main, sft_argv(
+        out_r, *packed, f"checkpointer.checkpoint_dir={out / 'step_2'}",
+        f"checkpointer.training_state_checkpoint={out / 'training_state_step2.msgpack'}", train_split=train))
+    losses_r = [m["loss"] for m in read_metrics(out_r) if "loss" in m]
+    check(losses_r == losses[2:], f"packed resumed losses {losses_r} != the uninterrupted run's {losses[2:]}")
+    for name, w in flat_params(trainer.state["params"]).items():
+        check(torch.equal(final[name], w), f"packed resumed step 4 {name} differs from the uninterrupted run's")
+    del trainer, final
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(out_r, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 13)
+    phase_packed_kernels(gen, seg)
+    loss_line = phase_packed_loss_f32(seed, packs, samples)
+
+    # pack_window: 2 steps, the shuffle moved into the dataset, the sampler sequential
+    out_w = root / "sft_packed_window"
+    trainer, t_window = run_cli(sft_main, sft_argv(out_w, *packed, "data.train.pack_window=8", "data.dev.pack_window=8",
+                                                   "max_steps=2", "eval_steps=2", "save_steps=2", train_split=train))
+    losses_w = [m["loss"] for m in read_metrics(out_w) if "loss" in m]
+    check(type(trainer.data_train.dataset).__name__ == "WindowedPackedDataset" and not trainer.sampler_train.shuffle
+          and len(losses_w) == 2 and all(math.isfinite(x) for x in losses_w),
+          f"pack_window run: {type(trainer.data_train.dataset).__name__}, losses {losses_w}")
+    n_window = len(trainer.data_train.dataset)
+    del trainer
+    shutil.rmtree(out_w, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    steps = [m for m in metrics if "loss" in m]
+    base = [m for m in unpacked if "loss" in m]
+    mean = lambda ms, k: sum(m[k] for m in ms[1:]) / max(len(ms) - 1, 1)  # steps 2-4: the first holds warm-up
+    log(f"phase k packed SFT CLI (1B bf16, remat save_qkv_mlp, window 4 x 2 x 2048, {len(rows)} rows -> {len(ds)} "
+        f"packs, {geo.steps_per_epoch} steps an epoch): loss {', '.join(f'{x:.4f}' for x in losses)}, dev loss "
+        f"{', '.join(f'{x:.4f}' for x in dev_losses)}; JSONL duration_step {step_readings(metrics)}; steps 2-4 mean "
+        f"{mean(steps, 'duration_step') * 1e3:.1f} ms and {mean(steps, 'tokens_per_second_per_gpu'):.0f} label tok/s "
+        f"beside phase e's unpacked {mean(base, 'duration_step') * 1e3:.1f} ms and "
+        f"{mean(base, 'tokens_per_second_per_gpu'):.0f} label tok/s ({mean(steps, 'tokens_per_second_per_gpu') / mean(base, 'tokens_per_second_per_gpu'):.2f}x); "
+        f"non-pad share: packed rows {share_packed:.3f}, the same samples unpacked {share_rows:.3f}, phase e's 64 "
+        f"rows {share_e:.3f} ({share_packed / share_e:.2f}x); label share of the packed rows {labels_packed:.3f}; "
+        f"CLI wall {t_run:.2f} s; peak memory {mem:.1f} GiB; on {smi}; launches {launches}")
+    log(f"phase k resume from step_2/ + its state across the epoch boundary: steps 3-4 losses and step_4 weights "
+        f"equal the uninterrupted run's bitwise; CLI wall {t_resume:.2f} s")
+    log(f"phase k {loss_line}")
+    log(f"phase k pack_window 8: 2 steps, {n_window} packs an epoch, losses {', '.join(f'{x:.4f}' for x in losses_w)}; "
+        f"CLI wall {t_window:.2f} s")
+    return launches
 
 
 # --- phase f: weight-only int8 and the port's WER drive ---------------------------------------
@@ -2930,7 +3348,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", default="", help="comma-separated phase groups to run alone while developing "
-                        "(1b: phases 2-f, i and j; hd128: the head_dim-128 kernel phases; g; h); prints no result line")
+                        "(1b: phases 2-f, i, j, k and l; hd128: the head_dim-128 kernel phases; g; h); prints no result line")
     args = parser.parse_args()
 
     import torch
@@ -2971,14 +3389,14 @@ def main() -> int:
         serve_n_launches = phase_gangs_and_depth(args.seed, smi, base_tokens, base_rate)
         mark("phase j")
         gen_launches, http_launches = phase_generate_cli(args.seed, smi, base_tokens, base_rate)
-        mark("phases d, i")
+        mark("phases d, i, l")
         rows["flash_attention_bwd"] = phase_flash_bwd(gen)
         rows.update(phase_cross_entropy(gen, model_config().vocab_size))
         phase_train_parity(args.seed)
         train_launches = phase_train(args.seed, smi)
         mark("phases 6-9")
-        train_cli_launches = phase_training_cli(args.seed, smi)
-        mark("phase e")
+        train_cli_launches, packed_launches = phase_training_cli(args.seed, smi)
+        mark("phases e, k")
         int8_launches = phase_int8_serving(args.seed, smi, base_tokens, base_rate)
         phase_drive_kernels(gen)
         drive_launches = phase_wer_drive(smi)
@@ -3008,7 +3426,7 @@ def main() -> int:
                    "generate": gen_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "train_cli": train_cli_launches.get(name, 0), "int8_serve": int8_launches.get(name, 0),
                    "wer_drive": drive_launches.get(name, 0), "serve_http": http_launches.get(name, 0),
-                   "serve_n": serve_n_launches.get(name, 0)}
+                   "serve_n": serve_n_launches.get(name, 0), "train_packed": packed_launches.get(name, 0)}
         if name.startswith("cross_entropy"):  # one instance for every D: 3B's training launches it too
             by_path["train_3b"] = launches_big["train_3b"].get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",

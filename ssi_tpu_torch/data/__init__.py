@@ -6,8 +6,8 @@ the ``Loader`` yielding collated numpy batches; ``setup_sft_data`` and
 ``setup_text_completion_data``. ``tests/test_torch_train_data.py`` holds
 sampler indices and loader batches equal to the JAX package's.
 
-Packed sequences (``packed: true``, ``data/packing.py``) are not ported yet
-and raise ``NotImplementedError`` (ROADMAP.md queue A, item A7: packing).
+Packed sequences (``packed: true``, with or without ``pack_window``) go
+through the port's copy of ``data/packing.py``, as in the JAX package.
 
 The generation entry point reads its split the way ``tools/wer_drive.py``
 passes it: ``source="json"`` with ``data_files`` (a path, a list of paths, or
@@ -315,11 +315,35 @@ def _build_loader(
 ) -> tuple[Loader, Sampler]:
     sampler_shuffle = bool(cfg_dataset["shuffle"])
     if cfg_dataset.get("packed", False):
-        raise NotImplementedError(
-            "packed: true (data/packing.py, with or without pack_window) is not ported to ssi_tpu_torch yet "
-            "(ROADMAP.md queue A, item A7: packing); use packed: false"
-        )
-    collate_fn = _collate_for(cfg_dataset, model_tokenizer)
+        from ssi_tpu_torch.data.packing import PackedDataset, WindowedPackedDataset, padded_collate_packed
+
+        if model_tokenizer.max_seq_len is None:
+            raise ValueError("PackedDataset requires a max_seq_len to be set on the tokenizer.")
+        pack_window = cfg_dataset.get("pack_window")
+        if pack_window:
+            # Streaming-scale path: O(window) memory; the shuffle moves INTO the
+            # dataset (hierarchical window/pack permutation) so index access
+            # stays window-local — the sampler must iterate sequentially.
+            dataset = WindowedPackedDataset(
+                dataset,
+                max_seq_len=int(model_tokenizer.max_seq_len),
+                pad_id=model_tokenizer.pad_id,
+                window=int(pack_window),
+                split_across_pack=bool(cfg_dataset.get("split_across_pack", False)),
+                shuffle=sampler_shuffle,
+                seed=SEED,
+            )
+            sampler_shuffle = False
+        else:
+            dataset = PackedDataset(
+                dataset,
+                max_seq_len=int(model_tokenizer.max_seq_len),
+                pad_id=model_tokenizer.pad_id,
+                split_across_pack=bool(cfg_dataset.get("split_across_pack", False)),
+            )
+        collate_fn = padded_collate_packed
+    else:
+        collate_fn = _collate_for(cfg_dataset, model_tokenizer)
     sampler = Sampler(
         dataset_len=len(dataset),
         num_replicas=num_replicas,

@@ -2,12 +2,15 @@
 the port's copy of ``ssi_tpu/generate/__init__.py``.
 
 ``run_generation(cfg)`` mirrors the reference generate flow: SFT dataset in
-inference mode -> the paged engine (continuous batching; the CUDA flash
-prefill, fused paged decode and, with ``speculate_k > 0``, verify kernels on
-the card) -> HF/vLLM-compatible ``generations.jsonl`` consumable unchanged by
-the WER script. The output tree, config snapshot, record layout and key order
-are the JAX package's; ``tests/test_torch_generate.py`` holds a greedy run
-equal to it line for line.
+inference mode -> the paged engine (``engine: paged``, the default:
+continuous batching; the CUDA flash prefill, fused paged decode and, with
+``speculate_k > 0``, verify kernels on the card) or the dense engine
+(``engine: dense``: fixed batches of ``batch_size``, the last one padded
+with copies of its first prompt) -> HF/vLLM-compatible
+``generations.jsonl`` consumable unchanged by the WER script. The output
+tree, config snapshot, record layout and key order are the JAX package's;
+``tests/test_torch_generate.py`` and ``tests/test_torch_dense_engine.py``
+hold greedy runs of either engine equal to it line for line.
 
 What the port adds: a ``device`` config key (default ``cuda``; ``+device=cpu``
 runs on the CPU, and without a CUDA device the default raises — there is no
@@ -15,9 +18,10 @@ fallback) and a seed per batch drawn from ``cfg.seed`` for the engine (greedy
 output does not depend on it; sampled output cannot match ``jax.random``).
 ``quantize_weights: int8`` passes to the engine, as in the JAX package, and
 ``sampling_params.n > 1`` writes one record per prompt with n entries in
-``outputs``. The engine runs at its default pipeline depth, 2, as the JAX
-one does. Not ported yet, each raising ``NotImplementedError`` naming its
-ROADMAP item: ``engine=dense`` (A6) and ``tensor_parallel > 1`` (A9).
+``outputs``. The paged engine runs at its default pipeline depth, 2, as
+the JAX one does. Not ported yet: ``tensor_parallel > 1`` with the paged
+engine raises ``NotImplementedError`` naming ROADMAP item A9; with the
+dense engine it raises the JAX package's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -79,13 +83,16 @@ def validate_generate_config(cfg: Any) -> None:
         raise ValueError(
             "sampling_params.n > 1 requires engine=paged (the dense engine decodes one sequence per prompt)"
         )
-    # options of the JAX entry point the port does not run yet: refuse before any work
     engine_kind = str(cfg.get("engine", "paged"))
-    if engine_kind == "dense":
-        raise _not_ported("engine=dense", "A6 (the dense DecodeEngine)")
-    if engine_kind != "paged":
+    if engine_kind not in ("paged", "dense"):
         raise ValueError(f"Unknown engine {engine_kind!r}; expected 'paged' or 'dense'")
     if int(cfg.get("tensor_parallel", 1) or 1) > 1:
+        if engine_kind == "dense":
+            raise ValueError(
+                "tensor_parallel > 1 requires engine=paged (the dense engine runs "
+                "single-device; silently ignoring the mesh would under-use the slice)"
+            )
+        # an option of the JAX entry point the port does not run yet: refuse before any work
         raise _not_ported("tensor_parallel > 1", "A9 (parallel and sharded state)")
     if str(cfg.get("dtype", "bf16")) not in _DTYPES:
         raise ValueError(f"Unknown dtype {cfg.get('dtype')!r}; expected one of {sorted(_DTYPES)}")
@@ -99,7 +106,6 @@ def run_generation(cfg: Any) -> Path:
     from ssi_tpu_torch.checkpoint import Checkpointer
     from ssi_tpu_torch.config import to_container, to_yaml
     from ssi_tpu_torch.data.sft import SFTDataset
-    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
     from ssi_tpu_torch.models.configs import get_model_config
     from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
     from ssi_tpu_torch.utils import hash_cfg, resolve_device
@@ -161,6 +167,7 @@ def run_generation(cfg: Any) -> Path:
     sp = SamplingParams.from_cfg(cfg.sampling_params, stop_token_ids)
 
     batch_size = int(cfg.get("batch_size", cfg.get("vllm_batch_size", 8)))
+    engine_kind = str(cfg.get("engine", "paged"))
 
     # Tokenize the whole split ONCE: SFTDataset.__getitem__ re-runs the message
     # transform + tokenizer on every access, so indexing rows again inside the
@@ -169,19 +176,26 @@ def run_generation(cfg: Any) -> Path:
     all_prompts = [dataset[i]["tokens"] for i in range(len(dataset))]
     stats["tokenize_s"] = time.perf_counter() - t0
 
-    # One continuous-batching stream: n_slots rows advance together and
-    # finished rows are refilled from the queue — no partial-batch padding.
-    max_prompt = max((len(t) for t in all_prompts), default=0)
-    engine = PagedDecodeEngine(
-        params, model_cfg, pad_id=tokenizer.pad_id,
-        n_slots=batch_size,
-        max_context=max_prompt + sp.max_tokens,
-        quantize=cfg.get("quantize_weights"),
-        speculate_k=int(cfg.get("speculate_k", 0) or 0),
-        prefix_caching=bool(cfg.get("prefix_caching", True)),
-        prefill_chunk=cfg.get("prefill_chunk"),
-        admission_order=str(cfg.get("admission_order", "fifo") or "fifo"),
-    )
+    if engine_kind == "paged":
+        from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+
+        # One continuous-batching stream: n_slots rows advance together and
+        # finished rows are refilled from the queue — no partial-batch padding.
+        max_prompt = max((len(t) for t in all_prompts), default=0)
+        engine = PagedDecodeEngine(
+            params, model_cfg, pad_id=tokenizer.pad_id,
+            n_slots=batch_size,
+            max_context=max_prompt + sp.max_tokens,
+            quantize=cfg.get("quantize_weights"),
+            speculate_k=int(cfg.get("speculate_k", 0) or 0),
+            prefix_caching=bool(cfg.get("prefix_caching", True)),
+            prefill_chunk=cfg.get("prefill_chunk"),
+            admission_order=str(cfg.get("admission_order", "fifo") or "fifo"),
+        )
+    else:
+        from ssi_tpu_torch.generate.engine import DecodeEngine
+
+        engine = DecodeEngine(params, model_cfg, pad_id=tokenizer.pad_id)
 
     decoding = dict(cfg.tokenizer_decoding.items()) if cfg.get("tokenizer_decoding") is not None else {}
     observability = bool(cfg.get("observability", False))
@@ -190,7 +204,7 @@ def run_generation(cfg: Any) -> Path:
     request_id = 0
     # one engine seed per engine call, drawn from cfg.seed (the JAX run splits a PRNG key)
     seeds = np.random.default_rng(int(cfg.get("seed", 0)))
-    if observability and n > 0:
+    if observability and engine_kind == "paged" and n > 0:
         # Observability promises steady-state decode metrics: run two prompts
         # through the engine once to absorb first-use costs (on the card: the
         # kernel library's first load, cuBLAS handles, the caching allocator);
@@ -200,12 +214,16 @@ def run_generation(cfg: Any) -> Path:
         stats["warmup_s"] = time.perf_counter() - t0
         LOGGER.info(f"Warmup pass: {stats['warmup_s']:.1f}s")
     # the paged engine schedules internally: hand it the whole request stream
-    step = max(n, 1)
+    step = max(n, 1) if engine_kind == "paged" else batch_size
     stats["generate_s"] = 0.0
     with open(gen_output_dir / cfg.gen.output_filename, "x") as f:
         for start in range(0, n, step):
             prompts = all_prompts[start : min(start + step, n)]
             real = len(prompts)
+            if engine_kind == "dense":
+                # pad the final partial batch with copies of its first prompt (one batch shape)
+                while len(prompts) < batch_size:
+                    prompts.append(prompts[0])
             t0 = time.perf_counter()
             outs = engine.generate_batch(prompts, sp, seed=int(seeds.integers(2**31)))
             dt = time.perf_counter() - t0

@@ -5,8 +5,9 @@ package's keys and layouts — layer-stacked weights ``[L, in, out]`` used as
 ``x @ w``, ``embed [V, D]`` — so ``params_from_numpy`` carries a JAX tree
 across unchanged and the parity tests compare like with like. ``forward`` is
 the full-sequence pass that training differentiates (flash attention on
-CUDA, optional per-layer rematerialization); the paged serving passes live in
-``generate/paged.py``.
+CUDA, optional per-layer rematerialization); ``forward_slots`` is the dense
+KV-cache pass of the dense engine (``generate/engine.py``); the paged
+serving passes live in ``generate/paged.py``.
 """
 
 from __future__ import annotations
@@ -206,7 +207,10 @@ def forward(
     """
     policy = _remat_policy(remat)
     b, s = tokens.shape
-    h = params["embed"][tokens]
+    # F.embedding, not ``embed[tokens]``: the indexing's backward on the CPU
+    # (index_put_ with accumulate) sums repeated tokens' rows in a varying
+    # order, so two runs of one step could differ in the embedding's gradient
+    h = F.embedding(tokens, params["embed"])
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :].expand(b, s)
     cos, sin = rope_for_positions(positions, cfg)
@@ -243,6 +247,72 @@ def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
     else:
         out = h2.to(torch.float32) @ w.to(torch.float32).t()
     return out.view(*hidden.shape[:-1], w.shape[0])
+
+
+# ----------------------------------------------------------------------------------
+# Dense KV-cache decode path (the dense engine): ``ssi_tpu/models/llama3.py:173-259``
+# ----------------------------------------------------------------------------------
+
+
+DECODE_NEG_INF = -1.0e30
+
+
+def init_kv_cache(cfg: ConfigLlama3_2, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+                  device: torch.device | str = "cuda") -> Params:
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_block(layer: Params, h: torch.Tensor, cos, sin, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 slot_start: int, attn_mask: torch.Tensor, cfg: ConfigLlama3_2) -> torch.Tensor:
+    """One decoder layer over T new tokens ``h [B, T, D]``, writing their K/V
+    into slots ``[slot_start, slot_start + T)`` of this layer's cache
+    ``cache_k / cache_v [B, M, Hkv, hd]`` in place. ``attn_mask [B, T, M]``
+    (True = attend). The attention is the JAX package's grouped einsum: q
+    heads grouped per kv head (the cache is read once, not repeated), f32
+    scores of the cache-dtype operands, ``DECODE_NEG_INF`` where masked, the
+    f32 softmax cast to the cache dtype before the value product."""
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    n_rep = cfg.num_heads // hkv
+
+    def attend(q, k, v):
+        b, t = q.shape[:2]
+        cache_k[:, slot_start:slot_start + t] = k.to(cache_k.dtype)
+        cache_v[:, slot_start:slot_start + t] = v.to(cache_v.dtype)
+        qg = q.reshape(b, t, hkv, n_rep, hd)
+        scores = torch.einsum("btkgd,bmkd->bkgtm", qg.float(), cache_k.to(q.dtype).float()) * (1.0 / hd**0.5)
+        scores = scores.masked_fill_(~attn_mask[:, None, None], DECODE_NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        del scores  # [B, Hkv, n_rep, T, M] f32: the prefill's largest transient
+        return torch.einsum("bkgtm,bmkd->btkgd", probs.to(cache_v.dtype), cache_v).reshape(b, t, hkv * n_rep, hd)
+
+    return block(h, layer, cos, sin, cfg, attend)
+
+
+def forward_slots(params: Params, tokens: torch.Tensor, cfg: ConfigLlama3_2, cache: Params, slot_start: int,
+                  pad_offsets: torch.Tensor) -> torch.Tensor:
+    """Decoder forward (no autograd) for ``tokens [B, T]`` occupying cache
+    slots ``[slot_start, slot_start + T)``; writes their K/V into ``cache``
+    (``init_kv_cache``) in place and returns the final-normed hidden
+    ``[B, T, D]``. ``pad_offsets [B]``: left-pad slots per row, masked out
+    of attention and subtracted from the RoPE positions (clamped at 0 for pad
+    slots, masked anyway)."""
+    b, t = tokens.shape
+    m = cache["k"].shape[2]
+    dev = tokens.device
+    slot_ids = slot_start + torch.arange(t, dtype=torch.int32, device=dev)  # [T]
+    positions = torch.clamp(slot_ids[None, :] - pad_offsets[:, None], min=0)  # [B, T]
+    cos, sin = rope_for_positions(positions, cfg)
+    kv_slots = torch.arange(m, dtype=torch.int32, device=dev)
+    causal = kv_slots[None, None, :] <= slot_ids[None, :, None]  # [1, T, M]
+    valid = kv_slots[None, None, :] >= pad_offsets[:, None, None]  # [B, 1, M]
+    attn_mask = causal & valid  # [B, T, M]
+    with torch.no_grad():
+        h = params["embed"][tokens.long()]
+        for l in range(cfg.num_layers):
+            h = decode_block(layer_params(params, l), h, cos, sin, cache["k"][l], cache["v"][l], slot_start,
+                             attn_mask, cfg)
+        return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 
 def init_params(

@@ -81,10 +81,23 @@ _NOT_ON_THE_CARD = ("jax", "jaxlib", "ssi_tpu", "yaml", "tiktoken", "safetensors
 
 
 def test_port_sources_import_no_library_missing_on_the_card():
+    """No port source imports a library of ``_NOT_ON_THE_CARD``, with one
+    optional import: ``generate/templates.py`` hands a path template with
+    Jinja syntax other than ``{{ name }}`` to jinja2, inside the function
+    that renders it, when jinja2 imports (the shipped templates never need
+    it: the ``generate_sample`` case below runs with jinja2 blocked)."""
     names = "|".join(_NOT_ON_THE_CARD)
-    pattern = re.compile(rf"^\s*(import|from)\s+({names})(\.|\s|$)", re.MULTILINE)
+    pattern = re.compile(rf"^(\s*)(import|from)\s+({names})(\.|\s|$)", re.MULTILINE)
     sources = [p for p in (REPO / "ssi_tpu_torch").rglob("*.py") if "_build" not in p.parts] + [REPO / "chip_smoke.py"]
-    assert [str(p) for p in sources if pattern.search(p.read_text())] == []
+    optional = (REPO / "ssi_tpu_torch" / "generate" / "templates.py", "jinja2")
+    offenders = []
+    for path in sources:
+        for m in pattern.finditer(path.read_text()):
+            if (path, m.group(3)) == optional and m.group(1).strip("\n"):  # indented: inside a function
+                continue
+            offenders.append(f"{path}: {m.group(0).strip()}")
+    assert offenders == []
+    assert len(pattern.findall(optional[0].read_text())) == 1
 
 
 _CLI_RUN = """
@@ -414,6 +427,76 @@ def test_n_gt_1_generation_and_serving_load_no_card_library(tmp_path):
     assert "SERVE_OK" in out
     choices = body["choices"]
     assert len(choices) == 2 and choices[0]["token_ids"] == choices[1]["token_ids"]
+
+
+_BLOCKED_RUNS = {
+    "packed_sft": """
+import sys
+from ssi_tpu_torch.cli import train_sft
+model, out, sft = sys.argv[1:4]
+common = ["data=sft/mls-hubert_large_ll60k-layer_22", "model_config=tiny_test", "speech.n_dsus=16",
+          f"checkpointer.checkpoint_dir={model}", f"tokenizer.path={model}/original/tokenizer.model",
+          "tokenizer.max_seq_len=384", "max_steps=2", "save_steps=2", "eval_steps=2", "wandb.enabled=false",
+          "hydra/job_logging=none", "gradient_accumulation_steps=1", "+device=cpu"]
+for split in ("train", "dev"):
+    common += [f"data.{split}.dataset.source=json", f"data.{split}.dataset.split=train",
+               f"+data.{split}.dataset.data_files={sft}", f"data.{split}.dataloader.batch_size=2",
+               f"data.{split}.packed=true"]
+for window in (None, 4):
+    extra = [] if window is None else [f"data.train.pack_window={window}", f"data.dev.pack_window={window}"]
+    trainer = train_sft.main([*common, f"checkpointer.output_dir={out}/w{window}", *extra])
+    assert trainer.global_step == 2 and type(trainer.data_train.dataset).__name__ == (
+        "PackedDataset" if window is None else "WindowedPackedDataset"), trainer
+""",
+    "dense_generate": """
+import runpy, sys
+sys.argv = ["ssi_tpu_torch.cli.generate", *sys.argv[4:], "engine=dense", "+device=cpu"]
+runpy.run_module("ssi_tpu_torch.cli.generate", run_name="__main__")
+""",
+    "generate_sample": """
+import runpy, sys
+model = sys.argv[1]
+sys.argv = ["ssi_tpu_torch.cli.generate_sample", "--model", model, "--n_dsus", "16", "--model_config", "tiny_test",
+            "--dtype", "fp32", "--max_tokens", "4", "--template", "repeat_this_modality_switch",
+            "--speech_tokens", "3", "3", "7", "--deduplicate", "--device", "cpu"]
+runpy.run_module("ssi_tpu_torch.cli.generate_sample", run_name="__main__")
+""",
+}
+
+
+@pytest.mark.parametrize("run", sorted(_BLOCKED_RUNS))
+def test_packed_training_dense_generation_and_generate_sample_load_no_card_library(tmp_path, run):
+    """The packed SFT CLI (with and without ``pack_window``), the generation
+    CLI with ``engine=dense`` and ``python -m ssi_tpu_torch.cli.generate_sample``
+    on a shipped template, each a process with every library of
+    ``_NOT_ON_THE_CARD`` blocked from import (jinja2 too: the shipped
+    templates render without it): each runs to its end and loaded neither
+    jax, ``ssi_tpu`` nor an optional package."""
+    import json
+
+    from tests import helpers
+
+    model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "step_0")
+    split = tmp_path / "rows.jsonl"
+    split.write_text("".join(json.dumps(r) + "\n" for r in helpers.synthetic_sft_rows(8)))
+    block = tmp_path / "block"
+    block.mkdir()
+    (block / "sitecustomize.py").write_text(_BLOCKER.format(names=repr(set(_NOT_ON_THE_CARD))))
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env.update(PYTHONPATH=f"{block}{os.pathsep}{REPO}", OMP_NUM_THREADS="2")
+    code = _BLOCKED_RUNS[run] + f"""
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in {_NOT_ON_THE_CARD!r})
+assert loaded == [], loaded
+print("BLOCKED_RUN_OK")
+"""
+    args = [str(model_dir), str(tmp_path / "out"), str(split), *_cli_overrides(model_dir, split, tmp_path / "gens")]
+    proc = subprocess.run([sys.executable, "-c", code, *args], cwd=tmp_path, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "BLOCKED_RUN_OK" in proc.stdout
+    if run == "dense_generate":
+        lines = (tmp_path / "gens" / "json" / "test" / "generations.jsonl").read_text().splitlines()
+        assert len(lines) == 8 and all(json.loads(line)["finished"] for line in lines)
 
 
 def test_serving_cli_refuses_without_a_card(tmp_path):

@@ -102,17 +102,6 @@ def test_training_geometry_equals_jax(tmp_path, synthetic_data, tiny_extended_to
         TrainingGeometry.from_config(PortConfig(top), p_loader, 1)
 
 
-@pytest.mark.parametrize("pack_window", [None, 64])
-def test_packed_raises_naming_a7(tmp_path, synthetic_data, tiny_extended_tokenizer_path, pack_window):
-    split = tmp_path / "train.jsonl"
-    split.write_text("".join(json.dumps(r) + "\n" for r in synthetic_data["sft"]))
-    _, pcfg = _cfgs("sft", split)
-    pcfg.packed = True
-    pcfg.pack_window = pack_window
-    with pytest.raises(NotImplementedError, match="A7"):
-        pdata.setup_sft_data(pcfg, _tokenizers(tiny_extended_tokenizer_path, 128)[1])
-
-
 def test_collate_equals_jax():
     batch = [{"tokens": [1, 2, 3], "labels": [-100, 2, 3], "ID": "a"}, {"tokens": [4], "labels": [4], "ID": "b"}]
     for kw in ({}, {"pad_to": 8}, {"bucket_multiple": 4}, {"padding_idx": 7, "additional_keys": ["ID"]}):

@@ -172,8 +172,8 @@ e. the training entry points at the full width of ``llama3_2_1b``: a
    extension's seconds, each run's JSONL step times and label tok/s, save
    seconds and GB/s for the model and the state, reload and state-read
    seconds, peak memory, launches, and the free disk at the start (the
-   phase holds about 20 GB at its peak and deletes each directory once
-   read);
+   phase holds about 23 GB at its peak, its base kept for phase m, and
+   deletes each directory once read);
 k. packed training, inside phase e on its extended checkpoint: the SFT
    CLI with ``data.train.packed=true data.dev.packed=true`` at phase e's
    window (4 x 2 x 2048) over 112 rows (phase e's 64 and 48 more: 27 packs
@@ -191,6 +191,26 @@ k. packed training, inside phase e on its extended checkpoint: the SFT
    within 1e-5 of the sum; then 2 steps with ``pack_window`` 8. Prints
    label tok/s and ``duration_step`` beside phase e's unpacked run, the
    non-pad share of packed and unpacked rows, and peak memory;
+m. the BPE-compressed DSU axis, inside phase e on its synthesized base
+   (after phase k): a Markov DSU corpus from ``--seed`` (128 rows of 8-14
+   words, a 5,000-unit Zipf alphabet, out-degree 8, 25% holds) through
+   ``python -m ssi_tpu_torch.cli.train_dsu_bpe --n-merges 1024
+   --deduplicate`` (in this process), ``merge_into_tokenizer`` with the
+   modality tokens (n_new), the extension CLI with ``--n_new_dsus n_new``
+   and the compressed ``tokenizer.model`` swapped in (``config.json``'s
+   bos/eos must equal its dynamic specials), the CPT CLI through
+   ``conf/cpt.yaml`` with ``tokenizer.pattern=cl100k speech.n_dsus=n_new``
+   for 2 steps at phase e's window on the same rows (every training kernel
+   launched, ``n_tokens.dsu`` > 0), the generation CLI with the cl100k
+   pattern from its ``step_2/`` (16 prompts x 64 greedy tokens, every record
+   finished and its text the tokenizer's decode; flash and #8 launched), and
+   #5-#7 against their plain versions at V_c (N 4,096, D 2,048); prints
+   n_new, V_c, the compression ratio, the rows' tokens under the PUA and
+   the cl100k pattern (``dsu_only`` and ``interleaved``; cl100k's
+   ``dsu_only`` must be fewer), the host encode rate under each, the CPT
+   step readings beside phase e's and the phase's seconds (the kernels
+   line's ``launches_by_path["cpt_compressed"]``: the CPT and generation
+   runs together);
 f. weight-only int8 and the port's WER drive:
    f1. ``quantize_layer_weights_int8`` on phase 5's random bf16 1B weights
    on the card: ``q`` and ``scale`` bitwise equal to the same f32
@@ -245,8 +265,9 @@ h. Llama 3.1 8B serving at full width (D 4,096, FFN 14,336, an untied
    #9 launched); then f32 greedy at 8B width with the depth cut to 2
    layers, tokens kernels == plain and == the oracle.
 
-``--only 1b,hd128,g,h`` runs the named groups alone while developing (1b:
-phases 2-f, phases i, j, k and l with them) and prints no result line.
+``--only 1b,e,hd128,g,h`` runs the named groups alone while developing (1b:
+phases 2-f, phases i, j, k, l and m with them; e: phases e, k and m alone)
+and prints no result line.
 
 Tolerances: phases 2, 3 and a hold each output elementwise to ``TOL``
 (absolute and relative). Every kernel output is also held in relative norm,
@@ -258,8 +279,9 @@ gradient leaf to 1e-4 of its largest entry.
 It then prints one JSON line with per-kernel results (errors, times, the
 bound computed from this run's shapes, the library yardstick, launches by
 path, ``wer_drive`` the sum over the drive's stage processes,
-``serve_http`` the HTTP server process's, ``serve_n`` phase j1's and
-``train_packed`` phase k's packed SFT run; the
+``serve_http`` the HTTP server process's, ``serve_n`` phase j1's,
+``train_packed`` phase k's packed SFT run and ``cpt_compressed`` phase
+m's CPT and generation runs; the
 head_dim-128 instances as rows of their own, ``<name>_hd128``, with the 3B
 and 8B paths' launches) and, last, the device line ``{"ok": true,
 "device": {...}}``.
@@ -2313,7 +2335,7 @@ def phase_training_cli(seed: int, smi: str):
     try:
         free_gb = shutil.disk_usage(root).free / 1e9
         log(f"  phase e: {free_gb:.1f} GB free at {root}")
-        check(free_gb > 24, f"phase e needs about 20 GB of disk; {free_gb:.1f} GB free")
+        check(free_gb > 24, f"phase e needs about 23 GB of disk; {free_gb:.1f} GB free")
 
         # 1. extend: a synthesized base (the drive's 128,000-entry tokenizer, random bf16
         # weights), then the extension CLI with the drive's arguments
@@ -2329,7 +2351,6 @@ def phase_training_cli(seed: int, smi: str):
             "--n_new_dsus", str(cfg.n_dsus), "--sigma-scaling", "1.0", "--model-config", "llama3_2_1b",
             "--input_dir", str(base), "--output_dir", str(ext)])
         mem_extend = torch.cuda.max_memory_allocated() / 2**30
-        shutil.rmtree(base)
         hf = json.loads((ext / "config.json").read_text())
         with safe_open(next(ext.glob("*.safetensors"))) as f:
             embed = f.get_tensor("model.embed_tokens.weight")
@@ -2418,16 +2439,19 @@ def phase_training_cli(seed: int, smi: str):
         write_jsonl(train_c, cpt_rows(seed + 21, 128, cfg.n_dsus))
         write_jsonl(dev_c, cpt_rows(seed + 22, 16, cfg.n_dsus))
         out_c = root / "cpt"
+
+        def cpt_argv(out, ckpt, train_split, dev_split, *extra):
+            return ["data=cpt/mls-hubert_large_ll60k-layer_22",
+                    *[a for split, path in (("train", train_split), ("dev", dev_split)) for a in (
+                        f"data.{split}.dataset.source=json", f"+data.{split}.dataset.data_files={path}",
+                        f"data.{split}.dataset.split=train")],
+                    "max_steps=2", "log_interval=1", "clip_grad_norm=1.0", "wandb.enabled=false",
+                    f"checkpointer.checkpoint_dir={ckpt}", f"tokenizer.path={ckpt / 'original' / 'tokenizer.model'}",
+                    f"checkpointer.output_dir={out}", *extra]
+
         torch.cuda.reset_peak_memory_stats()
         _build.launch_counts.clear()
-        trainer, t_cpt = run_cli(cpt_main, [
-            "data=cpt/mls-hubert_large_ll60k-layer_22",
-            *[a for split, path in (("train", train_c), ("dev", dev_c)) for a in (
-                f"data.{split}.dataset.source=json", f"+data.{split}.dataset.data_files={path}",
-                f"data.{split}.dataset.split=train")],
-            "max_steps=2", "log_interval=1", "clip_grad_norm=1.0", "wandb.enabled=false",
-            f"checkpointer.checkpoint_dir={ext}", f"tokenizer.path={ext / 'original' / 'tokenizer.model'}",
-            f"checkpointer.output_dir={out_c}"])
+        trainer, t_cpt = run_cli(cpt_main, cpt_argv(out_c, ext, train_c, dev_c))
         cpt_launches = dict(_build.launch_counts)
         mem_cpt = torch.cuda.max_memory_allocated() / 2**30
         metrics_c = read_metrics(out_c)
@@ -2498,7 +2522,10 @@ def phase_training_cli(seed: int, smi: str):
         t0 = time.perf_counter()
         packed_launches = phase_packed_training(seed, smi, root, sft_argv, metrics)
         log(f"  [phase k: {time.perf_counter() - t0:.1f} s]")
-        return launches, packed_launches
+        # phase m extends the same base by its compressed vocabulary (no second base)
+        shutil.rmtree(ext)
+        compressed_launches = phase_compressed(seed, smi, root, base, cpt_argv, metrics_c)
+        return launches, packed_launches, compressed_launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2782,6 +2809,203 @@ def phase_packed_training(seed: int, smi: str, root, sft_argv, unpacked: list[di
     log(f"phase k pack_window 8: 2 steps, {n_window} packs an epoch, losses {', '.join(f'{x:.4f}' for x in losses_w)}; "
         f"CLI wall {t_window:.2f} s")
     return launches
+
+
+# --- phase m: the BPE-compressed DSU axis at 1B ------------------------------------------------
+
+
+def markov_dsu_rows(seed: int, n: int, units: int = 5000, out_degree: int = 8, hold: float = 0.25) -> list[dict]:
+    """``n`` aligned CPT rows whose speech tokens walk a Markov chain, the shape
+    of ``docs/COMPRESSED_DSU.md``'s corpus: a ``units``-entry alphabet with
+    Zipf(1) weights, each unit with ``out_degree`` successors drawn by those
+    weights, a hold (the unit repeats) with probability ``hold`` at each
+    step; 8-14 task words of 0.2-0.6 s with HuBERT-rate tokens (50 per
+    second) over the utterance."""
+    import numpy as np
+
+    from ssi_tpu_torch.wer_drive import WORDS
+
+    rng = np.random.default_rng(seed)
+    weights = 1.0 / np.arange(1, units + 1)
+    weights /= weights.sum()
+    successors = rng.choice(units, size=(units, out_degree), p=weights)
+    rows = []
+    for _ in range(n):
+        n_words = int(rng.integers(8, 15))
+        ends = np.cumsum(rng.uniform(0.2, 0.6, n_words))
+        starts = np.concatenate([[0.0], ends[:-1]])
+        m = int(ends[-1] * 50) + 1
+        moves, picks = rng.random(m) >= hold, rng.integers(0, out_degree, m)
+        unit, speech = int(rng.choice(units, p=weights)), []
+        for i in range(m):
+            if i and moves[i]:
+                unit = int(successors[unit, picks[i]])
+            speech.append(unit)
+        rows.append({"tokenized": [WORDS[j] for j in rng.integers(0, len(WORDS), n_words)],
+                     "align_t_starts": starts.tolist(), "align_t_ends": ends.tolist(), "speech_tokens": speech})
+    return rows
+
+
+def phase_compressed(seed: int, smi: str, root, base, cpt_argv, base_cpt: list[dict]) -> dict:
+    """Phase m: the BPE-compressed DSU axis through the port's CLIs at the full
+    width of ``llama3_2_1b``, on phase e's synthesized base: merges trained
+    by ``python -m ssi_tpu_torch.cli.train_dsu_bpe`` over a Markov DSU corpus
+    (128 rows, 1,024 merges, deduplicated), appended to the base tokenizer
+    with the modality tokens (n_new), the extension CLI with ``--n_new_dsus
+    n_new`` and the compressed ``tokenizer.model`` swapped in, the CPT CLI
+    with ``tokenizer.pattern=cl100k`` for 2 steps at phase e's window, the
+    generation CLI with ``tokenizer.pattern=cl100k`` (16 prompts x 64
+    greedy tokens), and #5-#7 held against their plain versions at the
+    compressed vocabulary. Returns the CPT and generation runs' launch
+    counts together (the kernels line's ``cpt_compressed``)."""
+    from itertools import groupby
+    import shutil
+
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.cli.extend_llama3_2 import main as extend_main, parse_args as extend_args
+    from ssi_tpu_torch.cli.generate import main as generate_main
+    from ssi_tpu_torch.cli.train_cpt import main as cpt_main
+    from ssi_tpu_torch.cli.train_dsu_bpe import main as bpe_main, parse_args as bpe_args
+    from ssi_tpu_torch.data.cpt import TextCompletionDataset
+    from ssi_tpu_torch.speech import dsu2pua
+    from ssi_tpu_torch.tokenizer import load_tiktoken_bpe, setup_llama3_tokenizer
+    from ssi_tpu_torch.tokenizer.bpe_train import merge_into_tokenizer
+
+    t_phase = time.perf_counter()
+    # the recipe's corpus is 1,500 rows and 4,096 merges; 128 rows (the CPT's two
+    # windows) and 1,024 merges keep the trainer's host time near 11 s on the card's
+    # machine (256 rows took 21.7 s, and the run passed half its time limit)
+    rows = markov_dsu_rows(seed + 31, 128)
+    corpus_file = root / "dsu_corpus.jsonl"
+    write_jsonl(corpus_file, rows)
+
+    # 1. merges over the corpus, through the CLI as a user runs it (host only)
+    bpe_dir = root / "dsu_bpe"
+    stats, t_bpe = run_cli(lambda a: bpe_main(bpe_args(a)), [
+        str(bpe_dir), "--dataset", "json", "--data-files", str(corpus_file), "--n-merges", "1024", "--deduplicate"])
+    check(stats["n_rows"] == len(rows) and stats["n_merges_learned"] == 1024, f"train_dsu_bpe stats {stats}")
+
+    # 2. the merges appended to the base tokenizer, with the modality tokens
+    compressed = root / "compressed_tokenizer.model"
+    n_new = merge_into_tokenizer(base / "original" / "tokenizer.model", load_tiktoken_bpe(bpe_dir / "tokenizer.model"),
+                                 compressed, use_modality_tokens=True)
+    v_c = len(load_tiktoken_bpe(base / "original" / "tokenizer.model")) + n_new + 2 + 256  # 128,000 + n_new + 2 + 256
+
+    # 3. the extension CLI by n_new rows, then the compressed tokenizer swapped in
+    ext = root / "extended_compressed"
+    _, t_extend = run_cli(lambda a: extend_main(extend_args(a)), [
+        "--n_new_dsus", str(n_new), "--sigma-scaling", "1.0", "--model-config", "llama3_2_1b",
+        "--input_dir", str(base), "--output_dir", str(ext)])
+    shutil.copyfile(compressed, ext / "original" / "tokenizer.model")
+    hf = json.loads((ext / "config.json").read_text())
+    tok, special = setup_llama3_tokenizer(ext / "original" / "tokenizer.model", verbose=False, pattern="cl100k")
+    check(hf["vocab_size"] == v_c == tok.vocab_size, f"compressed vocab: config {hf['vocab_size']}, "
+          f"tokenizer {tok.vocab_size}, expected {v_c}")
+    check((hf["bos_token_id"], hf["eos_token_id"]) == (tok.bos_id, tok.eos_id)
+          == (special["<|begin_of_text|>"], special["<|end_of_text|>"]),
+          f"config.json bos/eos {hf['bos_token_id']}/{hf['eos_token_id']} != the compressed tokenizer's "
+          f"{tok.bos_id}/{tok.eos_id}")
+
+    # the same rows under the PUA and the cl100k pattern; the host encode rate of each
+    pua, _ = setup_llama3_tokenizer(ext / "original" / "tokenizer.model", verbose=False)
+    counts = {}
+    for seq_type in ("dsu_only", "interleaved"):
+        for name, t in (("pua", pua), ("cl100k", tok)):
+            ds = TextCompletionDataset(
+                t, source="json", data_files=str(corpus_file), split="train", sequence_type=seq_type,
+                deduplicate=True, use_modality_tokens=True,
+                interleave_kwargs={"sampling_rate": 16000, "downsampling_ratio": 320, "mean_seq_len_tokens": 39.43,
+                                   "binom_prob": 0.1})
+            counts[seq_type, name] = sum(len(ds[i]["tokens"]) for i in range(len(ds)))
+    check(counts["dsu_only", "cl100k"] < counts["dsu_only", "pua"],
+          f"dsu_only: {counts['dsu_only', 'cl100k']} tokens under cl100k, not fewer than the PUA pattern's "
+          f"{counts['dsu_only', 'pua']}")
+    lines = ["".join(dsu2pua(k) for k, _ in groupby(r["speech_tokens"])) for r in rows]
+    n_chars = sum(map(len, lines))
+    rates = {}
+    for name, t in (("pua", pua), ("cl100k", tok)):
+        t0 = time.perf_counter()
+        n_ids = sum(len(t.encode(line, add_bos=False, add_eos=False)) for line in lines)
+        dt = time.perf_counter() - t0
+        rates[name] = (n_chars / dt, n_ids / dt, n_ids)
+
+    # 4. CPT through conf/cpt.yaml with the cl100k pattern: 2 steps at phase e's window
+    out = root / "cpt_compressed"
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    trainer, t_cpt = run_cli(cpt_main, cpt_argv(
+        out, ext, corpus_file, corpus_file, "tokenizer.pattern=cl100k", f"speech.n_dsus={n_new}"))
+    launches = dict(_build.launch_counts)
+    mem_cpt = torch.cuda.max_memory_allocated() / 2**30
+    metrics = read_metrics(out)
+    losses = [m["loss"] for m in metrics if "loss" in m]
+    check(trainer.tokenizer.pattern == tok.pattern and trainer.cfg.speech.n_dsus == n_new,
+          "the CPT CLI did not load the cl100k tokenizer at n_new")
+    check(trainer.cfg.gradient_accumulation_steps == 16 and trainer.geometry.batch_size == 4
+          and trainer.cfg.tokenizer.max_seq_len == 768, "CPT did not run the conf's 4 x 16 x 768 window")
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses), f"compressed CPT losses {losses}")
+    n_dsu_tokens = trainer.token_type_counts_total.get("dsu", 0)
+    check(n_dsu_tokens > 0, "compressed CPT counted no tokens in the appended range")
+    for name in TRAIN_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the compressed CPT run")
+    del trainer
+    shutil.rmtree(ext)
+    torch.cuda.empty_cache()
+
+    # 5. generation with the cl100k pattern from the CPT checkpoint: 16 prompts x 64 greedy tokens
+    step = out / "step_2"
+    split = root / "compressed_test.jsonl"
+    write_jsonl(split, [{"speech_tokens": r["speech_tokens"], "transcript": " ".join(r["tokenized"]), "ID": f"m_{i}"}
+                        for i, r in enumerate(rows[:16])])
+    out_g = root / "generate_compressed"
+    _build.launch_counts.clear()
+    _, t_gen = run_cli(generate_main, [
+        f"model={step}", f"experiments_root_dir={root / 'experiments'}",
+        f"tokenizer.path={step / 'original' / 'tokenizer.model'}", "tokenizer.pattern=cl100k",
+        f"speech.n_dsus={n_new}", "data=sft/mls-hubert_large_ll60k-layer_22", "data.test.dataset.source=json",
+        f"+data.test.dataset.data_files={split}", "data.test.dataset.split=train", "gen.split=test",
+        f"gen.output_dir={out_g}", "batch_size=16", "sampling_params.max_tokens=64", "dtype=bf16"])
+    gen_launches = dict(_build.launch_counts)
+    records = [json.loads(x) for x in (out_g / "json" / "test" / "generations.jsonl").read_text().splitlines()]
+    check(len(records) == 16, f"compressed generate: {len(records)} records, expected 16")
+    for r in records:
+        o = r["outputs"][0]
+        check(r["finished"] is True and 0 < len(o["token_ids"]) <= 64 and all(0 <= t < v_c for t in o["token_ids"]),
+              f"compressed generate record {r['request_id']}: {o['finish_reason']}, {len(o['token_ids'])} tokens")
+        check(o["text"] == tok.decode(o["token_ids"]), f"compressed generate record {r['request_id']}: its text is "
+              "not the cl100k tokenizer's decode of its tokens")
+    for name in ("flash_attention_fwd", "paged_attention_fused"):
+        check(gen_launches.get(name, 0) > 0, f"kernel {name} was not launched by the compressed generation run")
+    n_gen = sum(len(r["outputs"][0]["token_ids"]) for r in records)
+    shutil.rmtree(out)
+    shutil.rmtree(out_g)
+
+    # 6. #5-#7 against their plain versions at the compressed vocabulary
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 97)
+    phase_cross_entropy(gen, v_c, ns=(4096,), tag=f"phase m cross entropy at V_c {v_c:,}")
+
+    log(f"phase m train_dsu_bpe CLI ({len(rows)} rows, {stats['n_dsu_tokens']} deduplicated DSUs, 1,024 merges): "
+        f"{t_bpe:.2f} s; compression {stats['compression_ratio_chars_per_token']} chars/token (stats.json); "
+        f"n_new {n_new}, V_c {v_c:,}; extension CLI {t_extend:.2f} s")
+    log(f"phase m tokens of the {len(rows)} rows, PUA -> cl100k: dsu_only {counts['dsu_only', 'pua']} -> "
+        f"{counts['dsu_only', 'cl100k']} ({counts['dsu_only', 'pua'] / counts['dsu_only', 'cl100k']:.3f}x), "
+        f"interleaved {counts['interleaved', 'pua']} -> {counts['interleaved', 'cl100k']} "
+        f"({counts['interleaved', 'pua'] / counts['interleaved', 'cl100k']:.3f}x)")
+    log(f"phase m host encode rate of the {len(lines)} deduplicated DSU rows ({n_chars} DSUs; each row one piece "
+        f"under cl100k): PUA {rates['pua'][0]:.0f} DSUs/s ({rates['pua'][1]:.0f} tokens/s, {rates['pua'][2]} "
+        f"tokens), cl100k {rates['cl100k'][0]:.0f} DSUs/s ({rates['cl100k'][1]:.0f} tokens/s, "
+        f"{rates['cl100k'][2]} tokens)")
+    log(f"phase m CPT CLI (1B bf16, tokenizer.pattern=cl100k, speech.n_dsus={n_new}, window 16 x 4 x 768, "
+        f"interleaved): loss {', '.join(f'{x:.4f}' for x in losses)}; steps {step_readings(metrics)} (phase e's "
+        f"CPT: {step_readings(base_cpt)}); n_tokens.dsu {n_dsu_tokens}; CLI wall {t_cpt:.2f} s; peak memory "
+        f"{mem_cpt:.1f} GiB; on {smi}; launches {launches}")
+    log(f"phase m generate CLI (tokenizer.pattern=cl100k, 16 prompts x 64 greedy tokens, bf16): {n_gen} tokens, "
+        f"every record finished and decodes; CLI wall {t_gen:.2f} s; launches {gen_launches}")
+    log(f"  [phase m: {time.perf_counter() - t_phase:.1f} s]")
+    return {name: launches.get(name, 0) + gen_launches.get(name, 0) for name in {*launches, *gen_launches}}
 
 
 # --- phase f: weight-only int8 and the port's WER drive ---------------------------------------
@@ -3348,7 +3572,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", default="", help="comma-separated phase groups to run alone while developing "
-                        "(1b: phases 2-f, i, j, k and l; hd128: the head_dim-128 kernel phases; g; h); prints no result line")
+                        "(1b: phases 2-f, i, j, k, l and m; e: phases e, k and m alone; hd128: the head_dim-128 "
+                        "kernel phases; g; h); prints no result line")
     args = parser.parse_args()
 
     import torch
@@ -3395,12 +3620,15 @@ def main() -> int:
         phase_train_parity(args.seed)
         train_launches = phase_train(args.seed, smi)
         mark("phases 6-9")
-        train_cli_launches, packed_launches = phase_training_cli(args.seed, smi)
-        mark("phases e, k")
+        train_cli_launches, packed_launches, compressed_launches = phase_training_cli(args.seed, smi)
+        mark("phases e, k, m")
         int8_launches = phase_int8_serving(args.seed, smi, base_tokens, base_rate)
         phase_drive_kernels(gen)
         drive_launches = phase_wer_drive(smi)
         mark("phase f")
+    if "e" in groups and "1b" not in groups:
+        phase_training_cli(args.seed, smi)
+        mark("phases e, k, m")
     if "hd128" in groups:
         rows128 = phase_kernels_hd128(gen, model_config().vocab_size)
         mark("phases 2g-ah")
@@ -3426,7 +3654,8 @@ def main() -> int:
                    "generate": gen_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "train_cli": train_cli_launches.get(name, 0), "int8_serve": int8_launches.get(name, 0),
                    "wer_drive": drive_launches.get(name, 0), "serve_http": http_launches.get(name, 0),
-                   "serve_n": serve_n_launches.get(name, 0), "train_packed": packed_launches.get(name, 0)}
+                   "serve_n": serve_n_launches.get(name, 0), "train_packed": packed_launches.get(name, 0),
+                   "cpt_compressed": compressed_launches.get(name, 0)}
         if name.startswith("cross_entropy"):  # one instance for every D: 3B's training launches it too
             by_path["train_3b"] = launches_big["train_3b"].get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",

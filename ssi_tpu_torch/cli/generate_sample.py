@@ -54,7 +54,8 @@ def generate_sample(
     """Generate one completion; returns a structured record (vLLM-style).
 
     ``pattern``: tokenizer split-pattern selector (``None`` = PUA contract;
-    ``"cl100k"`` raises: not ported, ROADMAP.md item A11). ``device``: the
+    ``"cl100k"`` for BPE-compressed DSU checkpoints; another raw regex
+    raises, ROADMAP.md item A11's remainder). ``device``: the
     card unless the caller names the CPU; with no card the default raises.
     """
     import torch

@@ -14,8 +14,11 @@ passes it: ``source="json"`` with ``data_files`` (a path, a list of paths, or
 a dict of split -> paths) and ``split``. Each file holds JSON lines; a split
 is a list of row dicts,
 every row carrying every column seen in the split (absent -> None), as a
-``datasets.Dataset`` row does. Any other source raises
-``NotImplementedError``: the card has no network, and maybe no ``datasets``.
+``datasets.Dataset`` row does; with ``streaming=True`` (as
+``python -m ssi_tpu_torch.cli.train_dsu_bpe`` passes it) ``load_hf_dataset``
+yields the rows lazily, in file order, each as its line holds it. Any other
+source or argument raises ``NotImplementedError``: the card has no network,
+and maybe no ``datasets``.
 """
 
 from __future__ import annotations
@@ -75,9 +78,10 @@ def _split_files(data_files: Any, split: str | None) -> list[Path]:
 
 def _read_rows(paths: list[Path]):
     for path in paths:
-        for line in path.read_text().splitlines():
-            if line.strip():
-                yield json.loads(line)
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                if line.strip():
+                    yield json.loads(line)
 
 
 def _with_all_columns(rows: list[dict]) -> list[dict]:
@@ -100,10 +104,15 @@ def _json_kwargs(source: str, load_dataset_kwargs: dict[str, Any]) -> tuple[Any,
     return data_files, split
 
 
-def load_hf_dataset(source: str, **load_dataset_kwargs) -> list[dict[str, Any]]:
-    """Load a full split (``datasets.load_dataset(source, **kwargs)``'s rows)."""
+def load_hf_dataset(source: str, **load_dataset_kwargs) -> list[dict[str, Any]] | Iterator[dict[str, Any]]:
+    """Load a full split (``datasets.load_dataset(source, **kwargs)``'s rows);
+    with ``streaming=True`` an iterator over them, read as they are taken."""
+    streaming = load_dataset_kwargs.pop("streaming", False)
     data_files, split = _json_kwargs(source, load_dataset_kwargs)
-    return _with_all_columns(list(_read_rows(_split_files(data_files, split))))
+    paths = _split_files(data_files, split)
+    if streaming:
+        return _read_rows(paths)
+    return _with_all_columns(list(_read_rows(paths)))
 
 
 def load_dataset_subset(source: str, n_samples: int, filter_fn=None, **load_dataset_kwargs) -> list[dict[str, Any]]:

@@ -1,7 +1,9 @@
 """The port's native (C++) host code: the byte-level BPE core that stands in
 for tiktoken's Rust BPE — a copy of ``ssi_tpu/native/`` (``__init__``'s build
-and load, ``bpe.py``, ``src/bpe.cc``, ``src/unicode_tables.h``; the sources
-are held byte-equal by ``tests/test_torch_tokenizer.py``). It is host code,
+and load, ``bpe.py``, ``src/bpe.cc``, ``src/unicode_tables.h``, the last held
+byte-equal by ``tests/test_torch_tokenizer.py``) that adds a scanner for
+``CL100K_PATTERN``, a whole-piece mode and a split entry (held equal to
+tiktoken and ``regex`` by ``tests/test_torch_cl100k.py``). It is host code,
 not a kernel.
 
 Build: ``src/*.cc`` compile with g++ (``-O2 -std=c++17 -shared -fPIC``) into
@@ -86,15 +88,22 @@ def _bind_signatures(lib: ctypes.CDLL) -> None:
     lib.bpe_last_error.restype = c.c_char_p
     lib.bpe_new.argtypes = [c.c_char_p]
     lib.bpe_new.restype = c.c_void_p
+    lib.bpe_new_from_buffer.argtypes = [c.c_char_p, c.c_int64]
+    lib.bpe_new_from_buffer.restype = c.c_void_p
     lib.bpe_free.argtypes = [c.c_void_p]
     lib.bpe_n_vocab.argtypes = [c.c_void_p]
     lib.bpe_n_vocab.restype = c.c_int64
     lib.bpe_encode.argtypes = [
-        c.c_void_p, c.c_char_p, c.c_int64,
+        c.c_void_p, c.c_char_p, c.c_int64, c.c_int32,
         c.POINTER(c.POINTER(c.c_int32)), c.POINTER(c.c_int64),
     ]
     lib.bpe_encode.restype = c.c_int
     lib.bpe_free_i32.argtypes = [c.POINTER(c.c_int32)]
+    lib.bpe_split.argtypes = [
+        c.c_char_p, c.c_int64, c.c_int32, c.POINTER(c.POINTER(c.c_int64)), c.POINTER(c.c_int64),
+    ]
+    lib.bpe_split.restype = c.c_int
+    lib.bpe_free_i64.argtypes = [c.POINTER(c.c_int64)]
     lib.bpe_decode.argtypes = [
         c.c_void_p, c.POINTER(c.c_int32), c.c_int64,
         c.POINTER(c.POINTER(c.c_uint8)), c.POINTER(c.c_int64),

@@ -3,24 +3,57 @@
 ``ssi_tpu_torch/native/__init__.py``).
 
 Exposes the subset of ``tiktoken.Encoding`` the tokenizer stack actually uses
-(ssi_tpu_torch/tokenizer/__init__.py): ordinary text encode with specials
-disabled, decode, and ``n_vocab``. Special tokens never reach the native core
-— encode is always called with specials disallowed (user data containing
+(ssi_tpu_torch/tokenizer/__init__.py, tokenizer/bpe_train.py): ordinary text
+encode with specials disabled, decode, and ``n_vocab``, under one of the
+split patterns of :data:`PATTERNS`, chosen at construction; and
+:func:`split`, the pieces a pattern cuts a text into. Special tokens never
+reach the native core — encode is always called with specials disallowed (user data containing
 special-token strings is encoded as plain text, same policy as the
 reference), and decode splices special strings around native calls for the
 base-vocab runs.
 
 Bit-identity with tiktoken is the contract, held by tests/test_native_bpe.py
-(the JAX package's copy) and tests/test_torch_tokenizer.py (this one).
+(the JAX package's copy), tests/test_torch_tokenizer.py and
+tests/test_torch_cl100k.py (this one).
 """
 
 from __future__ import annotations
 
+import base64
 import ctypes
 
 from ssi_tpu_torch.native import load_native
 
-__all__ = ["NativeEncoding"]
+__all__ = ["PATTERNS", "NativeEncoding", "split"]
+
+# The split patterns the C++ scanner implements, by name -> its mode:
+# ``CL100K_PATTERN_PUA`` (every private-use codepoint its own piece),
+# ``CL100K_PATTERN`` (runs of DSU characters are one piece), and ``whole``:
+# the text is one piece, tiktoken's ``(?s:.+)``.
+PATTERNS = {"cl100k_pua": 0, "cl100k": 1, "whole": 2}
+
+
+def _mode(pattern: str) -> int:
+    if pattern not in PATTERNS:
+        raise ValueError(f"unknown native split pattern {pattern!r}; one of {sorted(PATTERNS)}")
+    return PATTERNS[pattern]
+
+
+def split(text: str, pattern: str) -> list[str]:
+    """The pieces ``pattern`` (a name of :data:`PATTERNS`) cuts ``text`` into,
+    in order: ``[m.group() for m in regex.finditer(<the regex>, text)]``."""
+    lib = load_native()
+    data = text.encode("utf-8")
+    c = ctypes
+    ends = c.POINTER(c.c_int64)()
+    n = c.c_int64()
+    if lib.bpe_split(data, len(data), _mode(pattern), c.byref(ends), c.byref(n)) != 0:
+        raise RuntimeError(lib.bpe_last_error().decode())
+    try:
+        bounds = [0, *ends[: n.value]]
+    finally:
+        lib.bpe_free_i64(ends)
+    return [data[a:b].decode("utf-8") for a, b in zip(bounds, bounds[1:])]
 
 
 class NativeEncoding:
@@ -29,12 +62,23 @@ class NativeEncoding:
     Args:
         path: merges file ("<base64> <rank>" lines).
         special_tokens: special string -> id (ids at/above the base vocab).
+        pattern: the split pattern of encode, a name of :data:`PATTERNS`.
+        ranks: {token bytes: rank} in place of ``path`` (``path`` is then None).
     """
 
-    def __init__(self, path: str, special_tokens: dict[str, int] | None = None):
+    def __init__(self, path: str | None, special_tokens: dict[str, int] | None = None, pattern: str = "cl100k_pua",
+                 ranks: dict[bytes, int] | None = None):
+        self._mode = _mode(pattern)
         lib = load_native()
         self._lib = lib
-        self._handle = lib.bpe_new(str(path).encode())
+        if (path is None) == (ranks is None):
+            raise ValueError("give exactly one of path and ranks")
+        if ranks is not None:
+            data = "".join(base64.b64encode(tok).decode() + f" {rank}\n"
+                           for tok, rank in sorted(ranks.items(), key=lambda kv: kv[1])).encode()
+            self._handle = lib.bpe_new_from_buffer(data, len(data))
+        else:
+            self._handle = lib.bpe_new(str(path).encode())
         if not self._handle:
             raise OSError(f"BPE load failed: {lib.bpe_last_error().decode()}")
         self._base_vocab = int(lib.bpe_n_vocab(self._handle))
@@ -60,7 +104,7 @@ class NativeEncoding:
         c = ctypes
         out = c.POINTER(c.c_int32)()
         out_len = c.c_int64()
-        rc = self._lib.bpe_encode(self._handle, data, len(data), c.byref(out), c.byref(out_len))
+        rc = self._lib.bpe_encode(self._handle, data, len(data), self._mode, c.byref(out), c.byref(out_len))
         if rc != 0:
             raise RuntimeError(self._lib.bpe_last_error().decode())
         try:

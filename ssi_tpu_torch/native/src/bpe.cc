@@ -2,11 +2,11 @@
 //
 // Replaces the reference's native tiktoken Rust BPE (SURVEY.md §2.3; the
 // tokenization contract is bit-identical DSU/text token streams — ref:
-// ssi/tokenizer/monkeypatch.py:7) with a hand-written scanner for the
-// CL100K_PATTERN_PUA split regex plus the standard greedy lowest-rank pair
-// merge. The regex is implemented as a direct decision procedure — the
-// pattern's eight alternatives tried in order at each position, exactly the
-// leftmost-alternation semantics of tiktoken's regex engine:
+// ssi/tokenizer/monkeypatch.py:7) with hand-written scanners for two split
+// regexes plus the standard greedy lowest-rank pair merge. Each regex is
+// implemented as a direct decision procedure — the pattern's alternatives
+// tried in order at each position, exactly the leftmost-alternation semantics
+// of tiktoken's regex engine. CL100K_PATTERN_PUA (mode kPua):
 //
 //   1. (?i:'s|'t|'re|'ve|'m|'ll|'d)           contractions (simple case fold)
 //   2. [^\r\n\p{L}\p{N}\p{Co}]?\p{L}+          optional prefix + letter run
@@ -17,10 +17,17 @@
 //   7. \s+                                     whitespace
 //   8. \p{Co}                                  single private-use codepoint
 //
+// CL100K_PATTERN (mode kCl100k, the BPE-compressed DSU runs) is the same
+// procedure without the \p{Co} exclusions of 2 and 4 and without 8: a
+// private-use codepoint may prefix a letter run, and runs of DSU characters
+// and punctuation fuse into one piece (so a DSU span is one piece and the
+// trained multi-DSU merges can fire). Mode kWhole takes the whole text as
+// one piece, tiktoken's (?s:.+).
+//
 // Character classes come from generated Unicode tables (unicode_tables.h);
 // equivalence with tiktoken is enforced by differential fuzzing
-// (tests/test_native_bpe.py), including the U+017F (long s) case-fold edge of
-// alternative 1 and the PUA planes of alternative 8.
+// (tests/test_native_bpe.py, tests/test_torch_cl100k.py), including the
+// U+017F (long s) case-fold edge of alternative 1 and the PUA planes.
 //
 // Special tokens are deliberately NOT handled here: the tokenizer encodes
 // user text with specials disabled (ssi_tpu/tokenizer/__init__.py:176), and
@@ -123,12 +130,18 @@ struct Decoded {
 // ---------------------------------------------------------------------------
 // The split scanner: returns the match length IN CODEPOINTS at position i,
 // trying the pattern's alternatives in order (0 = no match, impossible in
-// practice — every codepoint class is covered).
+// practice — every codepoint class is covered). `pua` selects
+// CL100K_PATTERN_PUA, else CL100K_PATTERN.
 // ---------------------------------------------------------------------------
 
-size_t match_at(const std::vector<uint32_t>& s, size_t i) {
+// The split modes of bpe_encode and bpe_split.
+enum Mode : int32_t { kPua = 0, kCl100k = 1, kWhole = 2 };
+
+size_t match_at(const std::vector<uint32_t>& s, size_t i, bool pua) {
   const size_t n = s.size();
   const uint32_t c0 = s[i];
+  // the \p{Co} exclusions of alternatives 2 and 4 (PUA pattern only)
+  auto excluded = [pua](uint32_t cp) { return pua && is_private_use(cp); };
 
   // 1. (?i:'s|'t|'re|'ve|'m|'ll|'d)
   if (c0 == '\'' && i + 1 < n) {
@@ -144,10 +157,10 @@ size_t match_at(const std::vector<uint32_t>& s, size_t i) {
     }
   }
 
-  // 2. [^\r\n\p{L}\p{N}\p{Co}]?\p{L}+
+  // 2. [^\r\n\p{L}\p{N}\p{Co}]?\p{L}+  (cl100k: [^\r\n\p{L}\p{N}]?\p{L}+)
   {
     size_t j = i;
-    if (!is_letter(c0) && !is_newline(c0) && !is_number(c0) && !is_private_use(c0)) j = i + 1;
+    if (!is_letter(c0) && !is_newline(c0) && !is_number(c0) && !excluded(c0)) j = i + 1;
     if (j < n && is_letter(s[j])) {
       size_t k = j;
       while (k < n && is_letter(s[k])) ++k;
@@ -162,12 +175,12 @@ size_t match_at(const std::vector<uint32_t>& s, size_t i) {
     return k - i;
   }
 
-  // 4.  ?[^\s\p{L}\p{N}\p{Co}]+[\r\n]*
+  // 4.  ?[^\s\p{L}\p{N}\p{Co}]+[\r\n]*  (cl100k:  ?[^\s\p{L}\p{N}]+[\r\n]*)
   {
     size_t j = i;
     if (c0 == ' ') j = i + 1;
-    auto is_punct = [](uint32_t cp) {
-      return !is_space(cp) && !is_letter(cp) && !is_number(cp) && !is_private_use(cp);
+    auto is_punct = [&excluded](uint32_t cp) {
+      return !is_space(cp) && !is_letter(cp) && !is_number(cp) && !excluded(cp);
     };
     if (j < n && is_punct(s[j])) {
       size_t k = j;
@@ -196,10 +209,31 @@ size_t match_at(const std::vector<uint32_t>& s, size_t i) {
     return w;
   }
 
-  // 8. \p{Co}
-  if (is_private_use(c0)) return 1;
+  // 8. \p{Co} (PUA pattern only; cl100k matched it in 2 or 4)
+  if (pua && is_private_use(c0)) return 1;
 
   return 0;
+}
+
+// Calls f(byte_start, byte_end) for each piece of the text under `mode`.
+template <class F>
+void for_each_piece(const uint8_t* data, size_t len, int32_t mode, F f) {
+  if (mode == kWhole) {
+    if (len > 0) f(size_t{0}, len);
+    return;
+  }
+  Decoded d(data, len);
+  size_t i = 0;
+  const size_t n = d.cps.size();
+  while (i < n) {
+    size_t m = match_at(d.cps, i, mode == kPua);
+    if (m == 0) {  // defensive: skip an unmatchable codepoint (none exist)
+      ++i;
+      continue;
+    }
+    f(d.byte_off[i], d.byte_off[i + m]);
+    i += m;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -267,19 +301,8 @@ struct Bpe {
     }
   }
 
-  void encode(const uint8_t* data, size_t len, std::vector<int32_t>& out) const {
-    Decoded d(data, len);
-    size_t i = 0;
-    const size_t n = d.cps.size();
-    while (i < n) {
-      size_t m = match_at(d.cps, i);
-      if (m == 0) {  // defensive: skip an unmatchable codepoint (none exist)
-        ++i;
-        continue;
-      }
-      encode_piece(data + d.byte_off[i], d.byte_off[i + m] - d.byte_off[i], out);
-      i += m;
-    }
+  void encode(const uint8_t* data, size_t len, int32_t mode, std::vector<int32_t>& out) const {
+    for_each_piece(data, len, mode, [&](size_t a, size_t b) { encode_piece(data + a, b - a, out); });
   }
 };
 
@@ -314,52 +337,39 @@ bool b64_decode(const char* s, size_t len, std::string& out) {
   return true;
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* bpe_last_error() { return g_bpe_error.c_str(); }
-
-void* bpe_new(const char* path) {
-  FILE* f = fopen(path, "rb");
-  if (!f) {
-    g_bpe_error = std::string("cannot open ") + path;
-    return nullptr;
-  }
+// Parses a merges file's bytes; nullptr (and g_bpe_error) on a malformed file.
+Bpe* parse_ranks(const char* data, size_t len) {
   auto bpe = std::make_unique<Bpe>();
-  std::string line;
-  char buf[8192];
   int64_t max_rank = -1;
-  while (fgets(buf, sizeof(buf), f)) {
-    line = buf;
+  size_t pos = 0;
+  while (pos < len) {
+    const char* nl = static_cast<const char*>(memchr(data + pos, '\n', len - pos));
+    size_t end = nl ? static_cast<size_t>(nl - data) : len;
+    std::string line(data + pos, end - pos);
+    pos = end + 1;
     while (!line.empty() && (line.back() == '\n' || line.back() == '\r')) line.pop_back();
     if (line.empty()) continue;
     size_t sp = line.rfind(' ');
     if (sp == std::string::npos) {
       g_bpe_error = "malformed merges line (no rank): " + line.substr(0, 40);
-      fclose(f);
       return nullptr;
     }
     std::string tok;
     if (!b64_decode(line.data(), sp, tok)) {
       g_bpe_error = "malformed base64 token: " + line.substr(0, 40);
-      fclose(f);
       return nullptr;
     }
     long rank = strtol(line.c_str() + sp + 1, nullptr, 10);
     if (rank < 0) {
       g_bpe_error = "negative rank in merges file";
-      fclose(f);
       return nullptr;
     }
     if (!bpe->ranks.emplace(std::move(tok), static_cast<uint32_t>(rank)).second) {
       g_bpe_error = "duplicate token in merges file: " + line.substr(0, 40);
-      fclose(f);
       return nullptr;
     }
     if (rank > max_rank) max_rank = rank;
   }
-  fclose(f);
   if (bpe->ranks.empty()) {
     g_bpe_error = "empty merges file";
     return nullptr;
@@ -385,18 +395,48 @@ void* bpe_new(const char* path) {
   return bpe.release();
 }
 
+}  // namespace
+
+extern "C" {
+
+const char* bpe_last_error() { return g_bpe_error.c_str(); }
+
+void* bpe_new(const char* path) {
+  FILE* f = fopen(path, "rb");
+  if (!f) {
+    g_bpe_error = std::string("cannot open ") + path;
+    return nullptr;
+  }
+  std::string data;
+  char buf[1 << 16];
+  size_t got;
+  while ((got = fread(buf, 1, sizeof(buf), f)) > 0) data.append(buf, got);
+  fclose(f);
+  return parse_ranks(data.data(), data.size());
+}
+
+// The same from a merges file's bytes in memory.
+void* bpe_new_from_buffer(const char* data, int64_t len) {
+  return parse_ranks(data, static_cast<size_t>(len));
+}
+
 void bpe_free(void* handle) { delete static_cast<Bpe*>(handle); }
 
 int64_t bpe_n_vocab(void* handle) {
   return static_cast<int64_t>(static_cast<Bpe*>(handle)->tokens.size());
 }
 
-// Encodes UTF-8 text; *out is new[]-allocated, freed with bpe_free_i32.
-int bpe_encode(void* handle, const uint8_t* text, int64_t len, int32_t** out, int64_t* out_len) {
+// Encodes UTF-8 text, split under `mode` (kPua, kCl100k or kWhole); *out is
+// new[]-allocated, freed with bpe_free_i32.
+int bpe_encode(void* handle, const uint8_t* text, int64_t len, int32_t mode, int32_t** out, int64_t* out_len) {
+  if (mode != kPua && mode != kCl100k && mode != kWhole) {
+    g_bpe_error = "unknown split mode " + std::to_string(mode);
+    return -1;
+  }
   const auto* bpe = static_cast<Bpe*>(handle);
   std::vector<int32_t> ids;
   ids.reserve(static_cast<size_t>(len) / 3 + 8);
-  bpe->encode(text, static_cast<size_t>(len), ids);
+  bpe->encode(text, static_cast<size_t>(len), mode, ids);
   *out = new int32_t[ids.size() ? ids.size() : 1];
   std::memcpy(*out, ids.data(), ids.size() * sizeof(int32_t));
   *out_len = static_cast<int64_t>(ids.size());
@@ -404,6 +444,24 @@ int bpe_encode(void* handle, const uint8_t* text, int64_t len, int32_t** out, in
 }
 
 void bpe_free_i32(int32_t* p) { delete[] p; }
+
+// Splits UTF-8 text under `mode`: *ends holds each piece's end byte offset
+// (the next piece starts there), new[]-allocated, freed with bpe_free_i64.
+int bpe_split(const uint8_t* text, int64_t len, int32_t mode, int64_t** ends, int64_t* n) {
+  if (mode != kPua && mode != kCl100k && mode != kWhole) {
+    g_bpe_error = "unknown split mode " + std::to_string(mode);
+    return -1;
+  }
+  std::vector<int64_t> out;
+  for_each_piece(text, static_cast<size_t>(len), mode,
+                 [&](size_t, size_t b) { out.push_back(static_cast<int64_t>(b)); });
+  *ends = new int64_t[out.size() ? out.size() : 1];
+  std::memcpy(*ends, out.data(), out.size() * sizeof(int64_t));
+  *n = static_cast<int64_t>(out.size());
+  return 0;
+}
+
+void bpe_free_i64(int64_t* p) { delete[] p; }
 
 // Decodes base-vocab ids to bytes; unknown ids are an error (special ids are
 // spliced by the Python wrapper before calling this). *out freed with

@@ -2,11 +2,13 @@
 copy of ``ssi_tpu/tokenizer/__init__.py``. tiktoken is not a dependency of
 the port: the BPE core is always the first-party C++ one
 (``ssi_tpu_torch/native``, bit-identical to tiktoken and with no fallback),
-and ``load_tiktoken_bpe`` is the port's own ``tokenizer.model`` reader. Only
-the PUA split pattern has a C++ scanner; ``pattern: cl100k`` raises
-``NotImplementedError``. ``tests/test_torch_tokenizer.py`` holds encode,
-decode and ``tokenize_messages`` equal to the JAX tokenizer's tiktoken
-backend.
+and ``load_tiktoken_bpe`` is the port's own ``tokenizer.model`` reader. The
+C++ core has a scanner for each of the two split patterns, the PUA one and
+``CL100K_PATTERN`` (``pattern: cl100k``, BPE-compressed DSU runs); the port
+has no regex engine, so any other split regex raises
+``NotImplementedError``. ``tests/test_torch_tokenizer.py`` and
+``tests/test_torch_cl100k.py`` hold encode, decode and ``tokenize_messages``
+equal to the JAX tokenizer's tiktoken backend.
 
 The original is a standalone reimplementation of the tokenizer stack the reference assembles from
 torchtune + a monkeypatch (ref: ssi/tokenizer/__init__.py:18-45,
@@ -54,6 +56,9 @@ CL100K_PATTERN = r"""(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}
 CL100K_PATTERN_PUA = r"""(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}\p{Co}]?\p{L}+|\p{N}{1,3}| ?[^\s\p{L}\p{N}\p{Co}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+|\p{Co}"""  # noqa: E501
 
 assert CL100K_PATTERN_PUA != CL100K_PATTERN
+
+# the split regexes the C++ scanner implements -> its pattern names
+_NATIVE_PATTERNS = {CL100K_PATTERN_PUA: "cl100k_pua", CL100K_PATTERN: "cl100k"}
 
 # The 256 Llama 3 special tokens, in canonical order. IDs here are the *base-model*
 # assignments (base vocab 128000); after DSU extension the same ordering is re-assigned
@@ -113,9 +118,13 @@ class Llama3Tokenizer:
             base-model assignments in :data:`LLAMA3_SPECIAL_TOKENS`.
         max_seq_len: Maximum sequence length for truncation (``None`` = no limit).
         prompt_template: Optional callable ``list[Message] -> list[Message]``.
-        pattern: split regex; only :data:`CL100K_PATTERN_PUA` (every DSU
-            character is its own token — the reference contract), which the
-            C++ scanner implements. Any other raises ``NotImplementedError``.
+        pattern: split regex. Default :data:`CL100K_PATTERN_PUA` (every DSU
+            character is its own token — the reference contract). Pass
+            :data:`CL100K_PATTERN` for BPE-COMPRESSED DSU runs: without the
+            ``\\p{Co}`` isolation, adjacent DSU characters form one piece and
+            the trained multi-DSU merges (``tokenizer/bpe_train.py``) can
+            fire. The C++ scanner implements these two; any other regex
+            raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -137,11 +146,11 @@ class Llama3Tokenizer:
         if mergeable_ranks is None:
             mergeable_ranks = load_tiktoken_bpe(self.path)
         self._base_vocab_size = len(mergeable_ranks)
-        if pattern != CL100K_PATTERN_PUA:
-            raise _cl100k_not_ported()
+        if pattern not in _NATIVE_PATTERNS:
+            raise _regex_not_ported(pattern)
         self.pattern = pattern
         # the C++ core reads the merges file itself; a failed build raises (no fallback)
-        self._native = NativeEncoding(self.path, self.special_tokens)
+        self._native = NativeEncoding(self.path, self.special_tokens, pattern=_NATIVE_PATTERNS[pattern])
         self._special_token_ids = set(self.special_tokens.values())
 
         self.bos_id = self.special_tokens["<|begin_of_text|>"]
@@ -186,7 +195,7 @@ class Llama3Tokenizer:
         yield s[slice_start:]
 
     def encode(self, text: str, add_bos: bool = True, add_eos: bool = True) -> list[int]:
-        """Byte-level BPE encode with the PUA-aware split pattern."""
+        """Byte-level BPE encode with the tokenizer's split pattern."""
         substrs: list[str] = []
         tokens: list[int] = []
         if text:
@@ -297,15 +306,17 @@ def setup_llama3_tokenizer(
     the *current* base vocab size, so they sit above any appended DSU tokens
     (ref: ssi/tokenizer/__init__.py:18-45).
 
-    ``pattern``: ``None`` (or ``"cl100k_pua"``) = the PUA contract pattern; the
-    non-PUA-splitting ``"cl100k"`` for BPE-compressed DSU runs, or a raw
-    regex, raises ``NotImplementedError``: the C++ scanner implements the PUA
-    pattern only.
+    ``pattern``: ``None`` = the PUA contract pattern; the string ``"cl100k"``
+    (or a raw regex) selects the non-PUA-splitting pattern for BPE-compressed
+    DSU runs (config key ``tokenizer.pattern: cl100k``). A raw regex other
+    than the two patterns raises ``NotImplementedError`` (no regex engine).
     """
-    if pattern is None or pattern in ("cl100k_pua", CL100K_PATTERN_PUA):
+    if pattern is None:
         pattern = CL100K_PATTERN_PUA
-    else:
-        raise _cl100k_not_ported()
+    elif pattern == "cl100k":
+        pattern = CL100K_PATTERN
+    elif pattern == "cl100k_pua":
+        pattern = CL100K_PATTERN_PUA
     path = Path(path)
     # parse the merges file ONCE and hand the ranks to the tokenizer below.
     # (The reference hashes the file and passes the hash to load_tiktoken_bpe —
@@ -338,8 +349,9 @@ def setup_llama3_tokenizer(
     return tokenizer, special_tokens_dynamic
 
 
-def _cl100k_not_ported() -> NotImplementedError:
+def _regex_not_ported(pattern: str) -> NotImplementedError:
     return NotImplementedError(
-        "tokenizer.pattern other than the PUA pattern (cl100k, BPE-compressed DSU runs) is not ported "
-        "to ssi_tpu_torch yet (ROADMAP.md queue A, item A11: a C++ scanner for CL100K_PATTERN)"
+        f"tokenizer.pattern {pattern!r} is not ported to ssi_tpu_torch: the C++ scanner implements "
+        "CL100K_PATTERN_PUA and CL100K_PATTERN ('cl100k') only, and the port has no regex engine "
+        "(ROADMAP.md queue A, item A11's remainder: arbitrary split regexes)"
     )

@@ -499,6 +499,67 @@ print("BLOCKED_RUN_OK")
         assert len(lines) == 8 and all(json.loads(line)["finished"] for line in lines)
 
 
+_COMPRESSED_RUNS = {
+    "train_dsu_bpe": """
+import runpy, sys
+sys.argv = ["ssi_tpu_torch.cli.train_dsu_bpe", sys.argv[2] + "/bpe", "--dataset", "json", "--data-files",
+            sys.argv[3], "--n-merges", "32", "--deduplicate"]
+runpy.run_module("ssi_tpu_torch.cli.train_dsu_bpe", run_name="__main__")
+""",
+    "cl100k_generate": """
+import runpy, sys
+sys.argv = ["ssi_tpu_torch.cli.generate", *sys.argv[4:], "tokenizer.pattern=cl100k", "+device=cpu"]
+runpy.run_module("ssi_tpu_torch.cli.generate", run_name="__main__")
+""",
+}
+
+
+@pytest.mark.parametrize("run", sorted(_COMPRESSED_RUNS))
+def test_compressed_dsu_clis_load_no_card_library(tmp_path, run):
+    """``python -m ssi_tpu_torch.cli.train_dsu_bpe`` over a JSON-lines split,
+    and the generation CLI with ``tokenizer.pattern=cl100k`` on a tiny
+    compressed checkpoint (its tokenizer the base plus trained DSU merges),
+    each a process with every library of ``_NOT_ON_THE_CARD`` blocked from
+    import (tiktoken, regex and datasets among them): each runs to its end and
+    loaded none of them."""
+    import json
+
+    from ssi_tpu_torch.speech import dsu2pua
+    from ssi_tpu_torch.tokenizer.bpe_train import merge_into_tokenizer, train_bpe
+    from tests import helpers
+
+    rows = helpers.synthetic_sft_rows(8)
+    split = tmp_path / "rows.jsonl"
+    split.write_text("".join(json.dumps(r) + "\n" for r in rows))
+    ranks = train_bpe(["".join(dsu2pua(t) for t in r["speech_tokens"]) for r in rows], 24)
+    base = helpers.write_tiny_tokenizer(tmp_path / "base.model")
+    n_new = merge_into_tokenizer(base, ranks, tmp_path / "compressed.model", use_modality_tokens=True)
+    model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "step_0", n_dsus=n_new)
+    (model_dir / "original" / "tokenizer.model").write_bytes((tmp_path / "compressed.model").read_bytes())
+    block = tmp_path / "block"
+    block.mkdir()
+    (block / "sitecustomize.py").write_text(_BLOCKER.format(names=repr(set(_NOT_ON_THE_CARD))))
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env.update(PYTHONPATH=f"{block}{os.pathsep}{REPO}", OMP_NUM_THREADS="2")
+    code = _COMPRESSED_RUNS[run] + f"""
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in {_NOT_ON_THE_CARD!r})
+assert loaded == [], loaded
+print("BLOCKED_RUN_OK")
+"""
+    gen = [a.replace("speech.n_dsus=16", f"speech.n_dsus={n_new}")
+           for a in _cli_overrides(model_dir, split, tmp_path / "gens")]
+    proc = subprocess.run([sys.executable, "-c", code, str(model_dir), str(tmp_path / "out"), str(split), *gen],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "BLOCKED_RUN_OK" in proc.stdout
+    if run == "train_dsu_bpe":
+        stats = json.loads((tmp_path / "out" / "bpe" / "stats.json").read_text())
+        assert stats["n_rows"] == 8 and stats["n_merges_learned"] == 32
+    else:
+        lines = (tmp_path / "gens" / "json" / "test" / "generations.jsonl").read_text().splitlines()
+        assert len(lines) == 8 and all(json.loads(line)["finished"] for line in lines)
+
+
 def test_serving_cli_refuses_without_a_card(tmp_path):
     """Without ``+device=cpu`` and with no CUDA device, the serving CLI
     refuses before it loads the tokenizer or the checkpoint (no CPU fallback)."""

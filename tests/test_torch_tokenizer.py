@@ -148,9 +148,11 @@ def test_synthesized_vocabularies_byte_equal(tmp_path, wer_drive):
 
 
 def test_copied_sources_and_helpers_equal():
-    for name in ("bpe.cc", "unicode_tables.h"):
-        assert (REPO / "ssi_tpu_torch" / "native" / "src" / name).read_bytes() == \
-            (REPO / "ssi_tpu" / "native" / "src" / name).read_bytes(), name
+    # bpe.cc adds the CL100K_PATTERN scanner, so only the Unicode tables stay a
+    # byte copy; tests/test_torch_cl100k.py holds both scanners to tiktoken
+    name = "unicode_tables.h"
+    assert (REPO / "ssi_tpu_torch" / "native" / "src" / name).read_bytes() == \
+        (REPO / "ssi_tpu" / "native" / "src" / name).read_bytes(), name
     for dsu in (0, 1, 6399, 6400, 8191, pspeech.MAX_DSUS - 1):
         assert pspeech.dsu2pua(dsu) == jspeech.dsu2pua(dsu)
         assert pspeech.pua2dsu(pspeech.dsu2pua(dsu)) == dsu
@@ -158,15 +160,20 @@ def test_copied_sources_and_helpers_equal():
         (jspeech.MODALITY_TOKEN_TEXT, jspeech.MODALITY_TOKEN_SPEECH, jspeech.MAX_DSUS)
     assert ptok.LLAMA3_SPECIAL_TOKENS == jtok.LLAMA3_SPECIAL_TOKENS
     assert ptok.CL100K_PATTERN_PUA == jtok.CL100K_PATTERN_PUA
+    assert ptok.CL100K_PATTERN == jtok.CL100K_PATTERN
     for bad in ([], [pmessages.Message("assistant", "x"), pmessages.Message("user", "y")]):
         with pytest.raises(ValueError):
             pmessages.validate_messages(bad)
 
 
 def test_cl100k_pattern_raises_naming_its_item(vocabularies):
+    """``cl100k`` loads (tests/test_torch_cl100k.py holds it to tiktoken); a
+    split regex the C++ scanner does not implement names A11's remainder."""
     path, _ = vocabularies["tiny"]
+    tok, _ = ptok.setup_llama3_tokenizer(path, verbose=False, pattern="cl100k")
+    assert tok.pattern == ptok.CL100K_PATTERN
     with pytest.raises(NotImplementedError, match="A11"):
-        ptok.setup_llama3_tokenizer(path, verbose=False, pattern="cl100k")
+        ptok.setup_llama3_tokenizer(path, verbose=False, pattern=r"\S+|\s+")
 
 
 def test_native_build_has_no_fallback(tmp_path, monkeypatch):

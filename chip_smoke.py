@@ -112,7 +112,8 @@ l. the dense engine, on phase d's ``step_0/`` and split before they are
    tokens equal the paged engine's (kernels) and a full-recompute oracle's
    for phase 4's prompts, a seeded sampled run reproduces itself and top-k
    1 is greedy; the generation CLI with ``engine=dense batch_size=8`` in
-   bf16 (64 records in 8 batches, every record finished; generated tok/s
+   bf16 (the split's first 32 records in 4 batches, cut from 64 in 8 to
+   make room for phase n; every record finished; generated tok/s
    beside phase d's paged rate, agreement with phase d's tokens reported,
    not required); one ``python -m ssi_tpu_torch.cli.generate_sample``
    process on ``repeat_this_modality_switch`` with speech tokens (a
@@ -191,6 +192,24 @@ k. packed training, inside phase e on its extended checkpoint: the SFT
    within 1e-5 of the sum; then 2 steps with ``pack_window`` 8. Prints
    label tok/s and ``duration_step`` beside phase e's unpacked run, the
    non-pad share of packed and unpacked rows, and peak memory;
+n. training across ranks, inside phase e on its extended checkpoint (after
+   phase k): ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1`` of the SFT CLI with ``parallel.distributed=true``
+   (NCCL at world size 1) at phase e's window, steps and argv: n1 with
+   ``parallel.zero1=true``, n2 with ``parallel.fsdp=true
+   sharded_optimizer_state=true`` (saves at steps 2 and 4), n3 resuming n2
+   from step 2; n1's and n2's losses, grad norms, dev losses and
+   ``step_4/`` files equal phase e's bitwise, n3's steps 3-4, ``step_4/``
+   and step-4 moments (read back from both sharded directories) equal
+   n2's; every training kernel launched (the kernels line's
+   ``launches_by_path["train_dp"]``, through
+   ``SSI_TPU_TORCH_LAUNCH_COUNTS``); and, while n3 runs, two NCCL ranks on
+   the one card (NCCL's answer printed; if it took them, n4 trains at dp 2
+   with the per-rank batch halved, held to n1's losses within 1e-2). Each
+   torchrun runs a launcher file that runs the CLI's module as ``python
+   -m`` does and reports the rank's peak memory, save seconds and where its
+   wall went. Prints ``duration_step`` and label tok/s beside phase e's,
+   peak memory and save seconds;
 m. the BPE-compressed DSU axis, inside phase e on its synthesized base
    (after phase k): a Markov DSU corpus from ``--seed`` (128 rows of 8-14
    words, a 5,000-unit Zipf alphabet, out-degree 8, 25% holds) through
@@ -254,7 +273,8 @@ g. Llama 3.2 3B through the entry points at full width (28 layers, D 3,072,
    Checkpointer wants 2), the SFT CLI for 4 steps (window 4 x 2 x 2048 over
    an 8-row split, lr 5e-4 after a 1-step warm-up; losses finite and
    falling, every training kernel launched, ``step_4/`` in two shards), and
-   the generation CLI from ``step_4/`` on 64 rows in bf16 and with
+   the generation CLI from ``step_4/`` on 32 rows (cut from 64 to make room
+   for phase n: one wave of the 32 slots) in bf16 and with
    ``quantize_weights=int8`` (every record finished; flash and #8
    launched); about 33 GB of disk at its peak, deleted as it goes;
 h. Llama 3.1 8B serving at full width (D 4,096, FFN 14,336, an untied
@@ -266,7 +286,7 @@ h. Llama 3.1 8B serving at full width (D 4,096, FFN 14,336, an untied
    layers, tokens kernels == plain and == the oracle.
 
 ``--only 1b,e,hd128,g,h`` runs the named groups alone while developing (1b:
-phases 2-f, phases i, j, k, l and m with them; e: phases e, k and m alone)
+phases 2-f, phases i, j, k, l, n and m with them; e: phases e, k, n and m alone)
 and prints no result line.
 
 Tolerances: phases 2, 3 and a hold each output elementwise to ``TOL``
@@ -280,8 +300,9 @@ It then prints one JSON line with per-kernel results (errors, times, the
 bound computed from this run's shapes, the library yardstick, launches by
 path, ``wer_drive`` the sum over the drive's stage processes,
 ``serve_http`` the HTTP server process's, ``serve_n`` phase j1's,
-``train_packed`` phase k's packed SFT run and ``cpt_compressed`` phase
-m's CPT and generation runs; the
+``train_packed`` phase k's packed SFT run, ``cpt_compressed`` phase
+m's CPT and generation runs and ``train_dp`` the sum over phase n's
+torchrun processes; the
 head_dim-128 instances as rows of their own, ``<name>_hd128``, with the 3B
 and 8B paths' launches) and, last, the device line ``{"ok": true,
 "device": {...}}``.
@@ -313,6 +334,7 @@ CE_REPLACES = {
 }
 TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "cross_entropy_lse", "cross_entropy_dlogits",
                  "cross_entropy_dh", "cross_entropy_de")
+DENSE_RECORDS = 32  # phase l's dense CLI run: the first 32 of phase d's 64 records
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # limit on ||kernel - plain|| / ||plain|| over one output tensor (or one set of its rows)
 REL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -1505,8 +1527,8 @@ def phase_dense_f32(seed: int) -> str:
 
 def phase_dense(seed: int, smi: str, root, step, argv: list[str], records: list[dict], paged_rate: float) -> None:
     """Phase l, on phase d's ``step_0/`` and split: the f32 gate; the
-    generation CLI with ``engine=dense batch_size=8`` in bf16 (64 records,
-    8 batches, every record finished; tok/s beside phase d's paged rate,
+    generation CLI with ``engine=dense batch_size=8`` in bf16 (the split's
+    first 32 records, 4 batches, every record finished; tok/s beside phase d's paged rate,
     agreement with phase d's tokens reported, not required); one ``python -m
     ssi_tpu_torch.cli.generate_sample`` run on a shipped template (a finished
     record)."""
@@ -1520,16 +1542,18 @@ def phase_dense(seed: int, smi: str, root, step, argv: list[str], records: list[
     f32_line = phase_dense_f32(seed)
     cfg = model_config()
     out_root = root / "dense"
-    _, wall = run_cli(generate_main, [*argv, "engine=dense", "batch_size=8", f"gen.output_dir={out_root}"])
+    _, wall = run_cli(generate_main, [*argv, "engine=dense", "batch_size=8", f"gen.output_dir={out_root}",
+                                      f"data.test.dataset.n_samples={DENSE_RECORDS}"])
     stats = dict(last_run_stats)
     dense = [json.loads(line) for line in (out_root / "json" / "test" / "generations.jsonl").read_text().splitlines()]
-    check(len(dense) == len(records) == 64, f"dense generate: {len(dense)} records, expected 64")
+    check(len(dense) == DENSE_RECORDS and len(records) == 64, f"dense generate: {len(dense)} records, expected "
+          f"{DENSE_RECORDS}")
     for r in dense:
         o = r["outputs"][0]
         check(r["finished"] is True and len(r["outputs"]) == 1 and o["finish_reason"] in ("stop", "length")
               and 0 < len(o["token_ids"]) <= 128 and all(0 <= t < cfg.vocab_size for t in o["token_ids"]),
               f"dense record {r['request_id']}: {o['finish_reason']}, {len(o['token_ids'])} tokens")
-    batches = [dense[i]["metrics"] for i in range(0, 64, 8)]
+    batches = [dense[i]["metrics"] for i in range(0, DENSE_RECORDS, 8)]
     n_tok = sum(m["batch_generated_tokens"] for m in batches)
     rate = n_tok / sum(m["batch_duration_s"] for m in batches)
     same = sum(a["outputs"][0]["token_ids"] == b["outputs"][0]["token_ids"] for a, b in zip(dense, records))
@@ -1553,11 +1577,12 @@ def phase_dense(seed: int, smi: str, root, step, argv: list[str], records: list[
     check(record["prompt_token_ids"][0] == cfg.base_vocab_size_txt + cfg.n_dsus + 2 * cfg.modality_tokens,
           "generate_sample prompt does not start with BOS")
     log(f"phase l dense engine {f32_line}")
-    log(f"phase l generate CLI engine=dense batch_size=8 (1B bf16, 64 records in 8 batches): {n_tok} tokens = "
+    log(f"phase l generate CLI engine=dense batch_size=8 (1B bf16, {DENSE_RECORDS} records in {len(batches)} batches): "
+        f"{n_tok} tokens = "
         f"{rate:.0f} generated tok/s over the batches (batch rates "
         f"{', '.join(f'{m['batch_tokens_per_second']:.0f}' for m in batches)}; phase d's paged engine, 32 slots: "
         f"{paged_rate:.0f}, {rate / paged_rate:.2f}x); generate {stats['generate_s']:.2f} s, load {stats['load_s']:.2f} s, "
-        f"CLI wall {wall:.2f} s; every record finished; {same}/64 records equal phase d's tokens (bf16, other batch "
+        f"CLI wall {wall:.2f} s; every record finished; {same}/{DENSE_RECORDS} records equal phase d's tokens (bf16, other batch "
         f"shapes: reported, not required); on {smi}")
     log(f"phase l python -m ssi_tpu_torch.cli.generate_sample --template repeat_this_modality_switch "
         f"(1B bf16, {len(record['prompt_token_ids'])} prompt tokens): {o['finish_reason']}, {len(o['token_ids'])} tokens, "
@@ -2406,6 +2431,7 @@ def phase_training_cli(seed: int, smi: str):
         for name in TRAIN_KERNELS:
             check(launches.get(name, 0) > 0, f"kernel {name} was not launched by the SFT entry point")
         save = dict(trainer.last_save_stats)
+        e_digests = file_digests(out / "step_4")  # phase n's runs are held to these files
         t0 = time.perf_counter()
         reloaded = Checkpointer(out / "step_4", output_dir=root / "scratch",
                                 model_expectations=cfg.checkpoint_expectations).load_params(cfg, torch.bfloat16, "cuda")
@@ -2522,10 +2548,15 @@ def phase_training_cli(seed: int, smi: str):
         t0 = time.perf_counter()
         packed_launches = phase_packed_training(seed, smi, root, sft_argv, metrics)
         log(f"  [phase k: {time.perf_counter() - t0:.1f} s]")
+        # phase n trains across ranks (torchrun) on this extended checkpoint, held to phase e's run
+        t0 = time.perf_counter()
+        dp_launches = phase_distributed(seed, smi, root, sft_argv, {"metrics": metrics, "digests": e_digests,
+                                                                    "peak_gib": mem_sft, "save": save})
+        log(f"  [phase n: {time.perf_counter() - t0:.1f} s]")
         # phase m extends the same base by its compressed vocabulary (no second base)
         shutil.rmtree(ext)
         compressed_launches = phase_compressed(seed, smi, root, base, cpt_argv, metrics_c)
-        return launches, packed_launches, compressed_launches
+        return launches, packed_launches, compressed_launches, dp_launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2808,6 +2839,265 @@ def phase_packed_training(seed: int, smi: str, root, sft_argv, unpacked: list[di
     log(f"phase k {loss_line}")
     log(f"phase k pack_window 8: 2 steps, {n_window} packs an epoch, losses {', '.join(f'{x:.4f}' for x in losses_w)}; "
         f"CLI wall {t_window:.2f} s")
+    return launches
+
+
+# --- phase n: training across ranks (the dp axis) ----------------------------------------------
+
+# torchrun's script for phase n: the SFT CLI's module run as ``python -m`` runs
+# it (runpy), then this rank's readings (world size, backend, peak memory,
+# the last save's seconds and each sharded optimizer save's) to argv[2]; argv[1]
+# names a step whose state file and sharded optimizer directory are kept as
+# hard links in <output_dir>/kept<step>/ (a later save replaces and prunes
+# them), and argv[3] == "1" puts every rank on card 0 (the two-rank probe)
+RANK_LAUNCHER = """
+import time
+t_start = time.perf_counter()
+import json, logging, os, runpy, sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+from ssi_tpu_torch.checkpoint import Checkpointer, sharded_io
+from ssi_tpu_torch.train.trainer import Trainer
+
+keep, report = int(sys.argv[1]), Path(sys.argv[2])
+if sys.argv[3] == "1":
+    os.environ["LOCAL_RANK"] = "0"
+seen = {"dcp_s": []}
+setup, train = Trainer.setup, Trainer.train
+cleanup, save_state, save_opt = Trainer.cleanup, Checkpointer.save_training_state, sharded_io.save_opt_state
+
+def timed(name, fn):
+    def run(self):
+        t0 = time.perf_counter()
+        seen.setdefault("at_s", {})[f"{name}_start"] = t0 - t_start
+        out = fn(self)
+        seen[f"{name}_s"] = time.perf_counter() - t0
+        return out
+    return run
+
+def cleanup_and_read(self):
+    seen.update(world_size=self.world_size, backend=dist.get_backend() if dist.is_initialized() else None,
+                save=dict(self.last_save_stats), step=self.global_step)
+    t0 = time.perf_counter()
+    cleanup(self)
+    seen["cleanup_s"] = time.perf_counter() - t0
+
+def save_and_keep(ckpt, **kwargs):
+    path = save_state(ckpt, **kwargs)
+    if kwargs["global_step"] == keep:
+        kept = ckpt.output_dir / f"kept{keep}"
+        kept.mkdir()
+        os.link(path, kept / path.name)
+        marker = kwargs["optimizer_state"].get(sharded_io.DCP_DIR_KEY)
+        for f in (ckpt.output_dir / marker).rglob("*") if marker else ():
+            (kept / f.relative_to(ckpt.output_dir)).parent.mkdir(parents=True, exist_ok=True)
+            os.link(f, kept / f.relative_to(ckpt.output_dir))
+    return path
+
+def timed_save(*args, **kwargs):
+    t0 = time.perf_counter()
+    out = save_opt(*args, **kwargs)
+    seen["dcp_s"].append(time.perf_counter() - t0)
+    return out
+
+Trainer.cleanup, Checkpointer.save_training_state, sharded_io.save_opt_state = cleanup_and_read, save_and_keep, timed_save
+Trainer.setup, Trainer.train = timed("setup", setup), timed("train", train)
+sys.argv = ["ssi_tpu_torch.cli.train_sft", *sys.argv[4:]]
+runpy.run_module("ssi_tpu_torch.cli.train_sft", run_name="__main__")
+seen["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+seen["process_s"] = time.perf_counter() - t_start
+report.with_name(f"{report.stem}_rank{os.environ['RANK']}.json").write_text(json.dumps(seen))
+# every file is written and closed, the process group destroyed: skip the
+# interpreter's teardown of the CUDA context (seconds that would fall in the run)
+logging.shutdown()
+sys.stdout.flush()
+sys.stderr.flush()
+os._exit(0)
+"""
+
+NCCL_PROBE = """
+import os
+import torch
+import torch.distributed as dist
+torch.cuda.set_device(0)
+dist.init_process_group("nccl")
+t = torch.full((1,), float(int(os.environ["RANK"]) + 1), device="cuda")
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print(f"ALL_REDUCE {t.item()}", flush=True)
+dist.destroy_process_group()
+"""
+
+
+def run_torchrun(target: list[str], n: int, log_path, env: dict, timeout: float) -> tuple[int, float]:
+    """``python -m torch.distributed.run --standalone --nproc_per_node n`` on
+    ``target``, its output to ``log_path``; in a session of its own, killed
+    whole at ``timeout``. Returns (exit code, wall s)."""
+    import signal
+
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                                 str(n), *target], cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return proc.returncode, time.perf_counter() - t0
+
+
+def file_digests(step_dir) -> dict[str, str]:
+    import hashlib
+
+    out = {}
+    for path in sorted(step_dir.glob("*.safetensors")):
+        h = hashlib.sha256()
+        with open(path, "rb") as f:
+            while chunk := f.read(1 << 24):
+                h.update(chunk)
+        out[path.name] = h.hexdigest()
+    return out
+
+
+def dcp_tensors(path) -> dict:
+    """A sharded optimizer directory read whole on the host (no process group)."""
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    meta = dcp.FileSystemReader(str(path)).read_metadata()
+    sd = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype) for k, m in meta.state_dict_metadata.items()}
+    dcp.load(sd, checkpoint_id=str(path), no_dist=True)
+    return sd
+
+
+def phase_distributed(seed: int, smi: str, root, sft_argv, e: dict) -> dict:
+    """Phase n: the SFT CLI under ``torchrun --standalone --nproc_per_node 1``
+    with ``parallel.distributed=true`` (NCCL at world size 1) on phase e's
+    extended checkpoint, data and window: n1 ZeRO-1, n2 FSDP with the sharded
+    optimizer state (saves at steps 2 and 4), n3 n2 resumed from step 2.
+    At one rank each collective is the identity and no leaf is sharded, so
+    n1's and n2's losses, grad norms, dev losses and ``step_4/`` files equal
+    phase e's undistributed run bitwise, and n3's steps 3-4, ``step_4/`` and
+    step-4 moments equal n2's. Then two ranks on the one card, once: NCCL's
+    answer is printed, and if it accepts them, n4 trains at dp 2 with the
+    per-rank batch halved, held to n1's losses within 1e-2. ``e``: phase e's
+    metrics, ``step_4/`` digests, peak memory and save readings. Returns the
+    runs' launch counts (the kernels line's ``train_dp``)."""
+    import concurrent.futures
+    import shutil
+    import threading
+
+    import torch
+
+    launcher, counts_file = root / "rank_launcher.py", root / "dp_launches.jsonl"
+    launcher.write_text(RANK_LAUNCHER)
+    env = {**os.environ, "PYTHONPATH": REPO, "SSI_TPU_TORCH_LAUNCH_COUNTS": str(counts_file)}
+    dist_args = ["parallel.distributed=true"]
+
+    def run(name: str, *extra, keep: int = 0, n: int = 1, one_card: bool = False) -> dict:
+        out = root / name
+        code, wall = run_torchrun([str(launcher), str(keep), str(root / f"{name}.json"), "1" if one_card else "0",
+                                   *sft_argv(out, *dist_args, *extra)], n, root / f"{name}.log", env, 300)
+        check(code == 0, f"phase n {name}: torchrun exited {code}:\n{(root / f'{name}.log').read_text()[-3000:]}")
+        report = json.loads((root / f"{name}_rank0.json").read_text())
+        metrics = read_metrics(out)
+        return {"out": out, "wall": wall, "report": report, "metrics": metrics,
+                "losses": [m["loss"] for m in metrics if "loss" in m],
+                "norms": [m["grad_norm"] for m in metrics if "loss" in m],
+                "dev": [m["dev_loss"] for m in metrics if "dev_loss" in m]}
+
+    e_losses = [m["loss"] for m in e["metrics"] if "loss" in m]
+    e_norms = [m["grad_norm"] for m in e["metrics"] if "loss" in m]
+    e_dev = [m["dev_loss"] for m in e["metrics"] if "dev_loss" in m]
+    n1 = run("dp_n1", "parallel.zero1=true", "save_steps=4")
+    check(n1["report"]["world_size"] == 1 and n1["report"]["backend"] == "nccl",
+          f"n1 ran at world size {n1['report']['world_size']} on {n1['report']['backend']}, not 1 on nccl")
+    check(n1["losses"] == e_losses and n1["norms"] == e_norms and n1["dev"] == e_dev,
+          f"n1 (ZeRO-1, world 1) losses {n1['losses']} / norms {n1['norms']} / dev {n1['dev']} != phase e's "
+          f"{e_losses} / {e_norms} / {e_dev}")
+    check(file_digests(n1["out"] / "step_4") == e["digests"], "n1's step_4/ differs from phase e's")
+    shutil.rmtree(n1["out"])
+
+    n2 = run("dp_n2", "parallel.fsdp=true", "sharded_optimizer_state=true", keep=2)
+    check(n2["losses"] == e_losses and n2["norms"] == e_norms and n2["dev"] == e_dev,
+          f"n2 (FSDP, sharded state, world 1) losses {n2['losses']} != phase e's {e_losses}")
+    n2_digests = file_digests(n2["out"] / "step_4")
+    check(n2_digests == e["digests"], "n2's step_4/ differs from phase e's")
+    check(sorted(p.name for p in n2["out"].glob("optimizer_state_dcp_step*")) == ["optimizer_state_dcp_step4"],
+          "n2 did not keep exactly its newest sharded optimizer directory")
+    # two ranks on the one card, NCCL's answer, asked while n3 runs (n3's times are not compared)
+    probe = root / "nccl_probe.py"
+    probe.write_text(NCCL_PROBE)
+    asked: dict = {}
+    asking = threading.Thread(target=lambda: asked.update(
+        zip(("code", "seconds"), run_torchrun([str(probe)], 2, root / "nccl_probe.log", env, 120))))
+    asking.start()
+    n3 = run("dp_n3", "parallel.fsdp=true", "sharded_optimizer_state=true",
+             f"checkpointer.checkpoint_dir={n2['out'] / 'step_2'}",
+             f"checkpointer.training_state_checkpoint={n2['out'] / 'kept2' / 'training_state.msgpack'}")
+    asking.join()
+    check(n3["losses"] == n2["losses"][2:] and n3["norms"] == n2["norms"][2:],
+          f"n3 (resumed from step 2) losses {n3['losses']} != n2's {n2['losses'][2:]}")
+    check(file_digests(n3["out"] / "step_4") == n2_digests, "n3's step_4/ differs from n2's")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        a, b = pool.map(dcp_tensors, [n2["out"] / "optimizer_state_dcp_step4", n3["out"] / "optimizer_state_dcp_step4"])
+    check(sorted(a) == sorted(b) and int(a["count"]) == 4
+          and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in a),
+          "n3's step-4 moments differ from n2's")
+    n_moment_bytes = sum(t.numel() * t.element_size() for t in a.values())
+    t_moments = time.perf_counter() - t0
+    del a, b
+    shutil.rmtree(n2["out"])
+    shutil.rmtree(n3["out"])
+
+    code, t_probe = asked["code"], asked["seconds"]
+    text = (root / "nccl_probe.log").read_text()
+    lines = [line.strip() for line in text.splitlines()]
+    answer = next((x for x in lines if "Duplicate GPU" in x), None) or next((x for x in lines if "Error" in x), None)
+    if code == 0:
+        check(text.count("ALL_REDUCE 3.0") == 2, f"two ranks on one card: all-reduce gave\n{text[-2000:]}")
+        n4 = run("dp_n4", "data.train.dataloader.batch_size=1", "save_steps=4", n=2, one_card=True)
+        check(all(abs(a - b) <= 1e-2 * abs(b) for a, b in zip(n4["losses"], n1["losses"])) and len(n4["losses"]) == 4,
+              f"n4 (dp 2 on one card) losses {n4['losses']} not within 1e-2 of n1's {n1['losses']}")
+        answer = f"accepted: n4 losses {', '.join(f'{x:.4f}' for x in n4['losses'])}"
+        shutil.rmtree(n4["out"])
+    else:
+        answer = f"refused (torchrun exit {code}): {answer or 'no error line'}"
+
+    launches: dict[str, int] = {}
+    for line in counts_file.read_text().splitlines():
+        for name, count in json.loads(line)["launch_counts"].items():
+            launches[name] = launches.get(name, 0) + count
+    for name in TRAIN_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched by phase n's runs")
+    mean = lambda ms, k: sum(m[k] for m in ms[1:]) / 3  # noqa: E731  steps 2-4: the first holds warm-up
+    steps = {name: [m for m in r["metrics"] if "loss" in m] for name, r in (("e", e), ("n1", n1), ("n2", n2))}
+    log(f"phase n (torchrun --nproc_per_node 1, NCCL, world 1; 1B bf16, phase e's window 4 x 2 x 2048): n1 ZeRO-1 "
+        f"and n2 FSDP + sharded optimizer state: losses, grad norms, dev losses and step_4/ equal phase e's bitwise; "
+        f"n3 (n2 resumed from step 2): steps 3-4, step_4/ and the step-4 moments ({n_moment_bytes / 1e9:.2f} GB, "
+        f"read back in {t_moments:.1f} s) equal n2's bitwise")
+    log(f"phase n readings on {smi}: steps 2-4 mean duration_step phase e {mean(steps['e'], 'duration_step') * 1e3:.1f} "
+        f"ms, n1 {mean(steps['n1'], 'duration_step') * 1e3:.1f}, n2 {mean(steps['n2'], 'duration_step') * 1e3:.1f} "
+        f"({mean(steps['n1'], 'duration_step') / mean(steps['e'], 'duration_step'):.3f}x and "
+        f"{mean(steps['n2'], 'duration_step') / mean(steps['e'], 'duration_step'):.3f}x); label tok/s e "
+        f"{mean(steps['e'], 'tokens_per_second_per_gpu'):.0f}, n1 {mean(steps['n1'], 'tokens_per_second_per_gpu'):.0f}, "
+        f"n2 {mean(steps['n2'], 'tokens_per_second_per_gpu'):.0f}; JSONL duration_step n1 {step_readings(n1['metrics'])}; "
+        f"n2 {step_readings(n2['metrics'])}; peak memory e {e['peak_gib']:.1f} GiB, n1 {n1['report']['peak_gib']:.1f}, "
+        f"n2 {n2['report']['peak_gib']:.1f}, n3 {n3['report']['peak_gib']:.1f}; save at step 4: e model "
+        f"{e['save']['model_s']:.2f} s + state {e['save']['state_s']:.2f} s, n1 {n1['report']['save']['model_s']:.2f} + "
+        f"{n1['report']['save']['state_s']:.2f} s, n2 {n2['report']['save']['model_s']:.2f} s + sharded moments "
+        f"{', '.join(f'{x:.2f}' for x in n2['report']['dcp_s'])} s (steps 2, 4) + state file "
+        f"{n2['report']['save']['state_s']:.2f} s, n3 {n3['report']['save']['model_s']:.2f} s + sharded moments "
+        f"{', '.join(f'{x:.2f}' for x in n3['report']['dcp_s'])} s; launches {launches}")
+    log("phase n where each torchrun run's wall went (s): " + "; ".join(
+        f"{name} wall {r['wall']:.1f} = to setup {r['report']['at_s']['setup_start']:.1f}, setup "
+        f"{r['report']['setup_s']:.1f}, train {r['report']['train_s']:.1f}, cleanup {r['report']['cleanup_s']:.1f}, "
+        f"exit and launcher {r['wall'] - r['report']['process_s']:.1f}" for name, r in (("n1", n1), ("n2", n2), ("n3", n3))))
+    log(f"phase n two ranks on one card (torchrun --nproc_per_node 2, NCCL, both on card 0; {t_probe:.1f} s): {answer}")
     return launches
 
 
@@ -3463,9 +3753,9 @@ def phase_3b(seed: int, smi: str) -> dict:
             f"({save['state_bytes'] / 1e9:.2f} GB); peak memory {mem:.1f} GiB; on {smi}; launches "
             f"{launches['train_3b']}")
 
-        # the generation CLI from step_4/: 64 records in bf16, then with weight-only int8
+        # the generation CLI from step_4/: 32 records (one wave of the 32 slots) in bf16, then int8
         split = root / "test.jsonl"
-        write_jsonl(split, split_rows(seed + 7, 64, cfg.n_dsus))
+        write_jsonl(split, split_rows(seed + 7, 32, cfg.n_dsus))
         for path, extra in (("generate_3b", []), ("generate_3b_int8", ["quantize_weights=int8"])):
             out_g = root / path
             gen_argv = [
@@ -3480,7 +3770,7 @@ def phase_3b(seed: int, smi: str) -> dict:
             launches[path] = dict(_build.launch_counts)
             stats = dict(last_run_stats)
             records = [json.loads(x) for x in (out_g / "json" / "test" / "generations.jsonl").read_text().splitlines()]
-            check(len(records) == 64, f"{path}: {len(records)} records, expected 64")
+            check(len(records) == 32, f"{path}: {len(records)} records, expected 32")
             for r in records:
                 o = r["outputs"][0]
                 check(r["finished"] is True and o["finish_reason"] in ("stop", "length")
@@ -3490,7 +3780,7 @@ def phase_3b(seed: int, smi: str) -> dict:
                 check(launches[path].get(name, 0) > 0, f"kernel {name} was not launched by {path}")
             rate = records[0]["metrics"]["batch_tokens_per_second"]
             n_tok = records[0]["metrics"]["batch_generated_tokens"]
-            log(f"phase g generate CLI (3B {'int8' if extra else 'bf16'} from step_4/, 64 records): checkpoint load "
+            log(f"phase g generate CLI (3B {'int8' if extra else 'bf16'} from step_4/, 32 records): checkpoint load "
                 f"{stats['load_s']:.2f} s = {stats['load_bytes'] / 1e9 / stats['load_s']:.2f} GB/s "
                 f"({stats['load_bytes'] / 1e9:.2f} GB); warm-up {stats['warmup_s']:.2f} s; generate "
                 f"{stats['generate_s']:.2f} s, {n_tok} tokens = {rate:.0f} generated tok/s; CLI wall {wall:.2f} s; "
@@ -3572,7 +3862,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", default="", help="comma-separated phase groups to run alone while developing "
-                        "(1b: phases 2-f, i, j, k, l and m; e: phases e, k and m alone; hd128: the head_dim-128 "
+                        "(1b: phases 2-f, i, j, k, l, n and m; e: phases e, k, n and m alone; hd128: the head_dim-128 "
                         "kernel phases; g; h); prints no result line")
     args = parser.parse_args()
 
@@ -3620,15 +3910,15 @@ def main() -> int:
         phase_train_parity(args.seed)
         train_launches = phase_train(args.seed, smi)
         mark("phases 6-9")
-        train_cli_launches, packed_launches, compressed_launches = phase_training_cli(args.seed, smi)
-        mark("phases e, k, m")
+        train_cli_launches, packed_launches, compressed_launches, dp_launches = phase_training_cli(args.seed, smi)
+        mark("phases e, k, n, m")
         int8_launches = phase_int8_serving(args.seed, smi, base_tokens, base_rate)
         phase_drive_kernels(gen)
         drive_launches = phase_wer_drive(smi)
         mark("phase f")
     if "e" in groups and "1b" not in groups:
         phase_training_cli(args.seed, smi)
-        mark("phases e, k, m")
+        mark("phases e, k, n, m")
     if "hd128" in groups:
         rows128 = phase_kernels_hd128(gen, model_config().vocab_size)
         mark("phases 2g-ah")
@@ -3655,7 +3945,7 @@ def main() -> int:
                    "train_cli": train_cli_launches.get(name, 0), "int8_serve": int8_launches.get(name, 0),
                    "wer_drive": drive_launches.get(name, 0), "serve_http": http_launches.get(name, 0),
                    "serve_n": serve_n_launches.get(name, 0), "train_packed": packed_launches.get(name, 0),
-                   "cpt_compressed": compressed_launches.get(name, 0)}
+                   "cpt_compressed": compressed_launches.get(name, 0), "train_dp": dp_launches.get(name, 0)}
         if name.startswith("cross_entropy"):  # one instance for every D: 3B's training launches it too
             by_path["train_3b"] = launches_big["train_3b"].get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",

@@ -17,7 +17,8 @@ error texts and file layout:
 
 The RNG state is Python's and numpy's global generators only, as in the JAX
 package: no torch generator draws on the training path (the optimizer's
-stochastic rounding seeds its generator from the step count).
+stochastic rounding draws its noise from a hash of the step count and the
+element's index).
 """
 
 from __future__ import annotations

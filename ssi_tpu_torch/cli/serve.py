@@ -11,7 +11,7 @@ GET /v1/models, GET /metrics (``ssi_tpu_torch/serve.py``). Composes
 resolves speech.n_dsus from the training-config snapshot next to the
 checkpoint when not given explicitly. It serves from the CUDA card; with no
 card visible it refuses unless ``+device=cpu`` is given. ``tensor_parallel >
-1`` is refused, naming its ROADMAP item (A9).
+1`` is refused, naming its ROADMAP item (A9's remainder).
 The server runs until SIGINT; then, when ``SSI_TPU_TORCH_LAUNCH_COUNTS``
 names a file, it appends the process's kernel launch counts to it.
 """

@@ -20,7 +20,7 @@ output does not depend on it; sampled output cannot match ``jax.random``).
 ``sampling_params.n > 1`` writes one record per prompt with n entries in
 ``outputs``. The paged engine runs at its default pipeline depth, 2, as
 the JAX one does. Not ported yet: ``tensor_parallel > 1`` with the paged
-engine raises ``NotImplementedError`` naming ROADMAP item A9; with the
+engine raises ``NotImplementedError`` naming ROADMAP item A9's remainder; with the
 dense engine it raises the JAX package's ``ValueError``.
 """
 
@@ -93,7 +93,7 @@ def validate_generate_config(cfg: Any) -> None:
                 "single-device; silently ignoring the mesh would under-use the slice)"
             )
         # an option of the JAX entry point the port does not run yet: refuse before any work
-        raise _not_ported("tensor_parallel > 1", "A9 (parallel and sharded state)")
+        raise _not_ported("tensor_parallel > 1", "A9's remainder (tensor parallelism)")
     if str(cfg.get("dtype", "bf16")) not in _DTYPES:
         raise ValueError(f"Unknown dtype {cfg.get('dtype')!r}; expected one of {sorted(_DTYPES)}")
 

@@ -331,7 +331,7 @@ class PagedDecodeEngine:
         mesh: Any = None,
     ):
         if mesh is not None:
-            raise _not_ported("mesh (tensor-parallel serving)", "A9 (parallel and sharded state)")
+            raise _not_ported("mesh (tensor-parallel serving)", "A9's remainder (tensor parallelism)")
         if quantize == "int8":
             # weight-only int8 for the layer stack; greedy outputs are NOT
             # bitwise vs bf16 (see generate/quant.py)

@@ -87,10 +87,15 @@ class _RematLayer(torch.autograd.Function):
     (and, with its ``attn`` flag on the flash path, the attention's o and
     lse); the backward runs the layer again under autograd, each kept product
     and ``w_down`` (whose output no gradient reads) as a ``_KeptProduct``, the
-    kept attention through ``flash_attention_given``, and differentiates it."""
+    kept attention through ``flash_attention_given``, and differentiates it.
+
+    Under FSDP (``shard``: the layer's ``LayerShard`` per weight and the layer
+    index) the weights passed are this rank's pieces: each pass gathers the
+    whole layer where it runs and keeps no whole copy between them, and the
+    backward sends each weight's gradient back to its piece."""
 
     @staticmethod
-    def forward(ctx, h, names, policy, cos, sin, cfg, segment_ids, *weights):
+    def forward(ctx, h, names, policy, cos, sin, cfg, segment_ids, shard, *weights):
         keep, keep_attn = policy
         kept: dict[str, Any] = {}
 
@@ -106,16 +111,16 @@ class _RematLayer(torch.autograd.Function):
                 return kept["attn"][0]
             return dispatch_attention(q, k, v, causal=True, segment_ids=segment_ids)
 
-        out = block(h, dict(zip(names, weights)), cos, sin, cfg, attend, prod)
+        out = block(h, dict(zip(names, _whole(shard, weights))), cos, sin, cfg, attend, prod)
         ctx.save_for_backward(h, cos, sin, segment_ids, *weights)
-        ctx.names, ctx.kept, ctx.cfg = names, kept, cfg
+        ctx.names, ctx.kept, ctx.cfg, ctx.shard = names, kept, cfg, shard
         return out
 
     @staticmethod
     def backward(ctx, g):
         h, cos, sin, segment_ids, *weights = ctx.saved_tensors
         h = h.detach().requires_grad_()
-        weights = [w.detach().requires_grad_() for w in weights]
+        weights = [w.detach().requires_grad_() for w in _whole(ctx.shard, weights)]
         kept = ctx.kept
         unread = g.new_zeros(()).expand(g.shape)
 
@@ -134,7 +139,59 @@ class _RematLayer(torch.autograd.Function):
         with torch.enable_grad():
             out = block(h, dict(zip(ctx.names, weights)), cos, sin, ctx.cfg, attend, prod)
         grads = torch.autograd.grad(out, [h, *weights], g)
-        return (grads[0], None, None, None, None, None, None, *grads[1:])
+        if ctx.shard is not None:
+            shards, l = ctx.shard
+            grads = [grads[0], *(s.reduce(w, l) for s, w in zip(shards, grads[1:]))]
+        return (grads[0], None, None, None, None, None, None, None, *grads[1:])
+
+
+def _whole(shard, pieces) -> list:
+    """A layer's whole weights: the pieces themselves, or (under FSDP,
+    ``shard = (LayerShard per weight, layer)``) gathered from them."""
+    if shard is None:
+        return list(pieces)
+    shards, l = shard
+    return [s.full(p, l) for s, p in zip(shards, pieces)]
+
+
+class _Gather(torch.autograd.Function):
+    """A top-level leaf made whole from this rank's slice where it is
+    consumed (FSDP); the backward reduce-scatters its gradient to the slice."""
+
+    @staticmethod
+    def forward(ctx, local, leaf_shard):
+        ctx.leaf_shard = leaf_shard
+        return leaf_shard.full(local)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.leaf_shard.reduce(g), None
+
+
+class _GatheredLayer(torch.autograd.Function):
+    """A layer's whole weights from this rank's pieces (FSDP, no remat), and
+    ``h`` passed through: ``h`` ties the node into every rank's backward, so
+    that each rank joins the reductions of the layer's gradients, also a rank
+    that holds no piece of it."""
+
+    @staticmethod
+    def forward(ctx, h, shard, *pieces):
+        ctx.shard = shard
+        whole = _whole(shard, pieces)
+        return (h.view_as(h), *(w.view_as(w) if w is p else w for w, p in zip(whole, pieces)))
+
+    @staticmethod
+    def backward(ctx, gh, *gw):
+        shards, l = ctx.shard
+        return (gh, None, *(s.reduce(w, l) for s, w in zip(shards, gw)))
+
+
+def gather_leaf(local: torch.Tensor, leaf_shard: Any) -> torch.Tensor:
+    """A top-level leaf made whole (FSDP): through ``_Gather`` when its
+    gradient is wanted, else by the gather alone."""
+    if torch.is_grad_enabled() and local.requires_grad:
+        return _Gather.apply(local, leaf_shard)
+    return leaf_shard.full(local)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -192,6 +249,7 @@ def forward(
     positions: torch.Tensor | None = None,
     segment_ids: torch.Tensor | None = None,
     remat: bool | str = True,
+    shards: dict[str, Any] | None = None,
 ) -> torch.Tensor:
     """Run the decoder; returns final-normed hidden states ``[B, S, D]``.
 
@@ -204,6 +262,12 @@ def forward(
     recompute would give, and a kept product's backward makes the same
     calls. The attention is :func:`dispatch_attention`: the flash kernels on
     CUDA, the plain attention on the CPU.
+
+    ``shards`` (FSDP; ``parallel.StateLayout.fsdp_shards()["layers"]``): the
+    stacked weights in ``params`` are this rank's dp shards, and each layer
+    gathers its whole weights where it runs (the top-level leaves come in
+    whole: ``gather_leaf``). The gathers copy bytes, so the loss is the
+    unsharded model's, bit for bit.
     """
     policy = _remat_policy(remat)
     b, s = tokens.shape
@@ -221,11 +285,22 @@ def forward(
     # one unbind per stacked weight: its backward stacks the layers' grads in
     # one pass, where per-layer indexing would sum L full-size zero-padded grads
     names = list(params["layers"])
-    for weights in zip(*(params["layers"][n].unbind(0) for n in names)):
+    if shards is None:
+        layers = zip(*(params["layers"][n].unbind(0) for n in names))
+    else:
+        layer_shards = [shards[n] for n in names]
+        layers = zip(*(s.pieces(params["layers"][n]) for s, n in zip(layer_shards, names)))
+    for l, weights in enumerate(layers):
+        shard = None if shards is None else (layer_shards, l)
         if policy is None or not torch.is_grad_enabled():
+            if shard is not None:
+                if torch.is_grad_enabled():
+                    h, *weights = _GatheredLayer.apply(h, shard, *weights)
+                else:
+                    weights = _whole(shard, weights)
             h = block(h, dict(zip(names, weights)), cos, sin, cfg, attend)
         else:
-            h = _RematLayer.apply(h, names, policy, cos, sin, cfg, segment_ids, *weights)
+            h = _RematLayer.apply(h, names, policy, cos, sin, cfg, segment_ids, shard, *weights)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 

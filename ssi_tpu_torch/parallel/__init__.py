@@ -1,0 +1,404 @@
+"""Ranks, the dp x tp mesh and the dp-sharded layout of the training state:
+the port of ``ssi_tpu/parallel/__init__.py`` on ``torch.distributed``.
+
+A port rank is one process and one device (PyTorch's idiom: ``torchrun
+--nproc_per_node N -m ssi_tpu_torch.cli.train_sft ...``), so a JAX *process*
+maps to a port *rank*, and the mesh's "devices" are the ranks. The backend is
+NCCL on CUDA and gloo on the CPU; a CUDA run that cannot bring NCCL up fails.
+
+Layout rules, kept from the JAX package so that the sharded state's layout is
+its layout:
+
+- ``param_specs`` gives each leaf its tp axes (``"tp"`` on the head/ffn or
+  vocab dimension), ``_divisible_spec`` drops an axis that does not divide its
+  dimension, and ``_zero1_spec`` adds ``"dp"`` on the first dimension that is
+  unsharded and divisible by dp (else co-shards a tp dimension that dp x tp
+  divides). A spec is a tuple of axes (``None``, a name, or a tuple of names)
+  with ``PartitionSpec``'s entries.
+- ZeRO-1 shards the AdamW moments by that rule; FSDP shards the resident
+  parameters too. At tp 1 the layer-stacked ``[L, ...]`` weights shard along
+  L when L % dp == 0, and the embedding along D.
+- Rank ``r`` holds the ``r``-th of dp equal slices of a sharded dimension.
+
+Tensor parallelism (``tp > 1``) is not ported (ROADMAP.md queue A, A9's
+remainder), nor ``dcn_slices`` (TPU slice topology: NCCL's own rings and trees
+do the hierarchical reduction the JAX code gets from slice-major order).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+import logging
+import os
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+LOGGER = logging.getLogger(__name__)
+
+__all__ = [
+    "Mesh",
+    "StateLayout",
+    "initialize_distributed",
+    "make_mesh",
+    "param_specs",
+    "param_shardings",
+    "opt_state_shardings",
+    "shard_dim",
+    "shard",
+    "gather",
+    "reduce_scatter",
+    "shard_params",
+    "full_host_copy",
+    "map_trees",
+    "LeafShard",
+    "LayerShard",
+]
+
+Spec = tuple  # a PartitionSpec's entries
+
+
+def initialize_distributed(parallel_cfg: Any = None, device: torch.device | str = "cuda") -> bool:
+    """Bring up the process group: the port of the JAX ``initialize_distributed``.
+
+    Gating (``parallel.distributed``, default "auto"):
+
+    - ``false``: never initialize (one process);
+    - ``auto``: initialize iff explicit settings are present
+      (``parallel.coordinator_address`` / ``num_processes`` / ``process_id``,
+      or a launcher's ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` /
+      ``RANK``, which ``torchrun`` sets);
+    - ``true``: always initialize; without those settings it raises (the
+      port has no cluster auto-detection).
+
+    The group joins over TCP at ``coordinator_address`` (``host:port``), with
+    NCCL when ``device`` is CUDA (after ``torch.cuda.set_device(LOCAL_RANK)``)
+    and gloo on the CPU; a failure raises (no single-process fallback).
+    Returns True when running with more than one rank. Idempotent.
+    """
+    get = parallel_cfg.get if parallel_cfg is not None else (lambda *_: None)
+    mode = get("distributed")
+    mode = "auto" if mode is None else str(mode).lower()
+    if mode in ("false", "off", "0", "no"):
+        return False
+    if dist.is_initialized():
+        return dist.get_world_size() > 1
+
+    coord = get("coordinator_address")
+    if coord is None and os.getenv("MASTER_ADDR"):
+        coord = f"{os.environ['MASTER_ADDR']}:{os.getenv('MASTER_PORT', '29500')}"
+    nproc = get("num_processes") or os.getenv("WORLD_SIZE")
+    pid = get("process_id")
+    if pid is None:
+        pid = os.getenv("RANK")
+    explicit = coord is not None
+    if mode == "auto" and not explicit:
+        return False
+    if mode not in ("auto", "true", "on", "1", "yes"):
+        raise ValueError(f"parallel.distributed must be bool or 'auto', got {mode!r}")
+    if not explicit:
+        raise ValueError(
+            "parallel.distributed=true needs a launcher's environment (torchrun sets MASTER_ADDR, MASTER_PORT, "
+            "WORLD_SIZE and RANK) or parallel.coordinator_address with parallel.num_processes and "
+            "parallel.process_id: the port has no cluster auto-detection"
+        )
+    if nproc is None or pid is None:
+        raise ValueError(
+            "parallel.coordinator_address is set but num_processes/process_id are not — "
+            "set parallel.num_processes and parallel.process_id (or the "
+            "WORLD_SIZE / RANK env vars) alongside it."
+        )
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.getenv("LOCAL_RANK", int(pid) % torch.cuda.device_count())))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo", init_method=f"tcp://{coord}",
+                            world_size=int(nproc), rank=int(pid))
+    LOGGER.info(f"torch.distributed initialized ({dist.get_backend()}): rank {dist.get_rank()}/"
+                f"{dist.get_world_size()}")
+    return dist.get_world_size() > 1
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The ("dp", "tp") mesh over the ranks, and this process's rank in it."""
+
+    dp: int
+    tp: int
+    rank: int = 0
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"dp": self.dp, "tp": self.tp}
+
+
+def make_mesh(dp: int | None = None, tp: int = 1, world_size: int = 1, rank: int = 0) -> Mesh:
+    """A ("dp", "tp") mesh over ``world_size`` ranks (one device each), with
+    the JAX ``make_mesh``'s checks; ``dp=None`` means ``world_size / tp``."""
+    n = world_size
+    if tp > 1:
+        raise NotImplementedError(
+            f"parallel.tp={tp} is not ported to ssi_tpu_torch yet (ROADMAP.md queue A, item A9's remainder: "
+            "tensor parallelism)"
+        )
+    if dp is None:
+        if n % tp != 0:
+            raise ValueError(f"Device count {n} not divisible by tp={tp}")
+        dp = n // tp
+    dp = int(dp)
+    if dp * tp > n:
+        raise ValueError(f"Requested dp*tp = {dp * tp} exceeds available devices ({n})")
+    if dp * tp < n:
+        LOGGER.warning(f"Mesh dp={dp} x tp={tp} uses {dp * tp} of {n} available devices; the rest stay idle.")
+    return Mesh(dp=dp, tp=tp, rank=rank)
+
+
+# --- layout rules (the JAX package's, line for line) ----------------------------------------------
+
+
+def map_trees(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one shape, leaf by leaf."""
+    if isinstance(trees[0], dict):
+        return {k: map_trees(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def param_specs(params: Any) -> Any:
+    """The spec tree for the stacked Llama params (tp sharding rules)."""
+    specs = {
+        "embed": ("tp", None),  # vocab-sharded: distributes fused-CE logits too
+        "lm_head": ("tp", None),  # untied output head (8B): same vocab sharding
+        "final_norm": (),
+        "layers": {
+            "attn_norm": (),
+            "mlp_norm": (),
+            "wq": (None, None, "tp"),
+            "wk": (None, None, "tp"),
+            "wv": (None, None, "tp"),
+            "wo": (None, "tp", None),
+            "w_gate": (None, None, "tp"),
+            "w_up": (None, None, "tp"),
+            "w_down": (None, "tp", None),
+        },
+    }
+
+    def pick(node, tree):
+        return {k: pick(node[k], v) for k, v in tree.items()} if isinstance(tree, dict) else node
+
+    return pick(specs, params)
+
+
+def _divisible_spec(spec: Spec, shape: tuple[int, ...], mesh: Mesh) -> Spec:
+    """Drop mesh axes that do not divide the corresponding array dimension
+    (replicate that dimension rather than fail)."""
+    out = []
+    changed = False
+    for dim, axis in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if axis is not None and dim % mesh.shape[axis] != 0:
+            LOGGER.warning(
+                f"Array dim {dim} not divisible by mesh axis {axis!r}={mesh.shape[axis]}; replicating that dim."
+            )
+            out.append(None)
+            changed = True
+        else:
+            out.append(axis)
+    return tuple(out) if changed else spec
+
+
+def _zero1_spec(spec: Spec, shape: tuple[int, ...], mesh: Mesh) -> Spec:
+    """Augment a (tp-resolved) spec with "dp" on the first shardable dimension:
+    the first dimension that is unsharded and divisible by dp; else co-shard a
+    tp-sharded dimension as ("tp", "dp") when divisible by tp*dp; else leave
+    the leaf as it is."""
+    dp = mesh.shape["dp"]
+    if dp == 1:
+        return spec
+    axes = list(tuple(spec) + (None,) * (len(shape) - len(spec)))
+    for i, (dim, ax) in enumerate(zip(shape, axes)):
+        if ax is None and dim % dp == 0:
+            axes[i] = "dp"
+            return tuple(axes)
+    for i, (dim, ax) in enumerate(zip(shape, axes)):
+        if ax == "tp" and dim % (dp * mesh.shape["tp"]) == 0:
+            axes[i] = ("tp", "dp")
+            return tuple(axes)
+    return spec
+
+
+def _shape(leaf: Any) -> tuple[int, ...]:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+def param_shardings(mesh: Mesh, params: Any, *, fsdp: bool = False) -> Any:
+    """The spec tree of the parameters: the tp layout; ``fsdp`` adds dp, so
+    that resident parameters, gradients and moments all divide by dp.
+    ``params``' leaves may be tensors or shapes."""
+    base = map_trees(lambda spec, leaf: _divisible_spec(spec, _shape(leaf), mesh), param_specs(params), params)
+    if not fsdp:
+        return base
+    return map_trees(lambda spec, leaf: _zero1_spec(spec, _shape(leaf), mesh), base, params)
+
+
+def opt_state_shardings(mesh: Mesh, params: Any, *, zero1: bool = False) -> dict[str, Any]:
+    """The spec trees of the AdamW state ({mu, nu, count}): the moments shard
+    like their parameter, and ``zero1`` adds dp to them (ZeRO-1; under FSDP
+    the moments get the same augmentation, so zero1=True covers both)."""
+    p_specs = param_shardings(mesh, params)
+    moment = map_trees(lambda s, leaf: _zero1_spec(s, _shape(leaf), mesh), p_specs, params) if zero1 else p_specs
+    return {"mu": moment, "nu": moment, "count": ()}
+
+
+def shard_dim(spec: Spec) -> int | None:
+    """The dimension the dp axis shards in ``spec`` (alone or co-sharded with
+    tp), or None."""
+    for i, axis in enumerate(spec):
+        if axis == "dp" or (isinstance(axis, tuple) and "dp" in axis):
+            return i
+    return None
+
+
+@dataclass(frozen=True)
+class StateLayout:
+    """Where the training state lives across the dp ranks: per leaf (trees
+    keyed as the parameters) the dp-sharded dimension of the resident
+    parameter and of its moments (None: whole on every rank), and the
+    parameter's full shape."""
+
+    mesh: Mesh
+    params: Any
+    moments: Any
+    shapes: Any
+
+    @classmethod
+    def build(cls, mesh: Mesh, shapes: Any, *, zero1: bool, fsdp: bool) -> "StateLayout":
+        dims = lambda specs: map_trees(shard_dim, specs)  # noqa: E731
+        return cls(mesh, dims(param_shardings(mesh, shapes, fsdp=fsdp)),
+                   dims(opt_state_shardings(mesh, shapes, zero1=zero1 or fsdp)["mu"]), shapes)
+
+    def fsdp_shards(self) -> dict[str, Any] | None:
+        """The gathers of the FSDP forward (``models/llama3.py``): a
+        ``LeafShard`` per top-level leaf, a ``LayerShard`` per stacked one;
+        None when no resident parameter is sharded."""
+        if all(d is None for d in _leaves(self.params)):
+            return None
+        out = {k: LeafShard(d, self.mesh) for k, d in self.params.items() if k != "layers"}
+        out["layers"] = {k: LayerShard(d, self.mesh, self.shapes["layers"][k])
+                         for k, d in self.params["layers"].items()}
+        return out
+
+
+def _leaves(tree: Any) -> list:
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in _leaves(tree[key])]
+    return [tree]
+
+
+# --- placement and collectives over the dp group --------------------------------------------------
+
+
+def shard(t: torch.Tensor, dim: int | None, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of ``t`` along ``dim`` (a copy, so the whole tensor
+    can be dropped), or ``t`` when ``dim`` is None."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // mesh.dp
+    return t.narrow(dim, mesh.rank * n, n).clone(memory_format=torch.contiguous_format)
+
+
+def gather(local: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor from each rank's slice along ``dim`` (an all-gather;
+    every rank joins), contiguous."""
+    src = local.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] * mesh.dp, *src.shape[1:]), dtype=src.dtype, device=src.device)
+    dist.all_gather_into_tensor(out, src)
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def reduce_scatter(full: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of every rank's ``full``
+    (a reduce-scatter; every rank joins), contiguous."""
+    src = full.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // mesh.dp, *src.shape[1:]), dtype=src.dtype, device=src.device)
+    dist.reduce_scatter_tensor(out, src)
+    return out.movedim(0, dim).contiguous() if dim else out
+
+
+def shard_params(mesh: Mesh, params: Any, dims: Any, device: torch.device | str | None = None) -> Any:
+    """Each parameter's slice for this rank (``dims``: the layout's
+    ``params`` tree), moved to ``device`` leaf by leaf."""
+    return map_trees(lambda t, d: shard(t, d, mesh).to(device if device is not None else t.device), params, dims)
+
+
+def full_host_copy(tree: Any, dims: Any, mesh: Mesh) -> Any:
+    """The whole leaves of a dp-sharded tree on rank 0, None on the other
+    ranks: a collective every rank joins (the port of the JAX
+    ``full_host_copy``, used by the checkpoint save, where rank 0 writes). A
+    sharded leaf is gathered leaf by leaf; a whole one is returned as it is.
+    The leaves stay on the device; the writer copies each to the host as it
+    reaches it."""
+    out = map_trees(lambda t, d: t if d is None else gather(t, d, mesh), tree, dims)
+    return out if mesh.rank == 0 else None
+
+
+class LeafShard:
+    """A top-level leaf (embedding, final norm, output head) in the FSDP
+    forward: made whole by an all-gather where it is consumed, its gradient
+    reduce-scattered back to this rank's slice."""
+
+    def __init__(self, dim: int | None, mesh: Mesh):
+        self.dim, self.mesh = dim, mesh
+
+    def full(self, local: torch.Tensor) -> torch.Tensor:
+        return local if self.dim is None else gather(local, self.dim, self.mesh)
+
+    def reduce(self, grad: torch.Tensor) -> torch.Tensor:
+        return grad if self.dim is None else reduce_scatter(grad, self.dim, self.mesh)
+
+
+class LayerShard:
+    """A layer-stacked ``[L, ...]`` leaf in the FSDP forward: layer ``l``'s
+    weight is made whole where the layer consumes it, and its gradient goes
+    back to the rank that holds it.
+
+    - sharded along L (dim 0): rank ``r`` holds layers ``[r L/dp, (r+1) L/dp)``;
+      the owner broadcasts the layer, and the gradient is reduced to it;
+    - sharded along another dim: every rank holds a slice of every layer; the
+      layer is all-gathered and its gradient reduce-scattered;
+    - whole (dim None): the layer is this rank's row; its gradient stays here
+      (the step all-reduces it with the other whole leaves).
+    """
+
+    def __init__(self, dim: int | None, mesh: Mesh, shape: tuple[int, ...]):
+        self.dim, self.mesh = dim, mesh
+        self.per = shape[0] // mesh.dp  # layers a rank holds when sharded along L
+        self.layer_shape = tuple(shape[1:])
+
+    def pieces(self, local: torch.Tensor) -> list[torch.Tensor | None]:
+        """Per layer, this rank's piece of the layer (None where another rank
+        holds all of it). One unbind of the local stack, so that its backward
+        stacks the layers' gradients in one pass."""
+        rows = local.unbind(0)
+        if self.dim != 0:
+            return list(rows)
+        self._like = {"dtype": local.dtype, "device": local.device}
+        first = self.mesh.rank * self.per
+        return [rows[l - first] if first <= l < first + self.per else None for l in range(self.per * self.mesh.dp)]
+
+    def full(self, piece: torch.Tensor | None, l: int) -> torch.Tensor:
+        if self.dim is None:
+            return piece
+        if self.dim != 0:
+            return gather(piece, self.dim - 1, self.mesh)
+        out = piece.clone() if piece is not None else torch.empty(self.layer_shape, **self._like)
+        dist.broadcast(out, l // self.per)
+        return out
+
+    def reduce(self, grad: torch.Tensor, l: int) -> torch.Tensor | None:
+        if self.dim is None:
+            return grad
+        if self.dim != 0:
+            return reduce_scatter(grad, self.dim - 1, self.mesh)
+        owner = l // self.per
+        grad = grad.contiguous()
+        dist.reduce(grad, owner)
+        return grad if owner == self.mesh.rank else None

@@ -706,7 +706,7 @@ def run_server(cfg: Any) -> None:
 
     device = resolve_device(cfg)  # refuse before any work when the card is missing
     if int(cfg.get("tensor_parallel", 1) or 1) > 1:
-        raise _not_ported("tensor_parallel > 1", "A9 (parallel and sharded state)")
+        raise _not_ported("tensor_parallel > 1", "A9's remainder (tensor parallelism)")
 
     tokenizer, _special = setup_llama3_tokenizer(**{k: v for k, v in cfg.tokenizer.items()})
     stop_token_ids = cfg.sampling_params.get("stop_token_ids")

@@ -83,18 +83,63 @@ def _build(node: Params, it) -> Params:
     return next(it)
 
 
-def _stochastic_round_bf16(x32: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    """f32 -> bf16 with stochastic rounding: add uniform low 16 bits, truncate."""
-    noise = torch.randint(0, 1 << 16, x32.shape, generator=gen, dtype=torch.int32, device=x32.device)
-    rounded = (x32.contiguous().view(torch.int32) + noise) & -65536  # 0xFFFF0000
-    return rounded.view(torch.float32).to(torch.bfloat16)
+_M32 = 0xFFFFFFFF
+_NOISE_CHUNK = 1 << 22  # elements a noise draw covers at once: bounds its int64 temporaries
 
 
-def _round_generator(device: torch.device, count: int, leaf: int, moment: int) -> torch.Generator:
-    """The rounding noise's generator, seeded from (step count, leaf index, moment)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(((0x5AD * 1_000_003 + count) * 1_000_003 + leaf) * 2 + moment)
-    return gen
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for ``x`` in [0, 2**32) in int64, without overflow."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash (lowbias32) of int64 values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _round_key(count: int, leaf: int, moment: int) -> tuple[int, int]:
+    """The rounding noise's key, from (step count, leaf index, moment)."""
+    seed = ((0x5AD * 1_000_003 + count) * 1_000_003 + leaf) * 2 + moment
+    return seed & _M32, (seed >> 32) & _M32
+
+
+def _element_index(shape: tuple[int, ...], where: tuple | None, rows: slice, device) -> torch.Tensor:
+    """The flat index in the whole leaf of rows ``rows`` (of dim 0) of a piece
+    of shape ``shape``: the whole leaf when ``where`` is None, else the slice
+    ``where = (full shape, dim, start)`` of it."""
+    full, dim, start = where if where is not None else (shape, None, 0)
+    stride = 1
+    index = torch.zeros((), dtype=torch.int64, device=device)
+    for d in reversed(range(len(full))):
+        lo, n = (rows.start, rows.stop - rows.start) if d == 0 else (0, shape[d])
+        if d == dim:
+            lo += start
+        axis = (torch.arange(n, dtype=torch.int64, device=device) + lo) * stride
+        index = index + axis.view(n, *([1] * (len(full) - 1 - d)))
+        stride *= full[d]
+    return index
+
+
+def _stochastic_round_bf16(buf: torch.Tensor, x32: torch.Tensor, key: tuple[int, int], where: tuple | None) -> None:
+    """``buf`` (bf16) := ``x32`` stochastically rounded: add uniform low 16
+    bits, truncate. The noise of each element is a hash of its index in the
+    whole leaf and ``key``, so a shard of the leaf (``where``) rounds as the
+    whole leaf rounds that slice, whatever the number of shards."""
+    n0 = x32.shape[0]
+    per_row = max(1, x32[0].numel())
+    step = max(1, _NOISE_CHUNK // per_row)
+    for r in range(0, n0, step):
+        rows = slice(r, min(n0, r + step))
+        index = _element_index(tuple(x32.shape), where, rows, x32.device)
+        noise = _mix32(_mix32((index & _M32) ^ key[0]) ^ ((index >> 32) ^ key[1]))
+        bits = (x32[rows].contiguous().view(torch.int32).to(torch.int64) & _M32) + (noise & 0xFFFF)
+        bits = bits & 0xFFFF0000  # the f32's pattern, unsigned, low 16 bits cleared
+        rounded = (bits - ((bits >> 31) << 32)).to(torch.int32)  # the same bits as a signed int32
+        buf[rows].copy_(rounded.view(torch.float32).to(torch.bfloat16))
 
 
 def init_opt_state(params: Params, cfg: AdamWConfig) -> dict[str, Any]:
@@ -116,13 +161,19 @@ def window_grad(g: torch.Tensor, denom: float = 1.0, clip: float = 1.0) -> torch
 
 @torch.no_grad()
 def adamw_update(grads: Params, opt_state: dict[str, Any], params: Params, lr: float, cfg: AdamWConfig, *,
-                 denom: float = 1.0, clip: float = 1.0) -> None:
+                 denom: float = 1.0, clip: float = 1.0, where: list | None = None) -> None:
     """One AdamW step, in place on ``params`` and ``opt_state`` (``count``
     advances by one). Each gradient leaf is read as ``window_grad(g, denom,
     clip)``: the train step passes the window's token count and clip factor,
     so the f32 gradient exists one leaf at a time, never as a copy of the
     tree. Math in f32; the moments are stored in the configured dtypes, the
-    parameters in their own."""
+    parameters in their own.
+
+    The leaves may be dp shards (``where``, per leaf in sorted-leaf order:
+    None for a whole leaf, else ``(full shape, dim, start)`` of the slice):
+    the update is elementwise, and the stochastic rounding's noise is drawn
+    per element of the whole leaf, so the shards of a leaf update, bit for
+    bit, as the whole leaf does."""
     count = opt_state["count"] + 1
     c = torch.tensor(float(count), dtype=torch.float32)
     bias_c1 = float(1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** c)  # f32, as the JAX update computes it
@@ -137,16 +188,19 @@ def adamw_update(grads: Params, opt_state: dict[str, Any], params: Params, lr: f
         p.copy_(p32 - lr * (mu32 / bias_c1 / rms + cfg.weight_decay * p32))
         for m, (buf, x32, dtype) in enumerate(((mu, mu32, cfg.mu_dtype), (nu, nu32, cfg.nu_dtype))):
             if cfg.stochastic_rounding and dtype == torch.bfloat16:
-                buf.copy_(_stochastic_round_bf16(x32, _round_generator(p.device, count, i, m)))
+                _stochastic_round_bf16(buf, x32, _round_key(count, i, m), where[i] if where is not None else None)
             else:
                 buf.copy_(x32)
     opt_state["count"] = count
 
 
-def global_norm(tree: Params, denom: float = 1.0) -> torch.Tensor:
+def global_norm(tree: Params, denom: float = 1.0, reduce: Callable[[list], list] | None = None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf divided by ``denom``
-    (``window_grad``), f32, one leaf at a time."""
-    return torch.sqrt(sum(torch.sum(torch.square(window_grad(x, denom))) for x in tree_leaves(tree)))
+    (``window_grad``), f32, one leaf at a time. ``reduce`` maps the per-leaf
+    sums to the whole leaves' (the dp step sums a sharded leaf's over its
+    shards) before they are added in leaf order."""
+    sums = [torch.sum(torch.square(window_grad(x, denom))) for x in tree_leaves(tree)]
+    return torch.sqrt(sum(sums if reduce is None else reduce(sums)))
 
 
 def clip_factor(norm: torch.Tensor, max_norm: float) -> float:

@@ -19,6 +19,23 @@ Semantics kept from the JAX step:
 
 There is no ``jit`` and no donation: PyTorch runs eagerly, and the state
 ``{"params", "opt_state", "step"}`` is updated in place.
+
+Across dp ranks (``layout``: a ``parallel.StateLayout``; the JAX step's
+``state_shardings`` and its global arrays) each rank runs its own rows, and:
+
+- the window's loss sum, token count and token-type counts are summed over
+  the ranks by one all-reduce before anything divides by the count, so every
+  rank scales, skips a zero-token window and logs alike;
+- gradients are all-reduced for plain DP; a leaf whose moments are dp-sharded
+  (ZeRO-1) has its gradient reduce-scattered into this rank's slice, and a
+  dp-sharded resident parameter (FSDP) gets its slice from the forward's
+  gathers in the backward;
+- the global norm sums each sharded leaf's squares over its slices, then
+  adds the leaves in order; clip and AdamW run on the slices, and ZeRO-1
+  all-gathers the fresh parameters.
+
+At one rank every collective is the identity and no leaf is sharded, so the
+step is the single-device one, bit for bit.
 """
 
 from __future__ import annotations
@@ -28,11 +45,13 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ssi_tpu_torch.constants import CROSS_ENTROPY_IGNORE_IDX
 from ssi_tpu_torch.models.configs import ConfigLlama3_2
-from ssi_tpu_torch.models.llama3 import forward
+from ssi_tpu_torch.models.llama3 import forward, gather_leaf
 from ssi_tpu_torch.ops.cross_entropy_cuda import fused_cross_entropy_kernel
+from ssi_tpu_torch.parallel import StateLayout, gather, reduce_scatter
 from ssi_tpu_torch.train.optimizer import (
     AdamWConfig,
     adamw_update,
@@ -65,20 +84,25 @@ def make_loss_fn(
     *,
     remat: bool | str = True,
     chunk_size: int = 1024,
+    shards: dict[str, Any] | None = None,
 ) -> Callable:
     """(params, tokens [B,S], labels [B,S], segment_ids?, positions?) ->
-    (loss_sum f32, num_tokens i32).
+    (loss_sum f32, num_tokens i32), this rank's rows only.
 
     The hidden states go through the output matrix (the tied ``embed`` or
     ``lm_head``) into the fused cross-entropy: the kernels on CUDA, the plain
     chunked version (token chunk ``chunk_size``) on the CPU. With
     ``segment_ids``/``positions`` (packed rows) attention stays within
-    segments and the label shift stops at pack boundaries.
+    segments and the label shift stops at pack boundaries. ``shards``
+    (FSDP, ``StateLayout.fsdp_shards``): ``params`` holds this rank's dp
+    shards, and each leaf is gathered whole where it is consumed.
     """
 
     def loss_fn(params, tokens, labels, segment_ids=None, positions=None):
+        if shards is not None:
+            params = {**params, **{k: gather_leaf(v, shards[k]) for k, v in params.items() if k != "layers"}}
         hidden = forward(params, tokens, model_cfg, positions=positions, segment_ids=segment_ids,
-                         remat=remat)
+                         remat=remat, shards=None if shards is None else shards["layers"])
         y = (shift_labels(labels) if segment_ids is None else shift_labels_packed(labels, segment_ids)).reshape(-1)
         h = hidden.reshape(-1, hidden.shape[-1])
         loss_sum = fused_cross_entropy_kernel(h, params.get("lm_head", params["embed"]), y, chunk_size)
@@ -109,6 +133,32 @@ def _value_and_grad(loss_fn: Callable, params, *batch):
     return loss_sum.detach(), num_tokens, list(torch.autograd.grad(loss_sum, leaves))
 
 
+def _all_reduce_counts(values: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Sum 0-d values over the ranks in one all-reduce, each back in its
+    dtype. They cross as f64: exact for the int32 counts, and for two ranks
+    an f32 sum rounded once, as an f32 add rounds it."""
+    v = torch.stack([x.to(torch.float64) for x in values])
+    dist.all_reduce(v)
+    return [r.to(x.dtype) for r, x in zip(v.unbind(), values)]
+
+
+def _leaf_sums_reducer(layout: StateLayout, sharded: list[bool]) -> Callable[[list], list]:
+    """The global norm's per-leaf sums of squares, each a whole leaf's: a
+    sharded leaf's slices are summed over the ranks (one all-reduce of the
+    vector, a whole leaf's entry counted on rank 0 alone)."""
+
+    def reduce(sums: list[torch.Tensor]) -> list[torch.Tensor]:
+        if not any(sharded):
+            return sums
+        v = torch.stack(sums)
+        if layout.mesh.rank != 0:
+            v = v * torch.tensor(sharded, dtype=v.dtype, device=v.device)
+        dist.all_reduce(v)
+        return list(v.unbind())
+
+    return reduce
+
+
 def make_train_step(
     model_cfg: ConfigLlama3_2,
     opt_cfg: AdamWConfig,
@@ -120,6 +170,7 @@ def make_train_step(
     remat: bool | str = True,
     chunk_size: int = 1024,
     grad_accum_dtype: torch.dtype = torch.float32,
+    layout: StateLayout | None = None,
 ) -> Callable[..., tuple[TrainState, dict[str, Any]]]:
     """Build the optimizer-step function ``(state, tokens [A,B,S], labels
     [A,B,S], segment_ids?, positions?) -> (state, metrics)``, A being the
@@ -127,9 +178,27 @@ def make_train_step(
 
     Metrics: ``loss_sum`` (f32), ``num_tokens`` (i32), ``grad_norm`` (f32; NaN
     without clipping), ``lr`` (f32), ``applied`` (bool), and ``token_counts``
-    when ``token_type_ranges`` is given.
+    when ``token_type_ranges`` is given; with ``layout`` (a process group is
+    up) each is the sum over the ranks, as the JAX step's global arrays are.
     """
-    loss_fn = make_loss_fn(model_cfg, remat=remat, chunk_size=chunk_size)
+    loss_fn = make_loss_fn(model_cfg, remat=remat, chunk_size=chunk_size,
+                           shards=None if layout is None else layout.fsdp_shards())
+    if layout is not None:
+        p_dims, m_dims = tree_leaves(layout.params), tree_leaves(layout.moments)
+        shapes = tree_leaves(layout.shapes)
+        norm_reduce = _leaf_sums_reducer(layout, [d is not None for d in m_dims])
+
+    def sync(grads: list[torch.Tensor]) -> list[torch.Tensor]:
+        """The window's gradients summed over the ranks, each leaf in its
+        moments' layout."""
+        out = []
+        for g, pd, md in zip(grads, p_dims, m_dims):
+            if pd is None and md is not None:
+                g = reduce_scatter(g, md, layout.mesh)
+            elif pd is None:
+                dist.all_reduce(g)
+            out.append(g)  # a sharded parameter's gradient was reduced by the backward
+        return out
 
     def train_step(state: TrainState, tokens, labels, segment_ids=None, positions=None):
         params = state["params"]
@@ -153,8 +222,14 @@ def make_train_step(
                 del g_i
                 loss_sum = loss_sum + l_i
                 num_tokens = num_tokens + n_i
+        counts = None if token_type_ranges is None else count_token_types_device(tokens, token_type_ranges, pad_id)
 
         with torch.no_grad():
+            if layout is not None:
+                names = [] if counts is None else sorted(counts)
+                loss_sum, num_tokens, *summed = _all_reduce_counts([loss_sum, num_tokens, *(counts[k] for k in names)])
+                counts = dict(zip(names, summed)) if counts is not None else None
+                grads = sync(grads)
             n_tokens = int(num_tokens)  # host sync: the update below depends on it
             # The JAX step's f32 arithmetic after accumulation: g / denom promotes a
             # bf16 leaf to f32, and the norm, the clip and AdamW read those f32 values.
@@ -162,7 +237,7 @@ def make_train_step(
             denom = float(max(n_tokens, 1))
             grads = tree_unflatten(params, grads)
             if clip_grad_norm is not None:
-                grad_norm = global_norm(grads, denom)
+                grad_norm = global_norm(grads, denom, reduce=None if layout is None else norm_reduce)
                 clip = clip_factor(grad_norm, float(clip_grad_norm))
             else:
                 grad_norm = torch.tensor(float("nan"), dtype=torch.float32, device=tokens.device)
@@ -170,7 +245,11 @@ def make_train_step(
             lr = lr_schedule(state["step"])
             applied = n_tokens > 0  # zero-token window: no update, no step advance
             if applied:
-                adamw_update(grads, state["opt_state"], params, lr, opt_cfg, denom=denom, clip=clip)
+                if layout is None:
+                    adamw_update(grads, state["opt_state"], params, lr, opt_cfg, denom=denom, clip=clip)
+                else:
+                    _sharded_update(grads, state["opt_state"], params, lr, opt_cfg, denom, clip, layout,
+                                    p_dims, m_dims, shapes)
                 state["step"] += 1
 
         metrics = {
@@ -180,25 +259,48 @@ def make_train_step(
             "lr": torch.tensor(lr, dtype=torch.float32),
             "applied": torch.tensor(applied),
         }
-        if token_type_ranges is not None:
-            metrics["token_counts"] = count_token_types_device(tokens, token_type_ranges, pad_id)
+        if counts is not None:
+            metrics["token_counts"] = counts
         return state, metrics
 
     return train_step
+
+
+def _sharded_update(grads, opt_state, params, lr, opt_cfg, denom, clip, layout, p_dims, m_dims, shapes) -> None:
+    """AdamW on each rank's slices: a ZeRO-1 leaf updates the slice of its
+    (whole) parameter that its moments cover, then gathers the fresh
+    parameter from the ranks; an FSDP leaf updates its resident slice; a
+    whole leaf updates whole, alike on every rank."""
+    mesh = layout.mesh
+    views, where = [], []
+    for p, pd, md, shape in zip(tree_leaves(params), p_dims, m_dims, shapes):
+        n = None if md is None else shape[md] // mesh.dp
+        views.append(p.narrow(md, mesh.rank * n, n) if pd is None and md is not None else p)
+        where.append(None if md is None else (tuple(shape), md, mesh.rank * n))
+    adamw_update(grads, opt_state, tree_unflatten(params, views), lr, opt_cfg, denom=denom, clip=clip, where=where)
+    for p, view, pd, md in zip(tree_leaves(params), views, p_dims, m_dims):
+        if pd is None and md is not None:
+            p.copy_(gather(view, md, mesh))
 
 
 def make_eval_step(
     model_cfg: ConfigLlama3_2,
     *,
     chunk_size: int = 1024,
+    layout: StateLayout | None = None,
 ) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
     """Dev-loss step ``(params, tokens [B,S], labels [B,S], segment_ids?,
-    positions?) -> (loss_sum, n_tokens)``: no remat, no gradient, no state."""
-    loss_fn = make_loss_fn(model_cfg, remat=False, chunk_size=chunk_size)
+    positions?) -> (loss_sum, n_tokens)``: no remat, no gradient, no state.
+    With ``layout`` both are summed over the ranks (each rank its rows)."""
+    loss_fn = make_loss_fn(model_cfg, remat=False, chunk_size=chunk_size,
+                           shards=None if layout is None else layout.fsdp_shards())
 
     @torch.no_grad()
     def eval_step(params, tokens, labels, segment_ids=None, positions=None):
-        return loss_fn(params, tokens, labels, segment_ids, positions)
+        loss_sum, n_tokens = loss_fn(params, tokens, labels, segment_ids, positions)
+        if layout is None:
+            return loss_sum, n_tokens
+        return tuple(_all_reduce_counts([loss_sum, n_tokens]))
 
     return eval_step
 

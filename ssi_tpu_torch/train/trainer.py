@@ -8,10 +8,19 @@ loop around ``train/step.py`` on one CUDA card (or the CPU, when asked).
   the versioned training state in the JAX package's msgpack bytes (either
   package resumes the other's); resume = epoch derivation + micro-batch skip
   + host RNG restore.
-- One process, one device: ``parallel`` with dp or tp above 1, ``fsdp``,
-  ``zero1`` and ``sharded_optimizer_state`` raise ``NotImplementedError``
-  (ROADMAP.md queue A, item A9). The attention is chosen by device (the
-  flash kernels on CUDA), so ``attn_impl`` other than ``auto`` raises.
+- Data parallelism across ranks (``torchrun --nproc_per_node N -m
+  ssi_tpu_torch.cli.train_sft ...``; one process and one device a rank, a
+  JAX process's counterpart): ``parallel.distributed`` brings up the process
+  group (NCCL on CUDA, gloo on the CPU), ``batch_size`` is per rank and the
+  sampler strides by rank, so N ranks train as the JAX package's N
+  processes (or its one-process ``dp=N`` run at N times the batch).
+  ``parallel.zero1`` shards the AdamW moments over dp, ``parallel.fsdp`` the
+  resident parameters too (``parallel/__init__.py``), and
+  ``sharded_optimizer_state`` has every rank write its own moment slices
+  (``checkpoint/sharded_io.py``). ``parallel.tp`` above 1 raises
+  ``NotImplementedError`` (ROADMAP.md queue A, A9's remainder: tensor
+  parallelism). The attention is chosen by device (the flash kernels on
+  CUDA), so ``attn_impl`` other than ``auto`` raises.
 - The ``device`` key (default ``cuda``) places the run; with no card visible
   the default raises, and ``+device=cpu`` runs on the CPU (the tests).
 - ``profiler: {start_step, num_steps, dir}`` traces a window of optimizer
@@ -34,6 +43,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ssi_tpu_torch import __version__
 from ssi_tpu_torch.checkpoint import (
@@ -42,10 +52,20 @@ from ssi_tpu_torch.checkpoint import (
     restore_rng_states,
     save_rng_states,
 )
+from ssi_tpu_torch.checkpoint import sharded_io
 from ssi_tpu_torch.config import compose
 from ssi_tpu_torch.constants import CROSS_ENTROPY_IGNORE_IDX, DEBUGGING_TAG, SEED
 from ssi_tpu_torch.data import Loader, Sampler, setup_sft_data, setup_text_completion_data
 from ssi_tpu_torch.models.configs import get_model_config
+from ssi_tpu_torch.parallel import (
+    StateLayout,
+    full_host_copy,
+    initialize_distributed,
+    make_mesh,
+    map_trees,
+    shard,
+    shard_params,
+)
 from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
 from ssi_tpu_torch.train.geometry import TrainingGeometry
 from ssi_tpu_torch.train.lr_schedule import setup_lr_schedule
@@ -66,30 +86,18 @@ __all__ = ["Trainer", "run_training"]
 LOGGER = logging.getLogger(__name__)
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-_ORBAX_DIR_KEY = "__orbax_dir__"  # the JAX package's marker of an Orbax-sharded optimizer state
 CONF_DIR = Path(__file__).resolve().parents[2] / "conf"
 
 
-def _not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to ssi_tpu_torch yet: the port trains on one device "
-        "(ROADMAP.md queue A, item A9: parallel and sharded state)"
-    )
-
-
 def refuse_unported(cfg: Any) -> None:
-    """Raise on the keys of a multi-device run (A9) and on an explicit attention
-    implementation, before any work."""
+    """Raise on tensor parallelism (A9's remainder) and on an explicit
+    attention implementation, before any work."""
     pcfg = cfg.get("parallel")
-    if pcfg is not None:
-        for axis in ("dp", "tp"):
-            if pcfg.get(axis) is not None and int(pcfg.get(axis)) > 1:
-                raise _not_ported(f"parallel.{axis}={pcfg.get(axis)}")
-        for flag in ("fsdp", "zero1"):
-            if bool(pcfg.get(flag, False)):
-                raise _not_ported(f"parallel.{flag}=true")
-    if bool(cfg.get("sharded_optimizer_state", False)):
-        raise _not_ported("sharded_optimizer_state=true")
+    if pcfg is not None and int(pcfg.get("tp", 1)) > 1:
+        raise NotImplementedError(
+            f"parallel.tp={pcfg.get('tp')} is not ported to ssi_tpu_torch yet: the port trains data-parallel only "
+            "(ROADMAP.md queue A, item A9's remainder: tensor parallelism)"
+        )
     attn_impl = cfg.get("attn_impl", "auto")
     if attn_impl != "auto":
         raise ValueError(f"attn_impl={attn_impl!r}: the port chooses the attention by device (the flash kernels "
@@ -105,7 +113,7 @@ def _sorted_tree(tree: Any) -> Any:
 
 
 class Trainer:
-    """Stateful trainer for speech-integration experiments on one CUDA card.
+    """Stateful trainer for speech-integration experiments on CUDA cards, one a rank.
 
     Args:
         cfg: composed config (ssi_tpu_torch.config.Config or any duck-typed mapping).
@@ -120,6 +128,8 @@ class Trainer:
         self.tokenizer = None
         self.checkpointer: Checkpointer | None = None
         self.metric_logger = None
+        self.mesh = None
+        self.layout: StateLayout | None = None  # where the state lives across the dp ranks
         self.train_step = None
         self.eval_step = None
         self.lr_schedule = None
@@ -134,6 +144,7 @@ class Trainer:
         self.geometry: TrainingGeometry | None = None
         self.world_size: int = 1
         self.rank: int = 0
+        self.distributed = False  # a process group is up (at any world size)
 
         # Training counters (host mirrors of device state)
         self.global_step: int = 0
@@ -173,7 +184,15 @@ class Trainer:
         self.device = resolve_device(self.cfg)
         self._set_host_seed()
         self.dtype = _DTYPES[self.cfg.dtype]
+        # the process group comes up before any device or rank query
+        initialize_distributed(self.cfg.get("parallel"), self.device)
+        self.distributed = dist.is_initialized()
+        if self.distributed:
+            self.world_size, self.rank = dist.get_world_size(), dist.get_rank()
+            if self.device.type == "cuda":
+                self.device = torch.device("cuda", torch.cuda.current_device())
 
+        self._setup_mesh()
         self._setup_logging()
         self._setup_model()
         self._setup_tokenizer()
@@ -196,12 +215,42 @@ class Trainer:
         random.seed(SEED)
         np.random.seed(SEED % (2**32))
 
+    def _setup_mesh(self) -> None:
+        pcfg = self.cfg.get("parallel")
+        dp = pcfg.get("dp") if pcfg is not None else None
+        tp = int(pcfg.get("tp", 1)) if pcfg is not None else 1
+        self._fsdp = bool(pcfg.get("fsdp", False)) if pcfg is not None else False
+        # fsdp shards params AND moments over dp (ZeRO-3 superset of ZeRO-1)
+        self._zero1 = self._fsdp or (bool(pcfg.get("zero1", False)) if pcfg is not None else False)
+        self.mesh = make_mesh(dp=dp, tp=tp, world_size=self.world_size, rank=self.rank)
+        LOGGER.info(
+            f"Device mesh: dp={self.mesh.shape['dp']} tp={self.mesh.shape['tp']}"
+            + (" (fsdp: dp-sharded params+moments)" if self._fsdp else " (ZeRO-1 optimizer sharding)" if self._zero1 else "")
+        )
+
     def _setup_logging(self) -> None:
         tags = [__version__, self.cfg.config_name]
         if os.getenv("SLURM_JOB_QOS") == "gpu-debug":
             tags += [DEBUGGING_TAG]
+        if self.rank != 0:
+            # Non-zero ranks keep an in-memory history but never touch W&B or the
+            # shared metrics/log files (rank-0-writes convention).
+            from ssi_tpu_torch.train.metric_logging import JsonlLogger
+
+            self.metric_logger = JsonlLogger(log_dir=None)
+            if self.cfg.checkpointer.get("output_dir") is None:
+                raise ValueError(
+                    "Multi-process training requires an explicit checkpointer.output_dir "
+                    "(W&B-run-derived resolution is only deterministic on rank 0)."
+                )
+            return
         self.metric_logger = setup_metric_logger(self.cfg.get("wandb"), tags=tags)
         if self.cfg.checkpointer.get("output_dir") is None:
+            if self.world_size > 1:
+                raise ValueError(
+                    "Multi-process training requires an explicit checkpointer.output_dir "
+                    "(W&B-run-derived resolution is only deterministic on rank 0)."
+                )
             self.cfg.checkpointer.output_dir = str(resolve_checkpointer_output_dir(self.cfg, self.metric_logger))
             LOGGER.info(f"No checkpointer output dir provided. Resolved to: {self.cfg.checkpointer.output_dir}")
         if hasattr(self.metric_logger, "set_log_dir"):
@@ -213,7 +262,13 @@ class Trainer:
         self._llama_config.update_from_speech_cfg(self.cfg.speech)
         ckpt_cfg = {k: v for k, v in self.cfg.checkpointer.items()}
         self.checkpointer = Checkpointer(**ckpt_cfg, model_expectations=self._llama_config.checkpoint_expectations)
-        params = self.checkpointer.load_params(self._llama_config, dtype=self.dtype, device=self.device)
+        fsdp = self._fsdp and self.mesh.dp > 1
+        # an FSDP rank loads on the host and keeps only its slices on the device
+        params = self.checkpointer.load_params(self._llama_config, dtype=self.dtype,
+                                               device="cpu" if fsdp else self.device)
+        shapes = tree_map(lambda t: tuple(t.shape), params)
+        self.layout = StateLayout.build(self.mesh, shapes, zero1=self._zero1, fsdp=self._fsdp)
+        params = shard_params(self.mesh, params, self.layout.params, self.device)
         self.state = {"params": params, "opt_state": None, "step": 0}
 
     def _setup_tokenizer(self) -> None:
@@ -232,31 +287,53 @@ class Trainer:
     def _setup_optimizer(self) -> None:
         self.opt_cfg = AdamWConfig.from_cfg(self.cfg.optimizer)
         self.lr_schedule = setup_lr_schedule(self.cfg, num_training_steps=self.cfg.max_steps)
-        params = self.state["params"]
+        moments_like = self._moment_slices()
         if self._resume_state is None:
-            self.state["opt_state"] = init_opt_state(params, self.opt_cfg)
+            self.state["opt_state"] = init_opt_state(moments_like, self.opt_cfg)
             return
         host_opt = self._resume_state["optimizer_state"]
-        if isinstance(host_opt, dict) and _ORBAX_DIR_KEY in host_opt:
-            raise _not_ported("an Orbax-sharded optimizer state (sharded_optimizer_state)")
+        state_path = self.checkpointer.training_state_checkpoint
+        sharded_io.refuse_orbax_marker(host_opt, state_path)
+        if sharded_io.is_marker(host_opt):
+            # every rank reads its own slices, re-sharded to this run's dp
+            empty = init_opt_state(moments_like, self.opt_cfg)
+            self.state["opt_state"] = sharded_io.restore_opt_state(
+                host_opt, Path(state_path).parent, empty, self.layout.moments, self.layout.shapes, self.mesh)
+            self.state["step"] = self.global_step
+            return
 
-        def place(saved: Any, like: torch.Tensor) -> torch.Tensor:
+        def place(saved: Any, like: torch.Tensor, dim: int | None, shape: tuple) -> torch.Tensor:
+            # a whole state leaf, sliced to this rank's part of the moment layout
             t = saved if isinstance(saved, torch.Tensor) else torch.from_numpy(np.asarray(saved))
-            if tuple(t.shape) != tuple(like.shape):
-                raise ValueError(f"optimizer state leaf of shape {tuple(t.shape)} for a parameter of {tuple(like.shape)}")
-            return t.to(self.device).contiguous()
+            if tuple(t.shape) != tuple(shape):
+                raise ValueError(f"optimizer state leaf of shape {tuple(t.shape)} for a parameter of {tuple(shape)}")
+            return shard(t, dim, self.mesh).to(self.device).contiguous()
 
-        def restore(saved: dict, like: dict) -> dict:
+        def restore(saved: dict, like: dict, dims: dict, shapes: dict) -> dict:
             if set(saved) != set(like):
                 raise ValueError(f"optimizer state keys {sorted(saved)} do not match the parameters' {sorted(like)}")
-            return {k: restore(saved[k], v) if isinstance(v, dict) else place(saved[k], v) for k, v in like.items()}
+            return {k: restore(saved[k], v, dims[k], shapes[k]) if isinstance(v, dict)
+                    else place(saved[k], v, dims[k], shapes[k]) for k, v in like.items()}
 
+        dims, shapes = self.layout.moments, self.layout.shapes
         self.state["opt_state"] = {
-            "mu": restore(host_opt["mu"], params),
-            "nu": restore(host_opt["nu"], params),
+            "mu": restore(host_opt["mu"], moments_like, dims, shapes),
+            "nu": restore(host_opt["nu"], moments_like, dims, shapes),
             "count": int(np.asarray(host_opt["count"])),
         }
         self.state["step"] = self.global_step
+
+    def _moment_slices(self) -> Any:
+        """Tensors of this rank's moment shapes on the device (views of the
+        parameters: a ZeRO-1 rank's moments cover a slice of a whole one)."""
+
+        def view(p: torch.Tensor, pd: int | None, md: int | None) -> torch.Tensor:
+            if pd is not None or md is None:
+                return p
+            n = p.shape[md] // self.mesh.dp
+            return p.narrow(md, self.rank * n, n)
+
+        return map_trees(view, self.state["params"], self.layout.params, self.layout.moments)
 
     def _setup_data(self) -> None:
         if self.cfg.config_name == "sft":
@@ -300,9 +377,23 @@ class Trainer:
         }
 
     def _build_steps(self) -> None:
+        dp = self.mesh.shape["dp"]
+        if dp % self.world_size != 0:
+            raise ValueError(
+                f"dp mesh size ({dp}) must be divisible by the process count ({self.world_size}) "
+                "so every process contributes whole batch shards."
+            )
+        local_dp = dp // self.world_size
+        if self.geometry.batch_size % local_dp != 0:
+            raise ValueError(
+                f"Per-process batch_size ({self.geometry.batch_size}) must be divisible by the "
+                f"per-process data-parallel share (dp={dp} / {self.world_size} processes = {local_dp}) "
+                "so every device gets an equal batch shard."
+            )
         # the CPU's chunked cross-entropy takes loss_chunk_size; the CUDA kernels tile themselves
         chunk_size = int(self.cfg.get("loss_chunk_size", 1024))
         accum_dtype = _DTYPES[self.cfg.get("grad_accum_dtype", "fp32")]
+        layout = self.layout if self.distributed else None  # collectives need a process group
         self.train_step = make_train_step(
             self._llama_config,
             self.opt_cfg,
@@ -313,8 +404,9 @@ class Trainer:
             remat=self.cfg.get("remat", True),  # bool or a REMAT_POLICIES name
             chunk_size=chunk_size,
             grad_accum_dtype=accum_dtype,
+            layout=layout,
         )
-        self.eval_step = make_eval_step(self._llama_config, chunk_size=chunk_size)
+        self.eval_step = make_eval_step(self._llama_config, chunk_size=chunk_size, layout=layout)
 
     # === Training ===
 
@@ -332,7 +424,8 @@ class Trainer:
         from ssi_tpu_torch.config import to_yaml
 
         LOGGER.info(to_yaml(self.cfg, resolve=True))
-        self.metric_logger.log_config(self.cfg, checkpoint_dir=self.cfg.checkpointer.output_dir)
+        if self.rank == 0:  # one writer of the shared config snapshot
+            self.metric_logger.log_config(self.cfg, checkpoint_dir=self.cfg.checkpointer.output_dir)
 
         for epoch in range(epochs_run, self.geometry.n_epochs):
             self._train_epoch(epoch, batches_to_skip if epoch == epochs_run else 0)
@@ -590,7 +683,7 @@ class Trainer:
             dev_loss = None
 
         if self.global_step % self.cfg.log_interval == 0:
-            n_chips = 1
+            n_chips = self.mesh.dp * self.mesh.tp
             log_dict = {
                 "loss": loss_to_log,
                 "lr": self._last_lr,
@@ -628,6 +721,10 @@ class Trainer:
         and disk IO run on a background thread overlapped with training. At
         most one save is in flight; a new save (or cleanup) joins the previous
         one first.
+
+        Across ranks every rank joins the gathers of dp-sharded leaves (and
+        the sharded optimizer save, when on), on the training thread; rank 0
+        alone writes the files and prunes.
         """
         self._join_pending_save()
         async_save = bool(self.cfg.get("async_save", False))
@@ -637,16 +734,29 @@ class Trainer:
             snapshot = lambda t: t.detach().to("cpu", copy=True)  # noqa: E731
         else:
             snapshot = lambda t: t  # noqa: E731
-        params = tree_map(snapshot, self.state["params"])
-        opt = self.state["opt_state"]
-        host_opt = _sorted_tree({
-            "mu": tree_map(snapshot, opt["mu"]),
-            "nu": tree_map(snapshot, opt["nu"]),
-            # the JAX package's count is a 0-d int32 array
-            "count": np.asarray(opt["count"], dtype=np.int32),
-        })
-        rng_state = save_rng_states()
         step = self.global_step
+        opt = self.state["opt_state"]
+        sharded_opt = bool(self.cfg.get("sharded_optimizer_state", False))
+        params = full_host_copy(self.state["params"], self.layout.params, self.mesh)
+        if sharded_opt:
+            # every rank writes its own slices (a collective, so on the training
+            # thread); the msgpack holds a directory marker
+            host_opt = sharded_io.save_opt_state(opt, self.layout.moments, self.layout.shapes,
+                                                 Path(self.checkpointer.output_dir), step, self.mesh)
+        else:
+            mu = full_host_copy(opt["mu"], self.layout.moments, self.mesh)
+            nu = full_host_copy(opt["nu"], self.layout.moments, self.mesh)
+        if self.rank != 0:
+            return
+        params = tree_map(snapshot, params)
+        if not sharded_opt:
+            host_opt = _sorted_tree({
+                "mu": tree_map(snapshot, mu),
+                "nu": tree_map(snapshot, nu),
+                # the JAX package's count is a 0-d int32 array
+                "count": np.asarray(opt["count"], dtype=np.int32),
+            })
+        rng_state = save_rng_states()
         kwargs = dict(
             optimizer_state=host_opt,
             lr_scheduler_state={"last_step": step},
@@ -677,6 +787,9 @@ class Trainer:
                 "state_bytes": state_path.stat().st_size,
             }
             self._prune_checkpoints(keep_step=step)
+            if sharded_opt:
+                # only after the state msgpack referencing `step` is on disk
+                sharded_io.prune_old_opt_states(Path(self.checkpointer.output_dir), keep_step=step)
 
         if async_save:
             import concurrent.futures
@@ -728,6 +841,8 @@ class Trainer:
             self._save_executor = None
         if self.metric_logger is not None:
             self.metric_logger.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def run_training(config_name: str, argv: list[str]) -> Trainer:

@@ -499,6 +499,46 @@ print("BLOCKED_RUN_OK")
         assert len(lines) == 8 and all(json.loads(line)["finished"] for line in lines)
 
 
+def test_two_rank_sft_cli_under_torchrun_loads_no_card_library(tmp_path):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+    ssi_tpu_torch.cli.train_sft ... parallel.distributed=true +device=cpu``
+    (gloo, ZeRO-1), with every library of ``_NOT_ON_THE_CARD`` blocked from
+    import in the launcher and both ranks: the CLI runs unchanged under
+    torchrun, the ranks read the launcher's variables, and rank 0 alone
+    writes the metrics, ``step_2/`` and a state of world size 2."""
+    import json
+
+    from ssi_tpu_torch.checkpoint import msgpack_io
+    from tests import helpers
+
+    model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "step_0")
+    split = tmp_path / "rows.jsonl"
+    split.write_text("".join(json.dumps(r) + "\n" for r in helpers.synthetic_sft_rows(16)))
+    block = tmp_path / "block"
+    block.mkdir()
+    (block / "sitecustomize.py").write_text(_BLOCKER.format(names=repr(set(_NOT_ON_THE_CARD))))
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env.update(PYTHONPATH=f"{block}{os.pathsep}{REPO}", OMP_NUM_THREADS="2")
+    out = tmp_path / "out"
+    args = ["data=sft/mls-hubert_large_ll60k-layer_22", "model_config=tiny_test", "speech.n_dsus=16",
+            f"checkpointer.checkpoint_dir={model_dir}", f"tokenizer.path={model_dir}/original/tokenizer.model",
+            "tokenizer.max_seq_len=384", "max_steps=2", "save_steps=2", "eval_steps=2", "wandb.enabled=false",
+            "hydra/job_logging=none", "gradient_accumulation_steps=1", f"checkpointer.output_dir={out}",
+            "parallel.distributed=true", "parallel.zero1=true", "+device=cpu"]
+    for name in ("train", "dev"):
+        args += [f"data.{name}.dataset.source=json", f"data.{name}.dataset.split=train",
+                 f"+data.{name}.dataset.data_files={split}", f"data.{name}.dataloader.batch_size=2"]
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+                           "-m", "ssi_tpu_torch.cli.train_sft", *args], cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    metrics = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    assert [m["step"] for m in metrics if "loss" in m] == [1, 2]
+    state = msgpack_io.load(out / "training_state.msgpack")
+    assert state["training_hparams"]["world_size"] == 2 and state["consumed_samples"] == 2 * 2 * 2
+    assert (out / "step_2" / "model.safetensors.index.json").is_file()
+
+
 _COMPRESSED_RUNS = {
     "train_dsu_bpe": """
 import runpy, sys

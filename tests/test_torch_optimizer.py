@@ -114,6 +114,53 @@ def test_stochastic_rounding_preserves_small_updates():
     assert run(True) == run(True)
 
 
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("dim", [0, 1, 2])
+def test_adamw_on_shards_is_bitwise_the_whole_leaf_update(dim, stochastic):
+    """ZeRO-1 / FSDP's update: ``adamw_update`` on each of two slices of
+    every leaf (``where``: the slice's place in the leaf) gives, bit for bit,
+    the whole leaves' update over 3 steps, with bf16 moments and stochastic
+    rounding on and off; with it on, the rounding is not round-to-nearest's
+    (the control), so the noise is in play."""
+    rng = np.random.default_rng(dim)
+    shapes = {"w": (4, 6, 8), "b": {"c": (6, 8, 4)}}
+    cfg = AdamWConfig(lr=1e-2, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16, stochastic_rounding=stochastic)
+
+    def tree(draw):
+        return {"w": draw(shapes["w"]), "b": {"c": draw(shapes["b"]["c"])}}
+
+    p0 = tree(lambda s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)))
+    grads = [tree(lambda s: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 1e-3)) for _ in range(3)]
+    whole = {"w": p0["w"].clone(), "b": {"c": p0["b"]["c"].clone()}}
+    state = init_opt_state(whole, cfg)
+    full_shapes = [tuple(t.shape) for t in tree_leaves(whole)]
+    for g in grads:
+        adamw_update(g, state, whole, 1e-2, cfg)
+    parts = []
+    for r in range(2):
+        def part(t):
+            n = t.shape[dim] // 2
+            return t.narrow(dim, r * n, n).clone()
+
+        params = {"w": part(p0["w"]), "b": {"c": part(p0["b"]["c"])}}
+        st = init_opt_state(params, cfg)
+        where = [(shape, dim, r * shape[dim] // 2) for shape in full_shapes]
+        for g in grads:
+            adamw_update({"w": part(g["w"]), "b": {"c": part(g["b"]["c"])}}, st, params, 1e-2, cfg, where=where)
+        parts.append((params, st))
+    for key in ("params", "mu", "nu"):
+        got = [tree_leaves(p if key == "params" else st[key]) for p, st in parts]
+        want = tree_leaves(whole if key == "params" else state[key])
+        for i, w in enumerate(want):
+            assert torch.equal(torch.cat([got[0][i], got[1][i]], dim=dim), w), (key, i)
+    if stochastic:
+        rtn = init_opt_state(p0, AdamWConfig(lr=1e-2, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16))
+        p_rtn = {"w": p0["w"].clone(), "b": {"c": p0["b"]["c"].clone()}}
+        for g in grads:
+            adamw_update(g, rtn, p_rtn, 1e-2, AdamWConfig(lr=1e-2, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16))
+        assert not torch.equal(rtn["mu"]["w"], state["mu"]["w"])
+
+
 SCHEDULES = {
     "constant": (lambda m: m.constant_schedule(3e-4)),
     "cosine": (lambda m: m.cosine_schedule_with_warmup(3e-4, 20, 180)),

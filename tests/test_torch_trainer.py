@@ -14,7 +14,9 @@ and a port-written one by JAX, each within 2e-5 of the other package's
 uninterrupted run; ``overlap_io`` on and off equal, and each logged
 ``duration_step`` holding its own window's time; retention with
 ``async_save``; the final checkpoint at ``max_steps``; the hparam guard; the
-zero-token window; the ``profiler`` key; the refusals (no card, A9 keys).
+zero-token window; the ``profiler`` key; the refusals (no card, tensor
+parallelism, dp beyond the world size, an Orbax state); ZeRO-1, FSDP and the
+sharded optimizer state at one rank, equal to the plain run bitwise.
 """
 
 import copy
@@ -336,17 +338,83 @@ def test_default_device_refuses_without_a_card(assets, monkeypatch):
 
 
 @pytest.mark.parametrize("over,error,match", [
-    ({"parallel": {"dp": 2}}, NotImplementedError, "A9"),
-    ({"parallel": {"tp": 2}}, NotImplementedError, "A9"),
-    ({"parallel": {"fsdp": True}}, NotImplementedError, "A9"),
-    ({"parallel": {"zero1": True}}, NotImplementedError, "A9"),
-    ({"sharded_optimizer_state": True}, NotImplementedError, "A9"),
+    ({"parallel": {"dp": 2}}, ValueError, r"^Requested dp\*tp = 2 exceeds available devices \(1\)$"),
+    ({"parallel": {"tp": 2}}, NotImplementedError, "A9's remainder"),
     ({"attn_impl": "pallas"}, ValueError, "attn_impl=auto"),
 ])
 def test_unported_keys_raise(assets, over, error, match):
+    """Tensor parallelism (A9's remainder) and an explicit attention raise
+    before any work; dp beyond the world size raises the JAX ``make_mesh``
+    error rather than train on one rank."""
     root, model_dir, split, _ = assets
     with pytest.raises(error, match=match):
         Trainer(PortConfig(cfg_dict(model_dir, root / "port_refused", split, **over))).setup()
+
+
+def world_1_group() -> dict:
+    """``parallel`` keys of a one-rank process group (gloo, a free port)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    return {"distributed": True, "coordinator_address": f"localhost:{port}", "num_processes": 1, "process_id": 0}
+
+
+@pytest.mark.parametrize("flag", ["zero1", "fsdp"])
+def test_zero1_and_fsdp_at_world_size_1_equal_the_plain_run(assets, runs, flag):
+    """At one rank (a gloo group of one) ZeRO-1 and FSDP shard nothing and
+    every collective is the identity: losses, logged values, ``step_4/`` and
+    the optimizer state equal the plain run's bit for bit."""
+    root = assets[0]
+    t, losses, hist = port_run(assets, f"port_{flag}_w1", max_steps=4, save_steps=2, eval_steps=2,
+                               parallel={flag: True, **world_1_group()})
+    assert t.distributed and t.world_size == 1
+    assert all(d is None for d in popt.tree_leaves(t.layout.params) + popt.tree_leaves(t.layout.moments))
+    _, half, half_hist = runs["port_half"]
+    assert losses == half and strip_timing(hist) == strip_timing(half_hist)
+    assert (root / f"port_{flag}_w1" / "step_4" / "ft-model-00001-of-00001.safetensors").read_bytes() == \
+        (root / "port_half" / "step_4" / "ft-model-00001-of-00001.safetensors").read_bytes()
+    got = msgpack_io.load(root / f"port_{flag}_w1" / "training_state.msgpack")["optimizer"]
+    want = msgpack_io.load(root / "port_half" / "training_state.msgpack")["optimizer"]
+    assert msgpack_io.pack(got) == msgpack_io.pack(want)
+
+
+def test_sharded_optimizer_state_at_world_size_1_resumes_bitwise(assets, runs):
+    """``sharded_optimizer_state`` at one rank: the state file holds the
+    port's directory marker, only the newest directory stays, and a resume
+    from step 4 runs steps 5-8 equal to the uninterrupted run's, bitwise."""
+    from ssi_tpu_torch.checkpoint import sharded_io
+
+    root = assets[0]
+    _, half, _ = runs["port_half"]
+    _, full, _ = runs["port_full"]
+    _, losses, _ = port_run(assets, "port_sharded_half", max_steps=4, save_steps=2, eval_steps=2,
+                            sharded_optimizer_state=True)
+    assert losses == half
+    marker = msgpack_io.load(root / "port_sharded_half" / "training_state.msgpack")["optimizer"]
+    assert sharded_io.is_marker(marker) and marker == {sharded_io.DCP_DIR_KEY: "optimizer_state_dcp_step4"}
+    assert [p.name for p in (root / "port_sharded_half").glob("optimizer_state_dcp_step*")] == [
+        "optimizer_state_dcp_step4"]
+    t, rest, _ = resume(Trainer, assets, "port_sharded_resumed", root / "port_sharded_half",
+                        sharded_optimizer_state=True)
+    assert t.global_step == 8 and half + rest == full
+    assert (root / "port_sharded_resumed" / "step_8" / "ft-model-00001-of-00001.safetensors").read_bytes() == \
+        (root / "port_full" / "step_8" / "ft-model-00001-of-00001.safetensors").read_bytes()
+
+
+def test_an_orbax_state_raises_naming_the_shared_route(assets, runs, tmp_path):
+    """The JAX package's Orbax marker on resume: a ValueError that names it
+    and the msgpack route both packages read."""
+    root = assets[0]
+    state = msgpack_io.load(root / "port_half" / "training_state.msgpack")
+    state["optimizer"] = {"__orbax_dir__": "optimizer_state_orbax_step4"}
+    path = tmp_path / "training_state.msgpack"
+    path.write_bytes(msgpack_io.pack(state))
+    with pytest.raises(ValueError, match=r"Orbax format.*sharded_optimizer_state: false"):
+        cfg = cfg_dict(root / "port_half" / "step_4", root / "port_orbax", assets[2])
+        cfg["checkpointer"]["training_state_checkpoint"] = str(path)
+        Trainer(PortConfig(cfg)).setup()
 
 
 # --- the copied host modules --------------------------------------------------------------

@@ -52,6 +52,24 @@ c. the serving path with speculation: phase 5's requests with
    counters are > 0; tok/s, tokens per verify step and the token agreement
    with phase 5 (bf16: the T-token verify GEMMs round unlike the 1-token
    step, so agreement is reported, not required);
+o. tensor-parallel serving in a tp group of one rank: this process joins a
+   1-rank NCCL group and runs phase 5's requests (random bf16 1B weights,
+   full width) through the paged engine with ``mesh=make_mesh(dp=1, tp=1)``
+   beside the mesh-less engine, at ``speculate_k`` 0 (runs in turns: none,
+   mesh, local, none; "local" is the same tp path on a mesh
+   with no process group, every collective skipped, which sets apart what
+   the NCCL calls cost) and 3 (none, mesh), each run on a fresh engine
+   after a warm-up, at pipeline depth 1 (depth 2's admission rounds depend
+   on when results reach the host); every run's greedy tokens must equal
+   the mesh-less run's bitwise (at one rank the all-reduces after ``wo``
+   and ``w_down`` and the embedding's, and the logits' all-gather, move no
+   value); tok/s of each beside the card's name and power limit, the kernels the mesh
+   runs launched (#1, #8, #9: the kernels line's ``serve_tp``). With two or
+   more cards, phase d also runs the generation CLI under ``torchrun
+   --nproc_per_node 2 tensor_parallel=2`` and ``--nproc_per_node 1`` on its
+   ``step_0/``, holding the two runs' first decode step logits within 1e-2
+   in relative norm and reporting their token agreement; with one card it
+   prints ``tp2: 1 card, not run``;
 j. ``n > 1`` parallel sampling and the pipeline depth (the engine's
    default, 2, runs every serving phase):
    j2. #8 vs its plain version on a page table in which each gang of 4
@@ -300,6 +318,7 @@ It then prints one JSON line with per-kernel results (errors, times, the
 bound computed from this run's shapes, the library yardstick, launches by
 path, ``wer_drive`` the sum over the drive's stage processes,
 ``serve_http`` the HTTP server process's, ``serve_n`` phase j1's,
+``serve_tp`` phase o's mesh runs,
 ``train_packed`` phase k's packed SFT run, ``cpt_compressed`` phase
 m's CPT and generation runs and ``train_dp`` the sum over phase n's
 torchrun processes; the
@@ -1041,6 +1060,150 @@ def phase_spec_serving(seed: int, smi: str, base_tokens, base_rate: float):
     return launches
 
 
+# --- phase o: tensor-parallel serving in a tp group of one rank --------------------------------
+
+
+def phase_serve_tp(seed: int, smi: str, base_rate: float) -> dict:
+    """Phase o: phase 5's requests through the engine with a tp-1 mesh over a
+    1-rank NCCL group and without a mesh, at k 0 and 3, pipeline depth 1;
+    the mesh runs' tokens bitwise equal the mesh-less runs'. Returns the
+    mesh runs' launches."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.generate.engine import SamplingParams
+    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+    from ssi_tpu_torch.models.llama3 import init_params
+    from ssi_tpu_torch.parallel import Mesh, make_mesh
+
+    cfg = model_config()
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    prompts = prompts_from_seed(seed + 1, 64, cfg.vocab_size)  # phase 5's requests
+    warm = prompts_from_seed(seed + 5, 8, cfg.vocab_size)
+    sp = SamplingParams(temperature=0.0, max_tokens=128)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    launches: dict[str, int] = {}
+    try:
+        # "mesh": the tp-1 mesh over the NCCL group; "local": the same tp path
+        # with no process group (every collective skipped), which sets apart
+        # what the NCCL calls cost
+        meshes = {"none": None, "mesh": make_mesh(dp=1, tp=1), "local": Mesh(dp=1, tp=1)}
+        check(meshes["mesh"].tp_group is not None and dist.get_backend(meshes["mesh"].tp_group) == "nccl",
+              "phase o: the tp-1 mesh carries no NCCL group")
+        for k, order in ((0, ("none", "mesh", "local", "none")), (3, ("none", "mesh"))):
+            tokens, rates = {}, {name: [] for name in set(order)}
+            for name in order:
+                eng = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=32, page_size=128, prompt_bucket=128,
+                                        chunk=16, speculate_k=k, pipeline_depth=1, mesh=meshes[name])
+                check(eng.attn_impl == "kernel" and eng.is_driver, f"phase o: {name} engine not the kernels' driver")
+                check(eng.params["embed"] is params["embed"], f"phase o: the {name} engine copied the whole weights")
+                eng.generate_batch(warm, SamplingParams(max_tokens=16))
+                torch.cuda.synchronize()
+                _build.launch_counts.clear()
+                t0 = time.perf_counter()
+                outs = eng.generate_batch(prompts, sp)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if name == "mesh":
+                    for key, n in _build.launch_counts.items():
+                        launches[key] = launches.get(key, 0) + n
+                for i, o in enumerate(outs):
+                    check(o["finish_reason"] == "length" and len(o["token_ids"]) == 128,
+                          f"phase o k={k} {name} request {i}: {o['finish_reason']}, {len(o['token_ids'])} tokens")
+                parked = len(eng._free_pages) + len(eng._cache_lru)
+                check(parked == eng.n_pages, f"phase o k={k} {name}: pages leaked: {eng.n_pages - parked}")
+                run = [o["token_ids"] for o in outs]
+                check(tokens.setdefault(name, run) == run, f"phase o k={k}: two {name} runs differ")
+                rates[name].append(sum(map(len, run)) / wall)
+                eng.close()
+                del eng
+                torch.cuda.empty_cache()
+            for name in tokens:
+                same = sum(a == b for a, b in zip(tokens[name], tokens["none"]))
+                check(same == 64, f"phase o k={k}: {64 - same} of 64 {name} streams differ from the mesh-less engine's")
+            mean = {n: sum(r) / len(r) for n, r in rates.items()}
+            local = (f", tp path without a process group {', '.join(f'{r:.0f}' for r in rates['local'])} tok/s, "
+                     f"local / none {mean['local'] / mean['none']:.3f}" if "local" in rates else "")
+            log(f"phase o serve_tp k={k} (1B bf16, phase 5's 64 requests x 128 greedy tokens, 32 slots, depth 1, "
+                f"runs in turns {', '.join(order)}): tp-1 mesh in a 1-rank NCCL group "
+                f"{', '.join(f'{r:.0f}' for r in rates['mesh'])} tok/s, no mesh "
+                f"{', '.join(f'{r:.0f}' for r in rates['none'])} tok/s, mesh / none {mean['mesh'] / mean['none']:.3f}"
+                f"{local} (phase 5, depth 2: {base_rate:.0f}); every stream bitwise the mesh-less engine's; on {smi}")
+    finally:
+        dist.destroy_process_group()
+    for name in ("flash_attention_fwd", "paged_attention_fused", "paged_attention_multi"):
+        check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the tp serving path")
+    log(f"phase o launches (mesh runs, k 0 and 3): {launches}; phase wall {time.perf_counter() - t_phase:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# torchrun's script for phase o's two-card check: the generation CLI's module
+# run as ``python -m`` runs it, with rank 0's first decode step's logits (the
+# rows it advances) saved to argv[1]
+TP_LAUNCHER = """
+import os, runpy, sys
+import torch
+import ssi_tpu_torch.generate.paged_engine as pe
+
+out = sys.argv[1]
+sys.argv = ["ssi_tpu_torch.cli.generate", *sys.argv[2:]]
+orig, saved = pe.decode_step_tokens, []
+
+def recorded(params, tok, cfg, pools, page_table, seq_lens, active, **kw):
+    logits = orig(params, tok, cfg, pools, page_table, seq_lens, active, **kw)
+    if not saved and os.environ.get("RANK", "0") == "0":
+        saved.append(out)
+        torch.save(logits[active].float().cpu(), out)
+    return logits
+
+pe.decode_step_tokens = recorded
+runpy.run_module("ssi_tpu_torch.cli.generate", run_name="__main__")
+"""
+
+
+def phase_tp2_cli(root, argv: list[str], smi: str) -> None:
+    """Phase o's two-card check, on phase d's ``step_0/``: the generation CLI
+    under torchrun at ``tensor_parallel`` 1 and 2 (one rank, then two ranks
+    on cards 0 and 1); their first decode step's logits within 1e-2 in
+    relative norm, their token agreement reported."""
+    import torch
+
+    launcher = root / "tp_launcher.py"
+    launcher.write_text(TP_LAUNCHER)
+    logits, records = {}, {}
+    for tp in (1, 2):
+        out = root / f"tp{tp}"
+        env = {**os.environ, "PYTHONPATH": REPO}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                               str(tp), str(launcher), str(root / f"tp{tp}_logits.pt"), *argv,
+                               f"gen.output_dir={out}", f"tensor_parallel={tp}"],
+                              cwd=root, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            log(proc.stdout[-3000:] + proc.stderr[-3000:])
+        check(proc.returncode == 0, f"phase o tp{tp}: the generation CLI under torchrun exited {proc.returncode}")
+        log(f"  phase o tp{tp} CLI under torchrun: {time.perf_counter() - t0:.1f} s")
+        logits[tp] = torch.load(root / f"tp{tp}_logits.pt")
+        records[tp] = [json.loads(line)["outputs"][0]["token_ids"] for line in
+                       (out / "json" / "test" / "generations.jsonl").read_text().splitlines()]
+    err = rel_err(logits[2], logits[1])
+    check(logits[2].shape == logits[1].shape and err <= REL["bfloat16"],
+          f"phase o tp2: first-step logits {tuple(logits[2].shape)} vs {tuple(logits[1].shape)}, rel {err:.2e}")
+    same = sum(a == b for a, b in zip(records[2], records[1]))
+    log(f"phase o tp2 (generation CLI, torchrun --nproc_per_node 2 tensor_parallel=2, NCCL, 1B bf16, "
+        f"{len(records[2])} records): first decode step's logits rel {err:.2e} of tp 1's (limit {REL['bfloat16']}); "
+        f"{same}/{len(records[2])} records equal tp 1's tokens (bf16: reported, not required); on {smi}")
+
+
 # --- phase j: n > 1 parallel sampling and the pipeline depth -----------------------------------
 
 
@@ -1473,6 +1636,11 @@ def phase_generate_cli(seed: int, smi: str, base_tokens, base_rate: float):
             f"launches {launches}")
         del eng
         torch.cuda.empty_cache()
+        # phase o's two-card check runs the CLI under torchrun on this step_0/
+        if torch.cuda.device_count() >= 2:
+            phase_tp2_cli(root, [a for a in argv if not a.startswith("observability")], smi)
+        else:
+            log("tp2: 1 card, not run")
         # phase i serves this step_0/ over HTTP before it is deleted (no second checkpoint)
         http_launches = phase_serve_http(seed, smi, step, tok_path, loaded, base_tokens, base_rate, rate)
         del loaded
@@ -3898,7 +4066,8 @@ def main() -> int:
         phase_spec_f32(args.seed)
         serve_launches, base_tokens, base_rate = phase_engine_bf16(args.seed, smi)
         spec_launches = phase_spec_serving(args.seed, smi, base_tokens, base_rate)
-        mark("phases 4, b, 5, c")
+        tp_launches = phase_serve_tp(args.seed, smi, base_rate)
+        mark("phases 4, b, 5, c, o")
         phase_paged_shared(gen)
         phase_parallel_f32(args.seed)
         serve_n_launches = phase_gangs_and_depth(args.seed, smi, base_tokens, base_rate)
@@ -3945,7 +4114,8 @@ def main() -> int:
                    "train_cli": train_cli_launches.get(name, 0), "int8_serve": int8_launches.get(name, 0),
                    "wer_drive": drive_launches.get(name, 0), "serve_http": http_launches.get(name, 0),
                    "serve_n": serve_n_launches.get(name, 0), "train_packed": packed_launches.get(name, 0),
-                   "cpt_compressed": compressed_launches.get(name, 0), "train_dp": dp_launches.get(name, 0)}
+                   "cpt_compressed": compressed_launches.get(name, 0), "train_dp": dp_launches.get(name, 0),
+                   "serve_tp": tp_launches.get(name, 0)}
         if name.startswith("cross_entropy"):  # one instance for every D: 3B's training launches it too
             by_path["train_3b"] = launches_big["train_3b"].get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",

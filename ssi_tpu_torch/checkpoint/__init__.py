@@ -293,33 +293,44 @@ class Checkpointer:
         return merged
 
     def load_params(
-        self, cfg: ConfigLlama3_2, dtype: torch.dtype = torch.bfloat16, device: torch.device | str = "cuda"
+        self, cfg: ConfigLlama3_2, dtype: torch.dtype = torch.bfloat16, device: torch.device | str = "cuda",
+        mesh: Any = None,
     ) -> dict[str, Any]:
         """Load the checkpoint into the stacked parameter tree on ``device``
         (the card unless the caller names the CPU), cast to ``dtype``.
 
         The host holds at most one copy besides the mapped files: the stacked
         layers, which move to the device leaf by leaf and are dropped as they go.
+        With a tensor-parallel ``mesh`` (serving) each leaf is cut to this
+        rank's slice (``parallel.serving_specs``) on the host before it is cast
+        and moved, so a rank's device holds only its slices.
         """
         hf_state = self.load_hf_state_dict()
         host = hf_to_internal(hf_state, cfg)
         del hf_state
-        def place(x: torch.Tensor) -> torch.Tensor:
+        if host["embed"].shape[0] != cfg.vocab_size:
+            raise ValueError(
+                f"Embedding rows ({host['embed'].shape[0]}) do not match expected vocab size ({cfg.vocab_size}). "
+                f"Was the model extended with different n_dsus / modality settings?"
+            )
+        specs = None
+        if mesh is not None:
+            from ssi_tpu_torch.parallel import serving_specs, tp_shard
+
+            specs = serving_specs(host, mesh, cfg.num_kv_heads)
+
+        def place(x: torch.Tensor, spec: Any) -> torch.Tensor:
+            if spec is not None:
+                x = tp_shard(x, spec, mesh)
             return x.to(dtype=dtype).contiguous().to(device)
 
         params: dict[str, Any] = {}
         for name in list(host):
             if name == "layers":
                 layers = host["layers"]
-                params["layers"] = {k: place(layers.pop(k)) for k in list(layers)}
+                params["layers"] = {k: place(layers.pop(k), specs and specs["layers"][k]) for k in list(layers)}
             else:
-                params[name] = place(host.pop(name))
-        emb = params["embed"]
-        if emb.shape[0] != cfg.vocab_size:
-            raise ValueError(
-                f"Embedding rows ({emb.shape[0]}) do not match expected vocab size ({cfg.vocab_size}). "
-                f"Was the model extended with different n_dsus / modality settings?"
-            )
+                params[name] = place(host.pop(name), specs and specs[name])
         return params
 
     def load_training_state(self) -> dict[str, Any] | None:

@@ -9,6 +9,14 @@ reader), auto-resolves n_dsus and the data config from the training-config
 snapshot next to the checkpoint when not given explicitly, and calls
 ``ssi_tpu_torch.generate.run_generation``. It runs on the CUDA card; with no
 card visible it refuses unless ``+device=cpu`` is given.
+
+Tensor-parallel generation runs one process a rank under torchrun::
+
+    torchrun --nproc_per_node N -m ssi_tpu_torch.cli.generate model=... tensor_parallel=N
+
+The process group comes up from torchrun's environment (NCCL on the card,
+gloo with ``+device=cpu``), as in the training CLIs, and is torn down on
+exit; rank 0 writes the generations.
 """
 
 import logging
@@ -19,6 +27,7 @@ from ssi_tpu_torch._build import write_launch_counts
 from ssi_tpu_torch.config import compose, load_yaml
 from ssi_tpu_torch.constants import SUPPORTED_DATASETS, TRAIN_CONFIG_FILENAME
 from ssi_tpu_torch.generate import run_generation
+from ssi_tpu_torch.parallel import joined_from_launcher
 from ssi_tpu_torch.utils import resolve_device
 
 LOGGER = logging.getLogger(__name__)
@@ -34,7 +43,12 @@ def main(argv: list[str]) -> None:
         stream=sys.stdout,
     )
     cfg = compose(str(CONF_DIR), "generate", overrides=argv)
-    resolve_device(cfg)  # refuse before any work when the card is missing
+    device = resolve_device(cfg)  # refuse before any work when the card is missing
+    with joined_from_launcher(device):
+        _run(cfg, argv)
+
+
+def _run(cfg, argv: list[str]) -> None:
     from ssi_tpu_torch.train.metric_logging import configure_hydra_logging
 
     configure_hydra_logging(cfg)

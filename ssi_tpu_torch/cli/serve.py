@@ -10,10 +10,19 @@ GET /v1/models, GET /metrics (``ssi_tpu_torch/serve.py``). Composes
 ``conf/serve.yaml`` (read in place, by the port's own config reader) and
 resolves speech.n_dsus from the training-config snapshot next to the
 checkpoint when not given explicitly. It serves from the CUDA card; with no
-card visible it refuses unless ``+device=cpu`` is given. ``tensor_parallel >
-1`` is refused, naming its ROADMAP item (A9's remainder).
+card visible it refuses unless ``+device=cpu`` is given.
 The server runs until SIGINT; then, when ``SSI_TPU_TORCH_LAUNCH_COUNTS``
 names a file, it appends the process's kernel launch counts to it.
+
+Tensor-parallel serving runs one process a rank under torchrun::
+
+    torchrun --nproc_per_node N -m ssi_tpu_torch.cli.serve model=... tensor_parallel=N
+
+The process group comes up from torchrun's environment (NCCL on the card,
+gloo with ``+device=cpu``). Rank 0 binds the HTTP port and schedules; the
+other ranks follow its dispatches and ignore SIGINT: stop the server with
+SIGINT to rank 0 (each rank logs its pid), which releases the followers
+before it exits.
 """
 
 import logging
@@ -23,6 +32,7 @@ import sys
 from ssi_tpu_torch._build import write_launch_counts
 from ssi_tpu_torch.config import compose, load_yaml
 from ssi_tpu_torch.constants import TRAIN_CONFIG_FILENAME
+from ssi_tpu_torch.parallel import joined_from_launcher
 from ssi_tpu_torch.serve import run_server
 from ssi_tpu_torch.utils import resolve_device
 
@@ -38,7 +48,7 @@ def main(argv: list[str]) -> None:
         stream=sys.stdout,
     )
     cfg = compose(str(CONF_DIR), "serve", overrides=argv)
-    resolve_device(cfg)  # refuse before any work when the card is missing
+    device = resolve_device(cfg)  # refuse before any work when the card is missing
 
     if cfg.speech.n_dsus is None:
         train_cfg = None
@@ -57,7 +67,8 @@ def main(argv: list[str]) -> None:
         else:
             raise ValueError("cfg.speech.n_dsus must be specified via CLI or the training config snapshot.")
 
-    run_server(cfg)
+    with joined_from_launcher(device):
+        run_server(cfg)
 
 
 if __name__ == "__main__":

@@ -19,9 +19,11 @@ output does not depend on it; sampled output cannot match ``jax.random``).
 ``quantize_weights: int8`` passes to the engine, as in the JAX package, and
 ``sampling_params.n > 1`` writes one record per prompt with n entries in
 ``outputs``. The paged engine runs at its default pipeline depth, 2, as
-the JAX one does. Not ported yet: ``tensor_parallel > 1`` with the paged
-engine raises ``NotImplementedError`` naming ROADMAP item A9's remainder; with the
-dense engine it raises the JAX package's ``ValueError``.
+the JAX one does. ``tensor_parallel: N > 1`` serves the paged engine over a
+tp mesh of N ranks (``torchrun --nproc_per_node N``; the CLI joins the
+process group): every rank loads only its slices of the checkpoint and
+follows rank 0's dispatches, and rank 0 alone writes the output tree. With
+the dense engine it raises the JAX package's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -44,8 +46,22 @@ last_run_stats: dict[str, float] = {}
 _DTYPES = {"bf16": "bfloat16", "fp32": "float32"}
 
 
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported to ssi_tpu_torch yet (ROADMAP.md queue A, item {item})")
+def _serving_mesh(tp: int):
+    """The mesh of tensor-parallel serving (``tensor_parallel`` config key):
+    dp 1 x tp over a process group of exactly ``tp`` ranks, one device each;
+    None for the one-device default. The JAX ``make_mesh`` checks the device
+    count; here a rank is a process, so the world size must be ``tp``."""
+    if tp <= 1:
+        return None
+    import torch.distributed as dist
+
+    from ssi_tpu_torch.parallel import make_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != tp:
+        raise ValueError(f"tensor_parallel={tp} needs a world of {tp} ranks, one device each (this one has "
+                         f"{world}): launch with torchrun --nproc_per_node {tp}")
+    return make_mesh(dp=1, tp=tp)
 
 
 def resolve_gen_output_dir(cfg: Any) -> str:
@@ -86,21 +102,22 @@ def validate_generate_config(cfg: Any) -> None:
     engine_kind = str(cfg.get("engine", "paged"))
     if engine_kind not in ("paged", "dense"):
         raise ValueError(f"Unknown engine {engine_kind!r}; expected 'paged' or 'dense'")
-    if int(cfg.get("tensor_parallel", 1) or 1) > 1:
-        if engine_kind == "dense":
-            raise ValueError(
-                "tensor_parallel > 1 requires engine=paged (the dense engine runs "
-                "single-device; silently ignoring the mesh would under-use the slice)"
-            )
-        # an option of the JAX entry point the port does not run yet: refuse before any work
-        raise _not_ported("tensor_parallel > 1", "A9's remainder (tensor parallelism)")
+    if int(cfg.get("tensor_parallel", 1) or 1) > 1 and engine_kind == "dense":
+        raise ValueError(
+            "tensor_parallel > 1 requires engine=paged (the dense engine runs "
+            "single-device; silently ignoring the mesh would under-use the slice)"
+        )
     if str(cfg.get("dtype", "bf16")) not in _DTYPES:
         raise ValueError(f"Unknown dtype {cfg.get('dtype')!r}; expected one of {sorted(_DTYPES)}")
 
 
 def run_generation(cfg: Any) -> Path:
-    """Batched generation over an SFT split; writes generations.jsonl + config snapshot."""
-    import numpy as np
+    """Batched generation over an SFT split; writes generations.jsonl + config
+    snapshot. On a follower rank of a tp mesh it loads this rank's slices,
+    builds the same engine and follows rank 0, which writes."""
+    import shutil
+    import tempfile
+
     import torch
 
     from ssi_tpu_torch.checkpoint import Checkpointer
@@ -112,6 +129,9 @@ def run_generation(cfg: Any) -> Path:
 
     validate_generate_config(cfg)
     device = resolve_device(cfg)
+    mesh = _serving_mesh(int(cfg.get("tensor_parallel", 1) or 1))
+    # under a mesh tp rank 0 drives the engine and writes; the others follow it
+    driver = mesh is None or mesh.tp_rank == 0
     if cfg.gen.get("output_dir") is None:
         cfg.gen.output_dir = resolve_gen_output_dir(cfg)
 
@@ -132,30 +152,35 @@ def run_generation(cfg: Any) -> Path:
     gen_output_dir = Path(cfg.gen.output_dir) / gen_dataset_name / cfg.gen.split
     if cfg.gen.use_cfg_hash_subdir:
         gen_output_dir = gen_output_dir / hash_cfg(cfg)
-    gen_output_dir.mkdir(parents=True, exist_ok=False)  # fail early if it already exists
+    if driver:
+        gen_output_dir.mkdir(parents=True, exist_ok=False)  # fail early if it already exists
 
-    # job start: hand logging from the framework-phase (hydra_logging) config
-    # over to the job's own config, file handler in the generation output dir
-    from ssi_tpu_torch.train.metric_logging import configure_job_logging
+        # job start: hand logging from the framework-phase (hydra_logging) config
+        # over to the job's own config, file handler in the generation output dir
+        from ssi_tpu_torch.train.metric_logging import configure_job_logging
 
-    configure_job_logging(cfg, gen_output_dir, job_name="generate")
+        configure_job_logging(cfg, gen_output_dir, job_name="generate")
 
-    cfg_yaml = to_yaml(cfg, resolve=True)
-    with open(gen_output_dir / cfg.gen.output_config_filename, "x") as f:
-        f.write(cfg_yaml)
-    LOGGER.info(cfg_yaml)
+        cfg_yaml = to_yaml(cfg, resolve=True)
+        with open(gen_output_dir / cfg.gen.output_config_filename, "x") as f:
+            f.write(cfg_yaml)
+        LOGGER.info(cfg_yaml)
 
     # Model load: architecture from registry + speech extension arithmetic
     model_cfg = get_model_config(cfg.get("model_config", "llama3_2_1b")).copy()
     model_cfg.update_from_speech_cfg(cfg.speech)
+    # a follower writes nothing under rank 0's output tree (the loader never writes)
+    scratch = gen_output_dir / "_ckpt_scratch" if driver else Path(tempfile.mkdtemp(prefix="ssi_follow_ckpt_"))
     checkpointer = Checkpointer(
         checkpoint_dir=cfg.model,
-        output_dir=gen_output_dir / "_ckpt_scratch",
+        output_dir=scratch,
         model_expectations=model_cfg.checkpoint_expectations,
     )
     dtype = getattr(torch, _DTYPES[str(cfg.get("dtype", "bf16"))])
     t0 = time.perf_counter()
-    params = checkpointer.load_params(model_cfg, dtype=dtype, device=device)
+    params = checkpointer.load_params(model_cfg, dtype=dtype, device=device, mesh=mesh)
+    if not driver:
+        shutil.rmtree(scratch, ignore_errors=True)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     stats = {"load_s": time.perf_counter() - t0, "load_bytes": float(checkpointer.checkpoint_bytes)}
@@ -171,7 +196,8 @@ def run_generation(cfg: Any) -> Path:
 
     # Tokenize the whole split ONCE: SFTDataset.__getitem__ re-runs the message
     # transform + tokenizer on every access, so indexing rows again inside the
-    # generation loop would double host-side tokenization cost.
+    # generation loop would double host-side tokenization cost. A follower
+    # tokenizes it too: the engine's context size is the longest prompt's.
     t0 = time.perf_counter()
     all_prompts = [dataset[i]["tokens"] for i in range(len(dataset))]
     stats["tokenize_s"] = time.perf_counter() - t0
@@ -191,16 +217,41 @@ def run_generation(cfg: Any) -> Path:
             prefix_caching=bool(cfg.get("prefix_caching", True)),
             prefill_chunk=cfg.get("prefill_chunk"),
             admission_order=str(cfg.get("admission_order", "fifo") or "fifo"),
+            mesh=mesh,
         )
+        if not driver:
+            engine.follow()  # rank 0's dispatches, until it closes the engine
+            return gen_output_dir
     else:
         from ssi_tpu_torch.generate.engine import DecodeEngine
 
         engine = DecodeEngine(params, model_cfg, pad_id=tokenizer.pad_id)
+    try:
+        _write_records(cfg, engine, engine_kind, all_prompts, sp, tokenizer, special_int2str, stats,
+                       gen_output_dir)
+    finally:
+        if engine_kind == "paged":
+            engine.close()  # releases a tp mesh's followers
+    # scratch dir is only created by Checkpointer init; remove if empty
+    scratch = gen_output_dir / "_ckpt_scratch"
+    if scratch.exists() and not any(scratch.iterdir()):
+        scratch.rmdir()
+    last_run_stats.clear()
+    last_run_stats.update(stats)
+    LOGGER.info(f"Wrote outputs to {gen_output_dir!s}")
+    return gen_output_dir
 
+
+def _write_records(cfg: Any, engine: Any, engine_kind: str, all_prompts: list, sp: SamplingParams, tokenizer: Any,
+                   special_int2str: dict, stats: dict, gen_output_dir: Path) -> None:
+    """Run the split through the engine and write ``generations.jsonl``."""
+    import numpy as np
+
+    batch_size = int(cfg.get("batch_size", cfg.get("vllm_batch_size", 8)))
     decoding = dict(cfg.tokenizer_decoding.items()) if cfg.get("tokenizer_decoding") is not None else {}
     observability = bool(cfg.get("observability", False))
 
-    n = len(dataset)
+    n = len(all_prompts)
     request_id = 0
     # one engine seed per engine call, drawn from cfg.seed (the JAX run splits a PRNG key)
     seeds = np.random.default_rng(int(cfg.get("seed", 0)))
@@ -266,11 +317,3 @@ def run_generation(cfg: Any) -> Path:
                 f"Batch {start // step}: {real} prompts, {gen_tokens} tokens in {dt:.2f}s "
                 f"({gen_tokens / dt:,.0f} tok/s)"
             )
-    # scratch dir is only created by Checkpointer init; remove if empty
-    scratch = gen_output_dir / "_ckpt_scratch"
-    if scratch.exists() and not any(scratch.iterdir()):
-        scratch.rmdir()
-    last_run_stats.clear()
-    last_run_stats.update(stats)
-    LOGGER.info(f"Wrote outputs to {gen_output_dir!s}")
-    return gen_output_dir

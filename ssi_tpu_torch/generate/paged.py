@@ -12,6 +12,12 @@ the JAX code threads them through the scan carry and relies on donation).
 
 Every index that JAX would clamp or drop out of range is clamped or pointed
 at the trash row explicitly here: torch raises on the CPU and faults on CUDA.
+
+Tensor parallelism (``tp``, a ``parallel.TensorParallel``): each pass runs on
+a rank's slice of the weights and its pools hold the rank's kv heads; the
+head counts come from the widths of the weights and pools, so the kernels
+see the local heads (n_rep unchanged), and ``block``, ``embed_tokens`` and
+``logits`` join the tp group's collectives. ``tp=None`` is the one-device path.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from typing import Any
 import torch
 
 from ssi_tpu_torch.models.configs import ConfigLlama3_2
-from ssi_tpu_torch.models.llama3 import block, layer_params, logits, rms_norm, rope_for_positions
+from ssi_tpu_torch.models.llama3 import block, embed_tokens, layer_params, logits, rms_norm, rope_for_positions
 from ssi_tpu_torch.ops.attention import reference_attention
 
 NEG_INF = -1.0e30
@@ -29,10 +35,11 @@ NEG_INF = -1.0e30
 
 def init_pools(
     cfg: ConfigLlama3_2, n_pages: int, page_size: int, dtype: torch.dtype = torch.bfloat16,
-    device: torch.device | str = "cuda",
+    device: torch.device | str = "cuda", kv_heads: int | None = None,
 ) -> dict[str, torch.Tensor]:
-    """Flat paged K/V pools ``[L*n_pages + 1, ps, Hkv*hd]`` (+1 = trash page)."""
-    shape = (cfg.num_layers * n_pages + 1, page_size, cfg.num_kv_heads * cfg.head_dim)
+    """Flat paged K/V pools ``[L*n_pages + 1, ps, Hkv*hd]`` (+1 = trash page);
+    ``kv_heads`` (default ``cfg.num_kv_heads``) the heads a rank holds."""
+    shape = (cfg.num_layers * n_pages + 1, page_size, (kv_heads or cfg.num_kv_heads) * cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device), "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
@@ -120,7 +127,7 @@ def paged_attention_multi(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.T
     return out.reshape(n_slots, t_q, hq, hd).to(v_pool.dtype)
 
 
-def _layer_scan(params, cfg: ConfigLlama3_2, h, cos, sin, attend) -> torch.Tensor:
+def _layer_scan(params, cfg: ConfigLlama3_2, h, cos, sin, attend, tp=None) -> torch.Tensor:
     """The per-layer scaffold every paged pass shares (the JAX ``lax.scan``
     becomes a loop over the layer index into the stacked weights).
 
@@ -128,7 +135,7 @@ def _layer_scan(params, cfg: ConfigLlama3_2, h, cos, sin, attend) -> torch.Tenso
     the pass requires and returns ``[B, T, Hq, hd]``. Returns ``h`` (not
     final-normed)."""
     for l in range(cfg.num_layers):
-        h = block(h, layer_params(params, l), cos, sin, cfg, lambda q, k, v, l=l: attend(q, k, v, l))
+        h = block(h, layer_params(params, l), cos, sin, cfg, lambda q, k, v, l=l: attend(q, k, v, l), tp=tp)
     return h
 
 
@@ -143,6 +150,7 @@ def decode_step_tokens(
     *,
     n_pages: int,
     attn_impl: str = "reference",
+    tp: Any = None,
 ) -> torch.Tensor:
     """Advance every active slot by ONE token over the flat paged cache.
 
@@ -166,7 +174,7 @@ def decode_step_tokens(
     offsets = torch.remainder(seq_lens, ps)
     # inactive slots attend over nothing (their outputs are discarded upstream)
     attn_lens = torch.where(active, seq_lens + 1, torch.zeros_like(seq_lens))
-    h = params["embed"][tokens.clamp(0, params["embed"].shape[0] - 1).long()][:, None, :]
+    h = embed_tokens(params, tokens, tp)[:, None, :]
 
     if attn_impl == "kernel":
         from ssi_tpu_torch.generate.paged_cuda import paged_attention_fused
@@ -186,8 +194,8 @@ def decode_step_tokens(
             attn = paged_attention(q, kp, vp, phys_table, attn_lens)
         return attn[:, None]
 
-    h = _layer_scan(params, cfg, h, cos, sin, attend)
-    return logits(params, rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps))
+    h = _layer_scan(params, cfg, h, cos, sin, attend, tp)
+    return logits(params, rms_norm(h[:, 0], params["final_norm"], cfg.norm_eps), tp)
 
 
 def decode_step_tokens_spec(
@@ -202,6 +210,7 @@ def decode_step_tokens_spec(
     *,
     n_pages: int,
     attn_impl: str = "reference",
+    tp: Any = None,
 ) -> torch.Tensor:
     """Speculative verify step: advance every active slot by T candidate
     tokens in ONE forward (one weights read for T tokens).
@@ -230,7 +239,7 @@ def decode_step_tokens_spec(
     write_ok = active[:, None] & (positions < cap_lens[:, None])
     # inactive slots attend over their in-flight block only (outputs discarded)
     hist_lens = torch.where(active, seq_lens, torch.zeros_like(seq_lens))
-    h = params["embed"][tokens.clamp(0, params["embed"].shape[0] - 1).long()]
+    h = embed_tokens(params, tokens, tp)
 
     if attn_impl == "kernel":
         from ssi_tpu_torch.generate.paged_cuda import paged_attention_multi_fused as fused
@@ -244,8 +253,8 @@ def decode_step_tokens_spec(
         write_rows = torch.where(write_ok, base + logical_ids, torch.full_like(logical_ids, trash))
         return fused(q, kp, vp, base + page_table, hist_lens, k_new=k, v_new=v, write_rows=write_rows)
 
-    h = _layer_scan(params, cfg, h, cos, sin, attend)
-    return logits(params, rms_norm(h, params["final_norm"], cfg.norm_eps))
+    h = _layer_scan(params, cfg, h, cos, sin, attend, tp)
+    return logits(params, rms_norm(h, params["final_norm"], cfg.norm_eps), tp)
 
 
 def prefill_prompts(
@@ -259,6 +268,7 @@ def prefill_prompts(
     attn_impl: str = "reference",
     hist: torch.Tensor | None = None,
     slot_ids: torch.Tensor | None = None,
+    tp: Any = None,
 ) -> None:
     """Prefill a BATCH of right-padded prompts ``[B, P]`` into their pages
     (K/V write only, in place; no logits).
@@ -281,11 +291,11 @@ def prefill_prompts(
     ps = kp.shape[1]
     if p % ps != 0:
         raise ValueError(f"prompt bucket {p} must be a multiple of page_size {ps}")
-    kvd = cfg.num_kv_heads * cfg.head_dim
+    kvd = kp.shape[2]
     trash = kp.shape[0] - 1
     positions = torch.arange(p, dtype=torch.int32, device=tokens.device)[None, :]
     cos, sin = rope_for_positions(positions, cfg)
-    h = params["embed"][tokens.clamp(0, params["embed"].shape[0] - 1).long()]
+    h = embed_tokens(params, tokens, tp)
 
     if attn_impl == "kernel":
         from ssi_tpu_torch.ops.flash_attention import flash_attention
@@ -307,7 +317,7 @@ def prefill_prompts(
         vp[phys] = v.to(vp.dtype).reshape(b * p // ps, ps, kvd)
         return attn_fn(q, k, v)
 
-    _layer_scan(params, cfg, h, cos, sin, attend)
+    _layer_scan(params, cfg, h, cos, sin, attend, tp)
     if hist is not None:
         hist[slot_ids.long(), :p] = tokens.to(hist.dtype)
 
@@ -325,6 +335,7 @@ def prefill_suffix(
     hist: torch.Tensor | None = None,
     full_tokens: torch.Tensor | None = None,
     slot_ids: torch.Tensor | None = None,
+    tp: Any = None,
 ) -> None:
     """Prefill the UNCACHED TAIL of prompts whose prefix pages came from the
     prefix cache, or one piece of a chunked prefill (K/V write only, in place).
@@ -347,11 +358,11 @@ def prefill_suffix(
     ps = kp.shape[1]
     if s_len % ps != 0:
         raise ValueError(f"suffix bucket {s_len} must be a multiple of page_size {ps}")
-    kvd = cfg.num_kv_heads * cfg.head_dim
+    kvd = kp.shape[2]
     trash = kp.shape[0] - 1
     positions = start[:, None] + torch.arange(s_len, dtype=start.dtype, device=start.device)[None, :]
     cos, sin = rope_for_positions(positions, cfg)
-    h = params["embed"][tokens.clamp(0, params["embed"].shape[0] - 1).long()]
+    h = embed_tokens(params, tokens, tp)
     base_lens = start + 1  # suffix token 0 attends the cached history and itself
 
     def attend(q, k, v, l):
@@ -362,6 +373,6 @@ def prefill_suffix(
         phys_table = torch.where(page_table >= n_pages, torch.full_like(page_table, trash), l * n_pages + page_table)
         return paged_attention_multi(q, kp, vp, phys_table, base_lens)
 
-    _layer_scan(params, cfg, h, cos, sin, attend)
+    _layer_scan(params, cfg, h, cos, sin, attend, tp)
     if hist is not None:
         hist[slot_ids.long(), : full_tokens.shape[1]] = full_tokens.to(hist.dtype)

@@ -44,8 +44,23 @@ request redraws identical tokens, independent of batch composition. It
 cannot equal ``jax.random``'s bits: greedy decoding is the cross-framework
 parity bar; the per-sequence seeds are the JAX engine's.
 
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP item:
-``mesh``.
+Tensor-parallel serving (``mesh``, from ``parallel.make_mesh(dp=1, tp=N)``
+over a process group of N ranks, one device each: vLLM's
+``tensor_parallel_size``): every rank builds the engine with its slice of the
+weights (``parallel.serving_specs``: ``wq``/``wk``/``wv``/``w_gate``/``w_up``
+split on their outputs, ``wo``/``w_down`` on their inputs, each followed by an
+all-reduce over the tp group; ``embed`` and ``lm_head`` by vocabulary rows,
+with a masked lookup and an all-gather of the logits) and pools at its own kv
+heads, so the kernels run on a rank's heads. Rank 0 (the *driver*) alone runs
+the host scheduler: admission, pages, the prefix cache, preemption, cancels
+and harvest. Each device dispatch it makes (``_device``) goes first to the
+other ranks (the *followers*, in ``follow()``) as one message on a gloo side
+group (the op and its host arrays), and every rank then runs the same device
+program; the logits are all-gathered before sampling, so every rank samples
+the same tokens from the same bytes and no token crosses between ranks.
+``close()`` sends the followers their last message. With a mesh of one rank
+the collectives run and copy nothing, so its tokens are the mesh-less
+engine's, bit for bit.
 """
 
 from __future__ import annotations
@@ -59,6 +74,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ssi_tpu_torch.models.configs import ConfigLlama3_2
 from ssi_tpu_torch.generate.engine import _NEG_INF, SamplingParams
@@ -85,12 +101,6 @@ SAMPLING_FEATURES = frozenset({"sample", "topk", "topp", "pen"})
 #  repetition(f32), rng_seed] — f32 columns travel bitcast to int32
 _N_CTRL_COLS = 13
 _M32 = 0xFFFFFFFF
-
-
-def _not_ported(option: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} is not ported to ssi_tpu_torch yet (ROADMAP.md queue A, item {item})"
-    )
 
 
 def _tree_bytes(tree: Any) -> int:
@@ -302,8 +312,11 @@ class PagedDecodeEngine:
             per-channel int8 for the layer stack, quantized on the weights'
             device; not bitwise vs bf16). Any other value raises
             ``ValueError``.
-        mesh: an option of the JAX engine not ported yet; any value but
-            None raises ``NotImplementedError``.
+        mesh: a ``parallel.Mesh`` with ``dp == 1`` for tensor-parallel
+            serving (see the module docstring); ``params`` may be whole (each
+            rank cuts its slice) or already this rank's slices (the
+            checkpoint loader's ``mesh=``). Does not compose with
+            ``quantize`` (the JAX engine's ``ValueError``).
     """
 
     # Admissions prefill in groups: G prompts cost one weights read instead of G.
@@ -330,8 +343,14 @@ class PagedDecodeEngine:
         quantize: str | None = None,
         mesh: Any = None,
     ):
+        if mesh is not None and quantize is not None:
+            raise ValueError(
+                "mesh (tensor-parallel decode) does not compose with quantize: "
+                "the int8 tree carries per-channel scales with no sharding rules yet"
+            )
+        self.mesh, self._tp, self._ctrl = mesh, None, None
         if mesh is not None:
-            raise _not_ported("mesh (tensor-parallel serving)", "A9's remainder (tensor parallelism)")
+            params, self._tp = self._shard(params, cfg, mesh)
         if quantize == "int8":
             # weight-only int8 for the layer stack; greedy outputs are NOT
             # bitwise vs bf16 (see generate/quant.py)
@@ -376,9 +395,12 @@ class PagedDecodeEngine:
         self.chunk = chunk
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.n_pages = n_pages if n_pages is not None else n_slots * self.max_pages_per_seq
-        self.pools = init_pools(cfg, self.n_pages, page_size, dtype=params["embed"].dtype, device=self.device)
+        self.pools = init_pools(cfg, self.n_pages, page_size, dtype=params["embed"].dtype, device=self.device,
+                                kv_heads=params["layers"]["wk"].shape[-1] // cfg.head_dim
+                                if mesh is not None else None)
         # roofline accounting: the bytes one read of the weights costs (int8
-        # layers count their int8 data and scales: whatever the tree holds)
+        # layers count their int8 data and scales: whatever the tree holds;
+        # under a mesh, this rank's slices)
         self._weight_bytes = _tree_bytes(params)
         self._free_pages: list[int] = list(range(self.n_pages))
         # reference counts: a gang's siblings and the prefix cache share pages;
@@ -394,6 +416,76 @@ class PagedDecodeEngine:
         self._st: _Stream | None = None
         # per-stream scheduler counters, refreshed by every stream
         self.last_stats: dict[str, Any] = {}
+        # tp rank 0 drives; the others run what it sends them (follow())
+        self.is_driver = mesh is None or mesh.tp_rank == 0
+        if mesh is not None and mesh.tp > 1:
+            self._ctrl, self._root = mesh.groups.tp_ctrl, mesh.groups.tp_root
+        self._closed = False
+
+    @staticmethod
+    def _shard(params: Any, cfg: ConfigLlama3_2, mesh: Any) -> tuple[Any, Any]:
+        """This rank's slices of ``params`` under ``parallel.serving_specs``
+        (a whole leaf is cut, a leaf already of the slice's shape kept) and
+        the model's view of the layout."""
+        from ssi_tpu_torch.models.llama3 import param_shapes
+        from ssi_tpu_torch.parallel import TensorParallel, map_trees, serving_specs, tp_local_shape, tp_shard
+
+        if mesh.dp != 1:
+            raise ValueError(f"the paged engine serves one tp group: mesh.dp must be 1 (got dp={mesh.dp})")
+        if mesh.tp > 1 and mesh.groups is None:
+            raise ValueError(f"a mesh with tp={mesh.tp} needs its process group: make it with make_mesh on every "
+                             "rank of an initialized group of dp * tp ranks")
+        shapes = param_shapes(cfg)
+        specs = serving_specs(shapes, mesh, cfg.num_kv_heads)
+
+        def cut(leaf, spec, shape):
+            if tuple(leaf.shape) == shape:
+                piece = tp_shard(leaf, spec, mesh)
+                # a copy, so that the caller's whole leaf can be dropped
+                return leaf if piece is leaf else piece.clone(memory_format=torch.contiguous_format)
+            if tuple(leaf.shape) == tp_local_shape(shape, spec, mesh):
+                return leaf
+            raise ValueError(f"a leaf of shape {tuple(leaf.shape)} is neither the whole {shape} nor tp rank "
+                             f"{mesh.tp_rank}'s slice {tp_local_shape(shape, spec, mesh)}")
+
+        return map_trees(cut, params, specs, shapes), TensorParallel(mesh, specs)
+
+    # --- the driver and its followers ------------------------------------------------
+
+    def _device(self, op: str, *args: Any) -> Any:
+        """Run the device program ``_dev_<op>`` on ``args`` (host arrays and
+        scalars), sending it to the followers first; returns this rank's result."""
+        if self._ctrl is not None:
+            if self._closed:
+                raise RuntimeError("the engine is closed: its followers have stopped")
+            dist.broadcast_object_list([(op, args)], src=self._root, group=self._ctrl)
+        return getattr(self, f"_dev_{op}")(*args)
+
+    def follow(self) -> None:
+        """A follower's loop (tp rank > 0): run each device program the
+        driver sends, until its ``close()``. A program that raises is logged
+        and the loop goes on: the driver's step raises the same error, ends
+        its stream and sends that next."""
+        if self.is_driver:
+            raise RuntimeError("follow() runs on a follower (tp rank > 0); the driver calls the engine's API")
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=self._root, group=self._ctrl)
+            op, args = box[0]
+            if op == "close":
+                self._closed = True
+                return
+            try:
+                getattr(self, f"_dev_{op}")(*args)
+            except Exception:
+                LOGGER.exception(f"follower: device program {op!r} failed")
+
+    def close(self) -> None:
+        """Release the followers (their ``follow()`` returns). Idempotent;
+        nothing to send where there are none."""
+        if self._ctrl is not None and self.is_driver and not self._closed:
+            dist.broadcast_object_list([("close", ())], src=self._root, group=self._ctrl)
+        self._closed = True
 
     # --- host-side page scheduling -----------------------------------------------
 
@@ -550,24 +642,9 @@ class PagedDecodeEngine:
                 raise ValueError("speculate_k > 0 requires sampling_params.n == 1")
             if feats:
                 raise ValueError("speculate_k > 0 streams are greedy-only; no sampling features")
-        dev = self.device
         n, v = self.n_slots, self.cfg.vocab_size
-        st = _Stream(
-            sp=sp,
-            seed=int(seed),
-            use_pen="pen" in feats,
-            stop_set=set(sp.stop_token_ids),
-            stop_ids=torch.tensor(sp.stop_token_ids, dtype=torch.int32, device=dev),
-            features=feats,
-        )
-        # Device-resident slot state. Admission seeds a slot at seq_len = p - 1
-        # with tok = prompt[-1]: the first decode step recomputes the last
-        # prompt position's K/V in place and samples the first output.
-        st.seq_lens = torch.zeros(n, dtype=torch.int32, device=dev)
-        st.tok = torch.full((n,), self.pad_id, dtype=torch.int32, device=dev)
-        st.done = torch.zeros(n, dtype=torch.bool, device=dev)
-        st.budget = torch.zeros(n, dtype=torch.int32, device=dev)
-        st.out_counts = torch.zeros((n, v), dtype=torch.float32, device=dev) if st.use_pen else None
+        st = _Stream(sp=sp, seed=int(seed), use_pen="pen" in feats, stop_set=set(sp.stop_token_ids), stop_ids=None,
+                     features=feats)
         st.active = np.zeros(n, bool)
         st.admit = np.zeros(n, np.int32)
         st.admit_seq = np.zeros(n, np.int32)
@@ -582,9 +659,6 @@ class PagedDecodeEngine:
         st.slot_freq = np.zeros(n, np.float32)
         st.slot_rep = np.ones(n, np.float32)
         st.slot_seed = np.zeros(n, np.int32)
-        if self.speculate_k > 0:
-            # row n_slots = trash (pad prefill rows), column max_context = trash (masked emits)
-            st.hist = torch.zeros((n + 1, self.max_context + 1), dtype=torch.int32, device=dev)
         # the JAX engine's keys, in its order (the server's /metrics returns them)
         st.stats = self.last_stats = {
             "chunk_dispatches": 0,
@@ -602,12 +676,39 @@ class PagedDecodeEngine:
             "prefill_block_s": 0.0,    # host time to enqueue prefill passes
             "harvest_block_s": 0.0,    # blocked in the chunk results' device-to-host read
             "verify_steps": 0,         # spec mode: advancing verify forwards, summed over slots
-            "kv_bytes": 0.0,           # roofline: KV page bytes decode chunks read
-            "weight_bytes": 0.0,       # roofline: weight bytes streamed (decode + prefill)
+            "kv_bytes": 0.0,           # roofline: KV page bytes decode chunks read (this rank's)
+            "weight_bytes": 0.0,       # roofline: weight bytes streamed (decode + prefill; this rank's)
             "wall_s": 0.0,
         }
         st.t_start = time.perf_counter()
         self._st = st
+        try:
+            self._device("begin", st.seed, feats, tuple(sp.stop_token_ids))
+        except BaseException:
+            self._st = None
+            raise
+
+    def _dev_begin(self, seed: int, feats: frozenset, stop_ids: tuple) -> None:
+        """The stream's device-resident slot state (a follower's stream holds
+        only this and what its device programs read)."""
+        st = self._st
+        if st is None:
+            st = self._st = _Stream(sp=None, seed=seed, use_pen="pen" in feats, stop_set=set(stop_ids),
+                                    stop_ids=None, features=feats)
+        dev = self.device
+        n, v = self.n_slots, self.cfg.vocab_size
+        st.stop_ids = torch.tensor(stop_ids, dtype=torch.int32, device=dev)
+        # Admission seeds a slot at seq_len = p - 1 with tok = prompt[-1]: the
+        # first decode step recomputes the last prompt position's K/V in place
+        # and samples the first output.
+        st.seq_lens = torch.zeros(n, dtype=torch.int32, device=dev)
+        st.tok = torch.full((n,), self.pad_id, dtype=torch.int32, device=dev)
+        st.done = torch.zeros(n, dtype=torch.bool, device=dev)
+        st.budget = torch.zeros(n, dtype=torch.int32, device=dev)
+        st.out_counts = torch.zeros((n, v), dtype=torch.float32, device=dev) if st.use_pen else None
+        if self.speculate_k > 0:
+            # row n_slots = trash (pad prefill rows), column max_context = trash (masked emits)
+            st.hist = torch.zeros((n + 1, self.max_context + 1), dtype=torch.int32, device=dev)
 
     def add_request(
         self,
@@ -752,6 +853,12 @@ class PagedDecodeEngine:
             if slot.req is not None:
                 self._free_slot(slot)
         st.pending.clear()  # in-flight chunks run on against their own state; their results are dropped
+        try:
+            self._device("end")
+        finally:
+            self._st = None
+
+    def _dev_end(self) -> None:
         self._st = None
 
     def _require_stream(self) -> _Stream:
@@ -885,8 +992,11 @@ class PagedDecodeEngine:
     def _dispatch_copies(self, copies: list[tuple[int, int]]) -> None:
         """Copy every boundary page admitted this round, across all layers,
         in one pass queued after the leaders' prefills."""
-        src, dst = (self._upload(np.asarray(col, np.int32)) for col in zip(*copies))
-        copy_pages(self.pools, src, dst, n_pages=self.n_pages)
+        src, dst = (np.asarray(col, np.int32) for col in zip(*copies))
+        self._device("copy", src, dst)
+
+    def _dev_copy(self, src: np.ndarray, dst: np.ndarray) -> None:
+        copy_pages(self.pools, self._upload(src), self._upload(dst), n_pages=self.n_pages)
 
     def _prefill_admitted(self, admitted: list[tuple[int, int]]) -> None:
         """Batched prefills: one pass per (group bucket, group size); pad rows
@@ -926,11 +1036,7 @@ class PagedDecodeEngine:
                 page_ids[r, :own_n] = self._page_table[slot_id, :own_n]
                 slot_ids[r] = slot_id
             t0 = time.perf_counter()
-            prefill_prompts(
-                self.params, self._upload(tokens), self.cfg, self.pools,
-                self._upload(page_ids), n_pages=self.n_pages, attn_impl=self.attn_impl,
-                hist=st.hist if spec else None, slot_ids=self._upload(slot_ids) if spec else None,
-            )
+            self._device("prefill", tokens, page_ids, slot_ids if spec else None)
             st.stats["prefill_block_s"] += time.perf_counter() - t0
             st.stats["prefill_dispatches"] += 1
             st.stats["prefill_rows"] += len(batch)
@@ -951,6 +1057,13 @@ class PagedDecodeEngine:
         if hist_only and spec:
             self._fill_hist(hist_only)
 
+    def _dev_prefill(self, tokens: np.ndarray, page_ids: np.ndarray, slot_ids: np.ndarray | None) -> None:
+        prefill_prompts(
+            self.params, self._upload(tokens), self.cfg, self.pools, self._upload(page_ids), n_pages=self.n_pages,
+            attn_impl=self.attn_impl, hist=self._st.hist if slot_ids is not None else None,
+            slot_ids=self._upload(slot_ids) if slot_ids is not None else None, tp=self._tp,
+        )
+
     def _full_prompts(self, slot_ids: list[int]) -> tuple[np.ndarray, np.ndarray]:
         """The slots' whole prompts right-padded to the group's prompt bucket,
         and their history rows: what speculation records for each admission."""
@@ -966,14 +1079,15 @@ class PagedDecodeEngine:
         (further) prefill. Grouped as prefill groups them, so the pad written
         past each prompt is the JAX engine's: drafts may read past a slot's
         length, and equal drafts keep the verify steps equal to JAX's."""
-        st = self._st
         todo = slot_ids
         while todo:
             g = next(s for s in self.PREFILL_GROUPS if s <= len(todo))
             batch, todo = todo[:g], todo[g:]
             tokens, rows = self._full_prompts(batch)
-            st.hist[self._upload(rows).long(), : tokens.shape[1]] = (
-                self._upload(tokens))
+            self._device("hist", rows, tokens)
+
+    def _dev_hist(self, rows: np.ndarray, tokens: np.ndarray) -> None:
+        self._st.hist[self._upload(rows).long(), : tokens.shape[1]] = self._upload(tokens)
 
     def _suffix_span(self, row: tuple[int, int, int]) -> int:
         """Padded token span of a suffix or piece row ``(slot_id, start, end)``."""
@@ -1004,22 +1118,25 @@ class PagedDecodeEngine:
             cn = c // self.page_size
             upto = min(n_new, n_owned - cn)
             new_ids[r, :upto] = self._page_table[slot_id, cn : cn + upto]
-        dev = self.device
         t0 = time.perf_counter()
-        hist_kw = {}
+        full_tokens = slot_ids = None
         if self.speculate_k > 0 and with_hist:
             full_tokens, slot_ids = self._full_prompts([sid for sid, _, _ in batch])
-            hist_kw = dict(hist=st.hist, full_tokens=self._upload(full_tokens),
-                           slot_ids=self._upload(slot_ids))
-        prefill_suffix(
-            self.params, self._upload(tokens), self._upload(start), self.cfg, self.pools,
-            self._upload(table), self._upload(new_ids), n_pages=self.n_pages, **hist_kw,
-        )
+        self._device("suffix", tokens, start, table, new_ids, full_tokens, slot_ids)
         st.stats["prefill_block_s"] += time.perf_counter() - t0
         st.stats["prefill_dispatches"] += 1
         st.stats["prefill_rows"] += g
         st.stats["prefill_token_area"] += g * s_bucket
         st.stats["weight_bytes"] += self._weight_bytes
+
+    def _dev_suffix(self, tokens, start, table, new_ids, full_tokens, slot_ids) -> None:
+        hist_kw = {}
+        if full_tokens is not None:
+            hist_kw = dict(hist=self._st.hist, full_tokens=self._upload(full_tokens), slot_ids=self._upload(slot_ids))
+        prefill_suffix(
+            self.params, self._upload(tokens), self._upload(start), self.cfg, self.pools,
+            self._upload(table), self._upload(new_ids), n_pages=self.n_pages, tp=self._tp, **hist_kw,
+        )
 
     def _advance_prefills(self) -> None:
         """Dispatch ONE piece per chunk-prefilling slot (batched by piece
@@ -1121,10 +1238,12 @@ class PagedDecodeEngine:
         )
         return np.concatenate([cols, self._page_table], axis=1)
 
-    def _run_chunk(self, st: _Stream, control_np: np.ndarray, any_samp: bool) -> torch.Tensor:
+    def _dev_chunk(self, control_np: np.ndarray, any_samp: bool, prompt_counts: np.ndarray | None) -> torch.Tensor:
         """``chunk`` decode steps for every slot on the device; returns the
         packed device tensor ``[slots, 2*chunk + 3]`` int32: [emitted tokens |
-        per-token logprobs (f32 bits) | done | seq_len | clp (f32 bits)]."""
+        per-token logprobs (f32 bits) | done | seq_len | clp (f32 bits)].
+        ``prompt_counts``: the host's per-slot prompt token counts (penalties)."""
+        st = self._st
         cfg, feats = self.cfg, st.features
         control = self._upload(control_np)
 
@@ -1142,10 +1261,10 @@ class PagedDecodeEngine:
         pres, freq, rep = f32(9), f32(10), f32(11)
         seed_col = control[:, 12]
         page_table = control[:, _N_CTRL_COLS:]
-        out_counts = prompt_counts = None
+        out_counts = None
         if st.use_pen:
             out_counts = torch.where(admit[:, None], torch.zeros_like(st.out_counts), st.out_counts)
-            prompt_counts = self._upload(st.prompt_counts)
+            prompt_counts = self._upload(prompt_counts)
         rows = torch.arange(self.n_slots, device=self.device)
         clp = torch.zeros(self.n_slots, dtype=torch.float32, device=self.device)
         emitted, lps = [], []
@@ -1153,7 +1272,7 @@ class PagedDecodeEngine:
             advance = active & ~done
             logits = decode_step_tokens(
                 self.params, tok, cfg, self.pools, page_table, seq_lens, advance,
-                n_pages=self.n_pages, attn_impl=self.attn_impl,
+                n_pages=self.n_pages, attn_impl=self.attn_impl, tp=self._tp,
             )
             if st.use_pen:
                 # the consumed token is an OUTPUT only once the cache has grown
@@ -1190,7 +1309,7 @@ class PagedDecodeEngine:
         )
         return packed
 
-    def _run_chunk_spec(self, st: _Stream, control_np: np.ndarray) -> torch.Tensor:
+    def _dev_chunk_spec(self, control_np: np.ndarray) -> torch.Tensor:
         """``chunk`` speculative steps for every slot on the device: each
         drafts k tokens per slot from its history (most recent bigram match),
         verifies all k+1 in one forward, and emits the longest argmax-matching
@@ -1198,7 +1317,7 @@ class PagedDecodeEngine:
         packed device tensor ``[slots, chunk*(k+1) + 4]`` int32: [emitted tokens,
         compacted at each slot's cursor | done | seq_len | clp (f32 bits) |
         verify steps]."""
-        dev, pad = self.device, self.pad_id
+        st, dev, pad = self._st, self.device, self.pad_id
         control = self._upload(control_np)
         active = control[:, 0] != 0
         admit = control[:, 1] != 0
@@ -1242,7 +1361,7 @@ class PagedDecodeEngine:
             # ---- verify all T candidates in one forward
             logits = decode_step_tokens_spec(
                 self.params, draft, self.cfg, self.pools, page_table, seq_lens, advance, cap,
-                n_pages=self.n_pages, attn_impl=self.attn_impl,
+                n_pages=self.n_pages, attn_impl=self.attn_impl, tp=self._tp,
             )
             out = torch.argmax(logits, dim=-1).to(torch.int32)  # [slots, T]
             lp = torch.gather(logits, 2, out[..., None].long())[..., 0] - torch.logsumexp(logits, dim=-1)
@@ -1453,10 +1572,10 @@ class PagedDecodeEngine:
             return
         t0 = time.perf_counter()
         if self.speculate_k > 0:
-            packed = self._run_chunk_spec(st, self._control(st))
+            packed = self._device("chunk_spec", self._control(st))
         else:
             any_samp = bool(np.any(st.slot_temp[runnable] > 0.0))
-            packed = self._run_chunk(st, self._control(st), any_samp)
+            packed = self._device("chunk", self._control(st), any_samp, st.prompt_counts if st.use_pen else None)
         st.admit[:] = 0  # consumed by this dispatch
         host, ready = self._to_host(packed)
         st.stats["dispatch_block_s"] += time.perf_counter() - t0
@@ -1469,7 +1588,7 @@ class PagedDecodeEngine:
             # which the chunks in flight have already grown
             hl = np.array([self._slots[i].seq_len + self.chunk * chunks_ahead.get(i, 0) for i in runnable], np.int64)
             pages = -(-(hl[:, None] + np.arange(self.chunk, dtype=np.int64)[None, :]) // self.page_size)
-            kvd = self.cfg.num_kv_heads * self.cfg.head_dim
+            kvd = self.pools["k"].shape[2]  # this rank's kv heads
             st.stats["kv_bytes"] += (float(pages.sum()) * self.page_size * kvd
                                      * self.pools["k"].element_size() * 2 * self.cfg.num_layers)
             st.stats["weight_bytes"] += self.chunk * self._weight_bytes

@@ -217,21 +217,42 @@ def _product(name: str, x: torch.Tensor, w: Any) -> torch.Tensor:
     return _mm(x, w)
 
 
-def block(h, layer, cos, sin, cfg: ConfigLlama3_2, attend, prod: Callable = _product) -> torch.Tensor:
+def block(h, layer, cos, sin, cfg: ConfigLlama3_2, attend, prod: Callable = _product, tp: Any = None) -> torch.Tensor:
     """One decoder layer over ``h [B, T, D]``; ``attend(q, k, v)`` returns
     ``[B, T, Hq, hd]`` (and may write K/V elsewhere as a side effect);
-    ``prod(name, x, w)`` forms each product ``x @ layer[name]``."""
+    ``prod(name, x, w)`` forms each product ``x @ layer[name]``. The head
+    counts come from the weights' widths, so a tensor-parallel rank's slice
+    runs its own heads; ``tp`` (``parallel.TensorParallel``) then sums the
+    ranks' ``wo`` and ``w_down`` products over the tp group."""
     b, t, _ = h.shape
     hd = cfg.head_dim
     x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
-    q = apply_rope(prod("wq", x, layer["wq"]).view(b, t, cfg.num_heads, hd), cos, sin)
-    k = apply_rope(prod("wk", x, layer["wk"]).view(b, t, cfg.num_kv_heads, hd), cos, sin)
-    v = prod("wv", x, layer["wv"]).view(b, t, cfg.num_kv_heads, hd)
+    q = apply_rope(prod("wq", x, layer["wq"]).view(b, t, -1, hd), cos, sin)
+    k = apply_rope(prod("wk", x, layer["wk"]).view(b, t, -1, hd), cos, sin)
+    v = prod("wv", x, layer["wv"]).view(b, t, -1, hd)
     attn = attend(q, k, v)
-    h = h + prod("wo", attn.reshape(b, t, cfg.num_heads * hd).to(h.dtype), layer["wo"])
+    o = prod("wo", attn.reshape(b, t, -1).to(h.dtype), layer["wo"])
+    h = h + (tp.reduce(o) if tp is not None and tp.attn else o)
     x = rms_norm(h, layer["mlp_norm"], cfg.norm_eps)
-    return h + prod("w_down", F.silu(prod("w_gate", x, layer["w_gate"])) * prod("w_up", x, layer["w_up"]),
-                    layer["w_down"])
+    d = prod("w_down", F.silu(prod("w_gate", x, layer["w_gate"])) * prod("w_up", x, layer["w_up"]), layer["w_down"])
+    return h + (tp.reduce(d) if tp is not None and tp.mlp else d)
+
+
+def embed_tokens(params: Params, tokens: torch.Tensor, tp: Any = None) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (no autograd: the serving passes),
+    ids clamped into the vocabulary as the JAX gather clamps them. Under a
+    vocabulary-sharded ``tp`` each rank holds a slice of the rows: it looks
+    up the ids that fall in its slice, zeros the others, and the ranks' rows
+    are summed over the tp group (one rank contributes each row, so the sum
+    is that row's bits)."""
+    table = params["embed"]
+    rows = table.shape[0]
+    if tp is None or not tp.embed:
+        return table[tokens.clamp(0, rows - 1).long()]
+    local = tokens.clamp(0, rows * tp.mesh.tp - 1).long() - tp.mesh.tp_rank * rows
+    inside = (local >= 0) & (local < rows)
+    h = table[local.clamp(0, rows - 1)]
+    return tp.reduce(torch.where(inside[..., None], h, torch.zeros_like(h)))
 
 
 def layer_params(params: Params, l: int) -> Params:
@@ -309,8 +330,10 @@ def unembed(params: Params) -> torch.Tensor:
     return params.get("lm_head", params["embed"])
 
 
-def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """Output projection with f32 logits (f32 accumulation for bf16 weights)."""
+def logits(params: Params, hidden: torch.Tensor, tp: Any = None) -> torch.Tensor:
+    """Output projection with f32 logits (f32 accumulation for bf16
+    weights). Under a ``tp`` whose output projection is a vocabulary slice
+    the ranks' logits are all-gathered, so every rank holds the whole row."""
     w = unembed(params)
     h2 = hidden.reshape(-1, hidden.shape[-1])
     if w.dtype == torch.float32:
@@ -321,7 +344,9 @@ def logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
         out = torch.mm(h2.to(w.dtype), w.t(), out_dtype=torch.float32)
     else:
         out = h2.to(torch.float32) @ w.to(torch.float32).t()
-    return out.view(*hidden.shape[:-1], w.shape[0])
+    if tp is not None and tp.head:
+        out = tp.gather(out)
+    return out.view(*hidden.shape[:-1], out.shape[-1])
 
 
 # ----------------------------------------------------------------------------------
@@ -401,8 +426,8 @@ def init_params(
     CPU; a 1B tree initializes on the card in well under a second). Not
     bitwise equal to the JAX ``init_params``: tests carry JAX parameters
     across with :func:`params_from_numpy` instead."""
-    d, f, hd = cfg.embed_dim, cfg.intermediate_dim, cfg.head_dim
-    hq, hkv, nl, v = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers, cfg.vocab_size
+    d, f = cfg.embed_dim, cfg.intermediate_dim
+    shapes = param_shapes(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
 
@@ -413,24 +438,32 @@ def init_params(
     def ones(shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
+    # drawn leaf by leaf in param_shapes' order (the norms draw nothing)
     params: Params = {
-        "embed": norm_init((v, d), d),
-        "layers": {
-            "attn_norm": ones((nl, d)),
-            "wq": norm_init((nl, d, hq * hd), d),
-            "wk": norm_init((nl, d, hkv * hd), d),
-            "wv": norm_init((nl, d, hkv * hd), d),
-            "wo": norm_init((nl, hq * hd, d), d),
-            "mlp_norm": ones((nl, d)),
-            "w_gate": norm_init((nl, d, f), d),
-            "w_up": norm_init((nl, d, f), d),
-            "w_down": norm_init((nl, f, d), f),
-        },
-        "final_norm": ones((d,)),
+        "embed": norm_init(shapes["embed"], d),
+        "layers": {name: ones(shape) if name.endswith("_norm") else norm_init(shape, f if name == "w_down" else d)
+                   for name, shape in shapes["layers"].items()},
+        "final_norm": ones(shapes["final_norm"]),
+    }
+    if "lm_head" in shapes:
+        params["lm_head"] = norm_init(shapes["lm_head"], d)
+    return params
+
+
+def param_shapes(cfg: ConfigLlama3_2) -> Params:
+    """The shape of every leaf :func:`init_params` makes for ``cfg``."""
+    d, f, hd = cfg.embed_dim, cfg.intermediate_dim, cfg.head_dim
+    hq, hkv, nl, v = cfg.num_heads, cfg.num_kv_heads, cfg.num_layers, cfg.vocab_size
+    shapes: Params = {
+        "embed": (v, d),
+        "layers": {"attn_norm": (nl, d), "wq": (nl, d, hq * hd), "wk": (nl, d, hkv * hd), "wv": (nl, d, hkv * hd),
+                   "wo": (nl, hq * hd, d), "mlp_norm": (nl, d), "w_gate": (nl, d, f), "w_up": (nl, d, f),
+                   "w_down": (nl, f, d)},
+        "final_norm": (d,),
     }
     if not cfg.tied_embeddings:
-        params["lm_head"] = norm_init((v, d), d)
-    return params
+        shapes["lm_head"] = (v, d)
+    return shapes
 
 
 def params_from_numpy(tree: Any, device: torch.device | str = "cuda", dtype: torch.dtype | None = None) -> Any:

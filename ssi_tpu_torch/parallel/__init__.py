@@ -20,14 +20,21 @@ its layout:
   L when L % dp == 0, and the embedding along D.
 - Rank ``r`` holds the ``r``-th of dp equal slices of a sharded dimension.
 
-Tensor parallelism (``tp > 1``) is not ported (ROADMAP.md queue A, A9's
-remainder), nor ``dcn_slices`` (TPU slice topology: NCCL's own rings and trees
-do the hierarchical reduction the JAX code gets from slice-major order).
+Tensor parallelism serves (``generate/paged_engine.py`` with a ``mesh``):
+rank ``r`` of a ``(dp, tp)`` mesh holds tp index ``r % tp`` (the JAX
+``device_grid.reshape(dp, tp)``), ``tp_shard`` cuts its slice of a leaf by
+the same specs, and ``tp_all_reduce`` / ``tp_all_gather`` are the inference
+collectives over its tp group (no autograd: tp training is not ported,
+ROADMAP.md queue A, A9's training half). Nor is ``dcn_slices`` (TPU slice
+topology: NCCL's own rings and trees do the hierarchical reduction the JAX
+code gets from slice-major order).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from datetime import timedelta
 import logging
 import os
 from typing import Any
@@ -41,8 +48,16 @@ __all__ = [
     "Mesh",
     "StateLayout",
     "initialize_distributed",
+    "joined_from_launcher",
     "make_mesh",
+    "MeshGroups",
     "param_specs",
+    "serving_specs",
+    "tp_shard",
+    "tp_local_shape",
+    "tp_all_reduce",
+    "tp_all_gather",
+    "TensorParallel",
     "param_shardings",
     "opt_state_shardings",
     "shard_dim",
@@ -119,28 +134,97 @@ def initialize_distributed(parallel_cfg: Any = None, device: torch.device | str 
     return dist.get_world_size() > 1
 
 
+@contextmanager
+def joined_from_launcher(device: torch.device | str):
+    """The process group of a launcher's environment (torchrun's) around an
+    entry point's body: joined by ``initialize_distributed`` (nothing without
+    one) and destroyed when the body ends, unless it was joined before."""
+    own = not dist.is_initialized()
+    initialize_distributed(None, device)
+    try:
+        yield
+    finally:
+        if own and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+@dataclass(frozen=True)
+class MeshGroups:
+    """This rank's process groups on a mesh: its tp block (the tp index runs
+    fastest), its dp column, and a gloo side group over the tp block for the
+    serving engine's host messages (None where the block is one rank)."""
+
+    tp: Any
+    dp: Any
+    tp_ctrl: Any = None
+    tp_root: int = 0  # the global rank of tp index 0 in this rank's block
+
+
 @dataclass(frozen=True)
 class Mesh:
-    """The ("dp", "tp") mesh over the ranks, and this process's rank in it."""
+    """The ("dp", "tp") mesh over the ranks, and this process's rank in it.
+    ``groups`` is None without a process group (every collective an identity)."""
 
     dp: int
     tp: int
     rank: int = 0
+    groups: MeshGroups | None = field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> dict[str, int]:
         return {"dp": self.dp, "tp": self.tp}
 
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
 
-def make_mesh(dp: int | None = None, tp: int = 1, world_size: int = 1, rank: int = 0) -> Mesh:
+    @property
+    def tp_group(self) -> Any:
+        return self.groups.tp if self.groups is not None else None
+
+
+# host messages wait on the side group while a server idles between requests
+_CTRL_TIMEOUT = timedelta(days=30)
+
+
+def _mesh_groups(dp: int, tp: int, rank: int) -> MeshGroups | None:
+    """The groups of a mesh over a joined world: the world group at world
+    size 1; with tp > 1 one group per tp block and dp column (every rank
+    joins every ``new_group`` call, in one order) plus the gloo side group
+    of each tp block; a pure dp mesh reduces over the world group (the
+    training step's collectives name no group)."""
+    if not dist.is_initialized():
+        return None
+    world = dist.group.WORLD
+    if dist.get_world_size() == 1:
+        return MeshGroups(tp=world, dp=world)
+    if tp == 1:
+        return None
+    mine = {}
+    for d in range(dp):
+        ranks = list(range(d * tp, (d + 1) * tp))
+        g = dist.new_group(ranks)
+        ctrl = dist.new_group(ranks, backend="gloo", timeout=_CTRL_TIMEOUT)
+        if rank in ranks:
+            mine.update(tp=g, tp_ctrl=ctrl, tp_root=ranks[0])
+    for t in range(tp):
+        ranks = list(range(t, dp * tp, tp))
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine["dp"] = g
+    return MeshGroups(**mine)
+
+
+def make_mesh(dp: int | None = None, tp: int = 1, world_size: int | None = None, rank: int | None = None) -> Mesh:
     """A ("dp", "tp") mesh over ``world_size`` ranks (one device each), with
-    the JAX ``make_mesh``'s checks; ``dp=None`` means ``world_size / tp``."""
-    n = world_size
-    if tp > 1:
-        raise NotImplementedError(
-            f"parallel.tp={tp} is not ported to ssi_tpu_torch yet (ROADMAP.md queue A, item A9's remainder: "
-            "tensor parallelism)"
-        )
+    the JAX ``make_mesh``'s checks; ``dp=None`` means ``world_size / tp``.
+    ``world_size`` and ``rank`` default to the process group's (1 and 0
+    without one). Over a joined world of ``dp * tp`` ranks the mesh carries
+    its process groups (``_mesh_groups``), which every rank creates together."""
+    joined = dist.is_initialized()
+    n = world_size if world_size is not None else (dist.get_world_size() if joined else 1)
+    if rank is None:
+        rank = dist.get_rank() if joined else 0
     if dp is None:
         if n % tp != 0:
             raise ValueError(f"Device count {n} not divisible by tp={tp}")
@@ -150,7 +234,8 @@ def make_mesh(dp: int | None = None, tp: int = 1, world_size: int = 1, rank: int
         raise ValueError(f"Requested dp*tp = {dp * tp} exceeds available devices ({n})")
     if dp * tp < n:
         LOGGER.warning(f"Mesh dp={dp} x tp={tp} uses {dp * tp} of {n} available devices; the rest stay idle.")
-    return Mesh(dp=dp, tp=tp, rank=rank)
+    groups = _mesh_groups(dp, tp, rank) if joined and dist.get_world_size() == dp * tp else None
+    return Mesh(dp=dp, tp=tp, rank=rank, groups=groups)
 
 
 # --- layout rules (the JAX package's, line for line) ----------------------------------------------
@@ -246,6 +331,85 @@ def opt_state_shardings(mesh: Mesh, params: Any, *, zero1: bool = False) -> dict
     p_specs = param_shardings(mesh, params)
     moment = map_trees(lambda s, leaf: _zero1_spec(s, _shape(leaf), mesh), p_specs, params) if zero1 else p_specs
     return {"mu": moment, "nu": moment, "count": ()}
+
+
+def serving_specs(params: Any, mesh: Mesh, num_kv_heads: int) -> Any:
+    """The spec tree of tensor-parallel serving: the training tp layout
+    (``param_shardings``, so a dimension tp does not divide is replicated:
+    the extended vocabulary 133,258 at tp 4 keeps ``embed`` whole, as the
+    JAX ``_divisible_spec`` does), with one difference of layout. The JAX
+    engine shards the kv feature axis whenever tp divides it, even through
+    a head; here a rank holds whole kv heads, so where tp does not divide
+    ``num_kv_heads`` attention stays whole on every rank (``wq``/``wk``/``wv``/
+    ``wo`` and the pools replicated, no all-reduce after ``wo``). The result
+    is the same; only the layout differs."""
+    specs = param_shardings(mesh, params)
+    if num_kv_heads % mesh.tp:
+        for name in ("wq", "wk", "wv", "wo"):
+            specs["layers"][name] = ()
+    return specs
+
+
+def tp_local_shape(shape: tuple[int, ...], spec: Spec, mesh: Mesh) -> tuple[int, ...]:
+    """The shape of one rank's slice of a leaf of ``shape`` under ``spec``."""
+    spec = _divisible_spec(spec, shape, mesh)
+    return tuple(d // mesh.tp if axis == "tp" else d for d, axis in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+def tp_shard(leaf: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's slice of ``leaf`` along every dimension ``spec`` puts
+    "tp" on (a view; ``_divisible_spec`` first, so a dimension tp does not
+    divide stays whole): the ``r % tp``-th of tp equal slices. At tp 1 the
+    leaf itself."""
+    if mesh.tp == 1:
+        return leaf
+    spec = _divisible_spec(spec, tuple(leaf.shape), mesh)
+    for dim, axis in enumerate(spec):
+        if axis == "tp":
+            n = leaf.shape[dim] // mesh.tp
+            leaf = leaf.narrow(dim, mesh.tp_rank * n, n)
+    return leaf
+
+
+def tp_all_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of ``x`` over the tp group, in place (an identity without a
+    process group; at one rank the collective still runs, and copies nothing)."""
+    if mesh.tp_group is not None:
+        dist.all_reduce(x, group=mesh.tp_group)
+    return x
+
+
+def tp_all_gather(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """The tp ranks' ``x`` concatenated along ``dim`` in tp order (every rank
+    gets the same bytes: a gather only copies)."""
+    if mesh.tp_group is None:
+        return x
+    dim = dim % x.dim()
+    out = torch.empty((mesh.tp * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.tp_group)
+    return out.view(mesh.tp, *x.shape).movedim(0, dim).flatten(dim, dim + 1)
+
+
+class TensorParallel:
+    """What the model's serving passes need of a tensor-parallel layout
+    (``serving_specs``): which sub-layers end in an all-reduce (``attn``
+    after ``wo``, ``mlp`` after ``w_down``), whether the embedding rows are a
+    vocabulary slice (``embed``: a masked lookup and an all-reduce) and
+    whether the output projection is (``head``: the logits all-gathered)."""
+
+    def __init__(self, mesh: Mesh, specs: Any):
+        self.mesh = mesh
+        layers = specs["layers"]
+        self.attn = "tp" in tuple(layers["wo"])
+        self.mlp = "tp" in tuple(layers["w_down"])
+        self.embed = "tp" in tuple(specs["embed"])
+        self.head = "tp" in tuple(specs.get("lm_head", specs["embed"]))
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return tp_all_reduce(x, self.mesh)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return tp_all_gather(x, -1, self.mesh)
 
 
 def shard_dim(spec: Spec) -> int | None:

@@ -38,7 +38,9 @@ every final record are the same). ``n > 1`` returns n choices (not with
 ``stream`` or ``stop``: 400s, as in JAX); a client that goes away cancels
 every sequence of its request. Grad mode and the current CUDA device are
 per thread in PyTorch: the scheduler thread runs the engine under
-``no_grad`` on the engine's card.
+``no_grad`` on the engine's card. Under ``tensor_parallel`` the server runs
+on rank 0, the engine's driver; cancels and stop cuts are host-side there,
+so the other ranks, which only run its device dispatches, stay in step.
 """
 
 from __future__ import annotations
@@ -693,20 +695,28 @@ def serve_forever(server: Server, host: str = "127.0.0.1", port: int = 8000) -> 
 def run_server(cfg: Any) -> None:
     """CLI body: load the checkpoint and tokenizer (the resolution of
     ``ssi_tpu/serve.py`` ``run_server``) onto the configured device (the card
-    unless ``+device=cpu``) and serve until interrupted."""
+    unless ``+device=cpu``) and serve until interrupted.
+
+    With ``tensor_parallel: N > 1`` (a process group of N ranks, joined by
+    the CLI) every rank loads only its slices; rank 0 runs the ``Server`` and
+    the HTTP port, the other ranks follow its dispatches (ignoring SIGINT)
+    until rank 0 stops and closes the engine. Each rank logs its pid."""
+    import os
     import shutil
+    import signal
     import tempfile
 
     from ssi_tpu_torch.checkpoint import Checkpointer
-    from ssi_tpu_torch.generate import _not_ported
+    from ssi_tpu_torch.generate import _serving_mesh
     from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
     from ssi_tpu_torch.models.configs import get_model_config
     from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
     from ssi_tpu_torch.utils import resolve_device
 
     device = resolve_device(cfg)  # refuse before any work when the card is missing
-    if int(cfg.get("tensor_parallel", 1) or 1) > 1:
-        raise _not_ported("tensor_parallel > 1", "A9's remainder (tensor parallelism)")
+    mesh = _serving_mesh(int(cfg.get("tensor_parallel", 1) or 1))
+    if mesh is not None:
+        LOGGER.info(f"tensor-parallel rank {mesh.tp_rank} of {mesh.tp} (pid {os.getpid()})")
 
     tokenizer, _special = setup_llama3_tokenizer(**{k: v for k, v in cfg.tokenizer.items()})
     stop_token_ids = cfg.sampling_params.get("stop_token_ids")
@@ -723,7 +733,7 @@ def run_server(cfg: Any) -> None:
             model_expectations=model_cfg.checkpoint_expectations,
         )
         dtype = torch.bfloat16 if cfg.get("dtype", "bf16") == "bf16" else torch.float32
-        params = checkpointer.load_params(model_cfg, dtype=dtype, device=device)
+        params = checkpointer.load_params(model_cfg, dtype=dtype, device=device, mesh=mesh)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -737,8 +747,23 @@ def run_server(cfg: Any) -> None:
         prefix_caching=bool(cfg.get("prefix_caching", True)),
         prefill_chunk=cfg.get("prefill_chunk"),
         admission_order=str(cfg.get("admission_order", "fifo") or "fifo"),
+        mesh=mesh,
     )
+    if not engine.is_driver:
+        # stopped by rank 0's message, never mid-collective by an interrupt
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        engine.follow()
+        LOGGER.info("rank 0 closed the engine; follower done")
+        return
     feat_cfg = cfg.server.get("sampling_features", "sample,topk,topp")
     features = frozenset(f.strip() for f in str(feat_cfg or "").split(",") if f.strip())
     server = Server(engine, sp, tokenizer=tokenizer, model_id=str(cfg.model), features=features)
-    serve_forever(server, host=str(cfg.server.host), port=int(cfg.server.port))
+    try:
+        serve_forever(server, host=str(cfg.server.host), port=int(cfg.server.port))
+    finally:
+        if server._thread is not None and server._thread.is_alive():
+            # the scheduler thread still dispatches: a message from this
+            # thread could interleave with its own on the side group
+            LOGGER.error("the scheduler thread did not stop; the followers are not released")
+        else:
+            engine.close()

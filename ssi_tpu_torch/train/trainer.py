@@ -19,7 +19,7 @@ loop around ``train/step.py`` on one CUDA card (or the CPU, when asked).
   ``sharded_optimizer_state`` has every rank write its own moment slices
   (``checkpoint/sharded_io.py``). ``parallel.tp`` above 1 raises
   ``NotImplementedError`` (ROADMAP.md queue A, A9's remainder: tensor
-  parallelism). The attention is chosen by device (the flash kernels on
+  parallelism, its training half; tensor-parallel serving runs). The attention is chosen by device (the flash kernels on
   CUDA), so ``attn_impl`` other than ``auto`` raises.
 - The ``device`` key (default ``cuda``) places the run; with no card visible
   the default raises, and ``+device=cpu`` runs on the CPU (the tests).
@@ -90,13 +90,14 @@ CONF_DIR = Path(__file__).resolve().parents[2] / "conf"
 
 
 def refuse_unported(cfg: Any) -> None:
-    """Raise on tensor parallelism (A9's remainder) and on an explicit
-    attention implementation, before any work."""
+    """Raise on tensor-parallel training (A9's remainder, its training half:
+    the port serves tensor-parallel but trains data-parallel only) and on an
+    explicit attention implementation, before any work."""
     pcfg = cfg.get("parallel")
     if pcfg is not None and int(pcfg.get("tp", 1)) > 1:
         raise NotImplementedError(
             f"parallel.tp={pcfg.get('tp')} is not ported to ssi_tpu_torch yet: the port trains data-parallel only "
-            "(ROADMAP.md queue A, item A9's remainder: tensor parallelism)"
+            "(ROADMAP.md queue A, item A9's remainder: tensor parallelism, its training half)"
         )
     attn_impl = cfg.get("attn_impl", "auto")
     if attn_impl != "auto":

@@ -539,6 +539,122 @@ def test_two_rank_sft_cli_under_torchrun_loads_no_card_library(tmp_path):
     assert (out / "step_2" / "model.safetensors.index.json").is_file()
 
 
+def test_tensor_parallel_generate_under_torchrun_loads_no_card_library(tmp_path):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 2``
+    of the generation CLI with ``tensor_parallel=2 +device=cpu`` (two gloo
+    ranks), every library of ``_NOT_ON_THE_CARD`` blocked in the launcher and
+    both ranks: rank 0 writes the ``generations.jsonl`` of the one-process
+    run, line for line, and neither rank loaded one of them."""
+    import json
+
+    from tests import helpers
+
+    model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "step_0")
+    split = tmp_path / "test.jsonl"
+    split.write_text("".join(json.dumps(r) + "\n" for r in helpers.synthetic_sft_rows(3)))
+    block = tmp_path / "block"
+    block.mkdir()
+    (block / "sitecustomize.py").write_text(_BLOCKER.format(names=repr(set(_NOT_ON_THE_CARD))))
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env.update(PYTHONPATH=f"{block}{os.pathsep}{REPO}", OMP_NUM_THREADS="1")
+    script = tmp_path / "run_cli.py"
+    script.write_text(_CLI_RUN.replace("NAMES", repr(_NOT_ON_THE_CARD)))
+    runs = {"one": [sys.executable, str(script)],
+            "tp2": [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2", str(script)]}
+    lines = {}
+    for name, cmd in runs.items():
+        extra = ["tensor_parallel=2"] if name == "tp2" else []
+        proc = subprocess.run([*cmd, *_cli_overrides(model_dir, split, tmp_path / name), *extra, "+device=cpu"],
+                              cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+        assert proc.stdout.count("CLI_OK") == (2 if name == "tp2" else 1)
+        lines[name] = (tmp_path / name / "json" / "test" / "generations.jsonl").read_text().splitlines()
+    assert len(lines["one"]) == 3
+    for a, b in zip(lines["tp2"], lines["one"]):
+        ra, rb = json.loads(a), json.loads(b)
+        for oa, ob in zip(ra["outputs"], rb["outputs"]):
+            # two ranks' partial sums add in another order: log-probabilities to 1e-5
+            assert oa.pop("cumulative_logprob") == pytest.approx(ob.pop("cumulative_logprob"), rel=1e-5, abs=1e-6)
+            assert oa.pop("logprobs") == pytest.approx(ob.pop("logprobs"), rel=1e-5, abs=1e-6)
+        assert ra == rb
+
+
+def test_tensor_parallel_serving_under_torchrun_loads_no_card_library(tmp_path):
+    """The serving CLI under ``torchrun --standalone --nproc_per_node 2``
+    with ``tensor_parallel=2 +device=cpu``, every library of
+    ``_NOT_ON_THE_CARD`` blocked: rank 0 binds the port and answers
+    ``/health`` and a greedy completion equal to the one-process server's
+    (the naive oracle's tokens); a streamed request cut by its client mid-
+    stream (a cancel on rank 0) leaves the ranks in step for the next
+    completion; SIGINT to rank 0 stops it, it releases rank 1, and both
+    ranks and torchrun exit 0 without loading a blocked library."""
+    import json
+    import re
+    import signal
+    import time
+    import urllib.request
+
+    import jax
+    import jax.numpy as jnp
+
+    from ssi_tpu.models.llama3 import init_params
+    from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
+    from tests import helpers
+
+    model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "step_0")
+    block = tmp_path / "block"
+    block.mkdir()
+    (block / "sitecustomize.py").write_text(_BLOCKER.format(names=repr(set(_NOT_ON_THE_CARD))))
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env.update(PYTHONPATH=f"{block}{os.pathsep}{REPO}", OMP_NUM_THREADS="1")
+    script = tmp_path / "run_serve.py"
+    script.write_text(_SERVE_RUN.replace("NAMES", repr(_NOT_ON_THE_CARD)))
+    port = _free_port()
+    log = tmp_path / "serve.log"
+    with open(log, "w") as sink:
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                                 "2", str(script), *_serve_args(model_dir, port), "tensor_parallel=2", "+device=cpu"],
+                                cwd=tmp_path, env=env, stdout=sink, stderr=subprocess.STDOUT, text=True)
+    url = f"http://127.0.0.1:{port}"
+
+    def complete(prompt, max_tokens, **extra):
+        req = urllib.request.Request(url + "/v1/completions", headers={"Content-Type": "application/json"},
+                                     data=json.dumps({"prompt": prompt, "max_tokens": max_tokens, **extra}).encode())
+        return urllib.request.urlopen(req, timeout=120)
+
+    try:
+        for _ in range(600):
+            assert proc.poll() is None, log.read_text()[-3000:]
+            try:
+                with urllib.request.urlopen(url + "/health", timeout=5) as r:
+                    assert json.loads(r.read()) == {"status": "ok"}
+                break
+            except OSError:
+                time.sleep(0.1)
+        prompt = [5, 17, 42, 99, 3, 250, 7]
+        with complete(prompt, 6) as r:
+            body = json.loads(r.read())
+        with complete([9, 8, 7, 6, 5], 40, stream=True) as r:  # the client reads one chunk and goes away
+            r.readline()
+        with complete(prompt, 6) as r:
+            again = json.loads(r.read())
+        pids = dict(re.findall(r"tensor-parallel rank (\d) of 2 \(pid (\d+)\)", log.read_text()))
+        os.kill(int(pids["0"]), signal.SIGINT)
+        proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = log.read_text()
+    assert proc.returncode == 0, out[-3000:]
+    assert out.count("SERVE_OK") == 2 and set(pids) == {"0", "1"} and f"serving on http://127.0.0.1:{port}" in out
+    cfg = helpers.tiny_config()
+    want = helpers.naive_greedy(init_params(cfg, jax.random.key(0), dtype=jnp.float32), cfg, prompt, 6)
+    stops = set(setup_llama3_tokenizer(model_dir / "original" / "tokenizer.model", verbose=False)[0].stop_tokens)
+    k = next((i for i, t in enumerate(want) if t in stops), None)
+    assert body["choices"][0]["token_ids"] == again["choices"][0]["token_ids"] == (want if k is None else want[: k + 1])
+
+
 _COMPRESSED_RUNS = {
     "train_dsu_bpe": """
 import runpy, sys

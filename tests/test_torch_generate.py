@@ -214,18 +214,50 @@ def test_n_3_generations_equal_jax_line_for_line(assets, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "extra, item",
+    "extra, match",
     [
-        (["tensor_parallel=2"], "A9"),
+        (["tensor_parallel=2"], r"^tensor_parallel=2 needs a world of 2 ranks, one device each \(this one has 1\): "
+                                r"launch with torchrun --nproc_per_node 2$"),
     ],
+    ids=["extra0-A9"],
 )
-def test_options_not_ported_raise_naming_their_item(assets, tmp_path, extra, item):
+def test_options_not_ported_raise_naming_their_item(assets, tmp_path, extra, match):
+    """``tensor_parallel=2`` runs (A9's serving half: the case below), but
+    only in a world of 2 ranks: in one process it raises, naming the
+    launcher, before any output (the JAX ``make_mesh`` device-count check in
+    the port's terms)."""
     from ssi_tpu_torch.generate import run_generation
 
     _, model_dir, split, _ = assets
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(ValueError, match=match):
         run_generation(port_cfg(model_dir, split, tmp_path, *extra))
     assert not any(tmp_path.iterdir())  # refused before any output
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tensor_parallel_generations_equal_jax_line_for_line(assets, tmp_path, tp):
+    """``python -m torch.distributed.run --standalone --nproc_per_node N -m
+    ssi_tpu_torch.cli.generate ... tensor_parallel=N +device=cpu`` (gloo
+    ranks; at tp 4 the vocabulary 530 stays whole and so does attention over
+    2 kv heads) writes the ``generations.jsonl`` of the JAX package's
+    ``tensor_parallel=N`` run on the virtual CPU devices, line for line, and
+    only rank 0 writes."""
+    import os
+    import subprocess
+    import sys
+
+    _, model_dir, split, _ = assets
+    jax_dir = jax_generate(assets, tmp_path / "jax", f"tensor_parallel={tp}")
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(tp),
+                           "-m", "ssi_tpu_torch.cli.generate",
+                           *overrides(model_dir, split, tmp_path / "port", f"tensor_parallel={tp}")],
+                          cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    port_dir = tmp_path / "port" / "json" / "test"
+    assert_generations_equal(jax_dir, port_dir)
+    assert sorted(p.name for p in port_dir.iterdir()) == sorted(p.name for p in jax_dir.iterdir())
 
 
 def test_cli_refuses_without_cuda_unless_device_cpu(assets, tmp_path):

@@ -1,8 +1,8 @@
 """The port's PagedDecodeEngine on the CPU (plain attention) against the JAX
 paged engine and the naive full-recompute greedy oracle, plus the scheduler
 contract of tests/test_paged_decode.py: refill, stop tokens and budgets,
-preemption, pool and context errors, sampling, cancel, the refusals of n, and
-the option not ported yet. The prefix cache is on (the default) throughout."""
+preemption, pool and context errors, sampling, cancel, the refusals of n and
+of int8 with a mesh, and a mesh of one rank. The prefix cache is on (the default) throughout."""
 
 import numpy as np
 import pytest
@@ -262,15 +262,56 @@ def test_cancel_request_mid_run(setup):
 
 @pytest.mark.parametrize(
     "kw, error, match",
-    [(dict(quantize="fp8"), ValueError, "quantize"), (dict(mesh=object()), NotImplementedError, "ROADMAP.*A9")],
+    [(dict(quantize="fp8"), ValueError, "quantize"),
+     (dict(mesh="tp1", quantize="int8"), ValueError,
+      r"^mesh \(tensor-parallel decode\) does not compose with quantize: the int8 tree carries per-channel scales "
+      r"with no sharding rules yet$")],
     ids=["quantize", "mesh"],
 )
 def test_unported_engine_options_raise(setup, kw, error, match):
-    """``mesh`` is not ported (it names its ROADMAP item); ``quantize`` is, and
-    refuses a mode other than int8 as the JAX engine does."""
-    cfg, _, tparams = setup
+    """``quantize`` refuses a mode other than int8, and a ``mesh`` refuses
+    ``quantize`` (int8 too), with the JAX engine's texts (both ported; the
+    mesh serves: ``test_a_mesh_of_one_rank_serves_the_mesh_less_tokens`` and
+    ``tests/test_torch_tp_serving.py``)."""
+    from ssi_tpu_torch.parallel import make_mesh
+
+    cfg, jparams, tparams = setup
+    if kw.get("mesh") == "tp1":
+        from ssi_tpu.parallel import make_mesh as jax_make_mesh
+
+        with pytest.raises(error, match=match):
+            JPagedDecodeEngine(jparams, cfg, pad_id=0, mesh=jax_make_mesh(dp=1, tp=1, devices=jax.devices()[:1]),
+                               quantize="int8")
+        kw = {**kw, "mesh": make_mesh(dp=1, tp=1)}
     with pytest.raises(error, match=match):
         make_engine(tparams, cfg, **kw)
+
+
+@pytest.mark.parametrize("k", [0, 3])
+def test_a_mesh_of_one_rank_serves_the_mesh_less_tokens(setup, k):
+    """``mesh=make_mesh(dp=1, tp=1)`` (no process group: every collective an
+    identity): the whole weights stay whole, the engine drives itself, and
+    its tokens, logprobs and counters are the mesh-less engine's, bit for bit;
+    ``mesh.dp > 1`` is refused."""
+    from ssi_tpu_torch.parallel import make_mesh
+
+    cfg, jparams, tparams = setup
+    rng = np.random.default_rng(61)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in [5, 11, 17, 3, 9]]
+    sp = SamplingParams(temperature=0.0, max_tokens=6)
+    plain = make_engine(tparams, cfg, speculate_k=k)
+    meshed = make_engine(tparams, cfg, speculate_k=k, mesh=make_mesh(dp=1, tp=1))
+    assert meshed.is_driver and meshed.params["embed"] is tparams["embed"]
+    assert meshed.pools["k"].shape == plain.pools["k"].shape
+    want, got = plain.generate_batch(prompts, sp), meshed.generate_batch(prompts, sp)
+    assert got == want
+    assert {k: v for k, v in meshed.last_stats.items() if not k.endswith("_s")} == \
+        {k: v for k, v in plain.last_stats.items() if not k.endswith("_s")}
+    for prompt, out in zip(prompts, got):
+        assert out["token_ids"] == helpers.naive_greedy(jparams, cfg, prompt, 6)
+    meshed.close()
+    with pytest.raises(ValueError, match="mesh.dp must be 1"):
+        make_engine(tparams, cfg, mesh=make_mesh(dp=2, world_size=2))
 
 
 def test_unported_n_gt_1_raises(setup):

@@ -96,8 +96,15 @@ def test_make_mesh_checks_equal_the_jax_ones():
     with pytest.raises(ValueError) as p:
         ppar.make_mesh(dp=2, world_size=1)
     assert str(p.value) == str(j.value) == "Requested dp*tp = 2 exceeds available devices (1)"
-    with pytest.raises(NotImplementedError, match="A9's remainder"):
-        ppar.make_mesh(tp=2, world_size=2)
+    # tp > 1 (serving): rank r holds tp index r % tp, as the JAX device grid reshape(dp, tp)
+    mesh = ppar.make_mesh(tp=2, world_size=4, rank=3)
+    assert mesh == ppar.Mesh(dp=2, tp=2, rank=3) and mesh.tp_rank == 1 and mesh.groups is None
+    assert jpar.make_mesh(tp=2, devices=jax.devices()[:4]).devices.shape == (2, 2)
+    with pytest.raises(ValueError) as j:
+        jpar.make_mesh(tp=3, devices=jax.devices()[:4])
+    with pytest.raises(ValueError) as p:
+        ppar.make_mesh(tp=3, world_size=4)
+    assert str(p.value) == str(j.value) == "Device count 4 not divisible by tp=3"
 
 
 @pytest.fixture

@@ -169,6 +169,25 @@ l. the dense engine, on phase d's ``step_0/`` and split before they are
    every loss finite, step 9, the third loss below the first, and every
    training kernel's launch counter > 0 for each policy's run; step ms,
    peak memory and launches per optimizer step of each;
+p. tensor-parallel training (one card: NCCL refuses two ranks on one, so
+   tp > 1 runs only in the CPU tests): p1. kernels #5-#7 on the vocabulary
+   cut into 2 slices as 2 tp ranks run them, in one process (N 4,096, D
+   2048, bf16; V 133,258 in slices of 66,629 and V 129,206 in slices of
+   64,603): each slice's lse, the ``[2, N]`` merged by ``merge_slices``
+   (the logsumexp's merge pass, launched alone), the picked logit summed,
+   each slice's dlogits pass on its remapped labels, dh summed and dE
+   stacked; lse and loss held to 1e-5 relative, dh and dE to 1e-2 in
+   relative norm, against the plain version and the whole-vocabulary
+   kernels, each beside a control that must miss (a merge without the last
+   slice; labels not remapped); each pass timed on one slice beside the
+   whole vocabulary, and the merge pass beside ``torch.logsumexp``; p2.
+   phase 9's window through ``make_train_step`` with a tp-1 ``StateLayout``
+   over a 1-rank NCCL group (the Megatron ops, the masked lookup, the
+   vocab-parallel cross-entropy and the dp x tp reducers, all identities)
+   beside the mesh-less step from the same state, 2 steps each after a
+   zero-token warm-up: losses, token counts, grad norms and every parameter
+   and moment bitwise equal; step ms of both; every training kernel and the
+   merge pass launched on the tp path;
 e. the training entry points at the full width of ``llama3_2_1b``: a
    synthesized base (the drive's 128,000-entry tokenizer, random bf16
    weights) extended by ``python -m ssi_tpu_torch.cli.extend_llama3_2``'s
@@ -318,7 +337,7 @@ It then prints one JSON line with per-kernel results (errors, times, the
 bound computed from this run's shapes, the library yardstick, launches by
 path, ``wer_drive`` the sum over the drive's stage processes,
 ``serve_http`` the HTTP server process's, ``serve_n`` phase j1's,
-``serve_tp`` phase o's mesh runs,
+``serve_tp`` phase o's mesh runs, ``train_tp`` phase p2's tp path,
 ``train_packed`` phase k's packed SFT run, ``cpt_compressed`` phase
 m's CPT and generation runs and ``train_dp`` the sum over phase n's
 torchrun processes; the
@@ -2426,6 +2445,238 @@ def phase_train(seed: int, smi: str):
     return launches
 
 
+# --- phase p: tensor-parallel training ------------------------------------------------------
+
+
+def phase_vocab_slices(gen, vocabs=(133_258, 129_206), n: int = 4096, d: int = 2048, t: int = 2) -> dict:
+    """Phase p1: kernels #5-#7 on a vocabulary cut into ``t`` slices, as
+    ``t`` tp ranks run them, in one process: each slice's lse, the gathered
+    ``[t, N]`` merged by ``merge_slices`` (the merge pass), the picked
+    logit summed over the slices, each slice's dlogits pass on its remapped
+    labels, dh summed over the slices and dE stacked; held to the plain
+    version and to the whole-vocabulary kernels on the same inputs beside
+    two controls (a merge without the last slice, labels not remapped).
+    Returns the merge kernel's row and each pass's slice times."""
+    import torch
+
+    from ssi_tpu_torch.ops.cross_entropy import (
+        cross_entropy_de,
+        cross_entropy_dh,
+        cross_entropy_lse,
+        cross_entropy_lse_merge,
+        fused_cross_entropy,
+        slice_picked,
+    )
+    from ssi_tpu_torch.ops.cross_entropy_cuda import (
+        cross_entropy_de_gemm_kernel,
+        cross_entropy_dh_gemm_kernel,
+        cross_entropy_dlogits_kernel,
+        cross_entropy_lse_kernel,
+        cross_entropy_lse_merge_kernel,
+        fused_cross_entropy_kernel,
+        merge_slices,
+    )
+
+    g = torch.tensor(1.0, device="cuda")
+    out = {}
+    for vocab in vocabs:
+        rows = vocab // t
+        check(rows * t == vocab, f"phase p1: V {vocab} does not split {t} ways")
+        h = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
+        e = (torch.randn((vocab, d), generator=gen, device="cuda") * d**-0.5).to(torch.bfloat16)
+        y = torch.randint(0, vocab, (n,), generator=gen, device="cuda", dtype=torch.int32)
+        y[::7] = -100
+        valid = y != -100
+        slices = [e[r * rows:(r + 1) * rows] for r in range(t)]
+        parts = torch.stack([cross_entropy_lse_kernel(h, s) for s in slices])
+
+        def slice_path(parts, remap=True):
+            lse, picked, dh, de = None, 0.0, 0.0, []
+            for r, s in enumerate(slices):
+                lse, local = merge_slices(parts, y, r * rows, rows)
+                local = local if remap else y  # the control reads only dh and dE
+                picked = picked + slice_picked(h, s, local) if remap else picked
+                dl = cross_entropy_dlogits_kernel(h, s, local, lse, g)
+                dh = dh + cross_entropy_dh_gemm_kernel(dl, s).float()
+                de.append(cross_entropy_de_gemm_kernel(dl, h))
+                del dl
+            return lse, torch.where(valid, lse - picked, 0.0).sum(), dh, torch.cat(de)
+
+        lse, loss, dh, de = slice_path(parts)
+        check(torch.equal(cross_entropy_lse_merge_kernel(parts), lse), "phase p1: two merge launches differ")
+        # the whole-vocabulary kernels and the plain version on the same inputs
+        lse_w = cross_entropy_lse_kernel(h, e)
+        loss_w = fused_cross_entropy_kernel(h, e, y)
+        dl_w = cross_entropy_dlogits_kernel(h, e, y, lse_w, g)
+        dh_w, de_w = cross_entropy_dh_gemm_kernel(dl_w, e), cross_entropy_de_gemm_kernel(dl_w, h)
+        del dl_w
+        lse_p, loss_p = cross_entropy_lse(h, e), fused_cross_entropy(h, e, y)
+        dh_p, de_p = cross_entropy_dh(h, e, y, g), cross_entropy_de(h, e, y, g)
+        what = f"phase p1 V {vocab} in {t} slices of {rows} (N {n}, D {d}, bf16)"
+        _, loss_c, _, _ = slice_path(parts[:-1])
+        _, _, dh_c, de_c = slice_path(parts, remap=False)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, ref in (("plain", (lse_p, loss_p, dh_p, de_p)), ("whole kernels", (lse_w, loss_w, dh_w, de_w))):
+            rl = rel_err(lse, ref[0])
+            check(rl <= 1e-5, f"{what} lse vs {name}: rel {rl:.3e} > 1e-5")
+            rloss = abs(loss.item() - ref[1].item()) / abs(ref[1].item())
+            check(rloss <= 1e-5, f"{what} loss vs {name}: {loss.item()} vs {ref[1].item()} (rel {rloss:.2e})")
+            rc = abs(loss_c.item() - ref[1].item()) / abs(ref[1].item())
+            check(rc > 1e-5, f"{what}: the control 'merge without the last slice' passes ({rc:.2e})")
+            _, rdh, cdh = hold(f"{what} dh vs {name}", dh, ref[2], "bfloat16", [("labels not remapped", dh_c)])
+            _, rde, cde = hold(f"{what} dE vs {name}", de, ref[3], "bfloat16", [("labels not remapped", de_c)])
+            errs[name] = (rl, rloss, rc, rdh, cdh, rde, cde)
+        max_err = max((lse - lse_p).abs().max().item(), (de.float() - de_p.float()).abs().max().item(),
+                      (dh - dh_p.float()).abs().max().item())
+        log(f"  {what}: " + "; ".join(
+            f"vs {k}: lse rel {v[0]:.2e}, loss rel {v[1]:.2e} (merge without a slice {v[2]:.2e}), dh {v[3]:.2e} "
+            f"(not remapped {v[4]:.2e}), dE {v[5]:.2e} (not remapped {v[6]:.2e})" for k, v in errs.items())
+            + " (limits: lse and loss 1e-5, dh and dE 1e-2)")
+        del lse_p, loss_p, dh_p, de_p, dh_w, de_w, dh_c, de_c, dh, de
+
+        # each pass on slice 0 beside the whole vocabulary, in turns
+        s0, lse0 = slices[0], lse
+        local0 = merge_slices(parts, y, 0, rows)[1]
+        dl0 = cross_entropy_dlogits_kernel(h, s0, local0, lse0, g)
+        dl_w = cross_entropy_dlogits_kernel(h, e, y, lse_w, g)
+        times = {
+            "cross_entropy_lse": in_turns(lambda: cross_entropy_lse_kernel(h, s0), lambda: cross_entropy_lse_kernel(h, e), 5),
+            "cross_entropy_dlogits": in_turns(lambda: cross_entropy_dlogits_kernel(h, s0, local0, lse0, g),
+                                              lambda: cross_entropy_dlogits_kernel(h, e, y, lse_w, g), 3),
+            "cross_entropy_dh": in_turns(lambda: cross_entropy_dh_gemm_kernel(dl0, s0),
+                                         lambda: cross_entropy_dh_gemm_kernel(dl_w, e), 3),
+            "cross_entropy_de": in_turns(lambda: cross_entropy_de_gemm_kernel(dl0, h),
+                                         lambda: cross_entropy_de_gemm_kernel(dl_w, h), 3),
+        }
+        log(f"  {what} times, one slice vs the whole vocabulary: " + ", ".join(
+            f"{k.split('_')[-1]} {a:.3f} / {b:.3f} ms ({a / b:.3f}x)" for k, (a, b) in times.items()))
+        if vocab == vocabs[0]:
+            out["slice_ms"] = {k: {"slice_ms": a, "whole_ms": b} for k, (a, b) in times.items()}
+            # device times of a replayed graph of 64 calls: the wrapper's host time exceeds the merge's
+            merge = [lambda: cross_entropy_lse_merge_kernel(parts)] * 64
+            plain = [lambda: cross_entropy_lse_merge(parts)] * 64
+            t_p, t_k, t_k2, t_p2 = graph_ms(plain), graph_ms(merge), graph_ms(merge), graph_ms(plain)
+            t_k, t_p = min(t_k, t_k2), min(t_p, t_p2)
+            lib = graph_ms([lambda: torch.logsumexp(parts, dim=0)] * 64)
+            merge_err = (cross_entropy_lse_merge_kernel(parts) - cross_entropy_lse_merge(parts)).abs().max().item()
+            bound_ms, bound_by = bound(3 * t * n, (t + 1) * 4 * n)  # max, exp, add per part; parts read, lse written
+            log(f"  merge pass [{t}, {n}] (graph replays): kernel {t_k:.4f} ms, plain {t_p:.4f} ms, torch.logsumexp {lib:.4f} ms, "
+                f"bound {bound_ms:.5f} ms ({bound_by}); max |kernel - plain| {merge_err:.2e}")
+            out["merge_row"] = {"max_abs_err": merge_err, "ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms,
+                                "bound_by": bound_by, "library_ms": lib}
+        del h, e, y, parts, slices, lse, lse_w, loss_w, dl0, dl_w, s0, local0
+        torch.cuda.empty_cache()
+    log(f"phase p1 vocab-parallel #5-#7: ok ({', '.join(str(v) for v in vocabs)} in {t} slices)")
+    return out
+
+
+def phase_tp_train(seed: int, smi: str) -> dict:
+    """Phase p2: phase 9's SFT window through the tensor-parallel training
+    path at tp 1 in a 1-rank NCCL group (``StateLayout.tensor_parallel``:
+    the Megatron ops, the masked embedding lookup, the vocab-parallel
+    cross-entropy with its merge pass, the dp x tp reducers, all identities
+    here) beside the mesh-less step from the same state: 2 optimizer steps
+    each; the losses, grad norms and every parameter and moment bitwise
+    equal. Counts the tp path's collectives (at tp 1 the tp ones issue no
+    call: no all-gather, only the dp column's all-reduces) and times a
+    1-rank NCCL all-reduce of an activation and of the largest gradient
+    beside a copy of each, which is what such a call would cost the card.
+    Returns the tp path's launches."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.models.llama3 import init_params
+    from ssi_tpu_torch.parallel import StateLayout, make_mesh
+    from ssi_tpu_torch.train.lr_schedule import constant_schedule
+    from ssi_tpu_torch.train.optimizer import AdamWConfig, init_opt_state, tree_leaves, tree_map
+    from ssi_tpu_torch.train.step import make_train_step
+
+    cfg = model_config()
+    tokens, labels = sft_window(seed + 3, cfg.vocab_size)
+    opt = AdamWConfig()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(dp=1, tp=1)
+        check(mesh.tp_group is not None and dist.get_backend(mesh.tp_group) == "nccl",
+              "phase p2: the tp-1 mesh carries no NCCL group")
+        params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+        layout = StateLayout.build(mesh, tree_map(lambda x: tuple(x.shape), params), zero1=False, fsdp=False,
+                                   num_kv_heads=cfg.num_kv_heads)
+        check(layout.tensor_parallel() is not None and layout.tensor_parallel().head,
+              "phase p2: the tp-1 layout takes no tensor-parallel path")
+        runs, calls = {}, {}
+
+        def counted(name, fn):
+            def call(*args, **kwargs):
+                calls[name] = calls.get(name, 0) + 1
+                return fn(*args, **kwargs)
+            return call
+
+        for name, lay in (("none", None), ("tp", layout)):
+            state = {"params": tree_map(lambda x: x.clone(), params), "step": 0}
+            state["opt_state"] = init_opt_state(state["params"], opt)
+            step = make_train_step(cfg, opt, constant_schedule(opt.lr), clip_grad_norm=1.0, remat="full",
+                                   grad_accum_dtype=torch.float32, layout=lay)
+            state, m = step(state, tokens, torch.full_like(labels, -100))  # first-use costs; no update
+            torch.cuda.synchronize()
+            check(not bool(m["applied"]) and state["step"] == 0, f"phase p2 {name}: the zero-token window applied")
+            _build.launch_counts.clear()
+            readings, times = [], []
+            originals = {k: getattr(dist, k) for k in ("all_reduce", "all_gather_into_tensor")}
+            for k, fn in originals.items():
+                setattr(dist, k, counted(k, fn))
+            try:
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    state, m = step(state, tokens, labels)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    readings.append((m["loss_sum"].item(), int(m["num_tokens"]), m["grad_norm"].item()))
+            finally:
+                for k, fn in originals.items():
+                    setattr(dist, k, fn)
+            runs[name] = (readings, times, dict(_build.launch_counts), state)
+            del step, m
+        (r0, t0s, _, s0), (r1, t1s, launches, s1) = runs["none"], runs["tp"]
+        check(r0 == r1, f"phase p2: the tp path's (loss sum, tokens, grad norm) {r1} != the mesh-less step's {r0}")
+        for what in ("params", "mu", "nu"):
+            a = tree_leaves(s0["params"] if what == "params" else s0["opt_state"][what])
+            b = tree_leaves(s1["params"] if what == "params" else s1["opt_state"][what])
+            check(all(torch.equal(x, z) for x, z in zip(a, b)), f"phase p2: {what} differ after 2 steps")
+        for name in TRAIN_KERNELS + ("cross_entropy_lse_merge",):
+            check(launches.get(name, 0) > 0, f"kernel {name} was not launched on the tp training path")
+        check(calls.get("all_gather_into_tensor", 0) == 0, f"phase p2: a tp all-gather ran at tp 1: {calls}")
+        # what a 1-rank NCCL all-reduce costs the card: an activation [2, 2048, 2048] bf16, the embedding's f32
+        # gradient, each beside a copy of the same bytes
+        act = torch.randn((2, 2048, 2048), device="cuda").to(torch.bfloat16)
+        big = torch.zeros(tuple(params["embed"].shape), dtype=torch.float32, device="cuda")
+        costs = {}
+        for what, x, iters in (("activation", act, 50), ("embed gradient", big, 5)):
+            t_ar = time_ms(lambda: dist.all_reduce(x, group=mesh.tp_group), iters=iters)
+            t_cp = time_ms(lambda: x.clone(), iters=iters)
+            costs[what] = f"all-reduce {t_ar:.3f} ms, copy {t_cp:.3f} ms ({x.numel() * x.element_size() / 1e9:.3f} GB)"
+        del act, big
+        ms = {k: [t * 1e3 for t in ts] for k, ts in (("none", t0s), ("tp", t1s))}
+        log(f"phase p2 train_tp (1B bf16, phase 9's window 4 x 2 x 2048, remat full, tp 1 in a 1-rank NCCL group): "
+            f"loss sum, tokens and grad norm per step {r1}, every parameter and moment after 2 steps bitwise the "
+            f"mesh-less step's; step ms tp {', '.join(f'{t:.1f}' for t in ms['tp'])}, mesh-less "
+            f"{', '.join(f'{t:.1f}' for t in ms['none'])} (tp / none, second step {ms['tp'][1] / ms['none'][1]:.3f}) "
+            f"on {smi}; launches {launches}; collectives in the tp run's 2 steps {calls}; at one rank, "
+            + "; ".join(f"{k}: {v}" for k, v in costs.items()))
+    finally:
+        dist.destroy_process_group()
+    del runs, params, s0, s1
+    torch.cuda.empty_cache()
+    return launches
+
+
 # --- phase e: the training entry points -----------------------------------------------------
 
 
@@ -4030,8 +4281,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", default="", help="comma-separated phase groups to run alone while developing "
-                        "(1b: phases 2-f, i, j, k, l, n and m; e: phases e, k, n and m alone; hd128: the head_dim-128 "
-                        "kernel phases; g; h); prints no result line")
+                        "(1b: phases 2-f, i, j, k, l, n and m; e: phases e, k, n and m alone; p: phase p alone; hd128: "
+                        "the head_dim-128 kernel phases; g; h); prints no result line")
     args = parser.parse_args()
 
     import torch
@@ -4079,12 +4330,22 @@ def main() -> int:
         phase_train_parity(args.seed)
         train_launches = phase_train(args.seed, smi)
         mark("phases 6-9")
+        p1 = phase_vocab_slices(gen)
+        tp_train_launches = phase_tp_train(args.seed, smi)
+        rows["cross_entropy_lse_merge"] = p1["merge_row"]
+        for name, times in p1["slice_ms"].items():
+            rows[name]["tp2_slice"] = times
+        mark("phase p")
         train_cli_launches, packed_launches, compressed_launches, dp_launches = phase_training_cli(args.seed, smi)
         mark("phases e, k, n, m")
         int8_launches = phase_int8_serving(args.seed, smi, base_tokens, base_rate)
         phase_drive_kernels(gen)
         drive_launches = phase_wer_drive(smi)
         mark("phase f")
+    if "p" in groups and "1b" not in groups:
+        phase_vocab_slices(gen)
+        phase_tp_train(args.seed, smi)
+        mark("phase p")
     if "e" in groups and "1b" not in groups:
         phase_training_cli(args.seed, smi)
         mark("phases e, k, n, m")
@@ -4106,7 +4367,9 @@ def main() -> int:
                "paged_attention_fused": ("paged_attention.cu", PAGED_REPLACES),
                "paged_attention_multi": ("paged_attention.cu", PAGED_MULTI_REPLACES),
                "flash_attention_bwd": ("flash_attention_bwd.cu", FLASH_BWD_REPLACES),
-               **{name: ("cross_entropy.cu", where) for name, where in CE_REPLACES.items()}}
+               **{name: ("cross_entropy.cu", where) for name, where in CE_REPLACES.items()},
+               # the logsumexp's merge pass, launched alone to merge the tp ranks' slices
+               "cross_entropy_lse_merge": ("cross_entropy.cu", CE_REPLACES["cross_entropy_lse"])}
     kernels = []
     for name, (source, replaces) in sources.items():
         by_path = {"serve": serve_launches.get(name, 0), "spec_serve": spec_launches.get(name, 0),
@@ -4115,7 +4378,7 @@ def main() -> int:
                    "wer_drive": drive_launches.get(name, 0), "serve_http": http_launches.get(name, 0),
                    "serve_n": serve_n_launches.get(name, 0), "train_packed": packed_launches.get(name, 0),
                    "cpt_compressed": compressed_launches.get(name, 0), "train_dp": dp_launches.get(name, 0),
-                   "serve_tp": tp_launches.get(name, 0)}
+                   "serve_tp": tp_launches.get(name, 0), "train_tp": tp_train_launches.get(name, 0)}
         if name.startswith("cross_entropy"):  # one instance for every D: 3B's training launches it too
             by_path["train_3b"] = launches_big["train_3b"].get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",

@@ -79,6 +79,8 @@ _SIGNATURES = {
     "ssi_cross_entropy_lse_splits": [_I, _I, _I],
     # dtype, h, e, m_part (scratch), l_part (scratch), lse, N, V, D, n_split, stream
     "ssi_cross_entropy_lse": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # m_part, l_part (null: every sum 1), lse (out), N, n_split, stream
+    "ssi_cross_entropy_lse_merge": [_P, _P, _P, _I, _I, _P],
     # dtype, h, e, lse, labels, g, dlogits (out, row stride ldv), N, V, D, ldv, stream
     "ssi_cross_entropy_dlogits": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, dlogits, e, dh (out), N, V, D, ldv, stream

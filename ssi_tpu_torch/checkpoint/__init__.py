@@ -302,7 +302,7 @@ class Checkpointer:
         The host holds at most one copy besides the mapped files: the stacked
         layers, which move to the device leaf by leaf and are dropped as they go.
         With a tensor-parallel ``mesh`` (serving) each leaf is cut to this
-        rank's slice (``parallel.serving_specs``) on the host before it is cast
+        rank's slice (``parallel.param_shardings``) on the host before it is cast
         and moved, so a rank's device holds only its slices.
         """
         hf_state = self.load_hf_state_dict()
@@ -315,9 +315,9 @@ class Checkpointer:
             )
         specs = None
         if mesh is not None:
-            from ssi_tpu_torch.parallel import serving_specs, tp_shard
+            from ssi_tpu_torch.parallel import param_shardings, tp_shard
 
-            specs = serving_specs(host, mesh, cfg.num_kv_heads)
+            specs = param_shardings(mesh, host, num_kv_heads=cfg.num_kv_heads)
 
         def place(x: torch.Tensor, spec: Any) -> torch.Tensor:
             if spec is not None:

@@ -4,10 +4,16 @@
 The default resume state gathers the whole optimizer state to rank 0 and
 writes it into the msgpack file (the JAX package's bytes: either package
 resumes the other's). With ``sharded_optimizer_state: true`` every rank
-writes its own slices instead: each moment is a DTensor ``Shard(dim)`` on a
-1-D dp ``DeviceMesh`` (``Replicate()`` for a whole leaf, written once), and a
-restore reads into the resuming run's layout, whatever its dp (or with no
-process group, into whole tensors).
+writes its own slices instead: each moment is a DTensor on a 2-D
+``DeviceMesh`` over the ranks with dimensions ``("tp", "dp")``, placed
+``Shard(dim)`` on each mesh dimension that cuts it (``Replicate()`` on one
+that does not; a leaf whole on every rank is written once). The mesh is
+ordered tp-major, as the JAX ``("tp", "dp")`` co-sharding cuts a dimension
+that both axes shard: DTensor cuts such a dimension in mesh order, first
+into the tp slices, then each into its dp slices, which is where the
+training layout puts the bytes. A restore reads into the resuming run's
+layout, whatever its dp and tp (or with no process group, into whole
+tensors).
 
 The msgpack file keeps everything else (RNG states, counters, hparams), and
 its ``optimizer`` entry becomes ``{"__ssi_tpu_torch_dcp_dir__": <directory
@@ -27,7 +33,7 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from ssi_tpu_torch.parallel import Mesh, map_trees
+from ssi_tpu_torch.parallel import StateLayout, map_trees
 
 LOGGER = logging.getLogger(__name__)
 
@@ -65,33 +71,35 @@ def _strides(shape) -> tuple[int, ...]:
     return tuple(reversed(out))
 
 
-def _state_dict(mu: Any, nu: Any, count: int, dims: Any, shapes: Any, mesh: Mesh) -> dict[str, Any]:
-    """The optimizer state as DCP sees it: each moment a DTensor over the dp
+def _state_dict(mu: Any, nu: Any, count: int, layout: StateLayout) -> dict[str, Any]:
+    """The optimizer state as DCP sees it: each moment a DTensor over the
     ranks (when a process group is up), ``count`` a replicated 0-d tensor.
     The DTensors wrap this rank's tensors, so a load fills them in place."""
     if not dist.is_initialized():
-        wrap = lambda t, d, shape: t  # noqa: E731
+        wrap = lambda t, d, td, shape: t  # noqa: E731
     else:
-        from torch.distributed.device_mesh import init_device_mesh
+        from torch.distributed.device_mesh import DeviceMesh
         from torch.distributed.tensor import DTensor, Replicate, Shard
 
-        dev_mesh = init_device_mesh(_leaves(mu)[0].device.type, (mesh.dp,))
+        mesh = layout.mesh
+        # rank r sits at (tp index r % tp, dp index r // tp): the mesh tensor tp-major
+        ranks = torch.arange(mesh.dp * mesh.tp).view(mesh.dp, mesh.tp).t().contiguous()
+        dev_mesh = DeviceMesh(_leaves(mu)[0].device.type, ranks, mesh_dim_names=("tp", "dp"))
 
-        def wrap(t, d, shape):
-            return DTensor.from_local(t, dev_mesh, [Replicate() if d is None else Shard(d)], run_check=False,
-                                      shape=torch.Size(shape), stride=_strides(shape))
+        def wrap(t, d, td, shape):
+            placements = [Replicate() if td is None else Shard(td), Replicate() if d is None else Shard(d)]
+            return DTensor.from_local(t, dev_mesh, placements, run_check=False, shape=torch.Size(shape),
+                                      stride=_strides(shape))
 
-    return {"mu": map_trees(wrap, mu, dims, shapes), "nu": map_trees(wrap, nu, dims, shapes),
+    dims, tps, shapes = layout.moments, layout.tp, layout.shapes
+    return {"mu": map_trees(wrap, mu, dims, tps, shapes), "nu": map_trees(wrap, nu, dims, tps, shapes),
             "count": torch.tensor(count, dtype=torch.int32)}
 
 
-def save_opt_state(opt_state: dict[str, Any], dims: Any, shapes: Any, output_dir: Path, step: int,
-                   mesh: Mesh) -> dict[str, str]:
-    """Collective sharded save: every rank writes its own slices. Returns the
-    msgpack marker. Every rank must call it.
-
-    ``dims``: the moments' dp-sharded dimension per leaf (None: whole);
-    ``shapes``: the parameters' full shapes."""
+def save_opt_state(opt_state: dict[str, Any], layout: StateLayout, output_dir: Path, step: int) -> dict[str, str]:
+    """Collective sharded save: every rank writes its own slices (``layout``:
+    the run's ``StateLayout``, whose moments the state holds). Returns the
+    msgpack marker. Every rank must call it."""
     import torch.distributed.checkpoint as dcp
 
     rel = f"{_DIR_PREFIX}{step}"
@@ -105,7 +113,7 @@ def save_opt_state(opt_state: dict[str, Any], dims: Any, shapes: Any, output_dir
         shutil.rmtree(path, ignore_errors=True)
     if dist.is_initialized() and dist.get_world_size() > 1:
         dist.barrier()
-    sd = _state_dict(opt_state["mu"], opt_state["nu"], int(opt_state["count"]), dims, shapes, mesh)
+    sd = _state_dict(opt_state["mu"], opt_state["nu"], int(opt_state["count"]), layout)
     dcp.save(sd, checkpoint_id=str(path), no_dist=not dist.is_initialized())
     return {DCP_DIR_KEY: rel}
 
@@ -119,20 +127,20 @@ def prune_old_opt_states(output_dir: Path, keep_step: int) -> None:
             shutil.rmtree(d, ignore_errors=True)
 
 
-def restore_opt_state(marker: dict[str, str], state_dir: Path, like: dict[str, Any], dims: Any, shapes: Any,
-                      mesh: Mesh) -> dict[str, Any]:
+def restore_opt_state(marker: dict[str, str], state_dir: Path, like: dict[str, Any],
+                      layout: StateLayout) -> dict[str, Any]:
     """Read a sharded optimizer state into this run's layout.
 
     ``state_dir``: the directory of the state msgpack (markers are relative
     to it); ``like``: ``{"mu", "nu"}`` trees of this rank's moment tensors
-    (their shapes, dtypes and device), filled in place; ``dims`` / ``shapes``
-    as for :func:`save_opt_state`. DCP re-shards on read: each rank reads the
-    bytes of its own slices."""
+    (their shapes, dtypes and device), filled in place; ``layout`` as for
+    :func:`save_opt_state`. DCP re-shards on read: each rank reads the bytes
+    of its own slices, whatever the saving run's dp and tp."""
     import torch.distributed.checkpoint as dcp
 
     path = (Path(state_dir) / marker[DCP_DIR_KEY]).resolve()
     if not path.exists():
         raise FileNotFoundError(f"Sharded optimizer state {path} not found (marker {marker!r} in {state_dir})")
-    sd = _state_dict(like["mu"], like["nu"], 0, dims, shapes, mesh)
+    sd = _state_dict(like["mu"], like["nu"], 0, layout)
     dcp.load(sd, checkpoint_id=str(path), no_dist=not dist.is_initialized())
     return {"mu": like["mu"], "nu": like["nu"], "count": int(sd["count"])}

@@ -8,7 +8,9 @@ Composes ``conf/cpt.yaml`` (read in place, by the port's own config
 reader), applies the hydra logging config, resolves ``speech.n_dsus`` from
 the data config and runs the port's ``Trainer`` (``train/trainer.py``
 ``run_training``). It trains on the CUDA card; with no card visible it
-refuses unless ``+device=cpu`` is given.
+refuses unless ``+device=cpu`` is given. Under ``torchrun --nproc_per_node
+N`` with ``parallel.distributed=true`` it trains across the N ranks as the
+JAX mesh ``(dp, tp)`` (``parallel.tp``, ``parallel.dp``; ``train/trainer.py``).
 """
 
 from functools import partial

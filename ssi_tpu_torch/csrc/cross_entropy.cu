@@ -136,6 +136,7 @@ int lse_f32_splits(int N, int V) {
 // lse [N] from the per-split (max, sum) pairs [n_split, N], merged in a fixed
 // order: a block of 8 warps takes 32 tokens (one per lane); warp w merges
 // splits w, w + 8, ... and the 8 partial pairs are merged in warp order.
+// l_part null: every sum is 1 (each split's m is already its logsumexp).
 constexpr int MERGE_TOKENS = 32;
 constexpr int MERGE_WARPS = 8;
 
@@ -154,7 +155,8 @@ __global__ void __launch_bounds__(MERGE_TOKENS * MERGE_WARPS) lse_merge_kernel(c
         for (int s = w; s < n_split; s += MERGE_WARPS) {
             const float ms = m_part[(long long)s * N + t];
             const float mn = fmaxf(m, ms);
-            l = l * expf(m - mn) + l_part[(long long)s * N + t] * expf(ms - mn);
+            const float ls = l_part != nullptr ? l_part[(long long)s * N + t] : 1.f;
+            l = l * expf(m - mn) + ls * expf(ms - mn);
             m = mn;
         }
     }
@@ -582,6 +584,17 @@ extern "C" int ssi_cross_entropy_lse(int dtype, const void* h, const void* e, vo
         if (err == cudaSuccess) err = launch_merge(mp, lp, out, N, n_split, st);
     }
     return static_cast<int>(err);
+}
+
+// lse [N] from (max, sum) pairs m_part / l_part [n_split, N] of vocabulary
+// slices, merged in slice order by the logsumexp's own merge pass; l_part
+// null means every sum is 1: the tensor-parallel loss passes each rank's
+// slice lse as m alone
+extern "C" int ssi_cross_entropy_lse_merge(const void* m_part, const void* l_part, void* lse, int N, int n_split,
+                                           void* stream) {
+    if (N <= 0 || n_split <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_merge(static_cast<const float*>(m_part), static_cast<const float*>(l_part),
+                                         static_cast<float*>(lse), N, n_split, static_cast<cudaStream_t>(stream)));
 }
 
 // dlogits [N, V] (row stride ldv, V <= ldv, ldv % 8 == 0; pad columns written

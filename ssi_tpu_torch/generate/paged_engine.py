@@ -47,7 +47,7 @@ parity bar; the per-sequence seeds are the JAX engine's.
 Tensor-parallel serving (``mesh``, from ``parallel.make_mesh(dp=1, tp=N)``
 over a process group of N ranks, one device each: vLLM's
 ``tensor_parallel_size``): every rank builds the engine with its slice of the
-weights (``parallel.serving_specs``: ``wq``/``wk``/``wv``/``w_gate``/``w_up``
+weights (``parallel.param_shardings``: ``wq``/``wk``/``wv``/``w_gate``/``w_up``
 split on their outputs, ``wo``/``w_down`` on their inputs, each followed by an
 all-reduce over the tp group; ``embed`` and ``lm_head`` by vocabulary rows,
 with a masked lookup and an all-gather of the logits) and pools at its own kv
@@ -424,11 +424,11 @@ class PagedDecodeEngine:
 
     @staticmethod
     def _shard(params: Any, cfg: ConfigLlama3_2, mesh: Any) -> tuple[Any, Any]:
-        """This rank's slices of ``params`` under ``parallel.serving_specs``
+        """This rank's slices of ``params`` under ``parallel.param_shardings``
         (a whole leaf is cut, a leaf already of the slice's shape kept) and
         the model's view of the layout."""
         from ssi_tpu_torch.models.llama3 import param_shapes
-        from ssi_tpu_torch.parallel import TensorParallel, map_trees, serving_specs, tp_local_shape, tp_shard
+        from ssi_tpu_torch.parallel import TensorParallel, map_trees, param_shardings, tp_local_shape, tp_shard
 
         if mesh.dp != 1:
             raise ValueError(f"the paged engine serves one tp group: mesh.dp must be 1 (got dp={mesh.dp})")
@@ -436,7 +436,7 @@ class PagedDecodeEngine:
             raise ValueError(f"a mesh with tp={mesh.tp} needs its process group: make it with make_mesh on every "
                              "rank of an initialized group of dp * tp ranks")
         shapes = param_shapes(cfg)
-        specs = serving_specs(shapes, mesh, cfg.num_kv_heads)
+        specs = param_shardings(mesh, shapes, num_kv_heads=cfg.num_kv_heads)
 
         def cut(leaf, spec, shape):
             if tuple(leaf.shape) == shape:

@@ -92,10 +92,13 @@ class _RematLayer(torch.autograd.Function):
     Under FSDP (``shard``: the layer's ``LayerShard`` per weight and the layer
     index) the weights passed are this rank's pieces: each pass gathers the
     whole layer where it runs and keeps no whole copy between them, and the
-    backward sends each weight's gradient back to its piece."""
+    backward sends each weight's gradient back to its piece. Under tensor
+    parallelism (``tp``) both passes run the layer's tp collectives: the
+    recompute replays the forward's all-reduces, and its backward adds the
+    gradient all-reduces, in one order on every rank whatever the policy."""
 
     @staticmethod
-    def forward(ctx, h, names, policy, cos, sin, cfg, segment_ids, shard, *weights):
+    def forward(ctx, h, names, policy, cos, sin, cfg, segment_ids, shard, tp, *weights):
         keep, keep_attn = policy
         kept: dict[str, Any] = {}
 
@@ -111,9 +114,9 @@ class _RematLayer(torch.autograd.Function):
                 return kept["attn"][0]
             return dispatch_attention(q, k, v, causal=True, segment_ids=segment_ids)
 
-        out = block(h, dict(zip(names, _whole(shard, weights))), cos, sin, cfg, attend, prod)
+        out = block(h, dict(zip(names, _whole(shard, weights))), cos, sin, cfg, attend, prod, tp)
         ctx.save_for_backward(h, cos, sin, segment_ids, *weights)
-        ctx.names, ctx.kept, ctx.cfg, ctx.shard = names, kept, cfg, shard
+        ctx.names, ctx.kept, ctx.cfg, ctx.shard, ctx.tp = names, kept, cfg, shard, tp
         return out
 
     @staticmethod
@@ -137,12 +140,12 @@ class _RematLayer(torch.autograd.Function):
             return dispatch_attention(q, k, v, causal=True, segment_ids=segment_ids)
 
         with torch.enable_grad():
-            out = block(h, dict(zip(ctx.names, weights)), cos, sin, ctx.cfg, attend, prod)
+            out = block(h, dict(zip(ctx.names, weights)), cos, sin, ctx.cfg, attend, prod, ctx.tp)
         grads = torch.autograd.grad(out, [h, *weights], g)
         if ctx.shard is not None:
             shards, l = ctx.shard
             grads = [grads[0], *(s.reduce(w, l) for s, w in zip(shards, grads[1:]))]
-        return (grads[0], None, None, None, None, None, None, None, *grads[1:])
+        return (grads[0], None, None, None, None, None, None, None, None, *grads[1:])
 
 
 def _whole(shard, pieces) -> list:
@@ -223,36 +226,53 @@ def block(h, layer, cos, sin, cfg: ConfigLlama3_2, attend, prod: Callable = _pro
     ``prod(name, x, w)`` forms each product ``x @ layer[name]``. The head
     counts come from the weights' widths, so a tensor-parallel rank's slice
     runs its own heads; ``tp`` (``parallel.TensorParallel``) then sums the
-    ranks' ``wo`` and ``w_down`` products over the tp group."""
+    ranks' ``wo`` and ``w_down`` products over the tp group, and, training,
+    all-reduces the gradient of the normed input of each split sub-layer."""
     b, t, _ = h.shape
     hd = cfg.head_dim
+    attn_split = tp is not None and tp.attn
+    mlp_split = tp is not None and tp.mlp
     x = rms_norm(h, layer["attn_norm"], cfg.norm_eps)
+    x = tp.enter(x) if attn_split else x
     q = apply_rope(prod("wq", x, layer["wq"]).view(b, t, -1, hd), cos, sin)
     k = apply_rope(prod("wk", x, layer["wk"]).view(b, t, -1, hd), cos, sin)
     v = prod("wv", x, layer["wv"]).view(b, t, -1, hd)
     attn = attend(q, k, v)
     o = prod("wo", attn.reshape(b, t, -1).to(h.dtype), layer["wo"])
-    h = h + (tp.reduce(o) if tp is not None and tp.attn else o)
+    h = h + (tp.reduce(o) if attn_split else o)
     x = rms_norm(h, layer["mlp_norm"], cfg.norm_eps)
+    x = tp.enter(x) if mlp_split else x
     d = prod("w_down", F.silu(prod("w_gate", x, layer["w_gate"])) * prod("w_up", x, layer["w_up"]), layer["w_down"])
-    return h + (tp.reduce(d) if tp is not None and tp.mlp else d)
+    return h + (tp.reduce(d) if mlp_split else d)
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor, tp: Any = None) -> torch.Tensor:
-    """The embedding rows of ``tokens`` (no autograd: the serving passes),
-    ids clamped into the vocabulary as the JAX gather clamps them. Under a
-    vocabulary-sharded ``tp`` each rank holds a slice of the rows: it looks
-    up the ids that fall in its slice, zeros the others, and the ranks' rows
-    are summed over the tp group (one rank contributes each row, so the sum
-    is that row's bits)."""
-    table = params["embed"]
-    rows = table.shape[0]
+    """The embedding rows of ``tokens`` on the serving passes: ids clamped
+    into the (whole) vocabulary as the JAX gather clamps them, then
+    :func:`embed_lookup` (under a vocabulary-sharded ``tp`` each rank looks
+    up the ids in its slice and the rows are summed over the tp group: one
+    rank contributes each row, so the sum is that row's bits)."""
+    rows = params["embed"].shape[0] * (tp.mesh.tp if tp is not None and tp.embed else 1)
+    return embed_lookup(params["embed"], tokens.clamp(0, rows - 1), tp)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, tp: Any = None) -> torch.Tensor:
+    """The embedding rows of ``tokens``.
+
+    F.embedding, not ``table[tokens]``: the indexing's backward on the CPU
+    (index_put_ with accumulate) sums repeated tokens' rows in a varying
+    order, so two runs of one step could differ in the embedding's gradient.
+    Under a vocabulary-sharded ``tp`` a rank looks up the ids in its slice
+    of the rows (the others read row 0 and are zeroed), and ``tp.reduce``
+    sums the ranks' rows (training: ``reduce_from_tp``, whose backward
+    scatters into the rank's own rows only)."""
     if tp is None or not tp.embed:
-        return table[tokens.clamp(0, rows - 1).long()]
-    local = tokens.clamp(0, rows * tp.mesh.tp - 1).long() - tp.mesh.tp_rank * rows
+        return F.embedding(tokens, table)
+    rows = table.shape[0]
+    local = tokens - tp.mesh.tp_rank * rows
     inside = (local >= 0) & (local < rows)
-    h = table[local.clamp(0, rows - 1)]
-    return tp.reduce(torch.where(inside[..., None], h, torch.zeros_like(h)))
+    h = F.embedding(torch.where(inside, local, 0), table)
+    return tp.reduce(torch.where(inside[..., None], h, 0.0))
 
 
 def layer_params(params: Params, l: int) -> Params:
@@ -271,6 +291,7 @@ def forward(
     segment_ids: torch.Tensor | None = None,
     remat: bool | str = True,
     shards: dict[str, Any] | None = None,
+    tp: Any = None,
 ) -> torch.Tensor:
     """Run the decoder; returns final-normed hidden states ``[B, S, D]``.
 
@@ -289,13 +310,16 @@ def forward(
     gathers its whole weights where it runs (the top-level leaves come in
     whole: ``gather_leaf``). The gathers copy bytes, so the loss is the
     unsharded model's, bit for bit.
+
+    ``tp`` (tensor-parallel training, a ``parallel.TensorParallel`` with
+    ``train``): ``params`` holds this rank's tp slices (over the dp column
+    too under FSDP), the embedding is looked up by ``embed_lookup`` and each
+    layer runs its split sub-layers between ``copy_to_tp`` and
+    ``reduce_from_tp``; the hidden states come out whole on every rank.
     """
     policy = _remat_policy(remat)
     b, s = tokens.shape
-    # F.embedding, not ``embed[tokens]``: the indexing's backward on the CPU
-    # (index_put_ with accumulate) sums repeated tokens' rows in a varying
-    # order, so two runs of one step could differ in the embedding's gradient
-    h = F.embedding(tokens, params["embed"])
+    h = embed_lookup(params["embed"], tokens, tp)
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None, :].expand(b, s)
     cos, sin = rope_for_positions(positions, cfg)
@@ -319,9 +343,9 @@ def forward(
                     h, *weights = _GatheredLayer.apply(h, shard, *weights)
                 else:
                     weights = _whole(shard, weights)
-            h = block(h, dict(zip(names, weights)), cos, sin, cfg, attend)
+            h = block(h, dict(zip(names, weights)), cos, sin, cfg, attend, tp=tp)
         else:
-            h = _RematLayer.apply(h, names, policy, cos, sin, cfg, segment_ids, shard, *weights)
+            h = _RematLayer.apply(h, names, policy, cos, sin, cfg, segment_ids, shard, tp, *weights)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 

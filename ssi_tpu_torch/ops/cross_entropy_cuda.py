@@ -12,6 +12,15 @@ the dh GEMM (``dlogits @ E``) and the dE GEMM (``dlogits^T @ h``) over it;
 the scratch is freed with the backward. The outputs are lse ``[N]`` f32, dh
 ``[N, D]`` in h's dtype and dE ``[V, D]`` in E's dtype.
 
+Tensor-parallel training runs the same kernels on a rank's vocabulary
+slice (:func:`vocab_parallel_cross_entropy`): the slice's logsumexp,
+all-gathered over the tp group and merged in rank order by the logsumexp's
+merge pass (:func:`cross_entropy_lse_merge_kernel`), the picked logit from
+the rank that owns the label (one all-reduce, one contributor a row), and a
+backward whose dlogits pass takes the labels remapped to the slice: dh is
+the rank's part (summed over tp by ``copy_to_tp``'s backward), dE the
+rank's rows.
+
 Dispatch is by device, never by failure: CPU tensors take the plain version
 (``ops/cross_entropy.py``); CUDA tensors launch the kernels or raise.
 """
@@ -30,8 +39,12 @@ from ssi_tpu_torch.ops.cross_entropy import (
     cross_entropy_dh_gemm,
     cross_entropy_dlogits,
     cross_entropy_lse,
+    cross_entropy_lse_merge,
     fused_cross_entropy,
+    slice_labels,
+    slice_picked,
 )
+from ssi_tpu_torch.parallel import tp_all_gather, tp_all_reduce
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _D_CHUNK = 128  # the kernels stage D in chunks of 128 (csrc/cross_entropy.cu KC)
@@ -82,16 +95,35 @@ def cross_entropy_lse_kernel(hidden: torch.Tensor, embed: torch.Tensor,
     return lse
 
 
+def cross_entropy_lse_merge_kernel(parts: torch.Tensor) -> torch.Tensor:
+    """The logsumexp over a vocabulary from its slices' ``parts [T, N]``
+    (f32), merged in slice order: the logsumexp's own merge pass, each slice
+    a (max, sum) pair ``(parts[r], 1)`` (no sums passed: the kernel reads
+    T x N floats and writes N). No atomics: two launches give the same bits."""
+    if parts.dim() != 2:
+        raise ValueError(f"lse parts must be [T, N], got {tuple(parts.shape)}")
+    if not parts.is_cuda:
+        return cross_entropy_lse_merge(parts)
+    t, n = parts.shape
+    m = parts.to(torch.float32).contiguous()
+    lse = torch.empty((n,), dtype=torch.float32, device=m.device)
+    err = _build.load_library().ssi_cross_entropy_lse_merge(
+        m.data_ptr(), None, lse.data_ptr(), n, t, torch.cuda.current_stream(m.device).cuda_stream)
+    _build.check_launch("cross_entropy_lse_merge", err)
+    return lse
+
+
 def cross_entropy_dlogits_kernel(hidden, embed, labels, lse, g, chunk_size: int = DEFAULT_CHUNK) -> torch.Tensor:
     """dlogits = (exp(h @ E.T - lse) - onehot) * valid * g, ``[N, V]`` in the
     operand dtype, from the forward's ``lse``. On CUDA a view of the kernel's
     padded ``[N, ldv]`` scratch (unit column stride, 16-byte aligned rows),
     which is what :func:`cross_entropy_dh_gemm_kernel` and
     :func:`cross_entropy_de_gemm_kernel` take. The plain version (CPU)
-    recomputes the softmax and takes no lse."""
+    reads the same ``lse``, so a vocabulary slice's dlogits come from the
+    whole vocabulary's."""
     _check(hidden, embed, labels)
     if not hidden.is_cuda:
-        return cross_entropy_dlogits(hidden, embed, labels, g, chunk_size)
+        return cross_entropy_dlogits(hidden, embed, labels, g, chunk_size, lse=lse)
     n, d = hidden.shape
     v = embed.shape[0]
     code, h, e, stream = _launch_args(hidden, embed)
@@ -144,20 +176,21 @@ def cross_entropy_de_gemm_kernel(dlogits: torch.Tensor, hidden: torch.Tensor) ->
 
 def cross_entropy_dh_kernel(hidden, embed, labels, lse, g, chunk_size: int = DEFAULT_CHUNK) -> torch.Tensor:
     """dh = ((softmax - onehot) * valid * g) @ E, ``[N, D]`` in h's dtype,
-    from the forward's ``lse``: the dlogits pass, then the dh GEMM. The plain
-    version (CPU) recomputes the softmax itself and takes no lse."""
+    from the forward's ``lse``: the dlogits pass, then the dh GEMM (the
+    plain version on the CPU, from the same lse)."""
     _check(hidden, embed, labels)
     if not hidden.is_cuda:
-        return cross_entropy_dh(hidden, embed, labels, g, chunk_size)
+        return cross_entropy_dh(hidden, embed, labels, g, chunk_size, lse=lse)
     return cross_entropy_dh_gemm_kernel(cross_entropy_dlogits_kernel(hidden, embed, labels, lse, g), embed)
 
 
 def cross_entropy_de_kernel(hidden, embed, labels, lse, g, chunk_size: int = DEFAULT_CHUNK) -> torch.Tensor:
     """dE = ((softmax - onehot) * valid * g)^T @ h, ``[V, D]`` in E's dtype:
-    the dlogits pass, then the dE GEMM."""
+    the dlogits pass, then the dE GEMM (the plain version on the CPU, from
+    the same lse)."""
     _check(hidden, embed, labels)
     if not hidden.is_cuda:
-        return cross_entropy_de(hidden, embed, labels, g, chunk_size)
+        return cross_entropy_de(hidden, embed, labels, g, chunk_size, lse=lse)
     return cross_entropy_de_gemm_kernel(cross_entropy_dlogits_kernel(hidden, embed, labels, lse, g), hidden)
 
 
@@ -165,12 +198,9 @@ class _CrossEntropyKernel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, hidden, embed, labels):
         lse = cross_entropy_lse_kernel(hidden, embed)
-        valid = labels != CROSS_ENTROPY_IGNORE_IDX
-        safe = torch.where(valid, labels, 0).long()
-        # picked logit by a row gather: N x D reads, f32 products and sum
-        picked = (hidden.float() * embed[safe].float()).sum(dim=-1)
+        picked = slice_picked(hidden, embed, labels)  # a row gather: N x D reads, f32 products and sum
         ctx.save_for_backward(hidden, embed, labels, lse)
-        return torch.where(valid, lse - picked, 0.0).sum()
+        return torch.where(labels != CROSS_ENTROPY_IGNORE_IDX, lse - picked, 0.0).sum()
 
     @staticmethod
     def backward(ctx, g):
@@ -180,6 +210,59 @@ class _CrossEntropyKernel(torch.autograd.Function):
         dh = cross_entropy_dh_gemm_kernel(dl, embed) if ctx.needs_input_grad[0] else None
         de = cross_entropy_de_gemm_kernel(dl, hidden) if ctx.needs_input_grad[1] else None
         return dh, de, None
+
+
+def merge_slices(parts: torch.Tensor, labels: torch.Tensor, v0: int, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """What one vocabulary slice ``[v0, v0 + rows)`` takes from the gathered
+    slice logsumexps ``parts [T, N]`` (in rank order): the whole
+    vocabulary's lse ``[N]`` (the merge pass) and ``labels`` remapped to the
+    slice (:func:`slice_labels`). It runs no collective, so one process can
+    hold the slice path of every rank."""
+    return cross_entropy_lse_merge_kernel(parts), slice_labels(labels, v0, rows)
+
+
+class _VocabParallelCrossEntropy(torch.autograd.Function):
+    """The loss over a vocabulary split across the tp group: this rank's
+    rows ``embed = E[v0:v0+V_r]``, ``v0 = tp_rank * V_r``. Forward: the
+    slice's lse, all-gathered and merged; the picked logit summed over the
+    ranks (only the owner's is non-zero). Backward: the dlogits pass on the
+    slice with the merged lse and the remapped labels, then the dh and dE
+    GEMMs; no collective (``copy_to_tp`` before ``hidden`` sums dh)."""
+
+    @staticmethod
+    def forward(ctx, hidden, embed, labels, mesh, chunk_size):
+        rows = embed.shape[0]
+        lse_r = cross_entropy_lse_kernel(hidden, embed, chunk_size)
+        lse, local = merge_slices(tp_all_gather(lse_r[None], 0, mesh), labels, mesh.tp_rank * rows, rows)
+        picked = tp_all_reduce(slice_picked(hidden, embed, local), mesh)
+        ctx.save_for_backward(hidden, embed, local, lse)
+        ctx.chunk_size = chunk_size
+        return torch.where(labels != CROSS_ENTROPY_IGNORE_IDX, lse - picked, 0.0).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, embed, local, lse = ctx.saved_tensors
+        want_h, want_e = ctx.needs_input_grad[:2]
+        if hidden.is_cuda:
+            dl = cross_entropy_dlogits_kernel(hidden, embed, local, lse, g)
+            dh = cross_entropy_dh_gemm_kernel(dl, embed) if want_h else None
+            de = cross_entropy_de_gemm_kernel(dl, hidden) if want_e else None
+        else:
+            dh = cross_entropy_dh(hidden, embed, local, g, ctx.chunk_size, lse=lse) if want_h else None
+            de = cross_entropy_de(hidden, embed, local, g, ctx.chunk_size, lse=lse) if want_e else None
+        return dh, de, None, None, None
+
+
+def vocab_parallel_cross_entropy(hidden: torch.Tensor, embed: torch.Tensor, labels: torch.Tensor, mesh,
+                                 chunk_size: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """Sum of NLL over labels != -100 (scalar f32, the same on every tp rank)
+    with the output matrix split by rows over the tp group of ``mesh``:
+    ``embed`` is this rank's slice. ``hidden`` is whole on every rank; pass
+    it through ``copy_to_tp`` so that its gradient is summed over the ranks.
+    The kernels on CUDA tensors, the plain chunked version on CPU tensors;
+    at tp 1 either gives the whole-vocabulary loss's bits."""
+    _check(hidden, embed, labels)
+    return _VocabParallelCrossEntropy.apply(hidden, embed, labels, mesh, chunk_size)
 
 
 def fused_cross_entropy_kernel(

@@ -18,16 +18,22 @@ its layout:
 - ZeRO-1 shards the AdamW moments by that rule; FSDP shards the resident
   parameters too. At tp 1 the layer-stacked ``[L, ...]`` weights shard along
   L when L % dp == 0, and the embedding along D.
-- Rank ``r`` holds the ``r``-th of dp equal slices of a sharded dimension.
+- A rank holds the slice of its dp index among dp equal slices of a
+  dp-sharded dimension; a dimension co-sharded ``("tp", "dp")`` is cut
+  tp-major: the rank's tp slice, then its dp slice of that.
 
-Tensor parallelism serves (``generate/paged_engine.py`` with a ``mesh``):
-rank ``r`` of a ``(dp, tp)`` mesh holds tp index ``r % tp`` (the JAX
+Tensor parallelism (Megatron's layout): rank ``r`` of a ``(dp, tp)`` mesh
+holds tp index ``r % tp`` and dp index ``r // tp`` (the JAX
 ``device_grid.reshape(dp, tp)``), ``tp_shard`` cuts its slice of a leaf by
-the same specs, and ``tp_all_reduce`` / ``tp_all_gather`` are the inference
-collectives over its tp group (no autograd: tp training is not ported,
-ROADMAP.md queue A, A9's training half). Nor is ``dcn_slices`` (TPU slice
-topology: NCCL's own rings and trees do the hierarchical reduction the JAX
-code gets from slice-major order).
+the specs above, and the tp collectives run over its tp group. Serving
+(``generate/paged_engine.py`` with a ``mesh``) takes ``tp_all_reduce`` /
+``tp_all_gather`` (no autograd); training takes ``copy_to_tp`` (identity
+forward, all-reduce backward) before the column-split products and
+``reduce_from_tp`` (all-reduce forward, identity backward) after the
+row-split ones, and its dp collectives (``gather``, ``reduce_scatter``,
+the step's all-reduces) run over the rank's dp column. Not ported:
+``dcn_slices`` (TPU slice topology: NCCL's own rings and trees do the
+hierarchical reduction the JAX code gets from slice-major order).
 """
 
 from __future__ import annotations
@@ -52,11 +58,12 @@ __all__ = [
     "make_mesh",
     "MeshGroups",
     "param_specs",
-    "serving_specs",
     "tp_shard",
     "tp_local_shape",
     "tp_all_reduce",
     "tp_all_gather",
+    "copy_to_tp",
+    "reduce_from_tp",
     "TensorParallel",
     "param_shardings",
     "opt_state_shardings",
@@ -179,8 +186,21 @@ class Mesh:
         return self.rank % self.tp
 
     @property
+    def dp_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
     def tp_group(self) -> Any:
         return self.groups.tp if self.groups is not None else None
+
+    @property
+    def dp_group(self) -> Any:
+        """The rank's dp column (None: the world group, as at tp 1)."""
+        return self.groups.dp if self.groups is not None else None
+
+    def dp_peer(self, d: int) -> int:
+        """The global rank of dp index ``d`` in this rank's dp column."""
+        return d * self.tp + self.tp_rank
 
 
 # host messages wait on the side group while a server idles between requests
@@ -191,8 +211,9 @@ def _mesh_groups(dp: int, tp: int, rank: int) -> MeshGroups | None:
     """The groups of a mesh over a joined world: the world group at world
     size 1; with tp > 1 one group per tp block and dp column (every rank
     joins every ``new_group`` call, in one order) plus the gloo side group
-    of each tp block; a pure dp mesh reduces over the world group (the
-    training step's collectives name no group)."""
+    of each tp block; a pure dp mesh has none (``Mesh.dp_group`` is None:
+    its dp collectives run over the world group, and nothing is split over
+    tp)."""
     if not dist.is_initialized():
         return None
     world = dist.group.WORLD
@@ -314,40 +335,36 @@ def _shape(leaf: Any) -> tuple[int, ...]:
     return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
 
 
-def param_shardings(mesh: Mesh, params: Any, *, fsdp: bool = False) -> Any:
-    """The spec tree of the parameters: the tp layout; ``fsdp`` adds dp, so
-    that resident parameters, gradients and moments all divide by dp.
-    ``params``' leaves may be tensors or shapes."""
+def param_shardings(mesh: Mesh, params: Any, *, num_kv_heads: int, fsdp: bool = False) -> Any:
+    """The spec tree of the parameters, the tensor-parallel compute layout of
+    training and serving; ``fsdp`` adds dp, so that resident parameters,
+    gradients and moments all divide by dp. ``params``' leaves may be
+    tensors or shapes.
+
+    The tp layout is the JAX ``param_specs`` through ``_divisible_spec``, so
+    a dimension tp does not divide is replicated (the extended vocabulary
+    133,258 at tp 4 keeps ``embed`` whole), with one departure: the JAX
+    package shards the kv feature axis whenever tp divides it, even through
+    a head, while here a rank holds whole kv heads. Where tp does not divide
+    ``num_kv_heads`` attention stays whole on every rank (``wq``/``wk``/
+    ``wv``/``wo`` and the serving pools replicated, no collective around
+    attention). The result is the same; only the layout differs."""
     base = map_trees(lambda spec, leaf: _divisible_spec(spec, _shape(leaf), mesh), param_specs(params), params)
+    if num_kv_heads % mesh.tp:
+        for name in ("wq", "wk", "wv", "wo"):
+            base["layers"][name] = ()
     if not fsdp:
         return base
     return map_trees(lambda spec, leaf: _zero1_spec(spec, _shape(leaf), mesh), base, params)
 
 
-def opt_state_shardings(mesh: Mesh, params: Any, *, zero1: bool = False) -> dict[str, Any]:
+def opt_state_shardings(mesh: Mesh, params: Any, *, num_kv_heads: int, zero1: bool = False) -> dict[str, Any]:
     """The spec trees of the AdamW state ({mu, nu, count}): the moments shard
     like their parameter, and ``zero1`` adds dp to them (ZeRO-1; under FSDP
     the moments get the same augmentation, so zero1=True covers both)."""
-    p_specs = param_shardings(mesh, params)
+    p_specs = param_shardings(mesh, params, num_kv_heads=num_kv_heads)
     moment = map_trees(lambda s, leaf: _zero1_spec(s, _shape(leaf), mesh), p_specs, params) if zero1 else p_specs
     return {"mu": moment, "nu": moment, "count": ()}
-
-
-def serving_specs(params: Any, mesh: Mesh, num_kv_heads: int) -> Any:
-    """The spec tree of tensor-parallel serving: the training tp layout
-    (``param_shardings``, so a dimension tp does not divide is replicated:
-    the extended vocabulary 133,258 at tp 4 keeps ``embed`` whole, as the
-    JAX ``_divisible_spec`` does), with one difference of layout. The JAX
-    engine shards the kv feature axis whenever tp divides it, even through
-    a head; here a rank holds whole kv heads, so where tp does not divide
-    ``num_kv_heads`` attention stays whole on every rank (``wq``/``wk``/``wv``/
-    ``wo`` and the pools replicated, no all-reduce after ``wo``). The result
-    is the same; only the layout differs."""
-    specs = param_shardings(mesh, params)
-    if num_kv_heads % mesh.tp:
-        for name in ("wq", "wk", "wv", "wo"):
-            specs["layers"][name] = ()
-    return specs
 
 
 def tp_local_shape(shape: tuple[int, ...], spec: Spec, mesh: Mesh) -> tuple[int, ...]:
@@ -371,18 +388,25 @@ def tp_shard(leaf: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     return leaf
 
 
+def _tp_split(mesh: Mesh) -> bool:
+    """Whether the tp collectives run: over a tp group of more than one rank.
+    At tp 1 (no process group, or a world of one) each is the identity and
+    issues no call (a 1-rank NCCL all-reduce computes nothing and still
+    takes stream time)."""
+    return mesh.tp > 1 and mesh.tp_group is not None
+
+
 def tp_all_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum of ``x`` over the tp group, in place (an identity without a
-    process group; at one rank the collective still runs, and copies nothing)."""
-    if mesh.tp_group is not None:
+    """The sum of ``x`` over the tp group, in place (``x`` itself at tp 1)."""
+    if _tp_split(mesh):
         dist.all_reduce(x, group=mesh.tp_group)
     return x
 
 
 def tp_all_gather(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
     """The tp ranks' ``x`` concatenated along ``dim`` in tp order (every rank
-    gets the same bytes: a gather only copies)."""
-    if mesh.tp_group is None:
+    gets the same bytes: a gather only copies; ``x`` itself at tp 1)."""
+    if not _tp_split(mesh):
         return x
     dim = dim % x.dim()
     out = torch.empty((mesh.tp * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
@@ -390,54 +414,151 @@ def tp_all_gather(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
     return out.view(mesh.tp, *x.shape).movedim(0, dim).flatten(dim, dim + 1)
 
 
-class TensorParallel:
-    """What the model's serving passes need of a tensor-parallel layout
-    (``serving_specs``): which sub-layers end in an all-reduce (``attn``
-    after ``wo``, ``mlp`` after ``w_down``), whether the embedding rows are a
-    vocabulary slice (``embed``: a masked lookup and an all-reduce) and
-    whether the output projection is (``head``: the logits all-gathered)."""
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward, the gradient summed over the
+    tp group backward (each tp rank's column-split product gives its part)."""
 
-    def __init__(self, mesh: Mesh, specs: Any):
-        self.mesh = mesh
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tp_all_reduce(g.clone(memory_format=torch.contiguous_format), ctx.mesh), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's ``g``: the tp ranks' partial sums summed forward, the
+    gradient passed through backward (every rank holds the whole of it)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return tp_all_reduce(x.clone(memory_format=torch.contiguous_format), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` entering a column-split product (or a vocabulary slice): the
+    identity, whose backward all-reduces the gradient over the tp group
+    (``x`` itself at tp 1)."""
+    return _CopyToTP.apply(x, mesh) if _tp_split(mesh) else x
+
+
+def reduce_from_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over the tp group of a row-split product's partial ``x``,
+    whose backward passes the gradient through (``x`` itself at tp 1)."""
+    return _ReduceFromTP.apply(x, mesh) if _tp_split(mesh) else x
+
+
+class TensorParallel:
+    """What the model's passes need of a tensor-parallel layout
+    (``param_shardings``): which sub-layers are split (``attn``: ``wq``/``wk``/
+    ``wv`` by columns and ``wo`` by rows; ``mlp``: ``w_gate``/``w_up`` and
+    ``w_down``), whether the embedding rows are a vocabulary slice
+    (``embed``: a masked lookup and a sum) and whether the output projection
+    is (``head``: the logits all-gathered when serving, the vocab-parallel
+    cross-entropy when training).
+
+    ``train`` picks the collectives: the autograd ops ``copy_to_tp`` before a
+    split sub-layer (``enter``) and ``reduce_from_tp`` after it (``reduce``),
+    or, serving, no autograd (``enter`` the identity, ``reduce`` an in-place
+    all-reduce)."""
+
+    def __init__(self, mesh: Mesh, specs: Any, train: bool = False):
+        self.mesh, self.train = mesh, train
         layers = specs["layers"]
         self.attn = "tp" in tuple(layers["wo"])
         self.mlp = "tp" in tuple(layers["w_down"])
         self.embed = "tp" in tuple(specs["embed"])
         self.head = "tp" in tuple(specs.get("lm_head", specs["embed"]))
 
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return copy_to_tp(x, self.mesh) if self.train else x
+
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return tp_all_reduce(x, self.mesh)
+        return reduce_from_tp(x, self.mesh) if self.train else tp_all_reduce(x, self.mesh)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         return tp_all_gather(x, -1, self.mesh)
 
 
-def shard_dim(spec: Spec) -> int | None:
-    """The dimension the dp axis shards in ``spec`` (alone or co-sharded with
-    tp), or None."""
+def shard_dim(spec: Spec, mesh_axis: str = "dp") -> int | None:
+    """The dimension ``mesh_axis`` shards in ``spec`` (alone or co-sharded
+    with the other axis), or None."""
     for i, axis in enumerate(spec):
-        if axis == "dp" or (isinstance(axis, tuple) and "dp" in axis):
+        if axis == mesh_axis or (isinstance(axis, tuple) and mesh_axis in axis):
             return i
     return None
 
 
 @dataclass(frozen=True)
 class StateLayout:
-    """Where the training state lives across the dp ranks: per leaf (trees
-    keyed as the parameters) the dp-sharded dimension of the resident
-    parameter and of its moments (None: whole on every rank), and the
-    parameter's full shape."""
+    """Where the training state lives across the dp x tp ranks, per leaf
+    (trees keyed as the parameters):
+
+    - ``specs``: the tp compute layout (``param_shardings``), and ``tp`` its
+      tp-sharded dimension (None: whole on every tp rank, and at tp 1);
+      ``local``: the shape of a rank's tp slice, ``shapes`` the full shape;
+    - ``params`` / ``moments``: the dp-sharded dimension of the resident
+      parameter and of its moments within the tp slice (None: whole on every
+      rank of the dp column). A dimension both shard (``("tp", "dp")``) is
+      cut tp-major: the tp slice, then the dp slice of it."""
 
     mesh: Mesh
     params: Any
     moments: Any
     shapes: Any
+    tp: Any
+    local: Any
+    specs: Any
 
     @classmethod
-    def build(cls, mesh: Mesh, shapes: Any, *, zero1: bool, fsdp: bool) -> "StateLayout":
-        dims = lambda specs: map_trees(shard_dim, specs)  # noqa: E731
-        return cls(mesh, dims(param_shardings(mesh, shapes, fsdp=fsdp)),
-                   dims(opt_state_shardings(mesh, shapes, zero1=zero1 or fsdp)["mu"]), shapes)
+    def build(cls, mesh: Mesh, shapes: Any, *, num_kv_heads: int, zero1: bool, fsdp: bool) -> "StateLayout":
+        """``num_kv_heads`` places attention at tp > 1 (``param_shardings``)."""
+        heads = {"num_kv_heads": num_kv_heads}
+        specs = param_shardings(mesh, shapes, **heads)
+        dims = lambda tree: map_trees(shard_dim, tree)  # noqa: E731
+        return cls(mesh, dims(param_shardings(mesh, shapes, fsdp=fsdp, **heads)),
+                   dims(opt_state_shardings(mesh, shapes, zero1=zero1 or fsdp, **heads)["mu"]), shapes,
+                   map_trees(lambda spec: shard_dim(spec, "tp") if mesh.tp > 1 else None, specs),
+                   map_trees(lambda spec, leaf: tp_local_shape(_shape(leaf), spec, mesh), specs, shapes), specs)
+
+    def tensor_parallel(self) -> "TensorParallel | None":
+        """The training passes' ``TensorParallel``: None without a tp group
+        (no process group, or a pure dp world of several ranks), where
+        nothing is split. In a world of one its tp collectives are
+        identities, so its passes give the mesh-less passes' bits."""
+        return TensorParallel(self.mesh, self.specs, train=True) if self.mesh.tp_group is not None else None
+
+    def tp_slices(self, tree: Any) -> Any:
+        """This rank's tp slice of each whole leaf of ``tree``: a contiguous
+        copy, so the whole leaf can be dropped (the leaf itself at tp 1)."""
+        if self.mesh.tp == 1:
+            return tree
+        return map_trees(lambda t, spec: tp_shard(t, spec, self.mesh).clone(memory_format=torch.contiguous_format),
+                         tree, self.specs)
+
+    def offsets(self, dims: Any) -> Any:
+        """Per leaf, where this rank's piece (its tp slice, cut along
+        ``dims``, a dp-dims tree) starts in the whole leaf: a start per
+        dimension, or None for the whole leaf."""
+        mesh = self.mesh
+
+        def starts(dim, tdim, local):
+            if dim is None and tdim is None:
+                return None
+            out = [0] * len(local)
+            if tdim is not None:
+                out[tdim] += mesh.tp_rank * local[tdim]
+            if dim is not None:
+                out[dim] += mesh.dp_rank * (local[dim] // mesh.dp)
+            return tuple(out)
+
+        return map_trees(starts, dims, self.tp, self.local)
 
     def fsdp_shards(self) -> dict[str, Any] | None:
         """The gathers of the FSDP forward (``models/llama3.py``): a
@@ -446,7 +567,7 @@ class StateLayout:
         if all(d is None for d in _leaves(self.params)):
             return None
         out = {k: LeafShard(d, self.mesh) for k, d in self.params.items() if k != "layers"}
-        out["layers"] = {k: LayerShard(d, self.mesh, self.shapes["layers"][k])
+        out["layers"] = {k: LayerShard(d, self.mesh, self.local["layers"][k])
                          for k, d in self.params["layers"].items()}
         return out
 
@@ -457,57 +578,60 @@ def _leaves(tree: Any) -> list:
     return [tree]
 
 
-# --- placement and collectives over the dp group --------------------------------------------------
+# --- placement and collectives over the dp column --------------------------------------------------
 
 
 def shard(t: torch.Tensor, dim: int | None, mesh: Mesh) -> torch.Tensor:
-    """This rank's slice of ``t`` along ``dim`` (a copy, so the whole tensor
-    can be dropped), or ``t`` when ``dim`` is None."""
+    """This rank's dp slice of ``t`` along ``dim`` (a copy, so the whole
+    tensor can be dropped), or ``t`` when ``dim`` is None."""
     if dim is None:
         return t
     n = t.shape[dim] // mesh.dp
-    return t.narrow(dim, mesh.rank * n, n).clone(memory_format=torch.contiguous_format)
+    return t.narrow(dim, mesh.dp_rank * n, n).clone(memory_format=torch.contiguous_format)
 
 
 def gather(local: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
-    """The whole tensor from each rank's slice along ``dim`` (an all-gather;
-    every rank joins), contiguous."""
+    """The tensor whole over the dp column from each rank's slice along
+    ``dim`` (an all-gather; every rank of the column joins), contiguous."""
     src = local.movedim(dim, 0).contiguous()
     out = torch.empty((src.shape[0] * mesh.dp, *src.shape[1:]), dtype=src.dtype, device=src.device)
-    dist.all_gather_into_tensor(out, src)
+    dist.all_gather_into_tensor(out, src, group=mesh.dp_group)
     return out.movedim(0, dim).contiguous() if dim else out
 
 
 def reduce_scatter(full: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
-    """This rank's slice along ``dim`` of the sum of every rank's ``full``
-    (a reduce-scatter; every rank joins), contiguous."""
+    """This rank's slice along ``dim`` of the sum of the dp column's ``full``
+    (a reduce-scatter; every rank of the column joins), contiguous."""
     src = full.movedim(dim, 0).contiguous()
     out = torch.empty((src.shape[0] // mesh.dp, *src.shape[1:]), dtype=src.dtype, device=src.device)
-    dist.reduce_scatter_tensor(out, src)
+    dist.reduce_scatter_tensor(out, src, group=mesh.dp_group)
     return out.movedim(0, dim).contiguous() if dim else out
 
 
 def shard_params(mesh: Mesh, params: Any, dims: Any, device: torch.device | str | None = None) -> Any:
-    """Each parameter's slice for this rank (``dims``: the layout's
+    """Each parameter's dp slice for this rank (``dims``: the layout's
     ``params`` tree), moved to ``device`` leaf by leaf."""
     return map_trees(lambda t, d: shard(t, d, mesh).to(device if device is not None else t.device), params, dims)
 
 
-def full_host_copy(tree: Any, dims: Any, mesh: Mesh) -> Any:
-    """The whole leaves of a dp-sharded tree on rank 0, None on the other
-    ranks: a collective every rank joins (the port of the JAX
+def full_host_copy(tree: Any, dims: Any, mesh: Mesh, tp_dims: Any = None) -> Any:
+    """The whole leaves of a dp x tp-sharded tree on rank 0, None on the
+    other ranks: a collective every rank joins (the port of the JAX
     ``full_host_copy``, used by the checkpoint save, where rank 0 writes). A
-    sharded leaf is gathered leaf by leaf; a whole one is returned as it is.
-    The leaves stay on the device; the writer copies each to the host as it
-    reaches it."""
+    leaf is gathered over its dp column along ``dims``, then over its tp
+    block along ``tp_dims`` (None: not tp-sharded); a whole one is returned
+    as it is. The leaves stay on the device; the writer copies each to the
+    host as it reaches it."""
     out = map_trees(lambda t, d: t if d is None else gather(t, d, mesh), tree, dims)
+    if tp_dims is not None:
+        out = map_trees(lambda t, d: t if d is None else tp_all_gather(t, d, mesh), out, tp_dims)
     return out if mesh.rank == 0 else None
 
 
 class LeafShard:
     """A top-level leaf (embedding, final norm, output head) in the FSDP
-    forward: made whole by an all-gather where it is consumed, its gradient
-    reduce-scattered back to this rank's slice."""
+    forward: made whole over the dp column by an all-gather where it is
+    consumed, its gradient reduce-scattered back to this rank's slice."""
 
     def __init__(self, dim: int | None, mesh: Mesh):
         self.dim, self.mesh = dim, mesh
@@ -520,11 +644,12 @@ class LeafShard:
 
 
 class LayerShard:
-    """A layer-stacked ``[L, ...]`` leaf in the FSDP forward: layer ``l``'s
-    weight is made whole where the layer consumes it, and its gradient goes
-    back to the rank that holds it.
+    """A layer-stacked ``[L, ...]`` leaf (a rank's tp slice of it) in the
+    FSDP forward: layer ``l``'s weight is made whole over the dp column where
+    the layer consumes it, and its gradient goes back to the rank that holds
+    it.
 
-    - sharded along L (dim 0): rank ``r`` holds layers ``[r L/dp, (r+1) L/dp)``;
+    - sharded along L (dim 0): dp index ``d`` holds layers ``[d L/dp, (d+1) L/dp)``;
       the owner broadcasts the layer, and the gradient is reduced to it;
     - sharded along another dim: every rank holds a slice of every layer; the
       layer is all-gathered and its gradient reduce-scattered;
@@ -533,7 +658,7 @@ class LayerShard:
     """
 
     def __init__(self, dim: int | None, mesh: Mesh, shape: tuple[int, ...]):
-        self.dim, self.mesh = dim, mesh
+        self.dim, self.mesh = dim, mesh  # shape: the leaf's tp slice
         self.per = shape[0] // mesh.dp  # layers a rank holds when sharded along L
         self.layer_shape = tuple(shape[1:])
 
@@ -545,7 +670,7 @@ class LayerShard:
         if self.dim != 0:
             return list(rows)
         self._like = {"dtype": local.dtype, "device": local.device}
-        first = self.mesh.rank * self.per
+        first = self.mesh.dp_rank * self.per
         return [rows[l - first] if first <= l < first + self.per else None for l in range(self.per * self.mesh.dp)]
 
     def full(self, piece: torch.Tensor | None, l: int) -> torch.Tensor:
@@ -554,7 +679,7 @@ class LayerShard:
         if self.dim != 0:
             return gather(piece, self.dim - 1, self.mesh)
         out = piece.clone() if piece is not None else torch.empty(self.layer_shape, **self._like)
-        dist.broadcast(out, l // self.per)
+        dist.broadcast(out, self.mesh.dp_peer(l // self.per), group=self.mesh.dp_group)
         return out
 
     def reduce(self, grad: torch.Tensor, l: int) -> torch.Tensor | None:
@@ -564,5 +689,5 @@ class LayerShard:
             return reduce_scatter(grad, self.dim - 1, self.mesh)
         owner = l // self.per
         grad = grad.contiguous()
-        dist.reduce(grad, owner)
-        return grad if owner == self.mesh.rank else None
+        dist.reduce(grad, self.mesh.dp_peer(owner), group=self.mesh.dp_group)
+        return grad if owner == self.mesh.dp_rank else None

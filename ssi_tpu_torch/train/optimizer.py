@@ -109,16 +109,14 @@ def _round_key(count: int, leaf: int, moment: int) -> tuple[int, int]:
 
 def _element_index(shape: tuple[int, ...], where: tuple | None, rows: slice, device) -> torch.Tensor:
     """The flat index in the whole leaf of rows ``rows`` (of dim 0) of a piece
-    of shape ``shape``: the whole leaf when ``where`` is None, else the slice
-    ``where = (full shape, dim, start)`` of it."""
-    full, dim, start = where if where is not None else (shape, None, 0)
+    of shape ``shape``: the whole leaf when ``where`` is None, else the piece
+    ``where = (full shape, start per dimension)`` of it."""
+    full, starts = where if where is not None else (shape, (0,) * len(shape))
     stride = 1
     index = torch.zeros((), dtype=torch.int64, device=device)
     for d in reversed(range(len(full))):
         lo, n = (rows.start, rows.stop - rows.start) if d == 0 else (0, shape[d])
-        if d == dim:
-            lo += start
-        axis = (torch.arange(n, dtype=torch.int64, device=device) + lo) * stride
+        axis = (torch.arange(n, dtype=torch.int64, device=device) + lo + starts[d]) * stride
         index = index + axis.view(n, *([1] * (len(full) - 1 - d)))
         stride *= full[d]
     return index
@@ -169,11 +167,12 @@ def adamw_update(grads: Params, opt_state: dict[str, Any], params: Params, lr: f
     tree. Math in f32; the moments are stored in the configured dtypes, the
     parameters in their own.
 
-    The leaves may be dp shards (``where``, per leaf in sorted-leaf order:
-    None for a whole leaf, else ``(full shape, dim, start)`` of the slice):
-    the update is elementwise, and the stochastic rounding's noise is drawn
-    per element of the whole leaf, so the shards of a leaf update, bit for
-    bit, as the whole leaf does."""
+    The leaves may be pieces of the whole ones (tp and dp slices; ``where``,
+    per leaf in sorted-leaf order: None for a whole leaf, else ``(full
+    shape, start per dimension)`` of the piece): the update is elementwise,
+    and the stochastic rounding's noise is drawn per element of the whole
+    leaf, so the pieces of a leaf update, bit for bit, as the whole leaf
+    does, however it is cut."""
     count = opt_state["count"] + 1
     c = torch.tensor(float(count), dtype=torch.float32)
     bias_c1 = float(1.0 - torch.tensor(cfg.b1, dtype=torch.float32) ** c)  # f32, as the JAX update computes it

@@ -20,22 +20,31 @@ Semantics kept from the JAX step:
 There is no ``jit`` and no donation: PyTorch runs eagerly, and the state
 ``{"params", "opt_state", "step"}`` is updated in place.
 
-Across dp ranks (``layout``: a ``parallel.StateLayout``; the JAX step's
-``state_shardings`` and its global arrays) each rank runs its own rows, and:
+Across ranks (``layout``: a ``parallel.StateLayout`` over a dp x tp mesh;
+the JAX step's ``state_shardings`` and its global arrays) each dp column
+runs its own rows, and its tp ranks run the same rows on their slices:
 
+- the forward and backward take the tensor-parallel collectives
+  (``layout.tensor_parallel()``: ``copy_to_tp`` / ``reduce_from_tp`` around
+  the split sub-layers, the masked embedding lookup, and the vocab-parallel
+  cross-entropy where the output matrix is split), so the loss, the token
+  counts and every gradient of a leaf that is whole over tp are the same on
+  each tp rank of a column;
 - the window's loss sum, token count and token-type counts are summed over
-  the ranks by one all-reduce before anything divides by the count, so every
-  rank scales, skips a zero-token window and logs alike;
-- gradients are all-reduced for plain DP; a leaf whose moments are dp-sharded
-  (ZeRO-1) has its gradient reduce-scattered into this rank's slice, and a
-  dp-sharded resident parameter (FSDP) gets its slice from the forward's
-  gathers in the backward;
-- the global norm sums each sharded leaf's squares over its slices, then
-  adds the leaves in order; clip and AdamW run on the slices, and ZeRO-1
-  all-gathers the fresh parameters.
+  the rank's dp column by one all-reduce before anything divides by the
+  count, so every rank scales, skips a zero-token window and logs alike;
+- gradients are all-reduced over the dp column for plain DP; a leaf whose
+  moments are dp-sharded (ZeRO-1) has its gradient reduce-scattered into
+  this rank's slice, and a dp-sharded resident parameter (FSDP) gets its
+  slice from the forward's gathers in the backward;
+- the global norm sums each leaf's squares over the ranks that hold
+  distinct pieces of it (over tp, then over dp; a leaf whole on every rank
+  counts once), then adds the leaves in order; clip and AdamW run on the
+  slices, each keyed by its place in the whole leaf, and ZeRO-1 all-gathers
+  the fresh parameters over the dp column.
 
-At one rank every collective is the identity and no leaf is sharded, so the
-step is the single-device one, bit for bit.
+At one rank no leaf is sharded and every collective is the identity, so
+the step is the single-device one, bit for bit.
 """
 
 from __future__ import annotations
@@ -50,8 +59,8 @@ import torch.distributed as dist
 from ssi_tpu_torch.constants import CROSS_ENTROPY_IGNORE_IDX
 from ssi_tpu_torch.models.configs import ConfigLlama3_2
 from ssi_tpu_torch.models.llama3 import forward, gather_leaf
-from ssi_tpu_torch.ops.cross_entropy_cuda import fused_cross_entropy_kernel
-from ssi_tpu_torch.parallel import StateLayout, gather, reduce_scatter
+from ssi_tpu_torch.ops.cross_entropy_cuda import fused_cross_entropy_kernel, vocab_parallel_cross_entropy
+from ssi_tpu_torch.parallel import Mesh, StateLayout, gather, reduce_scatter
 from ssi_tpu_torch.train.optimizer import (
     AdamWConfig,
     adamw_update,
@@ -85,6 +94,7 @@ def make_loss_fn(
     remat: bool | str = True,
     chunk_size: int = 1024,
     shards: dict[str, Any] | None = None,
+    tp: Any = None,
 ) -> Callable:
     """(params, tokens [B,S], labels [B,S], segment_ids?, positions?) ->
     (loss_sum f32, num_tokens i32), this rank's rows only.
@@ -95,17 +105,25 @@ def make_loss_fn(
     ``segment_ids``/``positions`` (packed rows) attention stays within
     segments and the label shift stops at pack boundaries. ``shards``
     (FSDP, ``StateLayout.fsdp_shards``): ``params`` holds this rank's dp
-    shards, and each leaf is gathered whole where it is consumed.
+    shards, and each leaf is gathered whole where it is consumed. ``tp``
+    (``StateLayout.tensor_parallel``): ``params`` holds this rank's tp
+    slices; where the output matrix is a vocabulary slice the loss is the
+    vocab-parallel cross-entropy, and the loss is the whole one on every tp
+    rank.
     """
 
     def loss_fn(params, tokens, labels, segment_ids=None, positions=None):
         if shards is not None:
             params = {**params, **{k: gather_leaf(v, shards[k]) for k, v in params.items() if k != "layers"}}
         hidden = forward(params, tokens, model_cfg, positions=positions, segment_ids=segment_ids,
-                         remat=remat, shards=None if shards is None else shards["layers"])
+                         remat=remat, shards=None if shards is None else shards["layers"], tp=tp)
         y = (shift_labels(labels) if segment_ids is None else shift_labels_packed(labels, segment_ids)).reshape(-1)
         h = hidden.reshape(-1, hidden.shape[-1])
-        loss_sum = fused_cross_entropy_kernel(h, params.get("lm_head", params["embed"]), y, chunk_size)
+        out = params.get("lm_head", params["embed"])
+        if tp is not None and tp.head:
+            loss_sum = vocab_parallel_cross_entropy(tp.enter(h), out, y, tp.mesh, chunk_size)
+        else:
+            loss_sum = fused_cross_entropy_kernel(h, out, y, chunk_size)
         num_tokens = (y != CROSS_ENTROPY_IGNORE_IDX).sum().to(torch.int32)
         return loss_sum, num_tokens
 
@@ -133,30 +151,53 @@ def _value_and_grad(loss_fn: Callable, params, *batch):
     return loss_sum.detach(), num_tokens, list(torch.autograd.grad(loss_sum, leaves))
 
 
-def _all_reduce_counts(values: list[torch.Tensor]) -> list[torch.Tensor]:
-    """Sum 0-d values over the ranks in one all-reduce, each back in its
-    dtype. They cross as f64: exact for the int32 counts, and for two ranks
-    an f32 sum rounded once, as an f32 add rounds it."""
+def _all_reduce_counts(values: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
+    """Sum 0-d values over the rank's dp column in one all-reduce, each back
+    in its dtype (the tp ranks of a column hold the same values). They cross
+    as f64: exact for the int32 counts, and for two ranks an f32 sum rounded
+    once, as an f32 add rounds it."""
     v = torch.stack([x.to(torch.float64) for x in values])
-    dist.all_reduce(v)
+    dist.all_reduce(v, group=mesh.dp_group)
     return [r.to(x.dtype) for r, x in zip(v.unbind(), values)]
 
 
-def _leaf_sums_reducer(layout: StateLayout, sharded: list[bool]) -> Callable[[list], list]:
+def _leaf_sums_reducer(layout: StateLayout, m_dims: list, tp_dims: list) -> Callable[[list], list]:
     """The global norm's per-leaf sums of squares, each a whole leaf's: a
-    sharded leaf's slices are summed over the ranks (one all-reduce of the
-    vector, a whole leaf's entry counted on rank 0 alone)."""
+    leaf's pieces are summed over exactly the ranks that hold distinct ones
+    (one all-reduce of the vector over the tp block, then one over the dp
+    column), a piece that several ranks hold alike counted on the first of
+    them alone."""
+    mesh = layout.mesh
+    if all(m is None and t is None for m, t in zip(m_dims, tp_dims)):
+        return lambda sums: sums
+    mask = [(t is not None or mesh.tp_rank == 0) and (m is not None or mesh.dp_rank == 0)
+            for m, t in zip(m_dims, tp_dims)]
 
     def reduce(sums: list[torch.Tensor]) -> list[torch.Tensor]:
-        if not any(sharded):
-            return sums
         v = torch.stack(sums)
-        if layout.mesh.rank != 0:
-            v = v * torch.tensor(sharded, dtype=v.dtype, device=v.device)
-        dist.all_reduce(v)
+        if not all(mask):
+            v = v * torch.tensor(mask, dtype=v.dtype, device=v.device)
+        if mesh.tp_group is not None and any(t is not None for t in tp_dims):
+            dist.all_reduce(v, group=mesh.tp_group)
+        dist.all_reduce(v, group=mesh.dp_group)
         return list(v.unbind())
 
     return reduce
+
+
+def sync_grads(grads: list[torch.Tensor], layout: StateLayout) -> list[torch.Tensor]:
+    """A window's gradients (sorted-leaf order) summed over the rank's dp
+    column, each leaf in its moments' layout: all-reduced, or (ZeRO-1)
+    reduce-scattered into this rank's slice; a dp-sharded parameter's
+    (FSDP) was reduced by the backward."""
+    out = []
+    for g, pd, md in zip(grads, tree_leaves(layout.params), tree_leaves(layout.moments)):
+        if pd is None and md is not None:
+            g = reduce_scatter(g, md, layout.mesh)
+        elif pd is None:
+            dist.all_reduce(g, group=layout.mesh.dp_group)
+        out.append(g)
+    return out
 
 
 def make_train_step(
@@ -179,26 +220,14 @@ def make_train_step(
     Metrics: ``loss_sum`` (f32), ``num_tokens`` (i32), ``grad_norm`` (f32; NaN
     without clipping), ``lr`` (f32), ``applied`` (bool), and ``token_counts``
     when ``token_type_ranges`` is given; with ``layout`` (a process group is
-    up) each is the sum over the ranks, as the JAX step's global arrays are.
+    up) each is the sum over the dp column (the whole batch), as the JAX
+    step's global arrays are, and the same on every rank.
     """
+    tp = None if layout is None else layout.tensor_parallel()
     loss_fn = make_loss_fn(model_cfg, remat=remat, chunk_size=chunk_size,
-                           shards=None if layout is None else layout.fsdp_shards())
+                           shards=None if layout is None else layout.fsdp_shards(), tp=tp)
     if layout is not None:
-        p_dims, m_dims = tree_leaves(layout.params), tree_leaves(layout.moments)
-        shapes = tree_leaves(layout.shapes)
-        norm_reduce = _leaf_sums_reducer(layout, [d is not None for d in m_dims])
-
-    def sync(grads: list[torch.Tensor]) -> list[torch.Tensor]:
-        """The window's gradients summed over the ranks, each leaf in its
-        moments' layout."""
-        out = []
-        for g, pd, md in zip(grads, p_dims, m_dims):
-            if pd is None and md is not None:
-                g = reduce_scatter(g, md, layout.mesh)
-            elif pd is None:
-                dist.all_reduce(g)
-            out.append(g)  # a sharded parameter's gradient was reduced by the backward
-        return out
+        norm_reduce = _leaf_sums_reducer(layout, tree_leaves(layout.moments), tree_leaves(layout.tp))
 
     def train_step(state: TrainState, tokens, labels, segment_ids=None, positions=None):
         params = state["params"]
@@ -227,9 +256,10 @@ def make_train_step(
         with torch.no_grad():
             if layout is not None:
                 names = [] if counts is None else sorted(counts)
-                loss_sum, num_tokens, *summed = _all_reduce_counts([loss_sum, num_tokens, *(counts[k] for k in names)])
+                loss_sum, num_tokens, *summed = _all_reduce_counts([loss_sum, num_tokens, *(counts[k] for k in names)],
+                                                                   layout.mesh)
                 counts = dict(zip(names, summed)) if counts is not None else None
-                grads = sync(grads)
+                grads = sync_grads(grads, layout)
             n_tokens = int(num_tokens)  # host sync: the update below depends on it
             # The JAX step's f32 arithmetic after accumulation: g / denom promotes a
             # bf16 leaf to f32, and the norm, the clip and AdamW read those f32 values.
@@ -248,8 +278,7 @@ def make_train_step(
                 if layout is None:
                     adamw_update(grads, state["opt_state"], params, lr, opt_cfg, denom=denom, clip=clip)
                 else:
-                    _sharded_update(grads, state["opt_state"], params, lr, opt_cfg, denom, clip, layout,
-                                    p_dims, m_dims, shapes)
+                    _sharded_update(grads, state["opt_state"], params, lr, opt_cfg, denom, clip, layout)
                 state["step"] += 1
 
         metrics = {
@@ -266,17 +295,21 @@ def make_train_step(
     return train_step
 
 
-def _sharded_update(grads, opt_state, params, lr, opt_cfg, denom, clip, layout, p_dims, m_dims, shapes) -> None:
+def _sharded_update(grads, opt_state, params, lr, opt_cfg, denom, clip, layout) -> None:
     """AdamW on each rank's slices: a ZeRO-1 leaf updates the slice of its
-    (whole) parameter that its moments cover, then gathers the fresh
-    parameter from the ranks; an FSDP leaf updates its resident slice; a
-    whole leaf updates whole, alike on every rank."""
+    (dp-whole) parameter that its moments cover, then gathers the fresh
+    parameter over the dp column; an FSDP leaf updates its resident slice; a
+    leaf whole over dp updates whole, alike on every rank of the column.
+    Each piece passes where it lies in the whole leaf (its tp and dp
+    offsets), so that stochastic rounding rounds it as the whole leaf."""
     mesh = layout.mesh
-    views, where = [], []
-    for p, pd, md, shape in zip(tree_leaves(params), p_dims, m_dims, shapes):
-        n = None if md is None else shape[md] // mesh.dp
-        views.append(p.narrow(md, mesh.rank * n, n) if pd is None and md is not None else p)
-        where.append(None if md is None else (tuple(shape), md, mesh.rank * n))
+    p_dims, m_dims = tree_leaves(layout.params), tree_leaves(layout.moments)
+    where = [None if o is None else (tuple(shape), o)
+             for o, shape in zip(tree_leaves(layout.offsets(layout.moments)), tree_leaves(layout.shapes))]
+    views = []
+    for p, pd, md in zip(tree_leaves(params), p_dims, m_dims):
+        n = None if md is None else p.shape[md] // mesh.dp
+        views.append(p.narrow(md, mesh.dp_rank * n, n) if pd is None and md is not None else p)
     adamw_update(grads, opt_state, tree_unflatten(params, views), lr, opt_cfg, denom=denom, clip=clip, where=where)
     for p, view, pd, md in zip(tree_leaves(params), views, p_dims, m_dims):
         if pd is None and md is not None:
@@ -291,16 +324,18 @@ def make_eval_step(
 ) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
     """Dev-loss step ``(params, tokens [B,S], labels [B,S], segment_ids?,
     positions?) -> (loss_sum, n_tokens)``: no remat, no gradient, no state.
-    With ``layout`` both are summed over the ranks (each rank its rows)."""
+    With ``layout`` both are summed over the dp column (each column its
+    rows, its tp ranks the same ones)."""
     loss_fn = make_loss_fn(model_cfg, remat=False, chunk_size=chunk_size,
-                           shards=None if layout is None else layout.fsdp_shards())
+                           shards=None if layout is None else layout.fsdp_shards(),
+                           tp=None if layout is None else layout.tensor_parallel())
 
     @torch.no_grad()
     def eval_step(params, tokens, labels, segment_ids=None, positions=None):
         loss_sum, n_tokens = loss_fn(params, tokens, labels, segment_ids, positions)
         if layout is None:
             return loss_sum, n_tokens
-        return tuple(_all_reduce_counts([loss_sum, n_tokens]))
+        return tuple(_all_reduce_counts([loss_sum, n_tokens], layout.mesh))
 
     return eval_step
 

@@ -8,19 +8,20 @@ loop around ``train/step.py`` on one CUDA card (or the CPU, when asked).
   the versioned training state in the JAX package's msgpack bytes (either
   package resumes the other's); resume = epoch derivation + micro-batch skip
   + host RNG restore.
-- Data parallelism across ranks (``torchrun --nproc_per_node N -m
+- Training across ranks (``torchrun --nproc_per_node N -m
   ssi_tpu_torch.cli.train_sft ...``; one process and one device a rank, a
-  JAX process's counterpart): ``parallel.distributed`` brings up the process
-  group (NCCL on CUDA, gloo on the CPU), ``batch_size`` is per rank and the
-  sampler strides by rank, so N ranks train as the JAX package's N
-  processes (or its one-process ``dp=N`` run at N times the batch).
-  ``parallel.zero1`` shards the AdamW moments over dp, ``parallel.fsdp`` the
-  resident parameters too (``parallel/__init__.py``), and
-  ``sharded_optimizer_state`` has every rank write its own moment slices
-  (``checkpoint/sharded_io.py``). ``parallel.tp`` above 1 raises
-  ``NotImplementedError`` (ROADMAP.md queue A, A9's remainder: tensor
-  parallelism, its training half; tensor-parallel serving runs). The attention is chosen by device (the flash kernels on
-  CUDA), so ``attn_impl`` other than ``auto`` raises.
+  JAX device's counterpart): ``parallel.distributed`` brings up the process
+  group (NCCL on CUDA, gloo on the CPU) and a world of ``dp * tp`` ranks is
+  the JAX mesh ``(dp, tp)``: rank ``r`` holds tp index ``r % tp`` and dp
+  index ``r // tp``. ``batch_size`` is per dp column and the sampler strides
+  by dp index (the tp ranks of a column read the same rows), so the run
+  trains as the JAX package's one-process ``(dp, tp)`` mesh at ``dp`` times
+  the batch. ``parallel.tp`` splits the heads, the MLP and the vocabulary
+  (Megatron's layout, ``parallel/__init__.py``); ``parallel.zero1`` shards
+  the AdamW moments over dp, ``parallel.fsdp`` the resident parameters
+  too, and ``sharded_optimizer_state`` has every rank write its own moment
+  slices (``checkpoint/sharded_io.py``). The attention is chosen by device
+  (the flash kernels on CUDA), so ``attn_impl`` other than ``auto`` raises.
 - The ``device`` key (default ``cuda``) places the run; with no card visible
   the default raises, and ``+device=cpu`` runs on the CPU (the tests).
 - ``profiler: {start_step, num_steps, dir}`` traces a window of optimizer
@@ -65,6 +66,7 @@ from ssi_tpu_torch.parallel import (
     map_trees,
     shard,
     shard_params,
+    tp_shard,
 )
 from ssi_tpu_torch.tokenizer import setup_llama3_tokenizer
 from ssi_tpu_torch.train.geometry import TrainingGeometry
@@ -90,15 +92,7 @@ CONF_DIR = Path(__file__).resolve().parents[2] / "conf"
 
 
 def refuse_unported(cfg: Any) -> None:
-    """Raise on tensor-parallel training (A9's remainder, its training half:
-    the port serves tensor-parallel but trains data-parallel only) and on an
-    explicit attention implementation, before any work."""
-    pcfg = cfg.get("parallel")
-    if pcfg is not None and int(pcfg.get("tp", 1)) > 1:
-        raise NotImplementedError(
-            f"parallel.tp={pcfg.get('tp')} is not ported to ssi_tpu_torch yet: the port trains data-parallel only "
-            "(ROADMAP.md queue A, item A9's remainder: tensor parallelism, its training half)"
-        )
+    """Raise on an explicit attention implementation, before any work."""
     attn_impl = cfg.get("attn_impl", "auto")
     if attn_impl != "auto":
         raise ValueError(f"attn_impl={attn_impl!r}: the port chooses the attention by device (the flash kernels "
@@ -130,7 +124,7 @@ class Trainer:
         self.checkpointer: Checkpointer | None = None
         self.metric_logger = None
         self.mesh = None
-        self.layout: StateLayout | None = None  # where the state lives across the dp ranks
+        self.layout: StateLayout | None = None  # where the state lives across the dp x tp ranks
         self.train_step = None
         self.eval_step = None
         self.lr_schedule = None
@@ -200,7 +194,7 @@ class Trainer:
         self._extract_resume_state()
         self._setup_optimizer()
         self._setup_data()
-        self.geometry = TrainingGeometry.from_config(self.cfg, self.data_train, self.world_size)
+        self.geometry = TrainingGeometry.from_config(self.cfg, self.data_train, self.mesh.dp)
         self._finalize_resume()
         self._build_steps()
         self._resume_rng_state = self._resume_state.pop("rng_state", None) if self._resume_state else None
@@ -224,6 +218,9 @@ class Trainer:
         # fsdp shards params AND moments over dp (ZeRO-3 superset of ZeRO-1)
         self._zero1 = self._fsdp or (bool(pcfg.get("zero1", False)) if pcfg is not None else False)
         self.mesh = make_mesh(dp=dp, tp=tp, world_size=self.world_size, rank=self.rank)
+        if self.mesh.dp * self.mesh.tp != self.world_size:
+            raise ValueError(f"The mesh dp={self.mesh.dp} x tp={self.mesh.tp} must cover the {self.world_size} ranks: "
+                             "a rank is one device, and every rank trains")
         LOGGER.info(
             f"Device mesh: dp={self.mesh.shape['dp']} tp={self.mesh.shape['tp']}"
             + (" (fsdp: dp-sharded params+moments)" if self._fsdp else " (ZeRO-1 optimizer sharding)" if self._zero1 else "")
@@ -263,13 +260,14 @@ class Trainer:
         self._llama_config.update_from_speech_cfg(self.cfg.speech)
         ckpt_cfg = {k: v for k, v in self.cfg.checkpointer.items()}
         self.checkpointer = Checkpointer(**ckpt_cfg, model_expectations=self._llama_config.checkpoint_expectations)
-        fsdp = self._fsdp and self.mesh.dp > 1
-        # an FSDP rank loads on the host and keeps only its slices on the device
+        sliced = self.mesh.tp > 1 or (self._fsdp and self.mesh.dp > 1)
+        # a tp or FSDP rank loads on the host and keeps only its slices on the device
         params = self.checkpointer.load_params(self._llama_config, dtype=self.dtype,
-                                               device="cpu" if fsdp else self.device)
+                                               device="cpu" if sliced else self.device)
         shapes = tree_map(lambda t: tuple(t.shape), params)
-        self.layout = StateLayout.build(self.mesh, shapes, zero1=self._zero1, fsdp=self._fsdp)
-        params = shard_params(self.mesh, params, self.layout.params, self.device)
+        self.layout = StateLayout.build(self.mesh, shapes, zero1=self._zero1, fsdp=self._fsdp,
+                                        num_kv_heads=self._llama_config.num_kv_heads)
+        params = shard_params(self.mesh, self.layout.tp_slices(params), self.layout.params, self.device)
         self.state = {"params": params, "opt_state": None, "step": 0}
 
     def _setup_tokenizer(self) -> None:
@@ -296,60 +294,56 @@ class Trainer:
         state_path = self.checkpointer.training_state_checkpoint
         sharded_io.refuse_orbax_marker(host_opt, state_path)
         if sharded_io.is_marker(host_opt):
-            # every rank reads its own slices, re-sharded to this run's dp
+            # every rank reads its own slices, re-sharded to this run's dp x tp
             empty = init_opt_state(moments_like, self.opt_cfg)
-            self.state["opt_state"] = sharded_io.restore_opt_state(
-                host_opt, Path(state_path).parent, empty, self.layout.moments, self.layout.shapes, self.mesh)
+            self.state["opt_state"] = sharded_io.restore_opt_state(host_opt, Path(state_path).parent, empty,
+                                                                   self.layout)
             self.state["step"] = self.global_step
             return
 
-        def place(saved: Any, like: torch.Tensor, dim: int | None, shape: tuple) -> torch.Tensor:
+        def place(saved: Any, dim: int | None, shape: tuple, spec: tuple) -> torch.Tensor:
             # a whole state leaf, sliced to this rank's part of the moment layout
             t = saved if isinstance(saved, torch.Tensor) else torch.from_numpy(np.asarray(saved))
             if tuple(t.shape) != tuple(shape):
                 raise ValueError(f"optimizer state leaf of shape {tuple(t.shape)} for a parameter of {tuple(shape)}")
-            return shard(t, dim, self.mesh).to(self.device).contiguous()
+            return shard(tp_shard(t, spec, self.mesh), dim, self.mesh).to(self.device).contiguous()
 
-        def restore(saved: dict, like: dict, dims: dict, shapes: dict) -> dict:
+        def restore(saved: dict, like: dict, dims: dict, shapes: dict, specs: dict) -> dict:
             if set(saved) != set(like):
                 raise ValueError(f"optimizer state keys {sorted(saved)} do not match the parameters' {sorted(like)}")
-            return {k: restore(saved[k], v, dims[k], shapes[k]) if isinstance(v, dict)
-                    else place(saved[k], v, dims[k], shapes[k]) for k, v in like.items()}
+            return {k: restore(saved[k], v, dims[k], shapes[k], specs[k]) if isinstance(v, dict)
+                    else place(saved[k], dims[k], shapes[k], specs[k]) for k, v in like.items()}
 
-        dims, shapes = self.layout.moments, self.layout.shapes
+        layout = self.layout
         self.state["opt_state"] = {
-            "mu": restore(host_opt["mu"], moments_like, dims, shapes),
-            "nu": restore(host_opt["nu"], moments_like, dims, shapes),
+            "mu": restore(host_opt["mu"], moments_like, layout.moments, layout.shapes, layout.specs),
+            "nu": restore(host_opt["nu"], moments_like, layout.moments, layout.shapes, layout.specs),
             "count": int(np.asarray(host_opt["count"])),
         }
         self.state["step"] = self.global_step
 
     def _moment_slices(self) -> Any:
         """Tensors of this rank's moment shapes on the device (views of the
-        parameters: a ZeRO-1 rank's moments cover a slice of a whole one)."""
+        parameters: a ZeRO-1 rank's moments cover a dp slice of its tp slice)."""
 
         def view(p: torch.Tensor, pd: int | None, md: int | None) -> torch.Tensor:
             if pd is not None or md is None:
                 return p
             n = p.shape[md] // self.mesh.dp
-            return p.narrow(md, self.rank * n, n)
+            return p.narrow(md, self.mesh.dp_rank * n, n)
 
         return map_trees(view, self.state["params"], self.layout.params, self.layout.moments)
 
     def _setup_data(self) -> None:
+        # one sampler shard a dp column: its tp ranks read the same rows
+        shards = {"num_replicas": self.mesh.dp, "rank": self.mesh.dp_rank}
         if self.cfg.config_name == "sft":
-            self.data_train, self.sampler_train = setup_sft_data(
-                self.cfg.data.train, self.tokenizer, num_replicas=self.world_size, rank=self.rank
-            )
-            self.data_dev, _ = setup_sft_data(self.cfg.data.dev, self.tokenizer, num_replicas=self.world_size,
-                                              rank=self.rank)
+            self.data_train, self.sampler_train = setup_sft_data(self.cfg.data.train, self.tokenizer, **shards)
+            self.data_dev, _ = setup_sft_data(self.cfg.data.dev, self.tokenizer, **shards)
         elif self.cfg.config_name == "cpt":
-            self.data_train, self.sampler_train = setup_text_completion_data(
-                self.cfg.data.train, self.tokenizer, num_replicas=self.world_size, rank=self.rank
-            )
-            self.data_dev, _ = setup_text_completion_data(
-                self.cfg.data.dev, self.tokenizer, num_replicas=self.world_size, rank=self.rank
-            )
+            self.data_train, self.sampler_train = setup_text_completion_data(self.cfg.data.train, self.tokenizer,
+                                                                             **shards)
+            self.data_dev, _ = setup_text_completion_data(self.cfg.data.dev, self.tokenizer, **shards)
         else:
             raise NotImplementedError(f"Unsupported config_name: {self.cfg.config_name}")
 
@@ -373,24 +367,11 @@ class Trainer:
         return {
             "batch_size": self.geometry.batch_size,
             "gradient_accumulation_steps": self.cfg.gradient_accumulation_steps,
-            "world_size": self.world_size,
+            "world_size": self.mesh.dp,  # the data-parallel replicas, each reading batch_size rows
             "steps_per_epoch": self.geometry.steps_per_epoch,
         }
 
     def _build_steps(self) -> None:
-        dp = self.mesh.shape["dp"]
-        if dp % self.world_size != 0:
-            raise ValueError(
-                f"dp mesh size ({dp}) must be divisible by the process count ({self.world_size}) "
-                "so every process contributes whole batch shards."
-            )
-        local_dp = dp // self.world_size
-        if self.geometry.batch_size % local_dp != 0:
-            raise ValueError(
-                f"Per-process batch_size ({self.geometry.batch_size}) must be divisible by the "
-                f"per-process data-parallel share (dp={dp} / {self.world_size} processes = {local_dp}) "
-                "so every device gets an equal batch shard."
-            )
         # the CPU's chunked cross-entropy takes loss_chunk_size; the CUDA kernels tile themselves
         chunk_size = int(self.cfg.get("loss_chunk_size", 1024))
         accum_dtype = _DTYPES[self.cfg.get("grad_accum_dtype", "fp32")]
@@ -643,7 +624,7 @@ class Trainer:
             return
 
         self.global_step += 1
-        self.consumed_samples += self.cfg.gradient_accumulation_steps * self.geometry.batch_size * self.world_size
+        self.consumed_samples += self.cfg.gradient_accumulation_steps * self.geometry.batch_size * self.mesh.dp
         loss_to_log = loss_sum / num_tokens_step
         self.tokens_train_total += num_tokens_step
         self._num_tokens_step = num_tokens_step
@@ -723,9 +704,10 @@ class Trainer:
         most one save is in flight; a new save (or cleanup) joins the previous
         one first.
 
-        Across ranks every rank joins the gathers of dp-sharded leaves (and
-        the sharded optimizer save, when on), on the training thread; rank 0
-        alone writes the files and prunes.
+        Across ranks every rank joins the gathers of the sharded leaves (over
+        its dp column, then its tp block) and the sharded optimizer save,
+        when on, on the training thread; rank 0 alone writes the files and
+        prunes.
         """
         self._join_pending_save()
         async_save = bool(self.cfg.get("async_save", False))
@@ -738,15 +720,15 @@ class Trainer:
         step = self.global_step
         opt = self.state["opt_state"]
         sharded_opt = bool(self.cfg.get("sharded_optimizer_state", False))
-        params = full_host_copy(self.state["params"], self.layout.params, self.mesh)
+        layout = self.layout
+        params = full_host_copy(self.state["params"], layout.params, self.mesh, layout.tp)
         if sharded_opt:
             # every rank writes its own slices (a collective, so on the training
             # thread); the msgpack holds a directory marker
-            host_opt = sharded_io.save_opt_state(opt, self.layout.moments, self.layout.shapes,
-                                                 Path(self.checkpointer.output_dir), step, self.mesh)
+            host_opt = sharded_io.save_opt_state(opt, layout, Path(self.checkpointer.output_dir), step)
         else:
-            mu = full_host_copy(opt["mu"], self.layout.moments, self.mesh)
-            nu = full_host_copy(opt["nu"], self.layout.moments, self.mesh)
+            mu = full_host_copy(opt["mu"], layout.moments, self.mesh, layout.tp)
+            nu = full_host_copy(opt["nu"], layout.moments, self.mesh, layout.tp)
         if self.rank != 0:
             return
         params = tree_map(snapshot, params)

@@ -499,16 +499,13 @@ print("BLOCKED_RUN_OK")
         assert len(lines) == 8 and all(json.loads(line)["finished"] for line in lines)
 
 
-def test_two_rank_sft_cli_under_torchrun_loads_no_card_library(tmp_path):
-    """``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
-    ssi_tpu_torch.cli.train_sft ... parallel.distributed=true +device=cpu``
-    (gloo, ZeRO-1), with every library of ``_NOT_ON_THE_CARD`` blocked from
-    import in the launcher and both ranks: the CLI runs unchanged under
-    torchrun, the ranks read the launcher's variables, and rank 0 alone
-    writes the metrics, ``step_2/`` and a state of world size 2."""
+def _two_rank_sft_under_torchrun(tmp_path, *extra: str) -> Path:
+    """The SFT CLI under ``torchrun --standalone --nproc_per_node 2`` with
+    ``extra`` overrides (gloo, ``+device=cpu``), every library of
+    ``_NOT_ON_THE_CARD`` blocked from import in the launcher and both ranks;
+    2 steps. Returns the output directory."""
     import json
 
-    from ssi_tpu_torch.checkpoint import msgpack_io
     from tests import helpers
 
     model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "step_0")
@@ -524,7 +521,7 @@ def test_two_rank_sft_cli_under_torchrun_loads_no_card_library(tmp_path):
             f"checkpointer.checkpoint_dir={model_dir}", f"tokenizer.path={model_dir}/original/tokenizer.model",
             "tokenizer.max_seq_len=384", "max_steps=2", "save_steps=2", "eval_steps=2", "wandb.enabled=false",
             "hydra/job_logging=none", "gradient_accumulation_steps=1", f"checkpointer.output_dir={out}",
-            "parallel.distributed=true", "parallel.zero1=true", "+device=cpu"]
+            "parallel.distributed=true", *extra, "+device=cpu"]
     for name in ("train", "dev"):
         args += [f"data.{name}.dataset.source=json", f"data.{name}.dataset.split=train",
                  f"+data.{name}.dataset.data_files={split}", f"data.{name}.dataloader.batch_size=2"]
@@ -534,9 +531,38 @@ def test_two_rank_sft_cli_under_torchrun_loads_no_card_library(tmp_path):
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
     metrics = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
     assert [m["step"] for m in metrics if "loss" in m] == [1, 2]
+    assert (out / "step_2" / "model.safetensors.index.json").is_file()
+    return out
+
+
+def test_two_rank_sft_cli_under_torchrun_loads_no_card_library(tmp_path):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 2 -m
+    ssi_tpu_torch.cli.train_sft ... parallel.distributed=true +device=cpu``
+    (gloo, ZeRO-1), with every library of ``_NOT_ON_THE_CARD`` blocked from
+    import in the launcher and both ranks: the CLI runs unchanged under
+    torchrun, the ranks read the launcher's variables, and rank 0 alone
+    writes the metrics, ``step_2/`` and a state of world size 2."""
+    from ssi_tpu_torch.checkpoint import msgpack_io
+
+    out = _two_rank_sft_under_torchrun(tmp_path, "parallel.zero1=true")
     state = msgpack_io.load(out / "training_state.msgpack")
     assert state["training_hparams"]["world_size"] == 2 and state["consumed_samples"] == 2 * 2 * 2
-    assert (out / "step_2" / "model.safetensors.index.json").is_file()
+
+
+def test_tensor_parallel_sft_cli_under_torchrun_loads_no_card_library(tmp_path):
+    """The same at ``parallel.tp=2``: the two ranks are one dp column (one
+    data replica, so a state of world size 1) whose tp ranks split the heads,
+    the MLP and the vocabulary; rank 0 writes the whole ``step_2/``."""
+    from ssi_tpu_torch.checkpoint import msgpack_io
+    from ssi_tpu_torch.checkpoint.safetensors_io import load_file
+
+    out = _two_rank_sft_under_torchrun(tmp_path, "parallel.tp=2")
+    state = msgpack_io.load(out / "training_state.msgpack")
+    assert state["training_hparams"]["world_size"] == 1 and state["consumed_samples"] == 2 * 2
+    weights = {}
+    for f in (out / "step_2").glob("*.safetensors"):
+        weights.update(load_file(f))
+    assert weights["model.embed_tokens.weight"].shape == (530, 64)
 
 
 def test_tensor_parallel_generate_under_torchrun_loads_no_card_library(tmp_path):

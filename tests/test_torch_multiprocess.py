@@ -62,13 +62,31 @@ TIMING = {"duration_step", "tokens_per_second_per_gpu", "train_clock_time"}
 # ``KEEP`` (an environment variable) names a step whose state file and sharded
 # optimizer directory are hard-linked into <output_dir>/kept<step>/ (later
 # saves replace and prune them), so a later run can resume from it.
+# ``CHECK_GROUPS=1`` refuses a collective that the port's code calls on the
+# world group (``group`` None or WORLD) and counts the others.
 _WORKER = """
 import json, os, sys
 from pathlib import Path
 import torch
+import torch.distributed as dist
 from ssi_tpu_torch.checkpoint import Checkpointer, sharded_io
 from ssi_tpu_torch.cli.train_sft import main
 from ssi_tpu_torch.train.optimizer import tree_leaves
+
+grouped = {}
+if os.environ.get("CHECK_GROUPS") == "1":
+    def checked(name, fn):
+        def call(*args, group=None, **kwargs):
+            caller = sys._getframe(1).f_globals.get("__name__", "")
+            if caller.startswith("ssi_tpu_torch."):
+                if group is None or group is dist.group.WORLD:
+                    raise AssertionError(f"{caller} called {name} on the world group")
+                grouped[f"{caller}.{name}"] = grouped.get(f"{caller}.{name}", 0) + 1
+            return fn(*args, group=group, **kwargs)
+        return call
+    for name in ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor", "broadcast", "reduce",
+                 "all_gather"):
+        setattr(dist, name, checked(name, getattr(dist, name)))
 
 keep = int(os.environ.get("KEEP", "0"))
 original = Checkpointer.save_training_state
@@ -96,6 +114,7 @@ record = {
     "shard": list(iter(t.sampler_train)), "consumed_samples": t.consumed_samples,
     "param_numel": [p.numel() for p in tree_leaves(state["params"])],
     "moment_numel": [m.numel() for m in tree_leaves(state["opt_state"]["mu"])],
+    "grouped": grouped,
 }
 Path(sys.argv[1]).write_text(json.dumps(record))
 """
@@ -136,16 +155,17 @@ def assets(tmp_path_factory):
     return root, model_dir, split, rows
 
 
-def run_ranks(assets, out: str, *extra, n: int = 2, keep: int = 0) -> list[dict]:
+def run_ranks(assets, out: str, *extra, n: int = 2, keep: int = 0, batch: int = PER_RANK_BATCH,
+              check_groups: bool = False) -> list[dict]:
     """``n`` port ranks, each a process running the SFT CLI with ``extra``
-    overrides. Returns each rank's readings."""
+    overrides and ``batch`` rows a dp column. Returns each rank's readings."""
     root = assets[0]
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
-    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="2", KEEP=str(keep))
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="2", KEEP=str(keep), CHECK_GROUPS=str(int(check_groups)))
     procs = []
     for r in range(n):
-        args = sft_args(assets, out, PER_RANK_BATCH, *extra, "+device=cpu", "parallel.distributed=true",
+        args = sft_args(assets, out, batch, *extra, "+device=cpu", "parallel.distributed=true",
                         f"+parallel.coordinator_address=localhost:{port}", f"+parallel.num_processes={n}",
                         f"+parallel.process_id={r}")
         procs.append(subprocess.Popen([sys.executable, "-c", _WORKER, str(root / f"{out}_rank{r}.json"), *args],
@@ -256,7 +276,8 @@ def _layout(assets, **flags) -> StateLayout:
     cfg = get_model_config("tiny_test")
     cfg.n_dsus, cfg.modality_tokens = helpers.TINY_N_DSUS, helpers.TINY_USE_MODALITY
     params = Checkpointer(model_dir, output_dir=root / "unused").load_params(cfg, torch.float32, "cpu")
-    return StateLayout.build(make_mesh(dp=2, world_size=2), tree_map(lambda t: tuple(t.shape), params), **flags)
+    return StateLayout.build(make_mesh(dp=2, world_size=2), tree_map(lambda t: tuple(t.shape), params),
+                             num_kv_heads=cfg.num_kv_heads, **flags)
 
 
 @pytest.mark.parametrize("mode", ["zero1", "fsdp"])

@@ -24,6 +24,7 @@ from ssi_tpu_torch.train.optimizer import (
     global_norm,
     init_opt_state,
     tree_leaves,
+    tree_map,
 )
 from ssi_tpu_torch.utils import round_up
 
@@ -144,7 +145,7 @@ def test_adamw_on_shards_is_bitwise_the_whole_leaf_update(dim, stochastic):
 
         params = {"w": part(p0["w"]), "b": {"c": part(p0["b"]["c"])}}
         st = init_opt_state(params, cfg)
-        where = [(shape, dim, r * shape[dim] // 2) for shape in full_shapes]
+        where = [(shape, tuple(r * n // 2 if i == dim else 0 for i, n in enumerate(shape))) for shape in full_shapes]
         for g in grads:
             adamw_update({"w": part(g["w"]), "b": {"c": part(g["b"]["c"])}}, st, params, 1e-2, cfg, where=where)
         parts.append((params, st))
@@ -159,6 +160,67 @@ def test_adamw_on_shards_is_bitwise_the_whole_leaf_update(dim, stochastic):
         for g in grads:
             adamw_update(g, rtn, p_rtn, 1e-2, AdamWConfig(lr=1e-2, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16))
         assert not torch.equal(rtn["mu"]["w"], state["mu"]["w"])
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_adamw_on_zero1_slices_of_tp_slices_is_bitwise_the_whole_leaf_update(stochastic):
+    """Tensor-parallel ZeRO-1 at dp 2 x tp 2: each of the 4 ranks updates
+    its pieces (``StateLayout``: the tp slice, then the moments' dp slice of
+    it; ``offsets`` says where each piece lies in the whole leaf) over 3
+    steps; the pieces put back where the offsets say equal the whole leaves'
+    update bit for bit, bf16 moments and stochastic rounding on and off. The
+    layout covers a ``("tp", "dp")`` co-sharded dimension (``embed``), dp on
+    a dimension of its own beside tp (``wq``, ``w_down``) and dp alone
+    (``final_norm``)."""
+    from ssi_tpu_torch.parallel import Mesh, StateLayout, shard, tp_shard
+
+    shapes = {"embed": (8, 3), "final_norm": (6,), "layers": {"wq": (2, 6, 4), "w_down": (2, 4, 6)}}
+    cfg = AdamWConfig(lr=1e-2, mu_dtype=torch.bfloat16, nu_dtype=torch.bfloat16, stochastic_rounding=stochastic)
+    rng = np.random.default_rng(11)
+
+    def tree(draw):
+        return {"embed": draw(shapes["embed"]), "final_norm": draw(shapes["final_norm"]),
+                "layers": {k: draw(v) for k, v in shapes["layers"].items()}}
+
+    p0 = tree(lambda s: torch.from_numpy(rng.standard_normal(s).astype(np.float32)))
+    grads = [tree(lambda s: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 1e-3)) for _ in range(3)]
+    whole = tree_map(lambda t: t.clone(), p0)
+    state = init_opt_state(whole, cfg)
+    for g in grads:
+        adamw_update(g, state, whole, 1e-2, cfg)
+    got = {key: tree_map(torch.zeros_like, whole) for key in ("params", "mu", "nu")}
+    for rank in range(4):
+        mesh = Mesh(dp=2, tp=2, rank=rank)
+        layout = StateLayout.build(mesh, shapes, zero1=True, fsdp=False, num_kv_heads=2)
+        if rank == 0:
+            assert layout.tp == {"embed": 0, "final_norm": None, "layers": {"wq": 2, "w_down": 1}}
+            assert layout.moments == {"embed": 0, "final_norm": 0, "layers": {"wq": 0, "w_down": 0}}
+            assert layout.params == {"embed": None, "final_norm": None, "layers": {"wq": None, "w_down": None}}
+
+        def piece(t, spec, dim):
+            return shard(tp_shard(t, spec, mesh), dim, mesh)
+
+        params = {k: piece(t, layout.specs[k], layout.moments[k]) for k, t in p0.items() if k != "layers"}
+        params["layers"] = {k: piece(t, layout.specs["layers"][k], layout.moments["layers"][k])
+                            for k, t in p0["layers"].items()}
+        st = init_opt_state(params, cfg)
+        offsets = layout.offsets(layout.moments)
+        where = [None if o is None else (s, o) for o, s in zip(tree_leaves(offsets), tree_leaves(shapes))]
+        for g in grads:
+            part = {k: piece(t, layout.specs[k], layout.moments[k]) for k, t in g.items() if k != "layers"}
+            part["layers"] = {k: piece(t, layout.specs["layers"][k], layout.moments["layers"][k])
+                              for k, t in g["layers"].items()}
+            adamw_update(part, st, params, 1e-2, cfg, where=where)
+        for key, mine in (("params", params), ("mu", st["mu"]), ("nu", st["nu"])):
+            for dst, src, off in zip(tree_leaves(got[key]), tree_leaves(mine), tree_leaves(offsets)):
+                view = dst
+                for d, (o, n) in enumerate(zip(off, src.shape)):
+                    view = view.narrow(d, o, n)
+                view.copy_(src)
+    for key in ("params", "mu", "nu"):
+        want = tree_leaves(whole if key == "params" else state[key])
+        for i, (a, w) in enumerate(zip(tree_leaves(got[key]), want)):
+            assert torch.equal(a, w), (key, i)
 
 
 SCHEDULES = {

@@ -32,12 +32,16 @@ LAUNCH_VARS = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK",
                "SLURM_JOB_NUM_NODES")
 
 
-def jax_shapes(name: str):
+def jax_config(name: str):
     if name == "tiny":
-        cfg = helpers.tiny_config()
-    else:
-        cfg = jconfigs.get_model_config(name).copy()
-        cfg.n_dsus, cfg.modality_tokens = 5000, True
+        return helpers.tiny_config()
+    cfg = jconfigs.get_model_config(name).copy()
+    cfg.n_dsus, cfg.modality_tokens = 5000, True
+    return cfg
+
+
+def jax_shapes(name: str):
+    cfg = jax_config(name)
     return jax.eval_shape(lambda: jax_init_params(cfg, jax.random.PRNGKey(0)))
 
 
@@ -59,13 +63,14 @@ def test_layout_rules_equal_the_jax_rules(name, dp):
                              is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)),
     }
     port_shapes = to_shapes(shapes)
-    got = {"params": ppar.param_shardings(port_mesh, port_shapes),
-           "fsdp": ppar.param_shardings(port_mesh, port_shapes, fsdp=True)}
-    moments = ppar.opt_state_shardings(port_mesh, port_shapes, zero1=True)
+    heads = {"num_kv_heads": jax_config(name).num_kv_heads}
+    got = {"params": ppar.param_shardings(port_mesh, port_shapes, **heads),
+           "fsdp": ppar.param_shardings(port_mesh, port_shapes, fsdp=True, **heads)}
+    moments = ppar.opt_state_shardings(port_mesh, port_shapes, zero1=True, **heads)
     assert moments["count"] == () and moments["mu"] == moments["nu"]
-    assert ppar.opt_state_shardings(port_mesh, port_shapes)["mu"] == got["params"]
+    assert ppar.opt_state_shardings(port_mesh, port_shapes, **heads)["mu"] == got["params"]
     got["zero1"], want["zero1"] = moments["mu"], want["fsdp"]  # the JAX moments take the same augmentation
-    layout = ppar.StateLayout.build(port_mesh, port_shapes, zero1=True, fsdp=True)
+    layout = ppar.StateLayout.build(port_mesh, port_shapes, zero1=True, fsdp=True, **heads)
     sharded = 0
     for key in ("params", "fsdp", "zero1"):
         j_leaves = jax.tree.leaves(want[key], is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))

@@ -339,13 +339,13 @@ def test_default_device_refuses_without_a_card(assets, monkeypatch):
 
 @pytest.mark.parametrize("over,error,match", [
     ({"parallel": {"dp": 2}}, ValueError, r"^Requested dp\*tp = 2 exceeds available devices \(1\)$"),
-    ({"parallel": {"tp": 2}}, NotImplementedError, "A9's remainder"),
+    ({"parallel": {"tp": 2}}, ValueError, r"^Requested dp\*tp = 2 exceeds available devices \(1\)$"),
     ({"attn_impl": "pallas"}, ValueError, "attn_impl=auto"),
 ])
 def test_unported_keys_raise(assets, over, error, match):
-    """Tensor parallelism (A9's remainder) and an explicit attention raise
-    before any work; dp beyond the world size raises the JAX ``make_mesh``
-    error rather than train on one rank."""
+    """An explicit attention raises before any work; dp or tp beyond the
+    world size raises the JAX ``make_mesh`` error rather than train on one
+    rank."""
     root, model_dir, split, _ = assets
     with pytest.raises(error, match=match):
         Trainer(PortConfig(cfg_dict(model_dir, root / "port_refused", split, **over))).setup()

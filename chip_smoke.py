@@ -200,10 +200,10 @@ e. the training entry points at the full width of ``llama3_2_1b``: a
    bitwise, the training state read back by the port's decoder; the CPT
    CLI for 2 steps with the conf's window (micro-batch 4 x accum 16 x seq
    768, interleaved): losses finite, the final checkpoint written; an
-   A/B of ``overlap_io`` (6 SFT steps each way, untraced: every logged
-   value but the timings equal, wall per step and duration_step of steps
-   2-5 printed); then a fresh SFT run from ``step_2/`` and the step-2
-   training state whose
+   A/B of ``overlap_io`` (6 SFT steps each way, untraced, no save: every
+   logged value but the timings equal, wall per step and duration_step of
+   steps 2-5 printed); then a fresh SFT run (no save) from ``step_2/`` and
+   the step-2 training state whose
    step 3-4 losses and step-4 weights equal the uninterrupted run's
    bitwise, its step 3 traced through the Trainer's ``profiler`` key
    (device busy share and device time by kernel class). Prints the
@@ -218,7 +218,7 @@ k. packed training, inside phase e on its extended checkpoint: the SFT
    of 2048, 3 optimizer steps an epoch), 4 steps, a save and a packed dev
    loss every 2: losses finite and falling, every training kernel launched
    (the kernels line's ``launches_by_path["train_packed"]``); a fresh run
-   from ``step_2/`` and its state whose steps 3-4 (across the epoch
+   (no save) from ``step_2/`` and its state whose steps 3-4 (across the epoch
    boundary, after the re-pack) and step-4 weights equal the uninterrupted
    run's bitwise; #1 and #3 at the run's first two packs (segments 1..k,
    then a tail of segment 0) vs their plain versions in f32 and bf16, each
@@ -226,7 +226,7 @@ k. packed training, inside phase e on its extended checkpoint: the SFT
    SDPA given the same boolean mask (the backend that took it is named);
    f32 at 1B width (2 layers): the two packs' loss equals the sum over
    their samples run alone, with the kernels and with the plain versions,
-   within 1e-5 of the sum; then 2 steps with ``pack_window`` 8. Prints
+   within 1e-5 of the sum; then 2 steps with ``pack_window`` 8 (no save). Prints
    label tok/s and ``duration_step`` beside phase e's unpacked run, the
    non-pad share of packed and unpacked rows, and peak memory;
 n. training across ranks, inside phase e on its extended checkpoint (after
@@ -267,6 +267,21 @@ m. the BPE-compressed DSU axis, inside phase e on its synthesized base
    step readings beside phase e's and the phase's seconds (the kernels
    line's ``launches_by_path["cpt_compressed"]``: the CPT and generation
    runs together);
+q. the slice's host modules, inside phase e on its extended checkpoint
+   (before phase k): q1 phase e's SFT run for 2 steps with no save, both
+   splits read from a local dataset directory in the HF repo layout (phase
+   e's rows in two parquet train shards and one validation shard, a README
+   ``configs:`` block; JSON-lines shards when pyarrow does not import),
+   passed as ``data.{train,dev}.dataset.source=<dir>`` with no
+   ``data_files``: losses, grad norms and the step-2 dev loss bitwise phase
+   e's; q2 phase e's CPT run for 2 steps with no save and
+   ``tokenizer.pattern`` the PUA pattern wrapped as ``(?:...)`` (a string the
+   C++ scanner does not take: the ``regex`` route): every CPT row's tokens
+   equal the scanner's, losses and grad norms bitwise phase e's CPT (without
+   ``regex``, the CLI's refusal naming it); prints the split read time
+   (directory beside JSON lines), the host encode rate of each route, the
+   step readings and the phase's seconds (the kernels line's
+   ``launches_by_path["train_local"]``: both runs together);
 f. weight-only int8 and the port's WER drive:
    f1. ``quantize_layer_weights_int8`` on phase 5's random bf16 1B weights
    on the card: ``q`` and ``scale`` bitwise equal to the same f32
@@ -323,7 +338,7 @@ h. Llama 3.1 8B serving at full width (D 4,096, FFN 14,336, an untied
    layers, tokens kernels == plain and == the oracle.
 
 ``--only 1b,e,hd128,g,h`` runs the named groups alone while developing (1b:
-phases 2-f, phases i, j, k, l, n and m with them; e: phases e, k, n and m alone)
+phases 2-f, phases i, j, k, l, n, m and q with them; e: phases e, q, k, n and m alone)
 and prints no result line.
 
 Tolerances: phases 2, 3 and a hold each output elementwise to ``TOL``
@@ -339,8 +354,8 @@ path, ``wer_drive`` the sum over the drive's stage processes,
 ``serve_http`` the HTTP server process's, ``serve_n`` phase j1's,
 ``serve_tp`` phase o's mesh runs, ``train_tp`` phase p2's tp path,
 ``train_packed`` phase k's packed SFT run, ``cpt_compressed`` phase
-m's CPT and generation runs and ``train_dp`` the sum over phase n's
-torchrun processes; the
+m's CPT and generation runs, ``train_dp`` the sum over phase n's
+torchrun processes and ``train_local`` phase q's SFT and CPT runs; the
 head_dim-128 instances as rows of their own, ``<name>_hd128``, with the 3B
 and 8B paths' launches) and, last, the device line ``{"ok": true,
 "device": {...}}``.
@@ -2916,12 +2931,13 @@ def phase_training_cli(seed: int, smi: str):
             f"peak memory {mem_cpt:.1f} GiB; launches {cpt_launches}")
 
         # 4. overlap_io on and off, untraced: 6 SFT steps each from the extended base, the
-        # dev loss and the save only at step 6; every logged value but the timings agrees
+        # dev loss only at step 6 and no save (steps 2-5 are read); every logged value but the timings agrees
         ab = {}
         for overlap in (True, False):
             out_ab = root / f"sft_overlap_{overlap}"
-            trainer, _ = run_cli(sft_main, sft_argv(out_ab, "max_steps=6", "eval_steps=6", "save_steps=6",
-                                                    f"overlap_io={str(overlap).lower()}"))
+            with no_saves():
+                trainer, _ = run_cli(sft_main, sft_argv(out_ab, "max_steps=6", "eval_steps=6", "save_steps=6",
+                                                        f"overlap_io={str(overlap).lower()}"))
             del trainer
             ab[overlap] = {m["step"]: m for m in read_metrics(out_ab) if "loss" in m}
             shutil.rmtree(out_ab)
@@ -2933,7 +2949,7 @@ def phase_training_cli(seed: int, smi: str):
         # steps 2-5: the wall per step from train_clock_time (hours), and the mean duration_step
         ab_ms = {o: ((m[5]["train_clock_time"] - m[1]["train_clock_time"]) * 3600e3 / 4,
                      sum(m[k]["duration_step"] for k in range(2, 6)) * 1e3 / 4) for o, m in ab.items()}
-        log(f"phase e overlap_io A/B (SFT CLI, 6 steps, dev loss and save only at step 6; steps 2-5): "
+        log(f"phase e overlap_io A/B (SFT CLI, 6 steps, dev loss only at step 6, no save; steps 2-5): "
             f"wall per step {ab_ms[True][0]:.1f} ms on, {ab_ms[False][0]:.1f} ms off; mean duration_step "
             f"{ab_ms[True][1]:.1f} ms on, {ab_ms[False][1]:.1f} ms off; JSONL duration_step on "
             f"{step_readings(list(ab[True].values()))}; off {step_readings(list(ab[False].values()))}; "
@@ -2942,10 +2958,11 @@ def phase_training_cli(seed: int, smi: str):
         # 5. resume: a fresh Trainer from step_2/ and the step-2 state runs steps 3-4 equal
         # to the uninterrupted run, bitwise; step 3 is traced (after every untraced reading)
         out_r = root / "sft_resumed"
-        trainer, t_resume = run_cli(sft_main, sft_argv(
-            out_r, f"checkpointer.checkpoint_dir={out / 'step_2'}",
-            f"checkpointer.training_state_checkpoint={out / 'training_state_step2.msgpack'}",
-            f"profiler={{start_step: 2, num_steps: 1, dir: {root / 'profile'}}}"))
+        with no_saves():  # steps 3-4 are held in memory
+            trainer, t_resume = run_cli(sft_main, sft_argv(
+                out_r, f"checkpointer.checkpoint_dir={out / 'step_2'}",
+                f"checkpointer.training_state_checkpoint={out / 'training_state_step2.msgpack'}",
+                f"profiler={{start_step: 2, num_steps: 1, dir: {root / 'profile'}}}"))
         metrics_r = read_metrics(out_r)
         losses_r = [m["loss"] for m in metrics_r if "loss" in m]
         check(losses_r == losses[2:], f"resumed losses {losses_r} != the uninterrupted run's {losses[2:]}")
@@ -2963,6 +2980,9 @@ def phase_training_cli(seed: int, smi: str):
         log(f"phase e traced step 3 (Trainer profiler key, one optimizer step, save_qkv_mlp): traced step "
             f"{traced:.1f} ms, device busy {dev_summary['busy_ms']:.1f} ms ({dev_summary['busy_ms'] / traced:.0%} "
             f"of the traced step), {dev_summary['kernels']} kernels; device time by class: {shares}")
+        # phase q reads phase e's rows from a local dataset directory and splits its CPT rows by a raw regex
+        local_launches = phase_local_sources(smi, root, ext, sft_argv, cpt_argv, {"train": train, "dev": dev},
+                                             {"train": train_c, "dev": dev_c}, metrics, metrics_c)
         # phase k trains packed on this extended checkpoint before it is deleted (no second extension)
         t0 = time.perf_counter()
         packed_launches = phase_packed_training(seed, smi, root, sft_argv, metrics)
@@ -2975,7 +2995,7 @@ def phase_training_cli(seed: int, smi: str):
         # phase m extends the same base by its compressed vocabulary (no second base)
         shutil.rmtree(ext)
         compressed_launches = phase_compressed(seed, smi, root, base, cpt_argv, metrics_c)
-        return launches, packed_launches, compressed_launches, dp_launches
+        return launches, packed_launches, compressed_launches, dp_launches, local_launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3211,9 +3231,10 @@ def phase_packed_training(seed: int, smi: str, root, sft_argv, unpacked: list[di
 
     # the step-2 resume: steps 3-4 (the epoch ends after step 3) equal the uninterrupted run's, bitwise
     out_r = root / "sft_packed_resumed"
-    trainer, t_resume = run_cli(sft_main, sft_argv(
-        out_r, *packed, f"checkpointer.checkpoint_dir={out / 'step_2'}",
-        f"checkpointer.training_state_checkpoint={out / 'training_state_step2.msgpack'}", train_split=train))
+    with no_saves():  # steps 3-4 are held in memory
+        trainer, t_resume = run_cli(sft_main, sft_argv(
+            out_r, *packed, f"checkpointer.checkpoint_dir={out / 'step_2'}",
+            f"checkpointer.training_state_checkpoint={out / 'training_state_step2.msgpack'}", train_split=train))
     losses_r = [m["loss"] for m in read_metrics(out_r) if "loss" in m]
     check(losses_r == losses[2:], f"packed resumed losses {losses_r} != the uninterrupted run's {losses[2:]}")
     for name, w in flat_params(trainer.state["params"]).items():
@@ -3230,8 +3251,10 @@ def phase_packed_training(seed: int, smi: str, root, sft_argv, unpacked: list[di
 
     # pack_window: 2 steps, the shuffle moved into the dataset, the sampler sequential
     out_w = root / "sft_packed_window"
-    trainer, t_window = run_cli(sft_main, sft_argv(out_w, *packed, "data.train.pack_window=8", "data.dev.pack_window=8",
-                                                   "max_steps=2", "eval_steps=2", "save_steps=2", train_split=train))
+    with no_saves():
+        trainer, t_window = run_cli(sft_main, sft_argv(out_w, *packed, "data.train.pack_window=8",
+                                                       "data.dev.pack_window=8", "max_steps=2", "eval_steps=2",
+                                                       "save_steps=2", train_split=train))
     losses_w = [m["loss"] for m in read_metrics(out_w) if "loss" in m]
     check(type(trainer.data_train.dataset).__name__ == "WindowedPackedDataset" and not trainer.sampler_train.shuffle
           and len(losses_w) == 2 and all(math.isfinite(x) for x in losses_w),
@@ -3715,6 +3738,193 @@ def phase_compressed(seed: int, smi: str, root, base, cpt_argv, base_cpt: list[d
         f"every record finished and decodes; CLI wall {t_gen:.2f} s; launches {gen_launches}")
     log(f"  [phase m: {time.perf_counter() - t_phase:.1f} s]")
     return {name: launches.get(name, 0) + gen_launches.get(name, 0) for name in {*launches, *gen_launches}}
+
+
+# --- phase q: local dataset sources and a raw split regex through the training CLIs ----------
+
+
+class no_saves:
+    """The Trainer's saves skipped (a run compared by its losses only)."""
+
+    def __enter__(self):
+        from ssi_tpu_torch.train.trainer import Trainer
+
+        self.original = Trainer.save_checkpoint
+        Trainer.save_checkpoint = lambda trainer: None
+        return self
+
+    def __exit__(self, *exc):
+        from ssi_tpu_torch.train.trainer import Trainer
+
+        Trainer.save_checkpoint = self.original
+
+
+def hf_dataset_dir(directory, train_rows: list[dict], dev_rows: list[dict]) -> str:
+    """``train_rows`` in two shards and ``dev_rows`` in one, as a downloaded HF
+    dataset repo lays them out (``data/<split>-0000i-of-0000n.parquet`` and a
+    README ``configs:`` block naming them); JSON-lines shards of the same
+    names when pyarrow does not import. Returns the shards' extension."""
+    from ssi_tpu_torch.utils import import_optional
+
+    try:
+        pa = import_optional("pyarrow", "Writing phase q's parquet shards")
+        pq = import_optional("pyarrow.parquet", "Writing phase q's parquet shards")
+    except ImportError:
+        pq = None
+    ext = "parquet" if pq is not None else "jsonl"
+    (directory / "data").mkdir(parents=True)
+    half = len(train_rows) // 2
+    for name, part in (("train-00000-of-00002", train_rows[:half]), ("train-00001-of-00002", train_rows[half:]),
+                       ("validation-00000-of-00001", dev_rows)):
+        if pq is not None:
+            pq.write_table(pa.Table.from_pylist(part), directory / "data" / f"{name}.parquet", row_group_size=16)
+        else:
+            write_jsonl(directory / "data" / f"{name}.jsonl", part)
+    (directory / "README.md").write_text(
+        f"---\nconfigs:\n- config_name: default\n  data_files:\n  - split: train\n    path: data/train-*.{ext}\n"
+        f"  - split: validation\n    path: data/validation-*.{ext}\n---\n# phase q rows\n")
+    return ext
+
+
+def phase_local_sources(smi: str, root, ext, sft_argv, cpt_argv, sft_files, cpt_files, sft_metrics: list[dict],
+                        cpt_metrics: list[dict]) -> dict:
+    """Phase q: the slice's host modules on phase e's runs at the full width
+    of ``llama3_2_1b``, inside phase e on its extended checkpoint. q1: phase
+    e's SFT run for 2 steps (no save), both splits read from a local dataset
+    directory in the HF repo layout (two parquet train shards, one validation
+    shard, a README ``configs:`` block) holding phase e's rows, passed as
+    ``data.{train,dev}.dataset.source=<dir>`` with no ``data_files``: losses,
+    grad norms and the step-2 dev loss bitwise phase e's. q2: phase e's CPT
+    run (2 steps, no save) with ``tokenizer.pattern`` the PUA pattern wrapped
+    as ``(?:...)``, the same language in a string the C++ scanner does not
+    take, so the ``regex`` route splits it: every CPT row's tokens equal the
+    scanner's, losses and grad norms bitwise phase e's CPT. Prints the split
+    read time (directory beside JSON lines), the host encode rate of each
+    route, step readings and the phase's seconds. Returns both runs' launch
+    counts together (the kernels line's ``train_local``)."""
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.cli.train_cpt import main as cpt_main
+    from ssi_tpu_torch.cli.train_sft import main as sft_main
+    from ssi_tpu_torch.data import _as_kwargs, load_hf_dataset
+    from ssi_tpu_torch.data.cpt import TextCompletionDataset
+    from ssi_tpu_torch.speech import dsu2pua
+    from ssi_tpu_torch.tokenizer import CL100K_PATTERN_PUA, setup_llama3_tokenizer
+
+    t_phase = time.perf_counter()
+
+    def per_step(metrics, key):
+        return [m[key] for m in metrics if "loss" in m][:2]
+
+    # q1. SFT from a local dataset directory, both splits, no data_files
+    rows = {name: [json.loads(line) for line in path.read_text().splitlines()] for name, path in sft_files.items()}
+    directory = root / "sft_hf"
+    shard_ext = hf_dataset_dir(directory, rows["train"], rows["dev"])
+    reads = {}
+    for name, read in (("jsonl", lambda: [load_hf_dataset("json", data_files=str(sft_files[s]), split="train")
+                                          for s in ("train", "dev")]),
+                       ("dir", lambda: [load_hf_dataset(str(directory), split=s) for s in ("train", "validation")])):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = read()
+            times.append(time.perf_counter() - t0)
+        reads[name] = (min(times), got)
+    check(reads["dir"][1] == reads["jsonl"][1], "the dataset directory's rows differ from phase e's JSON lines")
+    argv = [a for a in sft_argv(root / "q1") if not a.startswith(("data.train.dataset.", "data.dev.dataset.",
+                                                                   "+data.train.dataset.", "+data.dev.dataset."))]
+    argv += [f"data.train.dataset.source={directory}", f"data.dev.dataset.source={directory}",
+             "data.train.dataset.split=train", "data.dev.dataset.split=validation", "max_steps=2"]
+    _build.launch_counts.clear()
+    with no_saves():
+        trainer, t_sft = run_cli(sft_main, argv)
+    sft_launches = dict(_build.launch_counts)
+    check(trainer.global_step == 2 and str(trainer.cfg.data.train.dataset.source) == str(directory),
+          f"q1 ran {trainer.global_step} steps from {trainer.cfg.data.train.dataset.source}")
+    del trainer
+    torch.cuda.empty_cache()
+    q1 = read_metrics(root / "q1")
+    for key in ("loss", "grad_norm"):
+        check(per_step(q1, key) == per_step(sft_metrics, key),
+              f"q1 {key} {per_step(q1, key)} != phase e's {per_step(sft_metrics, key)}")
+    dev_q1 = [m["dev_loss"] for m in q1 if "dev_loss" in m]
+    dev_e = [m["dev_loss"] for m in sft_metrics if "dev_loss" in m][:1]
+    check(dev_q1 == dev_e, f"q1 dev loss {dev_q1} != phase e's {dev_e}")
+    for name in TRAIN_KERNELS:
+        check(sft_launches.get(name, 0) > 0, f"kernel {name} was not launched by the q1 SFT run")
+
+    # q2. CPT with a raw split regex: the PUA pattern wrapped, so the regex route splits it
+    wrapped = f"(?:{CL100K_PATTERN_PUA})"
+    tok_path = ext / "original" / "tokenizer.model"
+    scanner, _ = setup_llama3_tokenizer(tok_path, verbose=False)
+    try:
+        regex_tok, _ = setup_llama3_tokenizer(tok_path, verbose=False, pattern=wrapped)
+    except ImportError as e:
+        check("'regex'" in str(e), f"the regex route's refusal does not name the package: {e}")
+        try:
+            run_cli(cpt_main, cpt_argv(root / "q2", ext, cpt_files["train"], cpt_files["dev"],
+                                       f"tokenizer.pattern={wrapped}"))
+        except ImportError as cli_error:
+            check("'regex'" in str(cli_error), f"the CPT CLI's refusal does not name regex: {cli_error}")
+        else:
+            check(False, "the CPT CLI ran a raw regex without the regex package")
+        log(f"phase q2: regex does not import here; the CPT CLI refuses tokenizer.pattern={wrapped[:24]}... "
+            f"naming it: {e}")
+        cpt_launches = {}
+    else:
+        _build.launch_counts.clear()
+        with no_saves():
+            trainer, t_cpt = run_cli(cpt_main, cpt_argv(root / "q2", ext, cpt_files["train"], cpt_files["dev"],
+                                                        f"tokenizer.pattern={wrapped}"))
+        cpt_launches = dict(_build.launch_counts)
+        check(trainer.tokenizer.pattern == wrapped and trainer.tokenizer._split is not None,
+              "the q2 CPT run did not take the regex route")
+        kwargs = _as_kwargs(trainer.cfg.data.train.dataset)
+        del trainer
+        torch.cuda.empty_cache()
+        ds = {name: TextCompletionDataset(tokenizer=t, **kwargs) for name, t in (("regex", regex_tok),
+                                                                                 ("scanner", scanner))}
+        n_rows = len(ds["regex"])
+        n_tokens = 0
+        for i in range(n_rows):
+            a, b = ds["regex"][i]["tokens"], ds["scanner"][i]["tokens"]
+            check(a == b, f"q2 CPT row {i}: the regex route's tokens differ from the scanner's")
+            n_tokens += len(a)
+        q2 = read_metrics(root / "q2")
+        for key in ("loss", "grad_norm"):
+            check(per_step(q2, key) == per_step(cpt_metrics, key),
+                  f"q2 {key} {per_step(q2, key)} != phase e's CPT {per_step(cpt_metrics, key)}")
+        for name in TRAIN_KERNELS:
+            check(cpt_launches.get(name, 0) > 0, f"kernel {name} was not launched by the q2 CPT run")
+        cpt_rows_ = [json.loads(line) for line in cpt_files["train"].read_text().splitlines()]
+        texts = ["".join(dsu2pua(t) for t in r["speech_tokens"]) for r in cpt_rows_] + \
+            [" ".join(r["tokenized"]) for r in cpt_rows_]
+        n_chars = sum(map(len, texts))
+        rates = {}
+        for name, t in (("scanner", scanner), ("regex", regex_tok)):
+            t0 = time.perf_counter()
+            n_ids = sum(len(t.encode(x, add_bos=False, add_eos=False)) for x in texts)
+            dt = time.perf_counter() - t0
+            rates[name] = (n_chars / dt, n_ids / dt, n_ids)
+        check(rates["regex"][2] == rates["scanner"][2], "the two routes encode the rows to different counts")
+        log(f"phase q2 CPT CLI (1B bf16, tokenizer.pattern=(?:CL100K_PATTERN_PUA), the regex route; window 16 x 4 x "
+            f"768, 2 steps, no save): loss {', '.join(f'{x:.4f}' for x in per_step(q2, 'loss'))}, losses and grad "
+            f"norms bitwise phase e's CPT; all {n_rows} rows' tokens ({n_tokens}) equal the scanner's; steps "
+            f"{step_readings(q2)} (phase e's CPT: {step_readings(cpt_metrics)}); CLI wall {t_cpt:.2f} s; "
+            f"launches {cpt_launches}")
+        log(f"phase q2 host encode rate of the {len(texts)} CPT rows' DSU strings and transcripts ({n_chars} chars, "
+            f"{rates['regex'][2]} tokens): scanner {rates['scanner'][0]:.0f} chars/s ({rates['scanner'][1]:.0f} "
+            f"tokens/s), regex route {rates['regex'][0]:.0f} chars/s ({rates['regex'][1]:.0f} tokens/s), "
+            f"{rates['regex'][0] / rates['scanner'][0]:.3f}x; on {smi}")
+    log(f"phase q1 SFT CLI (1B bf16, window 4 x 2 x 2048, 2 steps, no save) from a dataset directory ({shard_ext} "
+        f"shards: 2 train, 1 validation, README configs), no data_files: loss "
+        f"{', '.join(f'{x:.4f}' for x in per_step(q1, 'loss'))}, grad norms and the step-2 dev loss bitwise phase "
+        f"e's; steps {step_readings(q1)} (phase e's: {step_readings(sft_metrics)}); CLI wall {t_sft:.2f} s; "
+        f"split read (train + dev, best of 3): directory {reads['dir'][0] * 1e3:.1f} ms, JSON lines "
+        f"{reads['jsonl'][0] * 1e3:.1f} ms; launches {sft_launches}; on {smi}")
+    log(f"  [phase q: {time.perf_counter() - t_phase:.1f} s]")
+    return {name: sft_launches.get(name, 0) + cpt_launches.get(name, 0) for name in {*sft_launches, *cpt_launches}}
 
 
 # --- phase f: weight-only int8 and the port's WER drive ---------------------------------------
@@ -4281,7 +4491,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", default="", help="comma-separated phase groups to run alone while developing "
-                        "(1b: phases 2-f, i, j, k, l, n and m; e: phases e, k, n and m alone; p: phase p alone; hd128: "
+                        "(1b: phases 2-f, i, j, k, l, n, m and q; e: phases e, q, k, n and m alone; p: phase p alone; hd128: "
                         "the head_dim-128 kernel phases; g; h); prints no result line")
     args = parser.parse_args()
 
@@ -4336,8 +4546,9 @@ def main() -> int:
         for name, times in p1["slice_ms"].items():
             rows[name]["tp2_slice"] = times
         mark("phase p")
-        train_cli_launches, packed_launches, compressed_launches, dp_launches = phase_training_cli(args.seed, smi)
-        mark("phases e, k, n, m")
+        (train_cli_launches, packed_launches, compressed_launches, dp_launches,
+         local_launches) = phase_training_cli(args.seed, smi)
+        mark("phases e, q, k, n, m")
         int8_launches = phase_int8_serving(args.seed, smi, base_tokens, base_rate)
         phase_drive_kernels(gen)
         drive_launches = phase_wer_drive(smi)
@@ -4348,7 +4559,7 @@ def main() -> int:
         mark("phase p")
     if "e" in groups and "1b" not in groups:
         phase_training_cli(args.seed, smi)
-        mark("phases e, k, n, m")
+        mark("phases e, q, k, n, m")
     if "hd128" in groups:
         rows128 = phase_kernels_hd128(gen, model_config().vocab_size)
         mark("phases 2g-ah")
@@ -4378,7 +4589,8 @@ def main() -> int:
                    "wer_drive": drive_launches.get(name, 0), "serve_http": http_launches.get(name, 0),
                    "serve_n": serve_n_launches.get(name, 0), "train_packed": packed_launches.get(name, 0),
                    "cpt_compressed": compressed_launches.get(name, 0), "train_dp": dp_launches.get(name, 0),
-                   "serve_tp": tp_launches.get(name, 0), "train_tp": tp_train_launches.get(name, 0)}
+                   "serve_tp": tp_launches.get(name, 0), "train_tp": tp_train_launches.get(name, 0),
+                   "train_local": local_launches.get(name, 0)}
         if name.startswith("cross_entropy"):  # one instance for every D: 3B's training launches it too
             by_path["train_3b"] = launches_big["train_3b"].get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",

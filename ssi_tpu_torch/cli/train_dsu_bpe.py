@@ -6,8 +6,9 @@ Usage::
     python -m ssi_tpu_torch.cli.train_dsu_bpe <out_dir> --dataset json --data-files <rows.jsonl> \\
         --n-merges 4096 [--deduplicate] [--split train] [--speech-tokens-key speech_tokens] [--n-samples N]
 
-Reads aligned rows through the port's loader (``--dataset json`` with
-``--data-files``, streamed; any other ``--dataset`` raises naming ROADMAP
+Reads aligned rows through the port's loader, streamed: ``--dataset`` one
+of ``json``, ``parquet`` and ``csv`` with ``--data-files``, or a local
+dataset directory (hub ids and the ``text`` source raise naming ROADMAP
 item A12), converts each row's speech tokens to the PUA string form via
 ``ssi_tpu_torch.speech.dsu2pua``, trains byte-level BPE with
 whole-sequence pieces (merges span adjacent DSUs — the point of
@@ -39,7 +40,8 @@ def parse_args(argv: list[str] | None = None) -> Namespace:
     parser = ArgumentParser(description="Train BPE merges over DSU sequences.")
     parser.add_argument("output_dir", type=Path, help="Directory for tokenizer.model + stats.json.")
     parser.add_argument("--dataset", type=str, required=True,
-                        help="Dataset source: 'json' (with --data-files); others are not ported (A12).")
+                        help="Dataset source: 'json', 'parquet' or 'csv' (with --data-files), or a local "
+                        "dataset directory; hub ids are not ported (A12).")
     parser.add_argument("--split", type=str, default="train")
     parser.add_argument("--data-files", type=str, default=None, help="data_files for json/csv sources.")
     parser.add_argument("--n-merges", type=int, default=4096, help="Number of merges to learn.")

@@ -16,6 +16,8 @@ SUPPORTED_DTYPES: set[str] = {"fp32", "bf16"}
 
 # W&B (ref: ssi/constants.py:27-29)
 DEBUGGING_TAG: str = "trial-run"
+WANDB_ENTITY_DEFAULT: str = "anilkeshwani"
+WANDB_PROJECT_DEFAULT: str = "speech-integration"
 
 # Checkpoints and artefacts (ref: ssi/constants.py:39-50)
 HOME_DIR = Path(os.environ.get("SSI_TPU_HOME", os.environ.get("HAFH", str(Path.home() / "ssi_tpu"))))

@@ -1,39 +1,42 @@
 """Host-side data pipeline for the port — ``ssi_tpu/data/__init__.py``
-(46-365) without the ``datasets`` package: ``load_hf_dataset`` and
+without the ``datasets`` package: ``load_hf_dataset`` and
 ``load_dataset_subset``; the ``Sampler`` (deterministic epoch-seeded shuffle
 plus per-rank sharding), the fixed-shape collate ``padded_collate_sft`` and
 the ``Loader`` yielding collated numpy batches; ``setup_sft_data`` and
-``setup_text_completion_data``. ``tests/test_torch_train_data.py`` holds
-sampler indices and loader batches equal to the JAX package's.
+``setup_text_completion_data``; and the Alpaca debug loader
+(``setup_alpaca_data``). ``tests/test_torch_train_data.py`` holds sampler
+indices and loader batches equal to the JAX package's,
+``tests/test_torch_data_sources.py`` the sources' rows and the Alpaca
+batches.
 
 Packed sequences (``packed: true``, with or without ``pack_window``) go
 through the port's copy of ``data/packing.py``, as in the JAX package.
 
-The generation entry point reads its split the way ``tools/wer_drive.py``
-passes it: ``source="json"`` with ``data_files`` (a path, a list of paths, or
-a dict of split -> paths) and ``split``. Each file holds JSON lines; a split
-is a list of row dicts,
-every row carrying every column seen in the split (absent -> None), as a
-``datasets.Dataset`` row does; with ``streaming=True`` (as
-``python -m ssi_tpu_torch.cli.train_dsu_bpe`` passes it) ``load_hf_dataset``
-yields the rows lazily, in file order, each as its line holds it. Any other
-source or argument raises ``NotImplementedError``: the card has no network,
-and maybe no ``datasets``.
+A split is read from a local source (``data/sources.py``): ``source`` one of
+``json`` (JSON lines), ``parquet`` or ``csv`` with ``data_files`` (a path or
+glob, a list of them, or a dict of split -> paths), or a local dataset
+directory in the layout of a downloaded HF dataset repo, and ``split``. A
+split is a list of row dicts, every row carrying every column seen in the
+split (absent -> None), as a ``datasets.Dataset`` row does; with
+``streaming=True`` (as ``python -m ssi_tpu_torch.cli.train_dsu_bpe`` passes
+it) ``load_hf_dataset`` yields the rows lazily, in file order, each as its
+file holds it. Hub ids, the ``text`` and ``arrow`` sources and other
+``load_dataset`` arguments raise ``NotImplementedError``: the card has no
+network, and maybe no ``datasets``.
 """
 
 from __future__ import annotations
 
 from collections.abc import Callable, Iterator
 from functools import partial
-import json
 import logging
 import math
-from pathlib import Path
 from typing import Any
 
 import numpy as np
 
 from ssi_tpu_torch.constants import CROSS_ENTROPY_IGNORE_IDX, SEED
+from ssi_tpu_torch.data.sources import read_split, resolve_split
 from ssi_tpu_torch.utils import round_up as _round_up
 
 LOGGER = logging.getLogger(__name__)
@@ -44,75 +47,23 @@ __all__ = [
     "load_dataset_subset",
     "load_hf_dataset",
     "padded_collate_sft",
+    "setup_alpaca_data",
     "setup_sft_data",
     "setup_text_completion_data",
 ]
-
-
-def _not_ported(source: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"Dataset source {source!r} is not ported to ssi_tpu_torch yet: only source='json' with "
-        "data_files (JSON lines) is (ROADMAP.md queue A, item A12: hub and other file-type sources)"
-    )
-
-
-def _split_files(data_files: Any, split: str | None) -> list[Path]:
-    if split is None:
-        raise ValueError("source='json' needs a 'split' (e.g. split='train')")
-    if isinstance(data_files, (str, Path)):
-        data_files = {"train": [data_files]}
-    elif isinstance(data_files, (list, tuple)):
-        data_files = {"train": list(data_files)}
-    elif not isinstance(data_files, dict):
-        raise ValueError(f"data_files must be a path, a list of paths, or a dict of split -> paths; got {data_files!r}")
-    if split not in data_files:
-        raise ValueError(f'Unknown split "{split}". Should be one of {list(data_files)}.')
-    entries = data_files[split]
-    paths: list[Path] = []
-    for entry in [entries] if isinstance(entries, (str, Path)) else entries:
-        if not Path(entry).is_file():
-            raise FileNotFoundError(f"Unable to find data file {entry!r}")
-        paths.append(Path(entry))
-    return paths
-
-
-def _read_rows(paths: list[Path]):
-    for path in paths:
-        with open(path, encoding="utf-8") as f:
-            for line in f:
-                if line.strip():
-                    yield json.loads(line)
-
-
-def _with_all_columns(rows: list[dict]) -> list[dict]:
-    columns: dict[str, None] = {}
-    for row in rows:
-        columns.update(dict.fromkeys(row))
-    return [{k: row.get(k) for k in columns} for row in rows]
-
-
-def _json_kwargs(source: str, load_dataset_kwargs: dict[str, Any]) -> tuple[Any, str | None]:
-    if source != "json":
-        raise _not_ported(source)
-    kwargs = dict(load_dataset_kwargs)
-    data_files, split = kwargs.pop("data_files", None), kwargs.pop("split", None)
-    if data_files is None:
-        raise ValueError("source='json' needs data_files")
-    if kwargs:
-        raise NotImplementedError(f"load_dataset arguments {sorted(kwargs)} are not ported (source='json'; "
-                                  "ROADMAP.md queue A, item A12)")
-    return data_files, split
 
 
 def load_hf_dataset(source: str, **load_dataset_kwargs) -> list[dict[str, Any]] | Iterator[dict[str, Any]]:
     """Load a full split (``datasets.load_dataset(source, **kwargs)``'s rows);
     with ``streaming=True`` an iterator over them, read as they are taken."""
     streaming = load_dataset_kwargs.pop("streaming", False)
-    data_files, split = _json_kwargs(source, load_dataset_kwargs)
-    paths = _split_files(data_files, split)
+    rows = read_split(*resolve_split(source, load_dataset_kwargs))
     if streaming:
-        return _read_rows(paths)
-    return _with_all_columns(list(_read_rows(paths)))
+        return rows
+    rows = list(rows)
+    if not rows:  # datasets builds no split from files without rows
+        raise ValueError(f'Instruction "{load_dataset_kwargs["split"]}" corresponds to no data!')
+    return _with_all_columns(rows)
 
 
 def load_dataset_subset(source: str, n_samples: int, filter_fn=None, **load_dataset_kwargs) -> list[dict[str, Any]]:
@@ -124,9 +75,8 @@ def load_dataset_subset(source: str, n_samples: int, filter_fn=None, **load_data
     """
     if "split" not in load_dataset_kwargs:
         raise ValueError("load_dataset_subset requires a 'split' kwarg (e.g. split='train')")
-    data_files, split = _json_kwargs(source, load_dataset_kwargs)
     rows = []
-    for row in _read_rows(_split_files(data_files, split)):
+    for row in read_split(*resolve_split(source, load_dataset_kwargs)):
         if len(rows) >= n_samples:
             break
         if filter_fn is None or filter_fn(row):
@@ -135,6 +85,13 @@ def load_dataset_subset(source: str, n_samples: int, filter_fn=None, **load_data
         f"Streamed {len(rows)}/{n_samples} samples from {source} (split={load_dataset_kwargs.get('split', '?')})"
     )
     return _with_all_columns(rows)
+
+
+def _with_all_columns(rows: list[dict]) -> list[dict]:
+    columns: dict[str, None] = {}
+    for row in rows:
+        columns.update(dict.fromkeys(row))
+    return [{k: row.get(k) for k in columns} for row in rows]
 
 
 # --------------------------------------------------------------------------------
@@ -409,4 +366,78 @@ def setup_sft_data(
     dataset = SFTDataset(model_tokenizer=model_tokenizer, **kwargs)
     loader, sampler = _build_loader(dataset, cfg_dataset, model_tokenizer, num_replicas, rank)
     LOGGER.info(f"Dataset and Sampler initialized from {cfg_dataset.dataset.source}.")
+    return loader, sampler
+
+
+####################################################################################################
+# Debug: Alpaca text-SFT loader (ref: ssi/data/__init__.py:213-231 — used to
+# demonstrate OOM behavior during SFT; torchtune's alpaca_dataset equivalent)
+####################################################################################################
+
+
+class _AlpacaDataset:
+    """Alpaca instruction rows -> masked SFT samples (torchtune alpaca_dataset
+    semantics: train_on_input=True, instruction+input form the user turn)."""
+
+    _PROMPT_WITH_INPUT = (
+        "Below is an instruction that describes a task, paired with an input that provides "
+        "further context. Write a response that appropriately completes the request.\n\n"
+        "### Instruction:\n{instruction}\n\n### Input:\n{input}\n\n### Response:\n"
+    )
+    _PROMPT_NO_INPUT = (
+        "Below is an instruction that describes a task. Write a response that appropriately "
+        "completes the request.\n\n### Instruction:\n{instruction}\n\n### Response:\n"
+    )
+
+    def __init__(self, tokenizer: Any, source: str = "tatsu-lab/alpaca",
+                 train_on_input: bool = True, **load_dataset_kwargs) -> None:
+        from ssi_tpu_torch.tokenizer.messages import Message
+
+        self._tokenizer = tokenizer
+        self._data = load_hf_dataset(source, split=load_dataset_kwargs.pop("split", "train"), **load_dataset_kwargs)
+        self._train_on_input = train_on_input
+        self._Message = Message
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def __getitem__(self, index: int) -> dict[str, Any]:
+        row = self._data[int(index)]
+        template = self._PROMPT_WITH_INPUT if row.get("input") else self._PROMPT_NO_INPUT
+        user = template.format(instruction=row["instruction"], input=row.get("input", ""))
+        messages = [
+            self._Message(role="user", content=user, masked=not self._train_on_input, eot=True),
+            self._Message(role="assistant", content=row["output"], masked=False, eot=True),
+        ]
+        tok = self._tokenizer({"messages": messages}, inference=False)
+        tok["labels"] = list(np.where(tok["mask"], CROSS_ENTROPY_IGNORE_IDX, tok["tokens"]))
+        return tok
+
+
+def setup_alpaca_data(
+    tokenizer: Any,
+    batch_size: int,
+    shuffle: bool = True,
+    num_replicas: int = 1,
+    rank: int = 0,
+    source: str = "tatsu-lab/alpaca",
+    **load_dataset_kwargs,
+) -> tuple[Loader, Sampler]:
+    """Debug SFT loader over the Alpaca dataset (ref: ssi/data/__init__.py:213-231).
+
+    Kept for parity with the reference's OOM-debug workflow; unlike the reference
+    it emits fixed-shape batches (pad_to=max_seq_len). The default source is a
+    hub id, which the port refuses: pass a local source (``source="json"``
+    with ``data_files``, a parquet or csv file, or a dataset directory).
+    """
+    ds = _AlpacaDataset(tokenizer, source=source, **load_dataset_kwargs)
+    sampler = Sampler(len(ds), num_replicas=num_replicas, rank=rank, shuffle=shuffle, seed=SEED, drop_last=True)
+    collate = partial(
+        padded_collate_sft,
+        padding_idx=tokenizer.pad_id,
+        ignore_idx=CROSS_ENTROPY_IGNORE_IDX,
+        pad_to=tokenizer.max_seq_len,
+    )
+    loader = Loader(ds, sampler=sampler, batch_size=batch_size, collate_fn=collate, drop_last=True)
+    LOGGER.info(f"Alpaca debug dataset and Sampler initialized from {source}.")
     return loader, sampler

@@ -104,6 +104,11 @@ def _bind_signatures(lib: ctypes.CDLL) -> None:
     ]
     lib.bpe_split.restype = c.c_int
     lib.bpe_free_i64.argtypes = [c.POINTER(c.c_int64)]
+    lib.bpe_encode_pieces.argtypes = [
+        c.c_void_p, c.c_char_p, c.c_int64, c.POINTER(c.c_int64), c.c_int64,
+        c.POINTER(c.POINTER(c.c_int32)), c.POINTER(c.c_int64),
+    ]
+    lib.bpe_encode_pieces.restype = c.c_int
     lib.bpe_decode.argtypes = [
         c.c_void_p, c.POINTER(c.c_int32), c.c_int64,
         c.POINTER(c.POINTER(c.c_uint8)), c.POINTER(c.c_int64),

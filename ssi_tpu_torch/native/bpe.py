@@ -5,7 +5,8 @@
 Exposes the subset of ``tiktoken.Encoding`` the tokenizer stack actually uses
 (ssi_tpu_torch/tokenizer/__init__.py, tokenizer/bpe_train.py): ordinary text
 encode with specials disabled, decode, and ``n_vocab``, under one of the
-split patterns of :data:`PATTERNS`, chosen at construction; and
+split patterns of :data:`PATTERNS`, chosen at construction, or of a text
+that another split regex has already cut (``encode_pieces``); and
 :func:`split`, the pieces a pattern cuts a text into. Special tokens never
 reach the native core — encode is always called with specials disallowed (user data containing
 special-token strings is encoded as plain text, same policy as the
@@ -19,8 +20,10 @@ tests/test_torch_cl100k.py (this one).
 
 from __future__ import annotations
 
+from array import array
 import base64
 import ctypes
+from itertools import accumulate
 
 from ssi_tpu_torch.native import load_native
 
@@ -105,6 +108,26 @@ class NativeEncoding:
         out = c.POINTER(c.c_int32)()
         out_len = c.c_int64()
         rc = self._lib.bpe_encode(self._handle, data, len(data), self._mode, c.byref(out), c.byref(out_len))
+        if rc != 0:
+            raise RuntimeError(self._lib.bpe_last_error().decode())
+        try:
+            return out[: out_len.value]
+        finally:
+            self._lib.bpe_free_i32(out)
+
+    def encode_pieces(self, pieces: list[str]) -> list[int]:
+        """Each of ``pieces`` merged alone, in order, in one native call: the
+        ids tiktoken's encode gives a text that its split regex cuts into
+        ``pieces`` (empty pieces give no id)."""
+        ends = array("q", accumulate(n for n in map(len, map(str.encode, pieces)) if n))
+        if not ends:
+            return []
+        data = "".join(pieces).encode("utf-8")
+        c = ctypes
+        out = c.POINTER(c.c_int32)()
+        out_len = c.c_int64()
+        rc = self._lib.bpe_encode_pieces(self._handle, data, len(data), (c.c_int64 * len(ends)).from_buffer(ends),
+                                         len(ends), c.byref(out), c.byref(out_len))
         if rc != 0:
             raise RuntimeError(self._lib.bpe_last_error().decode())
         try:

@@ -463,6 +463,36 @@ int bpe_split(const uint8_t* text, int64_t len, int32_t mode, int64_t** ends, in
 
 void bpe_free_i64(int64_t* p) { delete[] p; }
 
+// Encodes UTF-8 text already cut into pieces by a split regex the scanner does
+// not implement (tiktoken's encode under that regex): piece i is the bytes
+// [ends[i-1], ends[i]) with ends[-1] = 0, and each is merged alone, as
+// bpe_encode merges a scanner's piece. The ends rise and the last is len. *out
+// freed with bpe_free_i32.
+int bpe_encode_pieces(void* handle, const uint8_t* text, int64_t len, const int64_t* ends, int64_t n,
+                      int32_t** out, int64_t* out_len) {
+  const auto* bpe = static_cast<Bpe*>(handle);
+  std::vector<int32_t> ids;
+  ids.reserve(static_cast<size_t>(len) / 3 + 8);
+  int64_t start = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    if (ends[i] <= start || ends[i] > len) {
+      g_bpe_error = "piece end " + std::to_string(ends[i]) + " does not rise within the text (" +
+                    std::to_string(len) + " bytes)";
+      return -1;
+    }
+    bpe->encode_piece(text + start, static_cast<size_t>(ends[i] - start), ids);
+    start = ends[i];
+  }
+  if (start != len) {
+    g_bpe_error = "the pieces end at byte " + std::to_string(start) + " of " + std::to_string(len);
+    return -1;
+  }
+  *out = new int32_t[ids.size() ? ids.size() : 1];
+  std::memcpy(*out, ids.data(), ids.size() * sizeof(int32_t));
+  *out_len = static_cast<int64_t>(ids.size());
+  return 0;
+}
+
 // Decodes base-vocab ids to bytes; unknown ids are an error (special ids are
 // spliced by the Python wrapper before calling this). *out freed with
 // bpe_free_u8.

@@ -4,11 +4,13 @@ the port: the BPE core is always the first-party C++ one
 (``ssi_tpu_torch/native``, bit-identical to tiktoken and with no fallback),
 and ``load_tiktoken_bpe`` is the port's own ``tokenizer.model`` reader. The
 C++ core has a scanner for each of the two split patterns, the PUA one and
-``CL100K_PATTERN`` (``pattern: cl100k``, BPE-compressed DSU runs); the port
-has no regex engine, so any other split regex raises
-``NotImplementedError``. ``tests/test_torch_tokenizer.py`` and
-``tests/test_torch_cl100k.py`` hold encode, decode and ``tokenize_messages``
-equal to the JAX tokenizer's tiktoken backend.
+``CL100K_PATTERN`` (``pattern: cl100k``, BPE-compressed DSU runs). Any other
+split regex is matched by the ``regex`` package (imported when such a
+pattern is first compiled, and refused by name when it is missing), and the
+C++ core merges the pieces it cuts, all of a text's in one call.
+``tests/test_torch_tokenizer.py``, ``tests/test_torch_cl100k.py`` and
+``tests/test_torch_regex_pattern.py`` hold encode, decode and
+``tokenize_messages`` equal to the JAX tokenizer's tiktoken backend.
 
 The original is a standalone reimplementation of the tokenizer stack the reference assembles from
 torchtune + a monkeypatch (ref: ssi/tokenizer/__init__.py:18-45,
@@ -33,6 +35,7 @@ from typing import Any, Iterator
 
 from ssi_tpu_torch.native.bpe import NativeEncoding
 from ssi_tpu_torch.tokenizer.messages import Message
+from ssi_tpu_torch.utils import import_optional
 
 __all__ = [
     "CL100K_PATTERN",
@@ -123,8 +126,8 @@ class Llama3Tokenizer:
             :data:`CL100K_PATTERN` for BPE-COMPRESSED DSU runs: without the
             ``\\p{Co}`` isolation, adjacent DSU characters form one piece and
             the trained multi-DSU merges (``tokenizer/bpe_train.py``) can
-            fire. The C++ scanner implements these two; any other regex
-            raises ``NotImplementedError``.
+            fire. The C++ scanner implements these two; any other regex is
+            matched by the ``regex`` package (:func:`compile_split_regex`).
     """
 
     def __init__(
@@ -146,11 +149,11 @@ class Llama3Tokenizer:
         if mergeable_ranks is None:
             mergeable_ranks = load_tiktoken_bpe(self.path)
         self._base_vocab_size = len(mergeable_ranks)
-        if pattern not in _NATIVE_PATTERNS:
-            raise _regex_not_ported(pattern)
         self.pattern = pattern
+        # a pattern the scanner does not implement: regex cuts, the C++ core merges each piece whole
+        self._split = None if pattern in _NATIVE_PATTERNS else compile_split_regex(pattern)
         # the C++ core reads the merges file itself; a failed build raises (no fallback)
-        self._native = NativeEncoding(self.path, self.special_tokens, pattern=_NATIVE_PATTERNS[pattern])
+        self._native = NativeEncoding(self.path, self.special_tokens, pattern=_NATIVE_PATTERNS.get(pattern, "whole"))
         self._special_token_ids = set(self.special_tokens.values())
 
         self.bos_id = self.special_tokens["<|begin_of_text|>"]
@@ -205,7 +208,10 @@ class Llama3Tokenizer:
             core = self._native
             for substr in substrs:
                 # Special token strings appearing in user data are encoded as plain text.
-                tokens.extend(core.encode(substr, allowed_special=set(), disallowed_special=()))
+                if self._split is None:
+                    tokens.extend(core.encode(substr, allowed_special=set(), disallowed_special=()))
+                else:
+                    tokens.extend(core.encode_pieces([m.group() for m in self._split.finditer(substr)]))
         if add_bos:
             tokens.insert(0, self.bos_id)
         if add_eos:
@@ -308,8 +314,9 @@ def setup_llama3_tokenizer(
 
     ``pattern``: ``None`` = the PUA contract pattern; the string ``"cl100k"``
     (or a raw regex) selects the non-PUA-splitting pattern for BPE-compressed
-    DSU runs (config key ``tokenizer.pattern: cl100k``). A raw regex other
-    than the two patterns raises ``NotImplementedError`` (no regex engine).
+    DSU runs (config key ``tokenizer.pattern: cl100k``). Any other raw regex
+    splits through the ``regex`` package, as the JAX tokenizer's tiktoken
+    backend splits by it.
     """
     if pattern is None:
         pattern = CL100K_PATTERN_PUA
@@ -349,9 +356,11 @@ def setup_llama3_tokenizer(
     return tokenizer, special_tokens_dynamic
 
 
-def _regex_not_ported(pattern: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"tokenizer.pattern {pattern!r} is not ported to ssi_tpu_torch: the C++ scanner implements "
-        "CL100K_PATTERN_PUA and CL100K_PATTERN ('cl100k') only, and the port has no regex engine "
-        "(ROADMAP.md queue A, item A11's remainder: arbitrary split regexes)"
-    )
+def compile_split_regex(pattern: str) -> Any:
+    """``regex.compile(pattern)``: a split regex that the C++ scanner does not
+    implement is matched by the ``regex`` package, whose classes and
+    ``\\s`` are tiktoken's (Python's ``re`` also counts U+001C-U+001F as
+    ``\\s``, and has no ``\\p{...}``)."""
+    regex = import_optional("regex", f"The split pattern {pattern!r} (the C++ scanner implements only "
+                                     "CL100K_PATTERN_PUA and CL100K_PATTERN)")
+    return regex.compile(pattern)

@@ -1,5 +1,5 @@
 """First-party BPE trainer — the port's copy of ``ssi_tpu/tokenizer/bpe_train.py``
-(the DSU-compression axis), with no tiktoken and no ``regex``:
+(the DSU-compression axis), with no tiktoken:
 ``tests/test_torch_bpe_train.py`` holds its ranks, files and floats equal
 to the JAX package's.
 
@@ -17,9 +17,8 @@ Two modes, selected by ``split_pattern``:
 - a regex (text mode): pieces are the pattern's matches, reproducing standard
   GPT-style training semantics (merges never cross piece boundaries). The two
   cl100k patterns split in the C++ scanner (``ssi_tpu_torch/native``); any
-  other goes to Python's ``re`` when ``re`` compiles it (``\\S+|\\s+`` does;
-  ``\\p{...}`` classes do not, and raise). NB ``re``'s ``\\s`` also matches
-  U+001C-U+001F, which ``regex``'s does not.
+  other is matched by the ``regex`` package, as in the JAX trainer (not by
+  Python's ``re``, whose ``\\s`` also matches U+001C-U+001F: fault C8).
 
 Training is the classic frequency-table algorithm with incremental pair-count
 updates (only the counts touched by a merge are adjusted), so cost scales with
@@ -37,11 +36,10 @@ from __future__ import annotations
 import base64
 from collections import Counter
 from pathlib import Path
-import re
 from typing import Iterable, Iterator
 
 from ssi_tpu_torch.native.bpe import NativeEncoding, split
-from ssi_tpu_torch.tokenizer import _NATIVE_PATTERNS
+from ssi_tpu_torch.tokenizer import _NATIVE_PATTERNS, compile_split_regex
 
 __all__ = ["compression_ratio", "merge_into_tokenizer", "save_ranks", "train_bpe"]
 
@@ -58,13 +56,7 @@ def _pieces(corpus: Iterable[str], split_pattern: str | None) -> Iterator[bytes]
             for piece in split(line, native):
                 yield piece.encode("utf-8")
         return
-    try:
-        pat = re.compile(split_pattern)
-    except re.error as e:
-        raise NotImplementedError(
-            f"split_pattern {split_pattern!r} does not compile in Python's re ({e}); the port has no regex "
-            "engine (ROADMAP.md queue A, item A11's remainder: text-mode patterns re cannot compile)"
-        ) from None
+    pat = compile_split_regex(split_pattern)
     for line in corpus:
         for m in pat.finditer(line):
             yield m.group().encode("utf-8")

@@ -5,6 +5,7 @@ and the port's own ``resolve_device``."""
 from __future__ import annotations
 
 from hashlib import sha256
+import importlib
 import json
 from pathlib import Path
 from typing import Any
@@ -27,12 +28,26 @@ def extract_texts_from_generations_jsonl(generations_jsonl: Path) -> list[str]:
 def ref_from_hf_dataset(dataset: str, split: str, gt_transcript_colname: str = "transcript") -> list[str]:
     """Ground-truth transcripts from the HF hub (ref: ssi/utils.py:42-47): not
     ported. The JAX package reads them through ``datasets`` from the hub; the
-    port reads no hub source yet, so this raises before any work (score against
-    local transcripts with ``--refs-jsonl`` instead)."""
+    port reads no hub source (no machine it runs on has the network), so this
+    raises before any work (score against local transcripts with
+    ``--refs-jsonl`` instead)."""
     raise NotImplementedError(
         f"Reading reference transcripts of {dataset!r} ({split}, column {gt_transcript_colname!r}) from the HF hub "
-        "is not ported to ssi_tpu_torch yet (ROADMAP.md queue A, item A12: hub and other file-type sources)"
+        "is not ported to ssi_tpu_torch: it needs the network (ROADMAP.md queue A, item A12: hub ids)"
     )
+
+
+def import_optional(module: str, needed_for: str) -> Any:
+    """Import ``module`` of an optional library (pyarrow, regex, matplotlib,
+    seaborn, sklearn) for the one function that needs it. The port depends on
+    none of them and has no fallback: a missing one raises ``ImportError``
+    naming it."""
+    try:
+        return importlib.import_module(module)
+    except ImportError:
+        package = module.split(".")[0]
+        raise ImportError(f"{needed_for} needs the package {package!r}, which is not installed (ssi_tpu_torch does "
+                          f"not depend on it and has no fallback)") from None
 
 
 def round_up(n: int, multiple: int) -> int:

@@ -742,6 +742,123 @@ print("BLOCKED_RUN_OK")
         assert len(lines) == 8 and all(json.loads(line)["finished"] for line in lines)
 
 
+_LOCAL_RUNS = {
+    "sft_parquet_directory": """
+import sys
+from ssi_tpu_torch.cli import train_sft
+model, out, directory = sys.argv[1:4]
+trainer = train_sft.main([
+    "data=sft/mls-hubert_large_ll60k-layer_22", "model_config=tiny_test", "speech.n_dsus=16",
+    f"checkpointer.checkpoint_dir={model}", f"tokenizer.path={model}/original/tokenizer.model",
+    "tokenizer.max_seq_len=384", "max_steps=2", "save_steps=2", "eval_steps=2", "wandb.enabled=false",
+    "gradient_accumulation_steps=1", "+device=cpu", f"checkpointer.output_dir={out}",
+    f"data.train.dataset.source={directory}", f"data.dev.dataset.source={directory}",
+    "data.dev.dataset.split=validation", "data.train.dataloader.batch_size=2", "data.dev.dataloader.batch_size=2"])
+assert trainer.global_step == 2 and len(trainer.data_train.dataset) == 6, trainer
+""",
+    "cpt_raw_regex_pattern": """
+import sys
+from ssi_tpu_torch.cli import train_cpt
+from ssi_tpu_torch.tokenizer import CL100K_PATTERN_PUA
+model, out, _, rows = sys.argv[1:5]
+common = ["data=cpt/mls-hubert_large_ll60k-layer_22", "model_config=tiny_test", "speech.n_dsus=16",
+          f"checkpointer.checkpoint_dir={model}", f"tokenizer.path={model}/original/tokenizer.model",
+          "tokenizer.max_seq_len=256", "max_steps=2", "save_steps=2", "eval_steps=2", "wandb.enabled=false",
+          "gradient_accumulation_steps=1", "+device=cpu", f"tokenizer.pattern=(?:{CL100K_PATTERN_PUA})"]
+for split in ("train", "dev"):
+    common += [f"data.{split}.dataset.source=json", f"+data.{split}.dataset.data_files={rows}",
+               f"data.{split}.dataset.split=train", f"data.{split}.dataloader.batch_size=2"]
+trainer = train_cpt.main([*common, f"checkpointer.output_dir={out}"])
+assert trainer.global_step == 2 and trainer.tokenizer._split is not None, trainer
+""",
+    "plot_wandb_losses": """
+import json, runpy, sys
+from pathlib import Path
+run = Path(sys.argv[2]) / "myrun-id_abc"
+(run / "generations" / "step_2" / "mls-x" / "dev").mkdir(parents=True)
+(run / "generations" / "step_2" / "mls-x" / "dev" / "wer.json").write_text(json.dumps({"wer": 0.25}))
+(run / "metrics.jsonl").write_text("".join(json.dumps({"step": s, "loss": 3.0 / s}) + "\\n" for s in (1, 2, 3)))
+sys.argv = ["ssi_tpu_torch.cli.plot_wandb_losses", str(run / "generations"), str(run / "plots")]
+runpy.run_module("ssi_tpu_torch.cli.plot_wandb_losses", run_name="__main__")
+assert (run / "plots" / "losses_log.png").stat().st_size > 1000
+""",
+    "plt_embed_tsne": """
+import runpy, sys
+from pathlib import Path
+model, out = sys.argv[1:3]
+sys.argv = ["ssi_tpu_torch.cli.plt_embed_tsne", f"output_dir={out}/tsne", f"checkpointer.checkpoint_dir={model}",
+            "+model_config=tiny_test", "speech.n_dsus=16", "tsne.perplexities=[5]", "tsne.max_points=200"]
+runpy.run_module("ssi_tpu_torch.cli.plt_embed_tsne", run_name="__main__")
+assert (Path(out) / "tsne" / "embeddings_by_token_type.png").stat().st_size > 1000
+""",
+}
+
+
+@pytest.mark.parametrize("run", sorted(_LOCAL_RUNS))
+def test_local_sources_regex_patterns_and_plots_load_no_card_library(tmp_path, run):
+    """The SFT CLI reading both splits from a parquet dataset directory (the
+    HF repo layout, no ``data_files``), the CPT CLI with ``tokenizer.pattern``
+    a raw regex, and the two plotting CLIs, each a process with every library
+    of ``_NOT_ON_THE_CARD`` blocked from import (``regex`` allowed where the
+    pattern needs it): each runs to its end and loaded neither jax,
+    ``ssi_tpu``, ``datasets`` nor tiktoken."""
+    import json
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    from tests import helpers
+
+    model_dir = helpers.make_tiny_hf_checkpoint(tmp_path / "step_0")
+    rows = helpers.synthetic_sft_rows(8)
+    directory = tmp_path / "hf"
+    (directory / "data").mkdir(parents=True)
+    for name, part in (("train-00000-of-00002", rows[:3]), ("train-00001-of-00002", rows[3:6]),
+                       ("validation-00000-of-00001", rows[6:])):
+        pq.write_table(pa.Table.from_pylist(part), directory / "data" / f"{name}.parquet")
+    cpt = tmp_path / "cpt.jsonl"
+    cpt.write_text("".join(json.dumps(r) + "\n" for r in helpers.synthetic_cpt_rows(8)))
+    blocked = set(_NOT_ON_THE_CARD) - ({"regex"} if run == "cpt_raw_regex_pattern" else set())
+    block = tmp_path / "block"
+    block.mkdir()
+    (block / "sitecustomize.py").write_text(_BLOCKER.format(names=repr(blocked)))
+    env = {k: v for k, v in os.environ.items() if k != "SSI_TPU_COMPILE_CACHE"}
+    env.update(PYTHONPATH=f"{block}{os.pathsep}{REPO}", OMP_NUM_THREADS="2", MPLBACKEND="Agg")
+    code = _LOCAL_RUNS[run] + f"""
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in {sorted(blocked)!r})
+assert loaded == [], loaded
+print("BLOCKED_RUN_OK")
+"""
+    proc = subprocess.run([sys.executable, "-c", code, str(model_dir), str(tmp_path / "out"), str(directory),
+                           str(cpt)], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    assert "BLOCKED_RUN_OK" in proc.stdout
+
+
+_OPTIONAL = ("pyarrow", "regex", "matplotlib", "seaborn", "sklearn")
+
+
+def test_optional_libraries_are_imported_only_inside_the_functions_that_need_them():
+    """``pyarrow``, ``regex``, matplotlib, seaborn and sklearn: no port source
+    imports one with an import statement, and each is imported through
+    ``utils.import_optional`` (a refusal naming it when it is missing)
+    inside a function, never at a module's top level."""
+    names = "|".join(_OPTIONAL)
+    statement = re.compile(rf"^\s*(import|from)\s+({names})(\.|\s|$)", re.MULTILINE)
+    call = re.compile(rf"^(\s*).*import_optional\(\s*\"({names})[.\"]", re.MULTILINE)
+    sources = [p for p in (REPO / "ssi_tpu_torch").rglob("*.py") if "_build" not in p.parts] + [REPO / "chip_smoke.py"]
+    offenders, found = [], set()
+    for path in sources:
+        text = path.read_text()
+        offenders += [f"{path}: {m.group(0).strip()}" for m in statement.finditer(text)]
+        for m in call.finditer(text):
+            found.add(m.group(2))
+            if not m.group(1):
+                offenders.append(f"{path}: {m.group(0).strip()} at the top level")
+    assert offenders == []
+    assert found == set(_OPTIONAL)
+
+
 def test_serving_cli_refuses_without_a_card(tmp_path):
     """Without ``+device=cpu`` and with no CUDA device, the serving CLI
     refuses before it loads the tokenizer or the checkpoint (no CPU fallback)."""

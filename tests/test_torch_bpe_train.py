@@ -58,7 +58,7 @@ def _text_corpus(seed: int, n_rows: int = 48) -> list[str]:
 def test_train_bpe_equals_jax(seed, mode, tmp_path):
     """Ranks dict-equal, the saved files byte-equal and the compression ratios
     exactly equal, with ``split_pattern`` None (DSU rows), ``CL100K_PATTERN``
-    (the native split) and ``\\S+|\\s+`` (Python's ``re``)."""
+    (the native split) and ``\\S+|\\s+`` (the ``regex`` package)."""
     pattern = {"none": None, "cl100k": jtok.CL100K_PATTERN, "s_or_space": r"\S+|\s+"}[mode]
     corpus = _dsu_corpus(seed=seed) if pattern is None else _text_corpus(seed)
     for min_pair_count in (2, 3):
@@ -72,13 +72,48 @@ def test_train_bpe_equals_jax(seed, mode, tmp_path):
     assert pbpe.compression_ratio(["", *corpus[:3]], got) == jbpe.compression_ratio(["", *corpus[:3]], want)
 
 
-def test_train_bpe_stops_and_raises_as_jax():
+def test_train_bpe_stops_and_raises_as_jax(monkeypatch):
+    """No merge where no pair reaches the count; ``\\p{...}`` classes compile
+    (the ``regex`` package, as in the JAX trainer), and without ``regex`` a
+    text-mode pattern other than the two scanner patterns is refused by the
+    package's name."""
     corpus = ["ab", "cd"]  # no pair reaches 2: no merge
     assert pbpe.train_bpe(corpus, 10) == jbpe.train_bpe(corpus, 10)
     assert pbpe.train_bpe([], 10) == jbpe.train_bpe([], 10)
     assert pbpe.compression_ratio([], jbpe.train_bpe([], 0)) == jbpe.compression_ratio([], jbpe.train_bpe([], 0))
-    with pytest.raises(NotImplementedError, match="A11"):
+    text = _text_corpus(4)
+    assert pbpe.train_bpe(text, 40, split_pattern=r"\p{L}+") == jbpe.train_bpe(text, 40, split_pattern=r"\p{L}+")
+    want = jbpe.train_bpe(text, 40, split_pattern=jtok.CL100K_PATTERN)
+    monkeypatch.setitem(sys.modules, "regex", None)
+    with pytest.raises(ImportError, match="'regex'"):
         pbpe.train_bpe(["a b"], 4, split_pattern=r"\p{L}+")
+    assert pbpe.train_bpe(text, 40, split_pattern=jtok.CL100K_PATTERN) == want  # the scanner needs no regex
+
+
+def test_text_mode_split_matches_jax_on_information_separators():
+    """C8: ``re``'s ``\\s`` matches U+001C-U+001F and ``regex``'s does not, so
+    ``\\S+|\\s+`` cut rows holding them into other pieces, and trained other
+    merges, than the JAX trainer. The ranks are now bitwise the JAX
+    trainer's, on rows where ``re``'s pieces differ."""
+    import re
+
+    import regex
+
+    rng = np.random.default_rng(8)
+    seps = ["\x1c", "\x1d", "\x1e", "\x1f"]
+    rows = [" ".join(WORDS[j] + (seps[k % 4] if k % 3 else "") + WORDS[(j + k) % len(WORDS)]
+                     for j, k in zip(rng.integers(0, len(WORDS), 12), rng.integers(0, 12, 12)))
+            + seps[i % 4] + " " for i in range(40)]
+    rows.append("ab\x1ccd ef\x1f gh")
+    pattern = r"\S+|\s+"
+    pieces_re = [m.group() for row in rows for m in re.finditer(pattern, row)]
+    pieces_regex = [m.group() for row in rows for m in regex.finditer(pattern, row)]
+    assert pieces_re != pieces_regex  # the rows reach C8
+    assert [p.decode() for p in pbpe._pieces(rows, pattern)] == pieces_regex
+    for min_pair_count in (2, 3):
+        want = jbpe.train_bpe(rows, 120, split_pattern=pattern, min_pair_count=min_pair_count)
+        got = pbpe.train_bpe(rows, 120, split_pattern=pattern, min_pair_count=min_pair_count)
+        assert got == want and list(got) == list(want) and len(got) > 256
 
 
 @pytest.mark.parametrize("modality", [False, True])
@@ -137,7 +172,7 @@ def test_train_dsu_bpe_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="A12"):
         main(parse_args([str(tmp_path / "a"), "--dataset", "anilkeshwani/mls-hubert_large_ll60k-layer_22"]))
     with pytest.raises(NotImplementedError, match="A12"):
-        main(parse_args([str(tmp_path / "b"), "--dataset", "csv", "--data-files", str(data)]))
+        main(parse_args([str(tmp_path / "b"), "--dataset", "text", "--data-files", str(data)]))
     with pytest.raises(KeyError):
         main(parse_args([str(tmp_path / "c"), "--dataset", "json", "--data-files", str(data),
                          "--speech-tokens-key", "absent"]))

@@ -9,6 +9,7 @@ trained by the JAX package's trainer."""
 
 import base64
 import random
+import sys
 
 import numpy as np
 import pytest
@@ -149,12 +150,23 @@ def test_split_equals_regex():
         native_bpe.split("x", "gpt2")
 
 
-def test_other_regex_raises_naming_a11(vocab):
+def test_other_regex_raises_naming_a11(vocab, monkeypatch):
+    """A regex the scanner does not implement goes to the ``regex`` package
+    (A11's remainder, ported): equal to tiktoken, and refused by the
+    package's name when ``regex`` is missing; the two scanner patterns load
+    without it."""
     path, special = vocab
     for pattern in (r"\S+|\s+", jtok.CL100K_PATTERN + "|x"):
-        with pytest.raises(NotImplementedError, match="A11"):
+        port = ptok.Llama3Tokenizer(path, special_tokens=special, pattern=pattern)
+        jax = jtok.Llama3Tokenizer(path, special_tokens=special, pattern=pattern)
+        for s in PUA_CASES:
+            assert _enc(port, s) == _enc(jax, s), repr(s)
+        assert ptok.setup_llama3_tokenizer(path, verbose=False, pattern=pattern)[0].pattern == pattern
+    monkeypatch.setitem(sys.modules, "regex", None)
+    for pattern in (r"\S+|\s+", jtok.CL100K_PATTERN + "|x"):
+        with pytest.raises(ImportError, match="'regex'"):
             ptok.Llama3Tokenizer(path, special_tokens=special, pattern=pattern)
-        with pytest.raises(NotImplementedError, match="A11"):
+        with pytest.raises(ImportError, match="'regex'"):
             ptok.setup_llama3_tokenizer(path, verbose=False, pattern=pattern)
     for name, pattern in (("cl100k", ptok.CL100K_PATTERN), ("cl100k_pua", ptok.CL100K_PATTERN_PUA),
                           (None, ptok.CL100K_PATTERN_PUA), (ptok.CL100K_PATTERN, ptok.CL100K_PATTERN)):

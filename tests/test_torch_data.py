@@ -82,10 +82,12 @@ def test_json_split_forms(tmp_path):
 
 
 def test_other_sources_raise_naming_their_item(tmp_path):
+    """Hub ids and the text source stay refused (A12); csv and parquet are read
+    (``tests/test_torch_data_sources.py``)."""
     with pytest.raises(NotImplementedError, match="A12"):
         load_hf_dataset("anilkeshwani/mls-hubert_large_ll60k-layer_22", split="test")
     with pytest.raises(NotImplementedError, match="A12"):
-        load_dataset_subset("csv", 3, data_files=str(tmp_path / "x.csv"), split="train")
+        load_dataset_subset("text", 3, data_files=str(tmp_path / "x.txt"), split="train")
 
 
 def test_reserved_keys_rejected(tmp_path, tiny_extended_tokenizer_path):

@@ -169,14 +169,16 @@ def test_generate_sample_records_equal_jax(jax_script, model_dir, tmp_path, prom
 
 
 def test_generate_sample_refusals(model_dir, monkeypatch):
-    """A split regex other than the two cl100k patterns names A11's
-    remainder (the port has no regex engine); no card and no ``--device
+    """A split regex other than the two cl100k patterns needs the ``regex``
+    package, refused by name when it is missing; no card and no ``--device
     cpu`` refuses before any work; one prompt mode at a time."""
     from ssi_tpu_torch.cli.generate_sample import generate_sample
 
-    with pytest.raises(NotImplementedError, match="A11"):
-        generate_sample(model_dir, helpers.TINY_N_DSUS, text="hi", model_config="tiny_test", pattern=r"\S+|\s+",
-                        device="cpu")
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "regex", None)
+        with pytest.raises(ImportError, match="'regex'"):
+            generate_sample(model_dir, helpers.TINY_N_DSUS, text="hi", model_config="tiny_test",
+                            pattern=r"\S+|\s+", device="cpu")
     with pytest.raises(ValueError, match="^Provide exactly one of: text, token_ids, template$"):
         generate_sample(model_dir, helpers.TINY_N_DSUS, text="hi", token_ids=[1], model_config="tiny_test",
                         device="cpu")

@@ -5,6 +5,7 @@ tokenizer on its tiktoken backend, on the tiny extended vocabulary and on the
 
 import importlib.util
 from pathlib import Path
+import sys
 
 import pytest
 from tiktoken.load import load_tiktoken_bpe as tiktoken_load
@@ -166,13 +167,18 @@ def test_copied_sources_and_helpers_equal():
             pmessages.validate_messages(bad)
 
 
-def test_cl100k_pattern_raises_naming_its_item(vocabularies):
+def test_cl100k_pattern_raises_naming_its_item(vocabularies, monkeypatch):
     """``cl100k`` loads (tests/test_torch_cl100k.py holds it to tiktoken); a
-    split regex the C++ scanner does not implement names A11's remainder."""
+    split regex the C++ scanner does not implement loads through the
+    ``regex`` package (tests/test_torch_regex_pattern.py), and is refused
+    by that package's name when it is missing."""
     path, _ = vocabularies["tiny"]
     tok, _ = ptok.setup_llama3_tokenizer(path, verbose=False, pattern="cl100k")
     assert tok.pattern == ptok.CL100K_PATTERN
-    with pytest.raises(NotImplementedError, match="A11"):
+    tok, _ = ptok.setup_llama3_tokenizer(path, verbose=False, pattern=r"\S+|\s+")
+    assert tok.pattern == r"\S+|\s+" and tok.encode("ab  cd", add_bos=False, add_eos=False)
+    monkeypatch.setitem(sys.modules, "regex", None)
+    with pytest.raises(ImportError, match="'regex'"):
         ptok.setup_llama3_tokenizer(path, verbose=False, pattern=r"\S+|\s+")
 
 

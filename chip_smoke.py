@@ -12,7 +12,8 @@ non-zero without printing the final line):
    name and power limit (nvidia-smi), torch / CUDA / nvcc versions;
 1. build: the tokenizer's native BPE core (``ssi_tpu_torch/native``, g++)
    and every CUDA kernel from ``ssi_tpu_torch/csrc`` (one nvcc per source,
-   in parallel, then one link);
+   in parallel, then one link); prints each kernel's registers and spills
+   from the ptxas log and the head_dim-128 kernels' dynamic shared memory;
 2. flash-attention forward kernel vs its plain version (f32 and bf16;
    causal, full, segment ids) at the serving path's largest prefill dispatch
    (B 8, S 768), at B 2 x S 768, and at the training path's B 2 x S 2048;
@@ -311,9 +312,10 @@ f. weight-only int8 and the port's WER drive:
 2g-ah. the head_dim-128 instances (Llama 3.2 3B's and 3.1 8B's heads) vs
    their plain versions, each beside a control that must miss, in f32 and
    bf16, with bf16 times beside SDPA or ``torch.mm`` and the bound: the
-   flash forward and backward at 3B's training shape (B 2, S 2048, 24 q /
-   8 kv heads: n_rep 3) and 8B's largest prefill dispatch (B 8, S 768,
-   32 / 8); the CE kernels at 3B's D 3,072 (N 4,096); #8 and #9 (T 4 and 8)
+   flash forward and backward (in bf16 the Hopper kernels of
+   ``csrc/flash_hd128_*.cu``; the backward launched twice, bitwise equal) at
+   3B's training shape (B 2, S 2048, 24 q / 8 kv heads: n_rep 3) and 8B's
+   largest prefill dispatch (B 8, S 768, 32 / 8); the CE kernels at 3B's D 3,072 (N 4,096); #8 and #9 (T 4 and 8)
    at 3B's and 8B's serving shapes (32 slots, page 128, context 1280; a
    graph of 16 layers' launches in turn) and at context 16,384;
 g. Llama 3.2 3B through the entry points at full width (28 layers, D 3,072,
@@ -502,6 +504,11 @@ def phase_build():
             kernel = _kernel_name(ln.split("'")[1])
         elif "registers" in ln or "spill" in ln:
             log(f"  ptxas {kernel}: {ln.strip()}")
+    # dynamic shared memory the launchers of the head_dim-128 Hopper kernels ask for: their Smem
+    # structs (csrc/flash_hd128_*.cu) plus 1 KB to align the swizzled tiles; ptxas reports none of it
+    log("  dynamic shared memory, head_dim-128 flash kernels: flash_fwd_hd128_kernel 193 KB (2 x Q 32 + "
+        "2 x (K 32 + V 32)), dkdv_hd128_kernel 130 KB (K 32 + V 32 + 2 x (Q 16 + dO 16) + lse/delta), "
+        "dq_hd128_kernel 193 KB (Q 32 + dO 32 + 2 x (K 32 + V 32)); one block of 256 threads per SM")
     log(f"phase 1 build: {_build.build_seconds:.1f} s (0.0 = cached library reused); each source's nvcc done "
         f"after {', '.join(f'{k} {v:.1f} s' for k, v in _build.source_seconds.items())}")
 
@@ -4597,8 +4604,10 @@ def main() -> int:
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **rows[name]})
     # the head_dim-128 instances of the attention kernels, launched by the 3B and 8B paths
+    hopper_sources = {"flash_attention_fwd": "flash_hd128_fwd.cu", "flash_attention_bwd": "flash_hd128_bwd.cu"}
     for name, row in rows128.items():
         source, replaces = sources[name]
+        source = hopper_sources.get(name, source)  # bf16 head_dim 128 runs the Hopper kernels
         by_path = {path: counts.get(name, 0) for path, counts in launches_big.items()}
         check(sum(by_path.values()) > 0, f"the head_dim-128 {name} was launched on no 3B or 8B path")
         kernels.append({"name": f"{name}_hd128", "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",

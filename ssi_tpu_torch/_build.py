@@ -9,6 +9,12 @@ loader never opens a half-written file). The build happens at first use,
 inside the first call that launches a kernel, never at import: CPU-only
 machines import every module without a compiler.
 
+The head_dim-128 flash kernels (``csrc/flash_hd128_*.cu``) read their tiles
+by TMA. Their launchers encode the tensor maps on the host with the driver's
+``cuTensorMapEncodeTiled``, fetched at run time through the runtime's
+``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``), so the link line names no
+``libcuda``.
+
 There is no fallback. A missing nvcc, a failed build, or a launch whose C
 entry point returns a non-zero ``cudaError_t`` raises ``RuntimeError``.
 

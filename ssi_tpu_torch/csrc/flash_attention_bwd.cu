@@ -2,6 +2,8 @@
 // for head_dim 64 (the 100m and 1B models) and 128 (3B and 8B): dq, dk, dv
 // from q, k, v, the forward's o and lse, and do.
 // bf16 operands on the tensor cores with f32 accumulation, or f32 throughout.
+// bf16 at head_dim 128 runs the Hopper kernels of flash_hd128_bwd.cu (wgmma
+// fed by TMA), dispatched from launch_bf16 below.
 //
 // Replaces the TPU kernels ssi_tpu/ops/flash_attention.py `_bwd_kernel` and
 // `_bwd_kernel_grouped` (one GQA schedule ports both). Semantics kept: the
@@ -26,10 +28,11 @@
 // Each block recomputes S and dP for its tile pairs: 7 products are issued
 // where the TPU forms 5 (the price of no atomics).
 //
-// Design of the bf16 kernels (4 warps, each owning 16 rows of the block's
-// tile; mma.sync m16n8k16 fed by ldmatrix from shared rows padded to 144
-// bytes; every accumulator in registers; ptxas gives dk/dv 249 registers
-// and dq 224, no spills, so 2 blocks per SM, 37-38 KB of shared memory each):
+// Design of the head_dim-64 bf16 kernels (4 warps, each owning 16 rows of
+// the block's tile; mma.sync m16n8k16 fed by ldmatrix from shared rows
+// padded to 144 bytes; every accumulator in registers; ptxas gives dk/dv 249
+// registers and dq 224, no spills, so 2 blocks per SM, 37-38 KB of shared
+// memory each):
 // - dk/dv works on transposed scores. Each warp holds its 16 K rows and 16 V
 //   rows as A fragments for the whole block. Per (q tile, q head) pair it
 //   forms S^T = K.Q^T and dP^T = V.dO^T (Q and dO are [q, d] tiles: the
@@ -46,20 +49,6 @@
 //   fragments, lse and delta per row in registers, K/V tiles through a
 //   2-stage cp.async ring, S = Q.K^T and dP = dO.V^T, P and dS in registers,
 //   dQ += dS.K with K read by ldmatrix.trans.
-// - head_dim 128 doubles every [16 x head_dim] register tile: one warp
-//   holding K and V fragments and the dK and dV sums would need 64 + 128
-//   registers before S and dP, past the 255 a thread can have. So:
-//   - dk/dv takes 8 warps and splits the work of a key row between two:
-//     warps 0-3 form S^T, P^T and dV += P^T.dO, warps 4-7 (the same key rows)
-//     form dP^T, dS^T and dK += dS^T.Q, each holding one [16 x 128] f32 sum.
-//     P^T passes from the first to the second through shared memory in the
-//     C-fragment order of the thread that formed it (thread (w, lane) reads
-//     what thread (w - 4, lane) wrote: no bank conflict, no reshuffle). K, V
-//     and the Q/dO ring stay in shared memory (119 KB, dynamic; one block per
-//     SM) and the A fragments of K.Q^T and V.dO^T are read per k16 step;
-//   - dq keeps Q and dO in shared memory beside the K/V ring (102 KB,
-//     dynamic; two blocks per SM) and reads their A fragments per k16 step
-//     instead of holding them.
 // - causal: dk/dv blocks start at the diagonal q tile and dq blocks stop at
 //   it; only the diagonal and the ragged last tile (or any tile with segment
 //   ids) apply the mask; the heaviest blocks launch first (low key tiles for
@@ -76,6 +65,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "flash_hd128.cuh"
 #include "mma.cuh"
 #include "tile_mma.cuh"
 
@@ -136,27 +126,6 @@ __device__ __forceinline__ void mma_abt(float (&c)[BT / 8][4], const uint32_t (&
             ssi::ldmatrix_x4(b, &x[jj * 16 + (lane / 16) * 8 + lane % 8][kk * 16 + ((lane / 8) % 2) * 8]);
             ssi::mma_bf16(c[2 * jj], a[kk], b[0], b[1]);
             ssi::mma_bf16(c[2 * jj + 1], a[kk], b[2], b[3]);
-        }
-    }
-}
-
-// as mma_abt, with a's fragments read per k16 step from the warp's 16 rows
-// of the staged tile `at` instead of held in registers
-template <int HD>
-__device__ __forceinline__ void mma_abt_staged(float (&c)[BT / 8][4], const bf16 (*at)[ssi::lds<HD>], int warp,
-                                               const bf16 (*x)[ssi::lds<HD>], int lane) {
-#pragma unroll
-    for (int j = 0; j < BT / 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t a[4];
-        ssi::ldmatrix_x4(a, &at[warp * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
-#pragma unroll
-        for (int jj = 0; jj < BT / 16; ++jj) {
-            uint32_t b[4];
-            ssi::ldmatrix_x4(b, &x[jj * 16 + (lane / 16) * 8 + lane % 8][kk * 16 + ((lane / 8) % 2) * 8]);
-            ssi::mma_bf16(c[2 * jj], a, b[0], b[1]);
-            ssi::mma_bf16(c[2 * jj + 1], a, b[2], b[3]);
         }
     }
 }
@@ -320,166 +289,14 @@ __global__ void __launch_bounds__(TC_THREADS, 2) dkdv_bf16_kernel(
     store_rows<HD>(dv + kv_off, kv_row, dv_acc, kp_lo, S, 1.f, t4);
 }
 
-// head_dim 128: the dk/dv work of a key row split between two warps (see the
-// top of the file)
-constexpr int DKDV128_THREADS = 256;
-
-struct Dkdv128Tiles {
-    bf16 q[2][BT][ssi::lds<128>];
-    bf16 dout[2][BT][ssi::lds<128>];
-    bf16 k[BT][ssi::lds<128>];
-    bf16 v[BT][ssi::lds<128>];
-    float p[TC_THREADS / 32][BT / 8 * 4][32];  // P^T: [row warp][C-fragment element][lane]
-    float lse[2][BT];
-    float delta[2][BT];
-};
-
-__global__ void __launch_bounds__(DKDV128_THREADS, 1) dkdv_bf16_hd128_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ seg,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Hq, int Hkv, int causal, float scale) {
-    constexpr int HD = 128;
-    Dkdv128Tiles& sm = ssi::block_tiles<Dkdv128Tiles, false>();
-
-    const int kvh = blockIdx.x;
-    const int b = blockIdx.y;
-    const int kt = blockIdx.z;  // low key tiles (the most q tiles under causal) launch first
-    const int k0 = kt * BT;
-    const int n_rep = Hq / Hkv;
-    const int warp = threadIdx.x / 32;
-    const int rw = warp % 4;            // the warp's 16 key rows: rw * 16 ..
-    const bool dk_warp = warp >= 4;     // warps 4-7: dP^T, dS^T, dK; warps 0-3: S^T, P^T, dV
-    const int lane = threadIdx.x % 32;
-    const int g = lane / 4;
-    const int t4 = lane % 4;
-    const long long q_row = (long long)Hq * HD;  // elements between consecutive positions
-    const long long kv_row = (long long)Hkv * HD;
-    const int n_q = (S + BT - 1) / BT;
-    const int qi0 = causal ? kt : 0;  // causal: q tiles before the diagonal see no key here
-    const int n_pairs = (n_q - qi0) * n_rep;
-    const int* segb = seg != nullptr ? seg + (long long)b * S : nullptr;
-
-    // stage pair p (q tile qi0 + p / n_rep, q head kvh * n_rep + p % n_rep):
-    // its Q and dO rows, and the lse and delta of its queries (0 past S)
-    auto load_pair = [&](int p, int st) {
-        const int q0 = (qi0 + p / n_rep) * BT;
-        const int h = kvh * n_rep + p % n_rep;
-        const long long off = (long long)b * S * q_row + (long long)h * HD;
-        ssi::load_tile_async<DKDV128_THREADS, HD>(sm.q[st], q + off, q_row, q0, S);
-        ssi::load_tile_async<DKDV128_THREADS, HD>(sm.dout[st], dout + off, q_row, q0, S);
-        if (threadIdx.x < 2 * BT) {
-            const int i = threadIdx.x % BT;
-            const float* src = (threadIdx.x < BT ? lse : delta) + ((long long)b * Hq + h) * S;
-            float* dst = threadIdx.x < BT ? &sm.lse[st][i] : &sm.delta[st][i];
-            ssi::cp_async4(dst, q0 + i < S ? src + q0 + i : src, q0 + i < S ? 4 : 0);
-        }
-    };
-
-    const long long kv_off = (long long)b * S * kv_row + (long long)kvh * HD;
-    ssi::load_tile_async<DKDV128_THREADS, HD>(sm.k, k + kv_off, kv_row, k0, S);
-    ssi::load_tile_async<DKDV128_THREADS, HD>(sm.v, v + kv_off, kv_row, k0, S);
-    load_pair(0, 0);
-    ssi::cp_async_commit();
-
-    // this thread's two key rows: lo (g) and hi (g + 8) of the warp's 16
-    const int kp_lo = k0 + rw * 16 + g;
-    const int kp_hi = kp_lo + 8;
-    const int kseg_lo = (segb != nullptr && kp_lo < S) ? segb[kp_lo] : 0;
-    const int kseg_hi = (segb != nullptr && kp_hi < S) ? segb[kp_hi] : 0;
-    const float scale2 = scale * LOG2E;
-    float (*p_x)[32] = sm.p[rw];  // P^T of these key rows, exchanged between warps rw and rw + 4
-
-    float acc[HD / 8][4];  // dV (warps 0-3) or dK (warps 4-7) of the warp's 16 key rows
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-    for (int p = 0; p < n_pairs; ++p) {
-        const int st = p & 1;
-        if (p + 1 < n_pairs) load_pair(p + 1, st ^ 1);  // loads while this pair is multiplied
-        ssi::cp_async_commit();
-        ssi::cp_async_wait<1>();  // K, V and this pair have landed
-        __syncthreads();
-
-        const int qi = qi0 + p / n_rep;
-        const int q0 = qi * BT;
-        float s[BT / 8][4];
-        if (!dk_warp) {
-            mma_abt_staged<HD>(s, sm.k, rw, sm.q[st], lane);  // S^T = K . Q^T  [keys x queries]
-            // P^T = exp(scale S^T - lse[q]), 0 where masked
-            const bool need_mask = segb != nullptr || qi == n_q - 1 || (causal && qi == kt);
-#pragma unroll
-            for (int j = 0; j < BT / 8; ++j) {
-                const int c = j * 8 + 2 * t4;  // this thread's two query columns: c, c + 1
-                const float2 ls = *reinterpret_cast<const float2*>(&sm.lse[st][c]);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const float l = (e & 1) ? ls.y : ls.x;
-                    float pr = exp2f(fmaf(s[j][e], scale2, -l * LOG2E));
-                    if (need_mask) {
-                        const int qp = q0 + c + (e & 1);
-                        const int kp = e < 2 ? kp_lo : kp_hi;
-                        bool keep = qp < S && (!causal || kp <= qp);
-                        if (segb != nullptr) keep = keep && segb[qp] == (e < 2 ? kseg_lo : kseg_hi);
-                        pr = keep ? pr : 0.f;
-                    }
-                    s[j][e] = pr;
-                    p_x[j * 4 + e][lane] = pr;
-                }
-            }
-        } else {
-            mma_abt_staged<HD>(s, sm.v, rw, sm.dout[st], lane);  // dP^T = V . dO^T
-        }
-        __syncthreads();  // P^T is in shared memory
-
-        uint32_t a[BT / 16][4];
-        if (!dk_warp) {
-            pack_a(a, s);
-            mma_ab<HD>(acc, a, sm.dout[st], lane);  // dV += P^T . dO
-        } else {
-            // dS^T = P^T (dP^T - delta[q])
-#pragma unroll
-            for (int j = 0; j < BT / 8; ++j) {
-                const int c = j * 8 + 2 * t4;
-                const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[st][c]);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) s[j][e] = p_x[j * 4 + e][lane] * (s[j][e] - ((e & 1) ? dl.y : dl.x));
-            }
-            pack_a(a, s);
-            mma_ab<HD>(acc, a, sm.q[st], lane);  // dK += dS^T . Q
-        }
-        __syncthreads();  // every warp is done with this stage and with P^T before they are refilled
-    }
-
-    if (dk_warp)
-        store_rows<HD>(dk + kv_off, kv_row, acc, kp_lo, S, scale, t4);
-    else
-        store_rows<HD>(dv + kv_off, kv_row, acc, kp_lo, S, 1.f, t4);
-}
-
-// dq's shared memory: at head_dim 64 the K/V ring alone (Q and dO pass
-// through its stage 1 on their way to registers); at 128, Q and dO beside it
-template <int HD>
-struct DqTiles {
-    bf16 k[2][BT][ssi::lds<HD>];
-    bf16 v[2][BT][ssi::lds<HD>];
-};
-template <>
-struct DqTiles<128> {
-    bf16 k[2][BT][ssi::lds<128>];
-    bf16 v[2][BT][ssi::lds<128>];
-    bf16 q[BT][ssi::lds<128>];
-    bf16 dout[BT][ssi::lds<128>];
-};
-
-template <int HD>
 __global__ void __launch_bounds__(TC_THREADS, 2) dq_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v, const bf16* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta, const int* __restrict__ seg,
     bf16* __restrict__ dq, int S, int Hq, int Hkv, int causal, float scale) {
-    constexpr bool FRAGS = HD == 64;  // Q and dO held as A fragments (else read per k16 step)
-    DqTiles<HD>& sm = ssi::block_tiles<DqTiles<HD>, FRAGS>();  // 36 KB static; 102 KB dynamic
-    auto k_sm = sm.k;
-    auto v_sm = sm.v;
+    constexpr int HD = 64;
+    // the K/V ring alone: Q and dO pass through its stage 1 on their way to registers
+    __shared__ __align__(128) bf16 k_sm[2][BT][ssi::lds<HD>];
+    __shared__ __align__(128) bf16 v_sm[2][BT][ssi::lds<HD>];
 
     const int h = blockIdx.x;
     const int b = blockIdx.y;
@@ -496,27 +313,18 @@ __global__ void __launch_bounds__(TC_THREADS, 2) dq_bf16_kernel(
     const int kv_end = causal ? min(S, q0 + BT) : S;  // causal: keys past the q tile are masked
     const int n_tiles = (kv_end + BT - 1) / BT;
 
+    // Q and dO pass through stage 1 on their way to registers; K/V tile 0 loads into stage 0
     uint32_t qf[HD / 16][4], dof[HD / 16][4];
-    if constexpr (FRAGS) {
-        // Q and dO pass through stage 1 on their way to registers; K/V tile 0 loads into stage 0
-        ssi::load_tile_async<TC_THREADS, HD>(k_sm[1], q + q_off, q_row, q0, S);
-        ssi::load_tile_async<TC_THREADS, HD>(v_sm[1], dout + q_off, q_row, q0, S);
-        ssi::load_tile_async<TC_THREADS, HD>(k_sm[0], k + kv_off, kv_row, 0, kv_end);
-        ssi::load_tile_async<TC_THREADS, HD>(v_sm[0], v + kv_off, kv_row, 0, kv_end);
-        ssi::cp_async_commit();
-        ssi::cp_async_wait<0>();
-        __syncthreads();
-        load_a_frags<HD>(qf, k_sm[1], warp, lane);
-        load_a_frags<HD>(dof, v_sm[1], warp, lane);
-        __syncthreads();  // stage 1 is free for tile 1
-    } else {
-        // Q and dO stay in their own tiles; they and K/V tile 0 form the first copy group
-        ssi::load_tile_async<TC_THREADS, HD>(sm.q, q + q_off, q_row, q0, S);
-        ssi::load_tile_async<TC_THREADS, HD>(sm.dout, dout + q_off, q_row, q0, S);
-        ssi::load_tile_async<TC_THREADS, HD>(k_sm[0], k + kv_off, kv_row, 0, kv_end);
-        ssi::load_tile_async<TC_THREADS, HD>(v_sm[0], v + kv_off, kv_row, 0, kv_end);
-        ssi::cp_async_commit();
-    }
+    ssi::load_tile_async<TC_THREADS, HD>(k_sm[1], q + q_off, q_row, q0, S);
+    ssi::load_tile_async<TC_THREADS, HD>(v_sm[1], dout + q_off, q_row, q0, S);
+    ssi::load_tile_async<TC_THREADS, HD>(k_sm[0], k + kv_off, kv_row, 0, kv_end);
+    ssi::load_tile_async<TC_THREADS, HD>(v_sm[0], v + kv_off, kv_row, 0, kv_end);
+    ssi::cp_async_commit();
+    ssi::cp_async_wait<0>();
+    __syncthreads();
+    load_a_frags<HD>(qf, k_sm[1], warp, lane);
+    load_a_frags<HD>(dof, v_sm[1], warp, lane);
+    __syncthreads();  // stage 1 is free for tile 1
 
     // this thread's two query rows: lo (g) and hi (g + 8) of the warp's 16
     const int row_lo = q0 + warp * 16 + g;
@@ -546,13 +354,8 @@ __global__ void __launch_bounds__(TC_THREADS, 2) dq_bf16_kernel(
         __syncthreads();
 
         float s[BT / 8][4], dp[BT / 8][4];
-        if constexpr (FRAGS) {
-            mma_abt<HD>(s, qf, k_sm[st], lane);    // S = Q . K^T
-            mma_abt<HD>(dp, dof, v_sm[st], lane);  // dP = dO . V^T
-        } else {
-            mma_abt_staged<HD>(s, sm.q, warp, k_sm[st], lane);
-            mma_abt_staged<HD>(dp, sm.dout, warp, v_sm[st], lane);
-        }
+        mma_abt<HD>(s, qf, k_sm[st], lane);    // S = Q . K^T
+        mma_abt<HD>(dp, dof, v_sm[st], lane);  // dP = dO . V^T
 
         // P = exp(scale S - lse) (0 where masked), dS = P (dP - delta)
         const int k0 = it * BT;
@@ -816,32 +619,25 @@ template <int HD>
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
                         const float* lse, const int* seg, float* delta, bf16* dq, bf16* dk, bf16* dv, int B, int S,
                         int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
-    // cp.async moves 16-byte pieces: every row of q, k, v and do must start 16-byte aligned
+    // cp.async and TMA move 16-byte pieces: every row of q, k, v and do must start 16-byte aligned
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
          reinterpret_cast<uintptr_t>(dout)) % 16 != 0)
         return cudaErrorInvalidValue;
-    cudaError_t err = launch_delta<bf16, HD>(o, dout, delta, B, S, Hq, stream);
-    if (err != cudaSuccess) return err;
-    const int n_t = (S + BT - 1) / BT;
-    int dq_smem = 0;
-    if constexpr (HD == 64) {
+    if constexpr (HD == 128) {  // the Hopper kernels (flash_hd128_bwd.cu)
+        return ssi::flash_bwd_hd128_bf16(q, k, v, o, dout, lse, delta, seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale,
+                                         stream);
+    } else {
+        cudaError_t err = launch_delta<bf16, HD>(o, dout, delta, B, S, Hq, stream);
+        if (err != cudaSuccess) return err;
+        const int n_t = (S + BT - 1) / BT;
         dkdv_bf16_kernel<<<dim3(Hkv, B, n_t), TC_THREADS, 0, stream>>>(q, k, v, dout, lse, delta, seg, dk, dv, S, Hq,
                                                                         Hkv, causal, scale);
-    } else {
-        static int allowed_dkdv = 0, allowed_dq = 0;
-        err = ssi::allow_dynamic_smem(dkdv_bf16_hd128_kernel, (int)sizeof(Dkdv128Tiles), allowed_dkdv);
+        err = cudaGetLastError();
         if (err != cudaSuccess) return err;
-        dkdv_bf16_hd128_kernel<<<dim3(Hkv, B, n_t), DKDV128_THREADS, sizeof(Dkdv128Tiles), stream>>>(
-            q, k, v, dout, lse, delta, seg, dk, dv, S, Hq, Hkv, causal, scale);
-        dq_smem = sizeof(DqTiles<HD>);
-        err = ssi::allow_dynamic_smem(dq_bf16_kernel<HD>, dq_smem, allowed_dq);
-        if (err != cudaSuccess) return err;
+        dq_bf16_kernel<<<dim3(Hq, B, n_t), TC_THREADS, 0, stream>>>(q, k, v, dout, lse, delta, seg, dq, S, Hq, Hkv,
+                                                                     causal, scale);
+        return cudaGetLastError();
     }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    dq_bf16_kernel<HD><<<dim3(Hq, B, n_t), TC_THREADS, dq_smem, stream>>>(q, k, v, dout, lse, delta, seg, dq, S, Hq,
-                                                                           Hkv, causal, scale);
-    return cudaGetLastError();
 }
 
 template <int HD>

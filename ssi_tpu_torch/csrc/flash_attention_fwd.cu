@@ -1,7 +1,8 @@
 // Flash-attention forward (causal or full GQA, optional packed segment ids)
 // for head_dim 64 (the 100m and 1B models) and 128 (3B and 8B): bf16 on the
 // tensor cores with f32 accumulation, or f32 with scalar FMAs (the parity
-// path).
+// path). bf16 at head_dim 128 runs the Hopper kernel of flash_hd128_fwd.cu
+// (wgmma fed by TMA, warp-specialised), dispatched from the entry point below.
 //
 // Replaces the TPU kernels ssi_tpu/ops/flash_attention.py `_fwd_kernel` and
 // `_fwd_kernel_grouped` (one GQA schedule ports both). Semantics kept exactly:
@@ -18,16 +19,13 @@
 // block has 227 KB of shared memory, so K/V stream through it in 64-key
 // tiles with an online softmax.
 //
-// Design of the bf16 kernel (one template, instantiated for head_dim 64 and
-// 128):
+// Design of the head_dim-64 bf16 kernel:
 // - one block of 4 warps per (q head, batch, 64-query tile); each warp owns
 //   16 query rows. One q head per block: the n_rep q heads of a kv head are
 //   neighbouring blocks and share each K/V tile through L2, which keeps the
-//   block at 46 KB of shared memory at head_dim 64. Registers (about 165 a
-//   thread) hold it to 3 blocks per SM; forcing 4 (128 registers) spills and
-//   measured no faster. At head_dim 128 the Q tile and the K/V ring take
-//   87 KB, past the 48 KB static limit, so they live in dynamic shared
-//   memory, and 2 blocks fit an SM;
+//   block at 46 KB of shared memory. Registers (about 165 a thread) hold it
+//   to 3 blocks per SM; forcing 4 (128 registers) spills and measured no
+//   faster;
 // - Q.K^T and P.V are mma.sync m16n8k16 products fed by ldmatrix from
 //   shared rows padded to 144 bytes (conflict-free); the scores, the running
 //   max and sum (quad shuffles) and the output accumulator stay in registers,
@@ -53,6 +51,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "flash_hd128.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -61,8 +60,9 @@ constexpr float NEG_INF = -1.0e30f;
 constexpr float M_CLAMP = -0.5e30f;  // m_safe = max(m, M_CLAMP)
 constexpr float LOG2E = 1.4426950408889634f;
 
-// ---- bf16: tensor cores ------------------------------------------------------
+// ---- bf16, head_dim 64: tensor cores ---------------------------------------------
 
+constexpr int HD64 = 64;
 constexpr int TC_WARPS = 4;
 constexpr int TC_THREADS = TC_WARPS * 32;
 constexpr int TC_BQ = 16 * TC_WARPS;  // query rows per block
@@ -70,15 +70,7 @@ constexpr int TC_BK = 64;             // keys per K/V tile
 
 using bf16 = __nv_bfloat16;
 
-template <int HD>
-struct FwdTiles {
-    bf16 q[TC_BQ][ssi::lds<HD>];  // rows padded to 144 (HD 64) or 272 (HD 128) bytes
-    bf16 k[2][TC_BK][ssi::lds<HD>];
-    bf16 v[2][TC_BK][ssi::lds<HD>];
-};
-
-template <int HD>
-__global__ void __launch_bounds__(TC_THREADS, HD == 64 ? 3 : 2) flash_fwd_bf16_kernel(
+__global__ void __launch_bounds__(TC_THREADS, 3) flash_fwd_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const int* __restrict__ seg, bf16* __restrict__ o, float* __restrict__ lse,
     int S, int Hq, int n_rep,
@@ -86,10 +78,10 @@ __global__ void __launch_bounds__(TC_THREADS, HD == 64 ? 3 : 2) flash_fwd_bf16_k
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     int causal, float scale) {
-    FwdTiles<HD>& sm = ssi::block_tiles<FwdTiles<HD>, HD == 64>();  // 46 KB static; 87 KB dynamic
-    auto q_sm = sm.q;
-    auto k_sm = sm.k;
-    auto v_sm = sm.v;
+    constexpr int HD = HD64;
+    __shared__ __align__(128) bf16 q_sm[TC_BQ][ssi::lds<HD>];  // rows padded to 144 bytes
+    __shared__ __align__(128) bf16 k_sm[2][TC_BK][ssi::lds<HD>];
+    __shared__ __align__(128) bf16 v_sm[2][TC_BK][ssi::lds<HD>];
 
     const int h = blockIdx.x;
     const int b = blockIdx.y;
@@ -366,24 +358,23 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
                    long long v_sb, long long v_ss, long long v_sh,
                    int causal, float scale, cudaStream_t st) {
     if (dtype == ssi::kBFloat16) {
-        // cp.async moves 16-byte pieces: every row start must be 16-byte aligned
-        const long long strides[] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
-        for (long long s : strides)
-            if (s % 8 != 0) return cudaErrorInvalidValue;
-        if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
-            return cudaErrorInvalidValue;
-        int smem = 0;
-        if constexpr (HD != 64) {
-            static int allowed = 0;
-            smem = sizeof(FwdTiles<HD>);
-            const cudaError_t err = ssi::allow_dynamic_smem(flash_fwd_bf16_kernel<HD>, smem, allowed);
-            if (err != cudaSuccess) return err;
+        if constexpr (HD == 128) {  // the Hopper kernel (flash_hd128_fwd.cu)
+            return ssi::flash_fwd_hd128_bf16(q, k, v, segp, o, lsep, B, S, Hq, Hq / n_rep, q_sb, q_ss, q_sh, k_sb,
+                                             k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale, st);
+        } else {
+            // cp.async moves 16-byte pieces: every row start must be 16-byte aligned
+            const long long strides[] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+            for (long long s : strides)
+                if (s % 8 != 0) return cudaErrorInvalidValue;
+            const uintptr_t bases =
+                reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+            if (bases % 16 != 0) return cudaErrorInvalidValue;
+            const dim3 grid(Hq, B, (S + TC_BQ - 1) / TC_BQ);
+            flash_fwd_bf16_kernel<<<grid, TC_THREADS, 0, st>>>(
+                static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), segp,
+                static_cast<bf16*>(o), lsep, S, Hq, n_rep,
+                q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale);
         }
-        const dim3 grid(Hq, B, (S + TC_BQ - 1) / TC_BQ);
-        flash_fwd_bf16_kernel<HD><<<grid, TC_THREADS, smem, st>>>(
-            static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), segp,
-            static_cast<bf16*>(o), lsep, S, Hq, n_rep,
-            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale);
     } else if (dtype == ssi::kFloat32) {
         const int bq = THREADS / n_rep;
         const dim3 grid((S + bq - 1) / bq, Hq / n_rep, B);

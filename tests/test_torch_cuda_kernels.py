@@ -312,6 +312,85 @@ def test_flash_backward_kernel_matches_plain(gen, dtype, d, hq, hkv, s, causal, 
         assert torch.equal(a, b), name
 
 
+def hd128_segments(b, s, kind):
+    """Segment ids [B, S]: thirds (the last row cut once more), or a segment of
+    one token in the middle (a query that sees only itself)."""
+    seg = torch.zeros((b, s), dtype=torch.int32, device="cuda")
+    if kind == "segments":
+        seg[:, s // 3:] = 1
+        seg[-1, 2 * s // 3:] = 2
+    else:
+        j = s // 2
+        seg[:, j] = 1
+        seg[:, j + 1:] = 2
+    return seg
+
+
+@pytest.mark.parametrize("hq,hkv", HEADS)
+@pytest.mark.parametrize("s", [1, 77, 130, 200, 769])
+@pytest.mark.parametrize("mode", ["causal", "full", "segments", "one_token"])
+def test_flash_hd128_bf16_kernels_match_plain(gen, hq, hkv, s, mode):
+    """The Hopper head_dim-128 bf16 forward and backward (wgmma fed by TMA) at
+    ragged S (1, a part tile, 128-key tiles plus a few rows, 769 = 6 tiles +
+    1), every GQA ratio, causal, full and segment masks with a one-token
+    segment; the backward from the plain forward's o and lse, so each kernel
+    is held alone."""
+    q, k, v, _ = qkv_segs(gen, torch.bfloat16, 2, s, hq, hkv, False, 128)
+    causal = mode != "full"
+    seg = hd128_segments(2, s, mode) if mode in ("segments", "one_token") else None
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, causal=causal, segment_ids=seg)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, lse_ref, atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=seg)
+    want = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=seg)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16], msg=name)
+
+
+@pytest.mark.parametrize("layout", ["fused_qkv", "heads_major"])
+@pytest.mark.parametrize("hq,hkv", [(24, 8), (32, 8)])
+def test_flash_hd128_bf16_kernels_take_strided_views(gen, layout, hq, hkv):
+    """q, k and v as non-contiguous [B, S, H, 128] views, the strides the
+    forward's tensor maps read: slices of one fused [B, S, Hq + 2 Hkv, 128]
+    projection, or [B, H, S, 128] tensors transposed (S stride below H's)."""
+    b, s, d = 2, 200, 128
+    if layout == "fused_qkv":
+        qkv = torch.randn((b, s, hq + 2 * hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
+    else:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda").to(torch.bfloat16).transpose(1, 2)
+                   for h in (hq, hkv, hkv))
+    assert not any(x.is_contiguous() for x in (q, k, v))
+    for causal in (True, False):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        o_ref, lse_ref = flash_attention_reference(q, k, v, causal=causal)
+        torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+        torch.testing.assert_close(lse, lse_ref, atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal=causal)
+        want = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal=causal)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(a.float(), w.float(), atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16],
+                                       msg=name)
+
+
+@pytest.mark.parametrize("mode", ["causal", "full", "segments"])
+def test_flash_hd128_bf16_backward_is_bitwise_reproducible(gen, mode):
+    """No atomics: the head_dim-128 bf16 backward run twice on the same inputs
+    (3B's 24 / 8 heads, S 769) gives bitwise equal dq, dk and dv."""
+    q, k, v, _ = qkv_segs(gen, torch.bfloat16, 2, 769, 24, 8, False, 128)
+    causal = mode != "full"
+    seg = hd128_segments(2, 769, mode) if mode == "segments" else None
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    first = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=seg)
+    second = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=seg)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
 def test_flash_autograd_on_cuda_runs_both_kernels(gen):
     q, k, v, _ = qkv_segs(gen, torch.float32, 1, 96, 8, 2, False)
     q, k, v = (x.requires_grad_() for x in (q, k, v))

@@ -13,11 +13,12 @@ non-zero without printing the final line):
 1. build: the tokenizer's native BPE core (``ssi_tpu_torch/native``, g++)
    and every CUDA kernel from ``ssi_tpu_torch/csrc`` (one nvcc per source,
    in parallel, then one link); prints each kernel's registers and spills
-   from the ptxas log and the head_dim-128 kernels' dynamic shared memory;
-2. flash-attention forward kernel vs its plain version (f32 and bf16;
-   causal, full, segment ids) at the serving path's largest prefill dispatch
-   (B 8, S 768), at B 2 x S 768, and at the training path's B 2 x S 2048;
-   times;
+   from the ptxas log;
+2. flash-attention forward kernel vs its plain version (f32 and bf16, the
+   bf16 one the Hopper kernel of ``csrc/flash_hopper_fwd.cu``; causal, full,
+   segment ids) at the serving path's largest prefill dispatch (B 8, S 768),
+   at B 2 x S 768, and at the training path's B 2 x S 2048; times beside
+   SDPA;
 3. fused paged-decode kernel (#8) vs its plain version at the 1B serving
    shape (32 slots, 8 kv heads, page 128, context 1280; ragged and inactive
    slots), and at context 16,384 (past the old design's shared-memory cap):
@@ -145,14 +146,16 @@ l. the dense engine, on phase d's ``step_0/`` and split before they are
    the 5 products and on the 7 the kernels issue) beside the backward of
    PyTorch's ``scaled_dot_product_attention`` (timed only, as a yardstick);
 7. the cross-entropy kernels (lse, the backward's dlogits pass, the dh and
-   dE GEMMs) and the loss vs their plain versions at N 4,096 and 3,072
+   dE GEMMs; bf16 dE on the Hopper GEMM of ``csrc/cross_entropy_de_hopper.cu``)
+   and the loss vs their plain versions at N 4,096 and 3,072
    tokens, D 2048, V 133,258 (f32 and bf16, every 7th label ignored), at the
    init logit spread and a trained-like one (std 4); dE's labelled and
    unlabelled vocab rows held apart; controls: a constant lse, lse + 0.05,
    dh without its softmax term; lse, dh and dE bitwise equal over two
    launches;
-   times of each pass and of the whole backward beside one ``torch.mm`` per
-   GEMM and ``F.cross_entropy(h @ E.T, y)`` with its backward;
+   times and TFLOP/s of each pass and of the whole backward beside one
+   ``torch.mm`` per GEMM (with its TFLOP/s) and ``F.cross_entropy(h @ E.T, y)``
+   with its backward;
 8. f32 train-step parity at the full width of ``llama3_2_1b``: one
    micro-batch of B 1, S 512 through ``make_loss_fn`` (the kernels) and
    through the plain attention and cross-entropy on the card: loss and every
@@ -313,7 +316,8 @@ f. weight-only int8 and the port's WER drive:
    their plain versions, each beside a control that must miss, in f32 and
    bf16, with bf16 times beside SDPA or ``torch.mm`` and the bound: the
    flash forward and backward (in bf16 the Hopper kernels of
-   ``csrc/flash_hd128_*.cu``; the backward launched twice, bitwise equal) at
+   ``csrc/flash_hopper_fwd.cu`` and ``csrc/flash_hd128_bwd.cu``; the backward
+   launched twice, bitwise equal) at
    3B's training shape (B 2, S 2048, 24 q / 8 kv heads: n_rep 3) and 8B's
    largest prefill dispatch (B 8, S 768, 32 / 8); the CE kernels at 3B's D 3,072 (N 4,096); #8 and #9 (T 4 and 8)
    at 3B's and 8B's serving shapes (32 slots, page 128, context 1280; a
@@ -504,11 +508,8 @@ def phase_build():
             kernel = _kernel_name(ln.split("'")[1])
         elif "registers" in ln or "spill" in ln:
             log(f"  ptxas {kernel}: {ln.strip()}")
-    # dynamic shared memory the launchers of the head_dim-128 Hopper kernels ask for: their Smem
-    # structs (csrc/flash_hd128_*.cu) plus 1 KB to align the swizzled tiles; ptxas reports none of it
-    log("  dynamic shared memory, head_dim-128 flash kernels: flash_fwd_hd128_kernel 193 KB (2 x Q 32 + "
-        "2 x (K 32 + V 32)), dkdv_hd128_kernel 130 KB (K 32 + V 32 + 2 x (Q 16 + dO 16) + lse/delta), "
-        "dq_hd128_kernel 193 KB (Q 32 + dO 32 + 2 x (K 32 + V 32)); one block of 256 threads per SM")
+    # ptxas reports no dynamic shared memory: what each Hopper kernel's launcher asks for (its Smem
+    # struct + 1 KB of alignment slack) is stated in the note at the top of its source
     log(f"phase 1 build: {_build.build_seconds:.1f} s (0.0 = cached library reused); each source's nvcc done "
         f"after {', '.join(f'{k} {v:.1f} s' for k, v in _build.source_seconds.items())}")
 
@@ -2288,7 +2289,8 @@ def phase_cross_entropy(gen, vocab: int, d: int = 2048, ns=(4096, 3072), tag: st
         t_k, t_p = t[name]
         log(f"  {name} time bf16 N{n} D{d}: kernel {t_k:.3f} ms ({ops / (t_k * 1e-3) / 1e12:.1f} TFLOP/s), "
             f"plain {t_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
-            + (f", one PyTorch call {library:.3f} ms" if name != "cross_entropy_lse" and library is not None else "")
+            + (f", one PyTorch call {library:.3f} ms ({ops / (library * 1e-3) / 1e12:.1f} TFLOP/s)"
+               if name != "cross_entropy_lse" and library is not None else "")
             + (f", F.cross_entropy(h @ E.T) {library:.3f} ms (two calls)" if name == "cross_entropy_lse" else ""))
         rows[name] = {"max_abs_err": worst[name, "bfloat16"], "rel_err": worst_rel[name, "bfloat16"], "ms": t_k,
                       "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library}
@@ -4581,11 +4583,12 @@ def main() -> int:
         log(f"partial run (--only {args.only}): no result line")
         return 0
 
-    sources = {"flash_attention_fwd": ("flash_attention_fwd.cu", FLASH_REPLACES),
+    sources = {"flash_attention_fwd": ("flash_hopper_fwd.cu", FLASH_REPLACES),  # bf16, both head dims
                "paged_attention_fused": ("paged_attention.cu", PAGED_REPLACES),
                "paged_attention_multi": ("paged_attention.cu", PAGED_MULTI_REPLACES),
                "flash_attention_bwd": ("flash_attention_bwd.cu", FLASH_BWD_REPLACES),
                **{name: ("cross_entropy.cu", where) for name, where in CE_REPLACES.items()},
+               "cross_entropy_de": ("cross_entropy_de_hopper.cu", CE_REPLACES["cross_entropy_de"]),  # bf16
                # the logsumexp's merge pass, launched alone to merge the tp ranks' slices
                "cross_entropy_lse_merge": ("cross_entropy.cu", CE_REPLACES["cross_entropy_lse"])}
     kernels = []
@@ -4604,7 +4607,7 @@ def main() -> int:
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **rows[name]})
     # the head_dim-128 instances of the attention kernels, launched by the 3B and 8B paths
-    hopper_sources = {"flash_attention_fwd": "flash_hd128_fwd.cu", "flash_attention_bwd": "flash_hd128_bwd.cu"}
+    hopper_sources = {"flash_attention_bwd": "flash_hd128_bwd.cu"}
     for name, row in rows128.items():
         source, replaces = sources[name]
         source = hopper_sources.get(name, source)  # bf16 head_dim 128 runs the Hopper kernels

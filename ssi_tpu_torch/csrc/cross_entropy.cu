@@ -15,14 +15,15 @@
 // D 2048, V 133,258 (2.24 TFLOP each: the logits once for lse, and the
 // dlogits, dh and dE products in the backward). The TPU kernels held
 // [512, 2048] and [2048, 2048] f32 accumulators in VMEM; a Hopper block has
-// 227 KB of shared memory, so all four passes (lse, dlogits, dh, dE) run on
-// one GEMM kernel template: 128 x 128 output tiles, 8 warps of 64 x 32,
-// mma.sync m16n8k16 (mma.cuh) fed by ldmatrix (.trans for an operand whose
-// rows run along M or N rather than K) from a 3-stage cp.async ring of
-// 64-deep K slabs, accumulators in registers, and an epilogue applied to the
-// accumulator tile from registers. Each output tile belongs to one block,
-// which sums the whole K in a fixed order: no atomics, so two launches give
-// the same bits.
+// 227 KB of shared memory, so three passes (lse, dlogits, dh) run on one GEMM
+// kernel template: 128 x 128 output tiles, 8 warps of 64 x 32, mma.sync
+// m16n8k16 (mma.cuh) fed by ldmatrix (.trans for an operand whose rows run
+// along N rather than K) from a 3-stage cp.async ring of 64-deep K slabs,
+// accumulators in registers, and an epilogue applied to the accumulator tile
+// from registers. The bf16 dE product runs on the Hopper GEMM of
+// cross_entropy_de_hopper.cu (wgmma fed by TMA). Each output tile belongs to
+// one block, which sums the whole K in a fixed order: no atomics, so two
+// launches give the same bits.
 // - lse: the logits product h . E^T with a row-reduction epilogue: per token
 //   row and 128-column vocab tile one (max, sum of exp) pair, into a
 //   [n_vtiles, N] f32 scratch (34 MB at N 4,096, V 133,258) that a second
@@ -55,6 +56,12 @@
 #include "common.cuh"
 #include "mma.cuh"
 #include "tile_mma.cuh"
+
+namespace ssi {
+// dE [V, D] = dl^T . h in bf16 (cross_entropy_de_hopper.cu)
+cudaError_t cross_entropy_de_hopper_bf16(const void* dl, const void* h, void* de, int N, int V, int D, int ldv,
+                                         cudaStream_t stream);
+}  // namespace ssi
 
 namespace {
 
@@ -217,10 +224,11 @@ __host__ __device__ constexpr int slab_elems() {
     return K_CONTIG ? GT * LDKS : GK * LDOS;
 }
 
-// 102-108 KB: two blocks fit in an SM's 228 KB
-template <bool A_K, bool B_K>
+// 102-108 KB: two blocks fit in an SM's 228 KB (A is K-contiguous in every
+// bf16 GEMM of this file: the dE product runs on cross_entropy_de_hopper.cu)
+template <bool B_K>
 constexpr int gemm_smem() {
-    return STAGES * (slab_elems<A_K>() + slab_elems<B_K>()) * (int)sizeof(bf16);
+    return STAGES * (slab_elems<true>() + slab_elems<B_K>()) * (int)sizeof(bf16);
 }
 
 // Stage one operand's slab: outer index o in [o0, o0 + 128) (m for A, n for
@@ -386,14 +394,15 @@ struct LseEpi {
     }
 };
 
-// One block per 128 x 128 output tile; M_FAST puts M tiles on blockIdx.x, so
-// neighbouring blocks share their B slab through L2 (else their A slab).
-template <bool A_K, bool B_K, bool M_FAST, class Epi>
+// One block per 128 x 128 output tile, A K-contiguous; M_FAST puts M tiles on
+// blockIdx.x, so neighbouring blocks share their B slab through L2 (else their
+// A slab).
+template <bool B_K, bool M_FAST, class Epi>
 __global__ void __launch_bounds__(GTHREADS, 2) gemm_bf16_kernel(const bf16* __restrict__ a, int lda,
                                                                 const bf16* __restrict__ b, int ldb, int M, int N,
                                                                 int K, Epi epi) {
     extern __shared__ __align__(128) unsigned char smem[];
-    constexpr int A_EL = slab_elems<A_K>();
+    constexpr int A_EL = slab_elems<true>();
     constexpr int B_EL = slab_elems<B_K>();
     bf16* as = reinterpret_cast<bf16*>(smem);
     bf16* bs = as + STAGES * A_EL;
@@ -408,7 +417,7 @@ __global__ void __launch_bounds__(GTHREADS, 2) gemm_bf16_kernel(const bf16* __re
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
         if (s < k_tiles) {
-            load_slab<A_K>(as + s * A_EL, a, lda, m0, M, s * GK, K);
+            load_slab<true>(as + s * A_EL, a, lda, m0, M, s * GK, K);
             load_slab<B_K>(bs + s * B_EL, b, ldb, n0, N, s * GK, K);
         }
         ssi::cp_async_commit();
@@ -425,7 +434,7 @@ __global__ void __launch_bounds__(GTHREADS, 2) gemm_bf16_kernel(const bf16* __re
         __syncthreads();                   // ... for every thread, and slab kt - 1 is consumed
         const int nk = kt + STAGES - 1;
         if (nk < k_tiles) {
-            load_slab<A_K>(as + (nk % STAGES) * A_EL, a, lda, m0, M, nk * GK, K);
+            load_slab<true>(as + (nk % STAGES) * A_EL, a, lda, m0, M, nk * GK, K);
             load_slab<B_K>(bs + (nk % STAGES) * B_EL, b, ldb, n0, N, nk * GK, K);
         }
         ssi::cp_async_commit();
@@ -436,14 +445,8 @@ __global__ void __launch_bounds__(GTHREADS, 2) gemm_bf16_kernel(const bf16* __re
             uint32_t af[4][4];
             uint32_t bfr[2][4];
 #pragma unroll
-            for (int mi = 0; mi < 4; ++mi) {
-                if (A_K) {
-                    ssi::ldmatrix_x4(af[mi], at + (wm + mi * 16 + lane % 16) * LDKS + kk * 16 + (lane / 16) * 8);
-                } else {
-                    ssi::ldmatrix_x4_trans(
-                        af[mi], at + (kk * 16 + (lane / 16) * 8 + lane % 8) * LDOS + wm + mi * 16 + ((lane / 8) % 2) * 8);
-                }
-            }
+            for (int mi = 0; mi < 4; ++mi)
+                ssi::ldmatrix_x4(af[mi], at + (wm + mi * 16 + lane % 16) * LDKS + kk * 16 + (lane / 16) * 8);
 #pragma unroll
             for (int np = 0; np < 2; ++np) {
                 if (B_K) {
@@ -538,11 +541,12 @@ cudaError_t launch_gemm(const void* a, int lda, const void* b, int ldb, int M, i
         gemm_f32_kernel<A_K, B_K, M_FAST, Epi><<<grid, GTHREADS, 0, stream>>>(
             static_cast<const float*>(a), lda, static_cast<const float*>(b), ldb, M, N, K, epi);
     } else {
-        constexpr int smem = gemm_smem<A_K, B_K>();
-        cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel<A_K, B_K, M_FAST, Epi>,
+        static_assert(A_K, "every bf16 GEMM here takes A K-contiguous");
+        constexpr int smem = gemm_smem<B_K>();
+        cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel<B_K, M_FAST, Epi>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return err;
-        gemm_bf16_kernel<A_K, B_K, M_FAST, Epi><<<grid, GTHREADS, smem, stream>>>(
+        gemm_bf16_kernel<B_K, M_FAST, Epi><<<grid, GTHREADS, smem, stream>>>(
             static_cast<const bf16*>(a), lda, static_cast<const bf16*>(b), ldb, M, N, K, epi);
     }
     return cudaGetLastError();
@@ -651,9 +655,8 @@ extern "C" int ssi_cross_entropy_de(int dtype, const void* dl, const void* h, vo
     if (dtype == ssi::kFloat32) {
         err = launch_gemm<float, false, false, false>(dl, ldv, h, D, V, D, N,
                                                       StoreEpi<float>{static_cast<float*>(de), V, D}, st);
-    } else if (dtype == ssi::kBFloat16) {
-        err = launch_gemm<bf16, false, false, false>(dl, ldv, h, D, V, D, N,
-                                                     StoreEpi<bf16>{static_cast<bf16*>(de), V, D}, st);
+    } else if (dtype == ssi::kBFloat16) {  // the Hopper GEMM (cross_entropy_de_hopper.cu)
+        err = ssi::cross_entropy_de_hopper_bf16(dl, h, de, N, V, D, ldv, st);
     } else {
         err = cudaErrorInvalidValue;
     }

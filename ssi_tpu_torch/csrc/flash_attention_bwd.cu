@@ -65,7 +65,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
-#include "flash_hd128.cuh"
+#include "flash_hopper.cuh"
 #include "mma.cuh"
 #include "tile_mma.cuh"
 

@@ -22,7 +22,7 @@
 //   n_rep q heads of its kv head, in a fixed order;
 // - dQ: a block per (q head, batch, 128-query tile), looping over 128-key
 //   tiles up to the diagonal.
-// Both take the forward's shape (flash_hd128_fwd.cu): 2 warpgroups of 64 rows
+// Both take the forward's shape (flash_hopper_fwd.cu): 2 warpgroups of 64 rows
 // each, no producer warpgroup (ptxas would hold every thread of a 384-thread
 // block to 168 registers; dK/dV needs about 240), thread 0 issuing the first
 // TMA loads and the warpgroup that releases a stage second refilling it;
@@ -60,7 +60,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
-#include "flash_hd128.cuh"
+#include "flash_hopper.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -472,14 +472,14 @@ cudaError_t ssi::flash_bwd_hd128_bf16(const void* q, const void* k, const void* 
     const long long q_ss = (long long)Hq * HD;  // contiguous [B, S, H, 128]
     const long long kv_ss = (long long)Hkv * HD;
     CUtensorMap tq, tk, tv, tdo;
-    err = hw::map_bshd(&tq, q, B, S, Hq, S * q_ss, q_ss, HD, BOX);
-    if (err == cudaSuccess) err = hw::map_bshd(&tdo, dout, B, S, Hq, S * q_ss, q_ss, HD, BOX);
-    if (err == cudaSuccess) err = hw::map_bshd(&tk, k, B, S, Hkv, S * kv_ss, kv_ss, HD, BOX);
-    if (err == cudaSuccess) err = hw::map_bshd(&tv, v, B, S, Hkv, S * kv_ss, kv_ss, HD, BOX);
+    err = hw::map_bshd(&tq, q, B, S, Hq, HD, S * q_ss, q_ss, HD, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tdo, dout, B, S, Hq, HD, S * q_ss, q_ss, HD, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tk, k, B, S, Hkv, HD, S * kv_ss, kv_ss, HD, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tv, v, B, S, Hkv, HD, S * kv_ss, kv_ss, HD, BOX);
     CUtensorMap tdq, tdk, tdv;  // the gradients, stored 64 rows (a warpgroup's) at a time
-    if (err == cudaSuccess) err = hw::map_bshd(&tdq, dq, B, S, Hq, S * q_ss, q_ss, HD, BOX);
-    if (err == cudaSuccess) err = hw::map_bshd(&tdk, dk, B, S, Hkv, S * kv_ss, kv_ss, HD, BOX);
-    if (err == cudaSuccess) err = hw::map_bshd(&tdv, dv, B, S, Hkv, S * kv_ss, kv_ss, HD, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tdq, dq, B, S, Hq, HD, S * q_ss, q_ss, HD, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tdk, dk, B, S, Hkv, HD, S * kv_ss, kv_ss, HD, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tdv, dv, B, S, Hkv, HD, S * kv_ss, kv_ss, HD, BOX);
     if (err != cudaSuccess) return err;
     static int allowed_dkdv = 0, allowed_dq = 0;
     err = ssi::allow_dynamic_smem(dkdv_hd128_kernel, DKDV_SMEM, allowed_dkdv);

@@ -1,0 +1,24 @@
+// Launchers of the bf16 Hopper flash kernels (flash_hopper_fwd.cu at head_dim
+// 64 and 128, flash_hd128_bwd.cu at head_dim 128), called by the C entry
+// points of flash_attention_fwd.cu and flash_attention_bwd.cu for dtype bf16.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace ssi {
+
+// o [B, S, Hq, hd] contiguous and lse [B, Hq, S] from q [B, S, Hq, hd] and
+// k, v [B, S, Hkv, hd] with element strides (b, s, h), head_dim contiguous;
+// hd 64 or 128.
+cudaError_t flash_fwd_hopper_bf16(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse,
+                                  int B, int S, int Hq, int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh,
+                                  long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                                  long long v_sh, int causal, float scale, cudaStream_t stream);
+
+// dq, dk, dv from contiguous [B, S, H, 128] q, k, v, o, do and the forward's
+// lse [B, Hq, S]; delta [B, Hq, S] is scratch for rowsum(o * do).
+cudaError_t flash_bwd_hd128_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                                 const float* lse, float* delta, const int* seg, void* dq, void* dk, void* dv, int B,
+                                 int S, int Hq, int Hkv, int causal, float scale, cudaStream_t stream);
+
+}  // namespace ssi

@@ -1,20 +1,22 @@
-// Hopper (sm_90a) building blocks for the head_dim-128 flash kernels
-// (flash_hd128_fwd.cu, flash_hd128_bwd.cu): mbarriers, TMA tile loads fed by
-// tensor maps, warpgroup matrix products (wgmma) with shared-memory
-// descriptors, and the host-side tensor-map encoding. Raw PTX, no CUTLASS:
-// each source compiles in seconds.
+// Hopper (sm_90a) building blocks for the bf16 flash kernels
+// (flash_hopper_fwd.cu, flash_hd128_bwd.cu) and the cross-entropy dE product
+// (cross_entropy_de_hopper.cu): mbarriers, TMA tile loads fed by tensor maps,
+// warpgroup matrix products (wgmma) with shared-memory descriptors, and the
+// host-side tensor-map encoding. Raw PTX, no CUTLASS: each source compiles in
+// seconds.
 //
 // Shared-memory tiles are bf16 [rows, 64] blocks, 128 bytes a row, stored
 // with the 128-byte swizzle (16-byte chunk c of row r sits at chunk c ^ (r % 8))
 // as a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes them; each block starts
-// 1024-byte aligned. A head_dim-128 tile is two such blocks ("halves": columns
-// 0-63 and 64-127). One layout serves both operand majors:
+// 1024-byte aligned. A head_dim-64 tile is one such block, a head_dim-128 tile
+// two ("halves": columns 0-63 and 64-127). One layout serves both operand majors:
 // - K-major (the product's K along the 64 columns: Q and K in S = Q.K^T):
 //   SBO 1024 bytes (8 rows), LBO unused (16); a k16 step within a half is +32
 //   bytes of start address, and the next half is the next block;
-// - MN-major (the product's K along the rows: V in O = P.V): SBO 1024 bytes
-//   (8 rows of K), LBO the bytes between the two halves (the next 64 columns of
-//   N); a k16 step is +16 rows = +2048 bytes.
+// - MN-major (the product's K along the rows: V in O = P.V, both operands of
+//   dE = dlogits^T . h): SBO 1024 bytes (8 rows of K), LBO the bytes between
+//   the blocks (the next 64 columns of M or N); a k16 step is +16 rows = +2048
+//   bytes.
 //
 // wgmma accumulator layout (m64nN, f32): thread t of the warpgroup, warp
 // w = t / 32, g = (t % 32) / 4, t4 = t % 4, holds d[4j + e] = row 16w + g
@@ -82,6 +84,13 @@ __device__ __forceinline__ bool release_last(uint32_t* count) {
 }
 
 // TMA: the box at coordinates (c0 innermost ...) of `map` -> dst, completing on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
+            smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+        : "memory");
+}
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
                                             int c3) {
     asm volatile(
@@ -174,23 +183,24 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N2 / 2], const float (&d)[N
     for (int i = 0; i < N2 / 2; ++i) a[i] = pack_bf16(d[2 * i], d[2 * i + 1]);
 }
 
-// A warpgroup's [64 x 128] f32 accumulator (rows lo times mul_lo, rows hi
-// times mul_hi) in bf16 into `region`: 64 rows of a two-half tile in the
-// swizzled layout (128 bytes a row, the halves half_bytes apart; free shared
-// memory of this warpgroup), then out by two TMA stores at (h, s0, b) of
-// `map` (64-row boxes), which skip rows past S. The 4-byte writes of a warp
-// fall in 32 distinct banks. All 128 threads call it; `bar_id` is a named
-// barrier of this warpgroup alone.
-__device__ __forceinline__ void store_tile(const float (&acc)[64], float mul_lo, float mul_hi, unsigned char* region,
-                                           uint32_t half_bytes, const CUtensorMap* map, int h, int s0, int b,
+// A warpgroup's [64 x 2 N2] f32 accumulator (N2 floats a thread; rows lo times
+// mul_lo, rows hi times mul_hi) in bf16 into `region`: 64 rows of a tile of
+// 64-column blocks in the swizzled layout (128 bytes a row, the blocks
+// block_bytes apart; free shared memory of this warpgroup), then out by one TMA
+// store a block at (column, h, s0, b) of `map` (64-row boxes), which skips rows
+// past S. The 4-byte writes of a warp fall in 32 distinct banks. All 128
+// threads call it; `bar_id` is a named barrier of this warpgroup alone.
+template <int N2>
+__device__ __forceinline__ void store_tile(const float (&acc)[N2], float mul_lo, float mul_hi, unsigned char* region,
+                                           uint32_t block_bytes, const CUtensorMap* map, int h, int s0, int b,
                                            int bar_id) {
     const int t = threadIdx.x % 128;
     const int g = (t % 32) / 4;
     const int t4 = t % 4;
     unsigned char* row = region + ((t / 32) * 16 + g) * 128;  // row lo; (row % 8) == g, also for row hi
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-        const uint32_t off = (j / 8) * half_bytes + ((j % 8) ^ g) * 16 + t4 * 4;
+    for (int j = 0; j < N2 / 4; ++j) {
+        const uint32_t off = (j / 8) * block_bytes + ((j % 8) ^ g) * 16 + t4 * 4;
         *reinterpret_cast<__nv_bfloat162*>(row + off) =
             __floats2bfloat162_rn(acc[4 * j] * mul_lo, acc[4 * j + 1] * mul_lo);
         *reinterpret_cast<__nv_bfloat162*>(row + 8 * 128 + off) =
@@ -199,8 +209,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], float mul_lo,
     fence_async_shared();
     named_sync(bar_id, 128);  // the warpgroup's rows are all written
     if (t == 0) {
-        tma_store_4d(map, region, 0, h, s0, b);
-        tma_store_4d(map, region + half_bytes, 64, h, s0, b);
+#pragma unroll
+        for (int blk = 0; blk < N2 / 32; ++blk) tma_store_4d(map, region + blk * block_bytes, 64 * blk, h, s0, b);
         tma_store_commit();
         tma_store_wait();
     }
@@ -256,6 +266,59 @@ __device__ __forceinline__ void wgmma_rs_n128_mn(float (&d)[64], uint32_t a0, ui
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
 }
 
+#define SSI_ACC128(d)                                                                                        \
+    SSI_ACC64(d), SSI_ACC8(d, 64), SSI_ACC8(d, 72), SSI_ACC8(d, 80), SSI_ACC8(d, 88), SSI_ACC8(d, 96),         \
+        SSI_ACC8(d, 104), SSI_ACC8(d, 112), SSI_ACC8(d, 120)
+
+// d (+)= A . B for m64n64k16: A from registers (a0..a3, the thread's bf16x2
+// A fragment, see the top of the file), B [16 x 64] MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, uint64_t b,
+                                                int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : SSI_ACC32(d)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A . B for m64n128k16 with both operands MN-major in shared memory
+// (the transpose bit of A and of B set): A [64 x 16] stored as 16 rows of K
+// with M contiguous, B [16 x 128] as 16 rows of K with N contiguous.
+__device__ __forceinline__ void wgmma_ss_tt_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+        : SSI_ACC64(d)
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// as wgmma_ss_tt_n128 with B [16 x 256]
+__device__ __forceinline__ void wgmma_ss_tt_n256(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+        : SSI_ACC128(d)
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#undef SSI_ACC128
 #undef SSI_ACC64
 #undef SSI_ACC32
 #undef SSI_ACC8
@@ -283,21 +346,38 @@ inline EncodeTiledFn encode_tiled() {
     return fn;
 }
 
-// Tensor map of a bf16 [B, S, H, 128] operand with element strides (sb, ss, sh)
+// Tensor map of a bf16 [B, S, H, hd] operand with element strides (sb, ss, sh)
 // (head_dim contiguous), read in boxes of 64 columns x `rows` positions of one
 // head and batch, 128-byte swizzled. S and B stay separate dimensions, so a
 // box running past S is zero-filled and never reads the next batch's rows.
-inline cudaError_t map_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, long long sb, long long ss,
+inline cudaError_t map_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd, long long sb, long long ss,
                             long long sh, int rows) {
     EncodeTiledFn encode = encode_tiled();
     if (encode == nullptr) return cudaErrorSymbolNotFound;
     // a dimension of extent 1 is never stepped: any legal stride describes it
     auto stride = [](long long s, int extent) { return (uint64_t)(extent == 1 ? 16 : s * 2); };
-    const cuuint64_t dims[4] = {128, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
     const cuuint64_t strides[3] = {stride(sh, H), stride(ss, S), stride(sb, B)};
     const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
     const cuuint32_t elem[4] = {1, 1, 1, 1};
     const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map of a bf16 matrix [rows, cols] with row stride `ld` elements
+// (cols contiguous, ld * 2 a multiple of 16 bytes), read in boxes of 64
+// columns x `box_rows` rows, 128-byte swizzled; a box past either extent is
+// zero-filled (columns in [cols, ld) are never read).
+inline cudaError_t map_2d(CUtensorMap* map, const void* ptr, long long rows, long long cols, long long ld, int box_rows) {
+    EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorSymbolNotFound;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)(ld * 2)};
+    const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+    const cuuint32_t elem[2] = {1, 1};
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box, elem,
                               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

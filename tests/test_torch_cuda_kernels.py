@@ -326,16 +326,17 @@ def hd128_segments(b, s, kind):
     return seg
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("hq,hkv", HEADS)
 @pytest.mark.parametrize("s", [1, 77, 130, 200, 769])
 @pytest.mark.parametrize("mode", ["causal", "full", "segments", "one_token"])
-def test_flash_hd128_bf16_kernels_match_plain(gen, hq, hkv, s, mode):
-    """The Hopper head_dim-128 bf16 forward and backward (wgmma fed by TMA) at
-    ragged S (1, a part tile, 128-key tiles plus a few rows, 769 = 6 tiles +
-    1), every GQA ratio, causal, full and segment masks with a one-token
-    segment; the backward from the plain forward's o and lse, so each kernel
-    is held alone."""
-    q, k, v, _ = qkv_segs(gen, torch.bfloat16, 2, s, hq, hkv, False, 128)
+def test_flash_hopper_bf16_kernels_match_plain(gen, d, hq, hkv, s, mode):
+    """The Hopper bf16 forward (wgmma fed by TMA; head_dim 64 and 128) and the
+    bf16 backward of each head_dim at ragged S (1, a part tile, whole key
+    tiles plus a few rows, 769 = 6 128-key tiles + 1), every GQA ratio,
+    causal, full and segment masks with a one-token segment; the backward
+    from the plain forward's o and lse, so each kernel is held alone."""
+    q, k, v, _ = qkv_segs(gen, torch.bfloat16, 2, s, hq, hkv, False, d)
     causal = mode != "full"
     seg = hd128_segments(2, s, mode) if mode in ("segments", "one_token") else None
     o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
@@ -349,13 +350,14 @@ def test_flash_hd128_bf16_kernels_match_plain(gen, hq, hkv, s, mode):
         torch.testing.assert_close(a.float(), b.float(), atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16], msg=name)
 
 
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("layout", ["fused_qkv", "heads_major"])
 @pytest.mark.parametrize("hq,hkv", [(24, 8), (32, 8)])
-def test_flash_hd128_bf16_kernels_take_strided_views(gen, layout, hq, hkv):
-    """q, k and v as non-contiguous [B, S, H, 128] views, the strides the
-    forward's tensor maps read: slices of one fused [B, S, Hq + 2 Hkv, 128]
-    projection, or [B, H, S, 128] tensors transposed (S stride below H's)."""
-    b, s, d = 2, 200, 128
+def test_flash_hopper_bf16_kernels_take_strided_views(gen, d, layout, hq, hkv):
+    """q, k and v as non-contiguous [B, S, H, d] views, the strides the
+    forward's tensor maps read: slices of one fused [B, S, Hq + 2 Hkv, d]
+    projection, or [B, H, S, d] tensors transposed (S stride below H's)."""
+    b, s = 2, 200
     if layout == "fused_qkv":
         qkv = torch.randn((b, s, hq + 2 * hkv, d), generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = qkv[:, :, :hq], qkv[:, :, hq:hq + hkv], qkv[:, :, hq + hkv:]
@@ -418,11 +420,13 @@ def ce_inputs(gen, dtype, n, v, d, every=7):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("spread", [1.0, 4.0])
 @pytest.mark.parametrize("n,v,d,every", [(100, 257, 128, 7), (64, 1000, 256, 7), (130, 4099, 128, 7),
-                                         (16, 63, 128, 7), (200, 1001, 256, 7), (100, 1001, 128, 1)])
+                                         (16, 63, 128, 7), (200, 1001, 256, 7), (100, 1001, 128, 1),
+                                         (100, 1001, 384, 7), (64, 129, 256, 7)])
 def test_cross_entropy_kernels_match_plain(gen, dtype, spread, n, v, d, every):
     """lse, the dlogits pass and the dh / dE GEMMs against their plain
-    versions: V not a multiple of 8 (the ldv pad) or of 128, N not a multiple
-    of 128, every 7th label ignored or all of them (every=1), h scaled by
+    versions: V not a multiple of 8 (the ldv pad) or of 128 (129: one row
+    past a tile), N not a multiple of 128, D a multiple of 128 but not of 256
+    (384), every 7th label ignored or all of them (every=1), h scaled by
     ``spread`` (4: a peaked softmax). No atomics: a second launch of lse, dh
     and dE gives the same bits."""
     h, e, y = ce_inputs(gen, dtype, n, v, d, every)
@@ -453,6 +457,23 @@ REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # ||kernel - plain|| / ||plai
 def rel_err(a, w) -> float:
     a, w = a.double(), w.double()
     return ((a - w).norm() / w.norm().clamp_min(1e-300)).item()
+
+
+@pytest.mark.parametrize("n,v,d", [(100, 4099, 256), (300, 40_001, 512), (16, 129, 384)])
+def test_cross_entropy_de_bf16_is_bitwise_reproducible(gen, n, v, d):
+    """No split-K and no atomics: the bf16 dE product (the Hopper GEMM) run
+    twice on the same dlogits gives bitwise equal outputs, at ragged V and N:
+    fewer K slabs than ring stages (N 16, 100), and more output tiles than
+    SMs with more slabs than stages (N 300, V 40,001), so a block's ring runs
+    on across its tiles; both within ``REL`` of the plain product."""
+    h, e, y = ce_inputs(gen, torch.bfloat16, n, v, d)
+    g = torch.tensor(0.37, device="cuda")
+    dl = cross_entropy_dlogits_kernel(h, e, y, cross_entropy_lse_kernel(h, e), g)
+    first = cross_entropy_de_gemm_kernel(dl, h)
+    second = cross_entropy_de_gemm_kernel(dl, h)
+    torch.cuda.synchronize()
+    assert first.shape == (v, d) and torch.equal(first, second)
+    assert rel_err(first, dl.float().T @ h.float()) <= REL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -140,19 +140,21 @@ l. the dense engine, on phase d's ``step_0/`` and split before they are
    finished record); phase l uses no kernel of the table (the JAX dense
    engine's attention is XLA);
 6. flash-attention backward kernel vs its plain version (dq, dk, dv; f32 and
-   bf16; causal, full, segment ids) at B 4, S 768 and the training shape
+   bf16, the bf16 one the Hopper kernels of ``csrc/flash_hopper_bwd.cu``;
+   causal, full, segment ids) at B 4, S 768 and the training shape
    B 2, S 2048, with the plain gradients at lse + 0.05 as the control; dq,
    dk and dv bitwise equal over two launches; times and TFLOP/s (counted on
    the 5 products and on the 7 the kernels issue) beside the backward of
    PyTorch's ``scaled_dot_product_attention`` (timed only, as a yardstick);
 7. the cross-entropy kernels (lse, the backward's dlogits pass, the dh and
-   dE GEMMs; bf16 dE on the Hopper GEMM of ``csrc/cross_entropy_de_hopper.cu``)
+   dE GEMMs; in bf16 the backward's three on the Hopper GEMM of
+   ``csrc/cross_entropy_hopper.cu``)
    and the loss vs their plain versions at N 4,096 and 3,072
    tokens, D 2048, V 133,258 (f32 and bf16, every 7th label ignored), at the
    init logit spread and a trained-like one (std 4); dE's labelled and
    unlabelled vocab rows held apart; controls: a constant lse, lse + 0.05,
-   dh without its softmax term; lse, dh and dE bitwise equal over two
-   launches;
+   dh without its softmax term; lse, dlogits, dh and dE bitwise equal over
+   two launches;
    times and TFLOP/s of each pass and of the whole backward beside one
    ``torch.mm`` per GEMM (with its TFLOP/s) and ``F.cross_entropy(h @ E.T, y)``
    with its backward;
@@ -316,7 +318,7 @@ f. weight-only int8 and the port's WER drive:
    their plain versions, each beside a control that must miss, in f32 and
    bf16, with bf16 times beside SDPA or ``torch.mm`` and the bound: the
    flash forward and backward (in bf16 the Hopper kernels of
-   ``csrc/flash_hopper_fwd.cu`` and ``csrc/flash_hd128_bwd.cu``; the backward
+   ``csrc/flash_hopper_fwd.cu`` and ``csrc/flash_hopper_bwd.cu``; the backward
    launched twice, bitwise equal) at
    3B's training shape (B 2, S 2048, 24 q / 8 kv heads: n_rep 3) and 8B's
    largest prefill dispatch (B 8, S 768, 32 / 8); the CE kernels at 3B's D 3,072 (N 4,096); #8 and #9 (T 4 and 8)
@@ -2202,6 +2204,8 @@ def phase_cross_entropy(gen, vocab: int, d: int = 2048, ns=(4096, 3072), tag: st
                 lse_p = cross_entropy_lse(h, e)
                 loss, loss_p = fused_cross_entropy_kernel(h, e, y), fused_cross_entropy(h, e, y)
                 dl = cross_entropy_dlogits_kernel(h, e, y, lse, g)
+                check(torch.equal(cross_entropy_dlogits_kernel(h, e, y, lse, g), dl),
+                      f"{what} dlogits: two launches differ")
                 err_dl, rel_dl, _ = hold(f"{what} dlogits", dl, cross_entropy_dlogits(h, e, y, g), key)
                 note("cross_entropy_dlogits", key, err_dl, rel_dl)
                 del dl
@@ -2245,8 +2249,8 @@ def phase_cross_entropy(gen, vocab: int, d: int = 2048, ns=(4096, 3072), tag: st
                 log(f"  {what}: lse max err {err_lse:.2e} (limit {LSE_ATOL}; constant lse {spread_lse:.2e}); "
                     f"loss rel {rel_loss:.2e} (limit 1e-5); rel dlogits {rel_dl:.2e}, dh {rel_dh:.2e} (control "
                     f"{c_dh}), dE labelled {rel_l:.2e}, dE unlabelled {rel_u:.2e} (control {c_de:.2e}) (limit "
-                    f"{REL[key]}); max|err| dh {err_dh:.2e}, dE {max(err_l, err_u):.2e}; lse, dh and dE bitwise "
-                    "equal over two launches")
+                    f"{REL[key]}); max|err| dh {err_dh:.2e}, dE {max(err_l, err_u):.2e}; lse, dlogits, dh and dE "
+                    "bitwise equal over two launches")
                 del h, e, y, lse, lse_p, dh, dh_p, de, de_p, de_c, onehot, labelled
                 torch.cuda.empty_cache()
 
@@ -4586,9 +4590,11 @@ def main() -> int:
     sources = {"flash_attention_fwd": ("flash_hopper_fwd.cu", FLASH_REPLACES),  # bf16, both head dims
                "paged_attention_fused": ("paged_attention.cu", PAGED_REPLACES),
                "paged_attention_multi": ("paged_attention.cu", PAGED_MULTI_REPLACES),
-               "flash_attention_bwd": ("flash_attention_bwd.cu", FLASH_BWD_REPLACES),
-               **{name: ("cross_entropy.cu", where) for name, where in CE_REPLACES.items()},
-               "cross_entropy_de": ("cross_entropy_de_hopper.cu", CE_REPLACES["cross_entropy_de"]),  # bf16
+               "flash_attention_bwd": ("flash_hopper_bwd.cu", FLASH_BWD_REPLACES),  # bf16, both head dims
+               "cross_entropy_lse": ("cross_entropy.cu", CE_REPLACES["cross_entropy_lse"]),
+               # bf16: the backward's three products on one Hopper GEMM
+               **{name: ("cross_entropy_hopper.cu", CE_REPLACES[name])
+                  for name in ("cross_entropy_dlogits", "cross_entropy_dh", "cross_entropy_de")},
                # the logsumexp's merge pass, launched alone to merge the tp ranks' slices
                "cross_entropy_lse_merge": ("cross_entropy.cu", CE_REPLACES["cross_entropy_lse"])}
     kernels = []
@@ -4607,10 +4613,8 @@ def main() -> int:
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **rows[name]})
     # the head_dim-128 instances of the attention kernels, launched by the 3B and 8B paths
-    hopper_sources = {"flash_attention_bwd": "flash_hd128_bwd.cu"}
     for name, row in rows128.items():
         source, replaces = sources[name]
-        source = hopper_sources.get(name, source)  # bf16 head_dim 128 runs the Hopper kernels
         by_path = {path: counts.get(name, 0) for path, counts in launches_big.items()}
         check(sum(by_path.values()) > 0, f"the head_dim-128 {name} was launched on no 3B or 8B path")
         kernels.append({"name": f"{name}_hd128", "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",

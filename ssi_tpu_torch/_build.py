@@ -9,8 +9,8 @@ loader never opens a half-written file). The build happens at first use,
 inside the first call that launches a kernel, never at import: CPU-only
 machines import every module without a compiler.
 
-The Hopper kernels (``csrc/flash_hopper_fwd.cu``, ``csrc/flash_hd128_bwd.cu``,
-``csrc/cross_entropy_de_hopper.cu``) read their tiles by TMA. Their launchers
+The Hopper kernels (``csrc/flash_hopper_fwd.cu``, ``csrc/flash_hopper_bwd.cu``,
+``csrc/cross_entropy_hopper.cu``) read their tiles by TMA. Their launchers
 encode the tensor maps on the host with the driver's
 ``cuTensorMapEncodeTiled``, fetched at run time through the runtime's
 ``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``), so the link line names no

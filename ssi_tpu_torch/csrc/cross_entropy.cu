@@ -11,19 +11,17 @@
 // past N give zero dlogits, the upstream scalar g multiplies dlogits, and
 // dlogits is cast to the operand dtype before the dh and dE products.
 //
-// What bounds it on Hopper: three [N, D] x [D, V]-class products at N 4096,
+// What bounds it on Hopper: four [N, D] x [D, V]-class products at N 4096,
 // D 2048, V 133,258 (2.24 TFLOP each: the logits once for lse, and the
 // dlogits, dh and dE products in the backward). The TPU kernels held
 // [512, 2048] and [2048, 2048] f32 accumulators in VMEM; a Hopper block has
-// 227 KB of shared memory, so three passes (lse, dlogits, dh) run on one GEMM
-// kernel template: 128 x 128 output tiles, 8 warps of 64 x 32, mma.sync
-// m16n8k16 (mma.cuh) fed by ldmatrix (.trans for an operand whose rows run
-// along N rather than K) from a 3-stage cp.async ring of 64-deep K slabs,
-// accumulators in registers, and an epilogue applied to the accumulator tile
-// from registers. The bf16 dE product runs on the Hopper GEMM of
-// cross_entropy_de_hopper.cu (wgmma fed by TMA). Each output tile belongs to
-// one block, which sums the whole K in a fixed order: no atomics, so two
-// launches give the same bits.
+// 227 KB of shared memory. The bf16 backward's three products run on the
+// Hopper GEMM of cross_entropy_hopper.cu (wgmma fed by TMA); the bf16 lse
+// runs here on a GEMM kernel with a row-reduction epilogue: 128 x 128 output
+// tiles, 8 warps of 64 x 32, mma.sync m16n8k16 (mma.cuh) fed by ldmatrix from
+// a 3-stage cp.async ring of 64-deep K slabs, accumulators in registers. Each
+// output tile belongs to one block, which sums the whole K in a fixed order:
+// no atomics, so two launches give the same bits.
 // - lse: the logits product h . E^T with a row-reduction epilogue: per token
 //   row and 128-column vocab tile one (max, sum of exp) pair, into a
 //   [n_vtiles, N] f32 scratch (34 MB at N 4,096, V 133,258) that a second
@@ -32,8 +30,8 @@
 //   (max, sum), was not built: it would restart the GEMM's ring per tile,
 //   and the scratch costs ~70 MB of traffic (computed from the shapes)
 //   against the 2.24 TFLOP product; on the H100 the whole lse measures
-//   faster than the dlogits pass, which runs the same product and writes
-//   1.09 GB besides (PERF.md).
+//   faster than a dlogits pass on this core did, which ran the same product
+//   and wrote 1.09 GB besides (PERF.md).
 // - backward: the TPU kernels formed dlogits tile by tile twice, once inside
 //   dh and once inside dE. Here one GEMM pass forms the logits once and
 //   writes dlogits in the operand dtype to a scratch [N, ldv] (ldv = V
@@ -42,7 +40,7 @@
 //   (K = N). At N 4096 the scratch is 1.09 GB in bf16, written once and read
 //   twice, against the 6.7 TFLOP of the three products.
 // The f32 parity paths keep exact f32 arithmetic (TF32 would not meet the
-// f32 limits): the backward runs the same tiling with scalar FMAs; the lse
+// f32 limits): the backward runs 128 x 128 tiles with scalar FMAs; the lse
 // runs one block per (64-token tile, vocab split), streaming 64-row vocab
 // tiles through shared memory with a running max and sum, and the same
 // merge kernel.
@@ -51,14 +49,18 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
-#include <type_traits>
 
 #include "common.cuh"
 #include "mma.cuh"
 #include "tile_mma.cuh"
 
 namespace ssi {
-// dE [V, D] = dl^T . h in bf16 (cross_entropy_de_hopper.cu)
+// the bf16 backward's products (cross_entropy_hopper.cu)
+cudaError_t cross_entropy_dlogits_hopper_bf16(const void* h, const void* e, const float* lse, const int* labels,
+                                              const float* g, void* dl, int N, int V, int D, int ldv,
+                                              cudaStream_t stream);
+cudaError_t cross_entropy_dh_hopper_bf16(const void* dl, const void* e, void* dh, int N, int V, int D, int ldv,
+                                         cudaStream_t stream);
 cudaError_t cross_entropy_de_hopper_bf16(const void* dl, const void* h, void* de, int N, int V, int D, int ldv,
                                          cudaStream_t stream);
 }  // namespace ssi
@@ -199,15 +201,17 @@ cudaError_t launch_lse_f32(const float* h, const float* e, float* m_part, float*
     return launch_merge(m_part, l_part, lse, N, n_split, stream);
 }
 
-// ---- backward: the dlogits pass and the dh / dE GEMMs ----------------------
+// ---- the GEMM core: the bf16 logsumexp and the f32 backward ----------------
 //
 // C [M x N] = sum over k of A(m, k) . B(k, n). An operand is "K-contiguous"
 // when k runs along its rows in memory (A(m, k) = a[m * lda + k], B(k, n) =
 // b[n * ldb + k]) and "outer-contiguous" otherwise (A(m, k) = a[k * lda + m],
 // B(k, n) = b[k * ldb + n]):
-//   dlogits = h . E^T          A = h (K-contiguous), B = E (K-contiguous), K = D
+//   logits  = h . E^T          A = h (K-contiguous), B = E (K-contiguous), K = D
 //   dh      = dlogits . E      A = dlogits (K-contiguous), B = E (outer), K = V
 //   dE      = dlogits^T . h    A = dlogits (outer), B = h (outer), K = N
+// The bf16 kernel forms the logits alone (the lse); the f32 kernel takes
+// every form.
 
 using bf16 = __nv_bfloat16;
 
@@ -216,90 +220,37 @@ constexpr int GK = 64;           // K slab per pipeline stage
 constexpr int STAGES = 3;        // cp.async ring depth (bf16)
 constexpr int GTHREADS = 256;    // 8 warps: 2 along M x 4 along N, 64 x 32 each
 constexpr int LDKS = GK + 8;     // shared stride of a K-contiguous slab [128][GK]: 144 bytes
-constexpr int LDOS = GT + 8;     // shared stride of an outer-contiguous slab [GK][128]: 272 bytes
 constexpr int FK = 16;           // K slab of the f32 kernel
 
-template <bool K_CONTIG>
-__host__ __device__ constexpr int slab_elems() {
-    return K_CONTIG ? GT * LDKS : GK * LDOS;
-}
+constexpr int SLAB = GT * LDKS;  // elements of a staged slab
+constexpr int GEMM_SMEM = 2 * STAGES * SLAB * (int)sizeof(bf16);  // 108 KB: two blocks fit in an SM's 228 KB
 
-// 102-108 KB: two blocks fit in an SM's 228 KB (A is K-contiguous in every
-// bf16 GEMM of this file: the dE product runs on cross_entropy_de_hopper.cu)
-template <bool B_K>
-constexpr int gemm_smem() {
-    return STAGES * (slab_elems<true>() + slab_elems<B_K>()) * (int)sizeof(bf16);
-}
-
-// Stage one operand's slab: outer index o in [o0, o0 + 128) (m for A, n for
-// B), k in [k0, k0 + GK). Elements with o >= n_o or k >= n_k are zero-filled
-// by the copy, so ragged tiles and the K tail need no other masking.
-template <bool K_CONTIG>
+// Stage one operand's K-contiguous slab: row o in [o0, o0 + 128) (m for A, n
+// for B), k in [k0, k0 + GK). Elements with o >= n_o or k >= n_k are
+// zero-filled by the copy, so ragged tiles and the K tail need no other masking.
 __device__ __forceinline__ void load_slab(bf16* dst, const bf16* __restrict__ x, int ld, int o0, int n_o, int k0,
                                           int n_k) {
 #pragma unroll
     for (int i = 0; i < GT * GK / 8 / GTHREADS; ++i) {
         const int idx = threadIdx.x + i * GTHREADS;
-        if (K_CONTIG) {
-            const int r = idx / (GK / 8);
-            const int c = (idx % (GK / 8)) * 8;
-            const int o = o0 + r;
-            const int k = k0 + c;
-            const int n = o < n_o ? max(0, min(8, n_k - k)) : 0;
-            ssi::cp_async16(dst + r * LDKS + c, n > 0 ? x + (long long)o * ld + k : x, 2 * n);
-        } else {
-            const int r = idx / (GT / 8);
-            const int c = (idx % (GT / 8)) * 8;
-            const int k = k0 + r;
-            const int o = o0 + c;
-            const int n = k < n_k ? max(0, min(8, n_o - o)) : 0;
-            ssi::cp_async16(dst + r * LDOS + c, n > 0 ? x + (long long)k * ld + o : x, 2 * n);
-        }
+        const int r = idx / (GK / 8);
+        const int c = (idx % (GK / 8)) * 8;
+        const int o = o0 + r;
+        const int k = k0 + c;
+        const int n = o < n_o ? max(0, min(8, n_k - k)) : 0;
+        ssi::cp_async16(dst + r * LDKS + c, n > 0 ? x + (long long)o * ld + k : x, 2 * n);
     }
 }
 
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float x0, float x1);
-template <>
-__device__ __forceinline__ void store2<float>(float* p, float x0, float x1) {
-    *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
-}
-template <>
-__device__ __forceinline__ void store2<bf16>(bf16* p, float x0, float x1) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
-}
-
-// Epilogues. The bf16 kernel hands each warp's accumulator tile to
-// `epi.tile(acc, m0, n0, wm, wn, smem)`: acc[mi][nj] is the C fragment of rows
-// m0 + wm + mi * 16 + (g, g + 8) and columns n0 + wn + nj * 8 + 2 * t4 (+ 1),
-// and smem is the operand ring, free once the block has synchronised. The
-// per-element epilogues walk it pair by pair (`each_pair`); the f32 kernel
-// calls `epi(row, col, x0, x1)` directly.
-template <class Epi>
-__device__ __forceinline__ void each_pair(const Epi& epi, const float (&acc)[4][4][4], int r0, int c0) {
-    const int lane = threadIdx.x % 32;
-    const int g = lane / 4;
-    const int t4 = lane % 4;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int nj = 0; nj < 4; ++nj) {
-            const int row = r0 + mi * 16 + g;
-            const int col = c0 + nj * 8 + 2 * t4;
-            epi(row, col, acc[mi][nj][0], acc[mi][nj][1]);
-            epi(row + 8, col, acc[mi][nj][2], acc[mi][nj][3]);
-        }
-}
-
-// Epilogue of the dlogits pass, on the logits of (token row, vocab columns
-// col, col + 1): (exp(logit - lse) - onehot) * valid * g in T, into dl
-// [N, ldv]; columns in [V, ldv) are written 0.
-template <typename T>
+// Epilogues of the f32 kernel, called on (row, columns col, col + 1) of the
+// tile's sums.
+// The dlogits pass: (exp(logit - lse) - onehot) * valid * g into dl [N, ldv];
+// columns in [V, ldv) are written 0.
 struct DlogitsEpi {
     const float* lse;
     const int* labels;
     const float* g;
-    T* dl;
+    float* dl;
     int N, V, ldv;
     __device__ __forceinline__ void operator()(int row, int col, float x0, float x1) const {
         if (row >= N || col >= ldv) return;
@@ -311,25 +262,16 @@ struct DlogitsEpi {
             if (col < V) d0 = (expf(x0 - ls) - (col == lab ? 1.f : 0.f)) * gg;
             if (col + 1 < V) d1 = (expf(x1 - ls) - (col + 1 == lab ? 1.f : 0.f)) * gg;
         }
-        store2(dl + (long long)row * ldv + col, d0, d1);
-    }
-    __device__ __forceinline__ void tile(const float (&acc)[4][4][4], int m0, int n0, int wm, int wn,
-                                         unsigned char*) const {
-        each_pair(*this, acc, m0 + wm, n0 + wn);
+        *reinterpret_cast<float2*>(dl + (long long)row * ldv + col) = make_float2(d0, d1);
     }
 };
 
-// Epilogue of dh and dE: the f32 sums cast to T, into C [M, N] (N even).
-template <typename T>
+// dh and dE: the sums into C [M, N] (N even).
 struct StoreEpi {
-    T* c;
+    float* c;
     int M, N;
     __device__ __forceinline__ void operator()(int row, int col, float x0, float x1) const {
-        if (row < M && col < N) store2(c + (long long)row * N + col, x0, x1);
-    }
-    __device__ __forceinline__ void tile(const float (&acc)[4][4][4], int m0, int n0, int wm, int wn,
-                                         unsigned char*) const {
-        each_pair(*this, acc, m0 + wm, n0 + wn);
+        if (row < M && col < N) *reinterpret_cast<float2*>(c + (long long)row * N + col) = make_float2(x0, x1);
     }
 };
 
@@ -394,20 +336,17 @@ struct LseEpi {
     }
 };
 
-// One block per 128 x 128 output tile, A K-contiguous; M_FAST puts M tiles on
-// blockIdx.x, so neighbouring blocks share their B slab through L2 (else their
-// A slab).
-template <bool B_K, bool M_FAST, class Epi>
+// One block per 128 x 128 logits tile, both operands K-contiguous; the token
+// (M) tiles run along blockIdx.x, so neighbouring blocks share their E slab
+// through L2.
 __global__ void __launch_bounds__(GTHREADS, 2) gemm_bf16_kernel(const bf16* __restrict__ a, int lda,
                                                                 const bf16* __restrict__ b, int ldb, int M, int N,
-                                                                int K, Epi epi) {
+                                                                int K, LseEpi epi) {
     extern __shared__ __align__(128) unsigned char smem[];
-    constexpr int A_EL = slab_elems<true>();
-    constexpr int B_EL = slab_elems<B_K>();
     bf16* as = reinterpret_cast<bf16*>(smem);
-    bf16* bs = as + STAGES * A_EL;
-    const int m0 = (M_FAST ? blockIdx.x : blockIdx.y) * GT;
-    const int n0 = (M_FAST ? blockIdx.y : blockIdx.x) * GT;
+    bf16* bs = as + STAGES * SLAB;
+    const int m0 = blockIdx.x * GT;
+    const int n0 = blockIdx.y * GT;
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     const int wm = (warp / 4) * 64;  // the warp's rows and columns within the tile
@@ -417,8 +356,8 @@ __global__ void __launch_bounds__(GTHREADS, 2) gemm_bf16_kernel(const bf16* __re
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
         if (s < k_tiles) {
-            load_slab<true>(as + s * A_EL, a, lda, m0, M, s * GK, K);
-            load_slab<B_K>(bs + s * B_EL, b, ldb, n0, N, s * GK, K);
+            load_slab(as + s * SLAB, a, lda, m0, M, s * GK, K);
+            load_slab(bs + s * SLAB, b, ldb, n0, N, s * GK, K);
         }
         ssi::cp_async_commit();
     }
@@ -434,12 +373,12 @@ __global__ void __launch_bounds__(GTHREADS, 2) gemm_bf16_kernel(const bf16* __re
         __syncthreads();                   // ... for every thread, and slab kt - 1 is consumed
         const int nk = kt + STAGES - 1;
         if (nk < k_tiles) {
-            load_slab<true>(as + (nk % STAGES) * A_EL, a, lda, m0, M, nk * GK, K);
-            load_slab<B_K>(bs + (nk % STAGES) * B_EL, b, ldb, n0, N, nk * GK, K);
+            load_slab(as + (nk % STAGES) * SLAB, a, lda, m0, M, nk * GK, K);
+            load_slab(bs + (nk % STAGES) * SLAB, b, ldb, n0, N, nk * GK, K);
         }
         ssi::cp_async_commit();
-        const bf16* at = as + (kt % STAGES) * A_EL;
-        const bf16* bt = bs + (kt % STAGES) * B_EL;
+        const bf16* at = as + (kt % STAGES) * SLAB;
+        const bf16* bt = bs + (kt % STAGES) * SLAB;
 #pragma unroll
         for (int kk = 0; kk < GK / 16; ++kk) {
             uint32_t af[4][4];
@@ -448,15 +387,9 @@ __global__ void __launch_bounds__(GTHREADS, 2) gemm_bf16_kernel(const bf16* __re
             for (int mi = 0; mi < 4; ++mi)
                 ssi::ldmatrix_x4(af[mi], at + (wm + mi * 16 + lane % 16) * LDKS + kk * 16 + (lane / 16) * 8);
 #pragma unroll
-            for (int np = 0; np < 2; ++np) {
-                if (B_K) {
-                    ssi::ldmatrix_x4(
-                        bfr[np], bt + (wn + np * 16 + (lane / 16) * 8 + lane % 8) * LDKS + kk * 16 + ((lane / 8) % 2) * 8);
-                } else {
-                    ssi::ldmatrix_x4_trans(
-                        bfr[np], bt + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LDOS + wn + np * 16 + (lane / 16) * 8);
-                }
-            }
+            for (int np = 0; np < 2; ++np)
+                ssi::ldmatrix_x4(bfr[np],
+                                 bt + (wn + np * 16 + (lane / 16) * 8 + lane % 8) * LDKS + kk * 16 + ((lane / 8) % 2) * 8);
 #pragma unroll
             for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -530,25 +463,25 @@ __global__ void __launch_bounds__(GTHREADS) gemm_f32_kernel(const float* __restr
         }
 }
 
-template <typename T, bool A_K, bool B_K, bool M_FAST, class Epi>
-cudaError_t launch_gemm(const void* a, int lda, const void* b, int ldb, int M, int N, int K, Epi epi,
-                        cudaStream_t stream) {
+template <bool A_K, bool B_K, bool M_FAST, class Epi>
+cudaError_t launch_gemm_f32(const void* a, int lda, const void* b, int ldb, int M, int N, int K, Epi epi,
+                            cudaStream_t stream) {
     const int tm = (M + GT - 1) / GT;
     const int tn = (N + GT - 1) / GT;
     const dim3 grid(M_FAST ? tm : tn, M_FAST ? tn : tm);
     if (grid.y > 65535) return cudaErrorInvalidValue;
-    if constexpr (std::is_same<T, float>::value) {
-        gemm_f32_kernel<A_K, B_K, M_FAST, Epi><<<grid, GTHREADS, 0, stream>>>(
-            static_cast<const float*>(a), lda, static_cast<const float*>(b), ldb, M, N, K, epi);
-    } else {
-        static_assert(A_K, "every bf16 GEMM here takes A K-contiguous");
-        constexpr int smem = gemm_smem<B_K>();
-        cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel<B_K, M_FAST, Epi>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (err != cudaSuccess) return err;
-        gemm_bf16_kernel<B_K, M_FAST, Epi><<<grid, GTHREADS, smem, stream>>>(
-            static_cast<const bf16*>(a), lda, static_cast<const bf16*>(b), ldb, M, N, K, epi);
-    }
+    gemm_f32_kernel<A_K, B_K, M_FAST, Epi><<<grid, GTHREADS, 0, stream>>>(
+        static_cast<const float*>(a), lda, static_cast<const float*>(b), ldb, M, N, K, epi);
+    return cudaGetLastError();
+}
+
+// the logits h . E^T on the bf16 GEMM, reduced per token row and vocab tile
+cudaError_t launch_lse_bf16(const bf16* h, const bf16* e, LseEpi epi, int N, int V, int D, cudaStream_t stream) {
+    const dim3 grid((N + GT - 1) / GT, (V + GT - 1) / GT);
+    if (grid.y > 65535) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+    if (err != cudaSuccess) return err;
+    gemm_bf16_kernel<<<grid, GTHREADS, GEMM_SMEM, stream>>>(h, D, e, D, N, V, D, epi);
     return cudaGetLastError();
 }
 
@@ -583,8 +516,8 @@ extern "C" int ssi_cross_entropy_lse(int dtype, const void* h, const void* e, vo
                              st);
     } else {
         if (!aligned16(h) || !aligned16(e)) return static_cast<int>(cudaErrorInvalidValue);
-        // the logits product h . E^T on the GEMM core (as the dlogits pass), reduced per row and vocab tile
-        err = launch_gemm<bf16, true, true, true>(h, D, e, D, N, V, D, LseEpi{mp, lp, N, V}, st);
+        err = launch_lse_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(e), LseEpi{mp, lp, N, V}, N, V, D,
+                              st);
         if (err == cudaSuccess) err = launch_merge(mp, lp, out, N, n_split, st);
     }
     return static_cast<int>(err);
@@ -615,11 +548,10 @@ extern "C" int ssi_cross_entropy_dlogits(int dtype, const void* h, const void* e
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (dtype == ssi::kFloat32) {
-        const DlogitsEpi<float> epi{lsep, lab, gp, static_cast<float*>(dl), N, V, ldv};
-        err = launch_gemm<float, true, true, true>(h, D, e, D, N, V, D, epi, st);
-    } else if (dtype == ssi::kBFloat16) {
-        const DlogitsEpi<bf16> epi{lsep, lab, gp, static_cast<bf16*>(dl), N, V, ldv};
-        err = launch_gemm<bf16, true, true, true>(h, D, e, D, N, V, D, epi, st);
+        const DlogitsEpi epi{lsep, lab, gp, static_cast<float*>(dl), N, V, ldv};
+        err = launch_gemm_f32<true, true, true>(h, D, e, D, N, V, D, epi, st);
+    } else if (dtype == ssi::kBFloat16) {  // the Hopper GEMM (cross_entropy_hopper.cu)
+        err = ssi::cross_entropy_dlogits_hopper_bf16(h, e, lsep, lab, gp, dl, N, V, D, ldv, st);
     } else {
         err = cudaErrorInvalidValue;
     }
@@ -634,11 +566,9 @@ extern "C" int ssi_cross_entropy_dh(int dtype, const void* dl, const void* e, vo
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (dtype == ssi::kFloat32) {
-        err = launch_gemm<float, true, false, false>(dl, ldv, e, D, N, D, V,
-                                                     StoreEpi<float>{static_cast<float*>(dh), N, D}, st);
-    } else if (dtype == ssi::kBFloat16) {
-        err = launch_gemm<bf16, true, false, false>(dl, ldv, e, D, N, D, V,
-                                                    StoreEpi<bf16>{static_cast<bf16*>(dh), N, D}, st);
+        err = launch_gemm_f32<true, false, false>(dl, ldv, e, D, N, D, V, StoreEpi{static_cast<float*>(dh), N, D}, st);
+    } else if (dtype == ssi::kBFloat16) {  // the Hopper GEMM (cross_entropy_hopper.cu)
+        err = ssi::cross_entropy_dh_hopper_bf16(dl, e, dh, N, V, D, ldv, st);
     } else {
         err = cudaErrorInvalidValue;
     }
@@ -653,9 +583,8 @@ extern "C" int ssi_cross_entropy_de(int dtype, const void* dl, const void* h, vo
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (dtype == ssi::kFloat32) {
-        err = launch_gemm<float, false, false, false>(dl, ldv, h, D, V, D, N,
-                                                      StoreEpi<float>{static_cast<float*>(de), V, D}, st);
-    } else if (dtype == ssi::kBFloat16) {  // the Hopper GEMM (cross_entropy_de_hopper.cu)
+        err = launch_gemm_f32<false, false, false>(dl, ldv, h, D, V, D, N, StoreEpi{static_cast<float*>(de), V, D}, st);
+    } else if (dtype == ssi::kBFloat16) {  // the Hopper GEMM (cross_entropy_hopper.cu)
         err = ssi::cross_entropy_de_hopper_bf16(dl, h, de, N, V, D, ldv, st);
     } else {
         err = cudaErrorInvalidValue;

@@ -1,5 +1,5 @@
-// Launchers of the bf16 Hopper flash kernels (flash_hopper_fwd.cu at head_dim
-// 64 and 128, flash_hd128_bwd.cu at head_dim 128), called by the C entry
+// Launchers of the bf16 Hopper flash kernels (flash_hopper_fwd.cu and
+// flash_hopper_bwd.cu, each at head_dim 64 and 128), called by the C entry
 // points of flash_attention_fwd.cu and flash_attention_bwd.cu for dtype bf16.
 #pragma once
 
@@ -15,10 +15,10 @@ cudaError_t flash_fwd_hopper_bf16(const void* q, const void* k, const void* v, c
                                   long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
                                   long long v_sh, int causal, float scale, cudaStream_t stream);
 
-// dq, dk, dv from contiguous [B, S, H, 128] q, k, v, o, do and the forward's
-// lse [B, Hq, S]; delta [B, Hq, S] is scratch for rowsum(o * do).
-cudaError_t flash_bwd_hd128_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                                 const float* lse, float* delta, const int* seg, void* dq, void* dk, void* dv, int B,
-                                 int S, int Hq, int Hkv, int causal, float scale, cudaStream_t stream);
+// dq, dk, dv from contiguous [B, S, H, hd] q, k, v, o, do and the forward's
+// lse [B, Hq, S]; delta [B, Hq, S] is scratch for rowsum(o * do); hd 64 or 128.
+cudaError_t flash_bwd_hopper_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                                  const float* lse, float* delta, const int* seg, void* dq, void* dk, void* dv, int B,
+                                  int S, int Hq, int Hkv, int hd, int causal, float scale, cudaStream_t stream);
 
 }  // namespace ssi

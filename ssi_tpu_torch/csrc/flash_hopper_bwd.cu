@@ -1,59 +1,73 @@
-// Flash-attention backward, bf16, head_dim 128 (Llama 3.2 3B, Llama 3.1 8B):
-// dq, dk, dv for causal or full GQA with optional packed segment ids,
-// designed for Hopper.
+// Flash-attention backward, bf16, head_dim 64 (Llama 3.2 100m and 1B) and 128
+// (Llama 3.2 3B, Llama 3.1 8B): dq, dk, dv for causal or full GQA with
+// optional packed segment ids, designed for Hopper.
 //
-// Replaces, at head_dim 128 in bf16, the TPU kernels
-// ssi_tpu/ops/flash_attention.py `_bwd_kernel` and `_bwd_kernel_grouped`;
-// flash_attention_bwd.cu keeps the head_dim-64 and f32 kernels and dispatches
-// here. Semantics are that file's: S = scale * q.k recomputed, P = exp(S -
-// lse) with masked entries set to 0 explicitly (a fully masked row gives zero
-// gradients), delta = rowsum(o * do) in f32, dS = P (dP - delta), P and dS
-// cast to bf16 before the dV, dK and dQ products, scale multiplied into dq
-// and dk.
+// Replaces, in bf16, the TPU kernels ssi_tpu/ops/flash_attention.py
+// `_bwd_kernel` and `_bwd_kernel_grouped`; flash_attention_bwd.cu keeps the
+// f32 parity kernels and dispatches bf16 here. Semantics are that file's: S =
+// scale * q.k recomputed, P = exp(S - lse) with masked entries set to 0
+// explicitly (a fully masked row gives zero gradients), delta = rowsum(o * do)
+// in f32, dS = P (dP - delta), P and dS cast to bf16 before the dV, dK and dQ
+// products, scale multiplied into dq and dk.
 //
-// What bounds it: the five S^2 * 128 products (S, dP, dV, dK, dQ) at the 3B
-// training shape (B2 S2048, 24 q / 8 kv heads): operations. The layout stays
-// the deterministic two-kernel one of the head_dim-64 path (no atomics, so
-// the gradients are bitwise equal run to run), which issues 7 products where
-// 5 are counted (S and dP are formed in both kernels):
-// - delta: a warp per two rows, 16 lanes a row (coalesced 16-byte reads);
+// One template serves both head dims (Config below), as flash_hopper_fwd.cu
+// does for the forward: the schedule, the rings, the masks and the epilogues
+// are the same at 64 and 128; the count of 64-column blocks a tile row spans,
+// the products' widths and the tile rows differ.
+//
+// What bounds it: the five S^2 * hd products (S, dP, dV, dK, dQ) at the
+// training shapes (1B: B2 S2048, 32 q / 8 kv heads, hd 64; 3B: 24 / 8, hd
+// 128): operations. The layout is the deterministic two-kernel one (no
+// atomics, so the gradients are bitwise equal run to run), which issues 7
+// products where 5 are counted (S and dP are formed in both kernels):
+// - delta: a warp per 32 / (hd / 8) rows, hd / 8 lanes a row (coalesced
+//   16-byte reads);
 // - dK/dV: a block per (kv head, batch, 128-key tile), looping over the
-//   64-query tiles from the causal diagonal on and, inside each, over the
+//   Q_ROWS-query tiles from the causal diagonal on and, inside each, over the
 //   n_rep q heads of its kv head, in a fixed order;
-// - dQ: a block per (q head, batch, 128-query tile), looping over 128-key
+// - dQ: a block per (q head, batch, 128-query tile), looping over K_ROWS-key
 //   tiles up to the diagonal.
 // Both take the forward's shape (flash_hopper_fwd.cu): 2 warpgroups of 64 rows
 // each, no producer warpgroup (ptxas would hold every thread of a 384-thread
-// block to 168 registers; dK/dV needs about 240), thread 0 issuing the first
-// TMA loads and the warpgroup that releases a stage second refilling it;
-// tiles in shared memory as two 64-column halves with the 128-byte swizzle
-// (hopper.cuh); the results leave through each warpgroup's own freed tile
-// rows by TMA store, which skips rows past S.
+// block to 168 registers; dK/dV needs about 240 at hd 128), thread 0 issuing
+// the first TMA loads and the warpgroup that releases a stage second
+// refilling it; tiles in shared memory as 64-column blocks with the 128-byte
+// swizzle (hopper.cuh); the results leave through each warpgroup's own freed
+// tile rows by TMA store, which skips rows past S.
 // - dK/dV: K and V (this block's 128 keys) load once; the Q and dO tiles of
 //   each (q tile, q head) pair ride a 2-stage ring by TMA, with that pair's
 //   lse and delta, which the refilling warp's lanes copy by cp.async (rows
 //   of [B, Hq, S] f32 do not start 16-byte aligned for an odd S, as a TMA box
 //   would need) and which arrive on the stage's barrier when they land.
 //   Each warpgroup forms S^T = K.Q^T and dP^T = V.dO^T for its 64 keys
-//   (wgmma m64n64k16, both operands K-major in shared memory; P^T's
-//   exponentials run under the dP^T product), then dS^T in the accumulators,
-//   and adds dV += P^T.dO and dK += dS^T.Q with P^T and dS^T from registers
-//   (the RS form) and dO and Q through MN-major descriptors (m64n128k16).
-//   dK and dV (64 x 128 f32 each) stay in registers, 128 a thread, and are
-//   written once. Shared memory: K 32 + V 32 + 2 x (Q 16 + dO 16) KB +
-//   lse/delta = 129 KB.
-// - dQ: Q and dO (128 rows) load once; 128-key K and V tiles ride a 2-stage
-//   ring. S = Q.K^T and dP = dO.V^T (m64n128k16, K-major), P and dS in the
-//   accumulators, dQ += dS.K with dS from registers and K MN-major
-//   (m64n128k16); S, dP, dS and dQ hold about 230 registers a thread. lse
-//   and delta of the thread's two rows are read once. Shared memory: Q 32 +
-//   dO 32 + 2 x (K 32 + V 32) KB = 192 KB.
+//   (wgmma m64nQ_ROWSk16, both operands K-major in shared memory; P^T's
+//   exponentials, one ex2.approx with LOG2E folded in, run under the dP^T
+//   product), then dS^T in the accumulators, and adds dV += P^T.dO and
+//   dK += dS^T.Q with P^T and dS^T from registers (the RS form) and dO and Q
+//   through MN-major descriptors (m64nHDk16). dK and dV (64 x hd f32 each)
+//   stay in registers and are written once.
+// - dQ: Q and dO (128 rows) load once; K_ROWS-key K and V tiles ride a
+//   2-stage ring. S = Q.K^T and dP = dO.V^T (m64nK_ROWSk16, K-major), P and
+//   dS in the accumulators (P's exponentials under the dP product), dQ +=
+//   dS.K with dS from registers and K MN-major (m64nHDk16). lse and delta of
+//   the thread's two rows are read once.
 // - causal: dK/dV blocks start at the diagonal q tile and dQ blocks stop at
 //   it; a warpgroup skips the products of a tile its rows cannot see (keys
 //   all after its queries) and masks only the tiles that cross the diagonal
 //   or the ragged end (or every tile, with segment ids). The heaviest blocks
 //   launch first (low key tiles for dK/dV, high q tiles for dQ). TMA
 //   zero-fills rows past S.
+// Head_dim 128: 64-query dK/dV stages and 128-key dQ tiles, one block an SM
+// for each kernel (dK/dV 130 KB of shared memory, 240 registers; dQ 193 KB,
+// 226). Head_dim 64 halves the accumulators of dK, dV and dQ, not those of S
+// and dP; its configuration (Hd64 below) was chosen by timing two on the card
+// (NVIDIA H100 80GB HBM3, 700 W, causal, B2 S2048, 32 q / 8 kv heads; how:
+// PERF.md section 6): dK/dV with 128-query stages (99 KB, 253 registers, no
+// spill) read 0.182 ms against 0.220-0.222 with 64-query stages (176
+// registers): a stage's waits, lse/delta copies and ring refill are spread
+// over twice the products; dQ with 64-key tiles at two blocks an SM (65 KB,
+// 126 registers, no spill) read 0.131 ms against 0.133 with 128-key tiles at
+// one block an SM (194 registers).
 // Its times on the card beside its bound and SDPA's: PERF.md section 6.
 
 #include <cuda_bf16.h>
@@ -68,25 +82,71 @@ namespace {
 namespace hw = ssi::hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int HD = 128;
 constexpr int THREADS = 256;  // two warpgroups
 constexpr int STAGES = 2;
 constexpr int BOX = 64;       // rows of every TMA box
+constexpr int KV_ROWS = 128;  // keys a dK/dV block
+constexpr int DQ_ROWS = 128;  // queries a dQ block
 constexpr float LOG2E = 1.4426950408889634f;
+
+// HD: head_dim; Q_ROWS: queries a Q/dO stage of dK/dV; K_ROWS: keys a K/V
+// stage of dQ; DQ_BLOCKS: dQ blocks an SM the registers are budgeted for
+template <int HD_, int Q_ROWS_, int K_ROWS_, int DQ_BLOCKS_>
+struct Config {
+    static constexpr int HD = HD_;
+    static constexpr int Q_ROWS = Q_ROWS_;
+    static constexpr int K_ROWS = K_ROWS_;
+    static constexpr int DQ_BLOCKS = DQ_BLOCKS_;
+    static constexpr int BLOCKS = HD_ / 64;  // 64-column blocks of a tile row
+};
+
+// head_dim 64: the configuration that measured fastest on the card (see the
+// top of the file); head_dim 128: the tiles of its first design
+using Hd64 = Config<64, 128, 64, 2>;
+using Hd128 = Config<128, 64, 128, 1>;
+
+// one k16 step of a product with both operands K-major in shared memory, by
+// the accumulator's size (m64n64 or m64n128)
+__device__ __forceinline__ void ss_step(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+    hw::wgmma_ss_n64(d, a, b, acc);
+}
+__device__ __forceinline__ void ss_step(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    hw::wgmma_ss_n128(d, a, b, acc);
+}
+// one k16 step with A from registers and B MN-major, by the accumulator's size
+__device__ __forceinline__ void rs_step(float (&d)[32], const uint32_t* a, uint64_t b) {
+    hw::wgmma_rs_n64_mn(d, a[0], a[1], a[2], a[3], b, 1);
+}
+__device__ __forceinline__ void rs_step(float (&d)[64], const uint32_t* a, uint64_t b) {
+    hw::wgmma_rs_n128_mn(d, a[0], a[1], a[2], a[3], b, 1);
+}
+
+// the [ELEMS / 64 rows x HD] tile at (h, s0, b) of `map` into `dst` (BLOCKS
+// column blocks of ELEMS / 64 rows x 64, a TMA box per 64 rows), completing on bar
+template <int BLOCKS, int ELEMS>
+__device__ __forceinline__ void load_rows(bf16 (&dst)[BLOCKS][ELEMS], const CUtensorMap* map, uint64_t* bar, int h,
+                                          int s0, int b) {
+#pragma unroll
+    for (int blk = 0; blk < BLOCKS; ++blk)
+#pragma unroll
+        for (int r = 0; r < ELEMS / 64; r += BOX) hw::tma_load_4d(&dst[blk][r * 64], map, bar, 64 * blk, h, s0 + r, b);
+}
 
 // ---- delta = rowsum(o * do) ---------------------------------------------------------
 
 constexpr int DELTA_THREADS = 256;
 
-// two (b, s, q head) rows a warp, 16 lanes a row, each lane 8 columns read as
-// 16 bytes: a warp reads 512 contiguous bytes of o and of do; the 16 lanes'
-// f32 sums meet in a fixed shuffle tree
-__global__ void __launch_bounds__(DELTA_THREADS) delta_hd128_kernel(const bf16* __restrict__ o,
-                                                                    const bf16* __restrict__ dout,
-                                                                    float* __restrict__ delta, int S, int Hq,
-                                                                    long long rows) {
-    const long long r = (blockIdx.x * (long long)DELTA_THREADS + threadIdx.x) / 16;  // row (b * S + s) * Hq + h
-    const int c = (threadIdx.x % 16) * 8;
+// HD / 8 lanes a (b, s, q head) row, each lane 8 columns read as 16 bytes: a
+// warp reads 512 contiguous bytes of o and of do; the lanes' f32 sums meet
+// in a fixed shuffle tree
+template <int HD>
+__global__ void __launch_bounds__(DELTA_THREADS) delta_hopper_kernel(const bf16* __restrict__ o,
+                                                                     const bf16* __restrict__ dout,
+                                                                     float* __restrict__ delta, int S, int Hq,
+                                                                     long long rows) {
+    constexpr int LANES = HD / 8;
+    const long long r = (blockIdx.x * (long long)DELTA_THREADS + threadIdx.x) / LANES;  // row (b * S + s) * Hq + h
+    const int c = (threadIdx.x % LANES) * 8;
     float acc = 0.f;
     if (r < rows) {
         float a[8], d[8];
@@ -96,8 +156,8 @@ __global__ void __launch_bounds__(DELTA_THREADS) delta_hd128_kernel(const bf16* 
         for (int i = 0; i < 8; ++i) acc = fmaf(a[i], d[i], acc);
     }
 #pragma unroll
-    for (int w = 8; w > 0; w /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, w);
-    if (r < rows && threadIdx.x % 16 == 0) {
+    for (int w = LANES / 2; w > 0; w /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+    if (r < rows && threadIdx.x % LANES == 0) {
         const long long h = r % Hq;
         const long long bs = r / Hq;
         delta[(bs / S * Hq + h) * S + bs % S] = acc;
@@ -106,30 +166,33 @@ __global__ void __launch_bounds__(DELTA_THREADS) delta_hd128_kernel(const bf16* 
 
 // ---- dK / dV ----------------------------------------------------------------------
 
-constexpr int KV_ROWS = 128;  // keys a dK/dV block
-constexpr int Q_ROWS = 64;    // queries a Q/dO stage
-constexpr uint32_t KV_HALF_BYTES = KV_ROWS * 64 * 2;  // 16 KB
-constexpr uint32_t Q_HALF_BYTES = Q_ROWS * 64 * 2;    // 8 KB
-
+template <class C>
 struct DkdvSmem {
-    bf16 k[2][KV_ROWS * 64];
-    bf16 v[2][KV_ROWS * 64];
-    bf16 q[STAGES][2][Q_ROWS * 64];
-    bf16 dout[STAGES][2][Q_ROWS * 64];
-    float lse[STAGES][Q_ROWS];
-    float delta[STAGES][Q_ROWS];
+    bf16 k[C::BLOCKS][KV_ROWS * 64];
+    bf16 v[C::BLOCKS][KV_ROWS * 64];
+    bf16 q[STAGES][C::BLOCKS][C::Q_ROWS * 64];
+    bf16 dout[STAGES][C::BLOCKS][C::Q_ROWS * 64];
+    float lse[STAGES][C::Q_ROWS];
+    float delta[STAGES][C::Q_ROWS];
     uint64_t kv_full, full[STAGES];
     uint32_t done[STAGES];  // releases of each stage (hopper::release_last)
 };
-constexpr int DKDV_SMEM = sizeof(DkdvSmem) + 1024;
+template <class C>
+constexpr int dkdv_smem() {
+    return sizeof(DkdvSmem<C>) + 1024;  // + slack to align the tiles to 1024 bytes
+}
 
-__global__ void __launch_bounds__(THREADS, 1) dkdv_hd128_kernel(
+template <class C>
+__global__ void __launch_bounds__(THREADS, 1) dkdv_hopper_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv, const float* __restrict__ lse,
     const float* __restrict__ delta, const int* __restrict__ seg, int S, int Hq, int Hkv, int causal, float scale) {
+    constexpr int HD = C::HD, Q_ROWS = C::Q_ROWS, BLOCKS = C::BLOCKS;
+    constexpr uint32_t KV_BLOCK_BYTES = KV_ROWS * 128;  // one 64-column block of K or V
+    constexpr uint32_t Q_BLOCK_BYTES = Q_ROWS * 128;    // ... of a Q or dO stage
     extern __shared__ unsigned char smem_raw[];
-    DkdvSmem& sm = *reinterpret_cast<DkdvSmem*>(hw::align1024(smem_raw));
+    DkdvSmem<C>& sm = *reinterpret_cast<DkdvSmem<C>*>(hw::align1024(smem_raw));
 
     const int kvh = blockIdx.x;
     const int b = blockIdx.y;
@@ -141,17 +204,15 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_hd128_kernel(
 
     // stage pair p (q tile qi0 + p / n_rep, q head kvh * n_rep + p % n_rep), by the 32
     // lanes of one warp: lane 0 its Q and dO rows by TMA (zero past S), every
-    // lane two of its queries' lse and delta by cp.async (lse and delta rows
+    // lane Q_ROWS / 32 of its queries' lse and delta by cp.async (lse and delta rows
     // of an odd S do not start 16-byte aligned, as TMA wants; 0 past S)
     auto load_pair = [&](int p, int st, int lane) {
         const int q0 = (qi0 + p / n_rep) * Q_ROWS;
         const int h = kvh * n_rep + p % n_rep;
         if (lane == 0) {
-            hw::mbar_expect_tx(&sm.full[st], 4 * Q_HALF_BYTES);
-            for (int half = 0; half < 2; ++half) {
-                hw::tma_load_4d(sm.q[st][half], &tq, &sm.full[st], 64 * half, h, q0, b);
-                hw::tma_load_4d(sm.dout[st][half], &tdo, &sm.full[st], 64 * half, h, q0, b);
-            }
+            hw::mbar_expect_tx(&sm.full[st], 2 * BLOCKS * Q_BLOCK_BYTES);
+            load_rows(sm.q[st], &tq, &sm.full[st], h, q0, b);
+            load_rows(sm.dout[st], &tdo, &sm.full[st], h, q0, b);
         }
         const long long row = ((long long)b * Hq + h) * S;
         for (int i = lane; i < Q_ROWS; i += 32) {
@@ -169,12 +230,9 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_hd128_kernel(
                 sm.done[st] = 0;
             }
             hw::fence_barrier_init();
-            hw::mbar_expect_tx(&sm.kv_full, 4 * KV_HALF_BYTES);
-            for (int half = 0; half < 2; ++half)
-                for (int r = 0; r < KV_ROWS; r += BOX) {
-                    hw::tma_load_4d(&sm.k[half][r * 64], &tk, &sm.kv_full, 64 * half, kvh, k0 + r, b);
-                    hw::tma_load_4d(&sm.v[half][r * 64], &tv, &sm.kv_full, 64 * half, kvh, k0 + r, b);
-                }
+            hw::mbar_expect_tx(&sm.kv_full, 2 * BLOCKS * KV_BLOCK_BYTES);
+            load_rows(sm.k, &tk, &sm.kv_full, kvh, k0, b);
+            load_rows(sm.v, &tv, &sm.kv_full, kvh, k0, b);
         }
         __syncwarp();
         for (int p = 0; p < min(STAGES, n_pairs); ++p) load_pair(p, p, threadIdx.x);
@@ -195,12 +253,12 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_hd128_kernel(
     const int kseg_lo = (segb != nullptr && kp_lo < S) ? segb[kp_lo] : 0;
     const int kseg_hi = (segb != nullptr && kp_hi < S) ? segb[kp_hi] : 0;
     const float scale2 = scale * LOG2E;
-    const uint32_t k_base = ssi::smem_addr(sm.k[0]) + cw * 64 * 128;  // the warpgroup's 64 keys of half 0
+    const uint32_t k_base = ssi::smem_addr(sm.k[0]) + cw * 64 * 128;  // the warpgroup's 64 keys of block 0
     const uint32_t v_base = ssi::smem_addr(sm.v[0]) + cw * 64 * 128;
 
-    float dk_acc[64], dv_acc[64];  // [64 keys x 128]: n8 block j of the columns at [4j ..]
+    float dk_acc[HD / 2], dv_acc[HD / 2];  // [64 keys x HD]: n8 block j of the columns at [4j ..]
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     hw::mbar_wait(&sm.kv_full, 0);
     for (int p = 0; p < n_pairs; ++p) {
@@ -213,22 +271,21 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_hd128_kernel(
             const uint32_t do_addr = hw::opaque(ssi::smem_addr(sm.dout[st][0]));
             const uint32_t k_addr = hw::opaque(k_base);
             const uint32_t v_addr = hw::opaque(v_base);
-            float s[32], dp[32];  // S^T, dP^T [64 keys x 64 queries]
+            float s[Q_ROWS / 2], dp[Q_ROWS / 2];  // S^T, dP^T [64 keys x Q_ROWS queries]
             hw::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < HD / 16; ++kk) {
-                const uint32_t a_off = (kk / 4) * KV_HALF_BYTES + (kk % 4) * 32;
-                const uint32_t b_off = (kk / 4) * Q_HALF_BYTES + (kk % 4) * 32;
-                hw::wgmma_ss_n64(s, hw::desc_sw128(k_addr + a_off, 16, 1024), hw::desc_sw128(q_addr + b_off, 16, 1024),
-                                 kk > 0);
+                const uint32_t a_off = (kk / 4) * KV_BLOCK_BYTES + (kk % 4) * 32;
+                const uint32_t b_off = (kk / 4) * Q_BLOCK_BYTES + (kk % 4) * 32;
+                ss_step(s, hw::desc_sw128(k_addr + a_off, 16, 1024), hw::desc_sw128(q_addr + b_off, 16, 1024), kk > 0);
             }
             hw::wgmma_commit();
 #pragma unroll
             for (int kk = 0; kk < HD / 16; ++kk) {
-                const uint32_t a_off = (kk / 4) * KV_HALF_BYTES + (kk % 4) * 32;
-                const uint32_t b_off = (kk / 4) * Q_HALF_BYTES + (kk % 4) * 32;
-                hw::wgmma_ss_n64(dp, hw::desc_sw128(v_addr + a_off, 16, 1024),
-                                 hw::desc_sw128(do_addr + b_off, 16, 1024), kk > 0);
+                const uint32_t a_off = (kk / 4) * KV_BLOCK_BYTES + (kk % 4) * 32;
+                const uint32_t b_off = (kk / 4) * Q_BLOCK_BYTES + (kk % 4) * 32;
+                ss_step(dp, hw::desc_sw128(v_addr + a_off, 16, 1024), hw::desc_sw128(do_addr + b_off, 16, 1024),
+                        kk > 0);
             }
             hw::wgmma_commit();
             hw::wgmma_wait<1>();  // S^T has landed; dP^T may still run
@@ -262,20 +319,16 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_hd128_kernel(
 #pragma unroll
                 for (int e = 0; e < 4; ++e) dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
             }
-            uint32_t pa[16], da[16];
-            hw::pack_a<32>(pa, s);
-            hw::pack_a<32>(da, dp);
+            uint32_t pa[Q_ROWS / 4], da[Q_ROWS / 4];
+            hw::pack_a<Q_ROWS / 2>(pa, s);
+            hw::pack_a<Q_ROWS / 2>(da, dp);
             hw::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < Q_ROWS / 16; ++kk)  // dV += P^T . dO
-                hw::wgmma_rs_n128_mn(dv_acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
-                                     hw::desc_sw128(do_addr + kk * 16 * 128, Q_HALF_BYTES, 1024),
-                                     1);
+                rs_step(dv_acc, &pa[4 * kk], hw::desc_sw128(do_addr + kk * 16 * 128, Q_BLOCK_BYTES, 1024));
 #pragma unroll
             for (int kk = 0; kk < Q_ROWS / 16; ++kk)  // dK += dS^T . Q
-                hw::wgmma_rs_n128_mn(dk_acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                                     hw::desc_sw128(q_addr + kk * 16 * 128, Q_HALF_BYTES, 1024),
-                                     1);
+                rs_step(dk_acc, &da[4 * kk], hw::desc_sw128(q_addr + kk * 16 * 128, Q_BLOCK_BYTES, 1024));
             hw::wgmma_commit();
             hw::fence_regs(pa);
             hw::fence_regs(da);
@@ -293,36 +346,39 @@ __global__ void __launch_bounds__(THREADS, 1) dkdv_hd128_kernel(
 
     // dK and dV into this warpgroup's own K and V rows (free since its last
     // products), then out by TMA
-    hw::store_tile(dk_acc, scale, scale, reinterpret_cast<unsigned char*>(sm.k[0]) + cw * 64 * 128, KV_HALF_BYTES,
+    hw::store_tile(dk_acc, scale, scale, reinterpret_cast<unsigned char*>(sm.k[0]) + cw * 64 * 128, KV_BLOCK_BYTES,
                    &tdk, kvh, kr0, b, 1 + cw);
-    hw::store_tile(dv_acc, 1.f, 1.f, reinterpret_cast<unsigned char*>(sm.v[0]) + cw * 64 * 128, KV_HALF_BYTES, &tdv,
+    hw::store_tile(dv_acc, 1.f, 1.f, reinterpret_cast<unsigned char*>(sm.v[0]) + cw * 64 * 128, KV_BLOCK_BYTES, &tdv,
                    kvh, kr0, b, 1 + cw);
 }
 
 // ---- dQ ---------------------------------------------------------------------------
 
-constexpr int DQ_ROWS = 128;  // queries a dQ block
-constexpr int K_ROWS = 128;   // keys a K/V stage
-constexpr uint32_t DQ_HALF_BYTES = DQ_ROWS * 64 * 2;  // 16 KB
-constexpr uint32_t K_HALF_BYTES = K_ROWS * 64 * 2;    // 16 KB
-
+template <class C>
 struct DqSmem {
-    bf16 q[2][DQ_ROWS * 64];
-    bf16 dout[2][DQ_ROWS * 64];
-    bf16 k[STAGES][2][K_ROWS * 64];
-    bf16 v[STAGES][2][K_ROWS * 64];
+    bf16 q[C::BLOCKS][DQ_ROWS * 64];
+    bf16 dout[C::BLOCKS][DQ_ROWS * 64];
+    bf16 k[STAGES][C::BLOCKS][C::K_ROWS * 64];
+    bf16 v[STAGES][C::BLOCKS][C::K_ROWS * 64];
     uint64_t q_full, full[STAGES];
     uint32_t done[STAGES];  // releases of each stage (hopper::release_last)
 };
-constexpr int DQ_SMEM = sizeof(DqSmem) + 1024;
+template <class C>
+constexpr int dq_smem() {
+    return sizeof(DqSmem<C>) + 1024;
+}
 
-__global__ void __launch_bounds__(THREADS, 1) dq_hd128_kernel(
+template <class C>
+__global__ void __launch_bounds__(THREADS, C::DQ_BLOCKS) dq_hopper_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
     const __grid_constant__ CUtensorMap tdq, const float* __restrict__ lse, const float* __restrict__ delta,
     const int* __restrict__ seg, int S, int Hq, int Hkv, int causal, float scale) {
+    constexpr int HD = C::HD, K_ROWS = C::K_ROWS, BLOCKS = C::BLOCKS;
+    constexpr uint32_t DQ_BLOCK_BYTES = DQ_ROWS * 128;  // one 64-column block of Q or dO
+    constexpr uint32_t K_BLOCK_BYTES = K_ROWS * 128;    // ... of a K or V stage
     extern __shared__ unsigned char smem_raw[];
-    DqSmem& sm = *reinterpret_cast<DqSmem*>(hw::align1024(smem_raw));
+    DqSmem<C>& sm = *reinterpret_cast<DqSmem<C>*>(hw::align1024(smem_raw));
 
     const int h = blockIdx.x;
     const int b = blockIdx.y;
@@ -332,12 +388,9 @@ __global__ void __launch_bounds__(THREADS, 1) dq_hd128_kernel(
     const int n_tiles = (kv_end + K_ROWS - 1) / K_ROWS;
 
     auto load_kv = [&](int it, int st) {  // key tile it's K and V into stage st
-        hw::mbar_expect_tx(&sm.full[st], 4 * K_HALF_BYTES);
-        for (int half = 0; half < 2; ++half)
-            for (int r = 0; r < K_ROWS; r += BOX) {
-                hw::tma_load_4d(&sm.k[st][half][r * 64], &tk, &sm.full[st], 64 * half, kvh, it * K_ROWS + r, b);
-                hw::tma_load_4d(&sm.v[st][half][r * 64], &tv, &sm.full[st], 64 * half, kvh, it * K_ROWS + r, b);
-            }
+        hw::mbar_expect_tx(&sm.full[st], 2 * BLOCKS * K_BLOCK_BYTES);
+        load_rows(sm.k[st], &tk, &sm.full[st], kvh, it * K_ROWS, b);
+        load_rows(sm.v[st], &tv, &sm.full[st], kvh, it * K_ROWS, b);
     };
     if (threadIdx.x == 0) {  // barriers, then Q and dO and the first K/V tiles
         hw::mbar_init(&sm.q_full, 1);
@@ -346,12 +399,9 @@ __global__ void __launch_bounds__(THREADS, 1) dq_hd128_kernel(
             sm.done[st] = 0;
         }
         hw::fence_barrier_init();
-        hw::mbar_expect_tx(&sm.q_full, 4 * DQ_HALF_BYTES);
-        for (int half = 0; half < 2; ++half)
-            for (int r = 0; r < DQ_ROWS; r += BOX) {
-                hw::tma_load_4d(&sm.q[half][r * 64], &tq, &sm.q_full, 64 * half, h, q0 + r, b);
-                hw::tma_load_4d(&sm.dout[half][r * 64], &tdo, &sm.q_full, 64 * half, h, q0 + r, b);
-            }
+        hw::mbar_expect_tx(&sm.q_full, 2 * BLOCKS * DQ_BLOCK_BYTES);
+        load_rows(sm.q, &tq, &sm.q_full, h, q0, b);
+        load_rows(sm.dout, &tdo, &sm.q_full, h, q0, b);
         for (int it = 0; it < min(STAGES, n_tiles); ++it) load_kv(it, it);
     }
     __syncthreads();
@@ -374,12 +424,12 @@ __global__ void __launch_bounds__(THREADS, 1) dq_hd128_kernel(
     const int qseg_lo = (segb != nullptr && row_lo < S) ? segb[row_lo] : 0;
     const int qseg_hi = (segb != nullptr && row_hi < S) ? segb[row_hi] : 0;
     const float scale2 = scale * LOG2E;
-    const uint32_t q_base = ssi::smem_addr(sm.q[0]) + cw * 64 * 128;  // the warpgroup's 64 queries of half 0
+    const uint32_t q_base = ssi::smem_addr(sm.q[0]) + cw * 64 * 128;  // the warpgroup's 64 queries of block 0
     const uint32_t do_base = ssi::smem_addr(sm.dout[0]) + cw * 64 * 128;
 
-    float dq_acc[64];
+    float dq_acc[HD / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dq_acc[i] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.f;
 
     hw::mbar_wait(&sm.q_full, 0);
     for (int it = 0; it < n_tiles; ++it) {
@@ -396,18 +446,17 @@ __global__ void __launch_bounds__(THREADS, 1) dq_hd128_kernel(
             hw::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < HD / 16; ++kk) {
-                const uint32_t a_off = (kk / 4) * DQ_HALF_BYTES + (kk % 4) * 32;
-                const uint32_t b_off = (kk / 4) * K_HALF_BYTES + (kk % 4) * 32;
-                hw::wgmma_ss_n128(s, hw::desc_sw128(q_addr + a_off, 16, 1024), hw::desc_sw128(k_addr + b_off, 16, 1024),
-                                 kk > 0);
+                const uint32_t a_off = (kk / 4) * DQ_BLOCK_BYTES + (kk % 4) * 32;
+                const uint32_t b_off = (kk / 4) * K_BLOCK_BYTES + (kk % 4) * 32;
+                ss_step(s, hw::desc_sw128(q_addr + a_off, 16, 1024), hw::desc_sw128(k_addr + b_off, 16, 1024), kk > 0);
             }
             hw::wgmma_commit();
 #pragma unroll
             for (int kk = 0; kk < HD / 16; ++kk) {
-                const uint32_t a_off = (kk / 4) * DQ_HALF_BYTES + (kk % 4) * 32;
-                const uint32_t b_off = (kk / 4) * K_HALF_BYTES + (kk % 4) * 32;
-                hw::wgmma_ss_n128(dp, hw::desc_sw128(do_addr + a_off, 16, 1024),
-                                 hw::desc_sw128(v_addr + b_off, 16, 1024), kk > 0);
+                const uint32_t a_off = (kk / 4) * DQ_BLOCK_BYTES + (kk % 4) * 32;
+                const uint32_t b_off = (kk / 4) * K_BLOCK_BYTES + (kk % 4) * 32;
+                ss_step(dp, hw::desc_sw128(do_addr + a_off, 16, 1024), hw::desc_sw128(v_addr + b_off, 16, 1024),
+                        kk > 0);
             }
             hw::wgmma_commit();
             hw::wgmma_wait<1>();  // S has landed; dP may still run
@@ -440,9 +489,7 @@ __global__ void __launch_bounds__(THREADS, 1) dq_hd128_kernel(
             hw::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < K_ROWS / 16; ++kk)  // dQ += dS . K
-                hw::wgmma_rs_n128_mn(dq_acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
-                                     hw::desc_sw128(k_addr + kk * 16 * 128, K_HALF_BYTES, 1024),
-                                     1);
+                rs_step(dq_acc, &da[4 * kk], hw::desc_sw128(k_addr + kk * 16 * 128, K_BLOCK_BYTES, 1024));
             hw::wgmma_commit();
             hw::fence_regs(da);
             hw::wgmma_wait<0>();
@@ -454,22 +501,22 @@ __global__ void __launch_bounds__(THREADS, 1) dq_hd128_kernel(
     }
 
     // dQ into this warpgroup's own Q rows (free since its last products), then out by TMA
-    hw::store_tile(dq_acc, scale, scale, reinterpret_cast<unsigned char*>(sm.q[0]) + cw * 64 * 128, DQ_HALF_BYTES,
+    hw::store_tile(dq_acc, scale, scale, reinterpret_cast<unsigned char*>(sm.q[0]) + cw * 64 * 128, DQ_BLOCK_BYTES,
                    &tdq, h, r0, b, 1 + cw);
 }
 
-}  // namespace
-
-cudaError_t ssi::flash_bwd_hd128_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                                      const float* lse, float* delta, const int* seg, void* dq, void* dk, void* dv,
-                                      int B, int S, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
-    if (B > 65535) return cudaErrorInvalidValue;
+template <class C>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
+                   float* delta, const int* seg, void* dq, void* dk, void* dv, int B, int S, int Hq, int Hkv,
+                   int causal, float scale, cudaStream_t stream) {
+    constexpr int HD = C::HD;
     const long long rows = (long long)B * S * Hq;
-    delta_hd128_kernel<<<(unsigned)((rows * 16 + DELTA_THREADS - 1) / DELTA_THREADS), DELTA_THREADS, 0, stream>>>(
-        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, S, Hq, rows);
+    delta_hopper_kernel<HD><<<(unsigned)((rows * (HD / 8) + DELTA_THREADS - 1) / DELTA_THREADS), DELTA_THREADS, 0,
+                              stream>>>(static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, S, Hq,
+                                        rows);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const long long q_ss = (long long)Hq * HD;  // contiguous [B, S, H, 128]
+    const long long q_ss = (long long)Hq * HD;  // contiguous [B, S, H, HD]
     const long long kv_ss = (long long)Hkv * HD;
     CUtensorMap tq, tk, tv, tdo;
     err = hw::map_bshd(&tq, q, B, S, Hq, HD, S * q_ss, q_ss, HD, BOX);
@@ -482,15 +529,32 @@ cudaError_t ssi::flash_bwd_hd128_bf16(const void* q, const void* k, const void* 
     if (err == cudaSuccess) err = hw::map_bshd(&tdv, dv, B, S, Hkv, HD, S * kv_ss, kv_ss, HD, BOX);
     if (err != cudaSuccess) return err;
     static int allowed_dkdv = 0, allowed_dq = 0;
-    err = ssi::allow_dynamic_smem(dkdv_hd128_kernel, DKDV_SMEM, allowed_dkdv);
+    err = ssi::allow_dynamic_smem(dkdv_hopper_kernel<C>, dkdv_smem<C>(), allowed_dkdv);
     if (err != cudaSuccess) return err;
-    err = ssi::allow_dynamic_smem(dq_hd128_kernel, DQ_SMEM, allowed_dq);
+    err = ssi::allow_dynamic_smem(dq_hopper_kernel<C>, dq_smem<C>(), allowed_dq);
     if (err != cudaSuccess) return err;
-    dkdv_hd128_kernel<<<dim3(Hkv, B, (S + KV_ROWS - 1) / KV_ROWS), THREADS, DKDV_SMEM, stream>>>(
+    dkdv_hopper_kernel<C><<<dim3(Hkv, B, (S + KV_ROWS - 1) / KV_ROWS), THREADS, dkdv_smem<C>(), stream>>>(
         tq, tk, tv, tdo, tdk, tdv, lse, delta, seg, S, Hq, Hkv, causal, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    dq_hd128_kernel<<<dim3(Hq, B, (S + DQ_ROWS - 1) / DQ_ROWS), THREADS, DQ_SMEM, stream>>>(
+    dq_hopper_kernel<C><<<dim3(Hq, B, (S + DQ_ROWS - 1) / DQ_ROWS), THREADS, dq_smem<C>(), stream>>>(
         tq, tk, tv, tdo, tdq, lse, delta, seg, S, Hq, Hkv, causal, scale);
     return cudaGetLastError();
+}
+
+}  // namespace
+
+cudaError_t ssi::flash_bwd_hopper_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                                       const float* lse, float* delta, const int* seg, void* dq, void* dk, void* dv,
+                                       int B, int S, int Hq, int Hkv, int hd, int causal, float scale,
+                                       cudaStream_t stream) {
+    // TMA moves 16-byte pieces: every row of q, k, v and do must start 16-byte aligned
+    if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
+         reinterpret_cast<uintptr_t>(dout)) % 16 != 0)
+        return cudaErrorInvalidValue;
+    if (B > 65535) return cudaErrorInvalidValue;
+    if (hd == 64) return launch<Hd64>(q, k, v, o, dout, lse, delta, seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, stream);
+    if (hd == 128)
+        return launch<Hd128>(q, k, v, o, dout, lse, delta, seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, stream);
+    return cudaErrorInvalidValue;
 }

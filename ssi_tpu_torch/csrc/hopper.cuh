@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for the bf16 flash kernels
-// (flash_hopper_fwd.cu, flash_hd128_bwd.cu) and the cross-entropy dE product
-// (cross_entropy_de_hopper.cu): mbarriers, TMA tile loads fed by tensor maps,
+// (flash_hopper_fwd.cu, flash_hopper_bwd.cu) and the cross-entropy backward's
+// GEMM (cross_entropy_hopper.cu): mbarriers, TMA tile loads fed by tensor maps,
 // warpgroup matrix products (wgmma) with shared-memory descriptors, and the
 // host-side tensor-map encoding. Raw PTX, no CUTLASS: each source compiles in
 // seconds.
@@ -10,13 +10,14 @@
 // as a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes them; each block starts
 // 1024-byte aligned. A head_dim-64 tile is one such block, a head_dim-128 tile
 // two ("halves": columns 0-63 and 64-127). One layout serves both operand majors:
-// - K-major (the product's K along the 64 columns: Q and K in S = Q.K^T):
-//   SBO 1024 bytes (8 rows), LBO unused (16); a k16 step within a half is +32
-//   bytes of start address, and the next half is the next block;
-// - MN-major (the product's K along the rows: V in O = P.V, both operands of
-//   dE = dlogits^T . h): SBO 1024 bytes (8 rows of K), LBO the bytes between
-//   the blocks (the next 64 columns of M or N); a k16 step is +16 rows = +2048
-//   bytes.
+// - K-major (the product's K along the 64 columns: Q and K in S = Q.K^T, h and
+//   E in the logits h . E^T, dlogits in dh = dlogits . E): SBO 1024 bytes (8
+//   rows), LBO unused (16); a k16 step within a half is +32 bytes of start
+//   address, and the next half is the next block;
+// - MN-major (the product's K along the rows: V in O = P.V, E in dh, both
+//   operands of dE = dlogits^T . h): SBO 1024 bytes (8 rows of K), LBO the
+//   bytes between the blocks (the next 64 columns of M or N); a k16 step is
+//   +16 rows = +2048 bytes.
 //
 // wgmma accumulator layout (m64nN, f32): thread t of the warpgroup, warp
 // w = t / 32, g = (t % 32) / 4, t4 = t % 4, holds d[4j + e] = row 16w + g
@@ -284,10 +285,12 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32], uint32_t a0, uin
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
 }
 
-// d (+)= A . B for m64n128k16 with both operands MN-major in shared memory
-// (the transpose bit of A and of B set): A [64 x 16] stored as 16 rows of K
-// with M contiguous, B [16 x 128] as 16 rows of K with N contiguous.
-__device__ __forceinline__ void wgmma_ss_tt_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+// d (+)= A . B for m64n128k16 with both operands in shared memory, each
+// K-major (0) or MN-major (1: the instruction's transpose bit): an MN-major A
+// [64 x 16] is stored as 16 rows of K with M contiguous, an MN-major B
+// [16 x 128] as 16 rows of K with N contiguous.
+template <int A_MN, int B_MN>
+__device__ __forceinline__ void wgmma_ss_major_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -295,13 +298,14 @@ __device__ __forceinline__ void wgmma_ss_tt_n128(float (&d)[64], uint64_t a, uin
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : SSI_ACC64(d)
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(A_MN), "n"(B_MN));
 }
 
-// as wgmma_ss_tt_n128 with B [16 x 256]
-__device__ __forceinline__ void wgmma_ss_tt_n256(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
+// as wgmma_ss_major_n128 with B [16 x 256]
+template <int A_MN, int B_MN>
+__device__ __forceinline__ void wgmma_ss_major_n256(float (&d)[128], uint64_t a, uint64_t b, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -313,9 +317,9 @@ __device__ __forceinline__ void wgmma_ss_tt_n256(float (&d)[128], uint64_t a, ui
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 1, 1;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : SSI_ACC128(d)
-        : "l"(a), "l"(b), "r"(accumulate));
+        : "l"(a), "l"(b), "r"(accumulate), "n"(A_MN), "n"(B_MN));
 }
 
 #undef SSI_ACC128

@@ -1,8 +1,8 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a) kernels written
 // with mma.sync: asynchronous global -> shared copies (cp.async), ldmatrix
 // fragment loads, the m16n8k16 bf16 product with f32 accumulators, and bf16
-// packing. Used by flash_attention_bwd.cu, paged_attention.cu and
-// cross_entropy.cu, and through hopper.cuh by the Hopper kernels (smem_addr,
+// packing. Used by paged_attention.cu and cross_entropy.cu (the bf16
+// logsumexp), and through hopper.cuh by the Hopper kernels (smem_addr,
 // pack_bf16, cp_async4).
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
@@ -44,23 +44,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 // the 8 row addresses of an ldmatrix fall in distinct banks.
 template <int COLS>
 constexpr int lds = COLS + 8;
-
-// Rows [r0, r0 + 64) of a [rows, COLS] bf16 operand (row stride ss elements,
-// 16-byte aligned rows) into shared memory by a block of THREADS threads;
-// rows at or past n_valid are zero-filled by the copy.
-template <int THREADS, int COLS>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16 (*dst)[lds<COLS>], const __nv_bfloat16* src,
-                                                long long ss, int r0, int n_valid) {
-    constexpr int PIECES = COLS / 8;  // 16-byte pieces a row
-#pragma unroll
-    for (int i = 0; i < 64 * PIECES / THREADS; ++i) {
-        const int idx = threadIdx.x + i * THREADS;
-        const int r = idx / PIECES;
-        const int c = (idx % PIECES) * 8;
-        const bool in = r0 + r < n_valid;
-        cp_async16(&dst[r][c], in ? src + (long long)(r0 + r) * ss + c : src, in ? 16 : 0);
-    }
-}
 
 // A block's tiles in shared memory: a static __shared__ object when it fits
 // the 48 KB static limit (STATIC), else the dynamic buffer, which the

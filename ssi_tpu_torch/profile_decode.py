@@ -53,7 +53,7 @@ _CLASSES = (  # (class, substrings of the kernel name), first match wins
     ("paged kernel #8", ("paged_split_", "paged_merge_")),  # the split kernel and its merge
     ("flash kernel #1", ("flash_fwd_",)),
     # the training kernels (chip_smoke.py phase e reads a traced optimizer step)
-    ("flash backward #3", ("dkdv_bf16_", "dq_bf16_", "dkdv_f32_", "dq_f32_", "delta_kernel")),
+    ("flash backward #3", ("dkdv_hopper_", "dq_hopper_", "delta_hopper_", "dkdv_f32_", "dq_f32_", "delta_kernel")),
     ("CE lse #5", ("lseepi", "lse_partial", "lse_merge")),
     ("CE dlogits #6", ("dlogitsepi",)),
     ("CE dh/dE GEMMs #6/#7", ("storeepi",)),

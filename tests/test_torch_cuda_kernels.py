@@ -274,6 +274,14 @@ def test_kernel_wrappers_refuse_unsupported_shapes(gen):
                                     write_rows=torch.zeros((1, 8), dtype=torch.int32, device="cuda"))
 
 
+REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # ||kernel - plain|| / ||plain||, as chip_smoke.py holds them
+
+
+def rel_err(a, w) -> float:
+    a, w = a.double(), w.double()
+    return ((a - w).norm() / w.norm().clamp_min(1e-300)).item()
+
+
 def qkv_segs(gen, dtype, b, s, hq, hkv, segs, d=64):
     q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dtype)
     k = torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dtype)
@@ -378,19 +386,23 @@ def test_flash_hopper_bf16_kernels_take_strided_views(gen, d, layout, hq, hkv):
                                        msg=name)
 
 
+@pytest.mark.parametrize("d,hq,hkv", [(64, 32, 8), (128, 24, 8)])  # 1B's heads; 3B's
 @pytest.mark.parametrize("mode", ["causal", "full", "segments"])
-def test_flash_hd128_bf16_backward_is_bitwise_reproducible(gen, mode):
-    """No atomics: the head_dim-128 bf16 backward run twice on the same inputs
-    (3B's 24 / 8 heads, S 769) gives bitwise equal dq, dk and dv."""
-    q, k, v, _ = qkv_segs(gen, torch.bfloat16, 2, 769, 24, 8, False, 128)
+def test_flash_hopper_bf16_backward_is_bitwise_reproducible(gen, d, hq, hkv, mode):
+    """No atomics: the bf16 Hopper backward run twice on the same inputs (S
+    769) gives bitwise equal dq, dk and dv at both head dims, each within
+    ``REL`` of the plain gradients."""
+    q, k, v, _ = qkv_segs(gen, torch.bfloat16, 2, 769, hq, hkv, False, d)
     causal = mode != "full"
     seg = hd128_segments(2, 769, mode) if mode == "segments" else None
     o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
     do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
     first = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=seg)
     second = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, segment_ids=seg)
-    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+    want = flash_attention_bwd_reference(q, k, v, o, lse, do, causal=causal, segment_ids=seg)
+    for name, a, b, w in zip(("dq", "dk", "dv"), first, second, want):
         assert torch.equal(a, b), name
+        assert rel_err(a, w) <= REL[torch.bfloat16], name
 
 
 def test_flash_autograd_on_cuda_runs_both_kernels(gen):
@@ -451,14 +463,6 @@ def test_cross_entropy_kernels_match_plain(gen, dtype, spread, n, v, d, every):
         assert not dl.any() and not dh.any() and not de.any()
 
 
-REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # ||kernel - plain|| / ||plain||, as chip_smoke.py holds them
-
-
-def rel_err(a, w) -> float:
-    a, w = a.double(), w.double()
-    return ((a - w).norm() / w.norm().clamp_min(1e-300)).item()
-
-
 @pytest.mark.parametrize("n,v,d", [(100, 4099, 256), (300, 40_001, 512), (16, 129, 384)])
 def test_cross_entropy_de_bf16_is_bitwise_reproducible(gen, n, v, d):
     """No split-K and no atomics: the bf16 dE product (the Hopper GEMM) run
@@ -474,6 +478,35 @@ def test_cross_entropy_de_bf16_is_bitwise_reproducible(gen, n, v, d):
     torch.cuda.synchronize()
     assert first.shape == (v, d) and torch.equal(first, second)
     assert rel_err(first, dl.float().T @ h.float()) <= REL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("n,v,d", [(100, 4099, 256), (300, 40_001, 512), (16, 129, 384), (300, 4099, 128)])
+@pytest.mark.parametrize("product", ["dlogits", "dh"])
+def test_cross_entropy_hopper_products_are_bitwise_reproducible(gen, product, n, v, d):
+    """The bf16 dlogits pass (A = h and B = E, both K-major) and dh GEMM (A =
+    dlogits K-major, B = E MN-major) on the Hopper GEMM that dE runs on: two
+    launches give bitwise equal outputs, within ``REL`` of the plain product,
+    at ragged N and V, D a multiple of 256 and not (384, 128: 128-wide dh
+    tiles), fewer K slabs than ring stages (dh at V 129) and more output
+    tiles than SMs (dlogits at N 300, V 40,001), so a block's ring runs on
+    across its tiles."""
+    h, e, y = ce_inputs(gen, torch.bfloat16, n, v, d)
+    h = h * 4.0  # a peaked softmax: real mass on a few columns
+    g = torch.tensor(0.37, device="cuda")
+    lse = cross_entropy_lse_kernel(h, e)
+    dl = cross_entropy_dlogits_kernel(h, e, y, lse, g)
+    if product == "dlogits":
+        first, second = dl, cross_entropy_dlogits_kernel(h, e, y, lse, g)
+        logits = h.float() @ e.float().T
+        valid = (y != -100)[:, None]
+        onehot = torch.zeros_like(logits).scatter_(1, torch.where(valid[:, 0], y, 0).long()[:, None], 1.0)
+        want = torch.where(valid, (logits - lse[:, None]).exp() - onehot, 0.0) * g
+    else:
+        first, second = cross_entropy_dh_gemm_kernel(dl, e), cross_entropy_dh_gemm_kernel(dl, e)
+        want = dl.float() @ e.float()
+    torch.cuda.synchronize()
+    assert first.shape == want.shape and torch.equal(first, second)
+    assert rel_err(first, want) <= REL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

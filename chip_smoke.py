@@ -497,6 +497,17 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
+PTXAS: dict[str, list[str]] = {}  # kernel (name and mangled template arguments) -> its ptxas report lines
+
+
+def ptxas_of(part: str) -> str:
+    """The ptxas report (registers, spills) of the one kernel whose name
+    holds ``part``, as phase 1 read it from the build log."""
+    found = [k for k in PTXAS if part in k]
+    check(len(found) == 1, f"ptxas report: {len(found)} kernels match {part!r}")
+    return "; ".join(PTXAS[found[0]])
+
+
 def phase_build():
     from ssi_tpu_torch import _build, native
 
@@ -509,11 +520,12 @@ def phase_build():
         if "Compiling entry function" in ln:
             kernel = _kernel_name(ln.split("'")[1])
         elif "registers" in ln or "spill" in ln:
+            PTXAS.setdefault(kernel, []).append(ln.strip())
             log(f"  ptxas {kernel}: {ln.strip()}")
     # ptxas reports no dynamic shared memory: what each Hopper kernel's launcher asks for (its Smem
     # struct + 1 KB of alignment slack) is stated in the note at the top of its source
-    log(f"phase 1 build: {_build.build_seconds:.1f} s (0.0 = cached library reused); each source's nvcc done "
-        f"after {', '.join(f'{k} {v:.1f} s' for k, v in _build.source_seconds.items())}")
+    log(f"phase 1 build: {_build.build_seconds:.1f} s (0.0 = cached library reused: its saved ptxas report above); "
+        f"each source's nvcc done after {', '.join(f'{k} {v:.1f} s' for k, v in _build.source_seconds.items())}")
 
 
 def phase_flash(gen, hq=32, hkv=8, d=64, shapes=((8, 768), (2, 768), (2, 2048)), row=(8, 768),
@@ -2292,7 +2304,8 @@ def phase_cross_entropy(gen, vocab: int, d: int = 2048, ns=(4096, 3072), tag: st
         bound_ms, bound_by = bound(ops, n_bytes)
         t_k, t_p = t[name]
         log(f"  {name} time bf16 N{n} D{d}: kernel {t_k:.3f} ms ({ops / (t_k * 1e-3) / 1e12:.1f} TFLOP/s), "
-            f"plain {t_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})"
+            f"plain {t_p:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}; the kernel at {bound_ms / t_k:.1%} of it)"
+            + (f", ptxas of its GEMM instance: {ptxas_of('LseEpi')}" if name == "cross_entropy_lse" else "")
             + (f", one PyTorch call {library:.3f} ms ({ops / (library * 1e-3) / 1e12:.1f} TFLOP/s)"
                if name != "cross_entropy_lse" and library is not None else "")
             + (f", F.cross_entropy(h @ E.T) {library:.3f} ms (two calls)" if name == "cross_entropy_lse" else ""))
@@ -4118,9 +4131,11 @@ def phase_drive_kernels(gen):
                     return cross_entropy_dh_gemm_kernel(dlogits, e), cross_entropy_de_gemm_kernel(dlogits, h)
 
                 t_bwd = in_turns(backward, lambda: (cross_entropy_dh(h, e, y, g), cross_entropy_de(h, e, y, g)), 3)
-                msg += (f"; times lse {t_lse[0]:.3f} ms ({ops / (t_lse[0] * 1e-3) / 1e12:.0f} TFLOP/s; plain "
-                        f"{t_lse[1]:.3f}), backward (dlogits + dh + dE) {t_bwd[0]:.3f} ms (plain {t_bwd[1]:.3f}); "
-                        f"bound of one {n} x {vocab} x {dm} product {bound(ops, 2 * (n + vocab) * dm)[0]:.3f} ms")
+                b_one = bound(ops, 2 * (n + vocab) * dm)[0]
+                msg += (f"; times lse {t_lse[0]:.3f} ms ({ops / (t_lse[0] * 1e-3) / 1e12:.0f} TFLOP/s, "
+                        f"{b_one / t_lse[0]:.1%} of its bound; plain {t_lse[1]:.3f}), backward (dlogits + dh + dE) "
+                        f"{t_bwd[0]:.3f} ms (plain {t_bwd[1]:.3f}); bound of one {n} x {vocab} x {dm} product "
+                        f"{b_one:.3f} ms")
             log(msg)
             del h, e, y, lse, lse_p, de, de_p, unl
             torch.cuda.empty_cache()
@@ -4591,10 +4606,9 @@ def main() -> int:
                "paged_attention_fused": ("paged_attention.cu", PAGED_REPLACES),
                "paged_attention_multi": ("paged_attention.cu", PAGED_MULTI_REPLACES),
                "flash_attention_bwd": ("flash_hopper_bwd.cu", FLASH_BWD_REPLACES),  # bf16, both head dims
-               "cross_entropy_lse": ("cross_entropy.cu", CE_REPLACES["cross_entropy_lse"]),
-               # bf16: the backward's three products on one Hopper GEMM
+               # bf16: the lse's partial pass and the backward's three products on one Hopper GEMM
                **{name: ("cross_entropy_hopper.cu", CE_REPLACES[name])
-                  for name in ("cross_entropy_dlogits", "cross_entropy_dh", "cross_entropy_de")},
+                  for name in ("cross_entropy_lse", "cross_entropy_dlogits", "cross_entropy_dh", "cross_entropy_de")},
                # the logsumexp's merge pass, launched alone to merge the tp ranks' slices
                "cross_entropy_lse_merge": ("cross_entropy.cu", CE_REPLACES["cross_entropy_lse"])}
     kernels = []

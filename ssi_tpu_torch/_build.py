@@ -54,7 +54,8 @@ LAUNCH_COUNTS_ENV = "SSI_TPU_TORCH_LAUNCH_COUNTS"
 
 _lib: ctypes.CDLL | None = None
 # seconds the last build took (0.0 when the cached library was reused) and
-# nvcc's diagnostics of that build (ptxas register/spill report)
+# nvcc's diagnostics of the library's build (ptxas register/spill report;
+# read back from beside the cached library when it is reused)
 build_seconds: float = 0.0
 build_log: str = ""
 # seconds from the build's start until each source's nvcc finished (they run at once)
@@ -137,6 +138,8 @@ def build_library() -> Path:
     out = _BUILD_DIR / f"libssi_kernels_{_source_hash()}.so"
     if out.exists():
         build_seconds = 0.0
+        saved = out.with_suffix(".log")
+        build_log = saved.read_text() if saved.exists() else ""
         return out
     nvcc = find_nvcc()
     _BUILD_DIR.mkdir(exist_ok=True)

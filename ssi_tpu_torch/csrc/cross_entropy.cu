@@ -11,27 +11,14 @@
 // past N give zero dlogits, the upstream scalar g multiplies dlogits, and
 // dlogits is cast to the operand dtype before the dh and dE products.
 //
-// What bounds it on Hopper: four [N, D] x [D, V]-class products at N 4096,
-// D 2048, V 133,258 (2.24 TFLOP each: the logits once for lse, and the
-// dlogits, dh and dE products in the backward). The TPU kernels held
-// [512, 2048] and [2048, 2048] f32 accumulators in VMEM; a Hopper block has
-// 227 KB of shared memory. The bf16 backward's three products run on the
-// Hopper GEMM of cross_entropy_hopper.cu (wgmma fed by TMA); the bf16 lse
-// runs here on a GEMM kernel with a row-reduction epilogue: 128 x 128 output
-// tiles, 8 warps of 64 x 32, mma.sync m16n8k16 (mma.cuh) fed by ldmatrix from
-// a 3-stage cp.async ring of 64-deep K slabs, accumulators in registers. Each
-// output tile belongs to one block, which sums the whole K in a fixed order:
-// no atomics, so two launches give the same bits.
-// - lse: the logits product h . E^T with a row-reduction epilogue: per token
-//   row and 128-column vocab tile one (max, sum of exp) pair, into a
-//   [n_vtiles, N] f32 scratch (34 MB at N 4,096, V 133,258) that a second
-//   small kernel merges in a fixed order. The logits never leave registers.
-//   The alternative, blocks that walk a range of vocab tiles with a running
-//   (max, sum), was not built: it would restart the GEMM's ring per tile,
-//   and the scratch costs ~70 MB of traffic (computed from the shapes)
-//   against the 2.24 TFLOP product; on the H100 the whole lse measures
-//   faster than a dlogits pass on this core did, which ran the same product
-//   and wrote 1.09 GB besides (PERF.md).
+// Where each product runs. bf16: on the Hopper GEMM of
+// cross_entropy_hopper.cu (wgmma fed by TMA; one persistent kernel template,
+// an epilogue per product), all four of N x V x D at N 4096, D 2048,
+// V 133,258 (2.24 TFLOP each):
+// - lse: the logits h . E^T with a row-reduction epilogue in registers: per
+//   token row and 256-column vocab tile one (max, sum of exp) pair, into a
+//   [n_vtiles, N] f32 scratch (17 MB at N 4,096, V 133,258) that the merge
+//   pass below reduces in a fixed order. The logits never leave registers;
 // - backward: the TPU kernels formed dlogits tile by tile twice, once inside
 //   dh and once inside dE. Here one GEMM pass forms the logits once and
 //   writes dlogits in the operand dtype to a scratch [N, ldv] (ldv = V
@@ -39,23 +26,27 @@
 //   two GEMMs read it: dh = dlogits . E (K = V) and dE = dlogits^T . h
 //   (K = N). At N 4096 the scratch is 1.09 GB in bf16, written once and read
 //   twice, against the 6.7 TFLOP of the three products.
+// Each output tile sums its whole K in one block, in a fixed order: no
+// atomics, so two launches give the same bits.
 // The f32 parity paths keep exact f32 arithmetic (TF32 would not meet the
 // f32 limits): the backward runs 128 x 128 tiles with scalar FMAs; the lse
 // runs one block per (64-token tile, vocab split), streaming 64-row vocab
 // tiles through shared memory with a running max and sum, and the same
 // merge kernel.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
 
 #include "common.cuh"
-#include "mma.cuh"
 #include "tile_mma.cuh"
 
 namespace ssi {
-// the bf16 backward's products (cross_entropy_hopper.cu)
+// the bf16 products (cross_entropy_hopper.cu)
+int cross_entropy_lse_hopper_splits(int V);
+cudaError_t cross_entropy_lse_hopper_bf16(const void* h, const void* e, float* m_part, float* l_part, int N, int V,
+                                          int D, cudaStream_t stream);
 cudaError_t cross_entropy_dlogits_hopper_bf16(const void* h, const void* e, const float* lse, const int* labels,
                                               const float* g, void* dl, int N, int V, int D, int ldv,
                                               cudaStream_t stream);
@@ -79,7 +70,6 @@ constexpr int LT = 64;         // tokens per lse block
 constexpr int LV = 64;         // vocab rows per streamed tile
 constexpr int LDL = LV + 4;    // leading dimension of the f32 logits tile
 constexpr int LSE_BLOCKS = 1056;  // lse blocks to aim for: 8 per SM of an H100's 132
-constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr int lse_f32_smem() {
     return 2 * ssi::smem_round(LT * LDK * 4) + ssi::smem_round(LT * LDL * 4);
@@ -201,7 +191,7 @@ cudaError_t launch_lse_f32(const float* h, const float* e, float* m_part, float*
     return launch_merge(m_part, l_part, lse, N, n_split, stream);
 }
 
-// ---- the GEMM core: the bf16 logsumexp and the f32 backward ----------------
+// ---- the GEMM core of the f32 backward ------------------------------------
 //
 // C [M x N] = sum over k of A(m, k) . B(k, n). An operand is "K-contiguous"
 // when k runs along its rows in memory (A(m, k) = a[m * lda + k], B(k, n) =
@@ -210,37 +200,10 @@ cudaError_t launch_lse_f32(const float* h, const float* e, float* m_part, float*
 //   logits  = h . E^T          A = h (K-contiguous), B = E (K-contiguous), K = D
 //   dh      = dlogits . E      A = dlogits (K-contiguous), B = E (outer), K = V
 //   dE      = dlogits^T . h    A = dlogits (outer), B = h (outer), K = N
-// The bf16 kernel forms the logits alone (the lse); the f32 kernel takes
-// every form.
-
-using bf16 = __nv_bfloat16;
 
 constexpr int GT = 128;          // output tile edge
-constexpr int GK = 64;           // K slab per pipeline stage
-constexpr int STAGES = 3;        // cp.async ring depth (bf16)
-constexpr int GTHREADS = 256;    // 8 warps: 2 along M x 4 along N, 64 x 32 each
-constexpr int LDKS = GK + 8;     // shared stride of a K-contiguous slab [128][GK]: 144 bytes
-constexpr int FK = 16;           // K slab of the f32 kernel
-
-constexpr int SLAB = GT * LDKS;  // elements of a staged slab
-constexpr int GEMM_SMEM = 2 * STAGES * SLAB * (int)sizeof(bf16);  // 108 KB: two blocks fit in an SM's 228 KB
-
-// Stage one operand's K-contiguous slab: row o in [o0, o0 + 128) (m for A, n
-// for B), k in [k0, k0 + GK). Elements with o >= n_o or k >= n_k are
-// zero-filled by the copy, so ragged tiles and the K tail need no other masking.
-__device__ __forceinline__ void load_slab(bf16* dst, const bf16* __restrict__ x, int ld, int o0, int n_o, int k0,
-                                          int n_k) {
-#pragma unroll
-    for (int i = 0; i < GT * GK / 8 / GTHREADS; ++i) {
-        const int idx = threadIdx.x + i * GTHREADS;
-        const int r = idx / (GK / 8);
-        const int c = (idx % (GK / 8)) * 8;
-        const int o = o0 + r;
-        const int k = k0 + c;
-        const int n = o < n_o ? max(0, min(8, n_k - k)) : 0;
-        ssi::cp_async16(dst + r * LDKS + c, n > 0 ? x + (long long)o * ld + k : x, 2 * n);
-    }
-}
+constexpr int GTHREADS = 256;    // a 16 x 16 thread grid
+constexpr int FK = 16;           // K slab
 
 // Epilogues of the f32 kernel, called on (row, columns col, col + 1) of the
 // tile's sums.
@@ -275,133 +238,7 @@ struct StoreEpi {
     }
 };
 
-// Epilogue of the logsumexp (bf16): for each token row of the 128 x 128
-// logits tile, the max m over its vocab columns below V (columns at or past V
-// count as -1e30) and l = sum of exp(logit - m), written to m_part / l_part
-// [n_vtiles, N] at the tile's vocab index n0 / 128. A thread reduces its 8
-// columns of each of its rows, quad shuffles give the warp's 32, and the 4
-// warps along N are merged in a fixed order through shared memory.
-struct LseEpi {
-    float* m_part;
-    float* l_part;
-    int N, V;
-    __device__ __forceinline__ void tile(const float (&acc)[4][4][4], int m0, int n0, int wm, int wn,
-                                         unsigned char* smem) const {
-        const int lane = threadIdx.x % 32;
-        const int g = lane / 4;
-        const int t4 = lane % 4;
-        float* red_m = reinterpret_cast<float*>(smem);  // [4 warps along N][GT rows]
-        float* red_l = red_m + 4 * GT;
-        __syncthreads();  // every warp is done with the operand ring, which holds red_m / red_l from here
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-            for (int hi = 0; hi < 2; ++hi) {
-                float x[8];
-                bool ok[8];
-                float m = NEG_INF;
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    ok[i] = n0 + wn + (i / 2) * 8 + 2 * t4 + i % 2 < V;
-                    x[i] = ok[i] ? acc[mi][i / 2][2 * hi + i % 2] : NEG_INF;
-                    m = fmaxf(m, x[i]);
-                }
-                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-                float l = 0.f;
-#pragma unroll
-                for (int i = 0; i < 8; ++i) l += ok[i] ? exp2f((x[i] - m) * LOG2E) : 0.f;
-                l += __shfl_xor_sync(0xffffffffu, l, 1);
-                l += __shfl_xor_sync(0xffffffffu, l, 2);
-                if (t4 == 0) {
-                    const int r = wm + mi * 16 + hi * 8 + g;
-                    red_m[(wn / 32) * GT + r] = m;
-                    red_l[(wn / 32) * GT + r] = l;
-                }
-            }
-        }
-        __syncthreads();
-        const int r = threadIdx.x;
-        if (r < GT && m0 + r < N) {
-            float m = NEG_INF;
-#pragma unroll
-            for (int w = 0; w < 4; ++w) m = fmaxf(m, red_m[w * GT + r]);
-            float l = 0.f;
-#pragma unroll
-            for (int w = 0; w < 4; ++w) l += red_l[w * GT + r] * exp2f((red_m[w * GT + r] - m) * LOG2E);
-            const long long idx = (long long)(n0 / GT) * N + m0 + r;
-            m_part[idx] = m;
-            l_part[idx] = l;
-        }
-    }
-};
-
-// One block per 128 x 128 logits tile, both operands K-contiguous; the token
-// (M) tiles run along blockIdx.x, so neighbouring blocks share their E slab
-// through L2.
-__global__ void __launch_bounds__(GTHREADS, 2) gemm_bf16_kernel(const bf16* __restrict__ a, int lda,
-                                                                const bf16* __restrict__ b, int ldb, int M, int N,
-                                                                int K, LseEpi epi) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    bf16* as = reinterpret_cast<bf16*>(smem);
-    bf16* bs = as + STAGES * SLAB;
-    const int m0 = blockIdx.x * GT;
-    const int n0 = blockIdx.y * GT;
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const int wm = (warp / 4) * 64;  // the warp's rows and columns within the tile
-    const int wn = (warp % 4) * 32;
-    const int k_tiles = (K + GK - 1) / GK;
-
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-        if (s < k_tiles) {
-            load_slab(as + s * SLAB, a, lda, m0, M, s * GK, K);
-            load_slab(bs + s * SLAB, b, ldb, n0, N, s * GK, K);
-        }
-        ssi::cp_async_commit();
-    }
-
-    float acc[4][4][4];  // [m16 tile][n8 block][C fragment]
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-    for (int kt = 0; kt < k_tiles; ++kt) {
-        ssi::cp_async_wait<STAGES - 2>();  // slab kt has landed
-        __syncthreads();                   // ... for every thread, and slab kt - 1 is consumed
-        const int nk = kt + STAGES - 1;
-        if (nk < k_tiles) {
-            load_slab(as + (nk % STAGES) * SLAB, a, lda, m0, M, nk * GK, K);
-            load_slab(bs + (nk % STAGES) * SLAB, b, ldb, n0, N, nk * GK, K);
-        }
-        ssi::cp_async_commit();
-        const bf16* at = as + (kt % STAGES) * SLAB;
-        const bf16* bt = bs + (kt % STAGES) * SLAB;
-#pragma unroll
-        for (int kk = 0; kk < GK / 16; ++kk) {
-            uint32_t af[4][4];
-            uint32_t bfr[2][4];
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi)
-                ssi::ldmatrix_x4(af[mi], at + (wm + mi * 16 + lane % 16) * LDKS + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-            for (int np = 0; np < 2; ++np)
-                ssi::ldmatrix_x4(bfr[np],
-                                 bt + (wn + np * 16 + (lane / 16) * 8 + lane % 8) * LDKS + kk * 16 + ((lane / 8) % 2) * 8);
-#pragma unroll
-            for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-                for (int nj = 0; nj < 4; ++nj)
-                    ssi::mma_bf16(acc[mi][nj], af[mi], bfr[nj / 2][(nj % 2) * 2], bfr[nj / 2][(nj % 2) * 2 + 1]);
-        }
-    }
-
-    epi.tile(acc, m0, n0, wm, wn, smem);
-}
-
-// The same tiling in f32 with scalar FMAs: thread (ty, tx) of a 16 x 16 grid
+// 128 x 128 output tiles in f32 with scalar FMAs: thread (ty, tx) of a 16 x 16 grid
 // owns rows {ty*4 + i, 64 + ty*4 + i} and columns {tx*4 + j, 64 + tx*4 + j}.
 template <bool A_K, bool B_K, bool M_FAST, class Epi>
 __global__ void __launch_bounds__(GTHREADS) gemm_f32_kernel(const float* __restrict__ a, int lda,
@@ -475,28 +312,17 @@ cudaError_t launch_gemm_f32(const void* a, int lda, const void* b, int ldb, int 
     return cudaGetLastError();
 }
 
-// the logits h . E^T on the bf16 GEMM, reduced per token row and vocab tile
-cudaError_t launch_lse_bf16(const bf16* h, const bf16* e, LseEpi epi, int N, int V, int D, cudaStream_t stream) {
-    const dim3 grid((N + GT - 1) / GT, (V + GT - 1) / GT);
-    if (grid.y > 65535) return cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(gemm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
-    if (err != cudaSuccess) return err;
-    gemm_bf16_kernel<<<grid, GTHREADS, GEMM_SMEM, stream>>>(h, D, e, D, N, V, D, epi);
-    return cudaGetLastError();
-}
-
-// cp.async reads 16-byte pieces: row strides a multiple of 8 elements and
-// 16-byte aligned bases
+// TMA reads 16-byte aligned bases (row strides a multiple of 8 elements)
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 // Splits of the logsumexp for N tokens and V vocab rows: the rows of its
 // (max, sum) scratch [n_split, N], which the caller allocates. bf16: one per
-// 128-column vocab tile of the GEMM; f32: the vocab splits of its grid.
+// 256-column vocab tile of the Hopper GEMM; f32: the vocab splits of its grid.
 extern "C" int ssi_cross_entropy_lse_splits(int dtype, int N, int V) {
     if (N <= 0 || V <= 0) return 0;
-    if (dtype == ssi::kBFloat16) return (V + GT - 1) / GT;
+    if (dtype == ssi::kBFloat16) return ssi::cross_entropy_lse_hopper_splits(V);
     if (dtype == ssi::kFloat32) return lse_f32_splits(N, V);
     return 0;
 }
@@ -515,9 +341,7 @@ extern "C" int ssi_cross_entropy_lse(int dtype, const void* h, const void* e, vo
         err = launch_lse_f32(static_cast<const float*>(h), static_cast<const float*>(e), mp, lp, out, N, V, D, n_split,
                              st);
     } else {
-        if (!aligned16(h) || !aligned16(e)) return static_cast<int>(cudaErrorInvalidValue);
-        err = launch_lse_bf16(static_cast<const bf16*>(h), static_cast<const bf16*>(e), LseEpi{mp, lp, N, V}, N, V, D,
-                              st);
+        err = ssi::cross_entropy_lse_hopper_bf16(h, e, mp, lp, N, V, D, st);  // the Hopper GEMM
         if (err == cudaSuccess) err = launch_merge(mp, lp, out, N, n_split, st);
     }
     return static_cast<int>(err);

@@ -1,30 +1,36 @@
-// The cross-entropy backward's three products in bf16 on one GEMM designed
-// for Hopper, from h [N, D], E [V, D], the forward's lse [N] and the labels:
+// The cross-entropy's four bf16 products on one GEMM designed for Hopper,
+// from h [N, D], E [V, D], the forward's lse [N] and the labels:
+// - the logsumexp's partial pairs from the logits h . E^T: per token row and
+//   256-column vocab tile the max m over the columns below V and l = sum of
+//   exp(logit - m), into m_part / l_part [n_vtiles, N] (cross_entropy.cu
+//   merges them in a fixed order); the logits never leave registers;
 // - dlogits [N, V] = epi(h . E^T): (exp(logit - lse) - onehot) * valid * g,
 //   into the scratch [N, ldv] (ldv = V rounded up to 8; pad columns written
 //   0; an ignored label (-100) gives a zero row);
 // - dh [N, D] = dlogits . E;
 // - dE [V, D] = dlogits^T . h.
 //
-// Replaces the TPU kernels ssi_tpu/ops/cross_entropy_pallas.py `_dh_kernel`
-// and `_de_kernel` (launched from `_bwd_rule`) in bf16, as cross_entropy.cu
-// lays the backward out: its dlogits pass writes dlogits once, and the dh and
-// dE products read it. Semantics kept: logits and sums in f32, dlogits cast
-// to bf16 before the dh and dE products, the outputs written in bf16; rows
-// past N or V are not written. The f32 parity paths and the logsumexp stay in
-// cross_entropy.cu.
+// Replaces the TPU kernels ssi_tpu/ops/cross_entropy_pallas.py `_lse_kernel`
+// (launched from `_compute_lse`), `_dh_kernel` and `_de_kernel` (launched
+// from `_bwd_rule`) in bf16, as cross_entropy.cu lays them out: a partial
+// pass and a merge for the logsumexp; a dlogits pass that writes dlogits
+// once, and the dh and dE products that read it. Semantics kept: logits and
+// sums in f32, vocab columns at or past V count as -1e30 in the logsumexp,
+// dlogits cast to bf16 before the dh and dE products, the outputs written in
+// bf16; rows past N or V are not written. The f32 parity paths and the merge
+// stay in cross_entropy.cu.
 //
 // What bounds it on Hopper: 2 N V D FLOP a product (2.24 TFLOP at N 4096,
 // D 2048, V 133,258) against the 1.09 GB of dlogits written or read once:
 // operations. Only wgmma reaches the card's tensor-core rate, so the design is
-// the usual Hopper GEMM, one kernel template for the three products:
+// the usual Hopper GEMM, one kernel template for the four products:
 // - output tiles of 128 rows x BN columns (BN 256, or 128 where the columns
 //   are D and D is not a multiple of 256), 2 warpgroups of 64 rows each (256
 //   threads, one block an SM: 193 KB of shared memory at BN 256); each
 //   warpgroup issues wgmma m64nBNk16 with both operands in shared memory,
 //   each K-major or MN-major by the instruction's transpose bits, so no
 //   operand is copied transposed:
-//     dlogits: A = h (K-major), B = E (K-major), K = D;
+//     lse, dlogits: A = h (K-major), B = E (K-major), K = D;
 //     dh:      A = dlogits (K-major), B = E (MN-major: its D is contiguous), K = V;
 //     dE:      A = dlogits^T (MN-major: its V is contiguous), B = h (MN-major), K = N;
 // - 64-deep K slabs ride a 4-stage ring filled by TMA: [64 x 64] boxes with
@@ -39,16 +45,17 @@
 // - persistent: a grid of one block an SM walks the output tiles (tile
 //   blockIdx.x, then + gridDim.x, ...), and the ring runs on from one tile
 //   into the next, so a tile's first slabs load under the tile before's last
-//   products and its epilogue (from registers: bf16 stores, and for dlogits
-//   the exponentials first) runs while they land. Measured against a block a
-//   tile for dE (NVIDIA H100 80GB HBM3, 700 W, N 4096, V 133,258; how:
-//   PERF.md section 6): 3.715 against 4.044 ms at D 2048, 5.592 against
-//   5.896 ms at D 3072;
+//   products and its epilogue (from registers: bf16 stores, for dlogits the
+//   exponentials first; for the lse a row reduction by quad shuffles, with
+//   no shared memory and no barrier) runs while they land. Measured against
+//   a block a tile for dE (NVIDIA H100 80GB HBM3, 700 W, N 4096, V 133,258;
+//   how: PERF.md section 6): 3.715 against 4.044 ms at D 2048, 5.592
+//   against 5.896 ms at D 3072;
 // - neighbouring tile indices share an operand slab through L2: for dh and
 //   dE the column tiles of one row tile (dlogits comes from device memory
-//   about once), for dlogits the row (token) tiles of one vocab tile (E comes
-//   from device memory about once, and h, 16 MB at the main path's shape,
-//   stays in L2);
+//   about once), for the lse and dlogits the row (token) tiles of one vocab
+//   tile (E comes from device memory about once, and h, 16 MB at the main
+//   path's shape, stays in L2);
 // - each output tile sums its whole K in one block, in a fixed order: no
 //   split-K and no atomics, so two launches give the same bits.
 // Its times on the card beside its bound and torch.mm's: PERF.md section 6.
@@ -73,6 +80,8 @@ constexpr int THREADS = 256;
 constexpr uint32_t BOX_BYTES = BK * 64 * 2;  // one [64 x 64] box: 8 KB
 constexpr int IGNORE = -100;                 // CROSS_ENTROPY_IGNORE_IDX
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float NEG_INF = -1.0e30f;  // the logit of a vocab column at or past V
+constexpr int LSE_BN = 256;          // vocab columns of an lse tile: one (m, l) pair a row
 
 template <int BN>
 struct Smem {
@@ -149,6 +158,50 @@ struct DlogitsEpi {
             if (col + 1 < V)
                 d1 = (hw::exp2_ftz(fmaf(acc[4 * j + 2 * hi + 1], LOG2E, -sh)) - (col + 1 == lab ? 1.f : 0.f)) * gg;
             *reinterpret_cast<__nv_bfloat162*>(out + col) = __floats2bfloat162_rn(d0, d1);
+        }
+    }
+    __device__ __forceinline__ void operator()(const float (&acc)[128], int row, int col0) const {
+        row_out(acc, 0, row, col0);
+        row_out(acc, 1, row + 8, col0);
+    }
+};
+
+// The logsumexp's partial pair of each token row over the tile's 256 vocab
+// columns: m, the max over the columns below V (the others count as -1e30,
+// as the TPU kernel masks them; they hold zero-filled boxes' 0), and l, the
+// sum of exp(logit - m) over the same columns, into m_part / l_part
+// [n_vtiles, N] at the tile's index col0 / 256; rows past N are not written.
+// The four threads of a quad hold a row's 256 columns (64 each): two xor
+// shuffles combine m, two more l. No shared memory and no barrier, so the
+// next tile's slabs land while it runs.
+struct LseEpi {
+    float* m_part;
+    float* l_part;
+    int N, V;
+    __device__ __forceinline__ void row_out(const float (&acc)[128], int hi, int row, int col0) const {
+        const int lim = V - col0;  // this thread's columns col0 + c are below V where c < lim
+        float m = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+            m = fmaxf(m, 8 * j < lim ? acc[4 * j + 2 * hi] : NEG_INF);
+            m = fmaxf(m, 8 * j + 1 < lim ? acc[4 * j + 2 * hi + 1] : NEG_INF);
+        }
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        const float sh = m * LOG2E;
+        float l0 = 0.f, l1 = 0.f;  // even and odd columns: two chains of adds
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+            if (8 * j < lim) l0 += hw::exp2_ftz(fmaf(acc[4 * j + 2 * hi], LOG2E, -sh));
+            if (8 * j + 1 < lim) l1 += hw::exp2_ftz(fmaf(acc[4 * j + 2 * hi + 1], LOG2E, -sh));
+        }
+        float l = l0 + l1;
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        if (threadIdx.x % 4 == 0 && row < N) {
+            const long long idx = (long long)(col0 / LSE_BN) * N + row;
+            m_part[idx] = m;
+            l_part[idx] = l;
         }
     }
     __device__ __forceinline__ void operator()(const float (&acc)[128], int row, int col0) const {
@@ -272,6 +325,22 @@ bool shapes_ok(int N, int V, int D, int ldv) { return N > 0 && V > 0 && D > 0 &&
 }  // namespace
 
 namespace ssi {
+
+// the logsumexp's vocab tiles: the rows of its (max, sum) scratch [n, N]
+int cross_entropy_lse_hopper_splits(int V) { return (V + LSE_BN - 1) / LSE_BN; }
+
+// m_part / l_part [ceil(V / 256), N]: each token row's (max, sum of exp) over
+// each 256-column vocab tile of h [N, D] . E [V, D]^T
+cudaError_t cross_entropy_lse_hopper_bf16(const void* h, const void* e, float* m_part, float* l_part, int N, int V,
+                                          int D, cudaStream_t stream) {
+    // no dlogits scratch here: V rounded up to 8 stands for its row stride
+    if (!shapes_ok(N, V, D, (V + 7) / 8 * 8) || !aligned16(h) || !aligned16(e)) return cudaErrorInvalidValue;
+    CUtensorMap th, te;
+    cudaError_t err = hw::map_2d(&th, h, N, D, D, BK);
+    if (err == cudaSuccess) err = hw::map_2d(&te, e, V, D, D, BK);
+    if (err != cudaSuccess) return err;
+    return launch<LSE_BN, false, false, true>(th, te, LseEpi{m_part, l_part, N, V}, N, V, D, stream);
+}
 
 // dlogits [N, ldv] from h [N, D], E [V, D], lse [N], labels [N] and the scalar g
 cudaError_t cross_entropy_dlogits_hopper_bf16(const void* h, const void* e, const float* lse, const int* labels,

@@ -1,9 +1,8 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a) kernels written
 // with mma.sync: asynchronous global -> shared copies (cp.async), ldmatrix
 // fragment loads, the m16n8k16 bf16 product with f32 accumulators, and bf16
-// packing. Used by paged_attention.cu and cross_entropy.cu (the bf16
-// logsumexp), and through hopper.cuh by the Hopper kernels (smem_addr,
-// pack_bf16, cp_async4).
+// packing. Used by paged_attention.cu, and through hopper.cuh by the Hopper
+// kernels (smem_addr, pack_bf16, cp_async4).
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A [16 x 16], 4 regs of 2 bf16: a0 (row g, cols 2t, 2t+1), a1 (row g+8,

@@ -1,6 +1,7 @@
 // Block-wide f32 tile products on operands staged in shared memory, for the
 // f32 parity paths of the training kernels (flash_attention_bwd.cu,
-// cross_entropy.cu); their bf16 paths run mma.sync (mma.cuh).
+// cross_entropy.cu); their bf16 paths run wgmma (flash_hopper_bwd.cu,
+// cross_entropy_hopper.cu).
 //
 //   tile_mma<M, N, K, A_T, B_T>(C, ldc, A, lda, B, ldb):  C[M x N] += A . B
 //

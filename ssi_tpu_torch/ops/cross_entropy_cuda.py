@@ -1,5 +1,7 @@
-"""Fused cross-entropy: the CUDA kernels ``csrc/cross_entropy.cu`` and the
-autograd wrapper the training loss calls.
+"""Fused cross-entropy: the CUDA kernels (entry points, the f32 paths and
+the logsumexp's merge pass in ``csrc/cross_entropy.cu``; the bf16 products
+on the Hopper GEMM of ``csrc/cross_entropy_hopper.cu``) and the autograd
+wrapper the training loss calls.
 
 Port of ``ssi_tpu/ops/cross_entropy_pallas.py`` (TPU kernels ``_lse_kernel``,
 ``_dh_kernel``, ``_de_kernel``). The forward launches the logsumexp kernel

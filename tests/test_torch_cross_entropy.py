@@ -14,7 +14,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from ssi_tpu.constants import CROSS_ENTROPY_IGNORE_IDX as JAX_IGNORE
 from ssi_tpu.ops.cross_entropy import fused_cross_entropy as jax_ce
-from ssi_tpu.ops.cross_entropy_pallas import fused_cross_entropy_pallas
+from ssi_tpu.ops.cross_entropy_pallas import _compute_lse, fused_cross_entropy_pallas
 from ssi_tpu_torch.constants import CROSS_ENTROPY_IGNORE_IDX
 from ssi_tpu_torch.ops.cross_entropy import (
     cross_entropy_de,
@@ -23,6 +23,7 @@ from ssi_tpu_torch.ops.cross_entropy import (
     cross_entropy_dh_gemm,
     cross_entropy_dlogits,
     cross_entropy_lse,
+    cross_entropy_lse_merge,
     cross_entropy_sum_and_count,
     fused_cross_entropy,
 )
@@ -122,6 +123,31 @@ def test_dlogits_products_match_jax_pallas_grads(case):
     dl_k = cross_entropy_dlogits_kernel(th, te, ty, cross_entropy_lse(th, te, chunk), g, chunk)
     np.testing.assert_allclose(cross_entropy_dh_gemm_kernel(dl_k, te).numpy(), w_dh, **GRAD_TOL)
     np.testing.assert_allclose(cross_entropy_de_gemm_kernel(dl_k, th).numpy(), w_de, **GRAD_TOL)
+
+
+LSE_TILE = 256  # vocab columns of one (max, sum) pair of the bf16 lse kernel (csrc/cross_entropy_hopper.cu)
+
+
+@pytest.mark.parametrize("v", [1100, 513])  # 4 full tiles and a 76-column tail; 2 and a 1-column tail
+def test_lse_by_vocab_tiles_and_merge_match_jax_pallas(v):
+    """The arithmetic of the card's bf16 logsumexp: each 256-column vocab
+    tile's logsumexp (here the plain version on the tile's rows), merged in
+    tile order by the plain merge pass, against the JAX ``_compute_lse``
+    Pallas kernel in interpret mode (streaming over 128-column blocks, the
+    columns past V masked). Row 5's largest logit sits in the ragged last
+    tile. f32: atol 1e-5, rtol 1e-6."""
+    n, d, token_block, vocab_block = 64, 32, 32, 128
+    h, e, _ = make_inputs(n, v, d, 5, 0, False)
+    e[v - 1] = h[5]  # row 5's logit |h_5|^2 against a spread of ~sqrt(d)
+    assert int(np.argmax(h[5] @ e.T)) == v - 1
+    th, te = torch.from_numpy(h), torch.from_numpy(e)
+    parts = torch.stack([cross_entropy_lse(th, te[v0:v0 + LSE_TILE], 16) for v0 in range(0, v, LSE_TILE)])
+    got = cross_entropy_lse_merge(parts).numpy()
+    v_pad = -(-v // vocab_block) * vocab_block
+    e_pad = np.concatenate([e, np.zeros((v_pad - v, d), np.float32)])
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(_compute_lse(jnp.asarray(h), jnp.asarray(e_pad), v, token_block, vocab_block))[:, 0]
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-6)
 
 
 def test_sum_and_count():

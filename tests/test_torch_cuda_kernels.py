@@ -32,6 +32,7 @@ from ssi_tpu_torch.ops.cross_entropy_cuda import (
     cross_entropy_dh_kernel,
     cross_entropy_dlogits_kernel,
     cross_entropy_lse_kernel,
+    cross_entropy_lse_merge_kernel,
     fused_cross_entropy_kernel,
 )
 from ssi_tpu_torch.ops.flash_attention import (
@@ -433,11 +434,13 @@ def ce_inputs(gen, dtype, n, v, d, every=7):
 @pytest.mark.parametrize("spread", [1.0, 4.0])
 @pytest.mark.parametrize("n,v,d,every", [(100, 257, 128, 7), (64, 1000, 256, 7), (130, 4099, 128, 7),
                                          (16, 63, 128, 7), (200, 1001, 256, 7), (100, 1001, 128, 1),
-                                         (100, 1001, 384, 7), (64, 129, 256, 7)])
+                                         (100, 1001, 384, 7), (64, 129, 256, 7), (100, 256, 128, 7),
+                                         (100, 511, 256, 7)])
 def test_cross_entropy_kernels_match_plain(gen, dtype, spread, n, v, d, every):
     """lse, the dlogits pass and the dh / dE GEMMs against their plain
     versions: V not a multiple of 8 (the ldv pad) or of 128 (129: one row
-    past a tile), N not a multiple of 128, D a multiple of 128 but not of 256
+    past a tile), V at, one past and short of a 256-column lse tile (256,
+    257, 511), N not a multiple of 128, D a multiple of 128 but not of 256
     (384), every 7th label ignored or all of them (every=1), h scaled by
     ``spread`` (4: a peaked softmax). No atomics: a second launch of lse, dh
     and dE gives the same bits."""
@@ -461,6 +464,73 @@ def test_cross_entropy_kernels_match_plain(gen, dtype, spread, n, v, d, every):
     assert torch.equal(cross_entropy_de_kernel(h, e, y, lse, g), de)
     if every == 1:
         assert not dl.any() and not dh.any() and not de.any()
+
+
+LSE_ATOL = 1e-3  # the lse, absolute (chip_smoke.py's LSE_ATOL): far below a row's logit spread
+
+
+def lse_once(h, e):
+    """The kernel's lse, checked to count one ``cross_entropy_lse`` launch."""
+    _build.launch_counts.clear()
+    lse = cross_entropy_lse_kernel(h, e)
+    assert dict(_build.launch_counts) == {"cross_entropy_lse": 1}
+    return lse
+
+
+def ce_inputs_tail_max(gen, n, v, d, spread):
+    """bf16 h (scaled by ``spread``) and E, with row 1's largest logit in
+    the last vocab column: E[V - 1] = h[1] / 2, a logit of |h_1|^2 / 2
+    against the others' spread of sqrt(d) / 2 x ``spread``."""
+    h, e, _ = ce_inputs(gen, torch.bfloat16, n, v, d)
+    h = h * spread
+    e[v - 1] = h[1] * 0.5
+    assert int((h[1:2].float() @ e.float().T).argmax()) == v - 1
+    return h, e
+
+
+@pytest.mark.parametrize("n,v,d,spread", [
+    (100, 256, 128, 1.0),     # the last 256-column tile full
+    (100, 257, 128, 1.0),     # one column in the last tile
+    (100, 511, 128, 1.0),     # a ragged last tile
+    (300, 40_001, 256, 1.0),  # 157 tiles x 3 token tiles, more than the SMs: a block walks several, its ring crosses them
+    (16, 1000, 128, 1.0),     # D 128: 2 K slabs, fewer than the 4 ring stages
+    (130, 4099, 384, 1.0),    # D 384: 6 K slabs
+    (130, 4099, 384, 4.0),    # spread 4: a peaked softmax
+    (100, 511, 256, 4.0),
+])
+def test_cross_entropy_lse_bf16_hopper_matches_plain(gen, n, v, d, spread):
+    """The bf16 lse (the Hopper GEMM's partial pass, then the merge) against
+    the plain lse within ``LSE_ATOL``, one launch a call, bitwise equal over
+    two launches. Row 1's max lies in the last (ragged) vocab tile; the
+    control, the kernel's lse with that last column dropped, must miss."""
+    h, e = ce_inputs_tail_max(gen, n, v, d, spread)
+    lse = lse_once(h, e)
+    want = cross_entropy_lse(h, e)
+    assert lse.shape == (n,) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, atol=LSE_ATOL, rtol=0)
+    assert torch.equal(lse_once(h, e), lse)
+    dropped = lse_once(h, e[:-1])
+    assert (dropped - want).abs().max().item() > LSE_ATOL
+
+
+@pytest.mark.parametrize("bounds", [(0, 700, 1601, 3001), (0, 1, 257, 3001), (300, 2000)])
+def test_cross_entropy_lse_bf16_hopper_on_vocab_slices(gen, bounds):
+    """The bf16 lse over the views E[v0:v1] (v0 not a multiple of 256, as a
+    tensor-parallel rank's slice: the TMA map starts mid-vocabulary), merged
+    in order by :func:`cross_entropy_lse_merge_kernel`, against the plain
+    lse over the same rows and the kernel's lse over them at once, within
+    ``LSE_ATOL``; row 1's max lies in the last column. (300, 2000): one
+    slice that starts at row 300."""
+    n, d = 200, 256
+    h, e = ce_inputs_tail_max(gen, n, bounds[-1], d, 1.0)
+    e = e[bounds[0]:]
+    v0s = [b - bounds[0] for b in bounds]
+    parts = torch.stack([lse_once(h, e[a:b]) for a, b in zip(v0s, v0s[1:])])
+    merged = cross_entropy_lse_merge_kernel(parts)
+    want = cross_entropy_lse(h, e)
+    torch.testing.assert_close(merged, want, atol=LSE_ATOL, rtol=0)
+    torch.testing.assert_close(merged, lse_once(h, e), atol=LSE_ATOL, rtol=0)
+    assert torch.equal(cross_entropy_lse_merge_kernel(parts), merged)
 
 
 @pytest.mark.parametrize("n,v,d", [(100, 4099, 256), (300, 40_001, 512), (16, 129, 384)])

@@ -28,15 +28,17 @@ non-zero without printing the final line):
    launches the kernel, the 16 layers' page tables in turn (no launch finds
    its pages in L2 from the one before; a rate above the card's 3.35 TB/s
    fails the run as a timing error), beside the same layer launched again
-   and again, graphed and eager, with GB/s of history pages;
+   and again, graphed and eager, with GB/s of history pages; the device
+   kernels one bf16 call runs must be 1 (read with ``torch.profiler`` after
+   phase 1, at each paged phase's shape, in a child process);
 a. the multi-token verify kernel (#9) vs its plain version at the same
    shape, T 4 and 8, f32 and bf16: history 0, a mid-page start, spans that
    cross a page, full context less T, an inactive slot and a slot whose
    write cap cuts its span; attention within tolerance on tokens whose
    writes land, beside a control (the plain output with the in-flight
    causal mask dropped) that must miss; two launches bitwise equal; pools
-   bitwise equal except the trash row; T 4 at context 16,384; times as in
-   phase 3;
+   bitwise equal except the trash row; T 4 at context 16,384; times and the
+   kernels a bf16 call runs as in phase 3;
 4. engine in f32 at the full width of ``llama3_2_1b`` (random weights from
    ``--seed``): greedy tokens identical with the kernels and with the plain
    versions, and equal to a full-recompute greedy oracle for one prompt;
@@ -723,6 +725,79 @@ def graph_ms(calls, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * len(calls))
 
 
+def device_kernels(fn) -> list[str]:
+    """The names of the device activities (kernels, copies, fills) of one
+    call of ``fn``, after a warm-up call, as a ``torch.profiler`` window
+    records them. A window that records no device activity at all (the
+    profiler did not see the card) is read again, up to three windows."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    names: list[str] = []
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+# (Hq, Hkv, head_dim, T) -> the device kernels one bf16 paged call runs there
+PAGED_KERNELS: dict[tuple, list[str]] = {}
+PAGED_SHAPES = [(32, 8, 64, 1), (32, 8, 64, 4), (32, 8, 64, 8), (24, 8, 128, 1), (32, 8, 128, 1), (24, 8, 128, 4),
+                (24, 8, 128, 8), (32, 8, 128, 4), (32, 8, 128, 8)]  # phases 3, a, 3g, 3h, ag, ah
+
+
+def paged_kernel_names() -> dict[str, list[str]]:
+    """The device kernels one bf16 call of #8 / #9 runs at each serving
+    shape of phases 3, a, 3g, 3h, ag and ah (32 slots, page 128, context
+    1,280, ragged), each read with a ``torch.profiler`` window; keyed
+    "Hq,Hkv,hd,T"."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    slots, ps, max_pages = 32, 128, 10
+    names = {}
+    for hq, hkv, hd, t_q in PAGED_SHAPES:
+        kernel, _, lens_of = paged_call(t_q)
+        hist = torch.randint(0, ps * max_pages - t_q, (slots,), generator=gen, device="cuda").to(torch.int32)
+        active = torch.ones(slots, dtype=torch.bool, device="cuda")
+        kp, vp, q, kn, vn, ((table, write),) = paged_inputs(gen, torch.bfloat16, t_q, slots, hkv, hq // hkv, ps,
+                                                            max_pages, 1, hist, active, hd)
+        lens = lens_of(hist, active)
+        names[f"{hq},{hkv},{hd},{t_q}"] = device_kernels(
+            lambda: kernel(q, kp, vp, table, lens, k_new=kn, v_new=vn, write_rows=write))
+    return names
+
+
+def count_paged_kernels() -> None:
+    """``paged_kernel_names`` in a child process, whose tracing leaves this
+    one untouched: a process that has traced stays slower on the host (the
+    serving phases' tok/s would read it), and once phase e's traced step has
+    run, windows here were seen to record no device activity."""
+    out = subprocess.run([sys.executable, "-c", "import json, chip_smoke; "
+                          "print(json.dumps(chip_smoke.paged_kernel_names()))"],
+                         cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"counting the paged kernels' device kernels failed: {out.stderr[-2000:]}")
+    for key, names in json.loads(out.stdout.strip().splitlines()[-1]).items():
+        PAGED_KERNELS[tuple(int(x) for x in key.split(","))] = names
+    log(f"  paged bf16 device kernels a call, read with torch.profiler in a child process: "
+        + ", ".join(f"Hq{k[0]} hd{k[2]} T{k[3]} {len(v)}" for k, v in PAGED_KERNELS.items()))
+
+
+def one_launch(what: str, hq: int, hkv: int, hd: int, t_q: int) -> str:
+    """Check that one bf16 call of a paged kernel at this shape runs one
+    device kernel (as ``count_paged_kernels`` read it after the build)."""
+    names = PAGED_KERNELS[(hq, hkv, hd, t_q)]
+    check(len(names) == 1, f"{what}: one call ran {len(names)} device kernels ({names}), not 1")
+    return f"one call runs 1 device kernel ({names[0][:90]}; torch.profiler)"
+
+
 def paged_times(kernel, plain, per_layer, layer, n_bytes):
     """The kernel's device time as the decode step launches it, the layers'
     page tables in turn (no launch finds its pages in L2 from the one
@@ -800,6 +875,7 @@ def phase_paged(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase 3 paged decode
                 lambda t, w: kernel(q, kp, vp, t, seq_lens, write_rows=w, **kw),
                 lambda t, w: plain(q, kp_ref, vp_ref, t, seq_lens, write_rows=w, **kw), per_layer, layer, n_bytes)
             t_k, t_p, t_same, t_eager, gbs = timing
+            log(f"  paged Hq{hq} Hkv{hkv} hd{hd} bf16: " + one_launch(f"paged Hq{hq} Hkv{hkv} hd{hd}", hq, hkv, hd, 1))
             # bound: those pages, q read and out written, the new K/V read and written once
             bound_ms, bound_by = bound(4 * n_tokens * hq * hd,
                                        n_bytes + 2 * 2 * slots * hq * hd + 4 * 2 * slots * hkv * hd)
@@ -880,6 +956,8 @@ def phase_paged_multi(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase a paged 
                     lambda t, w: kernel(q, kp, vp, t, hist, write_rows=w, **kw),
                     lambda t, w: plain(q, kp_ref, vp_ref, t, hist, write_rows=w, **kw), per_layer, layer,
                     n_bytes_hist)
+                log(f"  paged multi T{t_q} Hq{hq} Hkv{hkv} hd{hd} bf16: " + one_launch(
+                    f"paged multi T{t_q} Hq{hq} Hkv{hkv} hd{hd}", hq, hkv, hd, t_q))
                 # bound: the history K and V rows of active slots, q read and out written,
                 # the new K/V read once and the persisted tokens written once
                 n_bytes = (n_bytes_hist + 2 * slots * t_q * hq * hd * elt + 2 * slots * t_q * hkv * hd * elt
@@ -4546,6 +4624,7 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
+    count_paged_kernels()
     mark("phases 0-1")
     if "1b" in groups:
         rows = {"flash_attention_fwd": phase_flash(gen), "paged_attention_fused": phase_paged(gen),

@@ -70,15 +70,17 @@ _SIGNATURES = {
     "ssi_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L, _I, _c.c_float, _P],
     # dtype, q, k_pool, v_pool, page_table, seq_lens, k_new, v_new, write_rows,
-    # out, part (scratch), n_slots, Hq, Hkv, head_dim, page_size, max_pages, pages per split,
-    # n_splits, scale, stream
-    "ssi_paged_attention_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
+    # out, part (scratch), counters, k_map, v_map, n_slots, Hq, Hkv, head_dim, page_size, max_pages,
+    # pages per split, n_splits, box, scale, stream
+    "ssi_paged_attention_fused": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
     # dtype, q, k_pool, v_pool, page_table, hist_lens, k_new, v_new, write_rows,
-    # out, part (scratch), n_slots, T, Hq, Hkv, head_dim, page_size, max_pages, trash row,
-    # pages per split, n_splits, scale, stream
-    "ssi_paged_attention_multi": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
+    # out, part (scratch), counters, k_map, v_map, n_slots, T, Hq, Hkv, head_dim, page_size, max_pages,
+    # trash row, pages per split, n_splits, box, scale, stream
+    "ssi_paged_attention_multi": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
+    # map (out, 128 bytes), pool, rows of keys, row width (Hkv * head_dim), keys per box
+    "ssi_paged_pool_map": [_P, _P, _L, _I, _I],
     # dtype, q, k, v, o, do, lse, seg, delta (scratch), dq, dk, dv, B, S, Hq, Hkv, head_dim, causal,
     # scale, stream
     "ssi_flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

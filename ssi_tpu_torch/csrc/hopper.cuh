@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the bf16 flash kernels
-// (flash_hopper_fwd.cu, flash_hopper_bwd.cu) and the cross-entropy backward's
-// GEMM (cross_entropy_hopper.cu): mbarriers, TMA tile loads fed by tensor maps,
+// (flash_hopper_fwd.cu, flash_hopper_bwd.cu), the cross-entropy GEMM
+// (cross_entropy_hopper.cu) and the paged core's page loads
+// (paged_attention.cu): mbarriers, TMA tile loads fed by tensor maps,
 // warpgroup matrix products (wgmma) with shared-memory descriptors, and the
 // host-side tensor-map encoding. Raw PTX, no CUTLASS: each source compiles in
 // seconds.
@@ -60,6 +61,11 @@ __device__ __forceinline__ void fence_barrier_init() {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
                  : "memory");
+}
+
+// arrive once on bar (one of the phase's expected arrivals)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
 }
 
 // wait until the phase of parity `parity` has completed (a fresh barrier's

@@ -1,8 +1,7 @@
 // Warp-level tensor-core building blocks for Hopper (sm_90a) kernels written
-// with mma.sync: asynchronous global -> shared copies (cp.async), ldmatrix
-// fragment loads, the m16n8k16 bf16 product with f32 accumulators, and bf16
-// packing. Used by paged_attention.cu, and through hopper.cuh by the Hopper
-// kernels (smem_addr, pack_bf16, cp_async4).
+// with mma.sync: ldmatrix fragment loads, the m16n8k16 bf16 product with f32
+// accumulators, and bf16 packing. Used by paged_attention.cu, and through
+// hopper.cuh by the Hopper kernels (smem_addr, pack_bf16, cp_async4).
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A [16 x 16], 4 regs of 2 bf16: a0 (row g, cols 2t, 2t+1), a1 (row g+8,
@@ -24,45 +23,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte copy global -> shared that completes asynchronously; the first
-// src_bytes (0..16) are read and the rest of the 16 bytes are zero-filled.
-// dst and src are 16-byte aligned.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
 // 4-byte copy global -> shared (src_bytes 0 or 4; 0 zero-fills); 4-byte aligned
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // Shared row stride (elements) of a staged [rows, COLS] bf16 tile: COLS + 8,
 // an odd number of 16-byte units (144 bytes at 64 columns, 272 at 128), so
 // the 8 row addresses of an ldmatrix fall in distinct banks.
 template <int COLS>
 constexpr int lds = COLS + 8;
-
-// A block's tiles in shared memory: a static __shared__ object when it fits
-// the 48 KB static limit (STATIC), else the dynamic buffer, which the
-// launcher sizes to sizeof(Tiles) after allow_dynamic_smem (common.cuh).
-template <typename Tiles, bool STATIC>
-__device__ __forceinline__ Tiles& block_tiles() {
-    if constexpr (STATIC) {
-        __shared__ __align__(128) Tiles tiles;
-        return tiles;
-    } else {
-        extern __shared__ __align__(128) unsigned char dynamic_smem[];
-        return *reinterpret_cast<Tiles*>(dynamic_smem);
-    }
-}
-
-// wait until at most N of this thread's committed copy groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
 // and r[i] holds this lane's (row g, cols 2t, 2t+1) of matrix i

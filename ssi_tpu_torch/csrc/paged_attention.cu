@@ -2,7 +2,7 @@
 // single-token decode (kernel #8) and the T-token write + verify of
 // speculative decoding (kernel #9) on one core. head_dim 64 (the 100m and
 // 1B models) or 128 (3B and 8B), any GQA ratio n_rep with T * n_rep <= 64,
-// f32 or bf16 storage.
+// f32 or bf16 storage, page sizes that are multiples of 8.
 //
 // Replaces the TPU kernels ssi_tpu/generate/paged_pallas.py
 // `paged_attention_pallas` -> `_kernel` and `paged_attention_pallas_multi`
@@ -28,80 +28,107 @@
 // What bounds it on Hopper: the bytes of the history pages (each history K
 // and V element is read once per step and used by all T * n_rep query rows of
 // its kv head: ~4 FLOP per byte at T 1, ~32 at T 8, far below the 295 at
-// which the tensor cores would bound it). So the design is about keeping
-// enough bytes in flight on every SM:
-// - the context is split: one block per (split, kv head, slot), each split
-//   walking `split_keys` keys (a whole number of pages; the wrapper's split
-//   plan). At the 1B serving shape (32 slots, 8 kv heads, context 1,280,
-//   256-key splits) that is 1,280 blocks, several resident on every SM,
-//   where one block per (slot, kv head) gave 256. Splits past a slot's
-//   history exit at once;
-// - each block streams its keys in 64-key tiles (16 KB of K and V in bf16)
-//   through a cp.async ring of STAGES stages: the next tiles load while
-//   tile i is used. A page of the pool is one contiguous [ps, Hkv*HD] slab
-//   and this kv head's stripe of it is ps rows of 2 * HD bytes (bf16), so
-//   HD / 8 threads move one key's K row and as many its V row, 16 bytes
-//   each;
-// - bf16: S = Q.K^T and P.V run on mma.sync m16n8k16 (csrc/mma.cuh) with f32
-//   accumulators. The R = T * n_rep query rows of the kv head are one or two
-//   m16 tiles (R 4 at #8's n_rep 4, padded with zero rows; 16 at T 4; 32 at
-//   T 8); R above 32 takes two row groups of blocks, each reading the pages.
-//   Row r is in-flight token r / n_rep of q head r % n_rep, whatever n_rep
-//   divides (3B's n_rep 3 gives R 3 at T 1 and 12 at T 4, one m16 tile
-//   with padding rows that are computed and never stored).
-//   At head_dim 128 a block holds one m16 tile (BLOCK_ROWS 16: R above 16
-//   takes more row groups), so Q's fragments and the [16 x 128] f32 sum stay
-//   within the registers a thread has, and the Q tile and the 2-stage K/V
-//   ring (72 KB, past the 48 KB static limit) live in dynamic shared memory;
-//   Each of the 4 warps takes 16 keys of every tile and runs its own online
-//   softmax over them, so the tile loop needs no exchange between warps; the
-//   four partial states are combined once, at the end, in warp order. As in
-//   the flash forward, scores are scaled and masked in f32 (masked: -1e30,
-//   with the m_safe clamp), the row sums add the f32 probabilities, and P is
-//   cast to bf16 for P.V;
-// - f32 (the parity path): the same split and merge with scalar FMAs, one
-//   block of 128 threads holding all R rows, K and V staged as f32.
+// which the tensor cores would bound it). At the serving shapes a call reads
+// 10-40 MB, ~3-12 us at the card's rate, so the fixed costs of a launch and
+// of a block weigh as much as the streaming. And a kv head's stripe of a key
+// row is 128 or 256 bytes, 1-2 KB from the next key's: TMA moves such rows
+// at a bounded rate per SM, with a cost per box on top (`python3 -m
+// ssi_tpu_torch.profile_paged` reads both), so a ragged batch is as fast as
+// the SM its longest slots land on, and boxes are as large as a page allows. The bf16 design (one kernel for both head_dims and
+// T 1-8) is spent on those:
+// - one block of 5 warps per (split, kv head, slot), each split walking
+//   `split_keys` keys (whole pages; the wrapper's split plan: 1,280 keys, so
+//   the serving shapes take one split and no merge); splits past a slot's
+//   history exit at once. All R = T * n_rep <= 64 query rows of the kv head
+//   are in the block, so every history byte is read once per call;
+// - pages arrive by TMA: the pools are 2D tensor maps [rows * ps, Hkv*HD]
+//   (encoded on the host, cached by the wrapper) read in boxes of `box` keys
+//   (the largest power of two dividing ps, at most the tile: a box never
+//   crosses a page) by 64 columns, 128-byte swizzled. Tiles are BK keys (128
+//   at head_dim 64, 64 at 128: 32 KB of K and V either way), so at page 128
+//   a tile is one box per 64 columns of each of K and V. One lane of a
+//   fifth, producer warp issues a tile's boxes onto the stage's `full`
+//   mbarrier once the 4 product warps have arrived on its `empty` one; the
+//   ring has 2 stages (64 KB: 3 blocks an SM at head_dim 64, 2 at 128). The
+//   address work of a tile is a page-table read per box in that lane, off
+//   the products' path, and the product warps never wait for each other
+//   within the key loop;
+// - S = Q.K^T and P.V run on mma.sync m16n8k16 (csrc/mma.cuh) with f32
+//   accumulators, fed by ldmatrix from the swizzled tiles (conflict-free).
+//   R is 3-64 rows: a 64-row wgmma would mostly compute padding, and the
+//   products are far from bounding the kernel. The block's 4 warps split the
+//   rows' m16 tiles into row groups (a warp holds at most two m16 tiles at
+//   head_dim 64, one at 128: Q's fragments and its [16 x HD] f32 sums stay
+//   in registers) and each tile's keys into key slices, one per warp of a
+//   row group; each warp runs its own online softmax over its keys, and the
+//   slices are combined once, at the end, in slice order. Row r is in-flight
+//   token r / n_rep of q head r % n_rep; padding rows are computed and never
+//   stored. As in the flash forward, scores are scaled and masked in f32
+//   (masked: -1e30, with the m_safe clamp), the row sums add the f32
+//   probabilities, and P is cast to bf16 for P.V;
+// - keys past the history: a box brings whole page rows, so a slot's last
+//   tile holds keys at or past hist_len with whatever the pool holds there
+//   (stale data, NaN, Inf), and rows no box was issued for hold an earlier
+//   tile's bytes. Their scores are replaced (a select, not arithmetic) by the
+//   mask value and their V rows are zeroed in shared memory before P.V, so
+//   no such value reaches the output (0 * NaN would);
+// - the in-flight K/V rows (T <= 8) are read with plain 16-byte loads at the
+//   block's start (registers), written to their cells from there, and stored
+//   as one 16-key tile after the history. Every read that needs no history
+//   length (Q, these rows, the split's first page) is issued before the
+//   length's own;
+// - one launch per call: a slot whose history fits one split is finished by
+//   that split, which writes the normalised output itself. Otherwise each
+//   split writes its unnormalised state to the scratch `part` and counts its
+//   arrival on the (slot, kv head)'s counter; the split that arrives last
+//   combines all the slot's splits, in split order, and resets the counter
+//   to 0. Which block merges depends on timing; what it computes does not,
+//   so two launches give the same bits.
+// - f32 (the parity path): the same split with scalar FMAs, one block of 128
+//   threads holding all R rows, K and V staged as f32, and a merge kernel
+//   launched right after.
 //
-// Merge: the split that holds the slot's last history key (split 0 when the
-// history is empty) also folds in the in-flight tokens and does the token
-// writes. A slot whose history fits in one split is finished by that split,
-// which writes the normalised output itself. Otherwise each split writes its
-// unnormalised state to the scratch `part` (allocated by the wrapper; the
-// kernels allocate nothing):
+// Scratch (allocated by the wrapper; the kernels allocate nothing):
 //   o  [slots, Hkv, n_splits, R, HD] f32: sum over the split's keys of
 //      exp(s - m) * v;
 //   ml [slots, Hkv, n_splits, R, 2]  f32: (m, sum of exp(s - m)),
-// the ml block following the o block. Its size is bounded by the wrapper's
+// the ml block following the o block; its size is bounded by the wrapper's
 // cap on n_splits: a long context gives each split more pages, not more
-// splits. The merge kernel (launched from the same C entry point, right
-// after) combines a slot's live splits in split order: no atomics, so two
-// launches give the same bits.
+// splits. `counters` [slots * Hkv] int32, zero between calls (bf16 only).
 //
-// No block reads what another writes: the token writes land at positions
-// >= hist_len of their own slot, in their own kv head's columns, and no split
-// of the launch reads a position >= hist_len (a page shared through the
-// prefix cache holds prompt positions <= p-2 only and is never a write
-// target). In every kernel here blockIdx.y is the kv head.
+// The split that holds the slot's last history key (split 0 when the history
+// is empty) also folds in the in-flight tokens and does the token writes (in
+// bf16 first, from the registers its in-flight rows are read into; in f32 at
+// its end). No block reads what another writes: the token writes land at
+// positions >= hist_len of their own slot, in their own kv head's columns,
+// and only that split's own last box reaches past hist_len (masked, whatever
+// it reads there); a page shared through the prefix cache holds prompt
+// positions <= p-2 only and is never a write target. In every kernel here
+// blockIdx.y is the kv head.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;
+namespace hw = ssi::hopper;
+
+constexpr int THREADS = 128;             // f32 blocks
 constexpr int WARPS = THREADS / 32;
+constexpr int CONSUMERS = 128;           // bf16: 4 warps run the products
+constexpr int BF16_THREADS = CONSUMERS + 32;  // and a producer warp issues the page loads
 constexpr int TK = 64;          // keys per tile
 constexpr int MAX_T = 8;        // in-flight tokens per slot
 constexpr int MAX_ROWS = 64;    // T * n_rep
-// query rows one bf16 block holds: two m16 tiles at head_dim 64, one at 128
-template <int HD>
-constexpr int BLOCK_ROWS = HD == 64 ? 32 : 16;
 constexpr float NEG_INF = -1.0e30f;
 constexpr float M_CLAMP = -0.5e30f;  // m_safe = max(m, M_CLAMP)
 constexpr float LOG2E = 1.4426950408889634f;
@@ -119,12 +146,14 @@ struct Args {
     const int* write_rows;   // [slots, T]
     void* out;               // [slots, T, Hq, HD]
     float* part;             // the split scratch (see the top of the file)
+    int* counters;           // [slots * Hkv] arrivals of split blocks (bf16)
     int lens_shift;          // -1 (#8: seq_lens counts the incoming token) or 0 (#9)
     int trash;               // a write row equal to it is skipped; -1: none is (#8)
     int n_slots, t_q, Hkv, n_rep, ps, max_pages;
     int split_keys;          // keys per split (pages per split * ps)
     int n_splits;            // splits per (slot, kv head)
     int rows;                // R = t_q * n_rep
+    int box;                 // keys per TMA box (bf16): divides ps and 64
     float scale;
 };
 
@@ -144,6 +173,7 @@ __device__ __forceinline__ int clamp_hist(const Args& a, int hist_raw) {
     return min(max(hist_raw, 0), a.max_pages * a.ps);
 }
 
+template <int KEYS = TK>  // keys per tile
 __device__ __forceinline__ Span span_of(const Args& a, int slot, int split) {
     Span s;
     s.hist_raw = a.lens[slot] + a.lens_shift;
@@ -152,7 +182,7 @@ __device__ __forceinline__ Span span_of(const Args& a, int slot, int split) {
     s.last = split == s.n_live - 1;
     s.k0 = split * a.split_keys;
     s.k1 = min(hist, s.k0 + a.split_keys);
-    s.n_hist_tiles = s.k1 > s.k0 ? (s.k1 - s.k0 + TK - 1) / TK : 0;
+    s.n_hist_tiles = s.k1 > s.k0 ? (s.k1 - s.k0 + KEYS - 1) / KEYS : 0;
     return s;
 }
 
@@ -185,8 +215,8 @@ __device__ __forceinline__ void store4<bf16>(bf16* dst, float x, float y, float 
     reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(z, w);
 }
 
-// The in-flight tokens' K/V into their cells: this kv head's stripe of each
-// token's row (positions >= hist_len, which no split reads).
+// The in-flight tokens' K/V into their cells (f32): this kv head's stripe of
+// each token's row (positions >= hist_len, which no split reads).
 template <typename T, int HD>
 __device__ void write_tokens(const Args& a, int slot, int hist_raw) {
     const int kvh = blockIdx.y;
@@ -204,265 +234,391 @@ __device__ void write_tokens(const Args& a, int slot, int hist_raw) {
     }
 }
 
-// ---- bf16: tensor cores ------------------------------------------------------
+// ---- bf16: TMA page loads, tensor cores, one launch ---------------------------
 
-constexpr int STAGES = 2;  // a third stage bought a few percent at T 1 and nothing at T 8 on an H100
+// keys per tile (a TMA box of up to BK rows per 64 columns, two column
+// blocks at head_dim 128) and the ring's stages: a 64 KB ring
+template <int HD>
+constexpr int BK = HD == 64 ? 128 : 64;
+constexpr int STAGES = 2;
+constexpr int IN_ROWS = 16;               // the in-flight tile: T <= 8 keys, padded to one k16 step
 
+// Byte offset of 16-byte chunk `ch` (of HD / 8) of row `r` in a [ROWS, HD]
+// bf16 tile stored as HD / 64 blocks of [ROWS, 64], 128 bytes a row, with the
+// 128-byte swizzle (chunk c of row r at chunk c ^ (r % 8)): what a TMA box
+// with CU_TENSOR_MAP_SWIZZLE_128B writes at a 1024-byte aligned address. The
+// 8 rows of an ldmatrix matrix fall in 8 distinct bank groups.
+template <int ROWS>
+__device__ __forceinline__ uint32_t swz(int r, int ch) {
+    return (ch / 8) * (ROWS * 128) + r * 128 + (((ch % 8) ^ (r % 8)) << 4);
+}
+
+// How the 4 warps share a block's 16 * MT query rows (MT m16 tiles: 1, 2 or
+// 4) and each tile's BK keys: warp w holds m16 tiles [rg * MTW, (rg + 1) *
+// MTW) of row group rg = w / KW, and keys [kw * NK, (kw + 1) * NK) of every
+// tile, kw = w % KW.
 template <int HD, int MT>
-struct Bf16Tiles {
-    bf16 q[16 * MT][ssi::lds<HD>];  // rows padded to 144 (HD 64) or 272 (HD 128) bytes
-    bf16 k[STAGES][TK][ssi::lds<HD>];
-    bf16 v[STAGES][TK][ssi::lds<HD>];
+struct WarpSplit {
+    static constexpr int MTW = HD == 64 ? (MT < 2 ? MT : 2) : 1;
+    static constexpr int RG = MT / MTW;
+    static constexpr int KW = WARPS / RG;
+    static constexpr int NK = BK<HD> / KW;
 };
 
-// after the key loop the same bytes hold each warp's partial state
 template <int HD, int MT>
-struct Bf16Combine {
-    float o[WARPS][16 * MT][HD + 4];  // f32 rows padded by 4
-    float m[WARPS][16 * MT];
-    float l[WARPS][16 * MT];
+struct Combine {  // each key slice's partial state, after the key loop
+    static constexpr int KW = WarpSplit<HD, MT>::KW;
+    float o[KW][16 * MT][HD + 4];  // f32 rows padded by 4
+    float m[KW][16 * MT];
+    float l[KW][16 * MT];
 };
 
 template <int HD, int MT>
-struct Bf16Smem {
+struct PagedSmem {
     union {
-        Bf16Tiles<HD, MT> tiles;
-        Bf16Combine<HD, MT> combine;
+        struct {
+            bf16 k[STAGES][BK<HD> * HD];  // TMA destinations, swz<BK> (each stage 1024-byte aligned)
+            bf16 v[STAGES][BK<HD> * HD];
+        } ring;
+        Combine<HD, MT> cb;  // after the key loop
     };
+    union {
+        bf16 q[16 * MT][ssi::lds<HD>];  // until Q's fragments are in registers
+        struct {
+            bf16 k[IN_ROWS * HD];  // then the in-flight tile, swz<IN_ROWS>
+            bf16 v[IN_ROWS * HD];
+        } in;
+    };
+    uint64_t full[STAGES];   // a stage's tile has landed
+    uint64_t empty[STAGES];  // the 4 warps are done with a stage
+    int merge;  // this block arrived last: it merges the slot's splits
+};
+static_assert(sizeof(Combine<64, 4>) <= sizeof(PagedSmem<64, 4>::ring) &&
+              sizeof(Combine<64, 2>) <= sizeof(PagedSmem<64, 2>::ring) &&
+              sizeof(Combine<128, 1>) <= sizeof(PagedSmem<128, 1>::ring) &&
+              sizeof(Combine<128, 4>) <= sizeof(PagedSmem<128, 4>::ring),
+              "the combine reuses the ring's bytes");
+static_assert(sizeof(PagedSmem<128, 4>) + 1024 <= 227 * 1024, "a block's shared memory");
+
+// a warp's online-softmax state over its keys, for its MTW m16 tiles of rows
+template <int HD, int MTW>
+struct RowState {
+    float acc[MTW][HD / 8][4];  // O: [16 x HD] per m16 tile, the mma.sync C layout
+    float m_lo[MTW], m_hi[MTW], ms_lo[MTW], ms_hi[MTW], l_lo[MTW], l_hi[MTW];
 };
 
-// MT: m16 tiles of query rows per block (rows r0 .. r0 + 16*MT of R; the
-// grid's z is slot * row_groups + row group)
+// One key step of a warp over NKS keys, rows j0 .. j0 + NKS of the tile at
+// k / v (ROWS rows, swz<ROWS>): S = Q.K^T, scale and mask, the online-softmax
+// update, O += P.V. mask 0: every key is history; 1: keys >= kend are past
+// it; 2: the in-flight tile (key j is token j: row r sees it when j < T and
+// j <= r's token). Masking is a select, so a score made from garbage never
+// enters a sum.
+template <int HD, int MTW, int NKS, int ROWS>
+__device__ __forceinline__ void attend(RowState<HD, MTW>& st, const uint32_t (&qf)[MTW][HD / 16][4],
+                                       const unsigned char* k, const unsigned char* v, int j0, int mask, int kend,
+                                       int row0, const Args& a) {
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int t4 = lane % 4;
+    float s[MTW][NKS / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < NKS / 8; ++nb) s[mt][nb][0] = s[mt][nb][1] = s[mt][nb][2] = s[mt][nb][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+        for (int j2 = 0; j2 < NKS / 16; ++j2) {
+            uint32_t kf[4];
+            ssi::ldmatrix_x4(kf, k + swz<ROWS>(j0 + j2 * 16 + (lane / 16) * 8 + lane % 8, kk * 2 + (lane / 8) % 2));
+#pragma unroll
+            for (int mt = 0; mt < MTW; ++mt) {
+                ssi::mma_bf16(s[mt][2 * j2], qf[mt][kk], kf[0], kf[1]);
+                ssi::mma_bf16(s[mt][2 * j2 + 1], qf[mt][kk], kf[2], kf[3]);
+            }
+        }
+    }
+
+    uint32_t pf[MTW][NKS / 16][4];  // P as the A fragments of P.V, a k16 step per 16 keys
+#pragma unroll
+    for (int mt = 0; mt < MTW; ++mt) {
+        float mx_lo = NEG_INF, mx_hi = NEG_INF;
+#pragma unroll
+        for (int nb = 0; nb < NKS / 8; ++nb) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float x = s[mt][nb][e] * a.scale;
+                if (mask) {
+                    const int j = j0 + nb * 8 + 2 * t4 + (e & 1);
+                    const int r = row0 + mt * 16 + g + (e < 2 ? 0 : 8);
+                    const bool keep = mask == 1 ? j < kend : (j < a.t_q && j <= r / a.n_rep);
+                    x = keep ? x : NEG_INF;
+                }
+                s[mt][nb][e] = x;
+            }
+            mx_lo = fmaxf(mx_lo, fmaxf(s[mt][nb][0], s[mt][nb][1]));
+            mx_hi = fmaxf(mx_hi, fmaxf(s[mt][nb][2], s[mt][nb][3]));
+        }
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
+        st.m_lo[mt] = fmaxf(st.m_lo[mt], mx_lo);
+        st.m_hi[mt] = fmaxf(st.m_hi[mt], mx_hi);
+        const float ms_new_lo = fmaxf(st.m_lo[mt], M_CLAMP);
+        const float ms_new_hi = fmaxf(st.m_hi[mt], M_CLAMP);
+        const float alpha_lo = exp2f((st.ms_lo[mt] - ms_new_lo) * LOG2E);
+        const float alpha_hi = exp2f((st.ms_hi[mt] - ms_new_hi) * LOG2E);
+        st.ms_lo[mt] = ms_new_lo;
+        st.ms_hi[mt] = ms_new_hi;
+        st.l_lo[mt] *= alpha_lo;
+        st.l_hi[mt] *= alpha_hi;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+            st.acc[mt][j][0] *= alpha_lo;
+            st.acc[mt][j][1] *= alpha_lo;
+            st.acc[mt][j][2] *= alpha_hi;
+            st.acc[mt][j][3] *= alpha_hi;
+        }
+        // P = exp(s - m_safe): f32 for the row sums, bf16 A fragments for P . V
+        const float sh_lo = ms_new_lo * LOG2E;
+        const float sh_hi = ms_new_hi * LOG2E;
+#pragma unroll
+        for (int nb = 0; nb < NKS / 8; ++nb) {
+            const float p0 = exp2f(fmaf(s[mt][nb][0], LOG2E, -sh_lo));
+            const float p1 = exp2f(fmaf(s[mt][nb][1], LOG2E, -sh_lo));
+            const float p2 = exp2f(fmaf(s[mt][nb][2], LOG2E, -sh_hi));
+            const float p3 = exp2f(fmaf(s[mt][nb][3], LOG2E, -sh_hi));
+            st.l_lo[mt] += p0 + p1;
+            st.l_hi[mt] += p2 + p3;
+            pf[mt][nb / 2][(nb % 2) * 2] = ssi::pack_bf16(p0, p1);
+            pf[mt][nb / 2][(nb % 2) * 2 + 1] = ssi::pack_bf16(p2, p3);
+        }
+    }
+
+#pragma unroll
+    for (int dd = 0; dd < HD / 16; ++dd) {
+#pragma unroll
+        for (int j2 = 0; j2 < NKS / 16; ++j2) {
+            uint32_t vf[4];
+            ssi::ldmatrix_x4_trans(vf, v + swz<ROWS>(j0 + j2 * 16 + ((lane / 8) % 2) * 8 + lane % 8, dd * 2 + lane / 16));
+#pragma unroll
+            for (int mt = 0; mt < MTW; ++mt) {
+                ssi::mma_bf16(st.acc[mt][2 * dd], pf[mt][j2], vf[0], vf[1]);
+                ssi::mma_bf16(st.acc[mt][2 * dd + 1], pf[mt][j2], vf[2], vf[3]);
+            }
+        }
+    }
+}
+
+// One block per (split, kv head, slot); MT m16 tiles hold all R query rows.
+// Warps 0-3 run the products; warp 4 (one lane) issues the page loads, so
+// its page-table reads never stall the products.
 template <int HD, int MT>
-__global__ void __launch_bounds__(THREADS) paged_split_bf16_kernel(Args a, int row_groups) {
-    // under 48 KB at head_dim 64: static; 72 KB at 128: dynamic
-    Bf16Smem<HD, MT>& smem = ssi::block_tiles<Bf16Smem<HD, MT>, HD == 64>();
-    auto& sm = smem.tiles;
-    auto& cb = smem.combine;
+__global__ void __launch_bounds__(BF16_THREADS) paged_hopper_kernel(const __grid_constant__ Args a,
+                                                                    const __grid_constant__ CUtensorMap kmap,
+                                                                    const __grid_constant__ CUtensorMap vmap) {
+    using W = WarpSplit<HD, MT>;
+    constexpr int ST = STAGES;
+    constexpr int PIECES = HD / 8;  // 16-byte pieces of a row
+    extern __shared__ unsigned char smem_raw[];
+    PagedSmem<HD, MT>& sm = *reinterpret_cast<PagedSmem<HD, MT>*>(hw::align1024(smem_raw));
 
     const int split = blockIdx.x;
     const int kvh = blockIdx.y;
-    const int slot = blockIdx.z / row_groups;
-    const int r0 = (blockIdx.z % row_groups) * BLOCK_ROWS<HD>;
-    const Span sp = span_of(a, slot, split);
-    if (split >= sp.n_live) return;
-    const int nr = min(16 * MT, a.rows - r0);  // real query rows of this block
-    const int n_tiles = sp.n_hist_tiles + (sp.last ? 1 : 0);
-
+    const int slot = blockIdx.z;
     const int tid = threadIdx.x;
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int g = lane / 4;
     const int t4 = lane % 4;
-    const long long kvd = (long long)a.Hkv * HD;
+    const int kw = warp % W::KW;                   // this warp's key slice (warps 0-3)
+    const int row0 = (warp / W::KW) * W::MTW * 16;  // its first query row
     const int* pt = a.page_table + (long long)slot * a.max_pages;
-    const bf16* qb = static_cast<const bf16*>(a.q);
-    const bf16* kp = static_cast<const bf16*>(a.k_pool) + kvh * HD;
-    const bf16* vp = static_cast<const bf16*>(a.v_pool) + kvh * HD;
-    const long long new_base = ((long long)slot * a.t_q * a.Hkv + kvh) * HD;
-    const bf16* kn = static_cast<const bf16*>(a.k_new) + new_base;
-    const bf16* vn = static_cast<const bf16*>(a.v_new) + new_base;
 
-    // Q rows (zero past the block's real rows), with tile 0 in one copy group
-    constexpr int PIECES = HD / 8;  // 16-byte pieces of a row
-    for (int idx = tid; idx < 16 * MT * PIECES; idx += THREADS) {
-        const int i = idx / PIECES;
-        const int c = (idx % PIECES) * 8;
-        const bool in = i < nr;
-        ssi::cp_async16(&sm.q[i][c], in ? qb + q_index<HD>(a, slot, r0 + i) + c : qb, in ? 16 : 0);
-    }
-    // tile `tile` of this split into ring stage `st`: history keys from the
-    // pages, or the in-flight tokens; keys that do not exist are zero-filled
-    // (they are masked, and a zero V row keeps 0 * garbage out of P.V)
-    auto load_tile = [&](int st, int tile) {
-        const bool inflight = tile == sp.n_hist_tiles;
-        const int key0 = sp.k0 + tile * TK;
-#pragma unroll
-        for (int i = 0; i < TK * PIECES / THREADS; ++i) {
-            const int idx = tid + i * THREADS;
-            const int j = idx / PIECES;
+    // Reads that need no history length are issued before the block learns
+    // it (the latencies overlap): Q rows into shared memory (zero past R);
+    // the in-flight K/V rows (zero past T) and their write rows into
+    // registers; the split's first page-table entry (the producer).
+    constexpr int IN_PER = IN_ROWS * PIECES / CONSUMERS;  // in-flight 16-byte pieces a thread holds
+    uint4 kin[IN_PER], vin[IN_PER];
+    int wrow[IN_PER];
+    int first_page = 0;
+    if (warp < WARPS) {
+        const bf16* qb = static_cast<const bf16*>(a.q);
+        for (int idx = tid; idx < 16 * MT * PIECES; idx += CONSUMERS) {
+            const int i = idx / PIECES;
             const int c = (idx % PIECES) * 8;
-            long long off = 0;
-            bool in;
-            const bf16 *ks = kp, *vs = vp;
-            if (inflight) {
-                in = j < a.t_q;
-                if (in) {
-                    off = (long long)j * a.Hkv * HD + c;
-                    ks = kn;
-                    vs = vn;
-                }
-            } else {
-                const int key = key0 + j;
-                in = key < sp.k1;
-                if (in) off = ((long long)pt[key / a.ps] * a.ps + key % a.ps) * kvd + c;
-            }
-            ssi::cp_async16(&sm.k[st][j][c], ks + off, in ? 16 : 0);
-            ssi::cp_async16(&sm.v[st][j][c], vs + off, in ? 16 : 0);
+            uint4 x = make_uint4(0, 0, 0, 0);
+            if (i < a.rows) x = *reinterpret_cast<const uint4*>(qb + q_index<HD>(a, slot, i) + c);
+            *reinterpret_cast<uint4*>(&sm.q[i][c]) = x;
         }
-    };
-    // the ring's first STAGES - 1 tiles, one copy group each (Q joins tile 0's)
+        const long long new_base = ((long long)slot * a.t_q * a.Hkv + kvh) * HD;
 #pragma unroll
-    for (int i = 0; i < STAGES - 1; ++i) {
-        if (i < n_tiles) load_tile(i, i);
-        ssi::cp_async_commit();
-    }
-
-    uint32_t qf[MT][HD / 16][4];  // Q's A fragments
-    float acc[MT][HD / 8][4];     // this warp's O over its keys: [16 x HD] per m tile
-    float m_lo[MT], m_hi[MT], ms_lo[MT], ms_hi[MT], l_lo[MT], l_hi[MT];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-        for (int j = 0; j < HD / 8; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-        m_lo[mt] = m_hi[mt] = NEG_INF;
-        ms_lo[mt] = ms_hi[mt] = M_CLAMP;
-        l_lo[mt] = l_hi[mt] = 0.f;
-    }
-
-    for (int it = 0; it < n_tiles; ++it) {
-        const int st = it % STAGES;
-        const int ahead = it + STAGES - 1;
-        if (ahead < n_tiles) load_tile(ahead % STAGES, ahead);  // loads while this tile is used
-        ssi::cp_async_commit();
-        ssi::cp_async_wait<STAGES - 1>();  // Q and this tile have landed
-        __syncthreads();
-        if (it == 0) {
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                for (int kk = 0; kk < HD / 16; ++kk)
-                    ssi::ldmatrix_x4(qf[mt][kk], &sm.q[mt * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
-        }
-        const bool inflight = it == sp.n_hist_tiles;
-
-        // S = Q . K^T over this warp's 16 keys of the tile
-        float s[MT][2][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int nb = 0; nb < 2; ++nb) s[mt][nb][0] = s[mt][nb][1] = s[mt][nb][2] = s[mt][nb][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-            uint32_t kf[4];
-            ssi::ldmatrix_x4(kf, &sm.k[st][warp * 16 + (lane / 16) * 8 + lane % 8][kk * 16 + ((lane / 8) % 2) * 8]);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-                ssi::mma_bf16(s[mt][0], qf[mt][kk], kf[0], kf[1]);
-                ssi::mma_bf16(s[mt][1], qf[mt][kk], kf[2], kf[3]);
+        for (int i = 0; i < IN_PER; ++i) {
+            const int idx = tid + i * CONSUMERS;
+            const int j = idx / PIECES;
+            kin[i] = vin[i] = make_uint4(0, 0, 0, 0);
+            wrow[i] = a.trash;
+            if (j < a.t_q) {
+                const long long off = new_base + (long long)j * a.Hkv * HD + (idx % PIECES) * 8;
+                kin[i] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.k_new) + off);
+                vin[i] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.v_new) + off);
+                wrow[i] = a.write_rows[slot * a.t_q + j];
             }
         }
+    } else if (lane == 0) {
+        first_page = pt[split * a.split_keys / a.ps];
+    }
+    if (tid == CONSUMERS) {
+        for (int s = 0; s < ST; ++s) {
+            hw::mbar_init(&sm.full[s], 1);
+            hw::mbar_init(&sm.empty[s], WARPS);
+        }
+        hw::fence_barrier_init();
+    }
+    const Span sp = span_of<BK<HD>>(a, slot, split);
+    if (split >= sp.n_live) return;
 
-        // scale; mask the ragged last history tile and the in-flight tile
-        // (key j of it is token j: row r sees it when j <= r's token)
-        const bool need_mask = inflight || it == sp.n_hist_tiles - 1;
-        const int kend = sp.k1 - (sp.k0 + it * TK);  // history keys of this tile
-        uint32_t pf[MT][4];
+    // The last split writes the in-flight tokens into their cells first:
+    // positions >= hist_len, which only its own last box may cover (masked).
+    if (sp.last && warp < WARPS) {
+        const long long kvd = (long long)a.Hkv * HD;
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-            float mx_lo = NEG_INF, mx_hi = NEG_INF;
+        for (int i = 0; i < IN_PER; ++i) {
+            const int idx = tid + i * CONSUMERS;
+            const int j = idx / PIECES;
+            if (j < a.t_q && wrow[i] != a.trash) {
+                const int off = ((sp.hist_raw + j) % a.ps + a.ps) % a.ps;
+                const long long dst = ((long long)wrow[i] * a.ps + off) * kvd + kvh * HD + (idx % PIECES) * 8;
+                *reinterpret_cast<uint4*>(static_cast<bf16*>(a.k_pool) + dst) = kin[i];
+                *reinterpret_cast<uint4*>(static_cast<bf16*>(a.v_pool) + dst) = vin[i];
+            }
+        }
+    }
+    __syncthreads();
+
+    RowState<HD, W::MTW> rs;
+    if (warp == WARPS) {
+        // the producer: history tile t of this split into ring stage t % ST once
+        // the 4 warps have released it: a box per `a.box` keys that hold
+        // history, per 64 columns, K and V; the rows past the last box keep an
+        // earlier tile's bytes
+        if (lane == 0) {
+            for (int t = 0; t < sp.n_hist_tiles; ++t) {
+                const int st = t % ST;
+                if (t >= ST) hw::mbar_wait(&sm.empty[st], (t / ST + 1) & 1);
+                const int key0 = sp.k0 + t * BK<HD>;
+                const int boxes = (min(BK<HD>, sp.k1 - key0) + a.box - 1) / a.box;
+                hw::mbar_expect_tx(&sm.full[st], boxes * a.box * HD * 2 * 2);
+                for (int b = 0; b < boxes; ++b) {
+                    const int key = key0 + b * a.box;
+                    const int page = key - sp.k0 < a.ps ? first_page : pt[key / a.ps];
+                    const int row = page * a.ps + key % a.ps;
 #pragma unroll
-            for (int nb = 0; nb < 2; ++nb) {
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    float x = s[mt][nb][e] * a.scale;
-                    if (need_mask) {
-                        const int j = warp * 16 + nb * 8 + 2 * t4 + (e & 1);
-                        const int r = r0 + mt * 16 + g + (e < 2 ? 0 : 8);
-                        const bool keep = inflight ? (j < a.t_q && j <= r / a.n_rep) : j < kend;
-                        x = keep ? x : NEG_INF;
+                    for (int h = 0; h < HD / 64; ++h) {
+                        const int dst = h * BK<HD> * 64 + b * a.box * 64;
+                        hw::tma_load_2d(&sm.ring.k[st][dst], &kmap, &sm.full[st], kvh * HD + h * 64, row);
+                        hw::tma_load_2d(&sm.ring.v[st][dst], &vmap, &sm.full[st], kvh * HD + h * 64, row);
                     }
-                    s[mt][nb][e] = x;
                 }
-                mx_lo = fmaxf(mx_lo, fmaxf(s[mt][nb][0], s[mt][nb][1]));
-                mx_hi = fmaxf(mx_hi, fmaxf(s[mt][nb][2], s[mt][nb][3]));
             }
-            mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-            mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-            mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-            mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-            m_lo[mt] = fmaxf(m_lo[mt], mx_lo);
-            m_hi[mt] = fmaxf(m_hi[mt], mx_hi);
-            const float ms_new_lo = fmaxf(m_lo[mt], M_CLAMP);
-            const float ms_new_hi = fmaxf(m_hi[mt], M_CLAMP);
-            const float alpha_lo = exp2f((ms_lo[mt] - ms_new_lo) * LOG2E);
-            const float alpha_hi = exp2f((ms_hi[mt] - ms_new_hi) * LOG2E);
-            ms_lo[mt] = ms_new_lo;
-            ms_hi[mt] = ms_new_hi;
-            l_lo[mt] *= alpha_lo;
-            l_hi[mt] *= alpha_hi;
+        }
+    } else {
+        uint32_t qf[W::MTW][HD / 16][4];  // Q's A fragments
+#pragma unroll
+        for (int mt = 0; mt < W::MTW; ++mt)
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk)
+                ssi::ldmatrix_x4(qf[mt][kk], &sm.q[row0 + mt * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
+
+#pragma unroll
+        for (int mt = 0; mt < W::MTW; ++mt) {
+#pragma unroll
+            for (int j = 0; j < HD / 8; ++j)
+                rs.acc[mt][j][0] = rs.acc[mt][j][1] = rs.acc[mt][j][2] = rs.acc[mt][j][3] = 0.f;
+            rs.m_lo[mt] = rs.m_hi[mt] = NEG_INF;
+            rs.ms_lo[mt] = rs.ms_hi[mt] = M_CLAMP;
+            rs.l_lo[mt] = rs.l_hi[mt] = 0.f;
+        }
+
+        for (int it = 0; it < sp.n_hist_tiles; ++it) {
+            const int st = it % ST;
+            hw::mbar_wait(&sm.full[st], (it / ST) & 1);
+            const int kend = sp.k1 - (sp.k0 + it * BK<HD>);  // history keys in this tile
+            unsigned char* kt = reinterpret_cast<unsigned char*>(sm.ring.k[st]);
+            unsigned char* vt = reinterpret_cast<unsigned char*>(sm.ring.v[st]);
+            if (kend < BK<HD>) {  // the ragged last tile (never refilled): V rows past the history to zero
+                for (int idx = tid; idx < (BK<HD> - kend) * PIECES; idx += CONSUMERS)
+                    *reinterpret_cast<uint4*>(vt + swz<BK<HD>>(kend + idx / PIECES, idx % PIECES)) =
+                        make_uint4(0, 0, 0, 0);
+                hw::named_sync(1, CONSUMERS);
+            }
+            if (kw * W::NK < kend)  // else every key of this warp's slice is past the history
+                attend<HD, W::MTW, W::NK, BK<HD>>(rs, qf, kt, vt, kw * W::NK, kend < BK<HD> ? 1 : 0, kend, row0, a);
+            __syncwarp();
+            if (lane == 0) hw::mbar_arrive(&sm.empty[st]);  // this warp is done with the stage
+        }
+        if (sp.last) {  // the in-flight tokens, a 16-key tile of key slice 0
+            hw::named_sync(1, CONSUMERS);  // Q's bytes are free
+#pragma unroll
+            for (int i = 0; i < IN_PER; ++i) {
+                const int idx = tid + i * CONSUMERS;
+                const uint32_t off = swz<IN_ROWS>(idx / PIECES, idx % PIECES);
+                *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(sm.in.k) + off) = kin[i];
+                *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(sm.in.v) + off) = vin[i];
+            }
+            hw::named_sync(1, CONSUMERS);
+            if (kw == 0)
+                attend<HD, W::MTW, IN_ROWS, IN_ROWS>(rs, qf, reinterpret_cast<const unsigned char*>(sm.in.k),
+                                                     reinterpret_cast<const unsigned char*>(sm.in.v), 0, 2, 0, row0,
+                                                     a);
+        }
+    }
+    __syncthreads();  // the ring's bytes are free for the combine
+
+    // each key slice's state (m_safe, row sum, O) into shared memory
+    auto& cb = sm.cb;
+    if (warp < WARPS) {
+#pragma unroll
+        for (int mt = 0; mt < W::MTW; ++mt) {
+            float l_lo = rs.l_lo[mt], l_hi = rs.l_hi[mt];
+            l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
+            l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
+            l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
+            l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
+            const int i_lo = row0 + mt * 16 + g;
+            const int i_hi = i_lo + 8;
 #pragma unroll
             for (int j = 0; j < HD / 8; ++j) {
-                acc[mt][j][0] *= alpha_lo;
-                acc[mt][j][1] *= alpha_lo;
-                acc[mt][j][2] *= alpha_hi;
-                acc[mt][j][3] *= alpha_hi;
+                *reinterpret_cast<float2*>(&cb.o[kw][i_lo][j * 8 + 2 * t4]) =
+                    make_float2(rs.acc[mt][j][0], rs.acc[mt][j][1]);
+                *reinterpret_cast<float2*>(&cb.o[kw][i_hi][j * 8 + 2 * t4]) =
+                    make_float2(rs.acc[mt][j][2], rs.acc[mt][j][3]);
             }
-            // P = exp(s - m_safe): f32 for the row sums, bf16 A fragments for P . V
-            const float sh_lo = ms_lo[mt] * LOG2E;
-            const float sh_hi = ms_hi[mt] * LOG2E;
-#pragma unroll
-            for (int nb = 0; nb < 2; ++nb) {
-                const float p0 = exp2f(fmaf(s[mt][nb][0], LOG2E, -sh_lo));
-                const float p1 = exp2f(fmaf(s[mt][nb][1], LOG2E, -sh_lo));
-                const float p2 = exp2f(fmaf(s[mt][nb][2], LOG2E, -sh_hi));
-                const float p3 = exp2f(fmaf(s[mt][nb][3], LOG2E, -sh_hi));
-                l_lo[mt] += p0 + p1;
-                l_hi[mt] += p2 + p3;
-                pf[mt][nb * 2] = ssi::pack_bf16(p0, p1);
-                pf[mt][nb * 2 + 1] = ssi::pack_bf16(p2, p3);
+            if (t4 == 0) {
+                cb.m[kw][i_lo] = rs.ms_lo[mt];
+                cb.l[kw][i_lo] = l_lo;
+                cb.m[kw][i_hi] = rs.ms_hi[mt];
+                cb.l[kw][i_hi] = l_hi;
             }
-        }
-
-        // O += P . V over the same 16 keys
-#pragma unroll
-        for (int dd = 0; dd < HD / 16; ++dd) {
-            uint32_t vf[4];
-            ssi::ldmatrix_x4_trans(vf, &sm.v[st][warp * 16 + ((lane / 8) % 2) * 8 + lane % 8][dd * 16 + (lane / 16) * 8]);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-                ssi::mma_bf16(acc[mt][2 * dd], pf[mt], vf[0], vf[1]);
-                ssi::mma_bf16(acc[mt][2 * dd + 1], pf[mt], vf[2], vf[3]);
-            }
-        }
-        __syncthreads();  // every warp is done with this stage before it is refilled
-    }
-    ssi::cp_async_wait<0>();
-    __syncthreads();
-
-    // each warp's state (m_safe, row sum, O) into shared memory
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-        l_lo[mt] += __shfl_xor_sync(0xffffffffu, l_lo[mt], 1);
-        l_lo[mt] += __shfl_xor_sync(0xffffffffu, l_lo[mt], 2);
-        l_hi[mt] += __shfl_xor_sync(0xffffffffu, l_hi[mt], 1);
-        l_hi[mt] += __shfl_xor_sync(0xffffffffu, l_hi[mt], 2);
-        const int i_lo = mt * 16 + g;
-        const int i_hi = i_lo + 8;
-#pragma unroll
-        for (int j = 0; j < HD / 8; ++j) {
-            *reinterpret_cast<float2*>(&cb.o[warp][i_lo][j * 8 + 2 * t4]) = make_float2(acc[mt][j][0], acc[mt][j][1]);
-            *reinterpret_cast<float2*>(&cb.o[warp][i_hi][j * 8 + 2 * t4]) = make_float2(acc[mt][j][2], acc[mt][j][3]);
-        }
-        if (t4 == 0) {
-            cb.m[warp][i_lo] = ms_lo[mt];
-            cb.l[warp][i_lo] = l_lo[mt];
-            cb.m[warp][i_hi] = ms_hi[mt];
-            cb.l[warp][i_hi] = l_hi[mt];
         }
     }
     __syncthreads();
 
-    // the four warps combined in warp order; one thread per (row, 4 dims)
-    for (int idx = tid; idx < nr * (HD / 4); idx += THREADS) {
+    // the key slices combined in slice order; one thread per (row, 4 dims):
+    // the output itself when one split holds the history, else this split's part
+    const bool direct = sp.n_live == 1;
+    bf16* out = static_cast<bf16*>(a.out);
+    for (int idx = tid; idx < a.rows * (HD / 4); idx += BF16_THREADS) {
         const int i = idx / (HD / 4);
         const int d = (idx % (HD / 4)) * 4;
         float m = cb.m[0][i];
 #pragma unroll
-        for (int w = 1; w < WARPS; ++w) m = fmaxf(m, cb.m[w][i]);
+        for (int w = 1; w < W::KW; ++w) m = fmaxf(m, cb.m[w][i]);
         float l = 0.f, o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
 #pragma unroll
-        for (int w = 0; w < WARPS; ++w) {
+        for (int w = 0; w < W::KW; ++w) {
             const float wt = exp2f((cb.m[w][i] - m) * LOG2E);
             const float4 o = *reinterpret_cast<const float4*>(&cb.o[w][i][d]);
             l = fmaf(cb.l[w][i], wt, l);
@@ -471,16 +627,47 @@ __global__ void __launch_bounds__(THREADS) paged_split_bf16_kernel(Args a, int r
             o2 = fmaf(o.z, wt, o2);
             o3 = fmaf(o.w, wt, o3);
         }
-        const int r = r0 + i;
-        if (sp.n_live == 1) {
+        if (direct) {
             const float ls = fmaxf(l, 1e-30f);
-            store4(static_cast<bf16*>(a.out) + q_index<HD>(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
+            store4(out + q_index<HD>(a, slot, i) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
         } else {
-            store4(part_o<HD>(a, slot, split, r) + d, o0, o1, o2, o3);
-            if (d == 0) *reinterpret_cast<float2*>(part_ml<HD>(a, slot, split, r)) = make_float2(m, l);
+            store4(part_o<HD>(a, slot, split, i) + d, o0, o1, o2, o3);
+            if (d == 0) *reinterpret_cast<float2*>(part_ml<HD>(a, slot, split, i)) = make_float2(m, l);
         }
     }
-    if (sp.last && r0 == 0) write_tokens<bf16, HD>(a, slot, sp.hist_raw);
+
+    if (!direct) {
+        // count this split's arrival once its part is visible to the whole card;
+        // the last to arrive merges the slot's live splits in split order
+        __threadfence();
+        __syncthreads();
+        int* count = a.counters + (long long)slot * a.Hkv + kvh;
+        if (tid == 0) sm.merge = atomicAdd(count, 1) == sp.n_live - 1;
+        __syncthreads();
+        if (sm.merge) {
+            __threadfence();
+            if (tid == 0) *count = 0;  // every split has arrived: zero for the next call
+            for (int idx = tid; idx < a.rows * (HD / 4); idx += BF16_THREADS) {
+                const int r = idx / (HD / 4);
+                const int d = (idx % (HD / 4)) * 4;
+                float m = NEG_INF;
+                for (int s = 0; s < sp.n_live; ++s) m = fmaxf(m, __ldcg(part_ml<HD>(a, slot, s, r)));
+                float l = 0.f, o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
+                for (int s = 0; s < sp.n_live; ++s) {
+                    const float2 ml = __ldcg(reinterpret_cast<const float2*>(part_ml<HD>(a, slot, s, r)));
+                    const float wt = exp2f((ml.x - m) * LOG2E);
+                    const float4 o = __ldcg(reinterpret_cast<const float4*>(part_o<HD>(a, slot, s, r) + d));
+                    l = fmaf(ml.y, wt, l);
+                    o0 = fmaf(o.x, wt, o0);
+                    o1 = fmaf(o.y, wt, o1);
+                    o2 = fmaf(o.z, wt, o2);
+                    o3 = fmaf(o.w, wt, o3);
+                }
+                const float ls = fmaxf(l, 1e-30f);
+                store4(out + q_index<HD>(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
+            }
+        }
+    }
 }
 
 // ---- f32: scalar FMAs (parity path) -----------------------------------------
@@ -684,12 +871,12 @@ __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
     if (sp.last) write_tokens<float, HD>(a, slot, sp.hist_raw);
 }
 
-// ---- the merge ----------------------------------------------------------------
+// ---- the f32 merge ------------------------------------------------------------
 
 // One block per (kv head, slot): each output row combines the slot's live
 // splits in split order.
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) paged_merge_kernel(Args a) {
+template <int HD>
+__global__ void __launch_bounds__(THREADS) paged_merge_f32_kernel(Args a) {
     const int slot = blockIdx.z;
     const int n_live = live_splits(a, clamp_hist(a, a.lens[slot] + a.lens_shift));
     if (n_live == 1) return;  // that split wrote the output itself
@@ -710,22 +897,17 @@ __global__ void __launch_bounds__(THREADS) paged_merge_kernel(Args a) {
             o3 = fmaf(o.w, wt, o3);
         }
         const float ls = fmaxf(l, 1e-30f);
-        store4(static_cast<T*>(a.out) + q_index<HD>(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
+        store4(static_cast<float*>(a.out) + q_index<HD>(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
     }
 }
 
 template <int HD, int MT>
-cudaError_t launch_bf16(const Args& a, cudaStream_t st) {
-    const int row_groups = (a.rows + BLOCK_ROWS<HD> - 1) / BLOCK_ROWS<HD>;
-    int smem = 0;
-    if constexpr (HD != 64) {
-        static int allowed = 0;
-        smem = sizeof(Bf16Smem<HD, MT>);
-        const cudaError_t err = ssi::allow_dynamic_smem(paged_split_bf16_kernel<HD, MT>, smem, allowed);
-        if (err != cudaSuccess) return err;
-    }
-    paged_split_bf16_kernel<HD, MT><<<dim3(a.n_splits, a.Hkv, a.n_slots * row_groups), THREADS, smem, st>>>(
-        a, row_groups);
+cudaError_t launch_bf16(const Args& a, const CUtensorMap& kmap, const CUtensorMap& vmap, cudaStream_t st) {
+    static int allowed = 0;
+    const int smem = (int)sizeof(PagedSmem<HD, MT>) + 1024;  // + the slack to align the ring to 1024 bytes
+    const cudaError_t err = ssi::allow_dynamic_smem(paged_hopper_kernel<HD, MT>, smem, allowed);
+    if (err != cudaSuccess) return err;
+    paged_hopper_kernel<HD, MT><<<dim3(a.n_splits, a.Hkv, a.n_slots), BF16_THREADS, smem, st>>>(a, kmap, vmap);
     return cudaGetLastError();
 }
 
@@ -738,56 +920,56 @@ cudaError_t launch_f32(const Args& a, cudaStream_t st) {
         if (err != cudaSuccess) return err;
     }
     paged_split_f32_kernel<HD, RPT><<<dim3(a.n_splits, a.Hkv, a.n_slots), THREADS, smem, st>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || a.n_splits == 1) return err;
+    paged_merge_f32_kernel<HD><<<dim3(1, a.Hkv, a.n_slots), THREADS, 0, st>>>(a);
     return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch(int dtype, const Args& a, cudaStream_t st) {
-    cudaError_t err;
+cudaError_t launch(int dtype, const Args& a, const void* k_map, const void* v_map, cudaStream_t st) {
     if (dtype == ssi::kBFloat16) {
-        // cp.async moves 16-byte pieces: every row start must be 16-byte aligned
+        // 16-byte loads of q and the in-flight rows; TMA needs the pools 16-byte aligned
         const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k_pool) |
                                reinterpret_cast<uintptr_t>(a.v_pool) | reinterpret_cast<uintptr_t>(a.k_new) |
                                reinterpret_cast<uintptr_t>(a.v_new) | reinterpret_cast<uintptr_t>(a.part);
-        if (ptrs % 16 != 0) return cudaErrorInvalidValue;
-        if constexpr (HD == 64)
-            err = a.rows <= 16 ? launch_bf16<HD, 1>(a, st) : launch_bf16<HD, 2>(a, st);
-        else
-            err = launch_bf16<HD, 1>(a, st);
-    } else if (dtype == ssi::kFloat32) {
-        const int need = (a.rows + 1) / 2;
-        err = need <= 1    ? launch_f32<HD, 1>(a, st)
-              : need <= 2  ? launch_f32<HD, 2>(a, st)
-              : need <= 4  ? launch_f32<HD, 4>(a, st)
-              : need <= 8  ? launch_f32<HD, 8>(a, st)
-              : need <= 16 ? launch_f32<HD, 16>(a, st)
-                           : launch_f32<HD, 32>(a, st);
-    } else {
-        return cudaErrorInvalidValue;
+        if (ptrs % 16 != 0 || k_map == nullptr || v_map == nullptr || (a.n_splits > 1 && a.counters == nullptr) ||
+            a.box < 8 || a.box > BK<HD> || (a.box & (a.box - 1)) != 0 || a.ps % a.box != 0)
+            return cudaErrorInvalidValue;
+        CUtensorMap kmap, vmap;  // the wrapper's encoded maps (ssi_paged_pool_map), 128 bytes each
+        std::memcpy(&kmap, k_map, sizeof kmap);
+        std::memcpy(&vmap, v_map, sizeof vmap);
+        return a.rows <= 16   ? launch_bf16<HD, 1>(a, kmap, vmap, st)
+               : a.rows <= 32 ? launch_bf16<HD, 2>(a, kmap, vmap, st)
+                              : launch_bf16<HD, 4>(a, kmap, vmap, st);
     }
-    if (err != cudaSuccess || a.n_splits == 1) return err;
-    if (dtype == ssi::kBFloat16)
-        paged_merge_kernel<bf16, HD><<<dim3(1, a.Hkv, a.n_slots), THREADS, 0, st>>>(a);
-    else
-        paged_merge_kernel<float, HD><<<dim3(1, a.Hkv, a.n_slots), THREADS, 0, st>>>(a);
-    return cudaGetLastError();
+    if (dtype == ssi::kFloat32) {
+        const int need = (a.rows + 1) / 2;
+        return need <= 1    ? launch_f32<HD, 1>(a, st)
+               : need <= 2  ? launch_f32<HD, 2>(a, st)
+               : need <= 4  ? launch_f32<HD, 4>(a, st)
+               : need <= 8  ? launch_f32<HD, 8>(a, st)
+               : need <= 16 ? launch_f32<HD, 16>(a, st)
+                            : launch_f32<HD, 32>(a, st);
+    }
+    return cudaErrorInvalidValue;
 }
 
-cudaError_t launch(int dtype, int hd, const Args& a, cudaStream_t st) {
+cudaError_t launch(int dtype, int hd, const Args& a, const void* k_map, const void* v_map, cudaStream_t st) {
     if (a.Hkv <= 0 || a.n_rep <= 0 || a.t_q < 1 || a.t_q > MAX_T || a.rows > MAX_ROWS || a.ps <= 0 ||
-        a.max_pages <= 0 || a.n_slots <= 0 || a.split_keys <= 0 || a.split_keys % a.ps != 0 || a.n_splits <= 0 ||
-        (long long)(a.n_splits - 1) * a.split_keys >= (long long)a.max_pages * a.ps ||
+        a.ps % 8 != 0 || a.max_pages <= 0 || a.n_slots <= 0 || a.split_keys <= 0 || a.split_keys % a.ps != 0 ||
+        a.n_splits <= 0 || (long long)(a.n_splits - 1) * a.split_keys >= (long long)a.max_pages * a.ps ||
         (long long)a.n_splits * a.split_keys < (long long)a.max_pages * a.ps)
         return cudaErrorInvalidValue;
-    if (hd == 64) return launch<64>(dtype, a, st);
-    if (hd == 128) return launch<128>(dtype, a, st);
+    if (hd == 64) return launch<64>(dtype, a, k_map, v_map, st);
+    if (hd == 128) return launch<128>(dtype, a, k_map, v_map, st);
     return cudaErrorInvalidValue;
 }
 
 Args make_args(const void* q, void* k_pool, void* v_pool, const void* page_table, const void* lens,
-               const void* k_new, const void* v_new, const void* write_rows, void* out, void* part,
+               const void* k_new, const void* v_new, const void* write_rows, void* out, void* part, void* counters,
                int n_slots, int t_q, int Hq, int Hkv, int ps, int max_pages, int pages_per_split, int n_splits,
-               float scale) {
+               int box, float scale) {
     Args a;
     a.q = q;
     a.k_pool = k_pool;
@@ -799,6 +981,7 @@ Args make_args(const void* q, void* k_pool, void* v_pool, const void* page_table
     a.write_rows = static_cast<const int*>(write_rows);
     a.out = out;
     a.part = static_cast<float*>(part);
+    a.counters = static_cast<int*>(counters);
     a.lens_shift = 0;
     a.trash = -1;
     a.n_slots = n_slots;
@@ -810,38 +993,53 @@ Args make_args(const void* q, void* k_pool, void* v_pool, const void* page_table
     a.split_keys = pages_per_split * ps;
     a.n_splits = n_splits;
     a.rows = t_q * a.n_rep;
+    a.box = box;
     a.scale = scale;
     return a;
 }
 
 }  // namespace
 
+// The tensor map of a bf16 pool [rows, ps, kvd] (kvd = Hkv * head_dim) as the
+// bf16 kernel reads it: a 2D [n_rows = rows * ps, kvd] matrix in boxes of
+// `box` keys by 64 columns, 128-byte swizzled, written into `map` (128 bytes;
+// the wrapper caches it per pool pointer and shape).
+extern "C" int ssi_paged_pool_map(void* map, const void* pool, long long n_rows, int kvd, int box) {
+    static_assert(sizeof(CUtensorMap) == 128, "the wrapper holds 128-byte tensor maps");
+    CUtensorMap m;
+    const cudaError_t err = hw::map_2d(&m, pool, n_rows, kvd, kvd, box);
+    if (err == cudaSuccess) std::memcpy(map, &m, sizeof m);
+    return static_cast<int>(err);
+}
+
 // #8: one token per slot; seq_lens counts it. hd: head_dim, 64 or 128.
 // `part`: the split scratch, n_slots * Hkv * n_splits * n_rep * (hd + 2)
-// floats (unused when n_splits is 1).
+// floats (unused when n_splits is 1); `counters`: n_slots * Hkv ints, zero
+// (bf16; every launch leaves them zero); k_map / v_map: the pools' tensor
+// maps (bf16), in boxes of `box` keys.
 extern "C" int ssi_paged_attention_fused(
     int dtype, const void* q, void* k_pool, void* v_pool, const void* page_table, const void* seq_lens,
-    const void* k_new, const void* v_new, const void* write_rows, void* out, void* part,
-    int n_slots, int Hq, int Hkv, int hd, int ps, int max_pages, int pages_per_split, int n_splits, float scale,
-    void* stream) {
+    const void* k_new, const void* v_new, const void* write_rows, void* out, void* part, void* counters,
+    const void* k_map, const void* v_map, int n_slots, int Hq, int Hkv, int hd, int ps, int max_pages,
+    int pages_per_split, int n_splits, int box, float scale, void* stream) {
     if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
-    Args a = make_args(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new, write_rows, out, part, n_slots, 1,
-                       Hq, Hkv, ps, max_pages, pages_per_split, n_splits, scale);
+    Args a = make_args(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new, write_rows, out, part, counters,
+                       n_slots, 1, Hq, Hkv, ps, max_pages, pages_per_split, n_splits, box, scale);
     a.lens_shift = -1;
-    return static_cast<int>(launch(dtype, hd, a, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(launch(dtype, hd, a, k_map, v_map, static_cast<cudaStream_t>(stream)));
 }
 
 // #9: T tokens per slot after hist_lens resident ones; a write row equal to
 // `trash` is skipped. `part`: n_slots * Hkv * n_splits * T * n_rep * (hd + 2)
-// floats.
+// floats; the rest as #8.
 extern "C" int ssi_paged_attention_multi(
     int dtype, const void* q, void* k_pool, void* v_pool, const void* page_table, const void* hist_lens,
-    const void* k_new, const void* v_new, const void* write_rows, void* out, void* part,
-    int n_slots, int t_q, int Hq, int Hkv, int hd, int ps, int max_pages, int trash, int pages_per_split,
-    int n_splits, float scale, void* stream) {
+    const void* k_new, const void* v_new, const void* write_rows, void* out, void* part, void* counters,
+    const void* k_map, const void* v_map, int n_slots, int t_q, int Hq, int Hkv, int hd, int ps, int max_pages,
+    int trash, int pages_per_split, int n_splits, int box, float scale, void* stream) {
     if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
-    Args a = make_args(q, k_pool, v_pool, page_table, hist_lens, k_new, v_new, write_rows, out, part, n_slots, t_q,
-                       Hq, Hkv, ps, max_pages, pages_per_split, n_splits, scale);
+    Args a = make_args(q, k_pool, v_pool, page_table, hist_lens, k_new, v_new, write_rows, out, part, counters,
+                       n_slots, t_q, Hq, Hkv, ps, max_pages, pages_per_split, n_splits, box, scale);
     a.trash = trash;
-    return static_cast<int>(launch(dtype, hd, a, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(launch(dtype, hd, a, k_map, v_map, static_cast<cudaStream_t>(stream)));
 }

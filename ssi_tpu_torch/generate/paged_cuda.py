@@ -11,13 +11,19 @@ plain PyTorch versions. Both wrappers launch one split-context core
   physical write row per token instead (the trash row = skip), as the JAX
   gather path resolves them.
 
-The core is built for head_dim 64 and 128 and takes any GQA ratio n_rep
-with ``T * n_rep <= MAX_ROWS`` (64) query rows per (slot, kv head).
+The core is built for head_dim 64 and 128, page sizes that are multiples of
+8, and any GQA ratio n_rep with ``T * n_rep <= MAX_ROWS`` (64) query rows
+per (slot, kv head).
 
 The core splits each slot's context over blocks of :func:`split_plan`'s
-pages and merges them in a second kernel, launched by the same C call; the
-wrapper allocates the merge's scratch. No context length is refused: a
-longer context gives each split more pages.
+pages (one split up to 1,280 keys). In bf16 one launch does the whole call:
+the split that finishes last merges a slot's splits, told by an arrival
+counter per (slot, kv head) that this module keeps zeroed on each device
+(:func:`_counters`), and it reads the pages by TMA through tensor maps this
+module encodes once per pool (:func:`_pool_map`). The f32 parity path
+merges in a second kernel, launched by the same C call. The wrapper
+allocates the merge's scratch. No context length is refused: a longer
+context gives each split more pages.
 
 The pools are updated IN PLACE — torch tensors are mutable, so the TPU
 kernels' input->output aliasing has no counterpart — and only the attention
@@ -29,6 +35,8 @@ version; a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ssi_tpu_torch import _build
@@ -37,10 +45,17 @@ from ssi_tpu_torch.generate.paged import paged_attention, paged_attention_multi
 KERNEL = "paged_attention_fused"
 KERNEL_MULTI = "paged_attention_multi"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-SPLIT_KEYS = 256  # keys a split walks at least: two 128-token pages
+# keys a split walks at least: ten 128-token pages. A bf16 block streams its
+# pages no faster than its SM's TMA, so a longer split lengthens a call's
+# slowest block, and shorter ones add blocks and merges (PERF.md section 6)
+SPLIT_KEYS = 1280
 MAX_SPLITS = 16   # splits per (slot, kv head) at most, which bounds the scratch
 HEAD_DIMS = (64, 128)  # the head_dims the kernels are built for
 MAX_ROWS = 64     # T * n_rep query rows per (slot, kv head) at most
+_MAP_BYTES = 128  # a CUtensorMap
+_MAX_MAPS = 64    # cached tensor maps; the cache is emptied past it
+_maps: dict[tuple, ctypes.Array] = {}
+_counter_buffers: dict[torch.device, torch.Tensor] = {}
 
 
 def split_plan(max_pages: int, page_size: int) -> tuple[int, int]:
@@ -49,6 +64,51 @@ def split_plan(max_pages: int, page_size: int) -> tuple[int, int]:
     ``MAX_SPLITS`` of them (a longer context gives each more pages)."""
     per_split = max(-(-SPLIT_KEYS // page_size), -(-max_pages // MAX_SPLITS))
     return per_split, -(-max_pages // per_split)
+
+
+def box_keys(page_size: int, head_dim: int) -> int:
+    """Keys per TMA box of the bf16 kernel: the largest power of two that
+    divides ``page_size`` (a multiple of 8), so no box crosses a page, up to
+    the kernel's tile (128 keys at head_dim 64, 64 at 128)."""
+    tile = 128 if head_dim == 64 else 64
+    return next(b for b in (128, 64, 32, 16, 8) if b <= tile and page_size % b == 0)
+
+
+def pool_map_key(pool: torch.Tensor, box: int) -> tuple:
+    """What a pool's tensor map is a function of: its address, its rows of
+    keys, its row width and the box; the map cache's key."""
+    return pool.data_ptr(), pool.shape[0] * pool.shape[1], pool.shape[2], box
+
+
+def _pool_map(lib, pool: torch.Tensor, box: int) -> ctypes.Array:
+    """The bf16 kernel's tensor map of ``pool`` (encoded on the host once
+    per :func:`pool_map_key`: an engine's pools live as long as the engine)."""
+    key = pool_map_key(pool, box)
+    m = _maps.get(key)
+    if m is None:
+        if len(_maps) >= _MAX_MAPS:
+            _maps.clear()
+        m = ctypes.create_string_buffer(_MAP_BYTES)
+        err = lib.ssi_paged_pool_map(m, pool.data_ptr(), key[1], key[2], box)
+        if err != 0:
+            raise RuntimeError(f"encoding the tensor map of a paged pool {tuple(pool.shape)} failed: cudaError_t {err}")
+        _maps[key] = m
+    return m
+
+
+def _counters(n: int, device) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters on ``device``, zero between
+    calls: each launch's merging blocks zero what they counted. Allocated
+    (zeroed) at the first call on the device and grown outside any CUDA
+    graph capture."""
+    buf = _counter_buffers.get(device)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the paged kernels' arrival counters must be allocated before a CUDA graph capture: "
+                               "call the kernel once at this shape first")
+        buf = torch.zeros(max(n, 2 * buf.numel() if buf is not None else n), dtype=torch.int32, device=device)
+        _counter_buffers[device] = buf
+    return buf
 
 
 def _scratch(n_slots: int, hkv: int, n_rows: int, n_splits: int, hd: int, device) -> torch.Tensor:
@@ -87,6 +147,8 @@ def _check_common(q, k_pool, v_pool, k_new, v_new, hq: int, hd: int, new_shape: 
     t_q = new_shape[1] if len(new_shape) > 1 else 1
     if hd not in HEAD_DIMS:
         raise ValueError(f"the CUDA paged kernels are built for head_dim in {HEAD_DIMS}, got {hd}")
+    if k_pool.shape[1] % 8 != 0:  # the bf16 kernel's TMA boxes are whole 8-row swizzle patterns
+        raise ValueError(f"page_size ({k_pool.shape[1]}) must be a multiple of 8")
     if hkv == 0 or hkv * hd != kvd or hq % hkv != 0:
         raise ValueError(f"unsupported heads: Hq={hq}, pool width {kvd} (Hkv*{hd}); Hq must be a multiple of Hkv")
     if t_q * (hq // hkv) > MAX_ROWS:
@@ -106,6 +168,22 @@ def _check_common(q, k_pool, v_pool, k_new, v_new, hq: int, hd: int, new_shape: 
     return hkv
 
 
+def _core_args(lib, q, k_pool, v_pool, n_slots: int, hkv: int, n_rows: int, max_pages: int, hd: int) -> tuple:
+    """What both C entry points take beside the tensors: the split scratch
+    (to be held until the launch), the pointers that follow ``out`` (the
+    scratch, the arrival counters and the pools' tensor maps; None for the
+    last three in f32) and the split plan with the box."""
+    ps = k_pool.shape[1]
+    per_split, n_splits = split_plan(max_pages, ps)
+    part = _scratch(n_slots, hkv, n_rows, n_splits, hd, q.device)
+    box = box_keys(ps, hd)
+    ptrs = [part.data_ptr(), None, None, None]
+    if q.dtype == torch.bfloat16:
+        counters = _counters(n_slots * hkv, q.device)
+        ptrs[1:] = counters.data_ptr(), _pool_map(lib, k_pool, box), _pool_map(lib, v_pool, box)
+    return part, ptrs, (per_split, n_splits, box)
+
+
 def _paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new, write_rows):
     n_slots, hq, hd = q.shape
     ps = k_pool.shape[1]
@@ -115,20 +193,18 @@ def _paged_attention_cuda(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new,
     page_table = _check_int("page_table", page_table, (n_slots, max_pages), dev)
     seq_lens = _check_int("seq_lens", seq_lens, (n_slots,), dev)
     write_rows = _check_int("write_rows", write_rows, (n_slots,), dev)
-    per_split, n_splits = split_plan(max_pages, ps)
-    part = _scratch(n_slots, hkv, hq // hkv, n_splits, hd, dev)
     q = q.contiguous()
     k_new = k_new.contiguous()
     v_new = v_new.contiguous()
     out = torch.empty_like(q)
     lib = _build.load_library()
+    part, ptrs, plan = _core_args(lib, q, k_pool, v_pool, n_slots, hkv, hq // hkv, max_pages, hd)
     # the kernel writes at offset (seq_lens - 1) mod ps, floor modulo: an
     # inactive slot (seq_len 0) writes offset ps-1 of the trash row
     err = lib.ssi_paged_attention_fused(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), seq_lens.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        write_rows.data_ptr(), out.data_ptr(), part.data_ptr(),
-        n_slots, hq, hkv, hd, ps, max_pages, per_split, n_splits, hd**-0.5,
+        write_rows.data_ptr(), out.data_ptr(), *ptrs, n_slots, hq, hkv, hd, ps, max_pages, *plan, hd**-0.5,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch(KERNEL, err)
@@ -175,24 +251,21 @@ def _paged_attention_multi_cuda(q, k_pool, v_pool, page_table, hist_lens, k_new,
     dev = q.device
     if not 2 <= t_q <= 8:
         raise ValueError(f"T ({t_q}) must be in [2, 8] (use paged_attention_fused for T == 1)")
-    if ps % 8 != 0:
-        raise ValueError(f"page_size ({ps}) must be a multiple of 8")
     hkv = _check_common(q, k_pool, v_pool, k_new, v_new, hq, hd, (n_slots, t_q))
     page_table = _check_int("page_table", page_table, (n_slots, max_pages), dev)
     hist_lens = _check_int("hist_lens", hist_lens, (n_slots,), dev)
     write_rows = _check_int("write_rows", write_rows, (n_slots, t_q), dev)
-    per_split, n_splits = split_plan(max_pages, ps)
-    part = _scratch(n_slots, hkv, t_q * (hq // hkv), n_splits, hd, dev)
     q = q.contiguous()
     k_new = k_new.contiguous()
     v_new = v_new.contiguous()
     out = torch.empty_like(q)
     lib = _build.load_library()
+    part, ptrs, plan = _core_args(lib, q, k_pool, v_pool, n_slots, hkv, t_q * (hq // hkv), max_pages, hd)
     err = lib.ssi_paged_attention_multi(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         page_table.data_ptr(), hist_lens.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        write_rows.data_ptr(), out.data_ptr(), part.data_ptr(),
-        n_slots, t_q, hq, hkv, hd, ps, max_pages, k_pool.shape[0] - 1, per_split, n_splits, hd**-0.5,
+        write_rows.data_ptr(), out.data_ptr(), *ptrs, n_slots, t_q, hq, hkv, hd, ps, max_pages, k_pool.shape[0] - 1,
+        *plan, hd**-0.5,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check_launch(KERNEL_MULTI, err)

@@ -12,6 +12,7 @@ import torch
 from ssi_tpu_torch import _build
 from ssi_tpu_torch.generate.paged import paged_attention
 from ssi_tpu_torch.generate.paged_cuda import (
+    SPLIT_KEYS,
     paged_attention_fused,
     paged_attention_fused_reference,
     paged_attention_multi_fused,
@@ -152,13 +153,20 @@ def test_paged_multi_kernel_matches_plain(gen, dtype, hd, n_rep, t_q):
     assert not torch.allclose(got[landed].float(), loose[landed].float(), atol=TOL[dtype], rtol=TOL[dtype])
 
 
-def check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=2, hd=64):
+POISON = (float("nan"), float("inf"), float("-inf"))
+
+
+def check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=2, hd=64, poison=False):
     """One of the paged kernels, #8 (``t_q`` 1: seq_lens = hist + 1, 0 when
     inactive) or #9, against its plain version on slots of history ``hist``
     (positions < hist_len; inactive slots write to the trash row): attention
-    of active slots within tolerance, two launches bitwise equal (the second
-    rewrites the same cells, which no launch reads), pools bitwise equal
-    except the trash row."""
+    of active slots within tolerance, beside a control that must miss it
+    (each q head routed to the next kv head), two launches bitwise equal (the
+    second rewrites the same cells, which no launch reads), pools bitwise
+    equal except the trash row. ``poison``: every pool cell outside the
+    slots' histories holds NaN, +Inf or -Inf in the kernel's pools (the bf16
+    kernel's page boxes bring such cells in) and 0 in the plain version's,
+    which computes 0 * v for masked keys."""
     slots = len(hist)
     n_pages = slots * max_pages
     rows = 2 * n_pages + 1  # layer 1's pages, the trash row last
@@ -180,14 +188,29 @@ def check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=
     else:
         lens = hist
         kernel, plain = paged_attention_multi_fused, paged_attention_multi_fused_reference
+    unused = torch.ones((rows, ps), dtype=torch.bool, device="cuda")
+    if poison:  # the history cells (position < hist_len of each slot) are the only ones read
+        key = torch.arange(max_pages * ps, device="cuda")
+        in_hist = key[None, :] < hist[:, None]
+        unused[table[:, key // ps].long()[in_hist], (key % ps).expand(slots, -1)[in_hist]] = False
+        for pool in (kp, vp):
+            pool[unused] = 0
     kp_ref, vp_ref = kp.clone(), vp.clone()
+    kp_ctl, vp_ctl = kp.clone(), vp.clone()
+    if poison:
+        cells = torch.randint(0, len(POISON), (int(unused.sum()), hkv * hd), generator=gen, device="cuda")
+        for pool in (kp, vp):
+            pool[unused] = torch.tensor(POISON, device="cuda")[cells].to(dtype)
     got = kernel(q, kp, vp, table, lens, **kw)
     again = kernel(q, kp, vp, table, lens, **kw)
     ref = plain(q, kp_ref, vp_ref, table, lens, **kw)
+    ctl = plain(q.roll(n_rep, -2), kp_ctl, vp_ctl, table, lens, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     torch.testing.assert_close(got[active].float(), ref[active].float(), atol=TOL[dtype], rtol=TOL[dtype])
-    assert torch.equal(kp[:-1], kp_ref[:-1]) and torch.equal(vp[:-1], vp_ref[:-1])
+    assert not torch.allclose(got[active].float(), ctl[active].float(), atol=TOL[dtype], rtol=TOL[dtype])
+    for pool, pool_ref in ((kp, kp_ref), (vp, vp_ref)):  # the poisoned cells not written read as 0
+        assert torch.equal(torch.nan_to_num(pool[:-1], nan=0.0, posinf=0.0, neginf=0.0), pool_ref[:-1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -196,15 +219,17 @@ def check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=
 @pytest.mark.parametrize("hd,t_q,n_rep", [(64, 1, 4), (64, 1, 8), (64, 4, 4), (64, 8, 4), (64, 8, 8),
                                           (128, 1, 3), (128, 1, 4), (128, 4, 3), (128, 4, 4), (128, 8, 3),
                                           (128, 8, 8)])
-@pytest.mark.parametrize("ps,max_pages", [(16, 48), (128, 10)])  # 3 and 5 splits of 256 keys
-def test_paged_kernels_split_boundaries(gen, dtype, hd, t_q, n_rep, ps, max_pages):
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_kernels_split_boundaries(gen, dtype, hd, t_q, n_rep, ps):
     """The split-context kernels where splits start and end: histories that
     end exactly on a split boundary and one key past it, one that fits in one
     split (finished by that split alone), history 0 (the only live split
-    holds no history key), an inactive slot, and the full context less T."""
+    holds no history key), an inactive slot, and the full context less T;
+    a table of three splits."""
+    max_pages = 3 * SPLIT_KEYS // ps
     per_split, n_splits = split_plan(max_pages, ps)
     sk, cap = per_split * ps, max_pages * ps
-    assert n_splits > 1
+    assert n_splits == 3
     hist = [0, 100, sk - 1, sk, sk + 1, 2 * sk, 2 * sk + 1, cap - t_q, 0, 37]
     active = [True] * 8 + [False, True]
     check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hd=hd)
@@ -227,13 +252,35 @@ def test_paged_kernel_at_the_drives_decode_shape(gen, dtype):
 @pytest.mark.parametrize("hd,n_rep", [(64, 4), (128, 3), (128, 4)])  # 1B; 3B; 8B
 def test_paged_kernels_past_the_old_context_cap(gen, dtype, t_q, hd, n_rep):
     """32 slots at context 16,384: the old #8 kept every score in shared
-    memory and its wrapper refused this shape; the split plan caps the
-    splits at 16 of 1,024 keys each."""
+    memory and its wrapper refused this shape; the split plan cuts it into
+    13 splits of 1,280 keys."""
     ps, max_pages = 128, 128
     cap = ps * max_pages
-    assert split_plan(max_pages, ps) == (8, 16)
+    assert split_plan(max_pages, ps) == (10, 13)
     hist = [cap - t_q, 0, 1, 1024, 1025] + torch.randint(1, cap - t_q + 1, (27,), generator=gen, device="cuda").tolist()
     check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, [True] * 32, hd=hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("poison", [False, True])
+@pytest.mark.parametrize("ps", [8, 16, 64, 128, 256])
+# #8 and #9 at the 1B, 3B and 8B head layouts; R 64 at head_dim 128 (T 8 x n_rep 8) in one block
+@pytest.mark.parametrize("hd,t_q,n_rep", [(64, 1, 4), (64, 4, 4), (64, 8, 8), (128, 1, 3), (128, 4, 4),
+                                          (128, 8, 8)])
+def test_paged_kernels_page_sizes_and_unused_cells(gen, dtype, poison, ps, hd, t_q, n_rep):
+    """Page sizes below a 64-key tile (a tile spans pages: one TMA box a
+    page), equal to it, and above it (a page spans tiles); histories of 0
+    and 1, ending on page and split boundaries and one key either side, the
+    full context less T, and an inactive slot; with every cell outside the
+    histories holding NaN or +-Inf, which the kernel's boxes read and must
+    keep out of the output."""
+    max_pages = 3 * SPLIT_KEYS // ps
+    per_split, n_splits = split_plan(max_pages, ps)
+    sk, cap = per_split * ps, max_pages * ps
+    assert n_splits == 3
+    hist = [0, 1, ps - 1, ps, ps + 1, sk - 1, sk, sk + 1, 2 * sk, cap - t_q, 100, 37]
+    active = [True] * 10 + [False, True]
+    check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hd=hd, poison=poison)
 
 
 def test_kernel_wrappers_refuse_unsupported_shapes(gen):
@@ -264,6 +311,13 @@ def test_kernel_wrappers_refuse_unsupported_shapes(gen):
         paged_attention_multi_fused(z, pool, pool.clone(), *args, k_new=kv9, v_new=kv9,
                                     write_rows=torch.zeros((1, 9), dtype=torch.int32, device="cuda"))
     pool12 = torch.zeros((3, 12, 2 * 64), device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):  # #8: the bf16 kernel's TMA boxes need it
+        paged_attention_fused(
+            torch.zeros((1, 8, 64), device="cuda"), pool12, pool12.clone(),
+            torch.zeros((1, 1), dtype=torch.int32, device="cuda"), torch.ones(1, dtype=torch.int32, device="cuda"),
+            k_new=torch.zeros((1, 2, 64), device="cuda"), v_new=torch.zeros((1, 2, 64), device="cuda"),
+            write_rows=torch.zeros(1, dtype=torch.int32, device="cuda"),
+        )
     with pytest.raises(ValueError, match="multiple of 8"):
         paged_attention_multi_fused(z[:, :4], pool12, pool12.clone(), *args, k_new=kv9[:, :4], v_new=kv9[:, :4],
                                     write_rows=torch.zeros((1, 4), dtype=torch.int32, device="cuda"))

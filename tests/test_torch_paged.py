@@ -18,10 +18,12 @@ from ssi_tpu.models.llama3 import init_params
 from ssi_tpu_torch.generate import paged as tpaged
 from ssi_tpu_torch.generate import paged_cuda
 from ssi_tpu_torch.generate.paged_cuda import (
+    box_keys,
     paged_attention_fused,
     paged_attention_fused_reference,
     paged_attention_multi_fused,
     paged_attention_multi_fused_reference,
+    pool_map_key,
     split_plan,
 )
 from ssi_tpu_torch.models.llama3 import params_from_numpy
@@ -339,5 +341,62 @@ def test_split_plan_covers_the_table_with_bounded_splits(ps):
         assert 1 <= n_splits <= paged_cuda.MAX_SPLITS
         assert (n_splits - 1) * per_split < max_pages <= n_splits * per_split
         assert per_split * ps >= paged_cuda.SPLIT_KEYS
-    assert split_plan(10, 128) == (2, 5)  # the 1B serving shape: 5 splits of 256 keys
-    assert split_plan(128, 128) == (8, 16)  # context 16,384: 16 splits of 1,024 keys
+    assert split_plan(10, 128) == (10, 1)  # the 1B serving shape: one split of 1,280 keys
+    assert split_plan(128, 128) == (10, 13)  # context 16,384: 13 splits of 1,280 keys
+    assert split_plan(400, 128) == (25, 16)  # context 51,200: 16 splits, each longer
+
+
+def test_box_keys_tile_every_page_size():
+    """The bf16 kernel's TMA box (keys) for every page size the engine takes
+    (multiples of 8) at both head_dims: a power of two of at least 8 (whole
+    swizzle patterns of 8 rows), at most the kernel's tile (128 keys at
+    head_dim 64, 64 at 128), and a divisor of the page size, so a box never
+    crosses a page; the largest such."""
+    for hd, tile in ((64, 128), (128, 64)):
+        for ps in range(8, 1032, 8):
+            box = box_keys(ps, hd)
+            assert box in (8, 16, 32, 64, 128) and box <= tile and ps % box == 0, (ps, hd)
+            assert all(ps % b for b in (16, 32, 64, 128) if box < b <= tile), (ps, hd)
+    assert box_keys(128, 64) == 128 and box_keys(128, 128) == 64 and box_keys(24, 64) == 8
+
+
+def test_pool_map_key_names_what_the_tensor_map_encodes():
+    """The tensor-map cache key: one per (address, rows of keys, row width,
+    box), so a map is reused only for the same memory read the same way."""
+    pool = torch.zeros((5, 16, 128), dtype=torch.bfloat16)
+    assert pool_map_key(pool, 16) == (pool.data_ptr(), 80, 128, 16)
+    assert pool_map_key(pool, 16) == pool_map_key(pool.view(5, 16, 128), 16)
+    assert pool_map_key(pool, 16) != pool_map_key(pool, 8)
+    assert pool_map_key(pool, 8) == pool_map_key(pool.view(10, 8, 128), 8)  # the same [80, 128] matrix
+    assert pool_map_key(pool, 16) != pool_map_key(pool.view(5, 32, 64), 16)
+    assert pool_map_key(pool, 16) != pool_map_key(pool.clone(), 16)
+
+
+def test_decode_profile_classes_the_paged_kernels():
+    """``profile_decode`` adds every paged-core kernel into "paged kernel
+    #8": the bf16 kernel (one a call) and the f32 split and merge."""
+    from ssi_tpu_torch.profile_decode import _classify
+
+    for name in ("void (anonymous namespace)::paged_hopper_kernel<64, 1>((anonymous namespace)::Args, CUtensorMap)",
+                 "void (anonymous namespace)::paged_split_f32_kernel<64, 2>((anonymous namespace)::Args)",
+                 "void (anonymous namespace)::paged_merge_f32_kernel<128>((anonymous namespace)::Args)"):
+        assert _classify(name) == "paged kernel #8", name
+
+
+def test_arrival_counters_stay_zeroed_and_grow_outside_a_capture(monkeypatch):
+    """The bf16 kernel's arrival counters: one zeroed int32 buffer a device,
+    reused while large enough, grown (zeroed) when a call has more (slot, kv
+    head) pairs, and never allocated inside a CUDA graph capture, where the
+    buffer would belong to the graph."""
+    monkeypatch.setattr(paged_cuda, "_counter_buffers", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    dev = torch.device("cpu")
+    a = paged_cuda._counters(10, dev)
+    assert a.dtype == torch.int32 and a.numel() == 10 and not a.any()
+    assert paged_cuda._counters(4, dev) is a
+    b = paged_cuda._counters(25, dev)
+    assert b.numel() >= 25 and not b.any()
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    assert paged_cuda._counters(25, dev) is b
+    with pytest.raises(RuntimeError, match="before a CUDA graph capture"):
+        paged_cuda._counters(b.numel() + 1, dev)

@@ -241,10 +241,13 @@ n. training across ranks, inside phase e on its extended checkpoint (after
    phase k): ``python -m torch.distributed.run --standalone
    --nproc_per_node 1`` of the SFT CLI with ``parallel.distributed=true``
    (NCCL at world size 1) at phase e's window, steps and argv: n1 with
-   ``parallel.zero1=true``, n2 with ``parallel.fsdp=true
-   sharded_optimizer_state=true`` (saves at steps 2 and 4), n3 resuming n2
-   from step 2; n1's and n2's losses, grad norms, dev losses and
-   ``step_4/`` files equal phase e's bitwise, n3's steps 3-4, ``step_4/``
+   ``parallel.zero1=true`` and no dev evaluation, n2 with
+   ``parallel.fsdp=true sharded_optimizer_state=true`` (saves at steps 2 and
+   4), n3 resuming n2 from step 2 (overlapping on the card: n1 and n2 at
+   once, n3 once n1 has ended and n2 has kept its step-2 state; cut so to
+   make room for phase t); n1's and n2's
+   losses, grad norms and ``step_4/`` files and n2's dev losses equal phase
+   e's bitwise, n3's steps 3-4, ``step_4/``
    and step-4 moments (read back from both sharded directories) equal
    n2's; every training kernel launched (the kernels line's
    ``launches_by_path["train_dp"]``, through
@@ -345,11 +348,34 @@ h. Llama 3.1 8B serving at full width (D 4,096, FFN 14,336, an untied
    64 requests x 128 greedy tokens at 32 slots, then with ``speculate_k=3``, the prefix cache and
    ``prefill_chunk=512`` (every request finishes, pages balance, #1, #8 and
    #9 launched); then f32 greedy at 8B width with the depth cut to 2
-   layers, tokens kernels == plain and == the oracle.
+   layers, tokens kernels == plain and == the oracle;
+t. the shapes the JAX kernels take beyond the registry's (ROADMAP B1-B3)
+   and ``tiny_test`` through its entry points:
+   t1. every new shape of each kernel, f32 and bf16, against its plain
+   version, each beside a control that must miss: #1-#4 at head_dims 16,
+   40, 72, 80, 96, 120 and 100 (padded to 104 by the wrapper) with q, k, v
+   and do column slices of 128-wide buffers holding NaN past d (control:
+   the plain forward at the scale of the instance's width); #5-#7 at D 64,
+   72, 100, 576 and 960 with h a slice of a NaN buffer (controls: the lse
+   of the D tail dropped, lse + 0.05, dh without its softmax term); #8/#9 at
+   head_dims 16, 80 and 96 and at 72 and 128 query rows of a kv head, every
+   unused pool cell NaN or +-Inf, three splits, pages of 16 and 128;
+   t2. the new shapes' rows timed in bf16 beside their bounds and the
+   library calls: #1-#4 at head_dim 80 and 96 at 1B's heads (B 8, S 768
+   and B 2, S 2048), #5-#7 at D 576 and 960 (N 4,096, V 133,258), #8 at
+   head_dim 96 (32 slots, n_rep 4, context 1,280), #9 at Llama 3.1 405B's
+   heads (128 q / 8 kv of 128: 64 query rows at T 4, 128 at T 8);
+   t3. ``tiny_test`` f32 greedy tokens kernels == plain (and == the
+   oracle, ``speculate_k=3`` == 0), then ``python -m ssi_tpu_torch.wer_drive
+   --smoke --model-config tiny_test --max-seq-len 512`` as a subprocess,
+   every stage a CLI on the card (#1, #3, #5-#7 launched by its SFT stage,
+   #1 and #8 by each generate stage), and the generation CLI on its
+   checkpoint with ``speculate_k=3`` (#1 and #9 launched): the kernels line's
+   ``launches_by_path["tiny_drive"]``.
 
-``--only 1b,e,hd128,g,h`` runs the named groups alone while developing (1b:
-phases 2-f, phases i, j, k, l, n, m and q with them; e: phases e, q, k, n and m alone)
-and prints no result line.
+``--only 1b,e,hd128,g,h,tiny`` runs the named groups alone while developing (1b:
+phases 2-f, phases i, j, k, l, n, m and q with them; e: phases e, q, k, n and m alone;
+tiny: phase t) and prints no result line.
 
 Tolerances: phases 2, 3 and a hold each output elementwise to ``TOL``
 (absolute and relative). Every kernel output is also held in relative norm,
@@ -365,7 +391,9 @@ path, ``wer_drive`` the sum over the drive's stage processes,
 ``serve_tp`` phase o's mesh runs, ``train_tp`` phase p2's tp path,
 ``train_packed`` phase k's packed SFT run, ``cpt_compressed`` phase
 m's CPT and generation runs, ``train_dp`` the sum over phase n's
-torchrun processes and ``train_local`` phase q's SFT and CPT runs; the
+torchrun processes, ``train_local`` phase q's SFT and CPT runs and
+``tiny_drive`` the sum over phase t3's drive and speculative generate
+processes; phase t2's rows of a kernel under its ``other_shapes``; the
 head_dim-128 instances as rows of their own, ``<name>_hd128``, with the 3B
 and 8B paths' launches) and, last, the device line ``{"ok": true,
 "device": {...}}``.
@@ -749,7 +777,8 @@ def device_kernels(fn) -> list[str]:
 # (Hq, Hkv, head_dim, T) -> the device kernels one bf16 paged call runs there
 PAGED_KERNELS: dict[tuple, list[str]] = {}
 PAGED_SHAPES = [(32, 8, 64, 1), (32, 8, 64, 4), (32, 8, 64, 8), (24, 8, 128, 1), (32, 8, 128, 1), (24, 8, 128, 4),
-                (24, 8, 128, 8), (32, 8, 128, 4), (32, 8, 128, 8)]  # phases 3, a, 3g, 3h, ag, ah
+                (24, 8, 128, 8), (32, 8, 128, 4), (32, 8, 128, 8),  # phases 3, a, 3g, 3h, ag, ah
+                (32, 8, 96, 1), (128, 8, 128, 4), (128, 8, 128, 8)]  # phase t2: hd 96; 64 and 128 rows a kv head
 
 
 def paged_kernel_names() -> dict[str, list[str]]:
@@ -3439,6 +3468,7 @@ def save_and_keep(ckpt, **kwargs):
         for f in (ckpt.output_dir / marker).rglob("*") if marker else ():
             (kept / f.relative_to(ckpt.output_dir)).parent.mkdir(parents=True, exist_ok=True)
             os.link(f, kept / f.relative_to(ckpt.output_dir))
+        (kept / "complete").touch()  # a run resumed from it may start now
     return path
 
 def timed_save(*args, **kwargs):
@@ -3522,12 +3552,13 @@ def dcp_tensors(path) -> dict:
 def phase_distributed(seed: int, smi: str, root, sft_argv, e: dict) -> dict:
     """Phase n: the SFT CLI under ``torchrun --standalone --nproc_per_node 1``
     with ``parallel.distributed=true`` (NCCL at world size 1) on phase e's
-    extended checkpoint, data and window: n1 ZeRO-1, n2 FSDP with the sharded
-    optimizer state (saves at steps 2 and 4), n3 n2 resumed from step 2.
-    At one rank each collective is the identity and no leaf is sharded, so
-    n1's and n2's losses, grad norms, dev losses and ``step_4/`` files equal
-    phase e's undistributed run bitwise, and n3's steps 3-4, ``step_4/`` and
-    step-4 moments equal n2's. Then two ranks on the one card, once: NCCL's
+    extended checkpoint, data and window: n1 ZeRO-1 (no dev evaluation) and
+    n2 FSDP with the sharded optimizer state (saves at steps 2 and 4), run at
+    once, and n3, n2 resumed from step 2, started once n1 has ended and n2
+    has kept its step-2 state. At one rank each collective is the
+    identity and no leaf is sharded, so n1's and n2's losses, grad norms and
+    ``step_4/`` files and n2's dev losses equal phase e's undistributed run
+    bitwise, and n3's steps 3-4, ``step_4/`` and step-4 moments equal n2's. Then two ranks on the one card, once: NCCL's
     answer is printed, and if it accepts them, n4 trains at dp 2 with the
     per-rank batch halved, held to n1's losses within 1e-2. ``e``: phase e's
     metrics, ``step_4/`` digests, peak memory and save readings. Returns the
@@ -3558,33 +3589,48 @@ def phase_distributed(seed: int, smi: str, root, sft_argv, e: dict) -> dict:
     e_losses = [m["loss"] for m in e["metrics"] if "loss" in m]
     e_norms = [m["grad_norm"] for m in e["metrics"] if "loss" in m]
     e_dev = [m["dev_loss"] for m in e["metrics"] if "dev_loss" in m]
-    n1 = run("dp_n1", "parallel.zero1=true", "save_steps=4")
+    # n1 and n2 run at once, and n3 starts once n1 has ended and n2 has kept its step-2 state (two 1B runs
+    # share the card at a time, ~22 GiB each), and n1 runs no dev evaluation (eval_steps and save_steps past
+    # max_steps: its one save is the final step_4/): to make room in the run for phase t. n2 holds the
+    # distributed path's dev losses to phase e's. Two ranks on the one card, NCCL's answer, are asked while
+    # n3 runs.
+    probe = root / "nccl_probe.py"
+    probe.write_text(NCCL_PROBE)
+    asked: dict = {}
+
+    def n3_from_n2_step2(n1_run, n2_run) -> dict:
+        kept = root / "dp_n2" / "kept2" / "complete"  # the rank launcher writes it once step 2 is kept
+        while not (kept.exists() and n1_run.done()) and not n2_run.done():
+            time.sleep(0.5)
+        check(kept.exists(), "n2 ended without keeping its step-2 state")
+        asking = threading.Thread(target=lambda: asked.update(
+            zip(("code", "seconds"), run_torchrun([str(probe)], 2, root / "nccl_probe.log", env, 120))))
+        asking.start()
+        out = run("dp_n3", "parallel.fsdp=true", "sharded_optimizer_state=true",
+                  f"checkpointer.checkpoint_dir={root / 'dp_n2' / 'step_2'}",
+                  f"checkpointer.training_state_checkpoint={root / 'dp_n2' / 'kept2' / 'training_state.msgpack'}")
+        asking.join()
+        return out
+
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        n1_run = pool.submit(run, "dp_n1", "parallel.zero1=true", "save_steps=6", "eval_steps=6")
+        n2_run = pool.submit(run, "dp_n2", "parallel.fsdp=true", "sharded_optimizer_state=true", keep=2)
+        n3_run = pool.submit(n3_from_n2_step2, n1_run, n2_run)
+        n1, n2, n3 = n1_run.result(), n2_run.result(), n3_run.result()
     check(n1["report"]["world_size"] == 1 and n1["report"]["backend"] == "nccl",
           f"n1 ran at world size {n1['report']['world_size']} on {n1['report']['backend']}, not 1 on nccl")
-    check(n1["losses"] == e_losses and n1["norms"] == e_norms and n1["dev"] == e_dev,
-          f"n1 (ZeRO-1, world 1) losses {n1['losses']} / norms {n1['norms']} / dev {n1['dev']} != phase e's "
-          f"{e_losses} / {e_norms} / {e_dev}")
+    check(n1["losses"] == e_losses and n1["norms"] == e_norms and n1["dev"] == [],
+          f"n1 (ZeRO-1, world 1, no dev evaluation) losses {n1['losses']} / norms {n1['norms']} / dev {n1['dev']} "
+          f"!= phase e's {e_losses} / {e_norms} / []")
     check(file_digests(n1["out"] / "step_4") == e["digests"], "n1's step_4/ differs from phase e's")
     shutil.rmtree(n1["out"])
 
-    n2 = run("dp_n2", "parallel.fsdp=true", "sharded_optimizer_state=true", keep=2)
     check(n2["losses"] == e_losses and n2["norms"] == e_norms and n2["dev"] == e_dev,
           f"n2 (FSDP, sharded state, world 1) losses {n2['losses']} != phase e's {e_losses}")
     n2_digests = file_digests(n2["out"] / "step_4")
     check(n2_digests == e["digests"], "n2's step_4/ differs from phase e's")
     check(sorted(p.name for p in n2["out"].glob("optimizer_state_dcp_step*")) == ["optimizer_state_dcp_step4"],
           "n2 did not keep exactly its newest sharded optimizer directory")
-    # two ranks on the one card, NCCL's answer, asked while n3 runs (n3's times are not compared)
-    probe = root / "nccl_probe.py"
-    probe.write_text(NCCL_PROBE)
-    asked: dict = {}
-    asking = threading.Thread(target=lambda: asked.update(
-        zip(("code", "seconds"), run_torchrun([str(probe)], 2, root / "nccl_probe.log", env, 120))))
-    asking.start()
-    n3 = run("dp_n3", "parallel.fsdp=true", "sharded_optimizer_state=true",
-             f"checkpointer.checkpoint_dir={n2['out'] / 'step_2'}",
-             f"checkpointer.training_state_checkpoint={n2['out'] / 'kept2' / 'training_state.msgpack'}")
-    asking.join()
     check(n3["losses"] == n2["losses"][2:] and n3["norms"] == n2["norms"][2:],
           f"n3 (resumed from step 2) losses {n3['losses']} != n2's {n2['losses'][2:]}")
     check(file_digests(n3["out"] / "step_4") == n2_digests, "n3's step_4/ differs from n2's")
@@ -3623,10 +3669,12 @@ def phase_distributed(seed: int, smi: str, root, sft_argv, e: dict) -> dict:
     mean = lambda ms, k: sum(m[k] for m in ms[1:]) / 3  # noqa: E731  steps 2-4: the first holds warm-up
     steps = {name: [m for m in r["metrics"] if "loss" in m] for name, r in (("e", e), ("n1", n1), ("n2", n2))}
     log(f"phase n (torchrun --nproc_per_node 1, NCCL, world 1; 1B bf16, phase e's window 4 x 2 x 2048): n1 ZeRO-1 "
-        f"and n2 FSDP + sharded optimizer state: losses, grad norms, dev losses and step_4/ equal phase e's bitwise; "
+        f"(no dev evaluation) and n2 FSDP + sharded optimizer state, run at once with n3: losses, grad norms, step_4/ "
+        f"and n2's dev losses equal phase e's bitwise; "
         f"n3 (n2 resumed from step 2): steps 3-4, step_4/ and the step-4 moments ({n_moment_bytes / 1e9:.2f} GB, "
         f"read back in {t_moments:.1f} s) equal n2's bitwise")
-    log(f"phase n readings on {smi}: steps 2-4 mean duration_step phase e {mean(steps['e'], 'duration_step') * 1e3:.1f} "
+    log(f"phase n readings on {smi} (n1 and n2 at once, n3 with n2's last steps): steps 2-4 mean duration_step "
+        f"phase e {mean(steps['e'], 'duration_step') * 1e3:.1f} "
         f"ms, n1 {mean(steps['n1'], 'duration_step') * 1e3:.1f}, n2 {mean(steps['n2'], 'duration_step') * 1e3:.1f} "
         f"({mean(steps['n1'], 'duration_step') / mean(steps['e'], 'duration_step'):.3f}x and "
         f"{mean(steps['n2'], 'duration_step') / mean(steps['e'], 'duration_step'):.3f}x); label tok/s e "
@@ -4593,12 +4641,377 @@ def phase_8b(seed: int, smi: str) -> dict:
     return launches
 
 
+# --- phase t: the shapes past the registry's (ROADMAP B1-B3) and tiny_test through its CLIs ----------------
+
+SHAPE_HEAD_DIMS = (16, 40, 72, 80, 96, 120, 100)  # 100: not a multiple of 8, on the wrappers' padded copies
+SHAPE_DS = (64, 72, 100, 576, 960)  # the CE's D: tiny_test's, a multiple of 8 only, of none, SmolLM's two
+# the paged core: (head_dim, T, n_rep, kv heads); T 1 is #8. tiny_test's heads (hd 16, 4 q / 2 kv), phi-2's hd 80,
+# Phi-3-mini's hd 96, and 72 and 128 query rows of a kv head (two row groups: n_rep 9 at T 8; Llama 3.1 405B's
+# 128 q / 8 kv heads at T 8; n_rep 128 at T 1)
+SHAPE_PAGED = ((16, 1, 2, 2), (16, 4, 2, 2), (80, 1, 4, 8), (80, 4, 4, 8), (96, 1, 4, 8), (96, 8, 4, 8),
+               (64, 8, 9, 2), (128, 8, 16, 8), (128, 1, 128, 2))
+
+
+def nan_columns(x, width: int = 128):
+    """``x [..., d]`` as the first d columns of a ``[..., width]`` buffer
+    whose other columns hold NaN: a kernel that reads past d reads NaN."""
+    import torch
+
+    buf = torch.full((*x.shape[:-1], width), float("nan"), dtype=x.dtype, device=x.device)
+    buf[..., :x.shape[-1]] = x
+    return buf[..., :x.shape[-1]]
+
+
+def instance_width(d: int) -> int:
+    """The head_dim of the kernel instance that runs head_dim ``d``."""
+    return 64 if d <= 64 else 128
+
+
+def phase_shapes_flash(gen) -> None:
+    """Phase t1, #1-#4: the flash forward and backward at head_dims other
+    than 64 and 128 (B 2, S 300, 8 q / 2 kv heads; causal, full, segment
+    ids), f32 and bf16, q, k, v and do column slices of 128-wide buffers
+    whose other columns hold NaN: o within ``TOL`` and ``REL`` beside a
+    control that must miss (the plain forward with the scale of the
+    instance's width, 1/sqrt(64 or 128), as a kernel that took the padded
+    width's scale would compute), lse within ``TOL``; dq, dk, dv within
+    ``REL`` beside the plain gradients at lse + 0.05, bitwise equal over two
+    launches."""
+    import torch
+
+    from ssi_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_fwd,
+        flash_attention_reference,
+    )
+
+    b, s, hq, hkv = 2, 300, 8, 2
+    seg = torch.zeros((b, s), dtype=torch.int32, device="cuda")
+    seg[:, 100:] = 1
+    seg[1, 220:] = 2
+    parts = []
+    for d in SHAPE_HEAD_DIMS:
+        worst, least = {}, math.inf
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[1]
+            q, k, v, do = (nan_columns(torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype))
+                           for h in (hq, hkv, hkv, hq))
+            for name, causal, segs in (("causal", True, None), ("full", False, None), ("segments", True, seg)):
+                o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=segs)
+                o_ref, lse_ref = flash_attention_reference(q, k, v, causal=causal, segment_ids=segs)
+                o_ctl, _ = flash_attention_reference(q * (d / instance_width(d)) ** 0.5, k, v, causal=causal,
+                                                     segment_ids=segs)
+                check(o.shape == q.shape and torch.isfinite(o.float()).all().item(), f"t1 flash d{d} {key}: o")
+                check(torch.allclose(o.float(), o_ref.float(), atol=TOL[key], rtol=TOL[key])
+                      and torch.allclose(lse, lse_ref, atol=TOL[key], rtol=TOL[key]),
+                      f"t1 flash {name} d{d} {key}: o or lse past {TOL[key]}")
+                _, rel, ctl = hold(f"t1 flash {name} d{d} o", o, o_ref, key, [("scale of the instance's width", o_ctl)])
+                got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=segs)
+                again = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=segs)
+                want = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=segs)
+                ctrl = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref + 0.05, do, causal=causal,
+                                                     segment_ids=segs)
+                rels = [rel]
+                for gname, a, a2, w, c in zip(("dq", "dk", "dv"), got, again, want, ctrl):
+                    check(a.shape == w.shape and torch.equal(a, a2), f"t1 flash bwd {name} d{d} {key} {gname}: "
+                          "shape, or two launches differ")
+                    _, r, rc = hold(f"t1 flash bwd {name} d{d} {gname}", a, w, key, [("p x 0.95", c)])
+                    rels.append(r)
+                    least = min(least, rc)
+                worst[key] = max(worst.get(key, 0.0), *rels)
+                least = min(least, ctl)
+            del q, k, v, do
+        parts.append(f"d{d} rel f32 {worst['float32']:.1e} bf16 {worst['bfloat16']:.1e}")
+        log(f"  t1 flash d{d} (instance {instance_width(d)}; B{b} S{s} Hq{hq} Hkv{hkv}; causal, full, segments; "
+            f"NaN past d): o, dq, dk, dv worst rel f32 {worst['float32']:.2e}, bf16 {worst['bfloat16']:.2e} (limits "
+            f"{REL['float32']}, {REL['bfloat16']}); controls >= {least:.2e}; backward bitwise equal over two launches")
+    torch.cuda.empty_cache()
+    log(f"phase t1 flash #1-#4 at other head_dims: ok ({'; '.join(parts)})")
+
+
+def phase_shapes_ce(gen, vocab: int = 20_011, n: int = 1000) -> None:
+    """Phase t1, #5-#7: the CE kernels at D not a multiple of 128 (N 1,000,
+    V 20,011, every 7th label ignored, logits of std 1 and 4), f32 and bf16,
+    h a column slice of a wider buffer whose other columns hold NaN: lse
+    within ``LSE_ATOL`` beside a control (the plain lse of h and E with their
+    last 8 columns dropped: a kernel that lost the D tail) and the loss
+    within 1e-5; dlogits off the labels beside the plain version at lse +
+    0.05; dh beside dh without its softmax term (where that term exceeds the
+    limit: f32, or spread 4, as phase 7); dE's unlabelled rows beside the
+    plain version at lse + 0.05 (dlogits, dh and dE from the kernel's lse);
+    lse, dh and dE bitwise equal over two launches."""
+    import torch
+
+    from ssi_tpu_torch.ops.cross_entropy import (
+        cross_entropy_de,
+        cross_entropy_dh,
+        cross_entropy_dlogits,
+        cross_entropy_lse,
+        fused_cross_entropy,
+    )
+    from ssi_tpu_torch.ops.cross_entropy_cuda import (
+        cross_entropy_de_kernel,
+        cross_entropy_dh_kernel,
+        cross_entropy_dlogits_kernel,
+        cross_entropy_lse_kernel,
+        fused_cross_entropy_kernel,
+    )
+
+    g = torch.tensor(1.0, device="cuda")
+    parts = []
+    for d in SHAPE_DS:
+        worst = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[1]
+            for spread in (1.0, 4.0):
+                h = nan_columns((torch.randn((n, d), generator=gen, device="cuda") * spread).to(dtype), 1024)
+                e = (torch.randn((vocab, d), generator=gen, device="cuda") * d**-0.5).to(dtype)
+                y = torch.randint(0, vocab, (n,), generator=gen, device="cuda", dtype=torch.int32)
+                y[::7] = -100
+                what = f"t1 CE D{d} {key} spread {spread:g}"
+                lse = cross_entropy_lse_kernel(h, e)
+                check(torch.equal(cross_entropy_lse_kernel(h, e), lse), f"{what}: two lse launches differ")
+                lse_p = cross_entropy_lse(h, e)
+                err = (lse - lse_p).abs().max().item()
+                ctl = (cross_entropy_lse(h[:, :-8], e[:, :-8]) - lse_p).abs().max().item()
+                check(err <= LSE_ATOL < ctl, f"{what}: lse max err {err:.2e}, tail-dropped control {ctl:.2e}, "
+                      f"limit {LSE_ATOL}")
+                loss, loss_p = fused_cross_entropy_kernel(h, e, y), fused_cross_entropy(h, e, y)
+                check(abs(loss.item() - loss_p.item()) <= 1e-5 * abs(loss_p.item()), f"{what}: loss {loss.item()} "
+                      f"vs plain {loss_p.item()}")
+                valid = y != -100
+                # dlogits at the labels (p - 1) apart from the rest (p alone, which lse + 0.05 moves by 5%)
+                at_label = torch.zeros((n, vocab), dtype=torch.bool, device="cuda")
+                at_label[valid.nonzero()[:, 0], y[valid].long()] = True
+                dl = cross_entropy_dlogits_kernel(h, e, y, lse, g)
+                dl_p = cross_entropy_dlogits(h, e, y, g, lse=lse)
+                dl_c = cross_entropy_dlogits(h, e, y, g, lse=lse + 0.05)
+                rels = [hold(f"{what} dlogits at the labels", dl[at_label], dl_p[at_label], key)[1],
+                        hold(f"{what} dlogits off the labels", dl[~at_label], dl_p[~at_label], key,
+                             [("lse + 0.05", dl_c[~at_label])])[1]]
+                del dl, dl_p, dl_c, at_label
+                dh = cross_entropy_dh_kernel(h, e, y, lse, g)
+                check(torch.equal(cross_entropy_dh_kernel(h, e, y, lse, g), dh), f"{what}: two dh launches differ")
+                # at spread 1 the softmax term is ~0.7% of dh, inside the bf16 limit (as in phase 7)
+                no_softmax = torch.where(valid[:, None], -g * e.float()[y.clamp(min=0).long()], 0.0)
+                tell = dtype == torch.float32 or spread > 1.0
+                rels.append(hold(f"{what} dh", dh, cross_entropy_dh(h, e, y, g, lse=lse), key,
+                                 [("without its softmax term", no_softmax)] if tell else [])[1])
+                de = cross_entropy_de_kernel(h, e, y, lse, g)
+                check(torch.equal(cross_entropy_de_kernel(h, e, y, lse, g), de), f"{what}: two dE launches differ")
+                de_p = cross_entropy_de(h, e, y, g, lse=lse)
+                unl = torch.ones(vocab, dtype=torch.bool, device="cuda")
+                unl[y[valid].long()] = False
+                rels.append(hold(f"{what} dE labelled rows", de[~unl], de_p[~unl], key)[1])
+                rels.append(hold(f"{what} dE unlabelled rows", de[unl], de_p[unl], key,
+                                 [("lse + 0.05", cross_entropy_de(h, e, y, g, lse=lse + 0.05)[unl])])[1])
+                check(dh.shape == h.shape and de.shape == e.shape, f"{what}: dh {tuple(dh.shape)}, dE {tuple(de.shape)}")
+                worst[key] = max(worst.get(key, 0.0), *rels)
+                del h, e, y, lse, lse_p, dh, de, de_p, no_softmax, unl
+        parts.append(f"D{d} rel f32 {worst['float32']:.1e} bf16 {worst['bfloat16']:.1e}")
+        torch.cuda.empty_cache()
+    log(f"phase t1 cross entropy #5-#7 at any D (N {n}, V {vocab}; NaN past D in h's buffer; lse, loss, dlogits, "
+        f"dh, dE each beside a control that misses; lse, dh, dE bitwise over two launches): ok ({'; '.join(parts)})")
+
+
+def phase_shapes_paged(gen) -> None:
+    """Phase t1, #8/#9 at ``SHAPE_PAGED``: 12 slots on a table of three
+    splits (histories 0, 1, on and one key past split boundaries, the full
+    context less T, an inactive slot), pages of 16 and 128, f32 and bf16,
+    every pool cell outside the histories NaN or +-Inf in the kernel's pools
+    (0 in the plain version's): attention within ``TOL`` and ``REL`` beside a
+    control that must miss (at a head_dim of its own the plain output with
+    the scale of the instance's width, else each q head routed to the next
+    kv head), two launches bitwise equal, pools bitwise equal except the
+    trash row (poisoned cells read as 0)."""
+    import torch
+
+    from ssi_tpu_torch.generate.paged_cuda import SPLIT_KEYS, row_groups, split_plan
+
+    poison = torch.tensor((float("nan"), float("inf"), float("-inf")), device="cuda")
+    parts = []
+    for hd, t_q, n_rep, hkv in SHAPE_PAGED:
+        kernel, plain, lens_of = paged_call(t_q)
+        worst = {}
+        for ps in (16, 128):
+            max_pages = 3 * SPLIT_KEYS // ps
+            per_split, n_splits = split_plan(max_pages, ps)
+            sk, cap = per_split * ps, max_pages * ps
+            hist = [0, 1, ps - 1, sk - 1, sk, sk + 1, 2 * sk + 1, cap - t_q, 37, 500, 2000, 3000]
+            slots = len(hist)
+            active = torch.ones(slots, dtype=torch.bool, device="cuda")
+            active[8] = False
+            hist = torch.tensor(hist, dtype=torch.int32, device="cuda")
+            for dtype in (torch.float32, torch.bfloat16):
+                key = str(dtype).split(".")[1]
+                kp, vp, q, kn, vn, ((table, write),) = paged_inputs(gen, dtype, t_q, slots, hkv, n_rep, ps,
+                                                                    max_pages, 1, hist, active, hd)
+                lens = lens_of(hist, active)
+                used = torch.zeros(kp.shape[:2], dtype=torch.bool, device="cuda")
+                keys = torch.arange(cap, device="cuda")
+                in_hist = keys[None, :] < hist[:, None]
+                used[table[:, keys // ps].long()[in_hist], (keys % ps).expand(slots, -1)[in_hist]] = True
+                for pool in (kp, vp):
+                    pool[~used] = 0
+                kp_ref, vp_ref = kp.clone(), vp.clone()
+                cells = torch.randint(0, 3, (int((~used).sum()), kp.shape[2]), generator=gen, device="cuda")
+                for pool in (kp, vp):
+                    pool[~used] = poison[cells].to(dtype)
+                kw = dict(k_new=kn, v_new=vn, write_rows=write)
+                got = kernel(q, kp, vp, table, lens, **kw)
+                again = kernel(q, kp, vp, table, lens, **kw)
+                if hd != instance_width(hd):
+                    ctl_name, ctl = "scale of the instance's width", plain(
+                        q * (hd / instance_width(hd)) ** 0.5, kp_ref.clone(), vp_ref.clone(), table, lens, **kw)
+                else:
+                    ctl_name, ctl = "kv heads shifted", plain(q.roll(n_rep, -2), kp_ref.clone(), vp_ref.clone(),
+                                                              table, lens, **kw)
+                ref = plain(q, kp_ref, vp_ref, table, lens, **kw)
+                torch.cuda.synchronize()
+                what = f"t1 paged hd{hd} T{t_q} n_rep {n_rep} ps {ps} {key}"
+                check(torch.equal(got, again), f"{what}: two launches differ")
+                check(torch.allclose(got[active].float(), ref[active].float(), atol=TOL[key], rtol=TOL[key]),
+                      f"{what}: attention past {TOL[key]}")
+                _, rel, _ = hold(what, got[active], ref[active], key, [(ctl_name, ctl[active])])
+                for pool, pool_ref in ((kp, kp_ref), (vp, vp_ref)):
+                    check(torch.equal(torch.nan_to_num(pool[:-1], nan=0.0, posinf=0.0, neginf=0.0), pool_ref[:-1]),
+                          f"{what}: pools not bitwise equal outside the trash row")
+                worst[key] = max(worst.get(key, 0.0), rel)
+                del kp, vp, kp_ref, vp_ref, q, kn, vn, got, again, ref, ctl, used, cells
+            torch.cuda.empty_cache()
+        rows = t_q * n_rep
+        parts.append(f"hd{hd} T{t_q} {rows} rows ({row_groups(rows)} group{'s' * (row_groups(rows) > 1)}): rel f32 "
+                     f"{worst['float32']:.1e} bf16 {worst['bfloat16']:.1e}")
+    log(f"phase t1 paged #8/#9 at other head_dims and past 64 query rows (3 splits, pages 16 and 128, NaN/Inf in "
+        f"every unused cell; each beside a control that misses, two launches bitwise equal, pools bitwise): ok "
+        f"({'; '.join(parts)})")
+
+
+def phase_shapes_times(gen, vocab: int) -> dict:
+    """Phase t2: the new shapes' rows, each kernel against its plain version
+    (bf16 and f32) and timed in bf16 beside its bound and the library call:
+    #1-#4 at head_dim 80 and 96 at 1B's head layout (32 q / 8 kv) at B 8,
+    S 768 and B 2, S 2048 beside SDPA; #5-#7 at D 576 and 960 (SmolLM-135M's
+    and -360M's) at N 4,096, V 133,258 beside ``h @ E.T`` + ``F.cross_entropy``
+    and ``torch.mm``; #8 at head_dim 96 (32 slots, 8 kv heads, n_rep 4,
+    context 1,280, a graph of 16 layers); #9 at Llama 3.1 405B's head layout
+    (128 q / 8 kv heads of 128: 128 query rows of a kv head at T 8, 64 at
+    T 4). Returns their rows."""
+    rows = {}
+    for d in (80, 96):
+        shapes = ((8, 768), (2, 2048))
+        rows[f"flash_attention_fwd_hd{d}"] = phase_flash(gen, 32, 8, d, shapes=shapes, row=(2, 2048),
+                                                         tag=f"phase t2 flash forward, head_dim {d}")
+        rows[f"flash_attention_bwd_hd{d}"] = phase_flash_bwd(gen, 32, 8, d, shapes=shapes, row=(2, 2048),
+                                                             tag=f"phase t2 flash backward, head_dim {d}")
+    for d in (576, 960):
+        rows.update({f"{name}_d{d}": row for name, row in phase_cross_entropy(
+            gen, vocab, d=d, ns=(4096,), tag=f"phase t2 cross entropy, D {d}").items()})
+    rows["paged_attention_fused_hd96"] = phase_paged(gen, 32, 8, 96, tag="phase t2 paged decode, head_dim 96")
+    rows["paged_attention_multi_405b"] = phase_paged_multi(gen, 128, 8, 128,
+                                                           tag="phase t2 paged verify, 405B's heads (T 4: 64 rows, "
+                                                               "T 8: 128)")
+    return rows
+
+
+TINY_DRIVE_ARGS = ["--smoke", "--model-config", "tiny_test", "--max-seq-len", "512"]  # its rows run to ~300 tokens
+
+
+def phase_tiny_drive(seed: int, smi: str) -> dict:
+    """Phase t3: ``tiny_test`` (2 layers, D 64, 4 q / 2 kv heads of 16) on
+    the card through its entry points. First f32 greedy tokens at its width,
+    the kernels against the plain versions (phases 4 and b's checks:
+    identical tokens, equal to a full-recompute oracle, ``speculate_k=3`` ==
+    0). Then ``python -m ssi_tpu_torch.wer_drive --smoke --model-config
+    tiny_test`` (``--max-seq-len 512``: its byte-level rows run to ~300
+    tokens, which the drive's truncation guard refuses at 160) as a user runs
+    it, every stage a CLI subprocess on the card: assets, extend, SFT,
+    generate in bf16 and int8, score; both WERs finite, the summary's
+    ``hardware`` this card, #1, #3, #5, #6, #7 launched by the SFT stage and
+    #1 and #8 by each generate stage. Then the generation CLI once more on
+    the drive's checkpoint with ``speculate_k=3`` (#1 and #9 launched, every
+    record finished). Each stage's process reports its launches through
+    ``SSI_TPU_TORCH_LAUNCH_COUNTS``; their sum is the kernels line's
+    ``launches_by_path["tiny_drive"]``. Nothing on this path can reach a
+    plain version: the wrappers take it only for CPU tensors."""
+    import shutil
+    import tempfile
+    from collections import Counter
+    from pathlib import Path
+
+    cfg = model_config("tiny_test")
+    phase_engine_f32(seed, cfg, tag="phase t3 engine f32 (tiny_test: hd 16, 4 q / 2 kv heads, D 64")
+    phase_spec_f32(seed, cfg, tag="phase t3 spec f32 (tiny_test)")
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tiny_drive_"))
+    try:
+        wd, art = root / "wd", root / "art"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ssi_tpu_torch.wer_drive", *TINY_DRIVE_ARGS, "--workdir",
+                               str(wd), "--artifacts-dir", str(art)], cwd=REPO, capture_output=True, text=True,
+                              timeout=900)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, "the tiny_test drive failed:\n" + "\n".join(
+            (wd / "drive.log").read_text().splitlines()[-30:] if (wd / "drive.log").exists()
+            else proc.stderr.splitlines()[-30:]))
+        summary = json.loads((art / "summary.json").read_text())
+        check(summary["hardware"] == smi, f"tiny drive hardware {summary['hardware']!r}, expected {smi!r}")
+        for tag in ("bf16", "int8"):
+            check(math.isfinite(summary[f"wer_{tag}"]) and summary[f"wer_{tag}"] >= 0,
+                  f"tiny drive WER {tag}: {summary[f'wer_{tag}']}")
+        counts = summary["launch_counts"]
+        for name in TRAIN_KERNELS:
+            check(counts["train"].get(name, 0) > 0, f"kernel {name} was not launched by the tiny drive's SFT stage")
+        for tag in ("bf16", "int8"):
+            for name in ("flash_attention_fwd", "paged_attention_fused"):
+                check(counts[f"generate_{tag}"].get(name, 0) > 0,
+                      f"kernel {name} was not launched by the tiny drive's {tag} generate stage")
+
+        # the generation CLI again on the drive's checkpoint, with speculation: #9
+        step = sorted(wd.glob("experiments/**/checkpoints/step_*"), key=lambda p: p.stat().st_mtime)[-1]
+        spec_counts, out = root / "spec.jsonl", root / "gen_spec"
+        env = {**os.environ, "SSI_TPU_HOME": str(wd), "PYTHONPATH": REPO,
+               "SSI_TPU_TORCH_LAUNCH_COUNTS": str(spec_counts)}
+        t1 = time.perf_counter()
+        spec = subprocess.run([sys.executable, "-m", "ssi_tpu_torch.cli.generate", f"model={step}",
+                               "model_config=tiny_test", "base_model_name=tiny_test",
+                               "data=sft/mls-hubert_large_ll60k-layer_22", "data.test.dataset.source=json",
+                               f"+data.test.dataset.data_files={wd / 'data' / 'test.jsonl'}",
+                               "data.test.dataset.split=train", "gen.split=test", f"gen.output_dir={out}",
+                               "batch_size=48", "speculate_k=3"],
+                              cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+        t_spec = time.perf_counter() - t1
+        check(spec.returncode == 0, f"the tiny spec generate run failed:\n{spec.stderr[-3000:]}")
+        spec_launches = Counter()
+        for line in spec_counts.read_text().splitlines():
+            spec_launches.update(json.loads(line)["launch_counts"])
+        for name in ("flash_attention_fwd", "paged_attention_multi"):  # every decode step verifies: #9, not #8
+            check(spec_launches.get(name, 0) > 0, f"kernel {name} was not launched by the tiny spec generate run")
+        records = [json.loads(x) for x in next(out.rglob("generations.jsonl")).read_text().splitlines()]
+        check(len(records) == summary["corpus"]["n_test"]
+              and all(r["finished"] and r["outputs"][0]["token_ids"] for r in records),
+              f"tiny spec generate: {len(records)} records")
+        launches = sum((Counter(c) for c in counts.values()), Counter()) + spec_launches
+        sec = summary["stage_seconds"]
+        log(f"phase t3 tiny_test drive (python -m ssi_tpu_torch.wer_drive {' '.join(TINY_DRIVE_ARGS)}; every stage a "
+            f"CLI subprocess on the card): WER bf16 {summary['wer_bf16']:.4f}, int8 {summary['wer_int8']:.4f} (not "
+            f"gated); assets {sec['assets']:.2f} s, extend {sec['extend']:.2f} s, SFT {sec['train']:.2f} s (final dev "
+            f"loss {summary['train']['final_dev_loss']:.4f}), generate bf16 {sec['generate_bf16']:.2f} s "
+            f"({summary['decode_tok_s']['bf16']:.0f} tok/s), int8 {sec['generate_int8']:.2f} s, score "
+            f"{sec['score_bf16'] + sec['score_int8']:.2f} s; drive wall {wall:.2f} s; the generation CLI with "
+            f"speculate_k=3 {t_spec:.2f} s ({len(records)} records, launches {dict(spec_launches)}); on {smi}; "
+            f"launches {dict(launches)}")
+        return dict(launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--only", default="", help="comma-separated phase groups to run alone while developing "
                         "(1b: phases 2-f, i, j, k, l, n, m and q; e: phases e, q, k, n and m alone; p: phase p alone; hd128: "
-                        "the head_dim-128 kernel phases; g; h); prints no result line")
+                        "the head_dim-128 kernel phases; g; h; tiny: phase t); prints no result line")
     args = parser.parse_args()
 
     import torch
@@ -4611,7 +5024,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
-    groups = set(filter(None, args.only.split(","))) or {"1b", "hd128", "g", "h"}
+    groups = set(filter(None, args.only.split(","))) or {"1b", "hd128", "g", "h", "tiny"}
 
     t_start = t_last = time.perf_counter()
 
@@ -4677,6 +5090,15 @@ def main() -> int:
     if "h" in groups:
         launches_big.update(phase_8b(args.seed, smi))
         mark("phase h")
+    if "tiny" in groups:
+        phase_shapes_flash(gen)
+        phase_shapes_ce(gen)
+        phase_shapes_paged(gen)
+        mark("phase t1")
+        shape_rows = phase_shapes_times(gen, model_config().vocab_size)
+        mark("phase t2")
+        tiny_launches = phase_tiny_drive(args.seed, smi)
+        mark("phase t3")
     if args.only:
         log(f"partial run (--only {args.only}): no result line")
         return 0
@@ -4699,12 +5121,14 @@ def main() -> int:
                    "serve_n": serve_n_launches.get(name, 0), "train_packed": packed_launches.get(name, 0),
                    "cpt_compressed": compressed_launches.get(name, 0), "train_dp": dp_launches.get(name, 0),
                    "serve_tp": tp_launches.get(name, 0), "train_tp": tp_train_launches.get(name, 0),
-                   "train_local": local_launches.get(name, 0)}
+                   "train_local": local_launches.get(name, 0), "tiny_drive": tiny_launches.get(name, 0)}
         if name.startswith("cross_entropy"):  # one instance for every D: 3B's training launches it too
             by_path["train_3b"] = launches_big["train_3b"].get(name, 0)
+        # phase t2's rows of this kernel at the shapes past the registry's (head_dim 80 / 96, D 576 / 960, ...)
+        other = {key.rsplit("_", 1)[1]: row for key, row in shape_rows.items() if key.rsplit("_", 1)[0] == name}
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": sum(by_path.values()),
-                        "launches_by_path": by_path, **rows[name]})
+                        "launches_by_path": by_path, **rows[name], **({"other_shapes": other} if other else {})})
     # the head_dim-128 instances of the attention kernels, launched by the 3B and 8B paths
     for name, row in rows128.items():
         source, replaces = sources[name]

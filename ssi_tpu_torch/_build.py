@@ -79,8 +79,8 @@ _SIGNATURES = {
     # trash row, pages per split, n_splits, box, scale, stream
     "ssi_paged_attention_multi": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _c.c_float, _P],
-    # map (out, 128 bytes), pool, rows of keys, row width (Hkv * head_dim), keys per box
-    "ssi_paged_pool_map": [_P, _P, _L, _I, _I],
+    # map (out, 128 bytes), pool, rows of keys, Hkv, head_dim, keys per box
+    "ssi_paged_pool_map": [_P, _P, _L, _I, _I, _I],
     # dtype, q, k, v, o, do, lse, seg, delta (scratch), dq, dk, dv, B, S, Hq, Hkv, head_dim, causal,
     # scale, stream
     "ssi_flash_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -76,7 +76,8 @@ constexpr int lse_f32_smem() {
 }
 
 // One block per (64-token tile, vocab split): 64-row vocab tiles of the split
-// stream through shared memory in 128-wide D chunks; a running max and sum
+// stream through shared memory in 128-wide D chunks (any D a multiple of 8:
+// the last chunk's columns past D are zeros); a running max and sum
 // per token; the (max, sum) of each split goes to m_part / l_part [n_split, N].
 __global__ void __launch_bounds__(THREADS) lse_partial_f32_kernel(const float* __restrict__ h,
                                                                   const float* __restrict__ e,
@@ -99,8 +100,9 @@ __global__ void __launch_bounds__(THREADS) lse_partial_f32_kernel(const float* _
         for (int i = threadIdx.x; i < LT * LDL; i += blockDim.x) logit[i] = 0.f;
         for (int k0 = 0; k0 < D; k0 += KC) {
             __syncthreads();
-            ssi::load_rows<float, LT, KC, THREADS>(h_t, LDK, h + (long long)t0 * D + k0, D, N - t0);
-            ssi::load_rows<float, LV, KC, THREADS>(e_t, LDK, e + (long long)v0 * D + k0, D, v_end - v0);
+            // the last chunk of a D that is not a multiple of KC: columns past D read as 0
+            ssi::load_rows<float, LT, KC, THREADS>(h_t, LDK, h + (long long)t0 * D + k0, D, N - t0, D - k0);
+            ssi::load_rows<float, LV, KC, THREADS>(e_t, LDK, e + (long long)v0 * D + k0, D, v_end - v0, D - k0);
             __syncthreads();
             ssi::tile_mma<LT, LV, KC, false, true>(logit, LDL, h_t, LDK, e_t, LDK);  // h . E^T
         }
@@ -330,7 +332,7 @@ extern "C" int ssi_cross_entropy_lse_splits(int dtype, int N, int V) {
 // lse [N] of h [N, D] . E [V, D]^T; m_part / l_part are [n_split, N] scratch
 extern "C" int ssi_cross_entropy_lse(int dtype, const void* h, const void* e, void* m_part, void* l_part, void* lse,
                                      int N, int V, int D, int n_split, void* stream) {
-    if (N <= 0 || V <= 0 || D % KC != 0 || n_split != ssi_cross_entropy_lse_splits(dtype, N, V))
+    if (N <= 0 || V <= 0 || D <= 0 || D % 8 != 0 || n_split != ssi_cross_entropy_lse_splits(dtype, N, V))
         return static_cast<int>(cudaErrorInvalidValue);
     float* mp = static_cast<float*>(m_part);
     float* lp = static_cast<float*>(l_part);

@@ -37,8 +37,12 @@
 //   the 128-byte swizzle (hopper.cuh), 2 of A and BN / 64 of B a stage, one
 //   full mbarrier a stage. A box past N, V or D is zero-filled, so ragged
 //   tiles need no masking in the products (dlogits' pad columns are 0 as
-//   well). No producer warpgroup (as the flash kernels, flash_hopper_fwd.cu):
-//   thread 0 issues the first loads, and the warpgroup that releases a stage
+//   well): the tensor maps' innermost extent is the real D, so a D that is
+//   not a multiple of 64 (any multiple of 8: TMA's 16-byte row strides)
+//   reads its last K slab of the lse and dlogits products as D columns and
+//   zeros, and the D-tail tile of dh and dE stops its stores at D. No
+//   producer warpgroup (as the flash kernels, flash_hopper_fwd.cu): thread 0
+//   issues the first loads, and the warpgroup that releases a stage
 //   last refills it (hopper::release_last), so no thread waits for another;
 // - one group of products in flight a warpgroup: slab k's products are issued
 //   before slab k-1's are awaited and its stage released;
@@ -115,8 +119,12 @@ __device__ __forceinline__ uint64_t step_desc(uint32_t addr, int kk) {
 
 // Epilogues: a warpgroup's [64 x BN] f32 sums (acc[4j + e]: row `row` for
 // e < 2, row + 8 else; column col0 + 8j (+1 for odd e)) out of registers.
-// The f32 sums cast to bf16 into C [M, ldc] (dh and dE); rows past M are not
-// written.
+// The f32 sums cast to bf16 into C [M, ldc] (dh and dE, contiguous: ldc is
+// D); rows past M are not written. TAIL: D is not a multiple of the tile's
+// columns, so columns past ldc are not written either (ldc % 8 == 0: a
+// column pair never straddles it); without it the instances are those of a
+// D that fills its tiles, guard-free.
+template <bool TAIL>
 struct StoreEpi {
     bf16* c;
     int M, ldc;
@@ -125,6 +133,7 @@ struct StoreEpi {
         bf16* out = c + (long long)row * ldc + col0;
 #pragma unroll
         for (int j = 0; j < N2 / 4; ++j) {
+            if (TAIL && col0 + 8 * j >= ldc) continue;
             if (row < M) *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
             if (row + 8 < M)
                 *reinterpret_cast<__nv_bfloat162*>(out + 8LL * ldc + 8 * j) =
@@ -355,30 +364,35 @@ cudaError_t cross_entropy_dlogits_hopper_bf16(const void* h, const void* e, cons
     return launch<256, false, false, true>(th, te, epi, N, V, D, stream);
 }
 
-// dh [N, D] = dl . E: dl [N, V] with row stride ldv, E [V, D], D a multiple of 128
+// dh [N, D] = dl . E: dl [N, V] with row stride ldv, E [V, D]; D-column tiles
+// of 256 where D is a multiple of 256, else of 128 (the tail tile's E boxes
+// past D are zero-filled, its stores stop at D)
 cudaError_t cross_entropy_dh_hopper_bf16(const void* dl, const void* e, void* dh, int N, int V, int D, int ldv,
                                          cudaStream_t stream) {
-    if (!shapes_ok(N, V, D, ldv) || D % 128 != 0 || !aligned16(dl) || !aligned16(e)) return cudaErrorInvalidValue;
+    if (!shapes_ok(N, V, D, ldv) || !aligned16(dl) || !aligned16(e)) return cudaErrorInvalidValue;
     CUtensorMap tdl, te;
     cudaError_t err = hw::map_2d(&tdl, dl, N, V, ldv, BK);
     if (err == cudaSuccess) err = hw::map_2d(&te, e, V, D, D, BK);
     if (err != cudaSuccess) return err;
-    const StoreEpi epi{static_cast<bf16*>(dh), N, D};
-    return D % 256 == 0 ? launch<256, false, true, false>(tdl, te, epi, N, D, V, stream)
-                        : launch<128, false, true, false>(tdl, te, epi, N, D, V, stream);
+    bf16* out = static_cast<bf16*>(dh);
+    if (D % 256 == 0) return launch<256, false, true, false>(tdl, te, StoreEpi<false>{out, N, D}, N, D, V, stream);
+    if (D % 128 == 0) return launch<128, false, true, false>(tdl, te, StoreEpi<false>{out, N, D}, N, D, V, stream);
+    return launch<128, false, true, false>(tdl, te, StoreEpi<true>{out, N, D}, N, D, V, stream);
 }
 
-// dE [V, D] = dl^T . h: dl [N, V] with row stride ldv, h [N, D], D a multiple of 128
+// dE [V, D] = dl^T . h: dl [N, V] with row stride ldv, h [N, D]; D-column tiles
+// as dh's
 cudaError_t cross_entropy_de_hopper_bf16(const void* dl, const void* h, void* de, int N, int V, int D, int ldv,
                                          cudaStream_t stream) {
-    if (!shapes_ok(N, V, D, ldv) || D % 128 != 0 || !aligned16(dl) || !aligned16(h)) return cudaErrorInvalidValue;
+    if (!shapes_ok(N, V, D, ldv) || !aligned16(dl) || !aligned16(h)) return cudaErrorInvalidValue;
     CUtensorMap tdl, th;
     cudaError_t err = hw::map_2d(&tdl, dl, N, V, ldv, BK);
     if (err == cudaSuccess) err = hw::map_2d(&th, h, N, D, D, BK);
     if (err != cudaSuccess) return err;
-    const StoreEpi epi{static_cast<bf16*>(de), V, D};
-    return D % 256 == 0 ? launch<256, true, true, false>(tdl, th, epi, V, D, N, stream)
-                        : launch<128, true, true, false>(tdl, th, epi, V, D, N, stream);
+    bf16* out = static_cast<bf16*>(de);
+    if (D % 256 == 0) return launch<256, true, true, false>(tdl, th, StoreEpi<false>{out, V, D}, V, D, N, stream);
+    if (D % 128 == 0) return launch<128, true, true, false>(tdl, th, StoreEpi<false>{out, V, D}, V, D, N, stream);
+    return launch<128, true, true, false>(tdl, th, StoreEpi<true>{out, V, D}, V, D, N, stream);
 }
 
 }  // namespace ssi

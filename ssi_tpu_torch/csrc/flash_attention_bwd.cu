@@ -1,6 +1,8 @@
 // Flash-attention backward (causal or full GQA, optional packed segment ids)
-// for head_dim 64 (the 100m and 1B models) and 128 (3B and 8B): dq, dk, dv
-// from q, k, v, the forward's o and lse, and do.
+// for any head_dim d up to 128 that is a multiple of 8 (64: the 100m and 1B
+// models; 128: 3B and 8B; the wrapper pads any other d with zeros), an
+// instance at 64 and one at 128 each running the head_dims up to it: dq, dk,
+// dv from q, k, v, the forward's o and lse, and do.
 // bf16 operands on the tensor cores with f32 accumulation, or f32 throughout.
 // bf16 runs the Hopper kernels of flash_hopper_bwd.cu (wgmma fed by TMA) at
 // both head dims, dispatched from the entry point below; this file keeps the
@@ -47,15 +49,17 @@ constexpr int THREADS = 256;  // delta and f32 kernels
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS) delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
-                                                        float* __restrict__ delta, int S, int Hq, long long rows) {
+                                                        float* __restrict__ delta, int S, int Hq, int d,
+                                                        long long rows) {
     const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;  // row (b * S + s) * Hq + h
     if (r >= rows) return;
     float acc = 0.f;
 #pragma unroll
     for (int c = 0; c < HD; c += 8) {
+        if (c >= d) break;
         float a[8], b[8];
-        ssi::load8(o + r * HD + c, a);
-        ssi::load8(dout + r * HD + c, b);
+        ssi::load8(o + r * d + c, a);
+        ssi::load8(dout + r * d + c, b);
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc = fmaf(a[i], b[i], acc);
     }
@@ -131,8 +135,8 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS) dkdv_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ seg, float* __restrict__ dk, float* __restrict__ dv, int S, int Hq, int Hkv, int causal,
-    float scale) {
+    const int* __restrict__ seg, float* __restrict__ dk, float* __restrict__ dv, int S, int Hq, int Hkv, int d,
+    int causal, float scale) {
     extern __shared__ __align__(128) unsigned char smem[];
     using L = F32<HD>;
     constexpr int BT = L::BT;
@@ -157,12 +161,12 @@ __global__ void __launch_bounds__(THREADS) dkdv_f32_kernel(
     const int b = blockIdx.z;
     const int n_rep = Hq / Hkv;
     const bool segs = seg != nullptr;
-    const long long q_row = (long long)Hq * HD;    // elements between consecutive positions
-    const long long kv_row = (long long)Hkv * HD;
+    const long long q_row = (long long)Hq * d;    // elements between consecutive positions
+    const long long kv_row = (long long)Hkv * d;
 
-    const long long kv_off = ((long long)b * S + k0) * kv_row + (long long)kvh * HD;
-    ssi::load_rows<float, BT, HD, THREADS>(k_t, L::LDT, k + kv_off, kv_row, S - k0);
-    ssi::load_rows<float, BT, HD, THREADS>(v_t, L::LDT, v + kv_off, kv_row, S - k0);
+    const long long kv_off = ((long long)b * S + k0) * kv_row + (long long)kvh * d;
+    ssi::load_rows<float, BT, HD, THREADS>(k_t, L::LDT, k + kv_off, kv_row, S - k0, d);
+    ssi::load_rows<float, BT, HD, THREADS>(v_t, L::LDT, v + kv_off, kv_row, S - k0, d);
     for (int j = threadIdx.x; j < BT; j += blockDim.x) {
         kseg_s[j] = (segs && k0 + j < S) ? seg[(long long)b * S + k0 + j] : 0;
     }
@@ -175,9 +179,9 @@ __global__ void __launch_bounds__(THREADS) dkdv_f32_kernel(
         for (int r = 0; r < n_rep; ++r) {
             const int h = kvh * n_rep + r;
             __syncthreads();  // the previous pair's products are done with q_t, do_t, p_t, ds_t
-            const long long q_off = ((long long)b * S + q0) * q_row + (long long)h * HD;
-            ssi::load_rows<float, BT, HD, THREADS>(q_t, L::LDT, q + q_off, q_row, S - q0);
-            ssi::load_rows<float, BT, HD, THREADS>(do_t, L::LDT, dout + q_off, q_row, S - q0);
+            const long long q_off = ((long long)b * S + q0) * q_row + (long long)h * d;
+            ssi::load_rows<float, BT, HD, THREADS>(q_t, L::LDT, q + q_off, q_row, S - q0, d);
+            ssi::load_rows<float, BT, HD, THREADS>(do_t, L::LDT, dout + q_off, q_row, S - q0, d);
             load_q_scalars<BT>(lse_s, delta_s, qseg_s, lse, delta, seg, b, h, Hq, S, q0);
             zero(s_f, BT * L::LDF);
             zero(dp_f, BT * L::LDF);
@@ -195,7 +199,7 @@ __global__ void __launch_bounds__(THREADS) dkdv_f32_kernel(
     for (int idx = threadIdx.x; idx < BT * HD; idx += blockDim.x) {
         const int j = idx / HD;
         const int c = idx % HD;
-        if (k0 + j >= S) continue;
+        if (k0 + j >= S || c >= d) continue;
         const long long off = kv_off + j * kv_row + c;
         dk[off] = dk_f[j * L::LDG + c] * scale;
         dv[off] = dv_f[j * L::LDG + c];
@@ -206,7 +210,7 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS) dq_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ seg, float* __restrict__ dq, int S, int Hq, int Hkv, int causal, float scale) {
+    const int* __restrict__ seg, float* __restrict__ dq, int S, int Hq, int Hkv, int d, int causal, float scale) {
     extern __shared__ __align__(128) unsigned char smem[];
     using L = F32<HD>;
     constexpr int BT = L::BT;
@@ -229,12 +233,12 @@ __global__ void __launch_bounds__(THREADS) dq_f32_kernel(
     const int b = blockIdx.z;
     const int kvh = h / (Hq / Hkv);
     const bool segs = seg != nullptr;
-    const long long q_row = (long long)Hq * HD;
-    const long long kv_row = (long long)Hkv * HD;
+    const long long q_row = (long long)Hq * d;
+    const long long kv_row = (long long)Hkv * d;
 
-    const long long q_off = ((long long)b * S + q0) * q_row + (long long)h * HD;
-    ssi::load_rows<float, BT, HD, THREADS>(q_t, L::LDT, q + q_off, q_row, S - q0);
-    ssi::load_rows<float, BT, HD, THREADS>(do_t, L::LDT, dout + q_off, q_row, S - q0);
+    const long long q_off = ((long long)b * S + q0) * q_row + (long long)h * d;
+    ssi::load_rows<float, BT, HD, THREADS>(q_t, L::LDT, q + q_off, q_row, S - q0, d);
+    ssi::load_rows<float, BT, HD, THREADS>(do_t, L::LDT, dout + q_off, q_row, S - q0, d);
     load_q_scalars<BT>(lse_s, delta_s, qseg_s, lse, delta, seg, b, h, Hq, S, q0);
     zero(dq_f, BT * L::LDG);
 
@@ -242,9 +246,9 @@ __global__ void __launch_bounds__(THREADS) dq_f32_kernel(
     for (int ki = 0; ki < n_k; ++ki) {
         const int k0 = ki * BT;
         __syncthreads();  // the previous tile's dQ product is done with k_t, ds_t
-        const long long kv_off = ((long long)b * S + k0) * kv_row + (long long)kvh * HD;
-        ssi::load_rows<float, BT, HD, THREADS>(k_t, L::LDT, k + kv_off, kv_row, S - k0);
-        ssi::load_rows<float, BT, HD, THREADS>(v_t, L::LDT, v + kv_off, kv_row, S - k0);
+        const long long kv_off = ((long long)b * S + k0) * kv_row + (long long)kvh * d;
+        ssi::load_rows<float, BT, HD, THREADS>(k_t, L::LDT, k + kv_off, kv_row, S - k0, d);
+        ssi::load_rows<float, BT, HD, THREADS>(v_t, L::LDT, v + kv_off, kv_row, S - k0, d);
         for (int j = threadIdx.x; j < BT; j += blockDim.x) {
             kseg_s[j] = (segs && k0 + j < S) ? seg[(long long)b * S + k0 + j] : 0;
         }
@@ -262,48 +266,50 @@ __global__ void __launch_bounds__(THREADS) dq_f32_kernel(
     for (int idx = threadIdx.x; idx < BT * HD; idx += blockDim.x) {
         const int i = idx / HD;
         const int c = idx % HD;
-        if (q0 + i >= S) continue;
+        if (q0 + i >= S || c >= d) continue;
         dq[q_off + i * q_row + c] = dq_f[i * L::LDG + c] * scale;
     }
 }
 
 template <int HD>
-cudaError_t launch_delta(const float* o, const float* dout, float* delta, int B, int S, int Hq, cudaStream_t stream) {
+cudaError_t launch_delta(const float* o, const float* dout, float* delta, int B, int S, int Hq, int d,
+                         cudaStream_t stream) {
     const long long rows = (long long)B * S * Hq;
-    delta_kernel<HD><<<(unsigned)((rows + THREADS - 1) / THREADS), THREADS, 0, stream>>>(o, dout, delta, S, Hq, rows);
+    delta_kernel<HD><<<(unsigned)((rows + THREADS - 1) / THREADS), THREADS, 0, stream>>>(o, dout, delta, S, Hq, d,
+                                                                                         rows);
     return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* o, const float* dout,
                        const float* lse, const int* seg, float* delta, float* dq, float* dk, float* dv, int B, int S,
-                       int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+                       int Hq, int Hkv, int d, int causal, float scale, cudaStream_t stream) {
     using L = F32<HD>;
     static int allowed_dkdv = 0, allowed_dq = 0;
-    cudaError_t err = launch_delta<HD>(o, dout, delta, B, S, Hq, stream);
+    cudaError_t err = launch_delta<HD>(o, dout, delta, B, S, Hq, d, stream);
     if (err != cudaSuccess) return err;
     const int n_t = (S + L::BT - 1) / L::BT;
     err = ssi::allow_dynamic_smem(dkdv_f32_kernel<HD>, L::DKDV, allowed_dkdv);
     if (err != cudaSuccess) return err;
     dkdv_f32_kernel<HD><<<dim3(n_t, Hkv, B), THREADS, L::DKDV, stream>>>(q, k, v, dout, lse, delta, seg, dk, dv, S,
-                                                                          Hq, Hkv, causal, scale);
+                                                                          Hq, Hkv, d, causal, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     err = ssi::allow_dynamic_smem(dq_f32_kernel<HD>, L::DQ, allowed_dq);
     if (err != cudaSuccess) return err;
     dq_f32_kernel<HD><<<dim3(n_t, Hq, B), THREADS, L::DQ, stream>>>(q, k, v, dout, lse, delta, seg, dq, S, Hq, Hkv,
-                                                                     causal, scale);
+                                                                     d, causal, scale);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// hd: head_dim, 64 or 128
+// hd: head_dim, at most 128 and a multiple of 8
 extern "C" int ssi_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v, const void* o,
                                        const void* dout, const void* lse, const void* seg, void* delta, void* dq,
                                        void* dk, void* dv, int B, int S, int Hq, int Hkv, int hd, int causal,
                                        float scale, void* stream) {
-    if (B <= 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || (hd != 64 && hd != 128))
+    if (B <= 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || hd <= 0 || hd > 128 || hd % 8 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const float* lsep = static_cast<const float*>(lse);
     const int* segp = static_cast<const int*>(seg);
@@ -311,11 +317,11 @@ extern "C" int ssi_flash_attention_bwd(int dtype, const void* q, const void* k, 
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaErrorInvalidValue;
     if (dtype == ssi::kFloat32) {
-        const auto f32 = hd == 64 ? &launch_f32<64> : &launch_f32<128>;
+        const auto f32 = hd <= 64 ? &launch_f32<64> : &launch_f32<128>;
         err = f32(static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
                   static_cast<const float*>(o), static_cast<const float*>(dout), lsep, segp, deltap,
-                  static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), B, S, Hq, Hkv, causal,
-                  scale, st);
+                  static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), B, S, Hq, Hkv, hd,
+                  causal, scale, st);
     } else if (dtype == ssi::kBFloat16) {
         // the Hopper kernels (flash_hopper_bwd.cu)
         err = ssi::flash_bwd_hopper_bf16(q, k, v, o, dout, lsep, deltap, segp, dq, dk, dv, B, S, Hq, Hkv, hd, causal,

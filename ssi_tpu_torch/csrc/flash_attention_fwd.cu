@@ -1,7 +1,10 @@
 // Flash-attention forward (causal or full GQA, optional packed segment ids)
-// for head_dim 64 (the 100m and 1B models) and 128 (3B and 8B): bf16 on the
-// tensor cores with f32 accumulation, or f32 with scalar FMAs (the parity
-// path). bf16 runs the Hopper kernel of flash_hopper_fwd.cu (wgmma fed by
+// for any head_dim d up to 128 that is a multiple of 8 (64: the 100m and 1B
+// models; 128: 3B and 8B; 16: tiny_test; the wrapper pads any other d to the
+// next multiple of 8 with zeros): an instance at 64 and one at 128, each
+// running the head_dims up to it with its loads and stores bounded at d. bf16
+// on the tensor cores with f32 accumulation, or f32 with scalar FMAs (the
+// parity path). bf16 runs the Hopper kernel of flash_hopper_fwd.cu (wgmma fed by
 // TMA), dispatched from the entry point below.
 //
 // Replaces the TPU kernels ssi_tpu/ops/flash_attention.py `_fwd_kernel` and
@@ -26,6 +29,8 @@
 //
 // Strides are passed in elements so the [B, S, H, D] layout needs no
 // transpose copy; the output is contiguous [B, S, Hq, D], lse is [B, Hq, S].
+// The f32 kernel holds HD columns (the instance's) and reads and writes the
+// first d of them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,7 +60,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    int causal, float scale) {
+    int d, int causal, float scale) {
     __shared__ float k_sm[BK][HD];
     __shared__ float v_sm[BK][HD];
     __shared__ int kseg_sm[BK];
@@ -73,7 +78,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(
     float acc[HD];
 #pragma unroll
     for (int c = 0; c < HD; ++c) {
-        qr[c] = row_ok ? q[b * q_sb + qpos * q_ss + h * q_sh + c] * scale : 0.f;
+        qr[c] = row_ok && c < d ? q[b * q_sb + qpos * q_ss + h * q_sh + c] * scale : 0.f;
         acc[c] = 0.f;
     }
     const int qseg = (seg != nullptr && row_ok) ? seg[(long long)b * S + qpos] : 0;
@@ -91,7 +96,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(
             const int r = idx / HD;
             const int c = idx % HD;
             const int kp = k0 + r;
-            const bool in = kp < kv_end;
+            const bool in = kp < kv_end && c < d;  // columns past d are zeros
             k_sm[r][c] = in ? kb[kp * k_ss + c] : 0.f;
             v_sm[r][c] = in ? vb[kp * v_ss + c] : 0.f;
         }
@@ -137,21 +142,22 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(
 
     if (!row_ok) return;
     const float l_safe = fmaxf(l, 1e-30f);
-    float* orow = o + (((long long)b * S + qpos) * Hq + h) * HD;
+    float* orow = o + (((long long)b * S + qpos) * Hq + h) * d;
 #pragma unroll
-    for (int c = 0; c < HD; ++c) orow[c] = acc[c] / l_safe;
+    for (int c = 0; c < HD; ++c)
+        if (c < d) orow[c] = acc[c] / l_safe;
     lse[((long long)b * Hq + h) * S + qpos] = ms + logf(l_safe);
 }
 
 template <int HD>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const int* segp, void* o, float* lsep,
-                   int B, int S, int Hq, int n_rep,
+                   int B, int S, int Hq, int n_rep, int d,
                    long long q_sb, long long q_ss, long long q_sh,
                    long long k_sb, long long k_ss, long long k_sh,
                    long long v_sb, long long v_ss, long long v_sh,
                    int causal, float scale, cudaStream_t st) {
     if (dtype == ssi::kBFloat16) {  // the Hopper kernel (flash_hopper_fwd.cu)
-        return ssi::flash_fwd_hopper_bf16(q, k, v, segp, o, lsep, B, S, Hq, Hq / n_rep, HD, q_sb, q_ss, q_sh, k_sb,
+        return ssi::flash_fwd_hopper_bf16(q, k, v, segp, o, lsep, B, S, Hq, Hq / n_rep, d, q_sb, q_ss, q_sh, k_sb,
                                           k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale, st);
     } else if (dtype == ssi::kFloat32) {
         const int bq = THREADS / n_rep;
@@ -159,7 +165,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
         flash_fwd_f32_kernel<HD><<<grid, THREADS, 0, st>>>(
             static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), segp,
             static_cast<float*>(o), lsep, S, Hq, n_rep, bq,
-            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, causal, scale);
+            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, d, causal, scale);
     } else {
         return cudaErrorInvalidValue;
     }
@@ -168,7 +174,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
 
 }  // namespace
 
-// hd: head_dim, 64 or 128
+// hd: head_dim, at most 128 and a multiple of 8
 extern "C" int ssi_flash_attention_fwd(
     int dtype, const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
     int B, int S, int Hq, int Hkv, int hd,
@@ -183,13 +189,13 @@ extern "C" int ssi_flash_attention_fwd(
     float* lsep = static_cast<float*>(lse);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err;
-    if (hd == 64)
-        err = launch<64>(dtype, q, k, v, segp, o, lsep, B, S, Hq, n_rep, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                         v_ss, v_sh, causal, scale, st);
-    else if (hd == 128)
-        err = launch<128>(dtype, q, k, v, segp, o, lsep, B, S, Hq, n_rep, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
-                          v_ss, v_sh, causal, scale, st);
-    else
+    if (hd <= 0 || hd > 128 || hd % 8 != 0)
         err = cudaErrorInvalidValue;
+    else if (hd <= 64)
+        err = launch<64>(dtype, q, k, v, segp, o, lsep, B, S, Hq, n_rep, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                         v_ss, v_sh, causal, scale, st);
+    else
+        err = launch<128>(dtype, q, k, v, segp, o, lsep, B, S, Hq, n_rep, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                          v_sb, v_ss, v_sh, causal, scale, st);
     return static_cast<int>(err);
 }

@@ -57,6 +57,10 @@
 //   or the ragged end (or every tile, with segment ids). The heaviest blocks
 //   launch first (low key tiles for dK/dV, high q tiles for dQ). TMA
 //   zero-fills rows past S.
+// Any other head_dim d <= 128 (a multiple of 8; the wrapper pads others)
+// runs the instance of the next of 64 and 128 on tensor maps whose innermost
+// extent is d (columns past d load as zeros; the stores clip at d), with the
+// delta pass bounded at d and the scale 1/sqrt(d).
 // Head_dim 128: 64-query dK/dV stages and 128-key dQ tiles, one block an SM
 // for each kernel (dK/dV 130 KB of shared memory, 240 registers; dQ 193 KB,
 // 226). Head_dim 64 halves the accumulators of dK, dV and dQ, not those of S
@@ -136,22 +140,23 @@ __device__ __forceinline__ void load_rows(bf16 (&dst)[BLOCKS][ELEMS], const CUte
 
 constexpr int DELTA_THREADS = 256;
 
-// HD / 8 lanes a (b, s, q head) row, each lane 8 columns read as 16 bytes: a
-// warp reads 512 contiguous bytes of o and of do; the lanes' f32 sums meet
+// HD / 8 lanes a (b, s, q head) row of hd columns (hd <= HD, a multiple of
+// 8), each lane 8 columns read as 16 bytes (lanes past hd add 0): a warp
+// reads up to 512 contiguous bytes of o and of do; the lanes' f32 sums meet
 // in a fixed shuffle tree
 template <int HD>
 __global__ void __launch_bounds__(DELTA_THREADS) delta_hopper_kernel(const bf16* __restrict__ o,
                                                                      const bf16* __restrict__ dout,
-                                                                     float* __restrict__ delta, int S, int Hq,
+                                                                     float* __restrict__ delta, int S, int Hq, int hd,
                                                                      long long rows) {
     constexpr int LANES = HD / 8;
     const long long r = (blockIdx.x * (long long)DELTA_THREADS + threadIdx.x) / LANES;  // row (b * S + s) * Hq + h
     const int c = (threadIdx.x % LANES) * 8;
     float acc = 0.f;
-    if (r < rows) {
+    if (r < rows && c < hd) {
         float a[8], d[8];
-        ssi::load8(o + r * HD + c, a);
-        ssi::load8(dout + r * HD + c, d);
+        ssi::load8(o + r * hd + c, a);
+        ssi::load8(dout + r * hd + c, d);
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc = fmaf(a[i], d[i], acc);
     }
@@ -505,28 +510,32 @@ __global__ void __launch_bounds__(THREADS, C::DQ_BLOCKS) dq_hopper_kernel(
                    &tdq, h, r0, b, 1 + cw);
 }
 
+// hd: the operands' head_dim, at most C::HD. The tensor maps' innermost
+// extent is hd: a tile's columns past hd load as zeros (they add nothing to S
+// or dP, and the gradients' columns past hd are zeros that the stores,
+// clipped at hd, never write).
 template <class C>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout, const float* lse,
-                   float* delta, const int* seg, void* dq, void* dk, void* dv, int B, int S, int Hq, int Hkv,
+                   float* delta, const int* seg, void* dq, void* dk, void* dv, int B, int S, int Hq, int Hkv, int hd,
                    int causal, float scale, cudaStream_t stream) {
     constexpr int HD = C::HD;
     const long long rows = (long long)B * S * Hq;
     delta_hopper_kernel<HD><<<(unsigned)((rows * (HD / 8) + DELTA_THREADS - 1) / DELTA_THREADS), DELTA_THREADS, 0,
                               stream>>>(static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta, S, Hq,
-                                        rows);
+                                        hd, rows);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    const long long q_ss = (long long)Hq * HD;  // contiguous [B, S, H, HD]
-    const long long kv_ss = (long long)Hkv * HD;
+    const long long q_ss = (long long)Hq * hd;  // contiguous [B, S, H, hd]
+    const long long kv_ss = (long long)Hkv * hd;
     CUtensorMap tq, tk, tv, tdo;
-    err = hw::map_bshd(&tq, q, B, S, Hq, HD, S * q_ss, q_ss, HD, BOX);
-    if (err == cudaSuccess) err = hw::map_bshd(&tdo, dout, B, S, Hq, HD, S * q_ss, q_ss, HD, BOX);
-    if (err == cudaSuccess) err = hw::map_bshd(&tk, k, B, S, Hkv, HD, S * kv_ss, kv_ss, HD, BOX);
-    if (err == cudaSuccess) err = hw::map_bshd(&tv, v, B, S, Hkv, HD, S * kv_ss, kv_ss, HD, BOX);
+    err = hw::map_bshd(&tq, q, B, S, Hq, hd, S * q_ss, q_ss, hd, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tdo, dout, B, S, Hq, hd, S * q_ss, q_ss, hd, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tk, k, B, S, Hkv, hd, S * kv_ss, kv_ss, hd, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tv, v, B, S, Hkv, hd, S * kv_ss, kv_ss, hd, BOX);
     CUtensorMap tdq, tdk, tdv;  // the gradients, stored 64 rows (a warpgroup's) at a time
-    if (err == cudaSuccess) err = hw::map_bshd(&tdq, dq, B, S, Hq, HD, S * q_ss, q_ss, HD, BOX);
-    if (err == cudaSuccess) err = hw::map_bshd(&tdk, dk, B, S, Hkv, HD, S * kv_ss, kv_ss, HD, BOX);
-    if (err == cudaSuccess) err = hw::map_bshd(&tdv, dv, B, S, Hkv, HD, S * kv_ss, kv_ss, HD, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tdq, dq, B, S, Hq, hd, S * q_ss, q_ss, hd, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tdk, dk, B, S, Hkv, hd, S * kv_ss, kv_ss, hd, BOX);
+    if (err == cudaSuccess) err = hw::map_bshd(&tdv, dv, B, S, Hkv, hd, S * kv_ss, kv_ss, hd, BOX);
     if (err != cudaSuccess) return err;
     static int allowed_dkdv = 0, allowed_dq = 0;
     err = ssi::allow_dynamic_smem(dkdv_hopper_kernel<C>, dkdv_smem<C>(), allowed_dkdv);
@@ -552,9 +561,9 @@ cudaError_t ssi::flash_bwd_hopper_bf16(const void* q, const void* k, const void*
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
          reinterpret_cast<uintptr_t>(dout)) % 16 != 0)
         return cudaErrorInvalidValue;
-    if (B > 65535) return cudaErrorInvalidValue;
-    if (hd == 64) return launch<Hd64>(q, k, v, o, dout, lse, delta, seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, stream);
-    if (hd == 128)
-        return launch<Hd128>(q, k, v, o, dout, lse, delta, seg, dq, dk, dv, B, S, Hq, Hkv, causal, scale, stream);
-    return cudaErrorInvalidValue;
+    if (B > 65535 || hd <= 0 || hd > 128 || hd % 8 != 0) return cudaErrorInvalidValue;
+    // the hd-64 instance up to 64 columns, the hd-128 one above
+    if (hd <= 64)
+        return launch<Hd64>(q, k, v, o, dout, lse, delta, seg, dq, dk, dv, B, S, Hq, Hkv, hd, causal, scale, stream);
+    return launch<Hd128>(q, k, v, o, dout, lse, delta, seg, dq, dk, dv, B, S, Hq, Hkv, hd, causal, scale, stream);
 }

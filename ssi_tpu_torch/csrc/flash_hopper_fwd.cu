@@ -64,6 +64,10 @@
 //   K/V tile through L2; TMA multicast across a cluster would cut L2 reads
 //   but ties n_rep blocks together in scheduling, and n_rep 3 does not divide
 //   the cluster sizes that fit the GPC evenly.
+// Any other head_dim d <= 128 (a multiple of 8, the wrapper pads others)
+// runs the instance of the next of 64 and 128 on tensor maps whose innermost
+// extent is d: a tile's columns past d load as zeros, the scale stays
+// 1/sqrt(d), and the o store clips at d.
 // Head_dim 128: 2 warpgroups, 128-key tiles, one block an SM (193 KB of
 // shared memory, ~200 registers). Head_dim 64 halves the work a key tile and
 // not a block's fixed cost (its Q and first K/V loads, one score product with
@@ -390,18 +394,21 @@ __global__ void __launch_bounds__(THREADS, C::MIN_BLOCKS) flash_fwd_hopper_kerne
     }
 }
 
+// hd: the operands' head_dim, at most C::HD. The tensor maps' innermost
+// extent is hd, so the columns of a tile past hd are zero-filled on load (they
+// add nothing to a score, and P.V's columns past hd are zeros that the o
+// store, clipped at hd, never writes).
 template <class C>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, void* o, float* lse, int B, int S,
-                   int Hq, int Hkv, long long q_sb, long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-                   long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal, float scale,
-                   cudaStream_t stream) {
-    constexpr int HD = C::HD;
+                   int Hq, int Hkv, int hd, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                   long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal,
+                   float scale, cudaStream_t stream) {
     CUtensorMap tq, tk, tv;
-    cudaError_t err = hw::map_bshd(&tq, q, B, S, Hq, HD, q_sb, q_ss, q_sh, BQ);
-    if (err == cudaSuccess) err = hw::map_bshd(&tk, k, B, S, Hkv, HD, k_sb, k_ss, k_sh, C::BK);
-    if (err == cudaSuccess) err = hw::map_bshd(&tv, v, B, S, Hkv, HD, v_sb, v_ss, v_sh, C::BK);
-    CUtensorMap to;  // o, contiguous [B, S, Hq, HD], stored 64 rows (a warpgroup's) at a time
-    if (err == cudaSuccess) err = hw::map_bshd(&to, o, B, S, Hq, HD, (long long)S * Hq * HD, (long long)Hq * HD, HD, 64);
+    cudaError_t err = hw::map_bshd(&tq, q, B, S, Hq, hd, q_sb, q_ss, q_sh, BQ);
+    if (err == cudaSuccess) err = hw::map_bshd(&tk, k, B, S, Hkv, hd, k_sb, k_ss, k_sh, C::BK);
+    if (err == cudaSuccess) err = hw::map_bshd(&tv, v, B, S, Hkv, hd, v_sb, v_ss, v_sh, C::BK);
+    CUtensorMap to;  // o, contiguous [B, S, Hq, hd], stored 64 rows (a warpgroup's) at a time
+    if (err == cudaSuccess) err = hw::map_bshd(&to, o, B, S, Hq, hd, (long long)S * Hq * hd, (long long)Hq * hd, hd, 64);
     if (err != cudaSuccess) return err;
     static int allowed = 0;
     err = ssi::allow_dynamic_smem(flash_fwd_hopper_kernel<C>, smem_bytes<C>(), allowed);
@@ -425,12 +432,11 @@ cudaError_t ssi::flash_fwd_hopper_bf16(const void* q, const void* k, const void*
         if (s % 8 != 0) return cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
         return cudaErrorInvalidValue;
-    if (B > 65535) return cudaErrorInvalidValue;
-    if (hd == 64)
-        return launch<Hd64>(q, k, v, seg, o, lse, B, S, Hq, Hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                            causal, scale, stream);
-    if (hd == 128)
-        return launch<Hd128>(q, k, v, seg, o, lse, B, S, Hq, Hkv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-                             causal, scale, stream);
-    return cudaErrorInvalidValue;
+    if (B > 65535 || hd <= 0 || hd > 128 || hd % 8 != 0) return cudaErrorInvalidValue;
+    // the hd-64 instance up to 64 columns, the hd-128 one above
+    if (hd <= 64)
+        return launch<Hd64>(q, k, v, seg, o, lse, B, S, Hq, Hkv, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                            v_sh, causal, scale, stream);
+    return launch<Hd128>(q, k, v, seg, o, lse, B, S, Hq, Hkv, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+                         causal, scale, stream);
 }

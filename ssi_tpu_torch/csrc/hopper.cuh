@@ -98,6 +98,13 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
         "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
         : "memory");
 }
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+        "[%2];\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
                                             int c3) {
     asm volatile(
@@ -371,6 +378,24 @@ inline cudaError_t map_bshd(CUtensorMap* map, const void* ptr, int B, int S, int
     const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
     const cuuint32_t elem[4] = {1, 1, 1, 1};
     const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map of a bf16 [rows, H, hd] tensor, contiguous (hd * 2 a multiple of
+// 16 bytes), read in boxes of 64 columns x one head x `box_rows` rows,
+// 128-byte swizzled: the paged pools [rows * ps, Hkv * hd] with a head's
+// columns a dimension of their own, so a box's columns past hd are
+// zero-filled and never read the next head's.
+inline cudaError_t map_rows_heads(CUtensorMap* map, const void* ptr, long long rows, int H, int hd, int box_rows) {
+    EncodeTiledFn encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorSymbolNotFound;
+    const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)rows};
+    const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)H * hd * 2};
+    const cuuint32_t box[3] = {64, 1, (cuuint32_t)box_rows};
+    const cuuint32_t elem[3] = {1, 1, 1};
+    const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box, elem,
                               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -1,16 +1,18 @@
 // Paged attention over the flat KV pool, split across the context: the fused
 // single-token decode (kernel #8) and the T-token write + verify of
-// speculative decoding (kernel #9) on one core. head_dim 64 (the 100m and
-// 1B models) or 128 (3B and 8B), any GQA ratio n_rep with T * n_rep <= 64,
-// f32 or bf16 storage, page sizes that are multiples of 8.
+// speculative decoding (kernel #9) on one core. Any head_dim hd <= 128 that
+// is a multiple of 8 (64: the 100m and 1B models; 128: 3B and 8B; 16:
+// tiny_test), by an instance at HD 64 and one at HD 128 that each take the
+// head_dims up to theirs; any GQA ratio n_rep and T <= 8; f32 or bf16
+// storage; page sizes that are multiples of 8.
 //
 // Replaces the TPU kernels ssi_tpu/generate/paged_pallas.py
 // `paged_attention_pallas` -> `_kernel` and `paged_attention_pallas_multi`
 // -> `_kernel_multi`. Semantics kept: the pools are [L*n_pages + 1,
-// page_size, Hkv*HD] (head-flattened rows, trash row last), updated in place
+// page_size, Hkv*hd] (head-flattened rows, trash row last), updated in place
 // (torch tensors are mutable, so the TPU kernels' input_output_aliases has no
 // counterpart); `page_table` [slots, max_pages] holds PHYSICAL rows; q
-// [slots, T, Hq, HD] is unscaled and scaled here by `scale`; the history is
+// [slots, T, Hq, hd] is unscaled and scaled here by `scale`; the history is
 // the hist_len tokens resident in the pages before the step, and in-flight
 // token t attends the history plus in-flight tokens 0..t (causal), taken
 // from k_new / v_new, never re-read from the cells just written.
@@ -39,12 +41,20 @@
 // - one block of 5 warps per (split, kv head, slot), each split walking
 //   `split_keys` keys (whole pages; the wrapper's split plan: 1,280 keys, so
 //   the serving shapes take one split and no merge); splits past a slot's
-//   history exit at once. All R = T * n_rep <= 64 query rows of the kv head
-//   are in the block, so every history byte is read once per call;
-// - pages arrive by TMA: the pools are 2D tensor maps [rows * ps, Hkv*HD]
+//   history exit at once. Up to 64 query rows of the kv head (R = T * n_rep)
+//   are in the block, so at R <= 64 (every registry model) every history
+//   byte is read once per call. A larger R (n_rep 16 at T 8: 128 rows, as
+//   Llama 3.1 405B's 128 q / 8 kv heads) takes ceil(R / 64) row groups, a
+//   block each (a grid axis beside the splits), each reading the pages again;
+// - pages arrive by TMA: the pools are 3D tensor maps [rows * ps, Hkv, hd]
 //   (encoded on the host, cached by the wrapper) read in boxes of `box` keys
 //   (the largest power of two dividing ps, at most the tile: a box never
-//   crosses a page) by 64 columns, 128-byte swizzled. Tiles are BK keys (128
+//   crosses a page) by one kv head by 64 columns, 128-byte swizzled. A box's
+//   columns past hd are zero-filled: at hd 80 the second 64-column box of a
+//   head holds its 16 last columns and zeros, never the next head's keys
+//   (which a 2D map over [rows * ps, Hkv * hd] would read). Q and the
+//   in-flight rows are loaded with zeros past hd, so every product runs at
+//   the instance's HD and the stores stop at hd. Tiles are BK keys (128
 //   at head_dim 64, 64 at 128: 32 KB of K and V either way), so at page 128
 //   a tile is one box per 64 columns of each of K and V. One lane of a
 //   fifth, producer warp issues a tile's boxes onto the stage's `full`
@@ -80,36 +90,40 @@
 // - one launch per call: a slot whose history fits one split is finished by
 //   that split, which writes the normalised output itself. Otherwise each
 //   split writes its unnormalised state to the scratch `part` and counts its
-//   arrival on the (slot, kv head)'s counter; the split that arrives last
-//   combines all the slot's splits, in split order, and resets the counter
-//   to 0. Which block merges depends on timing; what it computes does not,
-//   so two launches give the same bits.
+//   arrival on the (slot, kv head, row group)'s counter; the split that
+//   arrives last combines the group's rows of all the slot's splits, in split
+//   order, and resets the counter to 0. Which block merges depends on
+//   timing; what it computes does not, so two launches give the same bits.
 // - f32 (the parity path): the same split with scalar FMAs, one block of 128
-//   threads holding all R rows, K and V staged as f32, and a merge kernel
-//   launched right after.
+//   threads holding a row group's rows, K and V staged as f32, and a merge
+//   kernel launched right after.
 //
 // Scratch (allocated by the wrapper; the kernels allocate nothing):
-//   o  [slots, Hkv, n_splits, R, HD] f32: sum over the split's keys of
+//   o  [slots, Hkv, n_splits, R, hd] f32: sum over the split's keys of
 //      exp(s - m) * v;
 //   ml [slots, Hkv, n_splits, R, 2]  f32: (m, sum of exp(s - m)),
 // the ml block following the o block; its size is bounded by the wrapper's
 // cap on n_splits: a long context gives each split more pages, not more
-// splits. `counters` [slots * Hkv] int32, zero between calls (bf16 only).
+// splits. `counters` [slots * Hkv * row groups] int32, zero between calls
+// (bf16 only).
 //
 // The split that holds the slot's last history key (split 0 when the history
-// is empty) also folds in the in-flight tokens and does the token writes (in
-// bf16 first, from the registers its in-flight rows are read into; in f32 at
-// its end). No block reads what another writes: the token writes land at
-// positions >= hist_len of their own slot, in their own kv head's columns,
-// and only that split's own last box reaches past hist_len (masked, whatever
-// it reads there); a page shared through the prefix cache holds prompt
-// positions <= p-2 only and is never a write target. In every kernel here
-// blockIdx.y is the kv head.
+// is empty) also folds in the in-flight tokens, and its block of row group 0
+// does the token writes (in bf16 first, from the registers its in-flight rows
+// are read into; in f32 at its end). No block reads what another writes: the
+// token writes land at positions >= hist_len of their own slot, in their own
+// kv head's columns, and only that split's own last box reaches past hist_len
+// (masked, whatever it reads there, in every row group); a page shared
+// through the prefix cache holds prompt positions <= p-2 only and is never a
+// write target. In every kernel here
+// blockIdx.y is the kv head, and blockIdx.x the split (split + n_splits *
+// row group in the split kernels).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -128,7 +142,7 @@ constexpr int CONSUMERS = 128;           // bf16: 4 warps run the products
 constexpr int BF16_THREADS = CONSUMERS + 32;  // and a producer warp issues the page loads
 constexpr int TK = 64;          // keys per tile
 constexpr int MAX_T = 8;        // in-flight tokens per slot
-constexpr int MAX_ROWS = 64;    // T * n_rep
+constexpr int GROUP_ROWS = 64;  // query rows a block holds at most: a row group of T * n_rep
 constexpr float NEG_INF = -1.0e30f;
 constexpr float M_CLAMP = -0.5e30f;  // m_safe = max(m, M_CLAMP)
 constexpr float LOG2E = 1.4426950408889634f;
@@ -146,13 +160,15 @@ struct Args {
     const int* write_rows;   // [slots, T]
     void* out;               // [slots, T, Hq, HD]
     float* part;             // the split scratch (see the top of the file)
-    int* counters;           // [slots * Hkv] arrivals of split blocks (bf16)
+    int* counters;           // [slots * Hkv * groups] arrivals of split blocks (bf16)
     int lens_shift;          // -1 (#8: seq_lens counts the incoming token) or 0 (#9)
     int trash;               // a write row equal to it is skipped; -1: none is (#8)
     int n_slots, t_q, Hkv, n_rep, ps, max_pages;
+    int hd;                  // head_dim: <= the instance's HD, a multiple of 8
     int split_keys;          // keys per split (pages per split * ps)
     int n_splits;            // splits per (slot, kv head)
     int rows;                // R = t_q * n_rep
+    int groups;              // row groups: ceil(R / GROUP_ROWS), a block each
     int box;                 // keys per TMA box (bf16): divides ps and 64
     float scale;
 };
@@ -186,20 +202,19 @@ __device__ __forceinline__ Span span_of(const Args& a, int slot, int split) {
     return s;
 }
 
-template <int HD>
+// the element of q and out where query row r (of all R) of this block's kv
+// head starts
 __device__ __forceinline__ long long q_index(const Args& a, int slot, int r) {
     const int Hq = a.Hkv * a.n_rep;
-    return (((long long)slot * a.t_q + r / a.n_rep) * Hq + (long long)blockIdx.y * a.n_rep + r % a.n_rep) * HD;
+    return (((long long)slot * a.t_q + r / a.n_rep) * Hq + (long long)blockIdx.y * a.n_rep + r % a.n_rep) * a.hd;
 }
 
-template <int HD>
 __device__ __forceinline__ float* part_o(const Args& a, int slot, int split, int r) {
-    return a.part + ((((long long)slot * a.Hkv + blockIdx.y) * a.n_splits + split) * a.rows + r) * HD;
+    return a.part + ((((long long)slot * a.Hkv + blockIdx.y) * a.n_splits + split) * a.rows + r) * a.hd;
 }
 
-template <int HD>
 __device__ __forceinline__ float* part_ml(const Args& a, int slot, int split, int r) {
-    const long long o_size = (long long)a.n_slots * a.Hkv * a.n_splits * a.rows * HD;
+    const long long o_size = (long long)a.n_slots * a.Hkv * a.n_splits * a.rows * a.hd;
     return a.part + o_size + ((((long long)slot * a.Hkv + blockIdx.y) * a.n_splits + split) * a.rows + r) * 2;
 }
 
@@ -217,18 +232,18 @@ __device__ __forceinline__ void store4<bf16>(bf16* dst, float x, float y, float 
 
 // The in-flight tokens' K/V into their cells (f32): this kv head's stripe of
 // each token's row (positions >= hist_len, which no split reads).
-template <typename T, int HD>
+template <typename T>
 __device__ void write_tokens(const Args& a, int slot, int hist_raw) {
     const int kvh = blockIdx.y;
-    const long long kvd = (long long)a.Hkv * HD;
-    for (int idx = threadIdx.x; idx < a.t_q * HD; idx += THREADS) {
-        const int t = idx / HD;
-        const int d = idx % HD;
+    const long long kvd = (long long)a.Hkv * a.hd;
+    for (int idx = threadIdx.x; idx < a.t_q * a.hd; idx += THREADS) {
+        const int t = idx / a.hd;
+        const int d = idx % a.hd;
         const int row = a.write_rows[slot * a.t_q + t];
         if (row == a.trash) continue;
         const int off = ((hist_raw + t) % a.ps + a.ps) % a.ps;
-        const long long dst = ((long long)row * a.ps + off) * kvd + kvh * HD + d;
-        const long long src = (((long long)slot * a.t_q + t) * a.Hkv + kvh) * HD + d;
+        const long long dst = ((long long)row * a.ps + off) * kvd + (long long)kvh * a.hd + d;
+        const long long src = (((long long)slot * a.t_q + t) * a.Hkv + kvh) * a.hd + d;
         static_cast<T*>(a.k_pool)[dst] = static_cast<const T*>(a.k_new)[src];
         static_cast<T*>(a.v_pool)[dst] = static_cast<const T*>(a.v_new)[src];
     }
@@ -411,20 +426,21 @@ __device__ __forceinline__ void attend(RowState<HD, MTW>& st, const uint32_t (&q
     }
 }
 
-// One block per (split, kv head, slot); MT m16 tiles hold all R query rows.
-// Warps 0-3 run the products; warp 4 (one lane) issues the page loads, so
-// its page-table reads never stall the products.
+// One block per (split and row group, kv head, slot); MT m16 tiles hold the
+// row group's query rows. Warps 0-3 run the products; warp 4 (one lane)
+// issues the page loads, so its page-table reads never stall the products.
+// The body of the two kernels below, which differ only in their launch bounds.
 template <int HD, int MT>
-__global__ void __launch_bounds__(BF16_THREADS) paged_hopper_kernel(const __grid_constant__ Args a,
-                                                                    const __grid_constant__ CUtensorMap kmap,
-                                                                    const __grid_constant__ CUtensorMap vmap) {
+__device__ __forceinline__ void paged_hopper_body(const Args& a, const CUtensorMap& kmap, const CUtensorMap& vmap) {
     using W = WarpSplit<HD, MT>;
     constexpr int ST = STAGES;
     constexpr int PIECES = HD / 8;  // 16-byte pieces of a row
     extern __shared__ unsigned char smem_raw[];
     PagedSmem<HD, MT>& sm = *reinterpret_cast<PagedSmem<HD, MT>*>(hw::align1024(smem_raw));
 
-    const int split = blockIdx.x;
+    const int split = blockIdx.x % a.n_splits;
+    const int rbase = blockIdx.x / a.n_splits * GROUP_ROWS;  // this block's row group: rows rbase ..
+    const int nrows = min(GROUP_ROWS, a.rows - rbase);       // .. rbase + nrows - 1 of the R
     const int kvh = blockIdx.y;
     const int slot = blockIdx.z;
     const int tid = threadIdx.x;
@@ -449,19 +465,19 @@ __global__ void __launch_bounds__(BF16_THREADS) paged_hopper_kernel(const __grid
         for (int idx = tid; idx < 16 * MT * PIECES; idx += CONSUMERS) {
             const int i = idx / PIECES;
             const int c = (idx % PIECES) * 8;
-            uint4 x = make_uint4(0, 0, 0, 0);
-            if (i < a.rows) x = *reinterpret_cast<const uint4*>(qb + q_index<HD>(a, slot, i) + c);
+            uint4 x = make_uint4(0, 0, 0, 0);  // rows past the group and columns past hd: zeros
+            if (i < nrows && c < a.hd) x = *reinterpret_cast<const uint4*>(qb + q_index(a, slot, rbase + i) + c);
             *reinterpret_cast<uint4*>(&sm.q[i][c]) = x;
         }
-        const long long new_base = ((long long)slot * a.t_q * a.Hkv + kvh) * HD;
+        const long long new_base = ((long long)slot * a.t_q * a.Hkv + kvh) * a.hd;
 #pragma unroll
         for (int i = 0; i < IN_PER; ++i) {
             const int idx = tid + i * CONSUMERS;
             const int j = idx / PIECES;
             kin[i] = vin[i] = make_uint4(0, 0, 0, 0);
-            wrow[i] = a.trash;
-            if (j < a.t_q) {
-                const long long off = new_base + (long long)j * a.Hkv * HD + (idx % PIECES) * 8;
+            wrow[i] = a.trash;  // no write: no token, or a piece past hd
+            if (j < a.t_q && (idx % PIECES) * 8 < a.hd) {
+                const long long off = new_base + (long long)j * a.Hkv * a.hd + (idx % PIECES) * 8;
                 kin[i] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.k_new) + off);
                 vin[i] = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(a.v_new) + off);
                 wrow[i] = a.write_rows[slot * a.t_q + j];
@@ -480,17 +496,18 @@ __global__ void __launch_bounds__(BF16_THREADS) paged_hopper_kernel(const __grid
     const Span sp = span_of<BK<HD>>(a, slot, split);
     if (split >= sp.n_live) return;
 
-    // The last split writes the in-flight tokens into their cells first:
-    // positions >= hist_len, which only its own last box may cover (masked).
-    if (sp.last && warp < WARPS) {
-        const long long kvd = (long long)a.Hkv * HD;
+    // The last split (of row group 0) writes the in-flight tokens into their
+    // cells first: positions >= hist_len, which only the last split's own last
+    // box may cover (masked, in every row group).
+    if (sp.last && rbase == 0 && warp < WARPS) {
+        const long long kvd = (long long)a.Hkv * a.hd;
 #pragma unroll
         for (int i = 0; i < IN_PER; ++i) {
             const int idx = tid + i * CONSUMERS;
             const int j = idx / PIECES;
             if (j < a.t_q && wrow[i] != a.trash) {
                 const int off = ((sp.hist_raw + j) % a.ps + a.ps) % a.ps;
-                const long long dst = ((long long)wrow[i] * a.ps + off) * kvd + kvh * HD + (idx % PIECES) * 8;
+                const long long dst = ((long long)wrow[i] * a.ps + off) * kvd + (long long)kvh * a.hd + (idx % PIECES) * 8;
                 *reinterpret_cast<uint4*>(static_cast<bf16*>(a.k_pool) + dst) = kin[i];
                 *reinterpret_cast<uint4*>(static_cast<bf16*>(a.v_pool) + dst) = vin[i];
             }
@@ -518,8 +535,8 @@ __global__ void __launch_bounds__(BF16_THREADS) paged_hopper_kernel(const __grid
 #pragma unroll
                     for (int h = 0; h < HD / 64; ++h) {
                         const int dst = h * BK<HD> * 64 + b * a.box * 64;
-                        hw::tma_load_2d(&sm.ring.k[st][dst], &kmap, &sm.full[st], kvh * HD + h * 64, row);
-                        hw::tma_load_2d(&sm.ring.v[st][dst], &vmap, &sm.full[st], kvh * HD + h * 64, row);
+                        hw::tma_load_3d(&sm.ring.k[st][dst], &kmap, &sm.full[st], h * 64, kvh, row);
+                        hw::tma_load_3d(&sm.ring.v[st][dst], &vmap, &sm.full[st], h * 64, kvh, row);
                     }
                 }
             }
@@ -555,7 +572,8 @@ __global__ void __launch_bounds__(BF16_THREADS) paged_hopper_kernel(const __grid
                 hw::named_sync(1, CONSUMERS);
             }
             if (kw * W::NK < kend)  // else every key of this warp's slice is past the history
-                attend<HD, W::MTW, W::NK, BK<HD>>(rs, qf, kt, vt, kw * W::NK, kend < BK<HD> ? 1 : 0, kend, row0, a);
+                attend<HD, W::MTW, W::NK, BK<HD>>(rs, qf, kt, vt, kw * W::NK, kend < BK<HD> ? 1 : 0, kend,
+                                                  rbase + row0, a);
             __syncwarp();
             if (lane == 0) hw::mbar_arrive(&sm.empty[st]);  // this warp is done with the stage
         }
@@ -571,8 +589,8 @@ __global__ void __launch_bounds__(BF16_THREADS) paged_hopper_kernel(const __grid
             hw::named_sync(1, CONSUMERS);
             if (kw == 0)
                 attend<HD, W::MTW, IN_ROWS, IN_ROWS>(rs, qf, reinterpret_cast<const unsigned char*>(sm.in.k),
-                                                     reinterpret_cast<const unsigned char*>(sm.in.v), 0, 2, 0, row0,
-                                                     a);
+                                                     reinterpret_cast<const unsigned char*>(sm.in.v), 0, 2, 0,
+                                                     rbase + row0, a);
         }
     }
     __syncthreads();  // the ring's bytes are free for the combine
@@ -610,9 +628,10 @@ __global__ void __launch_bounds__(BF16_THREADS) paged_hopper_kernel(const __grid
     // the output itself when one split holds the history, else this split's part
     const bool direct = sp.n_live == 1;
     bf16* out = static_cast<bf16*>(a.out);
-    for (int idx = tid; idx < a.rows * (HD / 4); idx += BF16_THREADS) {
+    for (int idx = tid; idx < nrows * (HD / 4); idx += BF16_THREADS) {
         const int i = idx / (HD / 4);
         const int d = (idx % (HD / 4)) * 4;
+        if (d >= a.hd) continue;
         float m = cb.m[0][i];
 #pragma unroll
         for (int w = 1; w < W::KW; ++w) m = fmaxf(m, cb.m[w][i]);
@@ -629,34 +648,36 @@ __global__ void __launch_bounds__(BF16_THREADS) paged_hopper_kernel(const __grid
         }
         if (direct) {
             const float ls = fmaxf(l, 1e-30f);
-            store4(out + q_index<HD>(a, slot, i) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
+            store4(out + q_index(a, slot, rbase + i) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
         } else {
-            store4(part_o<HD>(a, slot, split, i) + d, o0, o1, o2, o3);
-            if (d == 0) *reinterpret_cast<float2*>(part_ml<HD>(a, slot, split, i)) = make_float2(m, l);
+            store4(part_o(a, slot, split, rbase + i) + d, o0, o1, o2, o3);
+            if (d == 0) *reinterpret_cast<float2*>(part_ml(a, slot, split, rbase + i)) = make_float2(m, l);
         }
     }
 
     if (!direct) {
         // count this split's arrival once its part is visible to the whole card;
-        // the last to arrive merges the slot's live splits in split order
+        // the last to arrive merges the slot's live splits in split order (a
+        // counter per row group: each group's splits merge its own rows)
         __threadfence();
         __syncthreads();
-        int* count = a.counters + (long long)slot * a.Hkv + kvh;
+        int* count = a.counters + ((long long)slot * a.Hkv + kvh) * a.groups + rbase / GROUP_ROWS;
         if (tid == 0) sm.merge = atomicAdd(count, 1) == sp.n_live - 1;
         __syncthreads();
         if (sm.merge) {
             __threadfence();
             if (tid == 0) *count = 0;  // every split has arrived: zero for the next call
-            for (int idx = tid; idx < a.rows * (HD / 4); idx += BF16_THREADS) {
-                const int r = idx / (HD / 4);
+            for (int idx = tid; idx < nrows * (HD / 4); idx += BF16_THREADS) {
+                const int r = rbase + idx / (HD / 4);
                 const int d = (idx % (HD / 4)) * 4;
+                if (d >= a.hd) continue;
                 float m = NEG_INF;
-                for (int s = 0; s < sp.n_live; ++s) m = fmaxf(m, __ldcg(part_ml<HD>(a, slot, s, r)));
+                for (int s = 0; s < sp.n_live; ++s) m = fmaxf(m, __ldcg(part_ml(a, slot, s, r)));
                 float l = 0.f, o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
                 for (int s = 0; s < sp.n_live; ++s) {
-                    const float2 ml = __ldcg(reinterpret_cast<const float2*>(part_ml<HD>(a, slot, s, r)));
+                    const float2 ml = __ldcg(reinterpret_cast<const float2*>(part_ml(a, slot, s, r)));
                     const float wt = exp2f((ml.x - m) * LOG2E);
-                    const float4 o = __ldcg(reinterpret_cast<const float4*>(part_o<HD>(a, slot, s, r) + d));
+                    const float4 o = __ldcg(reinterpret_cast<const float4*>(part_o(a, slot, s, r) + d));
                     l = fmaf(ml.y, wt, l);
                     o0 = fmaf(o.x, wt, o0);
                     o1 = fmaf(o.y, wt, o1);
@@ -664,10 +685,30 @@ __global__ void __launch_bounds__(BF16_THREADS) paged_hopper_kernel(const __grid
                     o3 = fmaf(o.w, wt, o3);
                 }
                 const float ls = fmaxf(l, 1e-30f);
-                store4(out + q_index<HD>(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
+                store4(out + q_index(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
             }
         }
     }
+}
+
+template <int HD, int MT>
+__global__ void __launch_bounds__(BF16_THREADS) paged_hopper_kernel(const __grid_constant__ Args a,
+                                                                    const __grid_constant__ CUtensorMap kmap,
+                                                                    const __grid_constant__ CUtensorMap vmap) {
+    paged_hopper_body<HD, MT>(a, kmap, vmap);
+}
+
+// The hd-64 two-tile instance (#9 at T 8 at 1B: 32 rows), its registers held
+// to two blocks an SM (166, 64 bytes spilled): left to itself ptxas gives it
+// 220, one block an SM, and #9 at T 8 read 1.3x slower. A minimum of blocks on
+// the other instances moved their registers too (a floor of 3 on the hd-64
+// one-tile instance spilled; one of 1 gave the hd-128 two-tile instance 212,
+// and #8/#9 at hd 128 read 6-17% slower), so they keep the plain bound.
+template <int HD, int MT>
+__global__ void __launch_bounds__(BF16_THREADS, 2) paged_hopper_2blocks_kernel(const __grid_constant__ Args a,
+                                                                               const __grid_constant__ CUtensorMap kmap,
+                                                                               const __grid_constant__ CUtensorMap vmap) {
+    paged_hopper_body<HD, MT>(a, kmap, vmap);
 }
 
 // ---- f32: scalar FMAs (parity path) -----------------------------------------
@@ -678,8 +719,9 @@ size_t f32_smem(int rows) {
     return sizeof(float) * ((size_t)rows * HD + (size_t)TK * KPAD + (size_t)TK * HD + (size_t)rows * TK + 3 * rows);
 }
 
-// One block of 128 threads per (split, kv head, slot) holding all R rows;
-// RPT: rows per thread (two row groups of 64 threads), at least ceil(R / 2).
+// One block of 128 threads per (split and row group, kv head, slot) holding
+// the group's rows (all R up to 64); RPT: rows per thread (two halves of 64
+// threads), at least ceil(rows / 2). Columns past hd are staged as zeros.
 // Per 64-key tile: K and V staged as f32; thread (row group, key) forms its
 // rows' scores; one warp per row updates the online softmax; thread (row
 // group, dim) rescales and accumulates P.V, for dims col, col + 64, ...
@@ -687,8 +729,10 @@ template <int HD, int RPT>
 __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
     constexpr int KPAD = HD + 1;
     constexpr int DPT = HD / 64;  // dims per thread in P.V
+    const int split = blockIdx.x % a.n_splits;
+    const int rbase = blockIdx.x / a.n_splits * GROUP_ROWS;  // this block's rows: rbase + [0, R)
+    const int R = min(GROUP_ROWS, a.rows - rbase);
     extern __shared__ float smem[];
-    const int R = a.rows;
     float* q_sm = smem;              // [R][HD], pre-scaled
     float* k_sm = q_sm + R * HD;     // [TK][KPAD]
     float* v_sm = k_sm + TK * KPAD;  // [TK][HD]
@@ -697,7 +741,6 @@ __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
     float* l_sm = m_sm + R;          // [R] running sum
     float* a_sm = l_sm + R;          // [R] this tile's rescale factor
 
-    const int split = blockIdx.x;
     const int kvh = blockIdx.y;
     const int slot = blockIdx.z;
     const Span sp = span_of(a, slot, split);
@@ -709,7 +752,7 @@ __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
     const int warp = tid >> 5;
     const int rg = tid >> 6;   // row group: rows rg, rg + 2, ...
     const int col = tid & 63;  // key (scores) or dim (P.V) of this thread
-    const long long kvd = (long long)a.Hkv * HD;
+    const long long kvd = (long long)a.Hkv * a.hd;
     const int* pt = a.page_table + (long long)slot * a.max_pages;
     const float* qb = static_cast<const float*>(a.q);
     const float* kp = static_cast<const float*>(a.k_pool);
@@ -717,7 +760,8 @@ __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
     const float* kn = static_cast<const float*>(a.k_new);
     const float* vn = static_cast<const float*>(a.v_new);
 
-    for (int idx = tid; idx < R * HD; idx += THREADS) q_sm[idx] = qb[q_index<HD>(a, slot, idx / HD) + idx % HD] * a.scale;
+    for (int idx = tid; idx < R * HD; idx += THREADS)
+        q_sm[idx] = idx % HD < a.hd ? qb[q_index(a, slot, rbase + idx / HD) + idx % HD] * a.scale : 0.f;
     for (int r = tid; r < R; r += THREADS) {
         m_sm[r] = -INFINITY;
         l_sm[r] = 0.f;
@@ -740,16 +784,16 @@ __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
             const int j = c / (HD / 8);
             const int e8 = (c % (HD / 8)) * 8;
             float kr[8], vr[8];
-            if (j < n_keys) {
+            if (j < n_keys && e8 < a.hd) {
                 if (inflight) {
-                    const long long src = (((long long)slot * a.t_q + j) * a.Hkv + kvh) * HD + e8;
+                    const long long src = (((long long)slot * a.t_q + j) * a.Hkv + kvh) * a.hd + e8;
                     ssi::load8(kn + src, kr);
                     ssi::load8(vn + src, vr);
                 } else {
                     const int key = key0 + j;
                     const long long row = (long long)pt[key / a.ps] * a.ps + key % a.ps;
-                    ssi::load8(kp + row * kvd + kvh * HD + e8, kr);
-                    ssi::load8(vp + row * kvd + kvh * HD + e8, vr);
+                    ssi::load8(kp + row * kvd + (long long)kvh * a.hd + e8, kr);
+                    ssi::load8(vp + row * kvd + (long long)kvh * a.hd + e8, vr);
                 }
             } else {
 #pragma unroll
@@ -786,7 +830,7 @@ __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
                 const int r = rg + 2 * i;
                 if (r < R) {
                     // in-flight token t (row r) sees in-flight keys 0..t
-                    const bool ok = col < n_keys && (!inflight || col <= r / a.n_rep);
+                    const bool ok = col < n_keys && (!inflight || col <= (rbase + r) / a.n_rep);
                     s_sm[r * TK + col] = ok ? s[i] : -INFINITY;
                 }
             }
@@ -858,17 +902,18 @@ __global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
 #pragma unroll
             for (int dd = 0; dd < DPT; ++dd) {
                 const int d = col + 64 * dd;
+                if (d >= a.hd) continue;
                 if (sp.n_live == 1) {
-                    static_cast<float*>(a.out)[q_index<HD>(a, slot, r) + d] = acc[i][dd] / fmaxf(l_sm[r], 1e-30f);
+                    static_cast<float*>(a.out)[q_index(a, slot, rbase + r) + d] = acc[i][dd] / fmaxf(l_sm[r], 1e-30f);
                 } else {
-                    part_o<HD>(a, slot, split, r)[d] = acc[i][dd];
+                    part_o(a, slot, split, rbase + r)[d] = acc[i][dd];
                 }
             }
             if (sp.n_live > 1 && col == 0)
-                *reinterpret_cast<float2*>(part_ml<HD>(a, slot, split, r)) = make_float2(m_sm[r], l_sm[r]);
+                *reinterpret_cast<float2*>(part_ml(a, slot, split, rbase + r)) = make_float2(m_sm[r], l_sm[r]);
         }
     }
-    if (sp.last) write_tokens<float, HD>(a, slot, sp.hist_raw);
+    if (sp.last && rbase == 0) write_tokens<float>(a, slot, sp.hist_raw);
 }
 
 // ---- the f32 merge ------------------------------------------------------------
@@ -883,13 +928,14 @@ __global__ void __launch_bounds__(THREADS) paged_merge_f32_kernel(Args a) {
     for (int idx = threadIdx.x; idx < a.rows * (HD / 4); idx += THREADS) {
         const int r = idx / (HD / 4);
         const int d = (idx % (HD / 4)) * 4;
+        if (d >= a.hd) continue;
         float m = NEG_INF;
-        for (int s = 0; s < n_live; ++s) m = fmaxf(m, part_ml<HD>(a, slot, s, r)[0]);
+        for (int s = 0; s < n_live; ++s) m = fmaxf(m, part_ml(a, slot, s, r)[0]);
         float l = 0.f, o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
         for (int s = 0; s < n_live; ++s) {
-            const float2 ml = *reinterpret_cast<const float2*>(part_ml<HD>(a, slot, s, r));
+            const float2 ml = *reinterpret_cast<const float2*>(part_ml(a, slot, s, r));
             const float wt = exp2f((ml.x - m) * LOG2E);
-            const float4 o = *reinterpret_cast<const float4*>(part_o<HD>(a, slot, s, r) + d);
+            const float4 o = *reinterpret_cast<const float4*>(part_o(a, slot, s, r) + d);
             l = fmaf(ml.y, wt, l);
             o0 = fmaf(o.x, wt, o0);
             o1 = fmaf(o.y, wt, o1);
@@ -897,7 +943,7 @@ __global__ void __launch_bounds__(THREADS) paged_merge_f32_kernel(Args a) {
             o3 = fmaf(o.w, wt, o3);
         }
         const float ls = fmaxf(l, 1e-30f);
-        store4(static_cast<float*>(a.out) + q_index<HD>(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
+        store4(static_cast<float*>(a.out) + q_index(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
     }
 }
 
@@ -905,21 +951,27 @@ template <int HD, int MT>
 cudaError_t launch_bf16(const Args& a, const CUtensorMap& kmap, const CUtensorMap& vmap, cudaStream_t st) {
     static int allowed = 0;
     const int smem = (int)sizeof(PagedSmem<HD, MT>) + 1024;  // + the slack to align the ring to 1024 bytes
-    const cudaError_t err = ssi::allow_dynamic_smem(paged_hopper_kernel<HD, MT>, smem, allowed);
+    const auto kernel = [] {  // only the chosen kernel is instantiated
+        if constexpr (HD == 64 && MT == 2)
+            return paged_hopper_2blocks_kernel<HD, MT>;
+        else
+            return paged_hopper_kernel<HD, MT>;
+    }();
+    const cudaError_t err = ssi::allow_dynamic_smem(kernel, smem, allowed);
     if (err != cudaSuccess) return err;
-    paged_hopper_kernel<HD, MT><<<dim3(a.n_splits, a.Hkv, a.n_slots), BF16_THREADS, smem, st>>>(a, kmap, vmap);
+    kernel<<<dim3(a.n_splits * a.groups, a.Hkv, a.n_slots), BF16_THREADS, smem, st>>>(a, kmap, vmap);
     return cudaGetLastError();
 }
 
 template <int HD, int RPT>
 cudaError_t launch_f32(const Args& a, cudaStream_t st) {
     static int allowed = 0;
-    const size_t smem = f32_smem<HD>(a.rows);
+    const size_t smem = f32_smem<HD>(std::min(a.rows, GROUP_ROWS));
     if (smem > 48 * 1024) {
         const cudaError_t err = ssi::allow_dynamic_smem(paged_split_f32_kernel<HD, RPT>, (int)smem, allowed);
         if (err != cudaSuccess) return err;
     }
-    paged_split_f32_kernel<HD, RPT><<<dim3(a.n_splits, a.Hkv, a.n_slots), THREADS, smem, st>>>(a);
+    paged_split_f32_kernel<HD, RPT><<<dim3(a.n_splits * a.groups, a.Hkv, a.n_slots), THREADS, smem, st>>>(a);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || a.n_splits == 1) return err;
     paged_merge_f32_kernel<HD><<<dim3(1, a.Hkv, a.n_slots), THREADS, 0, st>>>(a);
@@ -939,12 +991,13 @@ cudaError_t launch(int dtype, const Args& a, const void* k_map, const void* v_ma
         CUtensorMap kmap, vmap;  // the wrapper's encoded maps (ssi_paged_pool_map), 128 bytes each
         std::memcpy(&kmap, k_map, sizeof kmap);
         std::memcpy(&vmap, v_map, sizeof vmap);
-        return a.rows <= 16   ? launch_bf16<HD, 1>(a, kmap, vmap, st)
-               : a.rows <= 32 ? launch_bf16<HD, 2>(a, kmap, vmap, st)
-                              : launch_bf16<HD, 4>(a, kmap, vmap, st);
+        const int rows = std::min(a.rows, GROUP_ROWS);  // a block's: one row group
+        return rows <= 16   ? launch_bf16<HD, 1>(a, kmap, vmap, st)
+               : rows <= 32 ? launch_bf16<HD, 2>(a, kmap, vmap, st)
+                            : launch_bf16<HD, 4>(a, kmap, vmap, st);
     }
     if (dtype == ssi::kFloat32) {
-        const int need = (a.rows + 1) / 2;
+        const int need = (std::min(a.rows, GROUP_ROWS) + 1) / 2;
         return need <= 1    ? launch_f32<HD, 1>(a, st)
                : need <= 2  ? launch_f32<HD, 2>(a, st)
                : need <= 4  ? launch_f32<HD, 4>(a, st)
@@ -955,21 +1008,21 @@ cudaError_t launch(int dtype, const Args& a, const void* k_map, const void* v_ma
     return cudaErrorInvalidValue;
 }
 
-cudaError_t launch(int dtype, int hd, const Args& a, const void* k_map, const void* v_map, cudaStream_t st) {
-    if (a.Hkv <= 0 || a.n_rep <= 0 || a.t_q < 1 || a.t_q > MAX_T || a.rows > MAX_ROWS || a.ps <= 0 ||
+cudaError_t launch(int dtype, const Args& a, const void* k_map, const void* v_map, cudaStream_t st) {
+    if (a.Hkv <= 0 || a.n_rep <= 0 || a.t_q < 1 || a.t_q > MAX_T || a.hd <= 0 || a.hd > 128 || a.hd % 8 != 0 ||
+        a.ps <= 0 ||
         a.ps % 8 != 0 || a.max_pages <= 0 || a.n_slots <= 0 || a.split_keys <= 0 || a.split_keys % a.ps != 0 ||
         a.n_splits <= 0 || (long long)(a.n_splits - 1) * a.split_keys >= (long long)a.max_pages * a.ps ||
         (long long)a.n_splits * a.split_keys < (long long)a.max_pages * a.ps)
         return cudaErrorInvalidValue;
-    if (hd == 64) return launch<64>(dtype, a, k_map, v_map, st);
-    if (hd == 128) return launch<128>(dtype, a, k_map, v_map, st);
-    return cudaErrorInvalidValue;
+    // the hd-64 instance up to 64 columns, the hd-128 one above
+    return a.hd <= 64 ? launch<64>(dtype, a, k_map, v_map, st) : launch<128>(dtype, a, k_map, v_map, st);
 }
 
 Args make_args(const void* q, void* k_pool, void* v_pool, const void* page_table, const void* lens,
                const void* k_new, const void* v_new, const void* write_rows, void* out, void* part, void* counters,
-               int n_slots, int t_q, int Hq, int Hkv, int ps, int max_pages, int pages_per_split, int n_splits,
-               int box, float scale) {
+               int n_slots, int t_q, int Hq, int Hkv, int hd, int ps, int max_pages, int pages_per_split,
+               int n_splits, int box, float scale) {
     Args a;
     a.q = q;
     a.k_pool = k_pool;
@@ -988,11 +1041,13 @@ Args make_args(const void* q, void* k_pool, void* v_pool, const void* page_table
     a.t_q = t_q;
     a.Hkv = Hkv;
     a.n_rep = Hkv > 0 ? Hq / Hkv : 0;
+    a.hd = hd;
     a.ps = ps;
     a.max_pages = max_pages;
     a.split_keys = pages_per_split * ps;
     a.n_splits = n_splits;
     a.rows = t_q * a.n_rep;
+    a.groups = (a.rows + GROUP_ROWS - 1) / GROUP_ROWS;
     a.box = box;
     a.scale = scale;
     return a;
@@ -1000,23 +1055,25 @@ Args make_args(const void* q, void* k_pool, void* v_pool, const void* page_table
 
 }  // namespace
 
-// The tensor map of a bf16 pool [rows, ps, kvd] (kvd = Hkv * head_dim) as the
-// bf16 kernel reads it: a 2D [n_rows = rows * ps, kvd] matrix in boxes of
-// `box` keys by 64 columns, 128-byte swizzled, written into `map` (128 bytes;
-// the wrapper caches it per pool pointer and shape).
-extern "C" int ssi_paged_pool_map(void* map, const void* pool, long long n_rows, int kvd, int box) {
+// The tensor map of a bf16 pool [rows, ps, Hkv * hd] as the bf16 kernel reads
+// it: a 3D [n_rows = rows * ps, Hkv, hd] tensor in boxes of `box` keys by one
+// kv head by 64 columns, 128-byte swizzled (a box's columns past hd are
+// zeros, never the next head's), written into `map` (128 bytes; the wrapper
+// caches it per pool pointer and shape). hd: a multiple of 8 (16-byte strides).
+extern "C" int ssi_paged_pool_map(void* map, const void* pool, long long n_rows, int Hkv, int hd, int box) {
     static_assert(sizeof(CUtensorMap) == 128, "the wrapper holds 128-byte tensor maps");
+    if (Hkv <= 0 || hd <= 0 || hd % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
     CUtensorMap m;
-    const cudaError_t err = hw::map_2d(&m, pool, n_rows, kvd, kvd, box);
+    const cudaError_t err = hw::map_rows_heads(&m, pool, n_rows, Hkv, hd, box);
     if (err == cudaSuccess) std::memcpy(map, &m, sizeof m);
     return static_cast<int>(err);
 }
 
-// #8: one token per slot; seq_lens counts it. hd: head_dim, 64 or 128.
-// `part`: the split scratch, n_slots * Hkv * n_splits * n_rep * (hd + 2)
-// floats (unused when n_splits is 1); `counters`: n_slots * Hkv ints, zero
-// (bf16; every launch leaves them zero); k_map / v_map: the pools' tensor
-// maps (bf16), in boxes of `box` keys.
+// #8: one token per slot; seq_lens counts it. hd: head_dim, at most 128 and a
+// multiple of 8. `part`: the split scratch, n_slots * Hkv * n_splits * n_rep
+// * (hd + 2) floats (unused when n_splits is 1); `counters`: n_slots * Hkv *
+// ceil(n_rep / 64) ints, zero (bf16; every launch leaves them zero); k_map /
+// v_map: the pools' tensor maps (bf16), in boxes of `box` keys.
 extern "C" int ssi_paged_attention_fused(
     int dtype, const void* q, void* k_pool, void* v_pool, const void* page_table, const void* seq_lens,
     const void* k_new, const void* v_new, const void* write_rows, void* out, void* part, void* counters,
@@ -1024,14 +1081,15 @@ extern "C" int ssi_paged_attention_fused(
     int pages_per_split, int n_splits, int box, float scale, void* stream) {
     if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
     Args a = make_args(q, k_pool, v_pool, page_table, seq_lens, k_new, v_new, write_rows, out, part, counters,
-                       n_slots, 1, Hq, Hkv, ps, max_pages, pages_per_split, n_splits, box, scale);
+                       n_slots, 1, Hq, Hkv, hd, ps, max_pages, pages_per_split, n_splits, box, scale);
     a.lens_shift = -1;
-    return static_cast<int>(launch(dtype, hd, a, k_map, v_map, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(launch(dtype, a, k_map, v_map, static_cast<cudaStream_t>(stream)));
 }
 
 // #9: T tokens per slot after hist_lens resident ones; a write row equal to
 // `trash` is skipped. `part`: n_slots * Hkv * n_splits * T * n_rep * (hd + 2)
-// floats; the rest as #8.
+// floats; `counters`: n_slots * Hkv * ceil(T * n_rep / 64) ints; the rest as
+// #8.
 extern "C" int ssi_paged_attention_multi(
     int dtype, const void* q, void* k_pool, void* v_pool, const void* page_table, const void* hist_lens,
     const void* k_new, const void* v_new, const void* write_rows, void* out, void* part, void* counters,
@@ -1039,7 +1097,7 @@ extern "C" int ssi_paged_attention_multi(
     int trash, int pages_per_split, int n_splits, int box, float scale, void* stream) {
     if (Hkv <= 0 || Hq % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
     Args a = make_args(q, k_pool, v_pool, page_table, hist_lens, k_new, v_new, write_rows, out, part, counters,
-                       n_slots, t_q, Hq, Hkv, ps, max_pages, pages_per_split, n_splits, box, scale);
+                       n_slots, t_q, Hq, Hkv, hd, ps, max_pages, pages_per_split, n_splits, box, scale);
     a.trash = trash;
-    return static_cast<int>(launch(dtype, hd, a, k_map, v_map, static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(launch(dtype, a, k_map, v_map, static_cast<cudaStream_t>(stream)));
 }

@@ -41,7 +41,8 @@ __device__ __forceinline__ void tile_mma(float* C, int ldc, const float* A, int 
 
 // Copy rows [0, ROWS) x cols [0, COLS) of a row-major global matrix (row
 // stride src_ld elements) into shared memory (row stride dst_ld); rows at or
-// past n_valid are zero-filled. The block has THREADS threads. 16-byte vector
+// past n_valid and columns at or past n_cols (a multiple of the 16-byte
+// vector) are zero-filled. The block has THREADS threads. 16-byte vector
 // copies: src, src_ld, dst and dst_ld must keep every row start 16-byte
 // aligned. Each thread starts all its loads before its first store: the
 // compiler cannot prove that the shared-memory destination does not alias
@@ -49,7 +50,7 @@ __device__ __forceinline__ void tile_mma(float* C, int ldc, const float* A, int 
 // another, one L2 round trip each.
 template <typename T, int ROWS, int COLS, int THREADS>
 __device__ __forceinline__ void load_rows(T* dst, int dst_ld, const T* __restrict__ src, long long src_ld,
-                                          int n_valid) {
+                                          int n_valid, int n_cols = COLS) {
     constexpr int VEC = 16 / sizeof(T);
     static_assert(COLS % VEC == 0, "COLS must be a multiple of the 16-byte vector");
     constexpr int N = ROWS * (COLS / VEC);
@@ -61,7 +62,7 @@ __device__ __forceinline__ void load_rows(T* dst, int dst_ld, const T* __restric
         const int r = idx / (COLS / VEC);
         const int c = (idx % (COLS / VEC)) * VEC;
         val[i] = make_uint4(0u, 0u, 0u, 0u);
-        if (idx < N && r < n_valid) val[i] = __ldg(reinterpret_cast<const uint4*>(src + r * src_ld + c));
+        if (idx < N && r < n_valid && c < n_cols) val[i] = __ldg(reinterpret_cast<const uint4*>(src + r * src_ld + c));
     }
 #pragma unroll
     for (int i = 0; i < PER_THREAD; ++i) {

@@ -11,16 +11,21 @@ plain PyTorch versions. Both wrappers launch one split-context core
   physical write row per token instead (the trash row = skip), as the JAX
   gather path resolves them.
 
-The core is built for head_dim 64 and 128, page sizes that are multiples of
-8, and any GQA ratio n_rep with ``T * n_rep <= MAX_ROWS`` (64) query rows
-per (slot, kv head).
+The core takes any head_dim up to 128 that is a multiple of 8 (an instance
+at 64 and one at 128, each running the head_dims up to it), page sizes that
+are multiples of 8, and any GQA ratio n_rep: a block holds up to
+``ROW_GROUP`` (64) of the ``T * n_rep`` query rows of a (slot, kv head), and
+more rows take more row groups (:func:`row_groups`), each reading the pages
+again. A head_dim above 128, or one that is not a multiple of 8 (the pool's
+head stride would not be a 16-byte multiple, and a padded pool would change
+the engine's state), raises, naming ROADMAP B2 (still to port).
 
 The core splits each slot's context over blocks of :func:`split_plan`'s
 pages (one split up to 1,280 keys). In bf16 one launch does the whole call:
 the split that finishes last merges a slot's splits, told by an arrival
-counter per (slot, kv head) that this module keeps zeroed on each device
-(:func:`_counters`), and it reads the pages by TMA through tensor maps this
-module encodes once per pool (:func:`_pool_map`). The f32 parity path
+counter per (slot, kv head, row group) that this module keeps zeroed on
+each device (:func:`_counters`), and it reads the pages by TMA through
+tensor maps this module encodes once per pool (:func:`_pool_map`). The f32 parity path
 merges in a second kernel, launched by the same C call. The wrapper
 allocates the merge's scratch. No context length is refused: a longer
 context gives each split more pages.
@@ -50,8 +55,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # slowest block, and shorter ones add blocks and merges (PERF.md section 6)
 SPLIT_KEYS = 1280
 MAX_SPLITS = 16   # splits per (slot, kv head) at most, which bounds the scratch
-HEAD_DIMS = (64, 128)  # the head_dims the kernels are built for
-MAX_ROWS = 64     # T * n_rep query rows per (slot, kv head) at most
+MAX_HEAD_DIM = 128  # the largest head_dim the kernels take (ROADMAP B2: above it, still to port)
+ROW_GROUP = 64    # query rows a block holds at most (csrc/paged_attention.cu GROUP_ROWS)
 _MAP_BYTES = 128  # a CUtensorMap
 _MAX_MAPS = 64    # cached tensor maps; the cache is emptied past it
 _maps: dict[tuple, ctypes.Array] = {}
@@ -66,30 +71,42 @@ def split_plan(max_pages: int, page_size: int) -> tuple[int, int]:
     return per_split, -(-max_pages // per_split)
 
 
+def instance_head_dim(head_dim: int) -> int:
+    """The kernel instance a head_dim runs on: 64 up to 64, else 128 (the C
+    launcher's choice, ``csrc/paged_attention.cu`` ``launch``)."""
+    return 64 if head_dim <= 64 else 128
+
+
 def box_keys(page_size: int, head_dim: int) -> int:
     """Keys per TMA box of the bf16 kernel: the largest power of two that
     divides ``page_size`` (a multiple of 8), so no box crosses a page, up to
-    the kernel's tile (128 keys at head_dim 64, 64 at 128)."""
-    tile = 128 if head_dim == 64 else 64
+    the tile of the kernel's instance (128 keys at head_dim 64, 64 at 128)."""
+    tile = 128 if instance_head_dim(head_dim) == 64 else 64
     return next(b for b in (128, 64, 32, 16, 8) if b <= tile and page_size % b == 0)
 
 
-def pool_map_key(pool: torch.Tensor, box: int) -> tuple:
+def row_groups(n_rows: int) -> int:
+    """Blocks a (split, slot, kv head) takes for its ``T * n_rep`` query
+    rows: one per ``ROW_GROUP`` rows."""
+    return -(-n_rows // ROW_GROUP)
+
+
+def pool_map_key(pool: torch.Tensor, head_dim: int, box: int) -> tuple:
     """What a pool's tensor map is a function of: its address, its rows of
-    keys, its row width and the box; the map cache's key."""
-    return pool.data_ptr(), pool.shape[0] * pool.shape[1], pool.shape[2], box
+    keys, its kv heads, its head_dim and the box; the map cache's key."""
+    return pool.data_ptr(), pool.shape[0] * pool.shape[1], pool.shape[2] // head_dim, head_dim, box
 
 
-def _pool_map(lib, pool: torch.Tensor, box: int) -> ctypes.Array:
+def _pool_map(lib, pool: torch.Tensor, head_dim: int, box: int) -> ctypes.Array:
     """The bf16 kernel's tensor map of ``pool`` (encoded on the host once
     per :func:`pool_map_key`: an engine's pools live as long as the engine)."""
-    key = pool_map_key(pool, box)
+    key = pool_map_key(pool, head_dim, box)
     m = _maps.get(key)
     if m is None:
         if len(_maps) >= _MAX_MAPS:
             _maps.clear()
         m = ctypes.create_string_buffer(_MAP_BYTES)
-        err = lib.ssi_paged_pool_map(m, pool.data_ptr(), key[1], key[2], box)
+        err = lib.ssi_paged_pool_map(m, pool.data_ptr(), key[1], key[2], head_dim, box)
         if err != 0:
             raise RuntimeError(f"encoding the tensor map of a paged pool {tuple(pool.shape)} failed: cudaError_t {err}")
         _maps[key] = m
@@ -144,16 +161,13 @@ def _check_common(q, k_pool, v_pool, k_new, v_new, hq: int, hd: int, new_shape: 
     kvd = k_pool.shape[2]
     hkv = kvd // hd
     dev = q.device
-    t_q = new_shape[1] if len(new_shape) > 1 else 1
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the CUDA paged kernels are built for head_dim in {HEAD_DIMS}, got {hd}")
+    if hd > MAX_HEAD_DIM or hd % 8 != 0:
+        raise ValueError(f"the CUDA paged kernels take head_dim <= {MAX_HEAD_DIM} and a multiple of 8, got {hd} "
+                         "(ROADMAP.md B2: still to port)")
     if k_pool.shape[1] % 8 != 0:  # the bf16 kernel's TMA boxes are whole 8-row swizzle patterns
         raise ValueError(f"page_size ({k_pool.shape[1]}) must be a multiple of 8")
     if hkv == 0 or hkv * hd != kvd or hq % hkv != 0:
         raise ValueError(f"unsupported heads: Hq={hq}, pool width {kvd} (Hkv*{hd}); Hq must be a multiple of Hkv")
-    if t_q * (hq // hkv) > MAX_ROWS:
-        raise ValueError(f"T * n_rep = {t_q} * {hq // hkv} query rows per kv head; the kernels take at most "
-                         f"{MAX_ROWS}")
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (k_pool, v_pool, k_new, v_new)):
         raise TypeError("q, pools and new K/V must share one dtype, f32 or bf16")
     if v_pool.shape != k_pool.shape:
@@ -179,8 +193,8 @@ def _core_args(lib, q, k_pool, v_pool, n_slots: int, hkv: int, n_rows: int, max_
     box = box_keys(ps, hd)
     ptrs = [part.data_ptr(), None, None, None]
     if q.dtype == torch.bfloat16:
-        counters = _counters(n_slots * hkv, q.device)
-        ptrs[1:] = counters.data_ptr(), _pool_map(lib, k_pool, box), _pool_map(lib, v_pool, box)
+        counters = _counters(n_slots * hkv * row_groups(n_rows), q.device)
+        ptrs[1:] = counters.data_ptr(), _pool_map(lib, k_pool, hd, box), _pool_map(lib, v_pool, hd, box)
     return part, ptrs, (per_split, n_splits, box)
 
 

@@ -23,6 +23,12 @@ backward whose dlogits pass takes the labels remapped to the slice: dh is
 the rank's part (summed over tp by ``copy_to_tp``'s backward), dE the
 rank's rows.
 
+The kernels take any D: the tensor maps' innermost extent is D, so a last
+K slab past D reads zeros and the dh and dE tiles stop their stores at D.
+TMA's rows are 16-byte strided, so a D that is not a multiple of 8 runs on
+zero-padded copies of h and E (the zero columns add nothing to a logit),
+and dh and dE are sliced back (:func:`_padded`).
+
 Dispatch is by device, never by failure: CPU tensors take the plain version
 (``ops/cross_entropy.py``); CUDA tensors launch the kernels or raise.
 """
@@ -49,7 +55,6 @@ from ssi_tpu_torch.ops.cross_entropy import (
 from ssi_tpu_torch.parallel import tp_all_gather, tp_all_reduce
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_D_CHUNK = 128  # the kernels stage D in chunks of 128 (csrc/cross_entropy.cu KC)
 
 
 def _check(hidden: torch.Tensor, embed: torch.Tensor, labels: torch.Tensor | None = None) -> None:
@@ -60,18 +65,27 @@ def _check(hidden: torch.Tensor, embed: torch.Tensor, labels: torch.Tensor | Non
         raise ValueError(f"labels must be [N] = {(hidden.shape[0],)}, got {tuple(labels.shape)}")
 
 
-def _launch_args(hidden, embed):
-    """Check what the kernels take; (dtype code, h, E, stream)."""
+def _padded(x: torch.Tensor) -> torch.Tensor:
+    """``x [*, D]`` contiguous, its columns zero-padded to the next multiple
+    of 8 (TMA's 16-byte row strides); itself when D is one."""
+    d = x.shape[1]
+    return x.contiguous() if d % 8 == 0 else torch.nn.functional.pad(x, (0, -d % 8))
+
+
+def _dtype_code(hidden, embed) -> int:
     if hidden.dtype not in _DTYPE_CODES or embed.dtype != hidden.dtype:
         raise TypeError(f"the cross-entropy kernels take f32 or bf16 hidden/embed of one dtype, got "
                         f"{hidden.dtype}/{embed.dtype}")
-    d = hidden.shape[1]
-    if d % _D_CHUNK != 0:
-        raise ValueError(f"the cross-entropy kernels need D a multiple of {_D_CHUNK}, got {d}")
+    return _DTYPE_CODES[hidden.dtype]
+
+
+def _launch_args(hidden, embed):
+    """Check what the kernels take; (dtype code, h, E, stream), h and E
+    padded (:func:`_padded`)."""
+    code = _dtype_code(hidden, embed)
     if hidden.device != embed.device:
         raise ValueError("hidden and embed must be on one device")
-    return (_DTYPE_CODES[hidden.dtype], hidden.contiguous(), embed.contiguous(),
-            torch.cuda.current_stream(hidden.device).cuda_stream)
+    return code, _padded(hidden), _padded(embed), torch.cuda.current_stream(hidden.device).cuda_stream
 
 
 def cross_entropy_lse_kernel(hidden: torch.Tensor, embed: torch.Tensor,
@@ -81,9 +95,9 @@ def cross_entropy_lse_kernel(hidden: torch.Tensor, embed: torch.Tensor,
     _check(hidden, embed)
     if not hidden.is_cuda:
         return cross_entropy_lse(hidden, embed, chunk_size)
-    n, d = hidden.shape
-    v = embed.shape[0]
+    n, v = hidden.shape[0], embed.shape[0]
     code, h, e, stream = _launch_args(hidden, embed)
+    d = h.shape[1]
     # a (max, sum) pair per token and vocab split, merged by a second pass in a fixed order
     lib = _build.load_library()
     n_split = lib.ssi_cross_entropy_lse_splits(code, n, v)
@@ -126,9 +140,9 @@ def cross_entropy_dlogits_kernel(hidden, embed, labels, lse, g, chunk_size: int 
     _check(hidden, embed, labels)
     if not hidden.is_cuda:
         return cross_entropy_dlogits(hidden, embed, labels, g, chunk_size, lse=lse)
-    n, d = hidden.shape
-    v = embed.shape[0]
+    n, v = hidden.shape[0], embed.shape[0]
     code, h, e, stream = _launch_args(hidden, embed)
+    d = h.shape[1]
     lab = labels.to(device=h.device, dtype=torch.int32).contiguous()
     lse = lse.to(device=h.device, dtype=torch.float32).contiguous()
     g = torch.as_tensor(g, dtype=torch.float32, device=h.device).reshape(1).contiguous()
@@ -142,9 +156,12 @@ def cross_entropy_dlogits_kernel(hidden, embed, labels, lse, g, chunk_size: int 
 
 
 def _gemm(name: str, dlogits, other) -> torch.Tensor:
-    """dh (``other`` = E) or dE (``other`` = h) from the dlogits pass's view."""
+    """dh (``other`` = E) or dE (``other`` = h) from the dlogits pass's view;
+    a padded ``other``'s extra columns are sliced off the result."""
     n, v = dlogits.shape
-    code, x, _, stream = _launch_args(other, other)
+    d_real = other.shape[1]
+    code, x = _dtype_code(other, other), _padded(other)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     if dlogits.dtype != x.dtype or dlogits.device != x.device:
         raise TypeError(f"dlogits ({dlogits.dtype}, {dlogits.device}) must match the operand ({x.dtype}, {x.device})")
     if dlogits.stride(1) != 1 or dlogits.stride(0) % 8 != 0 or dlogits.data_ptr() % 16 != 0:
@@ -155,7 +172,7 @@ def _gemm(name: str, dlogits, other) -> torch.Tensor:
     fn = getattr(_build.load_library(), f"ssi_{name}")
     err = fn(code, dlogits.data_ptr(), x.data_ptr(), out.data_ptr(), n, v, d, dlogits.stride(0), stream)
     _build.check_launch(name, err)
-    return out
+    return out if d == d_real else out[:, :d_real].contiguous()
 
 
 def cross_entropy_dh_gemm_kernel(dlogits: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:

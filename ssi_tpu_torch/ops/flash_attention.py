@@ -11,9 +11,14 @@ the forward for the paged prefill; training differentiates
 :func:`flash_attention`, whose backward recomputes the scores from q, k, v,
 o and lse.
 
-The kernels are built for head_dim 64 (the 100m and 1B models) and 128 (3B
-and 8B); another head_dim raises. They take unscaled q and apply
-``1/sqrt(d)`` to the f32 scores inside. The JAX wrapper folds the scale into
+The kernels take any head_dim d up to 128: an instance at 64 (the 100m and
+1B models) and one at 128 (3B and 8B), each running the head_dims up to it
+on tensor maps bounded at d (``tiny_test``'s 16, phi-2's 80, Phi-3-mini's
+96). A d that is not a multiple of 8 (TMA's rows are 16-byte strided) runs
+on zero-padded copies of its operands (:func:`pad_head_dim`), sliced back:
+the zeros add nothing to a score. A d above 128 raises, naming ROADMAP B1
+(still to port). They take unscaled q and apply ``1/sqrt(d)``, d the real
+head_dim, to the f32 scores inside. The JAX wrapper folds the scale into
 q before its kernels, rounding ``q/sqrt(d)`` to q's dtype: exact in bf16 at
 head_dim 64 (1/8), a rounding at 128. The port keeps the scale in f32 (one
 rounding fewer, no extra pass over q); its bf16 results stay within the bf16
@@ -34,7 +39,7 @@ KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
 _NEG_INF = -1.0e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)  # the head_dims the kernels are built for
+MAX_HEAD_DIM = 128  # the largest head_dim the kernels take (ROADMAP B1: above it, still to port)
 
 
 def flash_attention_reference(
@@ -127,10 +132,18 @@ def _check_operands(q, k, v, segment_ids) -> None:
         raise ValueError(f"segment_ids must be [B, S] = {(b, s)}, got {tuple(segment_ids.shape)}")
 
 
+def pad_head_dim(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its last dimension zero-padded to the next multiple of 8
+    (itself when it is one): the kernels' TMA rows are 16-byte strided."""
+    d = x.shape[-1]
+    return x if d % 8 == 0 else torch.nn.functional.pad(x, (0, -d % 8))
+
+
 def _check_kernel_operands(*tensors: torch.Tensor) -> None:
     q = tensors[0]
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernels are built for head_dim in {HEAD_DIMS}, got {q.shape[3]}")
+    if q.shape[3] > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA flash kernels take head_dim <= {MAX_HEAD_DIM}, got {q.shape[3]} (ROADMAP.md B1: "
+                         "a larger head_dim is still to port)")
     if q.dtype not in _DTYPE_CODES or any(x.dtype != q.dtype for x in tensors):
         raise TypeError(f"flash_attention kernel takes f32 or bf16 operands of one dtype, got "
                         f"{[x.dtype for x in tensors]}")
@@ -139,9 +152,11 @@ def _check_kernel_operands(*tensors: torch.Tensor) -> None:
 
 
 def _flash_fwd_cuda(q, k, v, causal: bool, segment_ids) -> tuple[torch.Tensor, torch.Tensor]:
-    b, s, hq, d = q.shape
+    b, s, hq, d_real = q.shape
     hkv = k.shape[2]
     _check_kernel_operands(q, k, v)
+    q, k, v = (pad_head_dim(x) for x in (q, k, v))
+    d = q.shape[3]
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous along head_dim")
@@ -162,10 +177,10 @@ def _flash_fwd_cuda(q, k, v, causal: bool, segment_ids) -> tuple[torch.Tensor, t
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        int(causal), 1.0 / d**0.5, torch.cuda.current_stream(q.device).cuda_stream,
+        int(causal), 1.0 / d_real**0.5, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check_launch(KERNEL, err)
-    return o, lse
+    return (o if d == d_real else o[..., :d_real].contiguous()), lse
 
 
 def flash_attention_fwd(
@@ -185,12 +200,14 @@ def flash_attention_fwd(
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, segment_ids):
-    b, s, hq, d = q.shape
+    b, s, hq, d_real = q.shape
     hkv = k.shape[2]
-    # the kernels read rows in 16-byte pieces: contiguous, 16-byte aligned operands
-    q, k, v, o, do = (x.contiguous() for x in (q, k, v, o, do))
-    q, k, v, o, do = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, o, do))
     _check_kernel_operands(q, k, v, o, do)
+    # the kernels read rows in 16-byte pieces: contiguous, 16-byte aligned
+    # operands, zero-padded to a multiple of 8 columns
+    q, k, v, o, do = (pad_head_dim(x).contiguous() for x in (q, k, v, o, do))
+    d = q.shape[3]
+    q, k, v, o, do = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, o, do))
     lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
     if tuple(lse.shape) != (b, hq, s):
         raise ValueError(f"lse must be [B, Hq, S] = {(b, hq, s)}, got {tuple(lse.shape)}")
@@ -202,10 +219,12 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, segment_ids):
     err = _build.load_library().ssi_flash_attention_bwd(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), seg.data_ptr() if seg is not None else None, delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, d, int(causal), 1.0 / d**0.5,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, hq, hkv, d, int(causal), 1.0 / d_real**0.5,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check_launch(BWD_KERNEL, err)
+    if d != d_real:
+        dq, dk, dv = (x[..., :d_real].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 

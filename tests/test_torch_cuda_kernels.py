@@ -284,25 +284,23 @@ def test_paged_kernels_page_sizes_and_unused_cells(gen, dtype, poison, ps, hd, t
 
 
 def test_kernel_wrappers_refuse_unsupported_shapes(gen):
-    q = torch.randn((1, 16, 4, 32), generator=gen, device="cuda")
-    with pytest.raises(ValueError, match=r"head_dim in \(64, 128\), got 32"):
+    """The shapes the kernels do not take raise, naming what is still to port
+    (ROADMAP B1: a head_dim above 128 in #1-#4; B2: one above 128 or not a
+    multiple of 8 in #8/#9), or what the caller must change (T, page size)."""
+    q = torch.randn((1, 16, 4, 136), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match=r"head_dim <= 128, got 136 \(ROADMAP.md B1"):
         flash_attention_fwd(q, q, q)
-    kp = torch.zeros((3, 8, 1 * 64), device="cuda")
-    with pytest.raises(ValueError, match=r"T \* n_rep = 1 \* 65"):  # n_rep 65: 65 query rows, past the 64
-        paged_attention_fused(
-            torch.zeros((1, 65, 64), device="cuda"), kp, kp.clone(),
-            torch.zeros((1, 1), dtype=torch.int32, device="cuda"), torch.ones(1, dtype=torch.int32, device="cuda"),
-            k_new=torch.zeros((1, 1, 64), device="cuda"), v_new=torch.zeros((1, 1, 64), device="cuda"),
-            write_rows=torch.zeros(1, dtype=torch.int32, device="cuda"),
-        )
-    pool32 = torch.zeros((3, 8, 2 * 32), device="cuda")
-    with pytest.raises(ValueError, match=r"head_dim in \(64, 128\), got 32"):
-        paged_attention_fused(
-            torch.zeros((1, 4, 32), device="cuda"), pool32, pool32.clone(),
-            torch.zeros((1, 1), dtype=torch.int32, device="cuda"), torch.ones(1, dtype=torch.int32, device="cuda"),
-            k_new=torch.zeros((1, 2, 32), device="cuda"), v_new=torch.zeros((1, 2, 32), device="cuda"),
-            write_rows=torch.zeros(1, dtype=torch.int32, device="cuda"),
-        )
+    with pytest.raises(ValueError, match=r"head_dim <= 128, got 136 \(ROADMAP.md B1"):
+        flash_attention_bwd(q, q, q, q, torch.zeros((1, 4, 16), device="cuda"), q)
+    for hd in (136, 20):  # above 128; not a multiple of 8 (the pool's head stride would not be 16-byte aligned)
+        pool = torch.zeros((3, 8, 2 * hd), device="cuda")
+        with pytest.raises(ValueError, match=rf"head_dim <= 128 and a multiple of 8, got {hd} \(ROADMAP.md B2"):
+            paged_attention_fused(
+                torch.zeros((1, 4, hd), device="cuda"), pool, pool.clone(),
+                torch.zeros((1, 1), dtype=torch.int32, device="cuda"), torch.ones(1, dtype=torch.int32, device="cuda"),
+                k_new=torch.zeros((1, 2, hd), device="cuda"), v_new=torch.zeros((1, 2, hd), device="cuda"),
+                write_rows=torch.zeros(1, dtype=torch.int32, device="cuda"),
+            )
     z = torch.zeros((1, 9, 8, 64), device="cuda")
     kv9 = torch.zeros((1, 9, 2, 64), device="cuda")
     pool = torch.zeros((3, 8, 2 * 64), device="cuda")
@@ -321,12 +319,6 @@ def test_kernel_wrappers_refuse_unsupported_shapes(gen):
     with pytest.raises(ValueError, match="multiple of 8"):
         paged_attention_multi_fused(z[:, :4], pool12, pool12.clone(), *args, k_new=kv9[:, :4], v_new=kv9[:, :4],
                                     write_rows=torch.zeros((1, 4), dtype=torch.int32, device="cuda"))
-    # T 8 x n_rep 9 = 72 query rows per kv head, past the 64 the kernels take
-    z72 = torch.zeros((1, 8, 18, 64), device="cuda")
-    kv8 = torch.zeros((1, 8, 2, 64), device="cuda")
-    with pytest.raises(ValueError, match=r"T \* n_rep = 8 \* 9"):
-        paged_attention_multi_fused(z72, pool, pool.clone(), *args, k_new=kv8, v_new=kv8,
-                                    write_rows=torch.zeros((1, 8), dtype=torch.int32, device="cuda"))
 
 
 REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # ||kernel - plain|| / ||plain||, as chip_smoke.py holds them
@@ -678,9 +670,6 @@ def test_cross_entropy_autograd_all_ignored_and_counts(gen):
 
 
 def test_cross_entropy_kernels_refuse_unsupported_shapes(gen):
-    h, e, y = ce_inputs(gen, torch.float32, 8, 10, 64)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        cross_entropy_lse_kernel(h, e)
     # the GEMMs take dlogits rows that are 16-byte aligned (the dlogits pass's scratch), not any view
     h, e, y = ce_inputs(gen, torch.float32, 8, 10, 128)
     dl = torch.zeros((8, 12), device="cuda")[:, :10]
@@ -690,8 +679,9 @@ def test_cross_entropy_kernels_refuse_unsupported_shapes(gen):
         cross_entropy_de_gemm_kernel(dl, h)
 
 
-# (D, q heads, kv heads): head_dim 64 with D a multiple of 128; head_dim 128 with n_rep 3, as 3B
-@pytest.mark.parametrize("d,hq,hkv", [(128, 2, 1), (384, 3, 1)])
+# (D, q heads, kv heads): head_dim 64 with D a multiple of 128; head_dim 128 with n_rep 3, as 3B;
+# tiny_test's own D 64, 4 q / 2 kv heads (head_dim 16)
+@pytest.mark.parametrize("d,hq,hkv", [(128, 2, 1), (384, 3, 1), (64, 4, 2)])
 def test_small_model_loss_and_grads_kernels_match_plain(gen, d, hq, hkv):
     """One f32 micro-batch through make_loss_fn on the card (the kernels) and
     on the CPU (the plain versions, chosen by device): same loss, same
@@ -717,3 +707,166 @@ def test_small_model_loss_and_grads_kernels_match_plain(gen, d, hq, hkv):
     torch.testing.assert_close(l_k, l_p, rtol=1e-5, atol=1e-4)
     for a, b in zip(g_k, g_p):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * b.abs().max().item())
+
+
+# --- the shapes past the registry's head_dims and D (ROADMAP B1-B3): head_dim up to 128 in #1-#4 and
+# #8/#9, any D in #5-#7, more than 64 query rows of a kv head in #8/#9 ---------------------------------
+
+OTHER_HD = [16, 40, 72, 80, 96, 120, 20, 100]  # 20 and 100: not multiples of 8, run on padded copies
+
+
+def nan_view(x: torch.Tensor, width: int = 128) -> torch.Tensor:
+    """``x [..., d]`` as the first d columns of a ``[..., width]`` buffer
+    whose other columns hold NaN: a kernel that reads past d reads NaN."""
+    buf = torch.full((*x.shape[:-1], width), float("nan"), dtype=x.dtype, device=x.device)
+    buf[..., :x.shape[-1]] = x
+    return buf[..., :x.shape[-1]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", OTHER_HD)
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (6, 2), (32, 8)])
+@pytest.mark.parametrize("s,mode", [(77, "causal"), (200, "full"), (130, "segments")])
+def test_flash_kernels_at_other_head_dims(gen, dtype, d, hq, hkv, s, mode):
+    """#1-#4 at head_dims other than 64 and 128 (the hd-64 instance up to 64,
+    the hd-128 one above, on tensor maps bounded at d; 20 and 100 on copies
+    padded to a multiple of 8): q, k and v column slices of 128-wide buffers
+    whose other columns hold NaN; o, lse, dq, dk and dv against the plain
+    versions, beside a control that must miss (the plain forward with the
+    scale of the instance's width, 1/sqrt(64 or 128)); the backward bitwise
+    equal over two launches."""
+    q, k, v, _ = qkv_segs(gen, dtype, 2, s, hq, hkv, False, d)
+    q, k, v = (nan_view(x) for x in (q, k, v))
+    causal = mode != "full"
+    seg = hd128_segments(2, s, mode) if mode == "segments" else None
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, causal=causal, segment_ids=seg)
+    assert o.shape == q.shape and o.is_contiguous()
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, lse_ref, atol=TOL[dtype], rtol=TOL[dtype])
+    width = 64 if d <= 64 else 128
+    o_ctl, _ = flash_attention_reference(q * (d / width) ** 0.5, k, v, causal=causal, segment_ids=seg)
+    assert not torch.allclose(o.float(), o_ctl.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    do = nan_view(torch.randn(o.shape, generator=gen, device="cuda").to(dtype))
+    got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=seg)
+    want = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=seg)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        torch.testing.assert_close(a.float(), w.float(), atol=TOL[dtype], rtol=TOL[dtype],
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    again = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=seg)
+    for name, a, b in zip(("dq", "dk", "dv"), again, got):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("d", [16, 80, 96])
+def test_flash_autograd_at_other_head_dims(gen, d):
+    """:func:`flash_attention` differentiated at tiny_test's head_dim (16),
+    phi-2's (80) and Phi-3-mini's (96) in f32: one launch of each kernel,
+    gradients equal to the plain forward's autograd."""
+    q, k, v, _ = qkv_segs(gen, torch.float32, 1, 96, 8, 2, False, d)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    _build.launch_counts.clear()
+    flash_attention(q, k, v).square().sum().backward()
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_attention_fwd"] == 1 and _build.launch_counts["flash_attention_bwd"] == 1
+    q2, k2, v2 = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    o_ref, _ = flash_attention_reference(q2, k2, v2)
+    o_ref.square().sum().backward()
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+OTHER_D = [64, 72, 100, 576, 960, 8, 200]  # 100: not a multiple of 8, run on padded copies
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", OTHER_D)
+@pytest.mark.parametrize("n,v,spread", [(100, 1001, 1.0), (130, 4099, 4.0)])
+def test_cross_entropy_kernels_at_any_d(gen, dtype, d, n, v, spread):
+    """#5-#7 at D not a multiple of 128 (tiny_test's 64, SmolLM's 576 and
+    960; 100 and 8 below a 64-column slab): h a column slice of a wider
+    buffer whose other columns hold NaN; lse, dlogits, dh and dE against the
+    plain versions (E at init_params' scale, so the logits' std is
+    ``spread``; dh and dE from the kernel's lse), dh beside a control that must miss
+    (dh without its softmax term) and dE's unlabelled rows beside one (the
+    plain version at lse + 0.05), each bitwise equal over two launches; the
+    loss and its gradients through the autograd wrapper."""
+    h, _, y = ce_inputs(gen, dtype, n, v, d)
+    h = nan_view(h * spread, 1024)
+    e = (torch.randn((v, d), generator=gen, device="cuda") * d**-0.5).to(dtype)  # init_params' scale: logit std spread
+    g = torch.tensor(0.37, device="cuda")
+    lse = cross_entropy_lse_kernel(h, e)
+    torch.testing.assert_close(lse, cross_entropy_lse(h, e), atol=TOL[dtype], rtol=TOL[dtype])
+    assert torch.equal(cross_entropy_lse_kernel(h, e), lse)
+    dl = cross_entropy_dlogits_kernel(h, e, y, lse, g)
+    torch.testing.assert_close(dl.float(), cross_entropy_dlogits(h, e, y, g).float(), atol=TOL[dtype], rtol=TOL[dtype])
+    valid = y != -100
+    unl = torch.ones(v, dtype=torch.bool, device="cuda")
+    unl[y[valid].long()] = False
+    dh_ctl = torch.where(valid[:, None], -g * e.float()[y.clamp(min=0).long()], 0.0)
+    for name, kernel, plain in (("dh", cross_entropy_dh_kernel, cross_entropy_dh),
+                                ("dE", cross_entropy_de_kernel, cross_entropy_de)):
+        got = kernel(h, e, y, lse, g)
+        want = plain(h, e, y, g, lse=lse)
+        assert got.shape == want.shape and got.dtype == dtype and got.is_contiguous(), name
+        # atol a fraction TOL of the largest entry: f32 sums over K = V = 4,099 products reach |dh| ~ 10 here
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype] * max(1.0, want.abs().max().item()),
+                                   rtol=TOL[dtype], msg=lambda m, name=name: f"{name}: {m}")
+        assert rel_err(got, want) <= REL[dtype], name
+        if name == "dh":
+            assert rel_err(dh_ctl, want) > REL[dtype]
+        else:
+            ctl = plain(h, e, y, g, lse=lse + 0.05)
+            assert rel_err(got[unl], want[unl]) <= REL[dtype] < rel_err(ctl[unl], want[unl])
+        assert torch.equal(kernel(h, e, y, lse, g), got), name
+    h1, e1 = h.detach().clone().requires_grad_(), e.clone().requires_grad_()
+    h2, e2 = h.detach().clone().requires_grad_(), e.clone().requires_grad_()
+    loss = fused_cross_entropy_kernel(h1, e1, y)
+    loss.backward()
+    ref = fused_cross_entropy(h2, e2, y)
+    ref.backward()
+    assert abs(loss.item() - ref.item()) <= 1e-5 * abs(ref.item())
+    for a, b in ((h1.grad, h2.grad), (e1.grad, e2.grad)):
+        assert a.shape == b.shape and rel_err(a, b) <= REL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("poison", [False, True])
+@pytest.mark.parametrize("hd,t_q,n_rep", [(16, 1, 2), (16, 4, 2), (40, 1, 4), (72, 4, 4), (80, 1, 4), (80, 8, 4),
+                                          (96, 1, 4), (96, 4, 3), (120, 8, 8)])
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_kernels_at_other_head_dims(gen, dtype, poison, hd, t_q, n_rep, ps):
+    """#8 and #9 at head_dims other than 64 and 128 (tiny_test's 16, phi-2's
+    80, Phi-3-mini's 96; the pools mapped 3D, so a box's columns past hd are
+    zeros and never the next kv head's), on a table of three splits:
+    histories on and one key past split boundaries, 0, and the full context
+    less T, with every unused pool cell NaN or +-Inf when poisoned; each
+    beside the roll control, two launches bitwise equal, pools bitwise
+    equal except the trash row."""
+    max_pages = 3 * SPLIT_KEYS // ps
+    per_split, n_splits = split_plan(max_pages, ps)
+    sk, cap = per_split * ps, max_pages * ps
+    hist = [0, 1, ps - 1, ps, sk - 1, sk, sk + 1, 2 * sk + 1, cap - t_q, 37]
+    active = [True] * 8 + [False, True]
+    check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hd=hd, poison=poison)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("poison", [False, True])
+# T * n_rep query rows of a kv head past 64: 72 (two row groups, the second of 8 rows), 128 (Llama 3.1
+# 405B's 128 q / 8 kv heads at T 8), 128 at T 1 and T 4, 192 at head_dim 80
+@pytest.mark.parametrize("hd,t_q,n_rep", [(64, 8, 9), (128, 8, 16), (64, 1, 128), (128, 4, 32), (80, 8, 24),
+                                          (16, 8, 16)])
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_kernels_past_64_query_rows(gen, dtype, poison, hd, t_q, n_rep, ps):
+    """#8 and #9 with more than 64 query rows of a kv head: a block a row
+    group of 64 (each reading the pages), the split merge counted per
+    (slot, kv head, row group); on a table of three splits, as
+    :func:`test_paged_kernels_at_other_head_dims`."""
+    max_pages = 3 * SPLIT_KEYS // ps
+    per_split, n_splits = split_plan(max_pages, ps)
+    sk, cap = per_split * ps, max_pages * ps
+    hist = [0, 1, sk - 1, sk, sk + 1, 2 * sk + 1, cap - t_q, 37]
+    active = [True] * 6 + [False, True]
+    check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hd=hd, poison=poison)

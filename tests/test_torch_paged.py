@@ -361,15 +361,19 @@ def test_box_keys_tile_every_page_size():
 
 
 def test_pool_map_key_names_what_the_tensor_map_encodes():
-    """The tensor-map cache key: one per (address, rows of keys, row width,
-    box), so a map is reused only for the same memory read the same way."""
+    """The tensor-map cache key: one per (address, rows of keys, kv heads,
+    head_dim, box), so a map is reused only for the same memory read the same
+    way (the map is 3D, [rows of keys, Hkv, head_dim]: the same row width cut
+    into other heads is another map)."""
     pool = torch.zeros((5, 16, 128), dtype=torch.bfloat16)
-    assert pool_map_key(pool, 16) == (pool.data_ptr(), 80, 128, 16)
-    assert pool_map_key(pool, 16) == pool_map_key(pool.view(5, 16, 128), 16)
-    assert pool_map_key(pool, 16) != pool_map_key(pool, 8)
-    assert pool_map_key(pool, 8) == pool_map_key(pool.view(10, 8, 128), 8)  # the same [80, 128] matrix
-    assert pool_map_key(pool, 16) != pool_map_key(pool.view(5, 32, 64), 16)
-    assert pool_map_key(pool, 16) != pool_map_key(pool.clone(), 16)
+    assert pool_map_key(pool, 64, 16) == (pool.data_ptr(), 80, 2, 64, 16)
+    assert pool_map_key(pool, 64, 16) == pool_map_key(pool.view(5, 16, 128), 64, 16)
+    assert pool_map_key(pool, 64, 16) != pool_map_key(pool, 64, 8)
+    assert pool_map_key(pool, 64, 8) == pool_map_key(pool.view(10, 8, 128), 64, 8)  # the same [80, 2, 64] tensor
+    assert pool_map_key(pool, 64, 16) != pool_map_key(pool.view(5, 32, 64), 64, 16)
+    assert pool_map_key(pool, 64, 16) != pool_map_key(pool.clone(), 64, 16)
+    assert pool_map_key(pool, 64, 16) != pool_map_key(pool, 128, 16)  # one head of 128, not two of 64
+    assert pool_map_key(pool, 32, 16) == (pool.data_ptr(), 80, 4, 32, 16)
 
 
 def test_decode_profile_classes_the_paged_kernels():
@@ -378,6 +382,8 @@ def test_decode_profile_classes_the_paged_kernels():
     from ssi_tpu_torch.profile_decode import _classify
 
     for name in ("void (anonymous namespace)::paged_hopper_kernel<64, 1>((anonymous namespace)::Args, CUtensorMap)",
+                 "void (anonymous namespace)::paged_hopper_2blocks_kernel<64, 2>((anonymous namespace)::Args, "
+                 "CUtensorMap)",
                  "void (anonymous namespace)::paged_split_f32_kernel<64, 2>((anonymous namespace)::Args)",
                  "void (anonymous namespace)::paged_merge_f32_kernel<128>((anonymous namespace)::Args)"):
         assert _classify(name) == "paged kernel #8", name

@@ -91,8 +91,8 @@ j. ``n > 1`` parallel sampling and the pipeline depth (the engine's
    for token, ``pages_shared`` == sum 3 x floor((p-1)/128) (the pool holds
    8 gangs at once: none splits), pages balance, #1 and #8 launched (the
    kernels line's ``launches_by_path["serve_n"]``); tok/s;
-   j3. phase 5's 64 requests at pipeline depth 1 and 2, in turns (1, 2, 2,
-   1), each on a fresh engine after phase 5's warm-up: tok/s, harvest wait,
+   j3. phase 5's 64 requests at pipeline depth 1 and 2, a run each (depth 1
+   first), each on a fresh engine after phase 5's warm-up: tok/s, harvest wait,
    dispatch and prefill enqueue seconds, slot occupancy, chunk dispatches
    and the requests equal to phase 5's tokens, per run (no gate: bf16
    batches depend on timing at depth 2);
@@ -318,7 +318,9 @@ f. weight-only int8 and the port's WER drive:
    and the flash and paged kernels by each generate stage (each stage's
    process reports its counts through ``SSI_TPU_TORCH_LAUNCH_COUNTS``);
    prints the stage seconds, the final dev loss, the generate tok/s of both
-   precisions and the drive's wall;
+   precisions and the drive's wall; phase t3's tiny drive runs beside it
+   (both host-bound CLI chains on small models), waited for before f3's
+   traced step;
 2g-ah. the head_dim-128 instances (Llama 3.2 3B's and 3.1 8B's heads) vs
    their plain versions, each beside a control that must miss, in f32 and
    bf16, with bf16 times beside SDPA or ``torch.mm`` and the bound: the
@@ -329,8 +331,9 @@ f. weight-only int8 and the port's WER drive:
    largest prefill dispatch (B 8, S 768, 32 / 8); the CE kernels at 3B's D 3,072 (N 4,096); #8 and #9 (T 4 and 8)
    at 3B's and 8B's serving shapes (32 slots, page 128, context 1280; a
    graph of 16 layers' launches in turn) and at context 16,384;
-g. Llama 3.2 3B through the entry points at full width (28 layers, D 3,072,
-   random bf16 weights from ``--seed``): first, at 3B width with the depth
+g. Llama 3.2 3B through the entry points at full width (D 3,072, its depth
+   cut to 4 of its 28 layers for the run's time limit, ``G_LAYERS``; random
+   bf16 weights from ``--seed``): first, at 3B width with the depth
    cut to 2 layers, f32 greedy tokens kernels == plain (and == a
    full-recompute oracle), ``speculate_k=3`` == 0, and one micro-batch's
    loss and gradients within phase 8's limits; then an extended 3B dir in
@@ -341,7 +344,7 @@ g. Llama 3.2 3B through the entry points at full width (28 layers, D 3,072,
    the generation CLI from ``step_4/`` on 32 rows (cut from 64 to make room
    for phase n: one wave of the 32 slots) in bf16 and with
    ``quantize_weights=int8`` (every record finished; flash and #8
-   launched); about 33 GB of disk at its peak, deleted as it goes;
+   launched); deleted as it goes;
 h. Llama 3.1 8B serving at full width (D 4,096, FFN 14,336, an untied
    ``lm_head``, rope ``scale_factor`` 8), the depth cut to 16 of 32 layers
    (random bf16 weights, about 9.2 GB, initialised on the card): phase 5's
@@ -358,20 +361,34 @@ t. the shapes the JAX kernels take beyond the registry's (ROADMAP B1-B3)
    the plain forward at the scale of the instance's width); #5-#7 at D 64,
    72, 100, 576 and 960 with h a slice of a NaN buffer (controls: the lse
    of the D tail dropped, lse + 0.05, dh without its softmax term); #8/#9 at
-   head_dims 16, 80 and 96 and at 72 and 128 query rows of a kv head, every
-   unused pool cell NaN or +-Inf, three splits, pages of 16 and 128;
+   head_dims 16, 80, 96 and 256 (Gemma 2B's 8 q / 1 kv heads at T 1, 4, 8),
+   36 and 20 (not multiples of 8) and at 72 and 128 query rows of a kv
+   head, every unused pool cell NaN or +-Inf, three splits, pages of 16 and
+   128 (#1-#4 also at 136, 200 and 256, on 256-wide NaN buffers);
    t2. the new shapes' rows timed in bf16 beside their bounds and the
    library calls: #1-#4 at head_dim 80 and 96 at 1B's heads (B 8, S 768
    and B 2, S 2048), #5-#7 at D 576 and 960 (N 4,096, V 133,258), #8 at
    head_dim 96 (32 slots, n_rep 4, context 1,280), #9 at Llama 3.1 405B's
-   heads (128 q / 8 kv of 128: 64 query rows at T 4, 128 at T 8);
+   heads (128 q / 8 kv of 128: 64 query rows at T 4, 128 at T 8); the
+   hd-256 instances at Gemma 2B's (8 q / 1 kv) and 7B's (16 / 16) heads:
+   #1-#4 at B 8, S 768 and B 2, S 2048 beside SDPA, #8/#9 at 32 slots,
+   context 1,280, T 1, 4, 8; #8/#9 at head_dims 36 and 20 (the plain-load
+   kernels); #8 at Gemma 2B's heads with shorter splits, timed only;
    t3. ``tiny_test`` f32 greedy tokens kernels == plain (and == the
    oracle, ``speculate_k=3`` == 0), then ``python -m ssi_tpu_torch.wer_drive
    --smoke --model-config tiny_test --max-seq-len 512`` as a subprocess,
    every stage a CLI on the card (#1, #3, #5-#7 launched by its SFT stage,
    #1 and #8 by each generate stage), and the generation CLI on its
    checkpoint with ``speculate_k=3`` (#1 and #9 launched): the kernels line's
-   ``launches_by_path["tiny_drive"]``.
+   ``launches_by_path["tiny_drive"]``;
+   t4. a 2-layer model at Gemma 2B's attention layout (D 2,048, 8 q / 1 kv
+   heads of 256, FFN 8,192, the 1B's vocabulary; built here, not in the
+   registry) through the engine and the trainer: f32 greedy tokens kernels
+   == plain == oracle at k 0, ``speculate_k=3`` == 0, f32 loss and
+   gradients within phase 8's limits; bf16 serving at k 0, one bf16 SFT
+   window through ``make_train_step`` (loss and gradients of a micro-batch
+   against the plain versions); then ``tiny_test`` at heads of 36 and 20
+   (f32 parity, bf16 at k 0 and 3).
 
 ``--only 1b,e,hd128,g,h,tiny`` runs the named groups alone while developing (1b:
 phases 2-f, phases i, j, k, l, n, m and q with them; e: phases e, q, k, n and m alone;
@@ -393,10 +410,11 @@ path, ``wer_drive`` the sum over the drive's stage processes,
 m's CPT and generation runs, ``train_dp`` the sum over phase n's
 torchrun processes, ``train_local`` phase q's SFT and CPT runs and
 ``tiny_drive`` the sum over phase t3's drive and speculative generate
-processes; phase t2's rows of a kernel under its ``other_shapes``; the
+processes; phase t2's rows of a kernel under its ``other_shapes``, those at
+Gemma 2B's heads and at head_dims 36 / 20 with phase t4's launches by path; the
 head_dim-128 instances as rows of their own, ``<name>_hd128``, with the 3B
-and 8B paths' launches) and, last, the device line ``{"ok": true,
-"device": {...}}``.
+and 8B paths' launches, and the head_dim-256 ones, ``<name>_hd256``, with
+phase t4's) and, last, the device line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -592,8 +610,10 @@ def phase_flash(gen, hq=32, hkv=8, d=64, shapes=((8, 768), (2, 768), (2, 2048)),
                 ok_l = torch.allclose(lse, lse_ref, atol=tol, rtol=tol)
                 check(ok_o and ok_l, f"flash {name} B{b} S{s} {dtype}: o err {err_o}, lse err {err_l}, tol {tol}")
                 key = str(dtype).split(".")[1]
-                # control: each q head reads the next kv head's keys and values
-                o_ctrl, _ = flash_attention_reference(q, k.roll(1, 2), v.roll(1, 2), causal=causal, segment_ids=segs)
+                # control: each q head reads the next kv head's keys and values (one kv head: the next q head's query)
+                o_ctrl, _ = (flash_attention_reference(q, k.roll(1, 2), v.roll(1, 2), causal=causal, segment_ids=segs)
+                             if hkv > 1 else flash_attention_reference(q.roll(1, 2), k, v, causal=causal,
+                                                                       segment_ids=segs))
                 _, rel_o, ctrl = hold(f"flash {name} B{b} S{s} o", o, o_ref, key, [("kv heads shifted", o_ctrl)])
                 least = min(least, ctrl)
                 worst[key] = max(worst.get(key, 0.0), err_o, err_l)
@@ -778,7 +798,10 @@ def device_kernels(fn) -> list[str]:
 PAGED_KERNELS: dict[tuple, list[str]] = {}
 PAGED_SHAPES = [(32, 8, 64, 1), (32, 8, 64, 4), (32, 8, 64, 8), (24, 8, 128, 1), (32, 8, 128, 1), (24, 8, 128, 4),
                 (24, 8, 128, 8), (32, 8, 128, 4), (32, 8, 128, 8),  # phases 3, a, 3g, 3h, ag, ah
-                (32, 8, 96, 1), (128, 8, 128, 4), (128, 8, 128, 8)]  # phase t2: hd 96; 64 and 128 rows a kv head
+                (32, 8, 96, 1), (128, 8, 128, 4), (128, 8, 128, 8),  # phase t2: hd 96; 64 and 128 rows a kv head
+                # phase t2: Gemma 2B's and 7B's heads of 256; head_dims 36 and 20 (the plain-load kernel)
+                *((hq, hkv, 256, t) for hq, hkv in ((8, 1), (16, 16)) for t in (1, 4, 8)),
+                *((32, 8, hd, t) for hd in (36, 20) for t in (1, 4, 8))]
 
 
 def paged_kernel_names() -> dict[str, list[str]]:
@@ -851,12 +874,13 @@ def paged_times(kernel, plain, per_layer, layer, n_bytes):
     return t_k, t_p, t_same, t_eager, gbs
 
 
-def phase_paged(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase 3 paged decode"):
+def phase_paged(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase 3 paged decode", long_context=True):
     """#8 vs its plain version at the serving shape (32 slots, ``hkv`` kv
     heads of ``hd``, ``hq`` q heads, page 128, context 1280; ragged and
     inactive slots) beside a control (each q head routed to the next kv
-    head), then at context 16,384; times of a graph of the ``n_layers``
-    layers in turn."""
+    head; with one kv head, to the next q head's query), then at context
+    16,384 (``long_context``); times of a graph of the ``n_layers`` layers
+    in turn."""
     import torch
 
     from ssi_tpu_torch.generate.paged import paged_attention
@@ -864,7 +888,7 @@ def phase_paged(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase 3 paged decode
     slots, ps, max_ctx = 32, 128, 1280
     n_rep = hq // hkv
     kernel, plain, lens_of = paged_call(1)
-    layer = 5
+    layer = min(5, n_layers - 1)
     lens = [1, ps, 2 * ps - 3, max_ctx, 0]  # 0 = inactive slot
     lens += torch.randint(1, max_ctx + 1, (slots - len(lens),), generator=gen, device="cuda").tolist()
     seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -883,7 +907,7 @@ def phase_paged(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase 3 paged decode
         again = kernel(q, kp, vp, table, seq_lens, write_rows=write_rows, **kw)
         ref = plain(q, kp_ref, vp_ref, table, seq_lens, write_rows=write_rows, **kw)
         # control: each q head reads the next kv head's history (the token written as the kernel writes it)
-        ctrl_out = paged_attention(q.roll(n_rep, 1), kp_ref, vp_ref, table, seq_lens)
+        ctrl_out = paged_attention(q.roll(n_rep if hkv > 1 else 1, 1), kp_ref, vp_ref, table, seq_lens)
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"paged attention {key}: two launches differ")
         err = (got[active].float() - ref[active].float()).abs().max().item()
@@ -916,7 +940,8 @@ def phase_paged(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase 3 paged decode
                 "no single PyTorch call computes it")
         del kp, vp, kp_ref, vp_ref
         torch.cuda.empty_cache()
-    log(f"  paged {paged_long_context(gen, 1, hd=hd, n_rep=n_rep)}")
+    if long_context:
+        log(f"  paged {paged_long_context(gen, 1, hd=hd, n_rep=n_rep)}")
     log(f"{tag}: ok (max err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e})")
     t_k, t_p, t_same, t_eager, gbs = timing
     return {"max_abs_err": worst["bfloat16"], "ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms,
@@ -924,7 +949,8 @@ def phase_paged(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase 3 paged decode
             "gb_per_s": gbs}
 
 
-def phase_paged_multi(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase a paged multi-token verify"):
+def phase_paged_multi(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase a paged multi-token verify",
+                      long_context=True):
     import torch
 
     from ssi_tpu_torch.generate.paged import paged_attention
@@ -933,7 +959,7 @@ def phase_paged_multi(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase a paged 
     n_rep = hq // hkv
     max_pages = max_ctx // ps
     kernel, plain, _ = paged_call(4)
-    layer = 9
+    layer = min(9, n_layers - 1)
     worst, row = {}, None
     for t_q in (4, 8):
         # history 0, a mid-page start, a span crossing a page, full context less T,
@@ -1002,11 +1028,14 @@ def phase_paged_multi(gen, hq=32, hkv=8, hd=64, n_layers=16, tag="phase a paged 
                 if t_q == 4:  # the main path's T (speculate_k=3)
                     row = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                            "ms_same_layer": t_same, "ms_same_layer_eager": t_eager, "gb_per_s": gbs}
+                else:
+                    row_t8 = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound_ms, "bound_by": bound_by, "gb_per_s": gbs}
             del kp, vp, kp_ref, vp_ref
             torch.cuda.empty_cache()
-    log(f"  paged multi T4 {paged_long_context(gen, 4, hd=hd, n_rep=n_rep)}")
+    if long_context:
+        log(f"  paged multi T4 {paged_long_context(gen, 4, hd=hd, n_rep=n_rep)}")
     log(f"{tag}: ok (max err f32 {worst['float32']:.3e}, bf16 {worst['bfloat16']:.3e})")
-    return {"max_abs_err": worst["bfloat16"], **row}
+    return {"max_abs_err": worst["bfloat16"], **row, "t8": row_t8}
 
 
 def model_config(name: str = "llama3_2_1b", num_layers: int | None = None):
@@ -1373,7 +1402,7 @@ def phase_tp2_cli(root, argv: list[str], smi: str) -> None:
 def phase_gangs_and_depth(seed: int, smi: str, base_tokens, base_rate: float):
     """Phases j1 and j3 on phase 5's random bf16 1B weights: 16 of phase 5's
     prompts as n=4 greedy gangs, then phase 5's 64 requests at pipeline
-    depth 1 and 2, in turns. Returns the gang run's launches."""
+    depth 1 and 2, a run each. Returns the gang run's launches."""
     import torch
 
     from ssi_tpu_torch import _build
@@ -1425,7 +1454,7 @@ def phase_gangs_and_depth(seed: int, smi: str, base_tokens, base_rate: float):
     # j3: phase 5's run at depth 1 and 2, in turns (each engine fresh, with
     # phase 5's warm-up: its 8 prompts leave the same prefix-cache hits)
     readings = {1: [], 2: []}
-    for depth in (1, 2, 2, 1):
+    for depth in (1, 2):
         eng = PagedDecodeEngine(params, cfg, pad_id=0, pipeline_depth=depth, **kw)
         eng.generate_batch(prompts[:8], SamplingParams(max_tokens=16))
         torch.cuda.synchronize()
@@ -1446,14 +1475,14 @@ def phase_gangs_and_depth(seed: int, smi: str, base_tokens, base_rate: float):
             "equal_to_phase_5": sum(o["token_ids"] == b for o, b in zip(outs, base_tokens))})
         del eng
     for depth, runs in readings.items():
-        log(f"phase j3 depth {depth} (phase 5's 64 requests x 128 greedy tokens, 32 slots, chunk 16; runs in turns "
-            f"1, 2, 2, 1) on {smi}: " + "; ".join(
+        log(f"phase j3 depth {depth} (phase 5's 64 requests x 128 greedy tokens, 32 slots, chunk 16; one run each, "
+            f"depth 1 first) on {smi}: " + "; ".join(
                 f"{r['tok_s']:.0f} tok/s ({r['wall_s']:.2f} s), harvest wait {r['harvest_block_s']:.3f} s, dispatch "
                 f"{r['dispatch_block_s']:.3f} s, prefill enqueue {r['prefill_block_s']:.3f} s, occupancy "
                 f"{r['slot_occupancy']:.3f}, {r['chunk_dispatches']} chunks, {r['equal_to_phase_5']}/64 equal to "
                 f"phase 5's tokens" for r in runs))
     ratio = (sum(r["tok_s"] for r in readings[2]) / sum(r["tok_s"] for r in readings[1]))
-    log(f"phase j3: depth 2 / depth 1 tok/s {ratio:.3f} (mean of two runs each; phase 5: {base_rate:.0f} tok/s; "
+    log(f"phase j3: depth 2 / depth 1 tok/s {ratio:.3f} (one run each; phase 5: {base_rate:.0f} tok/s; "
         "bf16 batches depend on timing at depth 2, so token agreement is reported, not required)")
     del params
     torch.cuda.empty_cache()
@@ -4301,7 +4330,7 @@ def phase_drive_kernels(gen):
     log("phase f2 the kernels at the WER drive's shapes: ok")
 
 
-def phase_wer_drive(smi: str):
+def phase_wer_drive(smi: str, beside: dict | None = None):
     """Phase f3: ``python -m ssi_tpu_torch.wer_drive --smoke`` at its default
     ``llama3_2_100m``, run as a user runs it (a subprocess; each stage a
     subprocess of the port's CLI): extend, SFT, generate in bf16 and int8, and
@@ -4310,7 +4339,9 @@ def phase_wer_drive(smi: str):
     per stage, ``_build.write_launch_counts``); their sum is the kernels
     line's ``launches_by_path["wer_drive"]``. The smoke recipe (8 steps, 256
     rows) checks the wiring: both WERs are computed and finite, not gated; the
-    full drive's summary is committed under ``artifacts/wer_drive_torch/``."""
+    full drive's summary is committed under ``artifacts/wer_drive_torch/``.
+    ``beside``: phase t3's tiny drive, started with this one
+    (:func:`start_tiny_drive`); waited for before the traced step."""
     import shutil
     import tempfile
     from collections import Counter
@@ -4345,6 +4376,8 @@ def phase_wer_drive(smi: str):
                       f"kernel {name} was not launched by the drive's {tag} generate stage")
         launches = sum((Counter(c) for c in counts.values()), Counter())
         sec, tr = summary["stage_seconds"], summary["train"]
+        if beside is not None:  # the card to this process alone for the traced step
+            wait_tiny_drive(beside)
 
         # the SFT stage again, in this process, on the drive's extended model and data with
         # its overrides but log_interval 1 and the Trainer's profiler key at step 6: per-step
@@ -4447,13 +4480,18 @@ def write_sharded_model(step, cfg, seed: int, n_shards: int) -> dict:
     return {"bytes": total}
 
 
+G_LAYERS = 4  # phase g's 3B depth through the CLIs, of its 28 layers: the run's time limit
+
+
 def phase_3b(seed: int, smi: str) -> dict:
-    """Phase g: Llama 3.2 3B (28 layers, D 3,072, 24 q / 8 kv heads of 128:
-    n_rep 3) through the entry points at full width, random bf16 weights
-    from ``seed``: an extended 3B dir in two shards; the SFT CLI with the
-    drive's overrides (window 4 x 2 x 2048, 4 steps, one save; losses finite
-    and falling, every training kernel launched); the generation CLI from the
-    saved ``step_4/`` in bf16 and with ``quantize_weights=int8`` (64 finished
+    """Phase g: Llama 3.2 3B (D 3,072, 24 q / 8 kv heads of 128: n_rep 3)
+    through the entry points at full width with its depth cut to
+    ``G_LAYERS`` of its 28 layers (the registry's entry cut alike in this
+    process while the CLIs run), random bf16 weights from ``seed``: an
+    extended 3B dir in two shards; the SFT CLI with the drive's overrides
+    (window 4 x 2 x 2048, 4 steps, one save; losses finite and falling,
+    every training kernel launched); the generation CLI from the saved
+    ``step_4/`` in bf16 and with ``quantize_weights=int8`` (32 finished
     records each, flash and paged launched); then f32 at 3B width with the
     depth cut to 2 layers: greedy tokens kernels == plain, ``speculate_k=3``
     == 0, loss and gradients within phase 8's limits. Returns launches by
@@ -4468,15 +4506,19 @@ def phase_3b(seed: int, smi: str) -> dict:
     from ssi_tpu_torch.cli.generate import main as generate_main
     from ssi_tpu_torch.cli.train_sft import main as sft_main
     from ssi_tpu_torch.generate import last_run_stats
+    from ssi_tpu_torch.models import configs as registry
 
     cut = model_config("llama3_2_3b", num_layers=2)
     phase_engine_f32(seed, cut, tag="phase g engine f32 (3B width, 2 of 28 layers, n_rep 3, head_dim 128")
     phase_spec_f32(seed, cut, tag="phase g spec f32 (3B width, 2 of 28 layers)")
     phase_train_parity(seed, cut, tag="phase g f32 train parity (3B width, 2 of 28 layers")
 
-    cfg = model_config("llama3_2_3b")
+    cfg = model_config("llama3_2_3b", num_layers=G_LAYERS)
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_3b_"))
     launches = {}
+    entry = registry.MODEL_CONFIGS["llama3_2_3b"]
+    registry.MODEL_CONFIGS["llama3_2_3b"] = entry.copy()  # the CLIs read the registry: the same depth there
+    registry.MODEL_CONFIGS["llama3_2_3b"].num_layers = G_LAYERS
     try:
         free_gb = shutil.disk_usage(root).free / 1e9
         check(free_gb > 40, f"phase g needs about 33 GB of disk; {free_gb:.1f} GB free")
@@ -4486,7 +4528,7 @@ def phase_3b(seed: int, smi: str) -> dict:
         t_synth = time.perf_counter() - t0
         shards = sorted(p.name for p in ext.glob("*.safetensors"))
         check(len(shards) == 2, f"3B dir holds {shards}")
-        log(f"  phase g: {free_gb:.1f} GB free; extended 3B dir in {len(shards)} shards + index "
+        log(f"  phase g: {free_gb:.1f} GB free; extended 3B dir ({G_LAYERS} of 28 layers) in {len(shards)} shards + index "
             f"({written['bytes'] / 1e9:.2f} GB bf16) written in {t_synth:.1f} s")
 
         # SFT with the drive's overrides and model_config=llama3_2_3b, but for three, so that 4 steps show
@@ -4528,7 +4570,8 @@ def phase_3b(seed: int, smi: str) -> dict:
         check(len(list(step.glob("*.safetensors"))) == 2, "3B step_4/ is not two shards")
         shutil.rmtree(ext)
         (out / "training_state.msgpack").unlink()
-        log(f"phase g SFT CLI (3B bf16, model_config=llama3_2_3b, remat save_qkv_mlp, window 4 x 2 x 2048 over 8 rows, "
+        log(f"phase g SFT CLI (3B bf16, {G_LAYERS} of 28 layers, model_config=llama3_2_3b, remat save_qkv_mlp, window "
+            f"4 x 2 x 2048 over 8 rows, "
             f"lr 5e-4 after 1 warm-up step): "
             f"loss {', '.join(f'{x:.4f}' for x in losses)}, dev loss {', '.join(f'{x:.4f}' for x in dev_losses)}; "
             f"JSONL duration_step {step_readings(metrics)}; CLI wall {t_sft:.2f} s; save at step 4: model "
@@ -4563,13 +4606,15 @@ def phase_3b(seed: int, smi: str) -> dict:
                 check(launches[path].get(name, 0) > 0, f"kernel {name} was not launched by {path}")
             rate = records[0]["metrics"]["batch_tokens_per_second"]
             n_tok = records[0]["metrics"]["batch_generated_tokens"]
-            log(f"phase g generate CLI (3B {'int8' if extra else 'bf16'} from step_4/, 32 records): checkpoint load "
+            log(f"phase g generate CLI (3B {'int8' if extra else 'bf16'}, {G_LAYERS} of 28 layers, from step_4/, 32 "
+                f"records): checkpoint load "
                 f"{stats['load_s']:.2f} s = {stats['load_bytes'] / 1e9 / stats['load_s']:.2f} GB/s "
                 f"({stats['load_bytes'] / 1e9:.2f} GB); warm-up {stats['warmup_s']:.2f} s; generate "
                 f"{stats['generate_s']:.2f} s, {n_tok} tokens = {rate:.0f} generated tok/s; CLI wall {wall:.2f} s; "
                 f"on {smi}; launches {launches[path]}")
             torch.cuda.empty_cache()
     finally:
+        registry.MODEL_CONFIGS["llama3_2_3b"] = entry
         shutil.rmtree(root, ignore_errors=True)
     return launches
 
@@ -4643,20 +4688,25 @@ def phase_8b(seed: int, smi: str) -> dict:
 
 # --- phase t: the shapes past the registry's (ROADMAP B1-B3) and tiny_test through its CLIs ----------------
 
-SHAPE_HEAD_DIMS = (16, 40, 72, 80, 96, 120, 100)  # 100: not a multiple of 8, on the wrappers' padded copies
+# 100: not a multiple of 8, on the wrappers' padded copies; 136-256 on the hd-256 instances (256: Gemma's)
+SHAPE_HEAD_DIMS = (16, 40, 72, 80, 96, 120, 100, 136, 200, 256)
 SHAPE_DS = (64, 72, 100, 576, 960)  # the CE's D: tiny_test's, a multiple of 8 only, of none, SmolLM's two
 # the paged core: (head_dim, T, n_rep, kv heads); T 1 is #8. tiny_test's heads (hd 16, 4 q / 2 kv), phi-2's hd 80,
 # Phi-3-mini's hd 96, and 72 and 128 query rows of a kv head (two row groups: n_rep 9 at T 8; Llama 3.1 405B's
-# 128 q / 8 kv heads at T 8; n_rep 128 at T 1)
+# 128 q / 8 kv heads at T 8; n_rep 128 at T 1); Gemma 2B's 8 q / 1 kv heads of 256 at T 1, 4 and 8; head_dims 36
+# and 20, not multiples of 8 (the plain-load kernels)
 SHAPE_PAGED = ((16, 1, 2, 2), (16, 4, 2, 2), (80, 1, 4, 8), (80, 4, 4, 8), (96, 1, 4, 8), (96, 8, 4, 8),
-               (64, 8, 9, 2), (128, 8, 16, 8), (128, 1, 128, 2))
+               (64, 8, 9, 2), (128, 8, 16, 8), (128, 1, 128, 2), (256, 1, 8, 1), (256, 4, 8, 1), (256, 8, 8, 1),
+               (36, 1, 4, 2), (36, 4, 4, 2), (20, 8, 2, 2))
 
 
-def nan_columns(x, width: int = 128):
+def nan_columns(x, width: int | None = None):
     """``x [..., d]`` as the first d columns of a ``[..., width]`` buffer
-    whose other columns hold NaN: a kernel that reads past d reads NaN."""
+    whose other columns hold NaN (``width`` 128, or 256 past 128): a kernel
+    that reads past d reads NaN."""
     import torch
 
+    width = width or (256 if x.shape[-1] > 128 else 128)
     buf = torch.full((*x.shape[:-1], width), float("nan"), dtype=x.dtype, device=x.device)
     buf[..., :x.shape[-1]] = x
     return buf[..., :x.shape[-1]]
@@ -4664,19 +4714,19 @@ def nan_columns(x, width: int = 128):
 
 def instance_width(d: int) -> int:
     """The head_dim of the kernel instance that runs head_dim ``d``."""
-    return 64 if d <= 64 else 128
+    return 64 if d <= 64 else 128 if d <= 128 else 256
 
 
 def phase_shapes_flash(gen) -> None:
     """Phase t1, #1-#4: the flash forward and backward at head_dims other
     than 64 and 128 (B 2, S 300, 8 q / 2 kv heads; causal, full, segment
-    ids), f32 and bf16, q, k, v and do column slices of 128-wide buffers
-    whose other columns hold NaN: o within ``TOL`` and ``REL`` beside a
-    control that must miss (the plain forward with the scale of the
-    instance's width, 1/sqrt(64 or 128), as a kernel that took the padded
-    width's scale would compute), lse within ``TOL``; dq, dk, dv within
-    ``REL`` beside the plain gradients at lse + 0.05, bitwise equal over two
-    launches."""
+    ids), f32 and bf16, q, k, v and do column slices of 128- or 256-wide
+    buffers whose other columns hold NaN: o within ``TOL`` and ``REL`` beside
+    a control that must miss (the plain forward with the scale of the
+    instance's width, 1/sqrt(64, 128 or 256), as a kernel that took the
+    padded width's scale would compute; at 256 itself each q head routed to
+    the next kv head), lse within ``TOL``; dq, dk, dv within ``REL`` beside
+    the plain gradients at lse + 0.05, bitwise equal over two launches."""
     import torch
 
     from ssi_tpu_torch.ops.flash_attention import (
@@ -4700,13 +4750,17 @@ def phase_shapes_flash(gen) -> None:
             for name, causal, segs in (("causal", True, None), ("full", False, None), ("segments", True, seg)):
                 o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=segs)
                 o_ref, lse_ref = flash_attention_reference(q, k, v, causal=causal, segment_ids=segs)
-                o_ctl, _ = flash_attention_reference(q * (d / instance_width(d)) ** 0.5, k, v, causal=causal,
-                                                     segment_ids=segs)
+                if d == instance_width(d):  # no other scale to tell apart: the next kv head's keys
+                    ctl_name, (o_ctl, _) = "kv heads shifted", flash_attention_reference(
+                        q, k.roll(1, 2), v.roll(1, 2), causal=causal, segment_ids=segs)
+                else:
+                    ctl_name, (o_ctl, _) = "scale of the instance's width", flash_attention_reference(
+                        q * (d / instance_width(d)) ** 0.5, k, v, causal=causal, segment_ids=segs)
                 check(o.shape == q.shape and torch.isfinite(o.float()).all().item(), f"t1 flash d{d} {key}: o")
                 check(torch.allclose(o.float(), o_ref.float(), atol=TOL[key], rtol=TOL[key])
                       and torch.allclose(lse, lse_ref, atol=TOL[key], rtol=TOL[key]),
                       f"t1 flash {name} d{d} {key}: o or lse past {TOL[key]}")
-                _, rel, ctl = hold(f"t1 flash {name} d{d} o", o, o_ref, key, [("scale of the instance's width", o_ctl)])
+                _, rel, ctl = hold(f"t1 flash {name} d{d} o", o, o_ref, key, [(ctl_name, o_ctl)])
                 got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=segs)
                 again = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=segs)
                 want = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=segs)
@@ -4864,9 +4918,9 @@ def phase_shapes_paged(gen) -> None:
                 if hd != instance_width(hd):
                     ctl_name, ctl = "scale of the instance's width", plain(
                         q * (hd / instance_width(hd)) ** 0.5, kp_ref.clone(), vp_ref.clone(), table, lens, **kw)
-                else:
-                    ctl_name, ctl = "kv heads shifted", plain(q.roll(n_rep, -2), kp_ref.clone(), vp_ref.clone(),
-                                                              table, lens, **kw)
+                else:  # one kv head: each query routed to the next q head's
+                    ctl_name, ctl = "kv heads shifted", plain(q.roll(n_rep if hkv > 1 else 1, -2), kp_ref.clone(),
+                                                              vp_ref.clone(), table, lens, **kw)
                 ref = plain(q, kp_ref, vp_ref, table, lens, **kw)
                 torch.cuda.synchronize()
                 what = f"t1 paged hd{hd} T{t_q} n_rep {n_rep} ps {ps} {key}"
@@ -4897,7 +4951,12 @@ def phase_shapes_times(gen, vocab: int) -> dict:
     and ``torch.mm``; #8 at head_dim 96 (32 slots, 8 kv heads, n_rep 4,
     context 1,280, a graph of 16 layers); #9 at Llama 3.1 405B's head layout
     (128 q / 8 kv heads of 128: 128 query rows of a kv head at T 8, 64 at
-    T 4). Returns their rows."""
+    T 4); then the hd-256 instances at Gemma 2B's heads (8 q / 1 kv) and
+    Gemma 7B's (16 / 16): #1-#4 at B 8, S 768 and B 2, S 2048 beside SDPA,
+    #8/#9 at 32 slots, context 1,280, T 1, 4 and 8 (the kernels line reads
+    T 4, T 8 under ``t8``); #8/#9 at head_dims 36 and 20 on the plain-load
+    kernels (1B's 32 q / 8 kv heads); and :func:`split_study`. Returns their
+    rows."""
     rows = {}
     for d in (80, 96):
         shapes = ((8, 768), (2, 2048))
@@ -4912,13 +4971,257 @@ def phase_shapes_times(gen, vocab: int) -> dict:
     rows["paged_attention_multi_405b"] = phase_paged_multi(gen, 128, 8, 128,
                                                            tag="phase t2 paged verify, 405B's heads (T 4: 64 rows, "
                                                                "T 8: 128)")
+    for name, hq, hkv in (("gemma2b", 8, 1), ("gemma7b", 16, 16)):
+        shapes = ((8, 768), (2, 2048))
+        what = f"{name[:-2].capitalize()} {name[-2:].upper()}'s heads ({hq} q / {hkv} kv of 256)"
+        rows[f"flash_attention_fwd_{name}"] = phase_flash(gen, hq, hkv, 256, shapes=shapes, row=(2, 2048),
+                                                          tag=f"phase t2 flash forward, {what}")
+        rows[f"flash_attention_bwd_{name}"] = phase_flash_bwd(gen, hq, hkv, 256, shapes=shapes, row=(2, 2048),
+                                                              tag=f"phase t2 flash backward, {what}")
+        # one kv head: a layer's pages are 42 MB, so 16 layers in turn keep L2 from serving them; 16 kv heads: 4
+        layers = 16 if hkv == 1 else 4
+        rows[f"paged_attention_fused_{name}"] = phase_paged(gen, hq, hkv, 256, n_layers=layers, long_context=False,
+                                                            tag=f"phase t2 paged decode, {what}")
+        rows[f"paged_attention_multi_{name}"] = phase_paged_multi(gen, hq, hkv, 256, n_layers=layers,
+                                                                  long_context=False,
+                                                                  tag=f"phase t2 paged verify, {what}")
+    for hd in (36, 20):
+        rows[f"paged_attention_fused_hd{hd}"] = phase_paged(gen, 32, 8, hd, long_context=False,
+                                                            tag=f"phase t2 paged decode, head_dim {hd} (plain loads)")
+        rows[f"paged_attention_multi_hd{hd}"] = phase_paged_multi(gen, 32, 8, hd, long_context=False,
+                                                                  tag=f"phase t2 paged verify, head_dim {hd} (plain "
+                                                                      "loads)")
+    for key, row in rows.items():  # the rows that run the plain-load kernels, not the TMA kernel
+        if key.endswith(("_hd36", "_hd20")):
+            row["source"] = "ssi_tpu_torch/csrc/paged_split.cuh"
+    rows["paged_attention_fused_gemma2b"]["split_study"] = split_study(gen)
     return rows
+
+
+def split_study(gen, hq: int = 8, hkv: int = 1, hd: int = 256, n_layers: int = 16) -> dict:
+    """#8 at Gemma 2B's heads (one kv head), 32 slots, context 1,280: the
+    split plan gives each (slot, kv head) one split of 1,280 keys, 32 blocks
+    on the card's 132 SMs. The same call with shorter splits (``SPLIT_KEYS``
+    640, 320 and 128: 2, 4 and 10 splits, merged in the launch), each held to
+    the plain version, timed as a graph of the 16 layers in turn, the plan's
+    own splits and 320 twice, in turns. A measurement only: the plan the port
+    runs is not changed. Returns {split keys: (splits a slot, ms)}."""
+    import torch
+
+    from ssi_tpu_torch.generate import paged_cuda
+
+    slots, ps, max_ctx = 32, 128, 1280
+    kernel, plain, _ = paged_call(1)
+    lens = torch.randint(1, max_ctx + 1, (slots,), generator=gen, device="cuda").to(torch.int32)
+    hist = lens - 1
+    kp, vp, q, kn, vn, per_layer = paged_inputs(gen, torch.bfloat16, 1, slots, hkv, hq // hkv, ps, max_ctx // ps,
+                                                n_layers, hist, lens > 0, hd)
+    kw = dict(k_new=kn, v_new=vn)
+    table, write = per_layer[0]
+    ref = plain(q, kp.clone(), vp.clone(), table, lens, write_rows=write, **kw)
+    default = paged_cuda.SPLIT_KEYS
+    calls = [lambda t=t, w=w: kernel(q, kp, vp, t, lens, write_rows=w, **kw) for t, w in per_layer]
+    ms, splits = {}, {}
+    try:
+        for keys in (default, 640, 320, 128, 320, default):
+            paged_cuda.SPLIT_KEYS = keys
+            splits[keys] = paged_cuda.split_plan(max_ctx // ps, ps)[1]
+            hold(f"split study, {keys}-key splits", kernel(q, kp, vp, table, lens, write_rows=write, **kw), ref,
+                 "bfloat16")
+            ms[keys] = min(ms.get(keys, math.inf), graph_ms(calls))
+    finally:
+        paged_cuda.SPLIT_KEYS = default
+    n_bytes = int(hist.sum().item()) * hkv * hd * 2 * 2
+    log(f"  split study, #8 at {hq} q / {hkv} kv heads of {hd}, 32 slots, context {max_ctx} (bf16, a graph of "
+        f"{n_layers} layers in turn; {n_bytes / 1e6:.1f} MB of pages a layer): "
+        + ", ".join(f"{k}-key splits ({splits[k]} a slot, {slots * hkv * splits[k]} blocks) {v:.4f} ms = "
+                    f"{n_bytes / (v * 1e-3) / 1e9:.0f} GB/s" for k, v in ms.items())
+        + f"; the port's plan keeps {default}-key splits")
+    del kp, vp, q, kn, vn, per_layer, calls, ref
+    torch.cuda.empty_cache()
+    return {str(k): [splits[k], v] for k, v in ms.items()}
+
+
+def gemma2b_config(num_layers: int = 2):
+    """Llama 3.2 1B's registry entry (D 2,048, FFN 8,192, its vocabulary with
+    5,000 DSUs) with Gemma 2B's attention: 8 q / 1 kv heads of 256
+    (google/gemma-2b ``config.json``), ``num_layers`` deep. Built here, not
+    registered: the registry holds no such model."""
+    cfg = model_config("llama3_2_1b", num_layers=num_layers)
+    cfg.num_heads, cfg.num_kv_heads = 8, 1
+    check(cfg.head_dim == 256 and cfg.embed_dim == 2048 and cfg.intermediate_dim == 8192,
+          f"Gemma 2B layout: head_dim {cfg.head_dim}, D {cfg.embed_dim}, FFN {cfg.intermediate_dim}")
+    return cfg
+
+
+def tiny_heads_config(head_dim: int):
+    """``tiny_test`` (2 layers; 5,000 DSUs, as phase t3's f32 checks run it)
+    with 4 q / 2 kv heads of ``head_dim``: D = 4 x head_dim."""
+    cfg = model_config("tiny_test")
+    cfg.embed_dim = 4 * head_dim
+    check(cfg.head_dim == head_dim, f"tiny layout: head_dim {cfg.head_dim}")
+    return cfg
+
+
+def phase_gemma2b(seed: int, smi: str) -> dict:
+    """Phase t4: a 2-layer model at Gemma 2B's attention layout
+    (:func:`gemma2b_config`: 8 q / 1 kv heads of 256 at D 2,048) through the
+    port's engine and trainer, random weights from ``seed``. f32: the paged
+    engine's greedy tokens with the kernels (prefill #1 at hd 256, decode #8)
+    equal the plain versions' and a full-recompute oracle (phase 4's check);
+    ``speculate_k=3`` (verify #9) equals k 0, kernels and plain (phase b's);
+    the loss and gradients of a B1 S512 micro-batch, kernels against plain,
+    within phase 8's and g's limits (1e-4). bf16: 16 requests x 64 greedy
+    tokens at k 0 through the engine (every record finished, pages balance);
+    one SFT window (2 x 2 x 2048, full remat) through ``make_train_step``
+    launching #1, #3 and #5-#7, loss finite, and the kernels' loss and
+    gradients of one micro-batch against the plain versions' in bf16 (loss
+    1e-2 relative, each gradient leaf within 2e-2 in relative norm: bf16
+    rounds P and dS before the products, which the plain path does in f32).
+    Then the same engine checks at tiny layouts with heads of 36 and 20 (not
+    multiples of 8: #8/#9 on the plain-load kernels, #1/#3 on padded copies).
+    Returns launches by path."""
+    import torch
+
+    from ssi_tpu_torch import _build
+    from ssi_tpu_torch.generate.engine import SamplingParams
+    from ssi_tpu_torch.generate.paged_engine import PagedDecodeEngine
+    from ssi_tpu_torch.models.llama3 import init_params
+    from ssi_tpu_torch.train.lr_schedule import constant_schedule
+    from ssi_tpu_torch.train.optimizer import AdamWConfig, init_opt_state, tree_leaves, tree_unflatten
+    from ssi_tpu_torch.train.step import make_loss_fn, make_train_step
+
+    cfg = gemma2b_config()
+    launches = {}
+    _build.launch_counts.clear()
+    phase_engine_f32(seed, cfg, tag="phase t4 engine f32 (Gemma 2B's heads: 8 q / 1 kv of 256, D 2048, 2 layers")
+    phase_spec_f32(seed, cfg, tag="phase t4 spec f32 (Gemma 2B's heads, 2 layers)")
+    phase_train_parity(seed, cfg, tag="phase t4 f32 train parity (Gemma 2B's heads, 2 layers")
+    launches["gemma2b_f32"] = dict(_build.launch_counts)
+
+    params = init_params(cfg, seed=seed, dtype=torch.bfloat16, device="cuda")
+    prompts = prompts_from_seed(seed + 1, 16, cfg.vocab_size)
+    eng = PagedDecodeEngine(params, cfg, pad_id=0, n_slots=32, page_size=128, prompt_bucket=128, chunk=16)
+    check(eng.attn_impl == "kernel", f"engine on CUDA resolved attn_impl {eng.attn_impl!r}")
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    outs = eng.generate_batch(prompts, SamplingParams(temperature=0.0, max_tokens=64))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["gemma2b_serve"] = dict(_build.launch_counts)
+    for i, o in enumerate(outs):
+        check(o["finish_reason"] == "length" and len(o["token_ids"]) == 64
+              and all(0 <= t < cfg.vocab_size for t in o["token_ids"]), f"t4 bf16 request {i}: {o['finish_reason']}")
+    check(len(eng._free_pages) + len(eng._cache_lru) == eng.n_pages, "t4 bf16 engine: pages leaked")
+    for name in ("flash_attention_fwd", "paged_attention_fused"):
+        check(launches["gemma2b_serve"].get(name, 0) > 0, f"kernel {name} was not launched by t4's bf16 serving")
+    n_tok = sum(len(o["token_ids"]) for o in outs)
+    log(f"phase t4 engine bf16 (Gemma 2B's heads, 2 layers): 16 requests x 64 greedy tokens, {n_tok} tokens in "
+        f"{wall:.2f} s (first batch: first-use costs included) on {smi}; launches {launches['gemma2b_serve']}")
+    del eng, outs
+    torch.cuda.empty_cache()
+
+    # the bf16 loss and gradients of one micro-batch: kernels against plain
+    tokens, labels = sft_window(seed + 5, cfg.vocab_size, accum=2, batch=2, seq=2048)
+    res = {}
+    for kernels in (True, False):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        tree = tree_unflatten(params, leaves)
+        loss = (make_loss_fn(cfg, remat="full")(tree, tokens[0], labels[0])[0] if kernels
+                else plain_loss(tree, tokens[0], labels[0], cfg))
+        res[kernels] = (loss.detach().float(), torch.autograd.grad(loss, leaves))
+        del leaves, tree, loss
+    (l_k, g_k), (l_p, g_p) = res[True], res[False]
+    rel_loss = abs(l_k.item() - l_p.item()) / abs(l_p.item())
+    check(math.isfinite(l_k.item()) and rel_loss <= REL["bfloat16"], f"t4 bf16 loss {l_k.item()} vs plain {l_p.item()}")
+    worst = max(rel_err(a, w) for a, w in zip(g_k, g_p))
+    check(worst <= 2e-2, f"t4 bf16 gradients: worst leaf rel {worst:.2e} > 2e-2")
+    del res, g_k, g_p
+
+    opt = AdamWConfig()
+    state = {"params": params, "opt_state": init_opt_state(params, opt), "step": 0}
+    step = make_train_step(cfg, opt, constant_schedule(opt.lr), clip_grad_norm=1.0, remat="full",
+                           grad_accum_dtype=torch.float32)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    state, m = step(state, tokens, labels)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    launches["gemma2b_train"] = dict(_build.launch_counts)
+    loss = float(m["loss_sum"]) / max(int(m["num_tokens"]), 1)
+    check(math.isfinite(loss) and bool(m["applied"]) and state["step"] == 1, f"t4 bf16 SFT window: loss {loss}")
+    for name in TRAIN_KERNELS:
+        check(launches["gemma2b_train"].get(name, 0) > 0, f"kernel {name} was not launched by t4's SFT window")
+    log(f"phase t4 train bf16 (Gemma 2B's heads, 2 layers, window 2 x 2 x 2048, full remat): micro-batch loss "
+        f"{l_k.item():.5f} vs plain {l_p.item():.5f} (rel {rel_loss:.2e}, limit {REL['bfloat16']}), gradient leaves "
+        f"worst rel {worst:.2e} (limit 2e-2); one optimizer step {t_step * 1e3:.0f} ms (first: first-use costs "
+        f"included), loss per token {loss:.4f}; launches {launches['gemma2b_train']}")
+    del state, step, params, tokens, labels
+    torch.cuda.empty_cache()
+
+    for hd in (36, 20):  # #8/#9 on the plain-load kernels in bf16 and f32; #1/#3 on padded copies
+        small = tiny_heads_config(hd)
+        _build.launch_counts.clear()
+        phase_engine_f32(seed, small, tag=f"phase t4 engine f32 (tiny_test at 4 q / 2 kv heads of {hd}")
+        phase_spec_f32(seed, small, tag=f"phase t4 spec f32 (tiny_test, heads of {hd})")
+        params = init_params(small, seed=seed, dtype=torch.bfloat16, device="cuda")
+        for k in (0, 3):  # k 0 decodes by #8, k 3 verifies by #9
+            eng = PagedDecodeEngine(params, small, pad_id=0, n_slots=8, page_size=16, prompt_bucket=16, chunk=4,
+                                    speculate_k=k)
+            outs = eng.generate_batch(prompts_from_seed(seed + 2, 8, small.vocab_size),
+                                      SamplingParams(temperature=0.0, max_tokens=24))
+            check(all(o["finish_reason"] == "length" and len(o["token_ids"]) == 24 for o in outs),
+                  f"t4 bf16 tiny hd{hd} k {k}: records unfinished")
+            del eng, outs
+        launches[f"tiny_hd{hd}"] = dict(_build.launch_counts)
+        for name in ("flash_attention_fwd", "paged_attention_fused", "paged_attention_multi"):
+            check(launches[f"tiny_hd{hd}"].get(name, 0) > 0, f"kernel {name} was not launched at head_dim {hd}")
+        log(f"phase t4 tiny_test at heads of {hd}: f32 tokens kernels == plain == oracle, k 3 == k 0; bf16 at "
+            f"speculate_k 0 and 3, 8 requests x 24 tokens finished; launches {launches[f'tiny_hd{hd}']}")
+        del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 TINY_DRIVE_ARGS = ["--smoke", "--model-config", "tiny_test", "--max-seq-len", "512"]  # its rows run to ~300 tokens
 
 
-def phase_tiny_drive(seed: int, smi: str) -> dict:
+def start_tiny_drive() -> dict:
+    """Start phase t3's ``wer_drive --smoke --model-config tiny_test`` as a
+    subprocess (its output into files beside its workdir) and return its
+    handle for :func:`phase_tiny_drive`. The run starts it beside phase f3's
+    drive, which holds the card as lightly (a 100m and a tiny model, host
+    bound CLI processes), and waits for it before f3's traced step; killed
+    at exit if still running."""
+    import atexit
+    import tempfile
+    from pathlib import Path
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tiny_drive_"))
+    wd, art = root / "wd", root / "art"
+    out, err = open(root / "stdout.txt", "w"), open(root / "stderr.txt", "w")
+    proc = subprocess.Popen([sys.executable, "-m", "ssi_tpu_torch.wer_drive", *TINY_DRIVE_ARGS, "--workdir", str(wd),
+                             "--artifacts-dir", str(art)], cwd=REPO, stdout=out, stderr=err, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return {"proc": proc, "root": root, "wd": wd, "art": art, "t0": time.perf_counter(), "files": (out, err)}
+
+
+def wait_tiny_drive(run: dict) -> dict:
+    """Wait for the drive :func:`start_tiny_drive` started (at most 900 s);
+    records its wall seconds and exit code."""
+    if "wall" not in run:
+        try:
+            run["proc"].wait(timeout=max(1.0, 900 - (time.perf_counter() - run["t0"])))
+        except subprocess.TimeoutExpired:
+            run["proc"].kill()
+            run["proc"].wait()
+        run["wall"] = time.perf_counter() - run["t0"]
+        for f in run["files"]:
+            f.close()
+    return run
+
+
+def phase_tiny_drive(seed: int, smi: str, run: dict | None = None) -> dict:
     """Phase t3: ``tiny_test`` (2 layers, D 64, 4 q / 2 kv heads of 16) on
     the card through its entry points. First f32 greedy tokens at its width,
     the kernels against the plain versions (phases 4 and b's checks:
@@ -4934,26 +5237,21 @@ def phase_tiny_drive(seed: int, smi: str) -> dict:
     record finished). Each stage's process reports its launches through
     ``SSI_TPU_TORCH_LAUNCH_COUNTS``; their sum is the kernels line's
     ``launches_by_path["tiny_drive"]``. Nothing on this path can reach a
-    plain version: the wrappers take it only for CPU tensors."""
+    plain version: the wrappers take it only for CPU tensors. ``run``: the
+    drive as :func:`start_tiny_drive` started it (beside phase f3), else it
+    starts here."""
     import shutil
-    import tempfile
     from collections import Counter
-    from pathlib import Path
 
     cfg = model_config("tiny_test")
     phase_engine_f32(seed, cfg, tag="phase t3 engine f32 (tiny_test: hd 16, 4 q / 2 kv heads, D 64")
     phase_spec_f32(seed, cfg, tag="phase t3 spec f32 (tiny_test)")
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tiny_drive_"))
+    run = wait_tiny_drive(run or start_tiny_drive())
+    root, wd, art, wall = run["root"], run["wd"], run["art"], run["wall"]
     try:
-        wd, art = root / "wd", root / "art"
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "ssi_tpu_torch.wer_drive", *TINY_DRIVE_ARGS, "--workdir",
-                               str(wd), "--artifacts-dir", str(art)], cwd=REPO, capture_output=True, text=True,
-                              timeout=900)
-        wall = time.perf_counter() - t0
-        check(proc.returncode == 0, "the tiny_test drive failed:\n" + "\n".join(
+        check(run["proc"].returncode == 0, "the tiny_test drive failed:\n" + "\n".join(
             (wd / "drive.log").read_text().splitlines()[-30:] if (wd / "drive.log").exists()
-            else proc.stderr.splitlines()[-30:]))
+            else (root / "stderr.txt").read_text().splitlines()[-30:]))
         summary = json.loads((art / "summary.json").read_text())
         check(summary["hardware"] == smi, f"tiny drive hardware {summary['hardware']!r}, expected {smi!r}")
         for tag in ("bf16", "int8"):
@@ -4998,7 +5296,8 @@ def phase_tiny_drive(seed: int, smi: str) -> dict:
             f"gated); assets {sec['assets']:.2f} s, extend {sec['extend']:.2f} s, SFT {sec['train']:.2f} s (final dev "
             f"loss {summary['train']['final_dev_loss']:.4f}), generate bf16 {sec['generate_bf16']:.2f} s "
             f"({summary['decode_tok_s']['bf16']:.0f} tok/s), int8 {sec['generate_int8']:.2f} s, score "
-            f"{sec['score_bf16'] + sec['score_int8']:.2f} s; drive wall {wall:.2f} s; the generation CLI with "
+            f"{sec['score_bf16'] + sec['score_int8']:.2f} s; drive wall {wall:.2f} s (beside phase f3's drive when the "
+            f"run holds both); the generation CLI with "
             f"speculate_k=3 {t_spec:.2f} s ({len(records)} records, launches {dict(spec_launches)}); on {smi}; "
             f"launches {dict(launches)}")
         return dict(launches)
@@ -5071,7 +5370,8 @@ def main() -> int:
         mark("phases e, q, k, n, m")
         int8_launches = phase_int8_serving(args.seed, smi, base_tokens, base_rate)
         phase_drive_kernels(gen)
-        drive_launches = phase_wer_drive(smi)
+        tiny_run = start_tiny_drive() if "tiny" in groups else None  # phase t3's drive, beside f3's
+        drive_launches = phase_wer_drive(smi, beside=tiny_run)
         mark("phase f")
     if "p" in groups and "1b" not in groups:
         phase_vocab_slices(gen)
@@ -5097,8 +5397,10 @@ def main() -> int:
         mark("phase t1")
         shape_rows = phase_shapes_times(gen, model_config().vocab_size)
         mark("phase t2")
-        tiny_launches = phase_tiny_drive(args.seed, smi)
+        tiny_launches = phase_tiny_drive(args.seed, smi, tiny_run if "1b" in groups else None)
         mark("phase t3")
+        t4_launches = phase_gemma2b(args.seed, smi)
+        mark("phase t4")
     if args.only:
         log(f"partial run (--only {args.only}): no result line")
         return 0
@@ -5106,7 +5408,7 @@ def main() -> int:
     sources = {"flash_attention_fwd": ("flash_hopper_fwd.cu", FLASH_REPLACES),  # bf16, both head dims
                "paged_attention_fused": ("paged_attention.cu", PAGED_REPLACES),
                "paged_attention_multi": ("paged_attention.cu", PAGED_MULTI_REPLACES),
-               "flash_attention_bwd": ("flash_hopper_bwd.cu", FLASH_BWD_REPLACES),  # bf16, both head dims
+               "flash_attention_bwd": ("flash_hopper_bwd.cuh", FLASH_BWD_REPLACES),  # bf16, every head dim
                # bf16: the lse's partial pass and the backward's three products on one Hopper GEMM
                **{name: ("cross_entropy_hopper.cu", CE_REPLACES[name])
                   for name in ("cross_entropy_lse", "cross_entropy_dlogits", "cross_entropy_dh", "cross_entropy_de")},
@@ -5124,8 +5426,15 @@ def main() -> int:
                    "train_local": local_launches.get(name, 0), "tiny_drive": tiny_launches.get(name, 0)}
         if name.startswith("cross_entropy"):  # one instance for every D: 3B's training launches it too
             by_path["train_3b"] = launches_big["train_3b"].get(name, 0)
-        # phase t2's rows of this kernel at the shapes past the registry's (head_dim 80 / 96, D 576 / 960, ...)
+        # phase t2's rows of this kernel at the shapes past the registry's (head_dim 80 / 96, D 576 / 960, ...);
+        # those at Gemma 2B's heads and at head_dims 36 / 20 with their launches by phase t4's paths
         other = {key.rsplit("_", 1)[1]: row for key, row in shape_rows.items() if key.rsplit("_", 1)[0] == name}
+        for shape, row in other.items():
+            paths = [p for p in t4_launches if p.startswith("gemma2b")] if shape == "gemma2b" else (
+                [f"tiny_{shape}"] if f"tiny_{shape}" in t4_launches else [])  # Gemma 7B's heads run on no path
+            if paths:
+                row["launches_by_path"] = {p: t4_launches[p].get(name, 0) for p in paths}
+                row["launches"] = sum(row["launches_by_path"].values())
         kernels.append({"name": name, "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **rows[name], **({"other_shapes": other} if other else {})})
@@ -5136,6 +5445,18 @@ def main() -> int:
         check(sum(by_path.values()) > 0, f"the head_dim-128 {name} was launched on no 3B or 8B path")
         kernels.append({"name": f"{name}_hd128", "route": "cuda", "source": f"ssi_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": sum(by_path.values()), "launches_by_path": by_path, **row})
+    # the head_dim-256 instances (the backward's dK/dV a kernel of its own), launched by phase t4's Gemma 2B
+    # layout; their numbers are phase t2's at Gemma 2B's heads
+    for name in ("flash_attention_fwd", "flash_attention_bwd", "paged_attention_fused", "paged_attention_multi"):
+        source, replaces = sources[name]
+        row = dict(shape_rows[f"{name}_gemma2b"])
+        source = f"ssi_tpu_torch/csrc/{source}"
+        by_path = {path: counts.get(name, 0) for path, counts in t4_launches.items() if path.startswith("gemma2b")}
+        check(sum(by_path.values()) > 0, f"the head_dim-256 {name} was launched on no phase t4 path")
+        row.pop("launches_by_path", None)
+        row.pop("launches", None)
+        kernels.append({"name": f"{name}_hd256", "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": sum(by_path.values()), "launches_by_path": by_path, **row})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -54,8 +54,9 @@ def generate_sample(
     """Generate one completion; returns a structured record (vLLM-style).
 
     ``pattern``: tokenizer split-pattern selector (``None`` = PUA contract;
-    ``"cl100k"`` for BPE-compressed DSU checkpoints; another raw regex
-    raises, ROADMAP.md item A11's remainder). ``device``: the
+    ``"cl100k"`` for BPE-compressed DSU checkpoints; any other raw regex
+    splits through the ``regex`` package, as ``setup_llama3_tokenizer``
+    does, and raises only when that package is missing). ``device``: the
     card unless the caller names the CPU; with no card the default raises.
     """
     import torch

@@ -1,11 +1,11 @@
 // Flash-attention backward (causal or full GQA, optional packed segment ids)
-// for any head_dim d up to 128 that is a multiple of 8 (64: the 100m and 1B
-// models; 128: 3B and 8B; the wrapper pads any other d with zeros), an
-// instance at 64 and one at 128 each running the head_dims up to it: dq, dk,
-// dv from q, k, v, the forward's o and lse, and do.
+// for any head_dim d up to 256 that is a multiple of 8 (64: the 100m and 1B
+// models; 128: 3B and 8B; 256: Gemma's heads; the wrapper pads any other d
+// with zeros), an instance at 64, one at 128 and one at 256, each running the
+// head_dims up to it: dq, dk, dv from q, k, v, the forward's o and lse, and do.
 // bf16 operands on the tensor cores with f32 accumulation, or f32 throughout.
 // bf16 runs the Hopper kernels of flash_hopper_bwd.cu (wgmma fed by TMA) at
-// both head dims, dispatched from the entry point below; this file keeps the
+// every head dim, dispatched from the entry point below; this file keeps the
 // f32 parity kernels.
 //
 // Replaces the TPU kernels ssi_tpu/ops/flash_attention.py `_bwd_kernel` and
@@ -34,7 +34,8 @@
 // would not meet them): S, dP and the gradient sums are f32 tiles in shared
 // memory, multiplied by scalar FMAs (tile_mma.cuh). At head_dim 128 their
 // 64-row tiles would need 311 KB (dk/dv) of the SM's 227 KB, so they take
-// 32-row tiles there (145 KB and 111 KB).
+// 32-row tiles there (145 KB and 111 KB), and 16-row tiles at 256 (137 KB
+// and 104 KB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,7 +76,8 @@ __global__ void __launch_bounds__(THREADS) delta_kernel(const float* __restrict_
 // Tile sizes and shared-memory layout (byte offsets) of the f32 kernels.
 template <int HD>
 struct F32 {
-    static constexpr int BT = HD == 64 ? 64 : 32;  // q and key tile rows: 227 KB hold 32-row tiles at HD 128
+    // q and key tile rows: 227 KB hold 32-row tiles at HD 128, 16-row ones at 256
+    static constexpr int BT = HD == 64 ? 64 : HD == 128 ? 32 : 16;
     static constexpr int LDT = HD + 8;  // leading dimension of operand tiles (elements)
     static constexpr int LDF = BT + 4;  // of the [BT x BT] f32 score tiles
     static constexpr int LDG = HD + 4;  // of the [BT x HD] f32 gradient sums
@@ -304,12 +306,12 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, const flo
 
 }  // namespace
 
-// hd: head_dim, at most 128 and a multiple of 8
+// hd: head_dim, at most 256 and a multiple of 8
 extern "C" int ssi_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v, const void* o,
                                        const void* dout, const void* lse, const void* seg, void* delta, void* dq,
                                        void* dk, void* dv, int B, int S, int Hq, int Hkv, int hd, int causal,
                                        float scale, void* stream) {
-    if (B <= 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || hd <= 0 || hd > 128 || hd % 8 != 0)
+    if (B <= 0 || B > 65535 || Hkv <= 0 || Hq % Hkv != 0 || S <= 0 || hd <= 0 || hd > 256 || hd % 8 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
     const float* lsep = static_cast<const float*>(lse);
     const int* segp = static_cast<const int*>(seg);
@@ -317,7 +319,7 @@ extern "C" int ssi_flash_attention_bwd(int dtype, const void* q, const void* k, 
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err = cudaErrorInvalidValue;
     if (dtype == ssi::kFloat32) {
-        const auto f32 = hd <= 64 ? &launch_f32<64> : &launch_f32<128>;
+        const auto f32 = hd <= 64 ? &launch_f32<64> : hd <= 128 ? &launch_f32<128> : &launch_f32<256>;
         err = f32(static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
                   static_cast<const float*>(o), static_cast<const float*>(dout), lsep, segp, deltap,
                   static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), B, S, Hq, Hkv, hd,

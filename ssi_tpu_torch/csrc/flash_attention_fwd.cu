@@ -1,8 +1,9 @@
 // Flash-attention forward (causal or full GQA, optional packed segment ids)
-// for any head_dim d up to 128 that is a multiple of 8 (64: the 100m and 1B
-// models; 128: 3B and 8B; 16: tiny_test; the wrapper pads any other d to the
-// next multiple of 8 with zeros): an instance at 64 and one at 128, each
-// running the head_dims up to it with its loads and stores bounded at d. bf16
+// for any head_dim d up to 256 that is a multiple of 8 (64: the 100m and 1B
+// models; 128: 3B and 8B; 16: tiny_test; 256: Gemma's heads; the wrapper pads
+// any other d to the next multiple of 8 with zeros): an instance at 64, one
+// at 128 and one at 256, each running the head_dims up to it with its loads
+// and stores bounded at d. bf16
 // on the tensor cores with f32 accumulation, or f32 with scalar FMAs (the
 // parity path). bf16 runs the Hopper kernel of flash_hopper_fwd.cu (wgmma fed by
 // TMA), dispatched from the entry point below.
@@ -25,7 +26,9 @@
 // The f32 kernel (one thread per query row, 32-key tiles of scalar FMAs)
 // keeps exact f32 arithmetic for the parity checks; TF32 would not. It holds
 // its row of q and of the output in registers, 2 * head_dim of them: at
-// head_dim 128 they spill to local memory, which a parity path can afford.
+// head_dim 128 and 256 they spill to local memory, which a parity path can
+// afford. At 256 its key tiles are 16 keys (32 KB of K and V, under the 48 KB
+// of static shared memory).
 //
 // Strides are passed in elements so the [B, S, H, D] layout needs no
 // transpose copy; the output is contiguous [B, S, Hq, D], lse is [B, Hq, S].
@@ -46,7 +49,9 @@ constexpr float M_CLAMP = -0.5e30f;  // m_safe = max(m, M_CLAMP)
 // ---- f32: scalar FMAs (parity path) -----------------------------------------
 
 constexpr int THREADS = 128;
-constexpr int BK = 32;
+// keys a tile: 32, and 16 at head_dim 256
+template <int HD>
+constexpr int BK_OF = HD > 128 ? 16 : 32;
 
 // one block of 128 threads per (batch, kv head, q tile); thread t owns one
 // query row: q head `kvh*n_rep + t / bq`, position `tile*bq + t % bq`, where
@@ -61,6 +66,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     int d, int causal, float scale) {
+    constexpr int BK = BK_OF<HD>;
     __shared__ float k_sm[BK][HD];
     __shared__ float v_sm[BK][HD];
     __shared__ int kseg_sm[BK];
@@ -174,7 +180,7 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, const
 
 }  // namespace
 
-// hd: head_dim, at most 128 and a multiple of 8
+// hd: head_dim, at most 256 and a multiple of 8
 extern "C" int ssi_flash_attention_fwd(
     int dtype, const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
     int B, int S, int Hq, int Hkv, int hd,
@@ -189,11 +195,14 @@ extern "C" int ssi_flash_attention_fwd(
     float* lsep = static_cast<float*>(lse);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     cudaError_t err;
-    if (hd <= 0 || hd > 128 || hd % 8 != 0)
+    if (hd <= 0 || hd > 256 || hd % 8 != 0)
         err = cudaErrorInvalidValue;
     else if (hd <= 64)
         err = launch<64>(dtype, q, k, v, segp, o, lsep, B, S, Hq, n_rep, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                          v_ss, v_sh, causal, scale, st);
+    else if (hd > 128)
+        err = launch<256>(dtype, q, k, v, segp, o, lsep, B, S, Hq, n_rep, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                          v_sb, v_ss, v_sh, causal, scale, st);
     else
         err = launch<128>(dtype, q, k, v, segp, o, lsep, B, S, Hq, n_rep, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                           v_sb, v_ss, v_sh, causal, scale, st);

@@ -1,6 +1,6 @@
-// Flash-attention forward, bf16, head_dim 64 (Llama 3.2 100m and 1B) and 128
-// (Llama 3.2 3B, Llama 3.1 8B): causal or full GQA with optional packed
-// segment ids, designed for Hopper.
+// Flash-attention forward, bf16, head_dim 64 (Llama 3.2 100m and 1B), 128
+// (Llama 3.2 3B, Llama 3.1 8B) and 256 (Gemma's heads): causal or full GQA
+// with optional packed segment ids, designed for Hopper.
 //
 // Replaces, in bf16, the TPU kernels ssi_tpu/ops/flash_attention.py
 // `_fwd_kernel` and `_fwd_kernel_grouped` (one GQA schedule ports both);
@@ -11,10 +11,11 @@
 // lse), the row sum over the f32 p, p cast to bf16 for P.V, the output
 // normalised once at the end. o is contiguous [B, S, Hq, hd], lse [B, Hq, S].
 //
-// One kernel template serves both head dims (Config below): the schedule, the
-// ring, the masks, the softmax and the epilogue are the same at 64 and 128,
-// and only the count of 64-column blocks a tile row spans, the products'
-// widths and the tile sizes differ, so a sibling source would repeat all of it.
+// One kernel template serves the three head dims (Config below): the
+// schedule, the ring, the masks, the softmax and the epilogue are the same at
+// 64, 128 and 256, and only the count of 64-column blocks a tile row spans,
+// the products' widths, the tile sizes and the q tiles a block takes differ,
+// so a sibling source would repeat all of it.
 //
 // What bounds it: the 4 * hd FLOP of every allowed (query, key) pair; at the
 // main path's shapes (1B prefill B8 S768 and training B2 S2048, 32 q / 8 kv
@@ -64,10 +65,15 @@
 //   K/V tile through L2; TMA multicast across a cluster would cut L2 reads
 //   but ties n_rep blocks together in scheduling, and n_rep 3 does not divide
 //   the cluster sizes that fit the GPC evenly.
-// Any other head_dim d <= 128 (a multiple of 8, the wrapper pads others)
-// runs the instance of the next of 64 and 128 on tensor maps whose innermost
-// extent is d: a tile's columns past d load as zeros, the scale stays
-// 1/sqrt(d), and the o store clips at d.
+// Any other head_dim d <= 256 (a multiple of 8, the wrapper pads others)
+// runs the instance of the next of 64, 128 and 256 on tensor maps whose
+// innermost extent is d: a tile's columns past d load as zeros, the scale
+// stays 1/sqrt(d), and the o store clips at d.
+// Head_dim 256 (129-256): O is 128 f32 a thread at 64 rows, so 64-key tiles
+// (32 more for S, 16 for P) and one block an SM; a q tile is 64 KB and a
+// 64-key K or V stage 32 KB, so a block holds one q tile (the highest first:
+// under causal masking the blocks are uneven, and the longest start first)
+// and the 2-stage ring: 192 KB. Each tile row is four 64-column boxes.
 // Head_dim 128: 2 warpgroups, 128-key tiles, one block an SM (193 KB of
 // shared memory, ~200 registers). Head_dim 64 halves the work a key tile and
 // not a block's fixed cost (its Q and first K/V loads, one score product with
@@ -103,25 +109,28 @@ constexpr int BQ = 128;       // query rows a q tile: two warpgroups of 64
 constexpr int THREADS = 256;  // two warpgroups
 
 // HD: head_dim; BK: keys a K/V tile; MIN_BLOCKS: blocks an SM the registers
-// are budgeted for
-template <int HD_, int BK_, int MIN_BLOCKS_>
+// are budgeted for; Q_TILES: q tiles a block takes (2: a pair, see below)
+template <int HD_, int BK_, int MIN_BLOCKS_, int Q_TILES_ = 2>
 struct Config {
     static constexpr int HD = HD_;
     static constexpr int BK = BK_;
     static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
+    static constexpr int Q_TILES = Q_TILES_;
     static constexpr int BLOCKS = HD_ / 64;                 // 64-column blocks of a tile row
     static constexpr uint32_t Q_BLOCK_BYTES = BQ * 128;     // one 64-column block of a q tile
     static constexpr uint32_t KV_BLOCK_BYTES = BK_ * 128;  // ... of a K or V tile
 };
 
 // head_dim 64: the configuration that measured fastest on the card (see the
-// top of the file); head_dim 128: 128-key tiles, one block an SM
+// top of the file); head_dim 128: 128-key tiles, one block an SM; head_dim
+// 256: 64-key tiles and one q tile a block, one block an SM
 using Hd64 = Config<64, 64, 2>;
 using Hd128 = Config<128, 128, 1>;
+using Hd256 = Config<256, 64, 1, 1>;
 
 template <class C>
 struct Smem {
-    bf16 q[2][C::BLOCKS][BQ * 64];  // the block's two q tiles
+    bf16 q[C::Q_TILES][C::BLOCKS][BQ * 64];  // the block's q tiles
     bf16 k[STAGES][C::BLOCKS][C::BK * 64];
     bf16 v[STAGES][C::BLOCKS][C::BK * 64];
     uint64_t q_full[2], k_full[STAGES], v_full[STAGES];
@@ -154,12 +163,16 @@ __device__ __forceinline__ void values_step(float (&d)[32], const uint32_t* a, u
 __device__ __forceinline__ void values_step(float (&d)[64], const uint32_t* a, uint64_t b) {
     hw::wgmma_rs_n128_mn(d, a[0], a[1], a[2], a[3], b, 1);
 }
+__device__ __forceinline__ void values_step(float (&d)[128], const uint32_t* a, uint64_t b) {
+    hw::wgmma_rs_n256_mn(d, a[0], a[1], a[2], a[3], b, 1);
+}
 
 // A block takes two q tiles of one (q head, batch): n_q - 1 - pair, then pair
 // (one tile when they meet). Under causal masking the pair holds the same key
 // work whatever `pair` is, so the blocks are even; the K/V ring runs on from
 // the first tile into the second, so the second's loads land under the
-// first's products.
+// first's products. With Q_TILES 1 (head_dim 256) blockIdx.z counts single
+// tiles, and a block takes tile n_q - 1 - blockIdx.z alone.
 template <class C>
 __global__ void __launch_bounds__(THREADS, C::MIN_BLOCKS) flash_fwd_hopper_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -174,7 +187,7 @@ __global__ void __launch_bounds__(THREADS, C::MIN_BLOCKS) flash_fwd_hopper_kerne
     const int kvh = h / n_rep;
     const int n_q = (S + BQ - 1) / BQ;
     const int pair = blockIdx.z;
-    const int n_work = n_q - 1 - pair == pair ? 1 : 2;
+    const int n_work = C::Q_TILES == 1 || n_q - 1 - pair == pair ? 1 : 2;
     auto q0_of = [&](int w) { return (w == 0 ? n_q - 1 - pair : pair) * BQ; };
     auto kv_end_of = [&](int q0) { return causal ? min(S, q0 + BQ) : S; };
     const int n_first = (kv_end_of(q0_of(0)) + BK - 1) / BK;
@@ -194,7 +207,8 @@ __global__ void __launch_bounds__(THREADS, C::MIN_BLOCKS) flash_fwd_hopper_kerne
             load_tile(sm.k[r], &tk, &sm.k_full[r], kvh, key_tile(r) * BK, b);
             load_tile(sm.v[r], &tv, &sm.v_full[r], kvh, key_tile(r) * BK, b);
         }
-        if (n_work == 2) load_tile(sm.q[1], &tq, &sm.q_full[1], h, q0_of(1), b);
+        if constexpr (C::Q_TILES == 2)
+            if (n_work == 2) load_tile(sm.q[1], &tq, &sm.q_full[1], h, q0_of(1), b);
     }
     __syncthreads();
 
@@ -413,7 +427,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* seg, 
     static int allowed = 0;
     err = ssi::allow_dynamic_smem(flash_fwd_hopper_kernel<C>, smem_bytes<C>(), allowed);
     if (err != cudaSuccess) return err;
-    const dim3 grid(Hq, B, ((S + BQ - 1) / BQ + 1) / 2);  // a pair of q tiles a block
+    const int n_q = (S + BQ - 1) / BQ;
+    const dim3 grid(Hq, B, C::Q_TILES == 2 ? (n_q + 1) / 2 : n_q);  // a pair of q tiles a block, or one
     flash_fwd_hopper_kernel<C><<<grid, THREADS, smem_bytes<C>(), stream>>>(tq, tk, tv, to, seg, lse, S, Hq,
                                                                                 Hq / Hkv, causal, scale);
     return cudaGetLastError();
@@ -432,11 +447,14 @@ cudaError_t ssi::flash_fwd_hopper_bf16(const void* q, const void* k, const void*
         if (s % 8 != 0) return cudaErrorInvalidValue;
     if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 != 0)
         return cudaErrorInvalidValue;
-    if (B > 65535 || hd <= 0 || hd > 128 || hd % 8 != 0) return cudaErrorInvalidValue;
-    // the hd-64 instance up to 64 columns, the hd-128 one above
+    if (B > 65535 || hd <= 0 || hd > 256 || hd % 8 != 0) return cudaErrorInvalidValue;
+    // the hd-64 instance up to 64 columns, the hd-128 one up to 128, the hd-256 one above
     if (hd <= 64)
         return launch<Hd64>(q, k, v, seg, o, lse, B, S, Hq, Hkv, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
                             v_sh, causal, scale, stream);
+    if (hd > 128)
+        return launch<Hd256>(q, k, v, seg, o, lse, B, S, Hq, Hkv, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                             v_sh, causal, scale, stream);
     return launch<Hd128>(q, k, v, seg, o, lse, B, S, Hq, Hkv, hd, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
                          causal, scale, stream);
 }

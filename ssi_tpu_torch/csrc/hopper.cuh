@@ -10,7 +10,7 @@
 // with the 128-byte swizzle (16-byte chunk c of row r sits at chunk c ^ (r % 8))
 // as a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes them; each block starts
 // 1024-byte aligned. A head_dim-64 tile is one such block, a head_dim-128 tile
-// two ("halves": columns 0-63 and 64-127). One layout serves both operand majors:
+// two ("halves": columns 0-63 and 64-127), a head_dim-256 tile four. One layout serves both operand majors:
 // - K-major (the product's K along the 64 columns: Q and K in S = Q.K^T, h and
 //   E in the logits h . E^T, dlogits in dh = dlogits . E): SBO 1024 bytes (8
 //   rows), LBO unused (16); a k16 step within a half is +32 bytes of start
@@ -233,8 +233,21 @@ __device__ __forceinline__ void store_tile(const float (&acc)[N2], float mul_lo,
 #define SSI_ACC8(d, i)                                                                                       \
     "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), \
         "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define SSI_ACC16(d) SSI_ACC8(d, 0), SSI_ACC8(d, 8)
 #define SSI_ACC32(d) SSI_ACC8(d, 0), SSI_ACC8(d, 8), SSI_ACC8(d, 16), SSI_ACC8(d, 24)
 #define SSI_ACC64(d) SSI_ACC32(d), SSI_ACC8(d, 32), SSI_ACC8(d, 40), SSI_ACC8(d, 48), SSI_ACC8(d, 56)
+
+// d (+)= A . B for m64n32k16: A [64 x 16] and B [16 x 32] both K-major in shared
+// memory (descriptors a, b); accumulate 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : SSI_ACC16(d)
+        : "l"(a), "l"(b), "r"(accumulate));
+}
 
 // d (+)= A . B for m64n64k16: A [64 x 16] and B [16 x 64] both K-major in shared
 // memory (descriptors a, b); accumulate 0 overwrites d.
@@ -335,9 +348,30 @@ __device__ __forceinline__ void wgmma_ss_major_n256(float (&d)[128], uint64_t a,
         : "l"(a), "l"(b), "r"(accumulate), "n"(A_MN), "n"(B_MN));
 }
 
+// d (+)= A . B for m64n256k16: A from registers (a0..a3, the thread's bf16x2
+// A fragment, see the top of the file), B [16 x 256] MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n256_mn(float (&d)[128], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                                 uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : SSI_ACC128(d)
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(accumulate));
+}
+
 #undef SSI_ACC128
 #undef SSI_ACC64
 #undef SSI_ACC32
+#undef SSI_ACC16
 #undef SSI_ACC8
 
 // ---- host -----------------------------------------------------------------------

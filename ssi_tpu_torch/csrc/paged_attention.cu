@@ -1,10 +1,12 @@
 // Paged attention over the flat KV pool, split across the context: the fused
 // single-token decode (kernel #8) and the T-token write + verify of
-// speculative decoding (kernel #9) on one core. Any head_dim hd <= 128 that
-// is a multiple of 8 (64: the 100m and 1B models; 128: 3B and 8B; 16:
-// tiny_test), by an instance at HD 64 and one at HD 128 that each take the
+// speculative decoding (kernel #9) on one core. Any head_dim hd <= 256 (64:
+// the 100m and 1B models; 128: 3B and 8B; 16: tiny_test; 256: Gemma's heads),
+// by an instance at HD 64, one at 128 and one at 256 that each take the
 // head_dims up to theirs; any GQA ratio n_rep and T <= 8; f32 or bf16
-// storage; page sizes that are multiples of 8.
+// storage; page sizes that are multiples of 8. A head_dim that is not a
+// multiple of 8 takes the plain-load kernels (below): TMA cannot describe
+// its pools.
 //
 // Replaces the TPU kernels ssi_tpu/generate/paged_pallas.py
 // `paged_attention_pallas` -> `_kernel` and `paged_attention_pallas_multi`
@@ -59,7 +61,8 @@
 //   a tile is one box per 64 columns of each of K and V. One lane of a
 //   fifth, producer warp issues a tile's boxes onto the stage's `full`
 //   mbarrier once the 4 product warps have arrived on its `empty` one; the
-//   ring has 2 stages (64 KB: 3 blocks an SM at head_dim 64, 2 at 128). The
+//   ring has 2 stages (64 KB: 3 blocks an SM at head_dim 64, 2 at 128; 128
+//   KB at 256, one block an SM). The
 //   address work of a tile is a page-table read per box in that lane, off
 //   the products' path, and the product warps never wait for each other
 //   within the key loop;
@@ -68,8 +71,11 @@
 //   R is 3-64 rows: a 64-row wgmma would mostly compute padding, and the
 //   products are far from bounding the kernel. The block's 4 warps split the
 //   rows' m16 tiles into row groups (a warp holds at most two m16 tiles at
-//   head_dim 64, one at 128: Q's fragments and its [16 x HD] f32 sums stay
-//   in registers) and each tile's keys into key slices, one per warp of a
+//   head_dim 64, one at 128 and 256: Q's fragments and its [16 x HD] f32
+//   sums stay in registers up to 128; at 256 the sums alone are 128 a
+//   thread, so Q's fragments are read from its rows in shared memory by
+//   ldmatrix at each k16 step, and the in-flight tile gets bytes of its own)
+//   and each tile's keys into key slices, one per warp of a
 //   row group; each warp runs its own online softmax over its keys, and the
 //   slices are combined once, at the end, in slice order. Row r is in-flight
 //   token r / n_rep of q head r % n_rep; padding rows are computed and never
@@ -94,9 +100,10 @@
 //   arrives last combines the group's rows of all the slot's splits, in split
 //   order, and resets the counter to 0. Which block merges depends on
 //   timing; what it computes does not, so two launches give the same bits.
-// - f32 (the parity path): the same split with scalar FMAs, one block of 128
-//   threads holding a row group's rows, K and V staged as f32, and a merge
-//   kernel launched right after.
+// - f32 (the parity path), and bf16 at a head_dim that is not a multiple of
+//   8: the same split with scalar FMAs, one block of 128 threads holding a
+//   row group's rows, K and V staged as f32 by plain loads, and a merge
+//   kernel launched right after (two launches a call).
 //
 // Scratch (allocated by the wrapper; the kernels allocate nothing):
 //   o  [slots, Hkv, n_splits, R, hd] f32: sum over the split's keys of
@@ -124,135 +131,29 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
-#include <cmath>
 #include <cstdint>
 #include <cstring>
 
 #include "common.cuh"
 #include "hopper.cuh"
 #include "mma.cuh"
+#include "paged_common.cuh"
+
+using namespace ssi::paged;
 
 namespace {
 
 namespace hw = ssi::hopper;
 
-constexpr int THREADS = 128;             // f32 blocks
-constexpr int WARPS = THREADS / 32;
 constexpr int CONSUMERS = 128;           // bf16: 4 warps run the products
 constexpr int BF16_THREADS = CONSUMERS + 32;  // and a producer warp issues the page loads
-constexpr int TK = 64;          // keys per tile
-constexpr int MAX_T = 8;        // in-flight tokens per slot
-constexpr int GROUP_ROWS = 64;  // query rows a block holds at most: a row group of T * n_rep
-constexpr float NEG_INF = -1.0e30f;
-constexpr float M_CLAMP = -0.5e30f;  // m_safe = max(m, M_CLAMP)
-constexpr float LOG2E = 1.4426950408889634f;
-
-using bf16 = __nv_bfloat16;
-
-struct Args {
-    const void* q;           // [slots, T, Hq, HD]
-    void* k_pool;            // [rows, ps, Hkv*HD], written in place
-    void* v_pool;
-    const int* page_table;   // [slots, max_pages] physical rows
-    const int* lens;         // [slots]: hist_len = lens + lens_shift
-    const void* k_new;       // [slots, T, Hkv, HD]
-    const void* v_new;
-    const int* write_rows;   // [slots, T]
-    void* out;               // [slots, T, Hq, HD]
-    float* part;             // the split scratch (see the top of the file)
-    int* counters;           // [slots * Hkv * groups] arrivals of split blocks (bf16)
-    int lens_shift;          // -1 (#8: seq_lens counts the incoming token) or 0 (#9)
-    int trash;               // a write row equal to it is skipped; -1: none is (#8)
-    int n_slots, t_q, Hkv, n_rep, ps, max_pages;
-    int hd;                  // head_dim: <= the instance's HD, a multiple of 8
-    int split_keys;          // keys per split (pages per split * ps)
-    int n_splits;            // splits per (slot, kv head)
-    int rows;                // R = t_q * n_rep
-    int groups;              // row groups: ceil(R / GROUP_ROWS), a block each
-    int box;                 // keys per TMA box (bf16): divides ps and 64
-    float scale;
-};
-
-struct Span {  // what one split block of one slot covers
-    int hist_raw;  // lens + lens_shift, unclamped (the write offsets use it)
-    int n_live;    // splits holding history keys (1 when the history is empty)
-    bool last;     // this split folds in the in-flight tokens and writes them
-    int k0, k1;    // history keys [k0, k1)
-    int n_hist_tiles;
-};
-
-__device__ __forceinline__ int live_splits(const Args& a, int hist) {
-    return hist > 0 ? (hist - 1) / a.split_keys + 1 : 1;
-}
-
-__device__ __forceinline__ int clamp_hist(const Args& a, int hist_raw) {
-    return min(max(hist_raw, 0), a.max_pages * a.ps);
-}
-
-template <int KEYS = TK>  // keys per tile
-__device__ __forceinline__ Span span_of(const Args& a, int slot, int split) {
-    Span s;
-    s.hist_raw = a.lens[slot] + a.lens_shift;
-    const int hist = clamp_hist(a, s.hist_raw);
-    s.n_live = live_splits(a, hist);
-    s.last = split == s.n_live - 1;
-    s.k0 = split * a.split_keys;
-    s.k1 = min(hist, s.k0 + a.split_keys);
-    s.n_hist_tiles = s.k1 > s.k0 ? (s.k1 - s.k0 + KEYS - 1) / KEYS : 0;
-    return s;
-}
-
-// the element of q and out where query row r (of all R) of this block's kv
-// head starts
-__device__ __forceinline__ long long q_index(const Args& a, int slot, int r) {
-    const int Hq = a.Hkv * a.n_rep;
-    return (((long long)slot * a.t_q + r / a.n_rep) * Hq + (long long)blockIdx.y * a.n_rep + r % a.n_rep) * a.hd;
-}
-
-__device__ __forceinline__ float* part_o(const Args& a, int slot, int split, int r) {
-    return a.part + ((((long long)slot * a.Hkv + blockIdx.y) * a.n_splits + split) * a.rows + r) * a.hd;
-}
-
-__device__ __forceinline__ float* part_ml(const Args& a, int slot, int split, int r) {
-    const long long o_size = (long long)a.n_slots * a.Hkv * a.n_splits * a.rows * a.hd;
-    return a.part + o_size + ((((long long)slot * a.Hkv + blockIdx.y) * a.n_splits + split) * a.rows + r) * 2;
-}
-
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, float x, float y, float z, float w);
-template <>
-__device__ __forceinline__ void store4<float>(float* dst, float x, float y, float z, float w) {
-    *reinterpret_cast<float4*>(dst) = make_float4(x, y, z, w);
-}
-template <>
-__device__ __forceinline__ void store4<bf16>(bf16* dst, float x, float y, float z, float w) {
-    reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(x, y);
-    reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(z, w);
-}
-
-// The in-flight tokens' K/V into their cells (f32): this kv head's stripe of
-// each token's row (positions >= hist_len, which no split reads).
-template <typename T>
-__device__ void write_tokens(const Args& a, int slot, int hist_raw) {
-    const int kvh = blockIdx.y;
-    const long long kvd = (long long)a.Hkv * a.hd;
-    for (int idx = threadIdx.x; idx < a.t_q * a.hd; idx += THREADS) {
-        const int t = idx / a.hd;
-        const int d = idx % a.hd;
-        const int row = a.write_rows[slot * a.t_q + t];
-        if (row == a.trash) continue;
-        const int off = ((hist_raw + t) % a.ps + a.ps) % a.ps;
-        const long long dst = ((long long)row * a.ps + off) * kvd + (long long)kvh * a.hd + d;
-        const long long src = (((long long)slot * a.t_q + t) * a.Hkv + kvh) * a.hd + d;
-        static_cast<T*>(a.k_pool)[dst] = static_cast<const T*>(a.k_new)[src];
-        static_cast<T*>(a.v_pool)[dst] = static_cast<const T*>(a.v_new)[src];
-    }
-}
 
 // ---- bf16: TMA page loads, tensor cores, one launch ---------------------------
 
 // keys per tile (a TMA box of up to BK rows per 64 columns, two column
-// blocks at head_dim 128) and the ring's stages: a 64 KB ring
+// blocks at head_dim 128, four at 256) and the ring's stages: a 64 KB ring,
+// 128 KB at head_dim 256 (64-key tiles there too: a warp's key slice is at
+// least one k16 step)
 template <int HD>
 constexpr int BK = HD == 64 ? 128 : 64;
 constexpr int STAGES = 2;
@@ -288,6 +189,33 @@ struct Combine {  // each key slice's partial state, after the key loop
     float l[KW][16 * MT];
 };
 
+// Q's A fragments held in registers (head_dim up to 128), or read from Q's
+// rows in shared memory by ldmatrix at each use (256: the fragments would be
+// 64 registers a thread beside O's 128)
+template <int HD>
+constexpr bool Q_IN_REGS = HD <= 128;
+
+// Q's rows and the in-flight tile: at head_dim up to 128 the tile takes Q's
+// bytes once Q's fragments are in registers; at 256 Q stays in shared memory
+template <int HD, int MT, bool SHARE = Q_IN_REGS<HD>>
+struct QIn {
+    union {
+        bf16 q[16 * MT][ssi::lds<HD>];  // until Q's fragments are in registers
+        struct {
+            bf16 k[IN_ROWS * HD];  // then the in-flight tile, swz<IN_ROWS>
+            bf16 v[IN_ROWS * HD];
+        } in;
+    };
+};
+template <int HD, int MT>
+struct QIn<HD, MT, false> {
+    bf16 q[16 * MT][ssi::lds<HD>];
+    struct {
+        bf16 k[IN_ROWS * HD];
+        bf16 v[IN_ROWS * HD];
+    } in;
+};
+
 template <int HD, int MT>
 struct PagedSmem {
     union {
@@ -297,13 +225,7 @@ struct PagedSmem {
         } ring;
         Combine<HD, MT> cb;  // after the key loop
     };
-    union {
-        bf16 q[16 * MT][ssi::lds<HD>];  // until Q's fragments are in registers
-        struct {
-            bf16 k[IN_ROWS * HD];  // then the in-flight tile, swz<IN_ROWS>
-            bf16 v[IN_ROWS * HD];
-        } in;
-    };
+    QIn<HD, MT> qi;
     uint64_t full[STAGES];   // a stage's tile has landed
     uint64_t empty[STAGES];  // the 4 warps are done with a stage
     int merge;  // this block arrived last: it merges the slot's splits
@@ -311,15 +233,29 @@ struct PagedSmem {
 static_assert(sizeof(Combine<64, 4>) <= sizeof(PagedSmem<64, 4>::ring) &&
               sizeof(Combine<64, 2>) <= sizeof(PagedSmem<64, 2>::ring) &&
               sizeof(Combine<128, 1>) <= sizeof(PagedSmem<128, 1>::ring) &&
-              sizeof(Combine<128, 4>) <= sizeof(PagedSmem<128, 4>::ring),
+              sizeof(Combine<128, 4>) <= sizeof(PagedSmem<128, 4>::ring) &&
+              sizeof(Combine<256, 1>) <= sizeof(PagedSmem<256, 1>::ring) &&
+              sizeof(Combine<256, 4>) <= sizeof(PagedSmem<256, 4>::ring),
               "the combine reuses the ring's bytes");
-static_assert(sizeof(PagedSmem<128, 4>) + 1024 <= 227 * 1024, "a block's shared memory");
+static_assert(sizeof(PagedSmem<128, 4>) + 1024 <= 227 * 1024 && sizeof(PagedSmem<256, 4>) + 1024 <= 227 * 1024,
+              "a block's shared memory");
 
 // a warp's online-softmax state over its keys, for its MTW m16 tiles of rows
 template <int HD, int MTW>
 struct RowState {
     float acc[MTW][HD / 8][4];  // O: [16 x HD] per m16 tile, the mma.sync C layout
     float m_lo[MTW], m_hi[MTW], ms_lo[MTW], ms_hi[MTW], l_lo[MTW], l_hi[MTW];
+};
+
+// Q's A fragments of a warp's MTW m16 tiles, in registers (Q_IN_REGS) or
+// read from shared memory (q: the warp's first row) at each k16 step
+template <int HD, int MTW, bool REGS = Q_IN_REGS<HD>>
+struct QFrags {
+    uint32_t f[MTW][HD / 16][4];
+};
+template <int HD, int MTW>
+struct QFrags<HD, MTW, false> {
+    const bf16 (*q)[ssi::lds<HD>];
 };
 
 // One key step of a warp over NKS keys, rows j0 .. j0 + NKS of the tile at
@@ -329,7 +265,7 @@ struct RowState {
 // j <= r's token). Masking is a select, so a score made from garbage never
 // enters a sum.
 template <int HD, int MTW, int NKS, int ROWS>
-__device__ __forceinline__ void attend(RowState<HD, MTW>& st, const uint32_t (&qf)[MTW][HD / 16][4],
+__device__ __forceinline__ void attend(RowState<HD, MTW>& st, const QFrags<HD, MTW>& qf,
                                        const unsigned char* k, const unsigned char* v, int j0, int mask, int kend,
                                        int row0, const Args& a) {
     const int lane = threadIdx.x % 32;
@@ -342,14 +278,31 @@ __device__ __forceinline__ void attend(RowState<HD, MTW>& st, const uint32_t (&q
         for (int nb = 0; nb < NKS / 8; ++nb) s[mt][nb][0] = s[mt][nb][1] = s[mt][nb][2] = s[mt][nb][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
+        if constexpr (Q_IN_REGS<HD>) {
 #pragma unroll
-        for (int j2 = 0; j2 < NKS / 16; ++j2) {
-            uint32_t kf[4];
-            ssi::ldmatrix_x4(kf, k + swz<ROWS>(j0 + j2 * 16 + (lane / 16) * 8 + lane % 8, kk * 2 + (lane / 8) % 2));
+            for (int j2 = 0; j2 < NKS / 16; ++j2) {
+                uint32_t kf[4];
+                ssi::ldmatrix_x4(kf, k + swz<ROWS>(j0 + j2 * 16 + (lane / 16) * 8 + lane % 8, kk * 2 + (lane / 8) % 2));
 #pragma unroll
-            for (int mt = 0; mt < MTW; ++mt) {
-                ssi::mma_bf16(s[mt][2 * j2], qf[mt][kk], kf[0], kf[1]);
-                ssi::mma_bf16(s[mt][2 * j2 + 1], qf[mt][kk], kf[2], kf[3]);
+                for (int mt = 0; mt < MTW; ++mt) {
+                    ssi::mma_bf16(s[mt][2 * j2], qf.f[mt][kk], kf[0], kf[1]);
+                    ssi::mma_bf16(s[mt][2 * j2 + 1], qf.f[mt][kk], kf[2], kf[3]);
+                }
+            }
+        } else {
+            uint32_t qk[MTW][4];  // Q's k16 step kk of each m16 tile, from shared memory
+#pragma unroll
+            for (int mt = 0; mt < MTW; ++mt)
+                ssi::ldmatrix_x4(qk[mt], &qf.q[mt * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
+#pragma unroll
+            for (int j2 = 0; j2 < NKS / 16; ++j2) {
+                uint32_t kf[4];
+                ssi::ldmatrix_x4(kf, k + swz<ROWS>(j0 + j2 * 16 + (lane / 16) * 8 + lane % 8, kk * 2 + (lane / 8) % 2));
+#pragma unroll
+                for (int mt = 0; mt < MTW; ++mt) {
+                    ssi::mma_bf16(s[mt][2 * j2], qk[mt], kf[0], kf[1]);
+                    ssi::mma_bf16(s[mt][2 * j2 + 1], qk[mt], kf[2], kf[3]);
+                }
             }
         }
     }
@@ -467,7 +420,7 @@ __device__ __forceinline__ void paged_hopper_body(const Args& a, const CUtensorM
             const int c = (idx % PIECES) * 8;
             uint4 x = make_uint4(0, 0, 0, 0);  // rows past the group and columns past hd: zeros
             if (i < nrows && c < a.hd) x = *reinterpret_cast<const uint4*>(qb + q_index(a, slot, rbase + i) + c);
-            *reinterpret_cast<uint4*>(&sm.q[i][c]) = x;
+            *reinterpret_cast<uint4*>(&sm.qi.q[i][c]) = x;
         }
         const long long new_base = ((long long)slot * a.t_q * a.Hkv + kvh) * a.hd;
 #pragma unroll
@@ -513,6 +466,17 @@ __device__ __forceinline__ void paged_hopper_body(const Args& a, const CUtensorM
             }
         }
     }
+    if constexpr (!Q_IN_REGS<HD>) {  // the in-flight tile has its own bytes: store it now, not after the loop
+        if (sp.last && warp < WARPS) {
+#pragma unroll
+            for (int i = 0; i < IN_PER; ++i) {
+                const int idx = tid + i * CONSUMERS;
+                const uint32_t off = swz<IN_ROWS>(idx / PIECES, idx % PIECES);
+                *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(sm.qi.in.k) + off) = kin[i];
+                *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(sm.qi.in.v) + off) = vin[i];
+            }
+        }
+    }
     __syncthreads();
 
     RowState<HD, W::MTW> rs;
@@ -542,12 +506,16 @@ __device__ __forceinline__ void paged_hopper_body(const Args& a, const CUtensorM
             }
         }
     } else {
-        uint32_t qf[W::MTW][HD / 16][4];  // Q's A fragments
+        QFrags<HD, W::MTW> qf;  // Q's A fragments
+        if constexpr (Q_IN_REGS<HD>) {
 #pragma unroll
-        for (int mt = 0; mt < W::MTW; ++mt)
+            for (int mt = 0; mt < W::MTW; ++mt)
 #pragma unroll
-            for (int kk = 0; kk < HD / 16; ++kk)
-                ssi::ldmatrix_x4(qf[mt][kk], &sm.q[row0 + mt * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
+                for (int kk = 0; kk < HD / 16; ++kk)
+                    ssi::ldmatrix_x4(qf.f[mt][kk], &sm.qi.q[row0 + mt * 16 + lane % 16][kk * 16 + (lane / 16) * 8]);
+        } else {
+            qf.q = &sm.qi.q[row0];
+        }
 
 #pragma unroll
         for (int mt = 0; mt < W::MTW; ++mt) {
@@ -578,18 +546,20 @@ __device__ __forceinline__ void paged_hopper_body(const Args& a, const CUtensorM
             if (lane == 0) hw::mbar_arrive(&sm.empty[st]);  // this warp is done with the stage
         }
         if (sp.last) {  // the in-flight tokens, a 16-key tile of key slice 0
-            hw::named_sync(1, CONSUMERS);  // Q's bytes are free
+            if constexpr (Q_IN_REGS<HD>) {
+                hw::named_sync(1, CONSUMERS);  // Q's bytes are free
 #pragma unroll
-            for (int i = 0; i < IN_PER; ++i) {
-                const int idx = tid + i * CONSUMERS;
-                const uint32_t off = swz<IN_ROWS>(idx / PIECES, idx % PIECES);
-                *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(sm.in.k) + off) = kin[i];
-                *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(sm.in.v) + off) = vin[i];
+                for (int i = 0; i < IN_PER; ++i) {
+                    const int idx = tid + i * CONSUMERS;
+                    const uint32_t off = swz<IN_ROWS>(idx / PIECES, idx % PIECES);
+                    *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(sm.qi.in.k) + off) = kin[i];
+                    *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(sm.qi.in.v) + off) = vin[i];
+                }
+                hw::named_sync(1, CONSUMERS);
             }
-            hw::named_sync(1, CONSUMERS);
             if (kw == 0)
-                attend<HD, W::MTW, IN_ROWS, IN_ROWS>(rs, qf, reinterpret_cast<const unsigned char*>(sm.in.k),
-                                                     reinterpret_cast<const unsigned char*>(sm.in.v), 0, 2, 0,
+                attend<HD, W::MTW, IN_ROWS, IN_ROWS>(rs, qf, reinterpret_cast<const unsigned char*>(sm.qi.in.k),
+                                                     reinterpret_cast<const unsigned char*>(sm.qi.in.v), 0, 2, 0,
                                                      rbase + row0, a);
         }
     }
@@ -711,242 +681,6 @@ __global__ void __launch_bounds__(BF16_THREADS, 2) paged_hopper_2blocks_kernel(c
     paged_hopper_body<HD, MT>(a, kmap, vmap);
 }
 
-// ---- f32: scalar FMAs (parity path) -----------------------------------------
-
-template <int HD>
-size_t f32_smem(int rows) {
-    constexpr int KPAD = HD + 1;  // padded K row (conflict-free column reads)
-    return sizeof(float) * ((size_t)rows * HD + (size_t)TK * KPAD + (size_t)TK * HD + (size_t)rows * TK + 3 * rows);
-}
-
-// One block of 128 threads per (split and row group, kv head, slot) holding
-// the group's rows (all R up to 64); RPT: rows per thread (two halves of 64
-// threads), at least ceil(rows / 2). Columns past hd are staged as zeros.
-// Per 64-key tile: K and V staged as f32; thread (row group, key) forms its
-// rows' scores; one warp per row updates the online softmax; thread (row
-// group, dim) rescales and accumulates P.V, for dims col, col + 64, ...
-template <int HD, int RPT>
-__global__ void __launch_bounds__(THREADS) paged_split_f32_kernel(Args a) {
-    constexpr int KPAD = HD + 1;
-    constexpr int DPT = HD / 64;  // dims per thread in P.V
-    const int split = blockIdx.x % a.n_splits;
-    const int rbase = blockIdx.x / a.n_splits * GROUP_ROWS;  // this block's rows: rbase + [0, R)
-    const int R = min(GROUP_ROWS, a.rows - rbase);
-    extern __shared__ float smem[];
-    float* q_sm = smem;              // [R][HD], pre-scaled
-    float* k_sm = q_sm + R * HD;     // [TK][KPAD]
-    float* v_sm = k_sm + TK * KPAD;  // [TK][HD]
-    float* s_sm = v_sm + TK * HD;    // [R][TK] scores, then probabilities
-    float* m_sm = s_sm + R * TK;     // [R] running max
-    float* l_sm = m_sm + R;          // [R] running sum
-    float* a_sm = l_sm + R;          // [R] this tile's rescale factor
-
-    const int kvh = blockIdx.y;
-    const int slot = blockIdx.z;
-    const Span sp = span_of(a, slot, split);
-    if (split >= sp.n_live) return;
-    const int n_tiles = sp.n_hist_tiles + (sp.last ? 1 : 0);
-
-    const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int rg = tid >> 6;   // row group: rows rg, rg + 2, ...
-    const int col = tid & 63;  // key (scores) or dim (P.V) of this thread
-    const long long kvd = (long long)a.Hkv * a.hd;
-    const int* pt = a.page_table + (long long)slot * a.max_pages;
-    const float* qb = static_cast<const float*>(a.q);
-    const float* kp = static_cast<const float*>(a.k_pool);
-    const float* vp = static_cast<const float*>(a.v_pool);
-    const float* kn = static_cast<const float*>(a.k_new);
-    const float* vn = static_cast<const float*>(a.v_new);
-
-    for (int idx = tid; idx < R * HD; idx += THREADS)
-        q_sm[idx] = idx % HD < a.hd ? qb[q_index(a, slot, rbase + idx / HD) + idx % HD] * a.scale : 0.f;
-    for (int r = tid; r < R; r += THREADS) {
-        m_sm[r] = -INFINITY;
-        l_sm[r] = 0.f;
-    }
-
-    float acc[RPT][DPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int dd = 0; dd < DPT; ++dd) acc[i][dd] = 0.f;
-
-    for (int tile = 0; tile < n_tiles; ++tile) {
-        const bool inflight = tile == sp.n_hist_tiles;
-        const int key0 = sp.k0 + tile * TK;
-        const int n_keys = inflight ? a.t_q : min(TK, sp.k1 - key0);  // keys of this tile that exist
-        __syncthreads();  // the previous tile's P.V is done with k_sm, v_sm, s_sm
-
-        // 1) stage K and V of the tile (absent keys as zeros; they are masked)
-        for (int c = tid; c < TK * (HD / 8); c += THREADS) {
-            const int j = c / (HD / 8);
-            const int e8 = (c % (HD / 8)) * 8;
-            float kr[8], vr[8];
-            if (j < n_keys && e8 < a.hd) {
-                if (inflight) {
-                    const long long src = (((long long)slot * a.t_q + j) * a.Hkv + kvh) * a.hd + e8;
-                    ssi::load8(kn + src, kr);
-                    ssi::load8(vn + src, vr);
-                } else {
-                    const int key = key0 + j;
-                    const long long row = (long long)pt[key / a.ps] * a.ps + key % a.ps;
-                    ssi::load8(kp + row * kvd + (long long)kvh * a.hd + e8, kr);
-                    ssi::load8(vp + row * kvd + (long long)kvh * a.hd + e8, vr);
-                }
-            } else {
-#pragma unroll
-                for (int e = 0; e < 8; ++e) kr[e] = vr[e] = 0.f;
-            }
-#pragma unroll
-            for (int e = 0; e < 8; ++e) {
-                k_sm[j * KPAD + e8 + e] = kr[e];
-                v_sm[j * HD + e8 + e] = vr[e];
-            }
-        }
-        __syncthreads();
-
-        // 2) scores of key `col` against this thread's rows
-        {
-            float s[RPT];
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) s[i] = 0.f;
-            for (int d0 = 0; d0 < HD; d0 += 4) {
-                float kr[4];
-#pragma unroll
-                for (int e = 0; e < 4; ++e) kr[e] = k_sm[col * KPAD + d0 + e];
-#pragma unroll
-                for (int i = 0; i < RPT; ++i) {
-                    const int r = rg + 2 * i;
-                    if (r < R) {
-                        const float4 qv = *reinterpret_cast<const float4*>(q_sm + r * HD + d0);
-                        s[i] = fmaf(qv.x, kr[0], fmaf(qv.y, kr[1], fmaf(qv.z, kr[2], fmaf(qv.w, kr[3], s[i]))));
-                    }
-                }
-            }
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) {
-                const int r = rg + 2 * i;
-                if (r < R) {
-                    // in-flight token t (row r) sees in-flight keys 0..t
-                    const bool ok = col < n_keys && (!inflight || col <= (rbase + r) / a.n_rep);
-                    s_sm[r * TK + col] = ok ? s[i] : -INFINITY;
-                }
-            }
-        }
-        __syncthreads();
-
-        // 3) per row: online-softmax update, probabilities in place
-        for (int r = warp; r < R; r += WARPS) {
-            const float m_old = m_sm[r];
-            const float x0 = s_sm[r * TK + lane];
-            const float x1 = s_sm[r * TK + lane + 32];
-            float mt = fmaxf(x0, x1);
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-            const float m_new = fmaxf(m_old, mt);
-            float p0 = 0.f, p1 = 0.f, alpha = 1.f;
-            if (m_new != -INFINITY) {  // else nothing valid yet: the row stays empty
-                p0 = expf(x0 - m_new);
-                p1 = expf(x1 - m_new);
-                alpha = expf(m_old - m_new);
-            }
-            s_sm[r * TK + lane] = p0;
-            s_sm[r * TK + lane + 32] = p1;
-            float sum = p0 + p1;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            if (lane == 0) {
-                m_sm[r] = m_new;
-                l_sm[r] = l_sm[r] * alpha + sum;
-                a_sm[r] = alpha;
-            }
-        }
-        __syncthreads();
-
-        // 4) rescale and accumulate P.V for dims col, col + 64, ..., four keys
-        //    at a time (probabilities and V rows past n_keys are 0 up to the
-        //    tile's end)
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-            const int r = rg + 2 * i;
-            if (r < R) {
-#pragma unroll
-                for (int dd = 0; dd < DPT; ++dd) acc[i][dd] *= a_sm[r];
-            }
-        }
-        for (int j = 0; j < n_keys; j += 4) {
-#pragma unroll
-            for (int dd = 0; dd < DPT; ++dd) {
-                float vj[4];
-#pragma unroll
-                for (int e = 0; e < 4; ++e) vj[e] = v_sm[(j + e) * HD + col + 64 * dd];
-#pragma unroll
-                for (int i = 0; i < RPT; ++i) {
-                    const int r = rg + 2 * i;
-                    if (r < R) {
-                        const float4 p = *reinterpret_cast<const float4*>(s_sm + r * TK + j);
-                        acc[i][dd] = fmaf(p.x, vj[0], fmaf(p.y, vj[1], fmaf(p.z, vj[2], fmaf(p.w, vj[3], acc[i][dd]))));
-                    }
-                }
-            }
-        }
-    }
-
-    // every row of a live split has a valid key, so m is finite here
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const int r = rg + 2 * i;
-        if (r < R) {
-#pragma unroll
-            for (int dd = 0; dd < DPT; ++dd) {
-                const int d = col + 64 * dd;
-                if (d >= a.hd) continue;
-                if (sp.n_live == 1) {
-                    static_cast<float*>(a.out)[q_index(a, slot, rbase + r) + d] = acc[i][dd] / fmaxf(l_sm[r], 1e-30f);
-                } else {
-                    part_o(a, slot, split, rbase + r)[d] = acc[i][dd];
-                }
-            }
-            if (sp.n_live > 1 && col == 0)
-                *reinterpret_cast<float2*>(part_ml(a, slot, split, rbase + r)) = make_float2(m_sm[r], l_sm[r]);
-        }
-    }
-    if (sp.last && rbase == 0) write_tokens<float>(a, slot, sp.hist_raw);
-}
-
-// ---- the f32 merge ------------------------------------------------------------
-
-// One block per (kv head, slot): each output row combines the slot's live
-// splits in split order.
-template <int HD>
-__global__ void __launch_bounds__(THREADS) paged_merge_f32_kernel(Args a) {
-    const int slot = blockIdx.z;
-    const int n_live = live_splits(a, clamp_hist(a, a.lens[slot] + a.lens_shift));
-    if (n_live == 1) return;  // that split wrote the output itself
-    for (int idx = threadIdx.x; idx < a.rows * (HD / 4); idx += THREADS) {
-        const int r = idx / (HD / 4);
-        const int d = (idx % (HD / 4)) * 4;
-        if (d >= a.hd) continue;
-        float m = NEG_INF;
-        for (int s = 0; s < n_live; ++s) m = fmaxf(m, part_ml(a, slot, s, r)[0]);
-        float l = 0.f, o0 = 0.f, o1 = 0.f, o2 = 0.f, o3 = 0.f;
-        for (int s = 0; s < n_live; ++s) {
-            const float2 ml = *reinterpret_cast<const float2*>(part_ml(a, slot, s, r));
-            const float wt = exp2f((ml.x - m) * LOG2E);
-            const float4 o = *reinterpret_cast<const float4*>(part_o(a, slot, s, r) + d);
-            l = fmaf(ml.y, wt, l);
-            o0 = fmaf(o.x, wt, o0);
-            o1 = fmaf(o.y, wt, o1);
-            o2 = fmaf(o.z, wt, o2);
-            o3 = fmaf(o.w, wt, o3);
-        }
-        const float ls = fmaxf(l, 1e-30f);
-        store4(static_cast<float*>(a.out) + q_index(a, slot, r) + d, o0 / ls, o1 / ls, o2 / ls, o3 / ls);
-    }
-}
-
 template <int HD, int MT>
 cudaError_t launch_bf16(const Args& a, const CUtensorMap& kmap, const CUtensorMap& vmap, cudaStream_t st) {
     static int allowed = 0;
@@ -963,60 +697,37 @@ cudaError_t launch_bf16(const Args& a, const CUtensorMap& kmap, const CUtensorMa
     return cudaGetLastError();
 }
 
-template <int HD, int RPT>
-cudaError_t launch_f32(const Args& a, cudaStream_t st) {
-    static int allowed = 0;
-    const size_t smem = f32_smem<HD>(std::min(a.rows, GROUP_ROWS));
-    if (smem > 48 * 1024) {
-        const cudaError_t err = ssi::allow_dynamic_smem(paged_split_f32_kernel<HD, RPT>, (int)smem, allowed);
-        if (err != cudaSuccess) return err;
-    }
-    paged_split_f32_kernel<HD, RPT><<<dim3(a.n_splits * a.groups, a.Hkv, a.n_slots), THREADS, smem, st>>>(a);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || a.n_splits == 1) return err;
-    paged_merge_f32_kernel<HD><<<dim3(1, a.Hkv, a.n_slots), THREADS, 0, st>>>(a);
-    return cudaGetLastError();
-}
-
+// the bf16 kernel at instance HD: its checks, then the instance for the rows a block holds
 template <int HD>
-cudaError_t launch(int dtype, const Args& a, const void* k_map, const void* v_map, cudaStream_t st) {
-    if (dtype == ssi::kBFloat16) {
-        // 16-byte loads of q and the in-flight rows; TMA needs the pools 16-byte aligned
-        const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k_pool) |
-                               reinterpret_cast<uintptr_t>(a.v_pool) | reinterpret_cast<uintptr_t>(a.k_new) |
-                               reinterpret_cast<uintptr_t>(a.v_new) | reinterpret_cast<uintptr_t>(a.part);
-        if (ptrs % 16 != 0 || k_map == nullptr || v_map == nullptr || (a.n_splits > 1 && a.counters == nullptr) ||
-            a.box < 8 || a.box > BK<HD> || (a.box & (a.box - 1)) != 0 || a.ps % a.box != 0)
-            return cudaErrorInvalidValue;
-        CUtensorMap kmap, vmap;  // the wrapper's encoded maps (ssi_paged_pool_map), 128 bytes each
-        std::memcpy(&kmap, k_map, sizeof kmap);
-        std::memcpy(&vmap, v_map, sizeof vmap);
-        const int rows = std::min(a.rows, GROUP_ROWS);  // a block's: one row group
-        return rows <= 16   ? launch_bf16<HD, 1>(a, kmap, vmap, st)
-               : rows <= 32 ? launch_bf16<HD, 2>(a, kmap, vmap, st)
-                            : launch_bf16<HD, 4>(a, kmap, vmap, st);
-    }
-    if (dtype == ssi::kFloat32) {
-        const int need = (std::min(a.rows, GROUP_ROWS) + 1) / 2;
-        return need <= 1    ? launch_f32<HD, 1>(a, st)
-               : need <= 2  ? launch_f32<HD, 2>(a, st)
-               : need <= 4  ? launch_f32<HD, 4>(a, st)
-               : need <= 8  ? launch_f32<HD, 8>(a, st)
-               : need <= 16 ? launch_f32<HD, 16>(a, st)
-                            : launch_f32<HD, 32>(a, st);
-    }
-    return cudaErrorInvalidValue;
+cudaError_t launch_tma(const Args& a, const void* k_map, const void* v_map, cudaStream_t st) {
+    // 16-byte loads of q and the in-flight rows; TMA needs the pools 16-byte aligned
+    const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k_pool) |
+                           reinterpret_cast<uintptr_t>(a.v_pool) | reinterpret_cast<uintptr_t>(a.k_new) |
+                           reinterpret_cast<uintptr_t>(a.v_new) | reinterpret_cast<uintptr_t>(a.part);
+    if (ptrs % 16 != 0 || k_map == nullptr || v_map == nullptr || (a.n_splits > 1 && a.counters == nullptr) ||
+        a.box < 8 || a.box > BK<HD> || (a.box & (a.box - 1)) != 0 || a.ps % a.box != 0)
+        return cudaErrorInvalidValue;
+    CUtensorMap kmap, vmap;  // the wrapper's encoded maps (ssi_paged_pool_map), 128 bytes each
+    std::memcpy(&kmap, k_map, sizeof kmap);
+    std::memcpy(&vmap, v_map, sizeof vmap);
+    const int rows = std::min(a.rows, GROUP_ROWS);  // a block's: one row group
+    return rows <= 16   ? launch_bf16<HD, 1>(a, kmap, vmap, st)
+           : rows <= 32 ? launch_bf16<HD, 2>(a, kmap, vmap, st)
+                        : launch_bf16<HD, 4>(a, kmap, vmap, st);
 }
 
 cudaError_t launch(int dtype, const Args& a, const void* k_map, const void* v_map, cudaStream_t st) {
-    if (a.Hkv <= 0 || a.n_rep <= 0 || a.t_q < 1 || a.t_q > MAX_T || a.hd <= 0 || a.hd > 128 || a.hd % 8 != 0 ||
-        a.ps <= 0 ||
+    if (a.Hkv <= 0 || a.n_rep <= 0 || a.t_q < 1 || a.t_q > MAX_T || a.hd <= 0 || a.hd > 256 || a.ps <= 0 ||
         a.ps % 8 != 0 || a.max_pages <= 0 || a.n_slots <= 0 || a.split_keys <= 0 || a.split_keys % a.ps != 0 ||
         a.n_splits <= 0 || (long long)(a.n_splits - 1) * a.split_keys >= (long long)a.max_pages * a.ps ||
         (long long)a.n_splits * a.split_keys < (long long)a.max_pages * a.ps)
         return cudaErrorInvalidValue;
-    // the hd-64 instance up to 64 columns, the hd-128 one above
-    return a.hd <= 64 ? launch<64>(dtype, a, k_map, v_map, st) : launch<128>(dtype, a, k_map, v_map, st);
+    // f32, and rows that TMA cannot describe (hd not a multiple of 8): the plain-load kernels
+    if (dtype != ssi::kBFloat16 || a.hd % 8 != 0) return launch_plain(dtype, a, st);
+    // the hd-64 instance up to 64 columns, the hd-128 one up to 128, the hd-256 one above
+    return a.hd <= 64    ? launch_tma<64>(a, k_map, v_map, st)
+           : a.hd <= 128 ? launch_tma<128>(a, k_map, v_map, st)
+                         : launch_tma<256>(a, k_map, v_map, st);
 }
 
 Args make_args(const void* q, void* k_pool, void* v_pool, const void* page_table, const void* lens,
@@ -1069,11 +780,11 @@ extern "C" int ssi_paged_pool_map(void* map, const void* pool, long long n_rows,
     return static_cast<int>(err);
 }
 
-// #8: one token per slot; seq_lens counts it. hd: head_dim, at most 128 and a
-// multiple of 8. `part`: the split scratch, n_slots * Hkv * n_splits * n_rep
+// #8: one token per slot; seq_lens counts it. hd: head_dim, at most 256 (one
+// that is not a multiple of 8 on the plain-load kernels, no tensor maps). `part`: the split scratch, n_slots * Hkv * n_splits * n_rep
 // * (hd + 2) floats (unused when n_splits is 1); `counters`: n_slots * Hkv *
 // ceil(n_rep / 64) ints, zero (bf16; every launch leaves them zero); k_map /
-// v_map: the pools' tensor maps (bf16), in boxes of `box` keys.
+// v_map: the pools' tensor maps (bf16, hd a multiple of 8), in boxes of `box` keys.
 extern "C" int ssi_paged_attention_fused(
     int dtype, const void* q, void* k_pool, void* v_pool, const void* page_table, const void* seq_lens,
     const void* k_new, const void* v_new, const void* write_rows, void* out, void* part, void* counters,

@@ -11,22 +11,25 @@ plain PyTorch versions. Both wrappers launch one split-context core
   physical write row per token instead (the trash row = skip), as the JAX
   gather path resolves them.
 
-The core takes any head_dim up to 128 that is a multiple of 8 (an instance
-at 64 and one at 128, each running the head_dims up to it), page sizes that
-are multiples of 8, and any GQA ratio n_rep: a block holds up to
-``ROW_GROUP`` (64) of the ``T * n_rep`` query rows of a (slot, kv head), and
-more rows take more row groups (:func:`row_groups`), each reading the pages
-again. A head_dim above 128, or one that is not a multiple of 8 (the pool's
-head stride would not be a 16-byte multiple, and a padded pool would change
-the engine's state), raises, naming ROADMAP B2 (still to port).
+The core takes any head_dim up to 256 (an instance at 64, one at 128 and
+one at 256, each running the head_dims up to it), page sizes that are
+multiples of 8, and any GQA ratio n_rep: a block holds up to ``ROW_GROUP``
+(64) of the ``T * n_rep`` query rows of a (slot, kv head), and more rows
+take more row groups (:func:`row_groups`), each reading the pages again. A
+head_dim that is not a multiple of 8 (the pool's head stride is not a
+16-byte multiple, so no tensor map describes it, and a padded pool would
+change the engine's state) runs in bf16 on the core's plain-load kernels,
+as f32 always does (:func:`uses_tensor_maps`). A head_dim above 256 raises,
+naming ROADMAP B2 (still to port).
 
 The core splits each slot's context over blocks of :func:`split_plan`'s
 pages (one split up to 1,280 keys). In bf16 one launch does the whole call:
 the split that finishes last merges a slot's splits, told by an arrival
 counter per (slot, kv head, row group) that this module keeps zeroed on
 each device (:func:`_counters`), and it reads the pages by TMA through
-tensor maps this module encodes once per pool (:func:`_pool_map`). The f32 parity path
-merges in a second kernel, launched by the same C call. The wrapper
+tensor maps this module encodes once per pool (:func:`_pool_map`). The
+plain-load kernels (the f32 parity path, and bf16 at a head_dim that is not
+a multiple of 8) merge in a second kernel, launched by the same C call. The wrapper
 allocates the merge's scratch. No context length is refused: a longer
 context gives each split more pages.
 
@@ -55,7 +58,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # slowest block, and shorter ones add blocks and merges (PERF.md section 6)
 SPLIT_KEYS = 1280
 MAX_SPLITS = 16   # splits per (slot, kv head) at most, which bounds the scratch
-MAX_HEAD_DIM = 128  # the largest head_dim the kernels take (ROADMAP B2: above it, still to port)
+MAX_HEAD_DIM = 256  # the largest head_dim the kernels take (ROADMAP B2: above it, still to port)
 ROW_GROUP = 64    # query rows a block holds at most (csrc/paged_attention.cu GROUP_ROWS)
 _MAP_BYTES = 128  # a CUtensorMap
 _MAX_MAPS = 64    # cached tensor maps; the cache is emptied past it
@@ -72,15 +75,25 @@ def split_plan(max_pages: int, page_size: int) -> tuple[int, int]:
 
 
 def instance_head_dim(head_dim: int) -> int:
-    """The kernel instance a head_dim runs on: 64 up to 64, else 128 (the C
-    launcher's choice, ``csrc/paged_attention.cu`` ``launch``)."""
-    return 64 if head_dim <= 64 else 128
+    """The kernel instance a head_dim runs on: 64 up to 64, 128 up to 128,
+    else 256 (the C launcher's choice, ``csrc/paged_attention.cu``
+    ``launch``)."""
+    return 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
+
+
+def uses_tensor_maps(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether a call reads the pools by TMA (the bf16 kernel, one launch):
+    bf16 at a head_dim that is a multiple of 8. Otherwise the core's
+    plain-load split kernel and its merge run (f32, or a pool whose head
+    stride is not a 16-byte multiple)."""
+    return dtype == torch.bfloat16 and head_dim % 8 == 0
 
 
 def box_keys(page_size: int, head_dim: int) -> int:
     """Keys per TMA box of the bf16 kernel: the largest power of two that
     divides ``page_size`` (a multiple of 8), so no box crosses a page, up to
-    the tile of the kernel's instance (128 keys at head_dim 64, 64 at 128)."""
+    the tile of the kernel's instance (128 keys at head_dim 64, 64 at 128 and
+    256)."""
     tile = 128 if instance_head_dim(head_dim) == 64 else 64
     return next(b for b in (128, 64, 32, 16, 8) if b <= tile and page_size % b == 0)
 
@@ -161,9 +174,9 @@ def _check_common(q, k_pool, v_pool, k_new, v_new, hq: int, hd: int, new_shape: 
     kvd = k_pool.shape[2]
     hkv = kvd // hd
     dev = q.device
-    if hd > MAX_HEAD_DIM or hd % 8 != 0:
-        raise ValueError(f"the CUDA paged kernels take head_dim <= {MAX_HEAD_DIM} and a multiple of 8, got {hd} "
-                         "(ROADMAP.md B2: still to port)")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"the CUDA paged kernels take head_dim <= {MAX_HEAD_DIM}, got {hd} (ROADMAP.md B2: a larger "
+                         "head_dim is still to port)")
     if k_pool.shape[1] % 8 != 0:  # the bf16 kernel's TMA boxes are whole 8-row swizzle patterns
         raise ValueError(f"page_size ({k_pool.shape[1]}) must be a multiple of 8")
     if hkv == 0 or hkv * hd != kvd or hq % hkv != 0:
@@ -186,13 +199,13 @@ def _core_args(lib, q, k_pool, v_pool, n_slots: int, hkv: int, n_rows: int, max_
     """What both C entry points take beside the tensors: the split scratch
     (to be held until the launch), the pointers that follow ``out`` (the
     scratch, the arrival counters and the pools' tensor maps; None for the
-    last three in f32) and the split plan with the box."""
+    last three on the plain-load kernels) and the split plan with the box."""
     ps = k_pool.shape[1]
     per_split, n_splits = split_plan(max_pages, ps)
     part = _scratch(n_slots, hkv, n_rows, n_splits, hd, q.device)
     box = box_keys(ps, hd)
     ptrs = [part.data_ptr(), None, None, None]
-    if q.dtype == torch.bfloat16:
+    if uses_tensor_maps(hd, q.dtype):
         counters = _counters(n_slots * hkv * row_groups(n_rows), q.device)
         ptrs[1:] = counters.data_ptr(), _pool_map(lib, k_pool, hd, box), _pool_map(lib, v_pool, hd, box)
     return part, ptrs, (per_split, n_splits, box)

@@ -11,13 +11,14 @@ the forward for the paged prefill; training differentiates
 :func:`flash_attention`, whose backward recomputes the scores from q, k, v,
 o and lse.
 
-The kernels take any head_dim d up to 128: an instance at 64 (the 100m and
-1B models) and one at 128 (3B and 8B), each running the head_dims up to it
-on tensor maps bounded at d (``tiny_test``'s 16, phi-2's 80, Phi-3-mini's
-96). A d that is not a multiple of 8 (TMA's rows are 16-byte strided) runs
-on zero-padded copies of its operands (:func:`pad_head_dim`), sliced back:
-the zeros add nothing to a score. A d above 128 raises, naming ROADMAP B1
-(still to port). They take unscaled q and apply ``1/sqrt(d)``, d the real
+The kernels take any head_dim d up to 256: an instance at 64 (the 100m and
+1B models), one at 128 (3B and 8B) and one at 256 (Gemma's heads), each
+running the head_dims up to it on tensor maps bounded at d (``tiny_test``'s
+16, phi-2's 80, Phi-3-mini's 96, 136-255 on the hd-256 instance). A d that
+is not a multiple of 8 (TMA's rows are 16-byte strided) runs on zero-padded
+copies of its operands (:func:`pad_head_dim`), sliced back: the zeros add
+nothing to a score. A d above 256 raises, naming ROADMAP B1 (still to
+port). They take unscaled q and apply ``1/sqrt(d)``, d the real
 head_dim, to the f32 scores inside. The JAX wrapper folds the scale into
 q before its kernels, rounding ``q/sqrt(d)`` to q's dtype: exact in bf16 at
 head_dim 64 (1/8), a rounding at 128. The port keeps the scale in f32 (one
@@ -39,7 +40,7 @@ KERNEL = "flash_attention_fwd"
 BWD_KERNEL = "flash_attention_bwd"
 _NEG_INF = -1.0e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128  # the largest head_dim the kernels take (ROADMAP B1: above it, still to port)
+MAX_HEAD_DIM = 256  # the largest head_dim the kernels take (ROADMAP B1: above it, still to port)
 
 
 def flash_attention_reference(

@@ -50,10 +50,12 @@ N_SLOTS, PAGE, CHUNK = 32, 128, 16
 CHUNKS, ROUNDS = 4, 3  # engine chunks per timed window; untraced rounds before the traced one
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 _CLASSES = (  # (class, substrings of the kernel name), first match wins
-    ("paged kernel #8", ("paged_hopper_", "paged_split_f32", "paged_merge_f32")),  # bf16: one kernel; f32: two
+    # bf16: one kernel; f32 (and bf16 at a head_dim not a multiple of 8): the split kernel and its merge
+    ("paged kernel #8", ("paged_hopper_", "paged_split_", "paged_merge_")),
     ("flash kernel #1", ("flash_fwd_",)),
     # the training kernels (chip_smoke.py phase e reads a traced optimizer step)
-    ("flash backward #3", ("dkdv_hopper_", "dq_hopper_", "delta_hopper_", "dkdv_f32_", "dq_f32_", "delta_kernel")),
+    ("flash backward #3", ("dkdv_hopper_", "dkdv_split_", "dq_hopper_", "delta_hopper_", "dkdv_f32_", "dq_f32_",
+                           "delta_kernel")),
     ("CE lse #5", ("lseepi", "lse_partial", "lse_merge")),
     ("CE dlogits #6", ("dlogitsepi",)),
     ("CE dh/dE GEMMs #6/#7", ("storeepi",)),

@@ -161,7 +161,8 @@ def check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=
     inactive) or #9, against its plain version on slots of history ``hist``
     (positions < hist_len; inactive slots write to the trash row): attention
     of active slots within tolerance, beside a control that must miss it
-    (each q head routed to the next kv head), two launches bitwise equal (the
+    (each q head routed to the next kv head; with one kv head, to the next q
+    head's query), two launches bitwise equal (the
     second rewrites the same cells, which no launch reads), pools bitwise
     equal except the trash row. ``poison``: every pool cell outside the
     slots' histories holds NaN, +Inf or -Inf in the kernel's pools (the bf16
@@ -204,7 +205,8 @@ def check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=
     got = kernel(q, kp, vp, table, lens, **kw)
     again = kernel(q, kp, vp, table, lens, **kw)
     ref = plain(q, kp_ref, vp_ref, table, lens, **kw)
-    ctl = plain(q.roll(n_rep, -2), kp_ctl, vp_ctl, table, lens, **kw)
+    # each q head routed to the next kv head (with one kv head: to the next q head's query)
+    ctl = plain(q.roll(n_rep if hkv > 1 else 1, -2), kp_ctl, vp_ctl, table, lens, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     torch.testing.assert_close(got[active].float(), ref[active].float(), atol=TOL[dtype], rtol=TOL[dtype])
@@ -285,16 +287,16 @@ def test_paged_kernels_page_sizes_and_unused_cells(gen, dtype, poison, ps, hd, t
 
 def test_kernel_wrappers_refuse_unsupported_shapes(gen):
     """The shapes the kernels do not take raise, naming what is still to port
-    (ROADMAP B1: a head_dim above 128 in #1-#4; B2: one above 128 or not a
-    multiple of 8 in #8/#9), or what the caller must change (T, page size)."""
-    q = torch.randn((1, 16, 4, 136), generator=gen, device="cuda")
-    with pytest.raises(ValueError, match=r"head_dim <= 128, got 136 \(ROADMAP.md B1"):
+    (ROADMAP B1: a head_dim above 256 in #1-#4; B2: one above 256 in
+    #8/#9), or what the caller must change (T, page size)."""
+    q = torch.randn((1, 16, 4, 264), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match=r"head_dim <= 256, got 264 \(ROADMAP.md B1"):
         flash_attention_fwd(q, q, q)
-    with pytest.raises(ValueError, match=r"head_dim <= 128, got 136 \(ROADMAP.md B1"):
+    with pytest.raises(ValueError, match=r"head_dim <= 256, got 264 \(ROADMAP.md B1"):
         flash_attention_bwd(q, q, q, q, torch.zeros((1, 4, 16), device="cuda"), q)
-    for hd in (136, 20):  # above 128; not a multiple of 8 (the pool's head stride would not be 16-byte aligned)
+    for hd in (264, 300):  # above 256, a multiple of 8 and not
         pool = torch.zeros((3, 8, 2 * hd), device="cuda")
-        with pytest.raises(ValueError, match=rf"head_dim <= 128 and a multiple of 8, got {hd} \(ROADMAP.md B2"):
+        with pytest.raises(ValueError, match=rf"head_dim <= 256, got {hd} \(ROADMAP.md B2"):
             paged_attention_fused(
                 torch.zeros((1, 4, hd), device="cuda"), pool, pool.clone(),
                 torch.zeros((1, 1), dtype=torch.int32, device="cuda"), torch.ones(1, dtype=torch.int32, device="cuda"),
@@ -712,7 +714,13 @@ def test_small_model_loss_and_grads_kernels_match_plain(gen, d, hq, hkv):
 # --- the shapes past the registry's head_dims and D (ROADMAP B1-B3): head_dim up to 128 in #1-#4 and
 # #8/#9, any D in #5-#7, more than 64 query rows of a kv head in #8/#9 ---------------------------------
 
-OTHER_HD = [16, 40, 72, 80, 96, 120, 20, 100]  # 20 and 100: not multiples of 8, run on padded copies
+# 20, 100 and 131: not multiples of 8, run on padded copies; 136-256 on the hd-256 instance (256: Gemma's)
+OTHER_HD = [16, 40, 72, 80, 96, 120, 20, 100, 136, 200, 256, 131]
+
+
+def instance_width(d: int) -> int:
+    """The head_dim of the kernel instance that runs head_dim ``d``."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
 
 
 def nan_view(x: torch.Tensor, width: int = 128) -> torch.Tensor:
@@ -729,14 +737,16 @@ def nan_view(x: torch.Tensor, width: int = 128) -> torch.Tensor:
 @pytest.mark.parametrize("s,mode", [(77, "causal"), (200, "full"), (130, "segments")])
 def test_flash_kernels_at_other_head_dims(gen, dtype, d, hq, hkv, s, mode):
     """#1-#4 at head_dims other than 64 and 128 (the hd-64 instance up to 64,
-    the hd-128 one above, on tensor maps bounded at d; 20 and 100 on copies
-    padded to a multiple of 8): q, k and v column slices of 128-wide buffers
-    whose other columns hold NaN; o, lse, dq, dk and dv against the plain
-    versions, beside a control that must miss (the plain forward with the
-    scale of the instance's width, 1/sqrt(64 or 128)); the backward bitwise
-    equal over two launches."""
+    the hd-128 one up to 128, the hd-256 one above, on tensor maps bounded at
+    d; 20, 100 and 131 on copies padded to a multiple of 8): q, k and v column
+    slices of 128- or 256-wide buffers whose other columns hold NaN; o, lse,
+    dq, dk and dv against the plain versions, beside a control that must miss
+    (the plain forward with the scale of the instance's width, 1/sqrt(64,
+    128 or 256), or at 256 itself the keys of the next kv head); the backward
+    bitwise equal over two launches."""
     q, k, v, _ = qkv_segs(gen, dtype, 2, s, hq, hkv, False, d)
-    q, k, v = (nan_view(x) for x in (q, k, v))
+    width = instance_width(d)
+    q, k, v = (nan_view(x, max(width, 128)) for x in (q, k, v))
     causal = mode != "full"
     seg = hd128_segments(2, s, mode) if mode == "segments" else None
     o, lse = flash_attention_fwd(q, k, v, causal=causal, segment_ids=seg)
@@ -744,10 +754,12 @@ def test_flash_kernels_at_other_head_dims(gen, dtype, d, hq, hkv, s, mode):
     assert o.shape == q.shape and o.is_contiguous()
     torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
     torch.testing.assert_close(lse, lse_ref, atol=TOL[dtype], rtol=TOL[dtype])
-    width = 64 if d <= 64 else 128
-    o_ctl, _ = flash_attention_reference(q * (d / width) ** 0.5, k, v, causal=causal, segment_ids=seg)
+    if d == width:  # no other scale to tell apart: each q head routed to the next kv head
+        o_ctl, _ = flash_attention_reference(q, k.roll(1, 2), v.roll(1, 2), causal=causal, segment_ids=seg)
+    else:
+        o_ctl, _ = flash_attention_reference(q * (d / width) ** 0.5, k, v, causal=causal, segment_ids=seg)
     assert not torch.allclose(o.float(), o_ctl.float(), atol=TOL[dtype], rtol=TOL[dtype])
-    do = nan_view(torch.randn(o.shape, generator=gen, device="cuda").to(dtype))
+    do = nan_view(torch.randn(o.shape, generator=gen, device="cuda").to(dtype), max(width, 128))
     got = flash_attention_bwd(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=seg)
     want = flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do, causal=causal, segment_ids=seg)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -759,11 +771,11 @@ def test_flash_kernels_at_other_head_dims(gen, dtype, d, hq, hkv, s, mode):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("d", [16, 80, 96])
+@pytest.mark.parametrize("d", [16, 80, 96, 256])
 def test_flash_autograd_at_other_head_dims(gen, d):
     """:func:`flash_attention` differentiated at tiny_test's head_dim (16),
-    phi-2's (80) and Phi-3-mini's (96) in f32: one launch of each kernel,
-    gradients equal to the plain forward's autograd."""
+    phi-2's (80), Phi-3-mini's (96) and Gemma's (256) in f32: one launch of
+    each kernel, gradients equal to the plain forward's autograd."""
     q, k, v, _ = qkv_segs(gen, torch.float32, 1, 96, 8, 2, False, d)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     _build.launch_counts.clear()
@@ -870,3 +882,34 @@ def test_paged_kernels_past_64_query_rows(gen, dtype, poison, hd, t_q, n_rep, ps
     hist = [0, 1, sk - 1, sk, sk + 1, 2 * sk + 1, cap - t_q, 37]
     active = [True] * 6 + [False, True]
     check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hd=hd, poison=poison)
+
+
+# #8 and #9 at head_dim 256 (Gemma 2B's 8 q / 1 kv heads: 8, 32 and 64 query rows at T 1, 4 and 8; Gemma 7B's
+# 16 / 16: n_rep 1), 136 and 200 on the hd-256 instance, and at head_dims that are not multiples of 8 (36, 20,
+# 131: the plain-load kernels, in bf16 too)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("poison", [False, True])
+@pytest.mark.parametrize("hd,t_q,n_rep,hkv", [(256, 1, 8, 1), (256, 4, 8, 1), (256, 8, 8, 1), (256, 1, 1, 2),
+                                              (256, 8, 1, 2), (136, 4, 3, 2), (200, 1, 4, 2), (36, 1, 4, 2),
+                                              (36, 4, 4, 2), (20, 8, 2, 2), (131, 4, 2, 1)])
+@pytest.mark.parametrize("ps", [16, 128])
+def test_paged_kernels_past_head_dim_128_and_unaligned(gen, dtype, poison, hd, t_q, n_rep, hkv, ps):
+    """#8 and #9 at the hd-256 instance's head_dims and at head_dims that are
+    not multiples of 8, on a table of three splits, as
+    :func:`test_paged_kernels_at_other_head_dims`: histories on and one key
+    past split boundaries, 0, and the full context less T, every unused cell
+    NaN or +-Inf when poisoned, beside the roll control, two launches
+    bitwise equal, pools bitwise equal except the trash row."""
+    max_pages = 3 * SPLIT_KEYS // ps
+    per_split, n_splits = split_plan(max_pages, ps)
+    sk, cap = per_split * ps, max_pages * ps
+    hist = [0, 1, ps - 1, ps, sk - 1, sk, sk + 1, 2 * sk + 1, cap - t_q, 37]
+    active = [True] * 8 + [False, True]
+    check_paged_kernel(gen, dtype, t_q, n_rep, ps, max_pages, hist, active, hkv=hkv, hd=hd, poison=poison)
+
+
+@pytest.mark.parametrize("d,hq,hkv", [(512, 2, 1), (512, 4, 4)])  # heads of 256: Gemma 2B's ratio, and 7B's
+def test_small_model_loss_and_grads_kernels_match_plain_at_head_dim_256(gen, d, hq, hkv):
+    """:func:`test_small_model_loss_and_grads_kernels_match_plain` at heads of
+    256 (#1 and #3 on their hd-256 instances)."""
+    test_small_model_loss_and_grads_kernels_match_plain(gen, d, hq, hkv)

@@ -168,6 +168,29 @@ def test_generate_sample_records_equal_jax(jax_script, model_dir, tmp_path, prom
     assert p["outputs"][0]["text"] + "\n" in capsys.readouterr().out  # both print the text
 
 
+@pytest.mark.parametrize("pattern", [r"\S+|\s+", r"[^\s]{1,3}|\s"])
+def test_generate_sample_with_a_raw_split_regex_equals_jax(jax_script, model_dir, tmp_path, pattern, capsys):
+    """A raw split regex as ``--pattern`` (the PUA contract and cl100k are
+    the named ones): the port splits by it through the ``regex`` package, as
+    the JAX script's tokenizer does, and writes the same record."""
+    argv = ["--model", str(model_dir), *COMMON, "--text", "The capital of France is", "--pattern", pattern]
+    saved = sys.argv
+    try:
+        sys.argv = ["generate_sample.py", *argv, "--jsonl_out", str(tmp_path / "jax.jsonl")]
+        jax_script.main(jax_script.parse_args())
+    finally:
+        sys.argv = saved
+    from ssi_tpu_torch.cli.generate_sample import main, parse_args
+
+    main(parse_args([*argv, "--jsonl_out", str(tmp_path / "port.jsonl"), "--device", "cpu"]))
+    j = json.loads((tmp_path / "jax.jsonl").read_text())
+    p = json.loads((tmp_path / "port.jsonl").read_text())
+    lp, lj = p["outputs"][0].pop("cumulative_logprob"), j["outputs"][0].pop("cumulative_logprob")
+    assert abs(lp - lj) <= 1e-5 * abs(lj)
+    assert p == j and p["prompt_token_ids"] and p["outputs"][0]["token_ids"]
+    capsys.readouterr()
+
+
 def test_generate_sample_refusals(model_dir, monkeypatch):
     """A split regex other than the two cl100k patterns needs the ``regex``
     package, refused by name when it is missing; no card and no ``--device

@@ -1,13 +1,15 @@
 """The shapes the JAX kernels take beyond the registry's (ROADMAP B1-B3), on
 the CPU: head_dims other than 64 and 128 in the flash forward and backward
-(#1-#4) and the paged core (#8/#9), any D in the fused cross-entropy
+(#1-#4) and the paged core (#8/#9), up to 256 (Gemma's heads) and, in #8/#9,
+head_dims that are not multiples of 8; any D in the fused cross-entropy
 (#5-#7), and more than 64 query rows of a kv head in #8/#9. The port's plain
 versions (what a CPU tensor takes) against the JAX package with the Pallas
 kernels in interpret mode, inputs from numpy seeds; the wrappers' CPU-side
-logic (instance choice, the pad-to-8 copies, row groups); and greedy tokens
-of the port's paged engine against the JAX engine at a head_dim-80 tiny
-layout, registered in both registries for the module. f32 2e-5 (the flash
-gradients at tests/test_torch_flash_backward.py's tolerances), bf16 1e-2.
+logic (instance choice, routes, the pad-to-8 copies, row groups, the
+refusals above 256); and greedy tokens of the port's paged engine against
+the JAX engine at tiny layouts with heads of 80, 256 and 36, each registered
+in both registries for its module's runs. f32 2e-5 (the flash gradients at
+tests/test_torch_flash_backward.py's tolerances), bf16 1e-2.
 The kernels themselves at these shapes run on the card:
 tests/test_torch_cuda_kernels.py and ``chip_smoke.py`` phase t."""
 
@@ -36,6 +38,7 @@ from ssi_tpu_torch.models.llama3 import params_from_numpy
 from ssi_tpu_torch.ops import cross_entropy_cuda
 from ssi_tpu_torch.ops.cross_entropy import cross_entropy_lse, fused_cross_entropy
 from ssi_tpu_torch.ops.cross_entropy_cuda import fused_cross_entropy_kernel
+from ssi_tpu_torch.ops import flash_attention as flash_attention_module
 from ssi_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_fwd,
@@ -53,7 +56,8 @@ CE_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_torch_cross_entropy.py's
 
 # --- #1-#4: flash forward and backward at head_dims other than 64 and 128 ---------------------------------
 
-HEAD_DIMS = [16, 40, 80, 96]  # tiny_test's; one below 64; phi-2's; Phi-3-mini's
+# tiny_test's; one below 64; phi-2's; Phi-3-mini's; Gemma's; one in 129-255; one in 129-255 not a multiple of 8
+HEAD_DIMS = [16, 40, 80, 96, 256, 200, 131]
 
 
 def make_qkv(d, b=2, s=96, hq=4, hkv=2, seed=0):
@@ -170,12 +174,14 @@ def paged_setup(hd, hq, hkv, t_q, seed):
     return kp, vp, q, k_new, v_new, logical, hist, active, n_pages
 
 
-@pytest.mark.parametrize("hd,hq,hkv", [(16, 4, 2), (80, 8, 2), (96, 8, 2), (16, 128, 2)])
+# head_dims 16, 80, 96; 256 at Gemma 2B's 8 q / 1 kv heads; 36 and 20 (not multiples of 8); n_rep 64
+@pytest.mark.parametrize("hd,hq,hkv", [(16, 4, 2), (80, 8, 2), (96, 8, 2), (16, 128, 2), (256, 8, 1), (36, 4, 2),
+                                       (20, 4, 2)])
 def test_fused_write_attend_matches_pallas_interpret(hd, hq, hkv):
     """#8's plain version against the Pallas kernel in interpret mode at
-    head_dim 16, 80 and 96, and at n_rep 64 (Hq 128 / Hkv 2: 64 query rows
-    of a kv head at T 1): attention within 2e-5, pools bitwise equal except
-    the trash row."""
+    head_dim 16, 80, 96, 256 (Gemma 2B's heads), 36 and 20, and at n_rep 64
+    (Hq 128 / Hkv 2: 64 query rows of a kv head at T 1): attention within
+    2e-5, pools bitwise equal except the trash row."""
     kp, vp, q, k_new, v_new, logical, hist, active, n_pages = paged_setup(hd, hq, hkv, 1, seed=hd + hq)
     ps = kp.shape[1]
     phys = (n_pages + logical).astype(np.int32)
@@ -196,9 +202,11 @@ def test_fused_write_attend_matches_pallas_interpret(hd, hq, hkv):
     np.testing.assert_array_equal(tvp.numpy()[:-1], np.asarray(vp_want)[:-1])
 
 
-# (head_dim, Hq, Hkv, T): head_dims 16, 80, 96 at T 4; Hq 32 / Hkv 2 at T 8 (128 query rows of a kv head)
+# (head_dim, Hq, Hkv, T): head_dims 16, 80, 96 at T 4; Hq 32 / Hkv 2 at T 8 (128 query rows of a kv head);
+# 256 at Gemma 2B's 8 q / 1 kv heads at T 4 and 8; 36 and 20 (not multiples of 8)
 @pytest.mark.parametrize("hd,hq,hkv,t_q", [(16, 4, 2, 4), (80, 8, 2, 4), (96, 8, 2, 4), (64, 32, 2, 8),
-                                           (16, 32, 2, 8)])
+                                           (16, 32, 2, 8), (256, 8, 1, 4), (256, 8, 1, 8), (36, 4, 2, 4),
+                                           (20, 4, 2, 8)])
 def test_multi_fused_matches_pallas_multi_interpret(hd, hq, hkv, t_q):
     """#9's plain version against the Pallas multi-token kernel in interpret
     mode: attention within 2e-5 and pools bitwise equal except the trash row
@@ -234,14 +242,36 @@ def test_multi_fused_matches_pallas_multi_interpret(hd, hq, hkv, t_q):
 # --- the wrappers' CPU-side logic ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("hd,instance", [(8, 64), (16, 64), (40, 64), (64, 64), (72, 128), (80, 128), (96, 128),
-                                         (120, 128), (128, 128)])
+                                         (120, 128), (128, 128), (136, 256), (200, 256), (248, 256), (256, 256),
+                                         (20, 64), (36, 64), (100, 128), (131, 256), (255, 256)])
 def test_paged_instance_choice_and_box(hd, instance):
     """The paged core runs head_dims up to 64 on its hd-64 instance (128-key
-    tiles) and the rest up to 128 on its hd-128 one (64-key tiles): the
-    wrapper's TMA box (keys) never exceeds the instance's tile."""
+    tiles), up to 128 on its hd-128 one and up to 256 on its hd-256 one
+    (64-key tiles): the wrapper's TMA box (keys) never exceeds the
+    instance's tile. A head_dim that is not a multiple of 8 reads its pools
+    with plain loads in either dtype (no tensor map describes them), one that
+    is reads them by TMA in bf16; f32 always takes the plain loads."""
     assert paged_cuda.instance_head_dim(hd) == instance
     assert paged_cuda.box_keys(128, hd) == (128 if instance == 64 else 64)
     assert paged_cuda.box_keys(24, hd) == 8 and paged_cuda.box_keys(48, hd) == 16
+    assert paged_cuda.uses_tensor_maps(hd, torch.bfloat16) == (hd % 8 == 0)
+    assert not paged_cuda.uses_tensor_maps(hd, torch.float32)
+
+
+@pytest.mark.parametrize("hd", [264, 300, 512])
+def test_kernel_wrappers_refuse_head_dims_above_256(hd):
+    """A head_dim above 256 is refused by the kernels' checks, naming ROADMAP
+    B1 (the flash kernels) and B2 (the paged core): still to port. The
+    checks are those the CUDA paths make before a launch; here they run on
+    CPU tensors, which the public wrappers hand to the plain versions."""
+    q = torch.zeros((1, 4, 2, hd))
+    with pytest.raises(ValueError, match=rf"head_dim <= 256, got {hd} \(ROADMAP.md B1"):
+        flash_attention_module._check_kernel_operands(q, q, q)
+    pool = torch.zeros((3, 8, 2 * hd))
+    new = torch.zeros((1, 2, hd))
+    with pytest.raises(ValueError, match=rf"head_dim <= 256, got {hd} \(ROADMAP.md B2"):
+        paged_cuda._check_common(torch.zeros((1, 4, hd)), pool, pool.clone(), new, new, 4, hd, (1,))
+    assert flash_attention_module.MAX_HEAD_DIM == paged_cuda.MAX_HEAD_DIM == 256
 
 
 def test_paged_row_groups_and_tensor_map_key():
@@ -290,9 +320,26 @@ def test_cross_entropy_pad_route_keeps_the_loss():
     assert cross_entropy_cuda._padded(x) is x
 
 
-# --- the paged engine at a head_dim-80 tiny layout, against the JAX engine --------------------------------
+# --- the paged engine at tiny layouts with heads of 80, 256 and 36, against the JAX engine ------------------
 
 MODEL_CONFIG = "tiny_hd80_shape"  # registered in both packages for the module's runs
+
+
+def registered_models(name: str, embed_dim: int, heads: int, kv_heads: int, head_dim: int, seed: int):
+    """tiny_test with ``heads`` q / ``kv_heads`` kv heads of ``head_dim``
+    (D ``embed_dim``), registered as ``name`` in both registries until the
+    generator is closed; yields the JAX weights and the port's copy of them."""
+    jcfg = helpers.tiny_config()
+    jcfg.embed_dim, jcfg.num_heads, jcfg.num_kv_heads, jcfg.intermediate_dim = embed_dim, heads, kv_heads, 256
+    assert jcfg.head_dim == head_dim
+    tcfg = tconfigs.ConfigLlama3_2(**{f.name: getattr(jcfg, f.name) for f in fields(tconfigs.ConfigLlama3_2)})
+    mp = pytest.MonkeyPatch()
+    mp.setitem(jconfigs.MODEL_CONFIGS, name, jcfg)
+    mp.setitem(tconfigs.MODEL_CONFIGS, name, tcfg)
+    jparams = init_params(jcfg, jax.random.key(seed), dtype=jnp.float32)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
+    yield jparams, tparams
+    mp.undo()
 
 
 @pytest.fixture(scope="module")
@@ -300,27 +347,30 @@ def hd80_models():
     """tiny_test with 4 q / 2 kv heads of 80 (D 320), registered as
     ``tiny_hd80_shape`` in both registries for the module; the JAX weights
     and the port's copy of them."""
-    jcfg = helpers.tiny_config()
-    jcfg.embed_dim, jcfg.num_heads, jcfg.num_kv_heads, jcfg.intermediate_dim = 320, 4, 2, 256
-    assert jcfg.head_dim == 80
-    tcfg = tconfigs.ConfigLlama3_2(**{f.name: getattr(jcfg, f.name) for f in fields(tconfigs.ConfigLlama3_2)})
-    mp = pytest.MonkeyPatch()
-    mp.setitem(jconfigs.MODEL_CONFIGS, MODEL_CONFIG, jcfg)
-    mp.setitem(tconfigs.MODEL_CONFIGS, MODEL_CONFIG, tcfg)
-    jparams = init_params(jcfg, jax.random.key(80), dtype=jnp.float32)
-    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), device="cpu")
-    yield jparams, tparams
-    mp.undo()
+    yield from registered_models(MODEL_CONFIG, 320, 4, 2, 80, seed=80)
 
 
-@pytest.mark.parametrize("k", [0, 2])
-def test_engine_greedy_tokens_equal_jax_at_head_dim_80(hd80_models, k):
+@pytest.fixture(scope="module")
+def hd256_models():
+    """tiny_test with 2 q / 1 kv heads of 256 (D 512; one kv head, as Gemma
+    2B), registered as ``tiny_hd256_shape``."""
+    yield from registered_models("tiny_hd256_shape", 512, 2, 1, 256, seed=256)
+
+
+@pytest.fixture(scope="module")
+def hd36_models():
+    """tiny_test with 4 q / 2 kv heads of 36 (D 144: a head_dim that is not a
+    multiple of 8), registered as ``tiny_hd36_shape``."""
+    yield from registered_models("tiny_hd36_shape", 144, 4, 2, 36, seed=36)
+
+
+def engine_tokens_equal_jax(name: str, jparams, tparams, k: int) -> None:
     """Greedy tokens of the port's paged engine (plain attention on the CPU)
-    equal the JAX engine's (gather attention, both at harvest depth 1) at
-    head_dim 80, with the same verify steps under speculation."""
-    jparams, tparams = hd80_models
-    jcfg, tcfg = jconfigs.get_model_config(MODEL_CONFIG), tconfigs.get_model_config(MODEL_CONFIG)
-    assert jcfg.head_dim == tcfg.head_dim == 80
+    equal the JAX engine's (gather attention, both at harvest depth 1) at the
+    registered layout ``name``, with the same verify steps under speculation
+    ``k``, and no page leaks."""
+    jcfg, tcfg = jconfigs.get_model_config(name), tconfigs.get_model_config(name)
+    assert jcfg.head_dim == tcfg.head_dim
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, jcfg.vocab_size, int(n)).tolist() for n in (5, 11, 17, 3, 9, 14)]
     engine = make_engine(tparams, tcfg, speculate_k=k, pipeline_depth=1)
@@ -335,3 +385,24 @@ def test_engine_greedy_tokens_equal_jax_at_head_dim_80(hd80_models, k):
     if k:
         assert engine.last_stats["verify_steps"] == jeng.last_stats["verify_steps"] > 0
     assert no_leaks(engine)
+
+
+@pytest.mark.parametrize("k", [0, 2])
+def test_engine_greedy_tokens_equal_jax_at_head_dim_80(hd80_models, k):
+    """:func:`engine_tokens_equal_jax` at head_dim 80 (phi-2's)."""
+    assert tconfigs.get_model_config(MODEL_CONFIG).head_dim == 80
+    engine_tokens_equal_jax(MODEL_CONFIG, *hd80_models, k)
+
+
+@pytest.mark.parametrize("k", [0, 2])
+def test_engine_greedy_tokens_equal_jax_at_head_dim_256(hd256_models, k):
+    """:func:`engine_tokens_equal_jax` at heads of 256 (Gemma's), one kv head."""
+    assert tconfigs.get_model_config("tiny_hd256_shape").head_dim == 256
+    engine_tokens_equal_jax("tiny_hd256_shape", *hd256_models, k)
+
+
+@pytest.mark.parametrize("k", [0, 2])
+def test_engine_greedy_tokens_equal_jax_at_head_dim_36(hd36_models, k):
+    """:func:`engine_tokens_equal_jax` at heads of 36 (not a multiple of 8)."""
+    assert tconfigs.get_model_config("tiny_hd36_shape").head_dim == 36
+    engine_tokens_equal_jax("tiny_hd36_shape", *hd36_models, k)

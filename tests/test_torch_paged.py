@@ -378,14 +378,17 @@ def test_pool_map_key_names_what_the_tensor_map_encodes():
 
 def test_decode_profile_classes_the_paged_kernels():
     """``profile_decode`` adds every paged-core kernel into "paged kernel
-    #8": the bf16 kernel (one a call) and the f32 split and merge."""
+    #8": the bf16 kernel (one a call) and the plain-load split and merge
+    (f32, and bf16 at a head_dim that is not a multiple of 8)."""
     from ssi_tpu_torch.profile_decode import _classify
 
     for name in ("void (anonymous namespace)::paged_hopper_kernel<64, 1>((anonymous namespace)::Args, CUtensorMap)",
                  "void (anonymous namespace)::paged_hopper_2blocks_kernel<64, 2>((anonymous namespace)::Args, "
                  "CUtensorMap)",
-                 "void (anonymous namespace)::paged_split_f32_kernel<64, 2>((anonymous namespace)::Args)",
-                 "void (anonymous namespace)::paged_merge_f32_kernel<128>((anonymous namespace)::Args)"):
+                 "void (anonymous namespace)::paged_split_kernel<float, 64, 2, true>((anonymous namespace)::Args)",
+                 "void (anonymous namespace)::paged_split_kernel<__nv_bfloat16, 256, 4, false>((anonymous "
+                 "namespace)::Args)",
+                 "void (anonymous namespace)::paged_merge_kernel<float, 128, true>((anonymous namespace)::Args)"):
         assert _classify(name) == "paged kernel #8", name
 
 
